@@ -1,0 +1,189 @@
+"""The port's attention kernels on the CPU: each CUDA kernel's plain
+PyTorch version against the JAX Pallas kernel (interpret mode) and the
+naive oracles of both packages, on the same numpy inputs. The CUDA
+kernels themselves run only on the card (``chip_smoke.py``)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
+from repro.kernels.paged_decode_attention import (  # noqa: E402
+    paged_gqa_decode_attention as j_paged)
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_torch)
+from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
+    paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
+
+# the reference's own tolerances (tests/test_paged_kernel.py)
+TOL = {np.float32: 1e-4, "bfloat16": 3e-2}
+
+PAGED_CASES = [
+    # B, K, G, hd, BS, nb, NB, dtype  (tests/test_paged_kernel.py CASES,
+    # plus the registry's G = 7 / hd = 80 and the engine's G = 1 shape)
+    (3, 2, 4, 64, 16, 5, 32, np.float32),
+    (2, 1, 8, 128, 32, 3, 16, np.float32),
+    (4, 4, 1, 64, 16, 4, 24, "bfloat16"),
+    (3, 2, 7, 80, 8, 4, 20, np.float32),
+    (5, 4, 1, 64, 16, 6, 40, np.float32),
+]
+
+
+def _arrays(rng, dtype, *shapes):
+    """numpy f32 draws, rounded to bfloat16 where asked, returned as
+    (jax arrays, torch tensors) of the working dtype."""
+    out_j, out_t = [], []
+    for s in shapes:
+        a = rng.normal(size=s).astype(np.float32)
+        if dtype == "bfloat16":
+            j = jnp.asarray(a, jnp.bfloat16)
+            t = torch.from_numpy(a).to(torch.bfloat16)
+        else:
+            j, t = jnp.asarray(a), torch.from_numpy(a)
+        out_j.append(j)
+        out_t.append(t)
+    return out_j, out_t
+
+
+def _close(t, j, dtype):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               atol=TOL[dtype], rtol=1e-2)
+
+
+def _paged_inputs(B, K, G, hd, BS, nb, NB, dtype, seed, zero_rows=()):
+    rng = np.random.default_rng(seed)
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, dtype, (B, K * G, hd),
+                                         (NB, BS, K, hd), (NB, BS, K, hd))
+    table = rng.permutation(NB)[:B * nb].reshape(B, nb).astype(np.int32)
+    lengths = rng.integers(1, BS * nb + 1, B).astype(np.int32)
+    lengths[0] = BS * nb                           # a full table
+    for r in zero_rows:
+        lengths[r] = 0
+    return (qj, kj, vj), (qt, kt, vt), table, lengths
+
+
+@pytest.mark.parametrize("B,K,G,hd,BS,nb,NB,dtype", PAGED_CASES)
+def test_paged_plain_vs_pallas_and_oracles(B, K, G, hd, BS, nb, NB, dtype):
+    (qj, kj, vj), (qt, kt, vt), table, lengths = _paged_inputs(
+        B, K, G, hd, BS, nb, NB, dtype, seed=B * 100 + G)
+    out = paged_gqa_decode_attention_torch(
+        qt, kt, vt, torch.from_numpy(table), torch.from_numpy(lengths))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    pallas = j_paged(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                     interpret=True)
+    _close(out, pallas, dtype)
+    kc = kj[table].reshape(B, nb * BS, K, hd)
+    vc = vj[table].reshape(B, nb * BS, K, hd)
+    _close(out, jref.gqa_decode_attention_ref(qj, kc, vc,
+                                              jnp.asarray(lengths)), dtype)
+    tt = torch.from_numpy(table).long()
+    oracle = tref.gqa_decode_attention_ref(
+        qt, kt[tt].reshape(B, nb * BS, K, hd), vt[tt].reshape(B, nb * BS, K, hd),
+        torch.from_numpy(lengths))
+    _close(out, oracle.numpy(), dtype)
+
+
+def test_paged_zero_length_rows_and_trash_entries():
+    """Padding rows (length 0, a table of trash blocks) give exact zeros;
+    table entries past a row's length may name any block."""
+    (qj, kj, vj), (qt, kt, vt), table, lengths = _paged_inputs(
+        4, 2, 2, 64, 8, 3, 16, np.float32, seed=8, zero_rows=(3,))
+    table[3] = 15                                  # the trash block
+    lengths[1] = 5                                 # entries 1..2 unused
+    table[1, 1:] = 15
+    out = paged_gqa_decode_attention_torch(
+        qt, kt, vt, torch.from_numpy(table), torch.from_numpy(lengths))
+    assert bool((out[3] == 0).all())
+    assert bool(torch.isfinite(out).all())
+    pallas = j_paged(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                     interpret=True)
+    _close(out, pallas, np.float32)
+    assert np.all(np.asarray(pallas)[3] == 0.0)
+
+
+def test_paged_result_independent_of_block_placement():
+    B, K, G, hd, BS, nb, NB = 2, 2, 2, 64, 16, 3, 16
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.normal(size=(B, K * G, hd)).astype(np.float32))
+    kc = torch.from_numpy(rng.normal(size=(B * nb, BS, K, hd)).astype(np.float32))
+    vc = torch.from_numpy(rng.normal(size=(B * nb, BS, K, hd)).astype(np.float32))
+    lengths = torch.tensor([nb * BS, 20], dtype=torch.int32)
+    outs = []
+    for seed in (0, 1):
+        perm = np.random.default_rng(seed).permutation(NB)[:B * nb]
+        kp = torch.zeros(NB, BS, K, hd)
+        vp = torch.zeros(NB, BS, K, hd)
+        kp[perm] = kc
+        vp[perm] = vc
+        table = torch.from_numpy(perm.reshape(B, nb).astype(np.int32))
+        outs.append(paged_gqa_decode_attention_torch(q, kp, vp, table,
+                                                     lengths))
+    assert torch.equal(outs[0], outs[1])
+
+
+FLASH_CASES = [   # tests/test_kernels.py FLASH_CASES
+    (2, 64, 64, 2, 2, 64, True, None, np.float32),
+    (1, 96, 96, 1, 4, 32, True, 40, np.float32),
+    (2, 64, 64, 4, 1, 64, False, None, "bfloat16"),
+    (1, 128, 128, 2, 4, 128, True, None, "bfloat16"),
+    (3, 32, 96, 1, 2, 64, True, None, np.float32),   # Sq != Skv
+    (1, 100, 100, 2, 1, 64, True, None, np.float32),  # non-multiple sizes
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,K,G,hd,causal,window,dtype", FLASH_CASES)
+@pytest.mark.parametrize("blocks", [(32, 32), (128, 128)])
+def test_flash_plain_vs_pallas_and_oracles(B, Sq, Skv, K, G, hd, causal,
+                                           window, dtype, blocks):
+    rng = np.random.default_rng(Sq + Skv + G)
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, dtype, (B, Sq, K * G, hd),
+                                         (B, Skv, K, hd), (B, Skv, K, hd))
+    bq, bs = blocks
+    out = flash_attention_torch(qt, kt, vt, causal=causal, window=window,
+                                block_q=bq, block_s=bs)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    pallas = j_flash(qj, kj, vj, causal=causal, window=window, block_q=bq,
+                     block_s=bs, interpret=True)
+    _close(out, pallas, dtype)
+    _close(out, jref.flash_attention_ref(qj, kj, vj, causal=causal,
+                                         window=window), dtype)
+    _close(out, tref.flash_attention_ref(qt, kt, vt, causal=causal,
+                                         window=window).numpy(), dtype)
+
+
+def test_wrappers_take_the_plain_version_on_cpu():
+    """A CPU tensor runs the plain version and counts no launch."""
+    (_, _, _), (qt, kt, vt), table, lengths = _paged_inputs(
+        2, 2, 2, 64, 8, 2, 8, np.float32, seed=4)
+    p0, f0 = paged_gqa_decode_attention.launches, flash_attention.launches
+    a = ops.paged_decode_attention(qt, kt, vt, torch.from_numpy(table),
+                                   torch.from_numpy(lengths))
+    b = paged_gqa_decode_attention_torch(qt, kt, vt, torch.from_numpy(table),
+                                         torch.from_numpy(lengths))
+    assert torch.equal(a, b)
+    q = torch.randn(1, 40, 4, 64)
+    k = torch.randn(1, 40, 2, 64)
+    assert torch.equal(ops.prefill_attention(q, k, k),
+                       flash_attention_torch(q, k, k))
+    assert (paged_gqa_decode_attention.launches, flash_attention.launches) \
+        == (p0, f0)
+
+
+def test_flash_rejects_empty_window():
+    q = torch.randn(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=0)
+
+
+def test_build_paths_need_no_compiler_to_compute():
+    """Library names hash the source and flags; nothing is built here."""
+    for name in _build.SOURCES:
+        p = _build.library_path(name)
+        assert (_build.CSRC / f"{name}.cu").exists()
+        assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
+        assert name in p.name
