@@ -15,17 +15,29 @@ It imports nothing of JAX or of the JAX package. Phases:
 2. each kernel against its plain version on the card: a paged-decode
    sweep over G, hd, block size and dtype (permuted placement, trash
    entries past each allocation, length-0 rows, full tables), the flash
-   cases of the reference's tests, and both at the serving shapes;
+   cases of the reference's tests, the contiguous-decode grid of the
+   reference's tests (plus G = 7 and hd 80/96) and its length-0 rows
+   against the TPU kernel's formula, and each at its serving shape;
 3. a model check at OPT-1.3B's full width in float32, cut to 2 layers:
-   one prefill per prompt and 4 paged decode steps through the kernels,
-   then through the plain versions; logits and greedy tokens must agree;
-4. serve 32 ShareGPT-length requests through full-width, 24-layer
-   OPT-1.3B in bfloat16 (random weights from a seed) to completion, with
-   the kernels' launch counters reset just before and read just after;
-   then profile 10 steady decode steps at batch 16 (device busy time by
-   kernel kind against host wall time);
+   one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
+   each through the kernels and then through the plain versions; logits
+   and greedy tokens must agree;
+4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
+   random weights from a seed), each run with every kernel's launch
+   counter set to 0 just before and read just after: the paged serve of
+   32 ShareGPT-length requests, the gather-fallback serve of the first
+   16 (and, for token agreement, the paged serve of the same 16, in
+   bfloat16 and again in float32), and a
+   static batch of 32 prompts with 64 decode steps on a dense cache;
+   each serve is followed by a ``torch.profiler`` window of 10 steady
+   decode steps at batch 16 (device busy time by kernel kind against
+   host wall time);
 5. time each kernel, its plain version and one PyTorch library call at
-   the serving shapes, beside the least time the card could take;
+   the serving shapes (device time of back-to-back calls, and one call
+   end to end, both on CUDA events; a plain version's one call), beside
+   the least time the card could take, and
+   one whole gather decode step against one paged step at batch 16 (with
+   the gather copy's share);
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
    line. Any failure raises: the script then exits non-zero and prints
    no ``ok`` line. Without a CUDA device it exits 1 at once.
@@ -83,6 +95,60 @@ def time_ms(fn, runs=30, warmup=5):
     return statistics.median(times)
 
 
+def device_ms(fn, runs=20, warmup=5):
+    """Mean device time of one call of ``fn``, the host's share left out:
+    the calls are queued behind a device-side sleep that outlasts the
+    host's time to issue them, so they run back to back between two CUDA
+    events. Raises if the device caught up with the host."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    issue_ms = 2 * runs * (time.perf_counter() - t0) * 1e3 + 1.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(issue_ms * 2e6))   # >= issue_ms at clocks <= 2 GHz
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    end.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    if queued_ms >= issue_ms:
+        raise AssertionError(f"issuing {runs} calls took {queued_ms:.1f} ms, "
+                             f"past the {issue_ms:.1f} ms sleep")
+    return start.elapsed_time(end) / runs
+
+
+def busy_ms(fn, runs=5):
+    """Device busy time of one call of ``fn`` (an engine step, which
+    synchronises): ``torch.profiler``'s device operation durations over
+    ``runs`` calls, summed and divided by ``runs``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("profiler recorded no device activity")
+    return sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 / runs
+
+
+def timed(fn, runs=20):
+    """(device ms, end-to-end ms) of one call of ``fn``, a kernel or a
+    library call (a few launches a call)."""
+    return device_ms(fn, runs=runs), time_ms(fn, runs=runs)
+
+
 def bound(nbytes, flops, flop_rate=BF16_FLOP_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate for their type."""
@@ -111,6 +177,16 @@ def paged_inputs(B, K, G, hd, BS, nb, dtype, lengths, seed, device="cuda"):
     return [t.to(device) for t in (q, kp, vp, table, lens)]
 
 
+def decode_inputs(B, S, K, G, hd, dtype, lengths, seed, device="cuda"):
+    """Random q and dense ``[B, S, K, hd]`` caches."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)  # noqa: E731
+    lens = torch.tensor(lengths, dtype=torch.int32)
+    return [t.to(device) for t in (mk(B, K * G, hd), mk(B, S, K, hd),
+                                   mk(B, S, K, hd), lens)]
+
+
 def flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed, device="cuda"):
     import torch
     gen = torch.Generator().manual_seed(seed)
@@ -123,16 +199,63 @@ def flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed, device="cuda"):
 def plain_attention():
     """Route the model's attention through the kernels' plain versions."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import \
+        gqa_decode_attention_torch
     from repro_torch.kernels.flash_attention import flash_attention_torch
     from repro_torch.kernels.paged_decode_attention import \
         paged_gqa_decode_attention_torch
-    saved = ops.paged_decode_attention, ops.prefill_attention
+    saved = (ops.paged_decode_attention, ops.prefill_attention,
+             ops.decode_attention)
     ops.paged_decode_attention = paged_gqa_decode_attention_torch
     ops.prefill_attention = flash_attention_torch
+    ops.decode_attention = gqa_decode_attention_torch
     try:
         yield
     finally:
-        ops.paged_decode_attention, ops.prefill_attention = saved
+        (ops.paged_decode_attention, ops.prefill_attention,
+         ops.decode_attention) = saved
+
+
+def launch_counters():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.decode_attention import gqa_decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_gqa_decode_attention
+    return {"paged_decode_attention": paged_gqa_decode_attention,
+            "flash_attention": flash_attention,
+            "decode_attention": gqa_decode_attention}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+@contextlib.contextmanager
+def finite_logits(model):
+    """Fold every prefill and decode step's logits into one on-device
+    finiteness flag (no sync per step); yields the flag."""
+    import torch
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def checked(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            logits = out[0] if isinstance(out, tuple) else out
+            finite.logical_and_(torch.isfinite(logits).all())
+            return out
+        return call
+    model.prefill = checked(model.prefill)
+    model.decode_step = checked(model.decode_step)
+    try:
+        yield finite
+    finally:
+        del model.prefill, model.decode_step
 
 
 # ------------------------------------------------------------- phases ----
@@ -206,12 +329,68 @@ def phase_kernels(errs):
           f"err {errs['flash']['reference_cases']:.3e}) and S in 64..1024 "
           f"at H=K=32, hd=64, bf16 (max abs err "
           f"{errs['flash']['serving_shape']:.3e}) within tolerance")
+    phase_decode_kernel(errs)
 
 
-def run_model(model, prompts, steps):
+def phase_decode_kernel(errs):
+    """The contiguous decode kernel: the reference's DECODE_CASES grid
+    unstrided, with G = 7 and hd 80/96 added; length-0 rows against the
+    TPU kernel's formula; the gather serve's shape."""
+    import itertools
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch)
+    e_grid = e_zero = 0.0
+    grid = list(itertools.product(
+        (1, 2, 5), (64, 100, 256), ((1, 8), (2, 4), (4, 1), (8, 1), (2, 7)),
+        (64, 80, 96, 128), (32, 256), (torch.float32, torch.bfloat16)))
+    gen = torch.Generator().manual_seed(0)
+    for n, (B, S, (K, G), hd, bs, dtype) in enumerate(grid):
+        lengths = torch.randint(1, S + 1, (B,), generator=gen).tolist()
+        lengths[0] = S
+        q, k, v, lens = decode_inputs(B, S, K, G, hd, dtype, lengths, seed=n)
+        e = close(gqa_decode_attention(q, k, v, lens, block_s=bs),
+                  gqa_decode_attention_torch(q, k, v, lens, block_s=bs),
+                  f"decode B={B} S={S} K={K} G={G} hd={hd} bs={bs} {dtype}")
+        e_grid = max(e_grid, e)
+    n_zero = 0
+    for S, bs, G, hd, dtype in itertools.product(
+            (64, 100, 256), (32, 256), (1, 7), (64, 80),
+            (torch.float32, torch.bfloat16)):
+        q, k, v, lens = decode_inputs(3, S, 2, G, hd, dtype,
+                                      [0, S, 1 + S // 3], seed=S + bs + G)
+        out = gqa_decode_attention(q, k, v, lens, block_s=bs)
+        e = close(out, gqa_decode_attention_torch(q, k, v, lens, block_s=bs),
+                  f"decode length-0 S={S} bs={bs} G={G} {dtype}")
+        Sp = -(-S // min(bs, S)) * min(bs, S)
+        quirk = (v[0].float().sum(0) / Sp).repeat_interleave(G, dim=0)
+        e = max(e, close(out[0], quirk.to(dtype),
+                         f"decode length-0 row vs sum(V)/Sp, S={S} bs={bs}"))
+        e_zero = max(e_zero, e)
+        n_zero += 1
+    errs["decode"]["reference_grid"] = e_grid
+    errs["decode"]["length0_rows"] = e_zero
+    print(f"[kernels] contiguous decode: {len(grid)} grid cases (B 1/2/5, S "
+          f"64/100/256, (K,G) (1,8)/(2,4)/(4,1)/(8,1)/(2,7), hd "
+          f"64/80/96/128, block_s 32/256, f32 and bf16) max abs err "
+          f"{e_grid:.3e}; {n_zero} cases with a length-0 row equal to "
+          f"sum(V)/Sp, max abs err {e_zero:.3e}; within tolerance")
+    q, k, v, lens = gather_decode_inputs()
+    e = close(gqa_decode_attention(q, k, v, lens),
+              gqa_decode_attention_torch(q, k, v, lens),
+              "decode at the gather serve's shape")
+    errs["decode"]["serving_shape"] = e
+    print(f"[kernels] contiguous decode at the gather serve's shape (B=16, "
+          f"S_pad={k.shape[1]}, K=32, G=1, hd=64, bf16, {int(lens.sum())} "
+          f"context tokens): max abs err {e:.3e}")
+
+
+def run_model(model, prompts, steps, mode):
     """Prefill each prompt at batch 1 into a paged pool, then ``steps``
-    greedy paged decode steps in a batch bucket with a padding row.
-    Returns the logits of every call and the greedy tokens."""
+    greedy decode steps: ``paged`` in a batch bucket with a padding row,
+    or ``gather`` as the engine's fallback runs them (dense copy,
+    ``lengths = pos + 1``, scatter back). Returns the logits of every
+    call and the greedy tokens."""
     import torch
     from repro_torch.kvcache.paged import PagedKVCache
     from repro_torch.serving.engine import _bucket, _pow2_bucket
@@ -237,12 +416,20 @@ def run_model(model, prompts, steps):
     for _ in range(steps):
         for rid in rids:
             pool.manager.append_token(rid, positions[rid] + 1)
-        nb_pad = _pow2_bucket(max(len(pool.manager.tables[r]) for r in rids),
-                              lo=4)
-        view = pool.view(rids, positions, nb_pad, batch_pad)
-        inp = torch.zeros((batch_pad,), dtype=torch.long)
-        inp[:len(rids)] = torch.tensor(tokens)
-        logits = model.decode_step(inp.cuda(), view)[:len(rids)]
+        if mode == "paged":
+            nb_pad = _pow2_bucket(
+                max(len(pool.manager.tables[r]) for r in rids), lo=4)
+            view = pool.view(rids, positions, nb_pad, batch_pad)
+            inp = torch.zeros((batch_pad,), dtype=torch.long)
+            inp[:len(rids)] = torch.tensor(tokens)
+            logits = model.decode_step(inp.cuda(), view)[:len(rids)]
+        else:
+            cache = pool.gather(rids, pool.manager.blocks_needed(
+                _bucket(max(positions) + 1, 64)))
+            pos = torch.tensor(positions, device="cuda")
+            logits = model.decode_step(torch.tensor(tokens, device="cuda"),
+                                       cache, pos, lengths=pos + 1)
+            pool.scatter_new_token(rids, positions, cache)
         logits_all.append(logits)
         tokens = logits.argmax(-1).tolist()
         history.append(tokens)
@@ -253,36 +440,48 @@ def run_model(model, prompts, steps):
 def phase_model(errs):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_decode_attention import \
-        paged_gqa_decode_attention
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config("opt-1.3b"), n_layers=2,
                               dtype="float32")
     model = Model(cfg, generator=torch.Generator("cuda").manual_seed(1))
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (161, 97)]
-    p0, f0 = paged_gqa_decode_attention.launches, flash_attention.launches
-    kern, kern_tok = run_model(model, prompts, steps=4)
-    if (paged_gqa_decode_attention.launches - p0,
-            flash_attention.launches - f0) != (4 * 2, 2 * 2):
-        raise AssertionError("the model check did not run the kernels")
-    with plain_attention():
-        plain, plain_tok = run_model(model, prompts, steps=4)
-    if paged_gqa_decode_attention.launches - p0 != 4 * 2:
-        raise AssertionError("the plain run launched a kernel")
-    err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
-    if not all(bool(torch.isfinite(a).all()) for a in kern):
-        raise AssertionError("model check: non-finite logits")
-    if err > MODEL_TOL or kern_tok != plain_tok:
-        raise AssertionError(f"model check: logits differ by {err:.3e} "
-                             f"(tolerance {MODEL_TOL}) or tokens differ: "
-                             f"{kern_tok} vs {plain_tok}")
-    errs["paged"]["model_check"] = errs["flash"]["model_check"] = err
-    print(f"[model] OPT-1.3B width, 2 layers, float32: 2 prefills + 4 paged "
-          f"decode steps, kernels vs plain versions: logits max abs err "
-          f"{err:.3e} (tolerance {MODEL_TOL}), greedy tokens equal "
-          f"{kern_tok[-1]}")
+    paged_tok = None
+    for mode, kernel in (("paged", "paged_decode_attention"),
+                         ("gather", "decode_attention")):
+        reset_launches()
+        kern, kern_tok = run_model(model, prompts, 4, mode)
+        want = {"paged_decode_attention": 0, "decode_attention": 0,
+                "flash_attention": 2 * 2, kernel: 4 * 2}
+        if read_launches() != want:
+            raise AssertionError(f"model check ({mode}) did not run the "
+                                 f"kernels: {read_launches()} != {want}")
+        with plain_attention():
+            plain, plain_tok = run_model(model, prompts, 4, mode)
+        if read_launches() != want:
+            raise AssertionError(f"the plain {mode} run launched a kernel")
+        err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+        if not all(bool(torch.isfinite(a).all()) for a in kern):
+            raise AssertionError(f"model check ({mode}): non-finite logits")
+        if err > MODEL_TOL or kern_tok != plain_tok:
+            raise AssertionError(
+                f"model check ({mode}): logits differ by {err:.3e} "
+                f"(tolerance {MODEL_TOL}) or tokens differ: {kern_tok} vs "
+                f"{plain_tok}")
+        paged_tok = paged_tok or kern_tok
+        if kern_tok != paged_tok:
+            raise AssertionError(f"gather-mode tokens {kern_tok} differ from "
+                                 f"the paged steps' {paged_tok}")
+        key = "paged" if mode == "paged" else "decode"
+        errs[key]["model_check"] = err
+        errs["flash"]["model_check"] = max(
+            errs["flash"].get("model_check", 0.0), err)
+        print(f"[model] OPT-1.3B width, 2 layers, float32: 2 prefills + 4 "
+              f"{mode} decode steps, kernels vs plain versions: logits max "
+              f"abs err {err:.3e} (tolerance {MODEL_TOL}), greedy tokens "
+              f"equal {kern_tok[-1]}"
+              + (" and equal to the paged steps'" if mode == "gather"
+                 else ""))
     del model
     torch.cuda.empty_cache()
 
@@ -294,12 +493,18 @@ def serve_workload():
                          mean_in=161, mean_out=338, max_len=1024)
 
 
+def decode_lengths():
+    """The decode shapes' context: the first 16 requests of the serve
+    workload at half their output budget."""
+    return [r.prompt_len + r.max_new_tokens // 2
+            for r in serve_workload()[:16]]
+
+
 def serve_decode_inputs():
-    """The paged kernel's serving shape: 16 requests of the serve
-    workload at half their output budget, blocks at permuted ids."""
+    """The paged kernel's serving shape: the 16 decode lengths, blocks at
+    permuted ids."""
     import torch
-    reqs = serve_workload()[:16]
-    lengths = [r.prompt_len + r.max_new_tokens // 2 for r in reqs]
+    lengths = decode_lengths()
     nb = 4
     while nb * 16 < max(lengths):
         nb *= 2
@@ -307,15 +512,24 @@ def serve_decode_inputs():
                         seed=7)
 
 
-def phase_serve(card):
+def gather_decode_inputs():
+    """The contiguous kernel's serving shape: the 16 decode lengths in a
+    dense cache padded as the gather step pads it (``S_pad`` a multiple
+    of four 16-token blocks)."""
+    import torch
+    lengths = decode_lengths()
+    S_pad = -(-max(lengths) // 64) * 64
+    return decode_inputs(16, S_pad, 32, 1, 64, torch.bfloat16, lengths,
+                         seed=8)
+
+
+def full_model(dtype=None):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_decode_attention import \
-        paged_gqa_decode_attention
     from repro_torch.models.model import Model
-    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     cfg = get_config(MODEL)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     t0 = time.perf_counter()
     model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -323,63 +537,183 @@ def phase_serve(card):
           f"{cfg.d_model}, {cfg.n_heads} heads, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
           f" B parameters, random init in {time.perf_counter() - t0:.1f} s")
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    return model
 
-    def checked(fn):
-        def call(*a, **kw):
-            out = fn(*a, **kw)
-            logits = out[0] if isinstance(out, tuple) else out
-            finite.logical_and_(torch.isfinite(logits).all())
-            return out
-        return call
-    model.prefill = checked(model.prefill)
-    model.decode_step = checked(model.decode_step)
-    ecfg = EngineConfig(max_batch=16, block_size=16, kv_pool_tokens=32768,
-                        max_model_len=2048, prefill_bucket=64)
-    engine = ContinuousBatchingEngine(model, ecfg)
-    reqs = serve_workload()
+
+def serve_config(decode_mode="paged"):
+    from repro_torch.serving import EngineConfig
+    return EngineConfig(max_batch=16, block_size=16, kv_pool_tokens=32768,
+                        max_model_len=2048, prefill_bucket=64,
+                        decode_mode=decode_mode)
+
+
+def serve(model, reqs, decode_mode, card):
+    """Serve ``reqs`` to completion with the launch counters set to 0
+    just before and read just after; every request must finish by
+    length with in-range tokens, every logit must be finite, and each
+    kernel must have launched exactly once a layer of each step of its
+    kind. Returns the engine, its metrics and the launch counts."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    cfg = model.cfg
+    engine = ContinuousBatchingEngine(model, serve_config(decode_mode))
     torch.cuda.synchronize()
-    paged_gqa_decode_attention.launches = 0
-    flash_attention.launches = 0
-    metrics = engine.run(reqs)
-    torch.cuda.synchronize()
-    launches = {"paged_decode_attention": paged_gqa_decode_attention.launches,
-                "flash_attention": flash_attention.launches}
-    if not bool(finite):
-        raise AssertionError("serve: NaN or inf logits")
+    with finite_logits(model) as finite:
+        reset_launches()
+        metrics = engine.run(reqs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if not bool(finite):
+            raise AssertionError(f"{decode_mode} serve: NaN or inf logits")
     for r in reqs:
         if r.finish_reason != "length" or r.generated != r.max_new_tokens:
             raise AssertionError(f"request {r.req_id}: {r.finish_reason}, "
                                  f"{r.generated}/{r.max_new_tokens} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
             raise AssertionError(f"request {r.req_id}: token out of range")
-    want = {"paged_decode_attention": engine.decode_steps * cfg.n_layers,
+    steps = engine.decode_steps * cfg.n_layers
+    want = {"paged_decode_attention": steps if decode_mode == "paged" else 0,
+            "decode_attention": steps if decode_mode == "gather" else 0,
             "flash_attention": engine.prefills * cfg.n_layers}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    print(f"[serve] on {card}: {len(reqs)} requests, "
+    if launches != want or not engine.decode_steps:
+        raise AssertionError(f"{decode_mode} serve: launch counts "
+                             f"{launches} != {want}")
+    tag = f"[serve {decode_mode}]"
+    print(f"{tag} on {card}: {len(reqs)} requests, "
           f"{metrics.output_tokens} output tokens, {engine.decode_steps} "
           f"decode steps, {engine.prefills} prefills, {metrics.preemptions} "
-          f"preemptions; launches {launches} = steps x {cfg.n_layers} layers")
-    print(f"[serve] eager PyTorch, no CUDA graphs, on {card}: "
+          f"preemptions; launches {launches} = steps (or prefills) x "
+          f"{cfg.n_layers} layers")
+    print(f"{tag} eager PyTorch, no CUDA graphs, on {card}: "
           f"throughput {metrics.throughput:.1f} tok/s, output "
           f"{metrics.output_throughput:.1f} tok/s, wall {metrics.wall_s:.2f} s,"
           f" mean batch {metrics.avg_batch:.2f}, KV peak "
           f"{metrics.max_kv_fraction * 100:.1f}%")
-    print(f"[serve] on {card}: TTFT {metrics.ttft.row()}; ITL "
+    print(f"{tag} on {card}: TTFT {metrics.ttft.row()}; ITL "
           f"{metrics.itl.row()}; E2E {metrics.e2e.row(scale=1.0, unit='s')}")
+    return engine, metrics, launches
+
+
+def phase_serve(model, card):
+    """The paged serve of all 32 requests, then its decode profile."""
+    import torch
+    reqs = serve_workload()
+    engine, _, launches = serve(model, reqs, "paged", card)
     prefill_sizes = sorted({-(-r.prompt_len // 64) * 64 for r in reqs})
-    del engine, model.prefill, model.decode_step     # drop the checks
+    del engine
     torch.cuda.empty_cache()
-    profile_decode(model, ecfg, card)
-    del model
+    profile_decode(model, "paged", card)
+    return launches, prefill_sizes, reqs
+
+
+def agreement(a_reqs, b_reqs):
+    """How far two serves of the same requests agree: identical outputs,
+    the share of output tokens equal position by position, and the mean
+    position of each differing request's first different token."""
+    same = sum(a.output_tokens == b.output_tokens
+               for a, b in zip(a_reqs, b_reqs))
+    pairs = [(x, y) for a, b in zip(a_reqs, b_reqs)
+             for x, y in zip(a.output_tokens, b.output_tokens)]
+    firsts = [next(i for i, (x, y) in enumerate(
+        zip(a.output_tokens, b.output_tokens)) if x != y)
+        for a, b in zip(a_reqs, b_reqs) if a.output_tokens != b.output_tokens]
+    first = (f"first difference at output token "
+             f"{statistics.mean(firsts):.1f} on average" if firsts
+             else "no request differs")
+    return (f"{same}/{len(a_reqs)} requests identical, "
+            f"{sum(x == y for x, y in pairs) / len(pairs) * 100:.2f}% of "
+            f"{len(pairs)} output tokens equal position by position, "
+            f"{first}")
+
+
+def phase_gather_serve(model, card, paged_all):
+    """The gather-fallback serve of the first 16 requests and its decode
+    profile, then the paged serve of the same 16 for token agreement
+    (beside, as a control, the same 16 in the 32-request paged serve,
+    where other batches surround them), and the same agreement with the
+    model in float32."""
+    import torch
+    reqs = serve_workload()[:16]
+    engine, _, launches = serve(model, reqs, "gather", card)
+    del engine
     torch.cuda.empty_cache()
-    return launches, prefill_sizes
+    profile_decode(model, "gather", card)
+    paged_reqs = serve_workload()[:16]
+    engine, _, _ = serve(model, paged_reqs, "paged", card)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[serve gather] {model.cfg.dtype} token agreement, gather vs the "
+          f"paged serve of the same 16 requests: "
+          f"{agreement(reqs, paged_reqs)}")
+    print(f"[serve gather] control, paged vs paged (the same 16 requests "
+          f"served alone and among 32): "
+          f"{agreement(paged_all[:16], paged_reqs)}")
+    # the same pair in float32 at full depth: rounding, not the data path,
+    # is what may still tell the two modes apart
+    f32 = full_model(dtype="float32")
+    runs = {}
+    for mode in ("gather", "paged"):
+        runs[mode] = serve_workload()[:16]
+        engine, _, _ = serve(f32, runs[mode], mode, card)
+        del engine
+        torch.cuda.empty_cache()
+    print(f"[serve gather] float32 token agreement, gather vs paged on the "
+          f"same 16 requests: {agreement(runs['gather'], runs['paged'])}")
+    del f32
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_static(model, card, batch=32, prompt=128, steps=64):
+    """The static-batch loop: one prefill of ``batch`` prompts into a
+    dense cache, then ``steps`` decode steps at one position for the
+    whole batch, greedy."""
+    import torch
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (batch, prompt))).cuda()
+    torch.cuda.synchronize()
+    with finite_logits(model) as finite:
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks, cache_len=prompt + steps)
+        nxt = logits.argmax(-1)
+        out = [nxt]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(steps):
+            nxt = model.decode_step(nxt, cache, prompt + i).argmax(-1)
+            out.append(nxt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches()
+        if not bool(finite):
+            raise AssertionError("static batch: NaN or inf logits")
+    out = torch.stack(out)
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("static batch: token out of range")
+    want = {"paged_decode_attention": 0, "flash_attention": cfg.n_layers,
+            "decode_attention": steps * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"static batch: launch counts {launches} != "
+                             f"{want}")
+    print(f"[static] on {card}: {batch} prompts x {prompt} tokens, one "
+          f"prefill ({(t1 - t0) * 1e3:.1f} ms) and {steps} decode steps at "
+          f"one position on a dense [{cfg.n_layers}, {batch}, "
+          f"{prompt + steps}, {cfg.n_kv_heads}, {cfg.hd}] cache: "
+          f"{(t2 - t1) * 1e3 / steps:.3f} ms a step, "
+          f"{batch * steps / (t2 - t1):.1f} output tok/s; launches "
+          f"{launches}")
+    del cache
+    torch.cuda.empty_cache()
+    return launches
 
 
 def kernel_kind(name):
     if "paged_decode_kernel" in name:
         return "paged attention kernel"
+    if "decode_kernel" in name:
+        return "contiguous decode attention kernel"
     if "flash_kernel" in name:
         return "flash kernel"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
@@ -387,7 +721,7 @@ def kernel_kind(name):
     return "other (norms, elementwise, indexing, copies)"
 
 
-def profile_decode(model, ecfg, card, steps=10):
+def profile_decode(model, decode_mode, card, steps=10):
     """Where a steady decode step's time goes: ``torch.profiler`` over
     ``steps`` engine steps at batch 16 (after 20 warm steps and as many
     unprofiled, timed ones), device busy time by kernel kind against the
@@ -395,7 +729,7 @@ def profile_decode(model, ecfg, card, steps=10):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ContinuousBatchingEngine
-    engine = ContinuousBatchingEngine(model, ecfg)
+    engine = ContinuousBatchingEngine(model, serve_config(decode_mode))
     for r in serve_workload()[:16]:
         engine.add_request(r)
     for _ in range(21):                  # admits all 16, then warm steps
@@ -427,14 +761,16 @@ def profile_decode(model, ecfg, card, steps=10):
     parts = ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1]))
-    print(f"[profile] on {card}: {steps} decode steps at batch "
+    print(f"[profile {decode_mode}] on {card}: {steps} decode steps at batch "
           f"{len(engine.running)} ({ctx} context tokens at the end), "
           f"torch.profiler: device busy {busy:.3f} ms/step, "
           f"{len(kernels) / steps:.0f} device ops/step; host wall "
           f"{plain_wall_ms:.3f} ms/step unprofiled ({wall_ms:.3f} profiled),"
           f" so the device idles {(1 - busy / plain_wall_ms) * 100:.1f}% of "
           f"an unprofiled step")
-    print(f"[profile] device time per step: {parts}")
+    print(f"[profile {decode_mode}] device time per step: {parts}")
+    del engine
+    torch.cuda.empty_cache()
 
 
 def phase_times(card, prefill_sizes, serve_reqs):
@@ -453,9 +789,12 @@ def phase_times(card, prefill_sizes, serve_reqs):
     nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
               + table.numel() * 4 + lens.numel() * 4)
     b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
-    k_ms = time_ms(lambda: paged_gqa_decode_attention(q, kp, vp, table, lens))
+    k_ms, k_call = timed(lambda: paged_gqa_decode_attention(q, kp, vp, table,
+                                                           lens))
+    # a plain version issues hundreds of launches a call, more than the
+    # launch queue holds behind a sleep: one call end to end
     p_ms = time_ms(lambda: paged_gqa_decode_attention_torch(
-        q, kp, vp, table, lens), runs=20)
+        q, kp, vp, table, lens), runs=10)
     # yardstick: SDPA on the gathered contiguous cache (gather excluded)
     S = table.shape[1] * kp.shape[1]
     kc = kp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
@@ -463,18 +802,56 @@ def phase_times(card, prefill_sizes, serve_reqs):
     mask = (torch.arange(S, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, kc, vc,
-                                                          attn_mask=mask))
+    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask))
     times["paged_decode_attention"] = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        call_ms=k_call, library_call_ms=l_call,
         shape=f"B={B} H=K={K} hd={hd} BS=16 bf16, {tokens} context tokens, "
               f"table width {table.shape[1]}",
         library_call="scaled_dot_product_attention on the gathered "
                      "contiguous cache with a length mask (gather excluded)")
     print(f"[times] on {card}: paged decode at {times['paged_decode_attention']['shape']}: "
-          f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, SDPA "
-          f"yardstick {l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
-          f"({b_by}); {nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved")
+          f"device time: kernel {k_ms * 1e3:.1f} us, SDPA yardstick "
+          f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}); "
+          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved; one call end "
+          f"to end (CUDA events): kernel {k_call * 1e3:.1f} us, SDPA "
+          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
+
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch)
+    q, k, v, lens = gather_decode_inputs()
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    tokens = int(lens.sum())
+    nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
+              + lens.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
+    k_ms, k_call = timed(lambda: gqa_decode_attention(q, k, v, lens))
+    p_ms = time_ms(lambda: gqa_decode_attention_torch(q, k, v, lens), runs=10)
+    # the same function in one library call, on the same cache in SDPA's
+    # [B, K, S, hd] layout (the transposing copy is made before timing)
+    kc, vc = (t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=mask, enable_gqa=True))
+    times["decode_attention"] = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        call_ms=k_call, library_call_ms=l_call,
+        shape=f"B={B} H=K={K} hd={hd} S_pad={S} bf16, {tokens} context "
+              f"tokens (the gather serve's shape)",
+        library_call="scaled_dot_product_attention(attn_mask=length mask, "
+                     "enable_gqa=True) on the same cache, transposed to "
+                     "[B,K,S,hd] before timing")
+    print(f"[times] on {card}: contiguous decode at "
+          f"{times['decode_attention']['shape']}: device time: kernel "
+          f"{k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}); "
+          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved; one call end "
+          f"to end (CUDA events): kernel {k_call * 1e3:.1f} us, SDPA "
+          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
 
     counts = {}
     for r in serve_reqs:
@@ -485,23 +862,90 @@ def phase_times(card, prefill_sizes, serve_reqs):
         q, k, v = flash_inputs(1, S, S, 32, 1, 64, torch.bfloat16, seed=S)
         nbytes = 4 * q.numel() * q.element_size()
         b_ms, b_by = bound(nbytes, 4 * 64 * 32 * S * (S + 1) / 2)
-        k_ms = time_ms(lambda: flash_attention(q, k, v))
-        p_ms = time_ms(lambda: flash_attention_torch(q, k, v), runs=20)
+        k_ms, k_call = timed(lambda: flash_attention(q, k, v))
+        p_ms = time_ms(lambda: flash_attention_torch(q, k, v), runs=10)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
         print(f"[times] on {card}: flash prefill B=1 S={S} H=K=32 hd=64 "
-              f"bf16 ({counts.get(S, 0)} serve prefills): kernel "
-              f"{k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, SDPA "
-              f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by})")
+              f"bf16 ({counts.get(S, 0)} serve prefills): device time: "
+              f"kernel {k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}); one call end to end: kernel "
+              f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
+              f"{p_ms * 1e3:.1f} us")
         if S == main_s:
             times["flash_attention"] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=b_by,
+                bound_by=b_by, call_ms=k_call, library_call_ms=l_call,
                 shape=f"B=1 S={S} H=K=32 hd=64 bf16 (the most frequent "
                       f"serve prefill bucket)",
                 library_call="scaled_dot_product_attention(is_causal=True)")
     return times
+
+
+def phase_step_compare(model, card):
+    """One whole engine decode step at batch 16, paged against gather
+    (the port's counterpart of ``benchmarks/decode_datapath.py``), on one
+    pool holding the 16 requests at half their output budget, timed in
+    turns (paged, gather, gather, paged); then the gather copy and the
+    scatter alone."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.engine import _bucket
+    from repro_torch.serving.scheduler import StepPlan
+    cfg = model.cfg
+    engine = ContinuousBatchingEngine(model, serve_config())
+    reqs = serve_workload()[:16]
+    rids = [r.req_id for r in reqs]
+    positions = decode_lengths()
+    gen = torch.Generator("cuda").manual_seed(3)
+    for leaf in engine.pool.pool.values():
+        leaf.normal_(generator=gen)
+    for r, pos in zip(reqs, positions):
+        engine.pool.manager.allocate(r.req_id, pos + 1)
+        engine._tokens[r.req_id] = r.req_id + 1
+        engine._pos[r.req_id] = pos
+    plan = StepPlan(reqs=reqs, rids=rids, positions=positions, n_prefill=0,
+                    t0=0.0)
+    steps = {"paged": engine._decode_paged, "gather": engine._decode_gather}
+    ms = {"paged": [], "gather": []}
+    for mode in ("paged", "gather", "gather", "paged"):
+        ms[mode].append(time_ms(lambda: steps[mode](plan), runs=20))
+    busy = {mode: busy_ms(lambda: fn(plan)) for mode, fn in steps.items()}
+    pad_blocks = engine.pool.manager.blocks_needed(
+        _bucket(max(positions) + 1, 4 * 16))
+    cache = engine.pool.gather(rids, pad_blocks)
+    g_ms = time_ms(lambda: engine.pool.gather(rids, pad_blocks), runs=20)
+    s_ms = time_ms(lambda: engine.pool.scatter_new_token(rids, positions,
+                                                         cache), runs=20)
+    # gather() uploads its table from pageable memory, which synchronises
+    # the stream; the copy's device time is that of its indexing alone
+    trash = engine.pool.trash_block
+    table = torch.tensor([t + [trash] * (pad_blocks - len(t)) for t in (
+        engine.pool.manager.tables[r] for r in rids)], device="cuda")
+    g_dev = device_ms(lambda: [leaf[:, table]
+                               for leaf in engine.pool.pool.values()])
+    view_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    paged, gather = statistics.mean(ms["paged"]), statistics.mean(ms["gather"])
+    print(f"[step] on {card}: one decode step at batch 16, "
+          f"{sum(positions)} context tokens, full-width {cfg.name} "
+          f"{cfg.dtype}, {cfg.n_layers} layers: paged {ms['paged'][0]:.3f} / "
+          f"{ms['paged'][1]:.3f} ms, gather {ms['gather'][0]:.3f} / "
+          f"{ms['gather'][1]:.3f} ms (turns paged, gather, gather, paged); "
+          f"gather / paged {gather / paged:.2f}x; device busy a step "
+          f"(torch.profiler): paged {busy['paged']:.3f} ms, gather "
+          f"{busy['gather']:.3f} ms")
+    print(f"[step] on {card}: the gather copy ([{cfg.n_layers}, 16, "
+          f"{pad_blocks * 16}, {cfg.n_kv_heads}, {cfg.hd}] K and V, "
+          f"{view_bytes / 1e9:.2f} GB written, as many read): device "
+          f"{g_dev:.3f} ms ({2 * view_bytes / (g_dev * 1e-3) / 1e9:.0f} GB/s),"
+          f" end to end {g_ms:.3f} ms; the scatter back: end to end "
+          f"{s_ms:.3f} ms; copy and scatter are "
+          f"{(g_ms + s_ms) / gather * 100:.1f}% of the gather step's time; "
+          f"the copy is {g_dev / busy['gather'] * 100:.1f}% of its device "
+          f"busy time")
+    del engine, cache
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -527,32 +971,49 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    errs = {"paged": {"sweep": 0.0}, "flash": {"reference_cases": 0.0,
-                                               "serving_shape": 0.0}}
+    errs = {"paged": {"sweep": 0.0}, "decode": {},
+            "flash": {"reference_cases": 0.0, "serving_shape": 0.0}}
     phase_kernels(errs)
     phase_model(errs)
-    launches, prefill_sizes = phase_serve(card)
+    model = full_model()
+    by_path = {"paged_serve": None, "gather_serve": None,
+               "static_batch": None}
+    by_path["paged_serve"], prefill_sizes, paged_all = phase_serve(model,
+                                                                   card)
+    by_path["gather_serve"] = phase_gather_serve(model, card, paged_all)
+    by_path["static_batch"] = phase_static(model, card)
+    phase_step_compare(model, card)
+    del model
+    torch.cuda.empty_cache()
     times = phase_times(card, prefill_sizes, serve_workload())
     kernels = []
-    meta = {
+    meta = {   # source, the TPU kernel's entry, the path whose run counts
         "paged_decode_attention": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-            "src/repro/kernels/paged_decode_attention.py:78"),
+            "src/repro/kernels/paged_decode_attention.py:78", "paged_serve"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:76"),
+            "src/repro/kernels/flash_attention.py:76", "paged_serve"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:67", "gather_serve"),
     }
     for name, key in (("paged_decode_attention", "paged"),
-                      ("flash_attention", "flash")):
+                      ("flash_attention", "flash"),
+                      ("decode_attention", "decode")):
         t = times[name]
+        source, replaces, path = meta[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": by_path[path][name],
             "max_abs_err": max(errs[key].values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library_call": t["library_call"],
-            "shape": t["shape"], "max_abs_err_by_phase": errs[key]})
+            "call_ms": t["call_ms"], "library_call_ms": t["library_call_ms"],
+            "shape": t["shape"], "max_abs_err_by_phase": errs[key],
+            "launches_path": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

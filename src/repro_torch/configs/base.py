@@ -136,8 +136,9 @@ def require_slice(cfg: ArchConfig) -> None:
     """Refuse configurations the port does not serve yet.
 
     The port covers the dense decoder family on full attention. Every
-    other family waits for ROADMAP.md's "Non-dense families" slice, and
-    sliding-window attention for the gather-fallback slice.
+    other family, and sliding-window attention (whose ring-buffer decode
+    the reference's engine cannot run either), waits for ROADMAP.md's
+    "Non-dense families" slice.
     """
     if cfg.arch_type != "dense":
         raise NotImplementedError(
@@ -146,7 +147,8 @@ def require_slice(cfg: ArchConfig) -> None:
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not ported yet "
-            f"(ROADMAP.md, next slices: gather fallback)")
+            f"(ROADMAP.md, next slices: non-dense families, sliding-window "
+            f"ring decode)")
     if not cfg.causal:
         # prefill masks padded keys only through causality
         raise NotImplementedError(

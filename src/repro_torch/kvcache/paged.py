@@ -11,7 +11,10 @@ reference's).
 is the *trash* block: batch-padding rows write there, so the engine can
 pad the running batch to power-of-two buckets without touching live
 state. Writes are **in place** (``index_copy_`` / ``index_put_``) where
-the reference rebuilds donated buffers.
+the reference rebuilds donated buffers. Decode reads the pool either
+through a :class:`PagedCacheView` (zero-copy) or, in the gather
+fallback, through a dense copy (:meth:`PagedKVCache.gather`) whose new
+rows :meth:`PagedKVCache.scatter_new_token` writes back.
 """
 from __future__ import annotations
 
@@ -307,6 +310,38 @@ class PagedKVCache:
             self.pool, dev[:n_tab].view(batch_pad, nb_pad),
             dev[n_tab:n_tab + batch_pad], dev[n_tab + batch_pad:],
             self.block_size)
+
+    def gather(self, req_ids: Sequence[int],
+               pad_blocks: int) -> Dict[str, torch.Tensor]:
+        """A dense copy of the requests' caches (the gather fallback):
+        ``{"k", "v"}``, each ``[L, B, pad_blocks * BS, K, hd]``. Slots past
+        a request's allocation read the trash block; the decode step's
+        lengths mask them."""
+        table = np.full((len(req_ids), pad_blocks), self.trash_block,
+                        np.int64)
+        for i, rid in enumerate(req_ids):
+            blocks = self.manager.tables.get(rid, [])[:pad_blocks]
+            table[i, :len(blocks)] = blocks
+        idx = torch.from_numpy(table).to(self.device)
+        return {name: leaf[:, idx].reshape(leaf.shape[0], len(req_ids),
+                                           pad_blocks * self.block_size,
+                                           *leaf.shape[3:])
+                for name, leaf in self.pool.items()}
+
+    def scatter_new_token(self, req_ids: Sequence[int],
+                          positions: Sequence[int],
+                          cache: Dict[str, torch.Tensor]):
+        """Write each request's row at ``positions[i]`` of the dense
+        ``cache`` (every layer) back to its physical (block, slot), in
+        place."""
+        addr = np.zeros((3, len(req_ids)), np.int64)   # block, slot, pos
+        for i, (rid, pos) in enumerate(zip(req_ids, positions)):
+            addr[:, i] = (self.manager.tables[rid][pos // self.block_size],
+                          pos % self.block_size, pos)
+        phys, sib, pos = torch.from_numpy(addr).to(self.device)
+        rows = torch.arange(len(req_ids), device=self.device)
+        for name, leaf in self.pool.items():
+            leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
 
     def release(self, rid: int):
         self.manager.release(rid)

@@ -1,8 +1,10 @@
 """Self-attention for the dense decoder: projections, full-sequence
-prefill attention and the zero-copy paged decode.
+prefill attention, decode against a dense cache and the zero-copy paged
+decode.
 
 Counterparts of ``repro.models.attention`` ``qkv_project``,
-``out_project``, ``self_attn_seq`` and ``paged_self_attn_decode``, with
+``out_project``, ``self_attn_seq``, ``self_attn_decode`` and
+``paged_self_attn_decode``, with
 the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv [d,k,hd]``,
 ``wo [h,hd,d]``). Attention itself goes through ``kernels.ops``: the
 hand-written CUDA kernels for CUDA tensors, their plain versions on the
@@ -10,7 +12,7 @@ CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -64,6 +66,51 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous(), k.contiguous(),
         v.contiguous(), causal=causal)
     return out_project(p, o.reshape(B, S, -1), cfg), (k, v)
+
+
+def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cfg: ArchConfig, *,
+                     pos: Union[int, torch.Tensor],
+                     window: Optional[int] = None,
+                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token decode against one layer's dense cache.
+
+    ``x [B,1,D]``; ``cache_k/v [B,Smax,K,hd]``; ``pos`` is one position
+    for the whole batch (an int or a 0-d tensor: aligned batches, the
+    static-batch loop) or a ``[B]`` tensor (the engine's gather fallback,
+    each request at its own position). The new K/V row is written **in
+    place** at ``pos`` (the reference returns an updated cache). Attention
+    runs the contiguous decode kernel over each row's first
+    ``lengths if given else pos + 1`` slots (ragged ``pos``) or
+    ``min(pos + 1, lengths)`` slots (scalar ``pos``: the reference's
+    causal mask ``slot <= pos`` and its length mask together). Returns
+    ``[B,1,D]``.
+    """
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window ring decode is not ported yet (ROADMAP.md, "
+            "next slices: non-dense families)")
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    ragged = pos.dim() == 1
+    q, k_new, v_new = qkv_project(p, x, cfg,
+                                  pos[:, None] if ragged else pos.reshape(1))
+    if ragged:
+        rows = torch.arange(B, device=x.device)
+        cache_k.index_put_((rows, pos.long()), k_new[:, 0].to(cache_k.dtype))
+        cache_v.index_put_((rows, pos.long()), v_new[:, 0].to(cache_v.dtype))
+        eff = lengths if lengths is not None else pos + 1
+    else:
+        slot = pos.long().reshape(1)
+        cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+        eff = (pos + 1).expand(B)
+        if lengths is not None:
+            eff = torch.minimum(eff, lengths)
+    o = ops.decode_attention(
+        q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), cache_k, cache_v,
+        eff.to(torch.int32).contiguous())
+    return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
 
 def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,

@@ -4,10 +4,14 @@
 Public entry points:
   prefill      — process a (padded) prompt batch, return last-position
                  logits and every layer's K/V
-  decode_step  — one token for every request against a
-                 :class:`~repro_torch.kvcache.view.PagedCacheView`: the
-                 zero-copy paged path (block-table attention on the
-                 physical pool, new K/V rows written in place)
+  decode_step  — one token for every request, either against a
+                 :class:`~repro_torch.kvcache.view.PagedCacheView` (the
+                 zero-copy paged path: block-table attention on the
+                 physical pool) or against a dense ``{"k", "v"}`` cache
+                 (the static-batch loop and the engine's gather
+                 fallback: contiguous decode attention); new K/V rows are
+                 written in place either way
+  init_cache   — a zeroed dense cache
 
 The reference stacks its layers under one ``lax.scan`` and flattens the
 pool to ``[L*(NB+1), ...]`` with ``layer * n_phys`` added to the tables;
@@ -68,6 +72,14 @@ class Block(nn.Module):
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
             self.cfg, positions=positions, causal=self.cfg.causal)
         return self._mlp(x + h), k, v
+
+    def decode(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               pos: torch.Tensor,
+               lengths: Optional[torch.Tensor]) -> torch.Tensor:
+        h = attention.self_attn_decode(
+            self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg), k, v,
+            self.cfg, pos=pos, lengths=lengths)
+        return self._mlp(x + h)
 
     def decode_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor,
@@ -149,16 +161,46 @@ class Model(nn.Module):
                      for n, c in cache.items()}
         return self._logits(x), cache
 
+    def init_cache(self, batch: int, kv_len: int) -> Dict[str, torch.Tensor]:
+        """A zeroed dense cache ``{"k", "v"}``, each ``[L, batch, kv_len,
+        K, hd]`` in the model's dtype on its device."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, cfg.hd)
+        return {n: torch.zeros(shape, dtype=cfg.activation_dtype,
+                               device=self.device) for n in ("k", "v")}
+
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor,
-                    view: PagedCacheView) -> torch.Tensor:
-        """One token for every row of ``view`` (``tokens [B]``, the inputs
-        at ``view.positions``). Writes each layer's new K/V rows into
-        ``view.pool`` in place; returns float32 logits ``[B, vocab]``."""
-        pos = view.positions.long()[:, None]
-        x = embed_apply(self.embed.tree(), tokens.long()[:, None], pos,
+                    cache: Union[PagedCacheView, Dict[str, torch.Tensor]],
+                    pos: Optional[Union[int, torch.Tensor]] = None,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One token for every row (``tokens [B]``); returns float32
+        logits ``[B, vocab]``.
+
+        With a :class:`PagedCacheView` the positions and lengths come
+        from the view, and each layer's new K/V rows go into
+        ``view.pool``. With a dense cache ``{"k", "v": [L, B, S, K,
+        hd]}`` (from :meth:`prefill` or :meth:`init_cache`) ``pos`` is
+        one position for the batch or a ``[B]`` tensor, ``lengths`` the
+        optional ``[B]`` valid lengths (see
+        :func:`~repro_torch.models.attention.self_attn_decode`), and the
+        cache is **updated in place**, where the reference returns a new
+        one.
+        """
+        if isinstance(cache, PagedCacheView):
+            pos_t = cache.positions.long()[:, None]
+            x = embed_apply(self.embed.tree(), tokens.long()[:, None], pos_t,
+                            self.cfg)
+            for l, blk in enumerate(self.layers):
+                x = blk.decode_paged(x, cache.pool["k"][l],
+                                     cache.pool["v"][l], cache)
+            return self._logits(x)
+        if pos is None:
+            raise ValueError("decode_step on a dense cache needs pos")
+        pos = torch.as_tensor(pos, device=self.device)
+        emb_pos = pos.long()[:, None] if pos.dim() else pos.long().reshape(1)
+        x = embed_apply(self.embed.tree(), tokens.long()[:, None], emb_pos,
                         self.cfg)
         for l, blk in enumerate(self.layers):
-            x = blk.decode_paged(x, view.pool["k"][l], view.pool["v"][l],
-                                 view)
+            x = blk.decode(x, cache["k"][l], cache["v"][l], pos, lengths)
         return self._logits(x)

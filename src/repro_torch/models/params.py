@@ -7,7 +7,8 @@ reference's shapes, init styles and fan-ins (``repro.models.params``
 layer dimension and ``rem`` is empty for the dense family.
 ``init_params`` fills that tree from a ``torch.Generator`` on the target
 device; ``params_from_numpy`` carries a reference parameter tree (as
-numpy) across unchanged, so both packages can run on the same weights.
+numpy) across unchanged, so both packages can run on the same weights,
+and ``cache_from_numpy`` does the same for a dense decode cache.
 """
 from __future__ import annotations
 
@@ -137,3 +138,26 @@ def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
         return t.to(device=device or "cpu", dtype=cfg.activation_dtype)
 
     return _map2(conv, param_specs(cfg), tree)
+
+
+def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,
+                     device: Optional[torch.device] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """Carry a reference dense cache (``{"stack": [{"k", "v"}], "rem":
+    []}`` with numpy ``[L, B, S, K, hd]`` leaves, as ``prefill`` and
+    ``init_cache`` return it) into the port's ``{"k", "v"}``, checking the
+    layout."""
+    require_slice(cfg)
+    if len(cache["stack"]) != 1 or cache["rem"]:
+        raise ValueError("a dense decoder's cache has one stacked entry "
+                         "and no remainder")
+    out = {}
+    for name in ("k", "v"):
+        t = _to_tensor(cache["stack"][0][name])
+        if t.dim() != 5 or (t.shape[0], *t.shape[3:]) != (
+                cfg.n_layers, cfg.n_kv_heads, cfg.hd):
+            raise ValueError(f"cache {name} shape {tuple(t.shape)} is not "
+                             f"[{cfg.n_layers}, B, S, {cfg.n_kv_heads}, "
+                             f"{cfg.hd}]")
+        out[name] = t.to(device=device or "cpu", dtype=cfg.activation_dtype)
+    return out

@@ -5,20 +5,29 @@ pool: the synchronous, serial-prefill, greedy slice of
 Each engine iteration admits waiting requests FCFS under ``max_batch``
 and the pool's free-block watermark (each admitted prompt is prefilled
 at batch 1 in a padded length bucket and emits its first token), then
-runs one zero-copy paged decode step for every running request at its
-own position: attention reads the physical KV blocks through the block
-tables, and each layer's new K/V row is written into its physical
-(block, slot) in place. Batch size and table width are padded to
-power-of-two buckets, as in the reference, so the kernels see the same
-padding rows (length 0, trash-block tables). If the pool runs out of
-blocks mid-decode the youngest running requests are preempted and
-recomputed later; greedy decode regenerates identical tokens.
+runs one decode step for every running request at its own position, in
+one of the reference's two decode modes:
+
+* ``paged`` (the default) — zero-copy: attention reads the physical KV
+  blocks through the block tables, and each layer's new K/V row is
+  written into its physical (block, slot) in place. Batch size and table
+  width are padded to power-of-two buckets, as in the reference, so the
+  kernels see the same padding rows (length 0, trash-block tables).
+* ``gather`` — the reference's dense-copy fallback: the running
+  requests' blocks are gathered into a ``[L, B, S_pad, K, hd]`` copy
+  (``S_pad`` bucketed to multiples of four blocks, no batch padding),
+  the model decodes against it with the contiguous decode kernel and
+  ``lengths = pos + 1``, and each request's new row is scattered back
+  into the pool.
+
+If the pool runs out of blocks mid-decode the youngest running requests
+are preempted and recomputed later; greedy decode regenerates identical
+tokens.
 
 Features of the reference engine outside this slice (prefix cache,
-chunked prefill, overlapped stepping, speculative decoding, the gather
-fallback, load shedding, deadlines and sampled decoding) raise
-``NotImplementedError`` when asked for; ROADMAP.md lists them as the
-next slices.
+chunked prefill, overlapped stepping, speculative decoding, load
+shedding, deadlines and sampled decoding) raise ``NotImplementedError``
+when asked for; ROADMAP.md lists them as the next slices.
 """
 from __future__ import annotations
 
@@ -62,9 +71,9 @@ class EngineConfig:
     kv_pool_tokens: int = 8192          # total KV token capacity
     max_model_len: int = 1024
     prefill_bucket: int = 64            # pad prompts to multiples of this
-    # the reference's other modes and features; any value but the
-    # default raises NotImplementedError (see the module docstring)
-    decode_mode: str = "paged"
+    decode_mode: str = "paged"          # or "gather" (the dense-copy fallback)
+    # the reference's other features; any value but the default raises
+    # NotImplementedError (see the module docstring)
     prefix_cache: bool = False
     overlap: bool = False
     prefill_chunk_tokens: Optional[int] = None
@@ -101,8 +110,6 @@ class EngineConfig:
             raise ValueError(
                 f"decode_mode must be 'paged' or 'gather', "
                 f"got {self.decode_mode!r}")
-        if self.decode_mode == "gather":
-            raise _not_ported("decode_mode='gather'", "gather fallback")
         if self.prefix_cache:
             raise _not_ported("prefix_cache", "prefix-aware prefill")
         if self.prefill_chunk_tokens is not None:
@@ -141,13 +148,14 @@ class ContinuousBatchingEngine:
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg
+        self.decode_mode = ecfg.decode_mode
         self.pool = PagedKVCache(
             self.cfg, num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
             block_size=ecfg.block_size, device=self.device)
         self.sched = Scheduler(self)
         # serving-timeline clock (seconds since start); run() installs one
         self.clock: Optional[Callable[[], float]] = None
-        self.decode_steps = 0        # paged decode steps run
+        self.decode_steps = 0        # decode steps run
         self.prefills = 0            # admission prefills run
         self.itl_samples: List[float] = []
         self.batch_samples: List[int] = []
@@ -276,7 +284,10 @@ class ContinuousBatchingEngine:
                                            self.pool.manager.used_fraction)
             return self.busy
         reqs = plan.reqs
-        next_tokens = self._decode_paged(plan)
+        if self.decode_mode == "paged":
+            next_tokens = self._decode_paged(plan)
+        else:
+            next_tokens = self._decode_gather(plan)
         dt = time.perf_counter() - plan.t0
         self.itl_samples.append(dt)
         self.batch_samples.append(len(reqs))
@@ -314,6 +325,25 @@ class ContinuousBatchingEngine:
             positions_array([p + 1 for p in plan.positions], batch_pad))
         self.decode_steps += 1
         return next_tokens[:B].cpu().numpy()
+
+    def _decode_gather(self, plan: StepPlan) -> np.ndarray:
+        """One dense-copy decode step (the reference's ``_decode_gather``):
+        gather, decode at ``lengths = pos + 1``, scatter the new rows
+        back, then sample; returns the next token of each row."""
+        rids = plan.rids
+        pad_blocks = self.pool.manager.blocks_needed(
+            _bucket(max(plan.positions) + 1, self.ecfg.block_size * 4))
+        cache = self.pool.gather(rids, pad_blocks)
+        host = np.array([[self._tokens[rid] for rid in rids],
+                         plan.positions], np.int64)
+        tokens, pos = torch.from_numpy(host).to(self.device)
+        logits = self.model.decode_step(tokens, cache, pos, lengths=pos + 1)
+        self.pool.scatter_new_token(rids, plan.positions, cache)
+        next_tokens = sample_tokens(
+            logits, *stack_sampling([r.sampling for r in plan.reqs]),
+            positions_array([p + 1 for p in plan.positions]))
+        self.decode_steps += 1
+        return next_tokens.cpu().numpy()
 
     def run(self, requests: List[Request]) -> ServingMetrics:
         """Batch-offline loop: submit everything, step to completion with

@@ -1,7 +1,8 @@
 """The port's continuous-batching engine against the JAX reference engine
 on the CPU: greedy outputs, finish reasons and preemption counts on the
-same ShareGPT-shaped requests and the same weights, plus the pool's
-allocator and byte accounting."""
+same ShareGPT-shaped requests and the same weights, in both decode modes
+(zero-copy paged and the gather fallback), plus the pool's allocator,
+byte accounting and dense gather/scatter."""
 import dataclasses
 
 import pytest
@@ -91,6 +92,84 @@ def test_preempting_pool_matches_reference(models, rules):
     assert jeng.preemptions > 0, "workload was meant to force preemption"
     assert teng.preemptions == jeng.preemptions == m.preemptions
     _assert_same_outputs(jreqs, treqs)
+
+
+MIXED = ((6, 512, dict(seed=7, mean_in=14, mean_out=10, max_len=64,
+                      sigma=0.6)),
+         dict(max_batch=4, block_size=8, kv_pool_tokens=4096,
+              max_model_len=256, prefill_bucket=16))
+PREEMPTING = ((6, 512, dict(seed=11, mean_in=20, mean_out=36, max_len=60,
+                           sigma=0.1)),
+              dict(max_batch=6, block_size=8, kv_pool_tokens=256,
+                   max_model_len=96, prefill_bucket=16))
+
+
+@pytest.mark.parametrize("wl,ecfg", [MIXED, PREEMPTING],
+                         ids=["mixed_lengths", "preempting_pool"])
+def test_gather_mode_matches_reference_and_paged(models, rules, wl, ecfg):
+    """The gather fallback: identical greedy tokens, finish reasons and
+    preemptions to the reference engine's gather mode, and to the port's
+    own paged mode on the same requests."""
+    jeng, jreqs, teng, treqs, m = _serve_both(models, rules, wl,
+                                              decode_mode="gather", **ecfg)
+    assert teng.decode_mode == jeng.decode_mode == "gather"
+    _assert_same_outputs(jreqs, treqs)
+    assert teng.preemptions == jeng.preemptions == m.preemptions
+    assert teng.decode_steps == len(teng.itl_samples) > 0
+    assert teng.pool.manager.free_blocks == teng.pool.manager.num_blocks
+    paged = ContinuousBatchingEngine(models[3], EngineConfig(**ecfg),
+                                     device="cpu")
+    preqs = sharegpt_like(*wl[:2], **wl[2])
+    paged.run(preqs)
+    _assert_same_outputs(preqs, treqs)
+    assert paged.preemptions == teng.preemptions
+
+
+def test_gather_scatter_round_trip_matches_reference():
+    """``gather`` yields the reference pool's dense view of each request's
+    written rows, and ``scatter_new_token`` writes a marked row back to
+    the same (block, slot) in both pools (``tests/test_substrate.py``'s
+    round trip, held against the reference)."""
+    jcfg = j_reduced(j_get_config("internlm2-1.8b"))
+    tcfg = reduced(get_config("internlm2-1.8b"))
+    jpool = JPagedKVCache(jcfg, num_blocks=32, block_size=8, max_batch=4)
+    tpool = PagedKVCache(tcfg, num_blocks=32, block_size=8, device="cpu")
+    rng = np.random.default_rng(0)
+    shape = (tcfg.n_layers, 1, 24, tcfg.n_kv_heads, tcfg.hd)
+    for rid, n in ((0, 20), (1, 12)):
+        for mgr in (jpool.manager, tpool.manager):
+            mgr.allocate(rid, n)
+        kv = {k: rng.normal(size=shape).astype(np.float32) for k in "kv"}
+        jpool.write_prefill(rid, {"stack": [kv], "rem": []})
+        tpool.write_prefill(rid, {k: torch.from_numpy(a)
+                                  for k, a in kv.items()})
+    jview = jpool.gather([0, 1], pad_blocks=3)["stack"][0]
+    tview = tpool.gather([0, 1], pad_blocks=3)
+    for k in "kv":
+        assert tview[k].shape == jview[k].shape
+        np.testing.assert_array_equal(tview[k][:, 0, :20].numpy(),
+                                      np.asarray(jview[k])[:, 0, :20])
+        np.testing.assert_array_equal(tview[k][:, 1, :12].numpy(),
+                                      np.asarray(jview[k])[:, 1, :12])
+    for mgr in (jpool.manager, tpool.manager):
+        mgr.append_token(0, 21)
+        mgr.append_token(1, 13)
+    jview = jpool.gather([1, 0], pad_blocks=3)
+    tview = tpool.gather([1, 0], pad_blocks=3)
+    marks = rng.normal(size=(2,) + shape[:1] + shape[3:]).astype(np.float32)
+    for i, pos in enumerate((12, 20)):
+        for k in "kv":
+            jview["stack"][0][k] = jview["stack"][0][k].at[
+                :, i, pos].set(marks[i])
+            tview[k][:, i, pos] = torch.from_numpy(marks[i])
+    jpool.scatter_new_token([1, 0], [12, 20], jview)
+    tpool.scatter_new_token([1, 0], [12, 20], tview)
+    for k in "kv":
+        np.testing.assert_array_equal(tpool.pool[k].numpy(),
+                                      np.asarray(jpool.pool["stack"][0][k]))
+    back = tpool.gather([0, 1], pad_blocks=3)
+    assert torch.equal(back["k"][:, 0, 20], torch.from_numpy(marks[1]))
+    assert torch.equal(back["v"][:, 1, 12], torch.from_numpy(marks[0]))
 
 
 def test_stop_tokens_budget_one_and_arrivals_match_reference(models, rules):

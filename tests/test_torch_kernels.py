@@ -2,6 +2,8 @@
 PyTorch version against the JAX Pallas kernel (interpret mode) and the
 naive oracles of both packages, on the same numpy inputs. The CUDA
 kernels themselves run only on the card (``chip_smoke.py``)."""
+import itertools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -9,12 +11,16 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.kernels.paged_decode_attention import (  # noqa: E402
     paged_gqa_decode_attention as j_paged)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    _check_args as decode_check_args, gqa_decode_attention,
+    gqa_decode_attention_torch)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_torch)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
@@ -126,6 +132,90 @@ def test_paged_result_independent_of_block_placement():
     assert torch.equal(outs[0], outs[1])
 
 
+# tests/test_kernels.py DECODE_CASES: the same strided grid
+DECODE_CASES = list(itertools.product(
+    [1, 2, 5],            # batch
+    [64, 100, 256],       # cache length
+    [(1, 8), (2, 4), (4, 1), (8, 1)],   # (kv heads, group)
+    [64, 128],            # head dim
+    [32, 256],            # block_s
+    [np.float32, "bfloat16"],
+))[::7]
+
+
+def _decode_inputs(B, S, K, G, hd, dtype, seed, lengths=None):
+    rng = np.random.default_rng(seed)
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, dtype, (B, K * G, hd),
+                                         (B, S, K, hd), (B, S, K, hd))
+    if lengths is None:
+        lengths = rng.integers(1, S + 1, B)
+    lengths = np.asarray(lengths, np.int32)
+    return (qj, kj, vj), (qt, kt, vt), lengths
+
+
+@pytest.mark.parametrize("B,S,kg,hd,bs,dtype", DECODE_CASES)
+def test_decode_plain_vs_pallas_and_oracles(B, S, kg, hd, bs, dtype):
+    K, G = kg
+    (qj, kj, vj), (qt, kt, vt), lengths = _decode_inputs(
+        B, S, K, G, hd, dtype, seed=B * 1000 + S + hd + bs)
+    out = gqa_decode_attention_torch(qt, kt, vt, torch.from_numpy(lengths),
+                                     block_s=bs)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                   block_s=bs, interpret=True)
+    _close(out, pallas, dtype)
+    _close(out, jref.gqa_decode_attention_ref(qj, kj, vj,
+                                              jnp.asarray(lengths)), dtype)
+    _close(out, tref.gqa_decode_attention_ref(
+        qt, kt, vt, torch.from_numpy(lengths)).numpy(), dtype)
+
+
+@pytest.mark.parametrize("S,bs", [(100, 32), (64, 256), (100, 256)])
+def test_decode_zero_length_rows_match_the_tpu_kernel(S, bs):
+    """A length-0 row is the TPU kernel's ``sum_{j<S} V[j] / Sp`` (it
+    never skips a tile), not zeros; both versions pin that quirk."""
+    K, G, hd = 2, 4, 64
+    (qj, kj, vj), (qt, kt, vt), lengths = _decode_inputs(
+        3, S, K, G, hd, np.float32, seed=S + bs, lengths=[S, 0, 7])
+    out = gqa_decode_attention_torch(qt, kt, vt, torch.from_numpy(lengths),
+                                     block_s=bs)
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                   block_s=bs, interpret=True)
+    _close(out, pallas, np.float32)
+    Sp = -(-S // min(bs, S)) * min(bs, S)
+    quirk = vt[1].sum(0).repeat_interleave(G, dim=0) / Sp
+    _close(out[1], quirk.numpy(), np.float32)
+
+
+def test_decode_group_7_head_dim_80():
+    """The registry's G = 7 (56 heads over 8) and hd = 80 shapes."""
+    B, S, K, G, hd = 2, 100, 2, 7, 80
+    (qj, kj, vj), (qt, kt, vt), lengths = _decode_inputs(
+        B, S, K, G, hd, np.float32, seed=80, lengths=[100, 33])
+    out = gqa_decode_attention_torch(qt, kt, vt, torch.from_numpy(lengths),
+                                     block_s=32)
+    pallas = jops.decode_attention(qj, kj, vj, jnp.asarray(lengths),
+                                   block_s=32, interpret=True)
+    _close(out, pallas, np.float32)
+    _close(out, jref.gqa_decode_attention_ref(qj, kj, vj,
+                                              jnp.asarray(lengths)),
+           np.float32)
+
+
+def test_decode_reads_a_strided_cache_layer():
+    """One layer of an ``[L, B, S, K, hd]`` cache, and a view with a
+    batch stride of its own, give what a contiguous copy gives."""
+    rng = np.random.default_rng(5)
+    cache = torch.from_numpy(rng.normal(size=(2, 3, 40, 2, 64))
+                             .astype(np.float32))
+    q = torch.from_numpy(rng.normal(size=(2, 4, 64)).astype(np.float32))
+    lengths = torch.tensor([40, 9], dtype=torch.int32)
+    layer = cache[1, ::2]                   # batch stride 2 * S * K * hd
+    out = gqa_decode_attention(q, layer, layer, lengths)
+    assert torch.equal(out, gqa_decode_attention_torch(
+        q, layer.contiguous(), layer.contiguous(), lengths))
+
+
 FLASH_CASES = [   # tests/test_kernels.py FLASH_CASES
     (2, 64, 64, 2, 2, 64, True, None, np.float32),
     (1, 96, 96, 1, 4, 32, True, 40, np.float32),
@@ -161,6 +251,13 @@ def test_wrappers_take_the_plain_version_on_cpu():
     (_, _, _), (qt, kt, vt), table, lengths = _paged_inputs(
         2, 2, 2, 64, 8, 2, 8, np.float32, seed=4)
     p0, f0 = paged_gqa_decode_attention.launches, flash_attention.launches
+    d0 = gqa_decode_attention.launches
+    _, (dq, dk, dv), dl = _decode_inputs(2, 40, 2, 2, 64, np.float32, seed=4)
+    assert torch.equal(
+        ops.decode_attention(dq, dk, dv, torch.from_numpy(dl), block_s=16),
+        gqa_decode_attention_torch(dq, dk, dv, torch.from_numpy(dl),
+                                   block_s=16))
+    assert gqa_decode_attention.launches == d0
     a = ops.paged_decode_attention(qt, kt, vt, torch.from_numpy(table),
                                    torch.from_numpy(lengths))
     b = paged_gqa_decode_attention_torch(qt, kt, vt, torch.from_numpy(table),
@@ -172,6 +269,17 @@ def test_wrappers_take_the_plain_version_on_cpu():
                        flash_attention_torch(q, k, k))
     assert (paged_gqa_decode_attention.launches, flash_attention.launches) \
         == (p0, f0)
+
+
+@pytest.mark.parametrize("G,hd,what", [(16, 64, "G=16"), (2, 48, "hd=48")])
+def test_decode_kernel_refuses_shapes_it_does_not_take(G, hd, what):
+    """The wrapper's checks run before any build: unsupported head shapes
+    raise ValueError naming the shape."""
+    q = torch.zeros(1, 2 * G, hd)
+    k = torch.zeros(1, 8, 2, hd)
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=what):
+        decode_check_args(q, k, k, lengths)
 
 
 def test_flash_rejects_empty_window():

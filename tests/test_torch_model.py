@@ -1,7 +1,7 @@
 """The PyTorch port's dense decoder against the JAX reference on the CPU:
 the registry, every ported layer, the attention functions, and the
-model's prefill and paged-decode logits, on the same weights (the JAX
-init carried across as numpy)."""
+model's prefill, paged-decode and dense-cache decode logits, on the same
+weights and caches (the JAX init and prefill carried across as numpy)."""
 import dataclasses
 
 import pytest
@@ -26,8 +26,9 @@ from repro_torch.kvcache.paged import PagedKVCache  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.params import (init_params,  # noqa: E402
-                                       param_specs, params_from_numpy)
+from repro_torch.models.params import (cache_from_numpy,  # noqa: E402
+                                       init_params, param_specs,
+                                       params_from_numpy)
 
 TOL = 1e-4     # float32 on the CPU: the reference's own kernel tolerance
 CPU = "cpu"
@@ -223,6 +224,41 @@ def test_paged_self_attn_decode(rules):
     _close(vt[:11], np.asarray(vj)[:11])
 
 
+@pytest.mark.parametrize("ragged", [True, False])
+def test_self_attn_decode_dense_cache(ragged, rules):
+    """One layer's decode against a dense cache: ragged positions with
+    explicit lengths, or one position for the batch with a shorter length
+    on one row; the output and the in-place write match the reference."""
+    jcfg, tcfg, pj, pt = _attn_inputs("qwen2.5-3b", True)
+    rng = np.random.default_rng(10)
+    B, S, K, hd = 3, 24, tcfg.n_kv_heads, tcfg.hd
+    ck = rng.normal(size=(B, S, K, hd)).astype(np.float32)
+    cv = rng.normal(size=(B, S, K, hd)).astype(np.float32)
+    x = rng.normal(size=(B, 1, 256)).astype(np.float32)
+    if ragged:
+        pos, lengths = np.array([20, 5, 11], np.int32), np.array([21, 6, 12],
+                                                                 np.int32)
+    else:
+        pos, lengths = np.int32(13), np.array([14, 9, 24], np.int32)
+    kt, vt = _t(ck.copy()), _t(cv.copy())
+    ot = TA.self_attn_decode(pt, _t(x), kt, vt, tcfg, pos=_t(pos),
+                             lengths=_t(lengths))
+    oj, (kj, vj) = JA.self_attn_decode(
+        pj, jnp.asarray(x), jnp.asarray(ck), jnp.asarray(cv), jcfg, rules,
+        pos=jnp.asarray(pos), lengths=jnp.asarray(lengths))
+    _close(ot, oj)
+    _close(kt, kj)
+    _close(vt, vj)
+
+
+def test_self_attn_decode_refuses_windows():
+    _, tcfg, _, pt = _attn_inputs("opt-1.3b", False)
+    c = torch.zeros(1, 8, tcfg.n_kv_heads, tcfg.hd)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TA.self_attn_decode(pt, torch.zeros(1, 1, 256), c, c, tcfg, pos=3,
+                            window=4)
+
+
 # --------------------------------------------------------------- model ----
 @pytest.mark.parametrize("name,bias", [("opt-1.3b", False),
                                        ("qwen2.5-3b", True)])
@@ -273,6 +309,83 @@ def test_prefill_and_paged_decode_logits(name, bias, rules):
         tokens = np.asarray(jnp.argmax(lj[:2], -1), np.int32)
         assert tokens.tolist() == lt[:2].argmax(-1).tolist()
         positions += 1
+
+
+DENSE = [("opt-1.3b", False), ("llama-2-7b", False),
+         ("internlm2-1.8b", False), ("qwen2.5-3b", True)]
+
+
+@pytest.mark.parametrize("name,bias", DENSE)
+def test_dense_decode_ragged_positions(name, bias, rules):
+    """The gather fallback's model step: three decode steps on a dense
+    cache at per-request positions with ``lengths = pos + 1``, from the
+    reference's own prefill cache; logits and the written cache match."""
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg, tcfg, seed=2, bias=bias)
+    model = Model(tcfg, tp, device=CPU)
+    rng = np.random.default_rng(11)
+    lengths = np.array([9, 20, 14], np.int32)
+    S = 32
+    toks = np.zeros((3, S), np.int32)
+    for b, n in enumerate(lengths):
+        toks[b, :n] = rng.integers(0, tcfg.vocab_size, n)
+    lj, cj, _ = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks),
+                                             "lengths": jnp.asarray(lengths)},
+                           cache_len=S)
+    ct = cache_from_numpy(tcfg, jax.tree.map(np.asarray, cj), device=CPU)
+    tokens = np.array(jnp.argmax(lj, -1), np.int32)
+    pos = lengths.copy()
+    for _ in range(3):
+        lt = model.decode_step(_t(tokens), ct, _t(pos), lengths=_t(pos + 1))
+        lj, cj = JM.decode_step(jp, jcfg, rules, cj, jnp.asarray(tokens),
+                                jnp.asarray(pos),
+                                lengths=jnp.asarray(pos + 1))
+        _close(lt, lj)
+        tokens = np.array(jnp.argmax(lj, -1), np.int32)
+        assert tokens.tolist() == lt.argmax(-1).tolist()
+        pos += 1
+    for n in ("k", "v"):
+        _close(ct[n], cj["stack"][0][n])
+
+
+@pytest.mark.parametrize("name,bias", DENSE)
+def test_static_batch_decode_quickstart_loop(name, bias, rules):
+    """The quickstart loop: ``prefill(cache_len=24)`` on a 16-token batch,
+    then six decode steps at one position for the whole batch; logits and
+    the cache match the reference."""
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg, tcfg, seed=3, bias=bias)
+    model = Model(tcfg, tp, device=CPU)
+    toks = np.random.default_rng(12).integers(
+        0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+    lt, ct = model.prefill(_t(toks), cache_len=24)
+    lj, cj, _ = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks)},
+                           cache_len=24)
+    _close(lt, lj)
+    assert ct["k"].shape == cj["stack"][0]["k"].shape
+    ct = cache_from_numpy(tcfg, jax.tree.map(np.asarray, cj), device=CPU)
+    nxt = np.array(jnp.argmax(lj, -1), np.int32)
+    for t in range(16, 22):
+        lt = model.decode_step(_t(nxt), ct, t)
+        lj, cj = JM.decode_step(jp, jcfg, rules, cj, jnp.asarray(nxt),
+                                jnp.int32(t))
+        _close(lt, lj)
+        nxt = np.array(jnp.argmax(lj, -1), np.int32)
+    for n in ("k", "v"):
+        _close(ct[n], cj["stack"][0][n])
+
+
+def test_init_cache_and_cache_from_numpy_layouts(rules):
+    jcfg, tcfg = _configs("internlm2-1.8b")
+    model = Model(tcfg, _params(jcfg, tcfg)[1], device=CPU)
+    ct = model.init_cache(3, 40)
+    jc = jax.tree.map(np.asarray, JM.init_cache(jcfg, 3, 40))
+    assert ct["k"].shape == jc["stack"][0]["k"].shape
+    assert ct["k"].dtype == torch.float32 and not ct["v"].any()
+    assert cache_from_numpy(tcfg, jc)["v"].shape == ct["v"].shape
+    jc["stack"][0]["k"] = jc["stack"][0]["k"][:, :, :, :1]
+    with pytest.raises(ValueError, match="cache k shape"):
+        cache_from_numpy(tcfg, jc)
 
 
 def test_model_rejects_out_of_slice_configs():

@@ -65,7 +65,7 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("flag", [
-    {"decode_mode": "gather"}, {"prefix_cache": True}, {"overlap": True},
+    {"prefix_cache": True}, {"overlap": True},
     {"prefill_chunk_tokens": 64}, {"speculate": True}, {"max_waiting": 4},
     {"shed_kv_fraction": 0.9}, {"shed_queue_delay_s": 1.0}])
 def test_out_of_slice_engine_flags_raise(flag):
@@ -80,6 +80,7 @@ def test_engine_config_validation_kept():
         EngineConfig(max_model_len=4096, kv_pool_tokens=1024)
     with pytest.raises(ValueError):
         EngineConfig(decode_mode="dense")
+    assert EngineConfig(decode_mode="gather").decode_mode == "gather"
 
 
 def test_sampled_rows_raise():
