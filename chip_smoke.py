@@ -14,10 +14,13 @@ It imports nothing of JAX or of the JAX package. Phases:
 1. print the card (``nvidia-smi``) and turn TF32 off for the comparisons;
 2. each kernel against its plain version on the card: a paged-decode
    sweep over G, hd, block size and dtype (permuted placement, trash
-   entries past each allocation, length-0 rows, full tables), the flash
-   cases of the reference's tests, the contiguous-decode grid of the
-   reference's tests (plus G = 7 and hd 80/96) and its length-0 rows
-   against the TPU kernel's formula, and each at its serving shape;
+   entries past each allocation, length-0 rows, full tables); the flash
+   kernel's single-tile case on its own line, the reference's flash
+   cases and a bf16 grid over head dims, head groups, masks and sequence
+   shapes; the contiguous-decode grid of the reference's tests (plus
+   G = 7 and hd 80/96), its length-0 rows against the TPU kernel's
+   formula and long caches cut into several splits; each at its serving
+   shape;
 3. a model check at OPT-1.3B's full width in float32, cut to 2 layers:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
@@ -31,11 +34,14 @@ It imports nothing of JAX or of the JAX package. Phases:
    static batch of 32 prompts with 64 decode steps on a dense cache;
    each serve is followed by a ``torch.profiler`` window of 10 steady
    decode steps at batch 16 (device busy time by kernel kind against
-   host wall time);
+   host wall time), and the flash kernel symbol a prefill launches
+   (bfloat16 and float32) is printed from a profile;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
-   the least time the card could take, and
+   the least time the card could take (flash at every serve bucket, with
+   TFLOP/s; contiguous decode at the gather shape, at one 8192-token
+   request and at the static batch's shape), and
    one whole gather decode step against one paged step at batch 16 (with
    the gather copy's share);
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
@@ -45,6 +51,7 @@ It imports nothing of JAX or of the JAX package. Phases:
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -265,16 +272,33 @@ def phase_build():
     paths = _build.build()
     print(f"[build] {len(paths)} libraries in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    # one line a kernel: its name (demangled where cu++filt is at hand),
+    # then ptxas's spill and register lines for it
+    filt = Path(_build._nvcc()).with_name("cu++filt")
     for name in paths:
-        for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        kernel, stats = None, []
+        for line in _build.log_path(name).read_text().splitlines() + [""]:
+            entry = line.split("Compiling entry function '")
+            if len(entry) > 1 or not line:
+                if kernel is not None:
+                    print(f"[build] {name}: {kernel}: {'; '.join(stats)}")
+                if len(entry) > 1:
+                    kernel, stats = entry[1].split("'")[0], []
+                    if filt.exists():   # "void ns::name<args>(params)"
+                        kernel = subprocess.run(
+                            [str(filt), kernel], capture_output=True,
+                            text=True).stdout.strip()
+                        kernel = kernel[:kernel.find(">(") + 1 or None]
+                        kernel = kernel.split("::")[-1]
+                    else:   # the identifier and its mangled arguments
+                        kernel = re.sub(r".*?\d+([a-z_]+_kernel)I(\w+?)EEv.*",
+                                        r"\1<\2>", kernel)
+            elif "registers" in line or "spill" in line:
+                stats.append(line.replace("ptxas info    :", "").strip())
 
 
 def phase_kernels(errs):
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_torch)
     from repro_torch.kernels.paged_decode_attention import (
         paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
     n = 0
@@ -305,31 +329,66 @@ def phase_kernels(errs):
     print(f"[kernels] paged decode at the serving shape (B=16, K=32, G=1, "
           f"hd=64, BS=16, bf16): max abs err {e:.3e}")
 
+    phase_flash_kernel(errs)
+    phase_decode_kernel(errs)
+
+
+def phase_flash_kernel(errs):
+    """The flash kernel: the single-tile case alone first (a swizzle or
+    descriptor fault shows there by itself), the reference's cases (f32
+    on the CUDA-core body, bf16 on the tensor-core body), a bf16 grid over
+    head dims, head groups, masks and sequence shapes, and the serving
+    shapes."""
+    import itertools
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+
+    def check(B, Sq, Skv, K, G, hd, causal, window, dtype, seed, what):
+        q, k, v = flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed=seed)
+        return close(flash_attention(q, k, v, causal=causal, window=window),
+                     flash_attention_torch(q, k, v, causal=causal,
+                                           window=window), what)
+
+    e = check(1, 64, 64, 1, 1, 64, False, None, torch.bfloat16, 99,
+              "flash single tile")
+    errs["flash"]["single_tile"] = e
+    print(f"[kernels] flash single tile (B=1, Sq=Skv=64, one head, hd 64, "
+          f"non-causal, bf16, tensor-core body): max abs err {e:.3e}")
     cases = [(2, 64, 64, 2, 2, 64, True, None, torch.float32),
              (1, 96, 96, 1, 4, 32, True, 40, torch.float32),
              (2, 64, 64, 4, 1, 64, False, None, torch.bfloat16),
              (1, 128, 128, 2, 4, 128, True, None, torch.bfloat16),
              (3, 32, 96, 1, 2, 64, True, None, torch.float32),
              (1, 100, 100, 2, 1, 64, True, None, torch.float32)]
-    for i, (B, Sq, Skv, K, G, hd, causal, window, dtype) in enumerate(cases):
-        q, k, v = flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed=100 + i)
-        e = close(flash_attention(q, k, v, causal=causal, window=window),
-                  flash_attention_torch(q, k, v, causal=causal,
-                                        window=window),
-                  f"flash case {i}")
+    for i, case in enumerate(cases):
+        e = check(*case, seed=100 + i, what=f"flash case {i}")
         errs["flash"]["reference_cases"] = max(
             errs["flash"]["reference_cases"], e)
+    grid = list(itertools.product(
+        (32, 64, 80, 96, 128), ((2, 1), (1, 4), (2, 4), (1, 8)),
+        ((True, None), (False, None), (True, 40)),
+        ((64, 64), (100, 100), (32, 96), (128, 128), (1024, 1024))))
+    e_grid = 0.0
+    for n, (hd, (K, G), (causal, window), (Sq, Skv)) in enumerate(grid):
+        e_grid = max(e_grid, check(
+            1 if Sq > 128 else 2, Sq, Skv, K, G, hd, causal, window,
+            torch.bfloat16, 200 + n,
+            f"flash bf16 hd={hd} K={K} G={G} causal={causal} "
+            f"window={window} Sq={Sq} Skv={Skv}"))
+    errs["flash"]["bf16_grid"] = e_grid
     for S in (64, 128, 256, 512, 1024):
-        q, k, v = flash_inputs(1, S, S, 32, 1, 64, torch.bfloat16, seed=S)
-        e = close(flash_attention(q, k, v), flash_attention_torch(q, k, v),
+        e = check(1, S, S, 32, 1, 64, True, None, torch.bfloat16, S,
                   f"flash serving shape S={S}")
         errs["flash"]["serving_shape"] = max(errs["flash"]["serving_shape"],
                                              e)
     print(f"[kernels] flash prefill: {len(cases)} reference cases (max abs "
-          f"err {errs['flash']['reference_cases']:.3e}) and S in 64..1024 "
-          f"at H=K=32, hd=64, bf16 (max abs err "
-          f"{errs['flash']['serving_shape']:.3e}) within tolerance")
-    phase_decode_kernel(errs)
+          f"err {errs['flash']['reference_cases']:.3e}); {len(grid)} bf16 "
+          f"grid cases (hd 32/64/80/96/128 x (K,G) (2,1)/(1,4)/(2,4)/(1,8) "
+          f"x causal/non-causal/window 40 x (Sq,Skv) (64,64)/(100,100)/"
+          f"(32,96)/(128,128)/(1024,1024)), max abs err {e_grid:.3e}; S in "
+          f"64..1024 at H=K=32, hd=64, bf16 (max abs err "
+          f"{errs['flash']['serving_shape']:.3e}); within tolerance")
 
 
 def phase_decode_kernel(errs):
@@ -339,7 +398,7 @@ def phase_decode_kernel(errs):
     import itertools
     import torch
     from repro_torch.kernels.decode_attention import (
-        gqa_decode_attention, gqa_decode_attention_torch)
+        gqa_decode_attention, gqa_decode_attention_torch, split_plan)
     e_grid = e_zero = 0.0
     grid = list(itertools.product(
         (1, 2, 5), (64, 100, 256), ((1, 8), (2, 4), (4, 1), (8, 1), (2, 7)),
@@ -370,11 +429,37 @@ def phase_decode_kernel(errs):
         n_zero += 1
     errs["decode"]["reference_grid"] = e_grid
     errs["decode"]["length0_rows"] = e_zero
+    # several splits a row: long caches at small batch, with rows of
+    # length 0, of length 1 and shorter than the first split
+    e_split, n_split = 0.0, 0
+    for S, (K, G), hd, dtype in itertools.product(
+            (4096, 8192), ((2, 4), (8, 1)), (64, 128),
+            (torch.float32, torch.bfloat16)):
+        first = split_plan(2, S, K, G, hd).rows_per_split
+        for lengths in ([0], [1], [first // 2], [S], [0, S], [1, first - 3],
+                        [S - 5, first + 17]):
+            B = len(lengths)
+            plan = split_plan(B, S, K, G, hd)
+            if plan.n_split < 2:
+                raise AssertionError(f"S={S} B={B} K={K}: one split")
+            q, k, v, lens = decode_inputs(B, S, K, G, hd, dtype, lengths,
+                                          seed=S + n_split)
+            e_split = max(e_split, close(
+                gqa_decode_attention(q, k, v, lens),
+                gqa_decode_attention_torch(q, k, v, lens),
+                f"decode split S={S} K={K} G={G} hd={hd} {dtype} "
+                f"lengths={lengths} ({plan.n_split} splits of "
+                f"{plan.rows_per_split})"))
+            n_split += 1
+    errs["decode"]["multi_split"] = e_split
     print(f"[kernels] contiguous decode: {len(grid)} grid cases (B 1/2/5, S "
           f"64/100/256, (K,G) (1,8)/(2,4)/(4,1)/(8,1)/(2,7), hd "
           f"64/80/96/128, block_s 32/256, f32 and bf16) max abs err "
           f"{e_grid:.3e}; {n_zero} cases with a length-0 row equal to "
-          f"sum(V)/Sp, max abs err {e_zero:.3e}; within tolerance")
+          f"sum(V)/Sp, max abs err {e_zero:.3e}; {n_split} multi-split "
+          f"cases (B 1/2, S 4096/8192, (K,G) (2,4)/(8,1), hd 64/128, f32 "
+          f"and bf16; lengths 0, 1, under the first split, S) max abs err "
+          f"{e_split:.3e}; within tolerance")
     q, k, v, lens = gather_decode_inputs()
     e = close(gqa_decode_attention(q, k, v, lens),
               gqa_decode_attention_torch(q, k, v, lens),
@@ -595,7 +680,8 @@ def serve(model, reqs, decode_mode, card):
 
 
 def phase_serve(model, card):
-    """The paged serve of all 32 requests, then its decode profile."""
+    """The paged serve of all 32 requests, then its decode profile and
+    the flash kernel its prefills launch."""
     import torch
     reqs = serve_workload()
     engine, _, launches = serve(model, reqs, "paged", card)
@@ -603,7 +689,35 @@ def phase_serve(model, card):
     del engine
     torch.cuda.empty_cache()
     profile_decode(model, "paged", card)
+    prefill_symbol(model, card)
     return launches, prefill_sizes, reqs
+
+
+def prefill_symbol(model, card, prompt=128):
+    """The flash kernel symbol that one admission prefill launches, read
+    from a ``torch.profiler`` trace: the tensor-core body for bfloat16,
+    the CUDA-core body for float32, and nothing else."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (1, prompt))).cuda()
+    lens = torch.tensor([prompt], device="cuda")
+    model.prefill(toks, lens, cache_len=prompt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.prefill(toks, lens, cache_len=prompt)
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "flash" in e.name})
+    want = ("flash_wgmma_kernel" if cfg.dtype == "bfloat16"
+            else "flash_kernel<float")
+    if not names or not all(want in n for n in names):
+        raise AssertionError(f"{cfg.dtype} prefill launched {names}, not "
+                             f"{want}")
+    print(f"[prefill] on {card}: a {cfg.dtype} prefill of {prompt} tokens "
+          f"launched {names}")
 
 
 def agreement(a_reqs, b_reqs):
@@ -659,6 +773,7 @@ def phase_gather_serve(model, card, paged_all):
         torch.cuda.empty_cache()
     print(f"[serve gather] float32 token agreement, gather vs paged on the "
           f"same 16 requests: {agreement(runs['gather'], runs['paged'])}")
+    prefill_symbol(f32, card)
     del f32
     torch.cuda.empty_cache()
     return launches
@@ -712,9 +827,9 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
 def kernel_kind(name):
     if "paged_decode_kernel" in name:
         return "paged attention kernel"
-    if "decode_kernel" in name:
+    if "decode_split_kernel" in name or "decode_merge_kernel" in name:
         return "contiguous decode attention kernel"
-    if "flash_kernel" in name:
+    if "flash" in name:
         return "flash kernel"
     if any(k in name for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90")):
         return "GEMMs"
@@ -818,16 +933,72 @@ def phase_times(card, prefill_sizes, serve_reqs):
           f"to end (CUDA events): kernel {k_call * 1e3:.1f} us, SDPA "
           f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
 
+    shapes = [("the gather serve's shape", gather_decode_inputs()),
+              ("one long request", decode_inputs(
+                  1, 8192, 32, 1, 64, torch.bfloat16, [8192], seed=9)),
+              ("the static batch at its middle step", decode_inputs(
+                  32, 192, 32, 1, 64, torch.bfloat16, [160] * 32, seed=10))]
+    decode = [time_decode(card, what, *args) for what, args in shapes]
+    times["decode_attention"] = dict(decode[0], other_shapes=decode[1:])
+
+    counts = {}
+    for r in serve_reqs:
+        s = -(-r.prompt_len // 64) * 64
+        counts[s] = counts.get(s, 0) + 1
+    main_s = max(counts, key=lambda s: (counts[s], s))
+    by_bucket = []
+    for S in sorted(set(prefill_sizes) | {1024}):
+        q, k, v = flash_inputs(1, S, S, 32, 1, 64, torch.bfloat16, seed=S)
+        nbytes = 4 * q.numel() * q.element_size()
+        flops = 4 * 64 * 32 * S * (S + 1) / 2     # the causal half
+        b_ms, b_by = bound(nbytes, flops)
+        k_ms, k_call = timed(lambda: flash_attention(q, k, v))
+        p_ms = time_ms(lambda: flash_attention_torch(q, k, v), runs=10)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        print(f"[times] on {card}: flash prefill B=1 S={S} H=K=32 hd=64 "
+              f"bf16 ({counts.get(S, 0)} serve prefills): device time: "
+              f"kernel {k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}); kernel "
+              f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s and "
+              f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved (SDPA "
+              f"{flops / (l_ms * 1e-3) / 1e12:.2f} TFLOP/s); one call end "
+              f"to end: kernel {k_call * 1e3:.1f} us, SDPA "
+              f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
+        row = dict(S=S, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                   bound_ms=b_ms, bound_by=b_by, call_ms=k_call,
+                   library_call_ms=l_call,
+                   tflop_s=flops / (k_ms * 1e-3) / 1e12,
+                   gb_s=nbytes / (k_ms * 1e-3) / 1e9)
+        by_bucket.append(row)
+        if S == main_s:
+            times["flash_attention"] = dict(
+                row, shape=f"B=1 S={S} H=K=32 hd=64 bf16 (the most frequent "
+                           f"serve prefill bucket)",
+                library_call="scaled_dot_product_attention(is_causal=True)")
+    times["flash_attention"]["by_bucket"] = by_bucket
+    return times
+
+
+def time_decode(card, what, q, k, v, lens):
+    """The contiguous decode kernel, its plain version and SDPA for the
+    same function at one shape, beside the bytes bound; prints one line
+    and returns the numbers."""
+    import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
-        gqa_decode_attention, gqa_decode_attention_torch)
-    q, k, v, lens = gather_decode_inputs()
+        gqa_decode_attention, gqa_decode_attention_torch, split_plan)
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
+    isz = q.element_size()
     tokens = int(lens.sum())
     nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
               + lens.numel() * 4)
     b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
     k_ms, k_call = timed(lambda: gqa_decode_attention(q, k, v, lens))
+    # a plain version issues hundreds of launches a call, more than the
+    # launch queue holds behind a sleep: one call end to end
     p_ms = time_ms(lambda: gqa_decode_attention_torch(q, k, v, lens), runs=10)
     # the same function in one library call, on the same cache in SDPA's
     # [B, K, S, hd] layout (the transposing copy is made before timing)
@@ -837,50 +1008,24 @@ def phase_times(card, prefill_sizes, serve_reqs):
     q4 = q[:, :, None, :]
     l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
         q4, kc, vc, attn_mask=mask, enable_gqa=True))
-    times["decode_attention"] = dict(
+    plan = split_plan(B, S, K, H // K, hd)
+    row = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
         call_ms=k_call, library_call_ms=l_call,
+        gb_s=nbytes / (k_ms * 1e-3) / 1e9, n_split=plan.n_split,
         shape=f"B={B} H=K={K} hd={hd} S_pad={S} bf16, {tokens} context "
-              f"tokens (the gather serve's shape)",
+              f"tokens ({what})",
         library_call="scaled_dot_product_attention(attn_mask=length mask, "
                      "enable_gqa=True) on the same cache, transposed to "
                      "[B,K,S,hd] before timing")
-    print(f"[times] on {card}: contiguous decode at "
-          f"{times['decode_attention']['shape']}: device time: kernel "
-          f"{k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
-          f"{b_ms * 1e3:.1f} us ({b_by}); "
-          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved; one call end "
-          f"to end (CUDA events): kernel {k_call * 1e3:.1f} us, SDPA "
-          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
-
-    counts = {}
-    for r in serve_reqs:
-        s = -(-r.prompt_len // 64) * 64
-        counts[s] = counts.get(s, 0) + 1
-    main_s = max(counts, key=lambda s: (counts[s], s))
-    for S in sorted(set(prefill_sizes) | {1024}):
-        q, k, v = flash_inputs(1, S, S, 32, 1, 64, torch.bfloat16, seed=S)
-        nbytes = 4 * q.numel() * q.element_size()
-        b_ms, b_by = bound(nbytes, 4 * 64 * 32 * S * (S + 1) / 2)
-        k_ms, k_call = timed(lambda: flash_attention(q, k, v))
-        p_ms = time_ms(lambda: flash_attention_torch(q, k, v), runs=10)
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-        print(f"[times] on {card}: flash prefill B=1 S={S} H=K=32 hd=64 "
-              f"bf16 ({counts.get(S, 0)} serve prefills): device time: "
-              f"kernel {k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
-              f"{b_ms * 1e3:.2f} us ({b_by}); one call end to end: kernel "
-              f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
-              f"{p_ms * 1e3:.1f} us")
-        if S == main_s:
-            times["flash_attention"] = dict(
-                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                bound_by=b_by, call_ms=k_call, library_call_ms=l_call,
-                shape=f"B=1 S={S} H=K=32 hd=64 bf16 (the most frequent "
-                      f"serve prefill bucket)",
-                library_call="scaled_dot_product_attention(is_causal=True)")
-    return times
+    print(f"[times] on {card}: contiguous decode at {row['shape']}, "
+          f"{plan.n_split} splits of {plan.rows_per_split} rows: device "
+          f"time: kernel {k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, "
+          f"bound {b_ms * 1e3:.1f} us ({b_by}); {row['gb_s']:.0f} GB/s "
+          f"achieved; one call end to end (CUDA events): kernel "
+          f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us")
+    return row
 
 
 def phase_step_compare(model, card):
@@ -1013,7 +1158,9 @@ def main() -> int:
             "call_ms": t["call_ms"], "library_call_ms": t["library_call_ms"],
             "shape": t["shape"], "max_abs_err_by_phase": errs[key],
             "launches_path": path,
-            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            **{key: t[key] for key in ("by_bucket", "other_shapes")
+               if key in t}})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,10 +2,11 @@
 ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited source is rebuilt and an unchanged one is loaded
-as it is. :func:`build` starts one ``nvcc`` a source, all at once, and
-waits for every one of them. Nothing here runs at import time: the CPU
+into ``_build/lib<name>-<hash>.so``, where the hash covers the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt and an unchanged one is loaded as it is. :func:`build`
+starts one ``nvcc`` a source, all at once, and waits for every one of
+them. Nothing here runs at import time: the CPU
 tests import the kernel modules on a machine with no ``nvcc`` and no card.
 """
 from __future__ import annotations
@@ -35,9 +36,13 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` and these flags lives."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library for ``<csrc>/<name>.cu``, the headers beside it
+    and these flags lives."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -4,14 +4,14 @@
 // src/repro/kernels/decode_attention.py (Pallas body `_decode_kernel`): one
 // query token per request attends over the first `length` rows of its dense
 // K/V cache with an f32 online softmax, scale hd**-0.5, mask kv_id < length.
-// The G = H/K query heads of one KV head share each K/V tile.
+// The G = H/K query heads of one KV head share each K/V row.
 //
 // Length-0 rows follow the TPU kernel exactly. That kernel never skips a
 // tile, so a row whose every score is masked takes p = exp(NEG_INF - NEG_INF)
 // = 1 on all Sp = ceil(S/bs)*bs padded slots and returns sum_{j<S} V[j] / Sp
 // (the zero padding adds nothing to the sum). The caller passes Sp, so the
 // result does not depend on this kernel's own tiling. Lengths past S are
-// taken as S.
+// taken as S. Both are settled where the partials merge.
 //
 // What bounds it on this card: the KV bytes. Each valid token's K and V rows
 // are read once (2 * K * hd * itemsize bytes per token) and each element
@@ -19,250 +19,361 @@
 // H100's ~295 FLOP/byte ridge. The least time is
 // 2 * sum(length) * K * hd * itemsize / 3.35 TB/s.
 //
-// What this simple design does about it: it reads nothing past a row's
-// length (the loop stops at ceil(length/64) tiles, where the TPU grid walks
-// all of Sp), reads every K/V element once per (request, KV head) and shares
-// it across the G query heads, and keeps bytes in flight: each tile of 64
-// rows is copied with 16-byte cp.async (neighbouring threads on neighbouring
-// addresses, straight from the strided [B, S, K, hd] cache, no padding
-// copy), two tiles ahead of the one being used, in a three-stage ring in
-// shared memory. Split-K over the sequence for small batches, TMA and wgmma
-// are later work.
+// What the design does about it (flash-decoding):
+//
+// * Split of the sequence. Grid (B, K, n_split): block (b, kh, s) covers
+//   rows [s * rows_per_split, ...) of request b up to its length, so a long
+//   row is read by many SMs at once. The host picks n_split from S and B*K
+//   alone (no read of the lengths); a split wholly past a row's length
+//   exits at once. Each split writes its unnormalised (acc, m, l) per head
+//   to an f32 scratch [B, K, n_split, G, hd + 2]; a second small kernel
+//   merges the live splits and writes [B, H, hd] in q's dtype.
+// * Lane groups over 16-byte chunks. A cache row is hd * itemsize bytes;
+//   a group of lanes (that size over 16, rounded up to a power of two: 8
+//   lanes at bf16 hd 64) holds one row, one 16-byte chunk of K and of V a
+//   lane, loaded straight into registers from the strided cache. Each warp
+//   streams its own contiguous share of the block's rows, 32/group rows a
+//   load and kUnroll loads in flight, the next batch issued before the
+//   current one is used. A score is reduced over its group in log2(group)
+//   shuffles, and all G query heads reuse the K chunk in registers.
+// * State in registers. Each group keeps its own running (m, l, acc) per
+//   head, rescaled once per batch of rows; no barrier in the loop. Groups
+//   merge by shuffles, warps through shared memory, at the end.
+//
+// Head dim and dtype are template parameters (no loop tests d < hd); the
+// head group G runs in a register array sized for G rounded up to 1, 2, 4
+// or 8.
 //
 // Layouts: q/out [B, H, hd] contiguous; k/v [B, S, K, hd] with the last
 // dimension contiguous and equal element strides (sb, ss, sk) for both, every
-// row 16-byte aligned; lengths [B] int32. Grid (B, K), 128 threads a block,
-// dynamic shared memory (the attribute is raised before every launch).
+// row 16-byte aligned; lengths [B] int32; scratch [B, K, n_split, G, hd + 2]
+// f32, allocated by the caller. 128 threads a block, both kernels.
 
-#include <cfloat>
 #include <cmath>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;       // cache rows a tile (two a lane in the softmax)
-constexpr int kStages = 3;      // tiles in the shared-memory ring
 constexpr int kMaxG = 8;        // query heads a KV head
 constexpr int kMaxHd = 128;
-constexpr int kQRegs = kMaxHd / 32;                  // q values a lane a head
-constexpr int kMaxAcc = kMaxG * kMaxHd / kThreads;   // accumulators a thread
-// The reference's finite mask value: exp(s - m) on a fully masked score row
-// stays finite (exp(0) = 1), where -INFINITY would give NaN.
-constexpr float kNegInf = -0.7f * FLT_MAX;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
+constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
+template <typename T, int HD, int GM>
+struct Lanes {
+  static constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // a chunk
+  static constexpr int kChunks = HD / kElems;        // chunks a row
+  static constexpr int kGroup = pow2_at_least(kChunks);   // lanes a row
+  static constexpr int kRows = 32 / kGroup;          // rows a warp a load
+  // rows a lane keeps in flight a batch (the K and V chunks of each, and
+  // as many again for the next batch, in registers)
+  static constexpr int kUnroll = GM >= 8 ? 2 : 4;
+  static constexpr int kStep = kUnroll * kRows;      // rows a warp a batch
+  static_assert(HD % kElems == 0 && kGroup <= 32, "unsupported head dim");
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const uint4& c, float (&f)[N]);
+template <>
+__device__ __forceinline__ void unpack<float, 4>(const uint4& c,
+                                                 float (&f)[4]) {
+  f[0] = __uint_as_float(c.x);
+  f[1] = __uint_as_float(c.y);
+  f[2] = __uint_as_float(c.z);
+  f[3] = __uint_as_float(c.w);
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16, 8>(const uint4& c,
+                                                         float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(p[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
 }
 
-template <typename T>
+template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const int* __restrict__ lengths,
-              T* __restrict__ out, int S, int K, int G, int hd, long long sb,
-              long long ss, long long sk, int Sp, float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int row_bytes = hd * static_cast<int>(sizeof(T));
-  const int tile_bytes = kTile * row_bytes;
-  const int vec_row = row_bytes / 16;                 // 16-byte copies a row
-  constexpr int kVecElems = 16 / static_cast<int>(sizeof(T));
-  unsigned char* k_s = smem;                          // [kStages][kTile][hd]
-  unsigned char* v_s = k_s + kStages * tile_bytes;    // [kStages][kTile][hd]
-  float* p_s = reinterpret_cast<float*>(v_s + kStages * tile_bytes);
-  float* m_s = p_s + G * kTile;                       // [G] running max
-  float* l_s = m_s + G;                               // [G] running denominator
-  float* a_s = l_s + G;                               // [G] this tile's rescale
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    float* __restrict__ part, int S, int K, int G,
+                    long long sb, long long ss, long long sk, int n_split,
+                    int rows_per_split, float scale) {
+  using L = Lanes<T, HD, GM>;
+  constexpr int E = L::kElems;
+  __shared__ float red_m[kWarps][GM], red_l[kWarps][GM];
+  __shared__ float red_acc[kWarps][GM][HD];
 
+  const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
   const int length = lengths[b];
-  const bool empty = length <= 0;                     // the TPU kernel's quirk
+  const bool empty = length <= 0;            // the TPU kernel's quirk
   const int n_tok = empty ? S : min(length, S);
-  const int n_tiles = (n_tok + kTile - 1) / kTile;
-  const T* kb = k + b * sb + kh * sk;
-  const T* vb = v + b * sb + kh * sk;
+  const int r0 = split * rows_per_split;
+  if (r0 >= n_tok) return;                   // wholly past the row's length
+  const int r1 = min(r0 + rows_per_split, n_tok);
 
-  auto load_tile = [&](int tile) {
-    const int tok0 = tile * kTile;
-    const int nt = min(kTile, n_tok - tok0);
-    unsigned char* kd = k_s + (tile % kStages) * tile_bytes;
-    unsigned char* vd = v_s + (tile % kStages) * tile_bytes;
-    for (int i = tid; i < nt * vec_row; i += kThreads) {
-      const int t = i / vec_row, c = i - t * vec_row;
-      const long long off = (tok0 + t) * ss + c * kVecElems;
-      if (!empty) cp_async16(kd + t * row_bytes + c * 16, kb + off);
-      cp_async16(vd + t * row_bytes + c * 16, vb + off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / L::kGroup, ch = lane % L::kGroup;
+  const bool has_chunk = ch < L::kChunks;
+  // this warp's contiguous share of the split, a multiple of kRows
+  const int per_warp =
+      ((r1 - r0 + kWarps - 1) / kWarps + L::kRows - 1) / L::kRows * L::kRows;
+  const int w0 = r0 + warp * per_warp, w1 = min(w0 + per_warp, r1);
+
+  // this lane's chunk of each query head, in f32
+  float qf[GM][E];
+  const T* qb = q + ((size_t)b * K + kh) * G * HD + ch * E;
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G && has_chunk) {
+      unpack<T, E>(ldg16(qb + g * HD), qf[g]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[g][e] = 0.f;
+    }
+  }
+  // empty rows weigh every row 1: scores 0 and a running max of 0
+  float m[GM], l[GM], acc[GM][E];
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    m[g] = empty ? 0.f : kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+  }
+
+  const T* kb = k + b * sb + kh * sk + ch * E;
+  const T* vb = v + b * sb + kh * sk + ch * E;
+  // slot u of the batch at `row` is cache row row + u * kRows + grp
+  auto load = [&](uint4 (&kc)[L::kUnroll], uint4 (&vc)[L::kUnroll],
+                  int row) {
+#pragma unroll
+    for (int u = 0; u < L::kUnroll; ++u) {
+      const int t = row + u * L::kRows + grp;
+      const bool in = has_chunk && t < w1;
+      kc[u] = (in && !empty) ? ldg16(kb + t * ss) : make_uint4(0, 0, 0, 0);
+      vc[u] = in ? ldg16(vb + t * ss) : make_uint4(0, 0, 0, 0);
     }
   };
-
-  // this lane's slice of the G query rows: elements lane, lane + 32, ...
-  float qr[kMaxG][kQRegs];
-  const T* qb = q + (static_cast<size_t>(b) * K + kh) * G * hd;
+  uint4 kc[L::kUnroll], vc[L::kUnroll];
+  load(kc, vc, w0);
+  for (int row = w0; row < w1; row += L::kStep) {
+    uint4 kn[L::kUnroll], vn[L::kUnroll];
+    if (row + L::kStep < w1) load(kn, vn, row + L::kStep);
+    float kf[L::kUnroll][E], vf[L::kUnroll][E];
+    bool valid[L::kUnroll];
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-#pragma unroll
-    for (int j = 0; j < kQRegs; ++j) {
-      const int d = lane + 32 * j;
-      qr[g][j] = (g < G && d < hd) ? to_f32(qb[g * hd + d]) : 0.f;
+    for (int u = 0; u < L::kUnroll; ++u) {
+      unpack<T, E>(kc[u], kf[u]);
+      unpack<T, E>(vc[u], vf[u]);
+      valid[u] = row + u * L::kRows + grp < w1;
     }
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxAcc];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) acc[j] = 0.f;
-
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        float s[L::kUnroll];
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_tiles) load_tile(s);
-    cp_async_commit();
-  }
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    cp_async_wait<kStages - 2>();   // this thread's copies of `tile` landed
-    // everyone's copies landed, and everyone is done with tile - 1, whose
-    // stage the next prefetch overwrites
-    __syncthreads();
-    if (tile + kStages - 1 < n_tiles) load_tile(tile + kStages - 1);
-    cp_async_commit();
-    const int tok0 = tile * kTile;
-    const int nt = min(kTile, n_tok - tok0);
-    const T* kt = reinterpret_cast<const T*>(k_s + (tile % kStages) * tile_bytes);
-    const T* vt = reinterpret_cast<const T*>(v_s + (tile % kStages) * tile_bytes);
-
-    if (!empty) {
-      // scores: one warp a cache row, lanes across the head dim
-      for (int t = warp; t < nt; t += kWarps) {
-        const T* kr = kt + t * hd;
-        float kv[kQRegs];
+        for (int u = 0; u < L::kUnroll; ++u) {
+          float d = 0.f;
 #pragma unroll
-        for (int j = 0; j < kQRegs; ++j) {
-          const int d = lane + 32 * j;
-          kv[j] = d < hd ? to_f32(kr[d]) : 0.f;
+          for (int e = 0; e < E; ++e) d = fmaf(qf[g][e], kf[u][e], d);
+#pragma unroll
+          for (int o = 1; o < L::kGroup; o <<= 1)
+            d += __shfl_xor_sync(0xffffffffu, d, o);
+          s[u] = empty ? 0.f : d * scale;
         }
+        float mx = m[g];
 #pragma unroll
-        for (int g = 0; g < kMaxG; ++g) {
-          if (g < G) {
-            float s = 0.f;
+        for (int u = 0; u < L::kUnroll; ++u)
+          if (valid[u]) mx = fmaxf(mx, s[u]);
+        const float alpha = expf(m[g] - mx);
+        float sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < kQRegs; ++j) s = fmaf(qr[g][j], kv[j], s);
+        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-              s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (lane == 0) p_s[g * kTile + t] = s * scale;
-          }
+        for (int u = 0; u < L::kUnroll; ++u) {
+          const float p = valid[u] ? expf(s[u] - mx) : 0.f;
+          sum += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
         }
-      }
-      __syncthreads();
-    }
-    // online softmax: one warp a query head, two rows a lane
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * kTile;
-      const int t0 = lane, t1 = lane + 32;
-      if (empty) {             // every score masked: p = 1 on each slot
-        pr[t0] = t0 < nt ? 1.f : 0.f;
-        pr[t1] = t1 < nt ? 1.f : 0.f;
-        if (lane == 0) a_s[g] = 1.f;
-        continue;
-      }
-      const float s0 = t0 < nt ? pr[t0] : kNegInf;
-      const float s1 = t1 < nt ? pr[t1] : kNegInf;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p0 = t0 < nt ? expf(s0 - m_new) : 0.f;
-      const float p1 = t1 < nt ? expf(s1 - m_new) : 0.f;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      pr[t0] = p0;
-      pr[t1] = p1;
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = alpha * l_s[g] + sum;
-        m_s[g] = m_new;
+        l[g] = alpha * l[g] + sum;
+        m[g] = mx;
       }
     }
-    __syncthreads();
-    // weighted values: one thread a (head, dim) pair of the G x hd output
 #pragma unroll
-    for (int j = 0; j < kMaxAcc; ++j) {
-      const int i = tid + j * kThreads;
-      if (i < G * hd) {
-        const int g = i / hd, d = i - g * hd;
-        const float* pr = p_s + g * kTile;
-        float a = acc[j] * a_s[g];
-        for (int t = 0; t < nt; ++t) a = fmaf(pr[t], to_f32(vt[t * hd + d]), a);
-        acc[j] = a;
+    for (int u = 0; u < L::kUnroll; ++u) {
+      kc[u] = kn[u];
+      vc[u] = vn[u];
+    }
+  }
+
+  // merge the groups of this warp (lanes with the same chunk)
+#pragma unroll
+  for (int o = L::kGroup; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mx = fmaxf(m[g], m_o);
+      const float a = expf(m[g] - mx), a_o = expf(m_o - mx);
+      l[g] = a * l[g] + a_o * l_o;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = a * acc[g][e] + a_o * acc_o;
+      }
+      m[g] = mx;
+    }
+  }
+  // ... then the warps, through shared memory
+  if (grp == 0 && has_chunk) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red_acc[warp][g][ch * E + e] = acc[g][e];
+      if (ch == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
       }
     }
   }
-  cp_async_wait<0>();   // only empty groups remain; leave none behind
-
-  T* ob = out + (static_cast<size_t>(b) * K + kh) * G * hd;
+  __syncthreads();
+  float* pb = part + (((size_t)b * K + kh) * n_split + split) * G * (HD + 2);
+  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
+    const int g = i / HD, d = i - g * HD;
+    float mx = red_m[0][g];
 #pragma unroll
-  for (int j = 0; j < kMaxAcc; ++j) {
-    const int i = tid + j * kThreads;
-    if (i < G * hd) {
-      const float denom = empty ? static_cast<float>(Sp)
-                                : fmaxf(l_s[i / hd], 1e-30f);
-      ob[i] = from_f32<T>(acc[j] / denom);
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(red_m[w][g] - mx);
+      a = fmaf(wt, red_acc[w][g][d], a);
+      lsum = fmaf(wt, red_l[w][g], lsum);
+    }
+    float* row = pb + g * (HD + 2);
+    row[d] = a;
+    if (d == 0) {
+      row[HD] = mx;
+      row[HD + 1] = lsum;
     }
   }
 }
 
-size_t smem_bytes(int G, int hd, size_t itemsize) {
-  return 2 * kStages * kTile * hd * itemsize +
-         sizeof(float) * (static_cast<size_t>(G) * kTile + 3 * G);
+// Merge the live splits of each (request, KV head): out = sum_s acc_s
+// e^{m_s - M} / max(sum_s l_s e^{m_s - M}, 1e-30), M = max_s m_s; a
+// length-0 row (every split's m = 0) gives sum_s acc_s / Sp instead.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_merge_kernel(const float* __restrict__ part,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    int S, int K, int G, int hd, int n_split,
+                    int rows_per_split, int Sp) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int length = lengths[b];
+  const bool empty = length <= 0;
+  const int n_tok = empty ? S : min(length, S);
+  const int n_live = (n_tok + rows_per_split - 1) / rows_per_split;
+  const float* pb = part + ((size_t)b * K + kh) * n_split * G * (hd + 2);
+  T* ob = out + ((size_t)b * K + kh) * G * hd;
+  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
+    const int g = i / hd, d = i - g * hd;
+    const float* p = pb + g * (hd + 2);
+    const size_t split_stride = (size_t)G * (hd + 2);
+    float r;
+    if (empty) {
+      float a = 0.f;
+      for (int s = 0; s < n_live; ++s) a += p[s * split_stride + d];
+      r = a / static_cast<float>(Sp);
+    } else {
+      float mx = kNegInf;
+      for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, p[s * split_stride + hd]);
+      float a = 0.f, lsum = 0.f;
+      for (int s = 0; s < n_live; ++s) {
+        const float* ps = p + s * split_stride;
+        const float wt = expf(ps[hd] - mx);
+        a = fmaf(wt, ps[d], a);
+        lsum = fmaf(wt, ps[hd + 1], lsum);
+      }
+      r = a / fmaxf(lsum, 1e-30f);
+    }
+    ob[i] = from_f32<T>(r);
+  }
+}
+
+template <typename T, int HD, int GM>
+cudaError_t launch_split(const void* q, const void* k, const void* v,
+                         const void* lengths, float* part, int B, int S,
+                         int K, int G, long long sb, long long ss,
+                         long long sk, int n_split, int rows_per_split,
+                         cudaStream_t stream) {
+  decode_split_kernel<T, HD, GM><<<dim3(B, K, n_split), kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(lengths), part, S, K,
+      G, sb, ss, sk, n_split, rows_per_split,
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t dispatch_g(const void* q, const void* k, const void* v,
+                       const void* lengths, float* part, int B, int S, int K,
+                       int G, long long sb, long long ss, long long sk,
+                       int n_split, int rows_per_split, cudaStream_t s) {
+  if (G <= 1)
+    return launch_split<T, HD, 1>(q, k, v, lengths, part, B, S, K, G, sb, ss,
+                                  sk, n_split, rows_per_split, s);
+  if (G <= 2)
+    return launch_split<T, HD, 2>(q, k, v, lengths, part, B, S, K, G, sb, ss,
+                                  sk, n_split, rows_per_split, s);
+  if (G <= 4)
+    return launch_split<T, HD, 4>(q, k, v, lengths, part, B, S, K, G, sb, ss,
+                                  sk, n_split, rows_per_split, s);
+  return launch_split<T, HD, 8>(q, k, v, lengths, part, B, S, K, G, sb, ss,
+                                sk, n_split, rows_per_split, s);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* lengths, void* out, int B, int S, int K, int G,
-                   int hd, long long sb, long long ss, long long sk, int Sp,
-                   cudaStream_t stream) {
-  if ((hd * sizeof(T)) % 16) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(G, hd, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                   const void* lengths, void* out, float* part, int B, int S,
+                   int K, int G, int hd, long long sb, long long ss,
+                   long long sk, int Sp, int n_split, int rows_per_split,
+                   cudaStream_t s) {
+  cudaError_t err;
+  switch (hd) {
+    case 64:
+      err = dispatch_g<T, 64>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
+                              n_split, rows_per_split, s);
+      break;
+    case 80:
+      err = dispatch_g<T, 80>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
+                              n_split, rows_per_split, s);
+      break;
+    case 96:
+      err = dispatch_g<T, 96>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
+                              n_split, rows_per_split, s);
+      break;
+    case 128:
+      err = dispatch_g<T, 128>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
+                               n_split, rows_per_split, s);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return err;
-  decode_kernel<T><<<dim3(B, K), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), S, K, G, hd, sb, ss, sk, Sp,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd))));
+  decode_merge_kernel<T><<<dim3(B, K), kThreads, 0, s>>>(
+      part, static_cast<const int*>(lengths), static_cast<T*>(out), S, K, G,
+      hd, n_split, rows_per_split, Sp);
   return cudaGetLastError();
 }
 
@@ -272,22 +383,29 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. sb/ss/sk are K's and V's element
 // strides over batch, sequence and KV head. Sp is the TPU kernel's padded
-// length, used only by length-0 rows. Returns a cudaError_t (0 = success).
+// length, used only by length-0 rows. part is the f32 scratch
+// [B, K, n_split, G, hd + 2]; n_split * rows_per_split must cover S.
+// Returns a cudaError_t (0 = success).
 int decode_attention(const void* q, const void* k, const void* v,
-                     const void* lengths, void* out, int B, int S, int K,
-                     int G, int hd, long long sb, long long ss, long long sk,
-                     int Sp, int dtype, void* stream) {
+                     const void* lengths, void* out, void* part, int B, int S,
+                     int K, int G, int hd, long long sb, long long ss,
+                     long long sk, int Sp, int n_split, int rows_per_split,
+                     int dtype, void* stream) {
   if (B <= 0 || K <= 0) return cudaSuccess;
-  if (S <= 0 || Sp < S || G < 1 || G > kMaxG || hd <= 0 || hd > kMaxHd)
+  if (S <= 0 || Sp < S || G < 1 || G > kMaxG || hd <= 0 || hd > kMaxHd ||
+      n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
+      (long long)n_split * rows_per_split < S)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, lengths, out, B, S, K, G, hd, sb, ss, sk,
-                           Sp, s);
+      return launch<float>(q, k, v, lengths, out, p, B, S, K, G, hd, sb, ss,
+                           sk, Sp, n_split, rows_per_split, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, lengths, out, B, S, K, G, hd, sb,
-                                   ss, sk, Sp, s);
+      return launch<__nv_bfloat16>(q, k, v, lengths, out, p, B, S, K, G, hd,
+                                   sb, ss, sk, Sp, n_split, rows_per_split,
+                                   s);
     default:
       return cudaErrorInvalidValue;
   }

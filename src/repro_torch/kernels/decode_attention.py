@@ -14,11 +14,19 @@ A length-0 row gives what the TPU kernel gives, ``sum_{j<S} V[j] / Sp``
 with ``Sp = ceil(S/bs)*bs`` and ``bs = min(block_s, S)`` (it never skips a
 tile, so every padded slot of a fully masked row weighs 1); ``block_s``
 matters for nothing else.
+
+The kernel splits the sequence (flash-decoding): :func:`split_plan` picks
+the number of splits from the shapes alone, each split writes its
+unnormalised ``(acc, m, l)`` to an f32 scratch, and a second kernel merges
+them. :func:`split_partials_torch` and :func:`merge_partials_torch` are
+that arithmetic in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +38,37 @@ NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 80, 96, 128)
 MAX_GROUP = 8
+# the split plan: enough (request, KV head, split) blocks to fill the
+# H100's 132 SMs four deep, each split at least SPLIT_MIN_ROWS rows, in
+# multiples of SPLIT_QUANTUM
+SPLIT_TARGET_BLOCKS = 4 * 132
+SPLIT_MIN_ROWS = 256
+SPLIT_QUANTUM = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the kernel splits each row's sequence: ``n_split`` splits of
+    ``rows_per_split`` rows (the last one shorter), and the f32 scratch
+    ``[B, K, n_split, G, hd + 2]`` of their ``(acc[hd], m, l)``."""
+    n_split: int
+    rows_per_split: int
+    scratch_shape: Tuple[int, int, int, int, int]
+
+
+def split_plan(B: int, S: int, K: int, G: int, hd: int) -> SplitPlan:
+    """The split of an ``S``-row cache, from the shapes alone (the lengths
+    stay on the device): enough splits that ``B*K*n_split`` blocks fill the
+    card, none shorter than ``SPLIT_MIN_ROWS`` unless ``S`` is."""
+    if min(B, S, K, G, hd) < 1:
+        raise ValueError(f"no split plan for B={B} S={S} K={K} G={G} "
+                         f"hd={hd}")
+    want = -(-SPLIT_TARGET_BLOCKS // (B * K))
+    n = max(1, min(want, S // SPLIT_MIN_ROWS))
+    rows = -(-S // n)
+    rows = -(-rows // SPLIT_QUANTUM) * SPLIT_QUANTUM
+    n = -(-S // rows)
+    return SplitPlan(n, rows, (B, K, n, G, hd + 2))
 
 
 def gqa_decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
@@ -67,12 +106,76 @@ def gqa_decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def _live_rows(lengths: torch.Tensor, S: int) -> torch.Tensor:
+    """Rows each request reads: its length capped at S, or all S rows for
+    a length-0 row (the TPU kernel's quirk)."""
+    lens = lengths.long().clamp(max=S)
+    return torch.where(lens <= 0, torch.full_like(lens, S), lens)
+
+
+def split_partials_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor,
+                         plan: SplitPlan) -> torch.Tensor:
+    """What the split kernel writes, split by split: for each (request,
+    KV head, split, head) the unnormalised ``acc`` over the split's rows
+    and its ``m`` and ``l``, as ``[..., hd + 2]`` f32. A length-0 row's
+    splits weigh every row 1 (``m = 0``, ``l`` = rows, ``acc`` = the sum
+    of V). A split wholly past a row's length is not written: NaN here."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    n_tok = _live_rows(lengths, S)
+    empty = lengths.long() <= 0
+    qg = q.reshape(B, K, G, hd).float()
+    part = torch.full(plan.scratch_shape, float("nan"))
+    for b in range(B):
+        for s in range(plan.n_split):
+            r0 = s * plan.rows_per_split
+            r1 = min(r0 + plan.rows_per_split, int(n_tok[b]))
+            if r0 >= r1:
+                continue
+            kc, vc = k[b, r0:r1].float(), v[b, r0:r1].float()  # [n, K, hd]
+            if bool(empty[b]):
+                m = torch.zeros((K, G))
+                p = torch.ones((K, G, r1 - r0))
+            else:
+                sc = torch.einsum("kgh,nkh->kgn", qg[b], kc) * hd ** -0.5
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[..., None])
+            part[b, :, s, :, :hd] = torch.einsum("kgn,nkh->kgh", p, vc)
+            part[b, :, s, :, hd] = m
+            part[b, :, s, :, hd + 1] = p.sum(-1)
+    return part
+
+
+def merge_partials_torch(part: torch.Tensor, lengths: torch.Tensor, S: int,
+                         Sp: int, plan: SplitPlan) -> torch.Tensor:
+    """The merge kernel's formula over the live splits of each row:
+    ``sum_s acc_s e^{m_s - M} / max(sum_s l_s e^{m_s - M}, 1e-30)`` with
+    ``M = max_s m_s``, and ``sum_s acc_s / Sp`` for a length-0 row. Splits
+    past a row's length are never read. Returns ``[B, H, hd]`` f32."""
+    B, K, n, G, hd2 = part.shape
+    hd = hd2 - 2
+    n_tok = _live_rows(lengths, S)
+    live = (torch.arange(n)[None, :] * plan.rows_per_split
+            < n_tok[:, None])[:, None, :, None]          # [B, 1, n, 1]
+    acc = torch.where(live[..., None], part[..., :hd], 0.0)
+    m = torch.where(live, part[..., hd], float("-inf"))
+    l = torch.where(live, part[..., hd + 1], 0.0)
+    wt = torch.where(live, torch.exp(m - m.amax(2, keepdim=True)), 0.0)
+    out = (acc * wt[..., None]).sum(2) / (l * wt).sum(2).clamp_min(
+        1e-30)[..., None]
+    empty = (lengths.long() <= 0)[:, None, None, None]
+    out = torch.where(empty, acc.sum(2) / Sp, out)
+    return out.reshape(B, K * G, hd)
+
+
 @functools.cache
 def _entry():
     lib = _build.library(NAME)
     fn = getattr(lib, NAME)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -131,16 +234,20 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    plan = split_plan(B, S, K, H // K, hd)
+    part = torch.empty(plan.scratch_shape, dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), B, S, K, H // K,
-                      hd, *k.stride()[:3], -(-S // bs) * bs,
-                      _DTYPES[q.dtype],
+                      lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                      B, S, K, H // K, hd, *k.stride()[:3], -(-S // bs) * bs,
+                      plan.n_split, plan.rows_per_split, _DTYPES[q.dtype],
                       torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
     gqa_decode_attention.launches += 1
     return out
 
 
-# kernel launches since the last reset (counted only where the kernel runs)
+# kernel launches since the last reset (counted only where the kernel runs;
+# one a call, the split kernel and its merge together)
 gqa_decode_attention.launches = 0

@@ -11,6 +11,11 @@ Layout: ``q [B,Sq,H,hd]``; ``k/v [B,Skv,K,hd]`` (contiguous) ->
 ``[B,Sq,H,hd]`` in ``q.dtype``. ``block_q``/``block_s`` are the plain
 version's tiles (the reference's defaults); the kernel tiles by its own
 64x64.
+
+The kernel has two bodies, picked by dtype (:func:`kernel_body`):
+bfloat16 runs on the tensor cores (``wgmma``, head dims padded to 64 or
+128 in shared memory), float32 on the CUDA cores (tensor cores would
+round it to TF32). Neither falls back to the other.
 """
 from __future__ import annotations
 
@@ -24,8 +29,22 @@ from repro_torch.kernels import _build
 
 NAME = "flash_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
+# each dtype's body, and the code the C entry point takes for it
+_BODIES = {torch.float32: "cuda_core_f32", torch.bfloat16: "wgmma_bf16"}
+_BODY_CODES = {"cuda_core_f32": 0, "wgmma_bf16": 1}
+
+
+def kernel_body(dtype: torch.dtype, hd: int) -> str:
+    """The kernel body a CUDA call of this dtype and head dim launches:
+    bfloat16 on the tensor cores (hd padded to 64 or 128 in shared
+    memory), float32 on the CUDA cores."""
+    if dtype not in _BODIES:
+        raise TypeError(f"dtypes must be one of float32/bfloat16, got "
+                        f"{dtype}")
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    return _BODIES[dtype]
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -98,7 +117,7 @@ def _check_args(q, k, v):
                          f"do not match")
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {KERNEL_HEAD_DIMS}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _BODIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes must be one of float32/bfloat16 and equal, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -128,7 +147,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, Sq, Skv, H, K, hd, int(causal),
-                      window or 0, _DTYPES[q.dtype],
+                      window or 0, _BODY_CODES[kernel_body(q.dtype, hd)],
                       torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
     flash_attention.launches += 1

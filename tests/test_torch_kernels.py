@@ -3,6 +3,7 @@ PyTorch version against the JAX Pallas kernel (interpret mode) and the
 naive oracles of both packages, on the same numpy inputs. The CUDA
 kernels themselves run only on the card (``chip_smoke.py``)."""
 import itertools
+import shutil
 
 import pytest
 
@@ -19,10 +20,13 @@ from repro.kernels.paged_decode_attention import (  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    SPLIT_MIN_ROWS, SPLIT_QUANTUM, SPLIT_TARGET_BLOCKS,
     _check_args as decode_check_args, gqa_decode_attention,
-    gqa_decode_attention_torch)
+    gqa_decode_attention_torch, merge_partials_torch, split_partials_torch,
+    split_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_torch)
+    KERNEL_HEAD_DIMS, _check_args as flash_check_args, flash_attention,
+    flash_attention_torch, kernel_body)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
 
@@ -288,10 +292,104 @@ def test_flash_rejects_empty_window():
         flash_attention(q, q, q, window=0)
 
 
-def test_build_paths_need_no_compiler_to_compute():
-    """Library names hash the source and flags; nothing is built here."""
+def test_build_paths_need_no_compiler_to_compute(tmp_path):
+    """Library names hash the source, the shared headers and the flags;
+    nothing is built here. An edited header gives every source a new
+    path, so no stale library is loaded."""
     for name in _build.SOURCES:
         p = _build.library_path(name)
         assert (_build.CSRC / f"{name}.cu").exists()
         assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
         assert name in p.name
+    headers = sorted(_build.CSRC.glob("*.cuh"))
+    assert [h.name for h in headers] == ["common.cuh"]
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    before = {n: _build.library_path(n, copy) for n in _build.SOURCES}
+    assert before == {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(copy / "common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.library_path(n, copy) for n in _build.SOURCES}
+    assert all(after[n] != before[n] for n in _build.SOURCES)
+
+
+@pytest.mark.parametrize("B,S,K,G,hd", [
+    (16, 704, 32, 1, 64),      # the gather serve's shape
+    (1, 8192, 32, 1, 64),      # one long request
+    (32, 192, 32, 1, 64),      # the static batch
+    (1, 300, 1, 4, 64), (2, 4096, 2, 7, 80), (5, 1, 8, 1, 128),
+    (1, 64, 1, 8, 96), (3, 100, 4, 2, 64),
+])
+def test_decode_split_plan_covers_the_cache(B, S, K, G, hd):
+    """The split plan is a function of the shapes alone: its splits cover
+    S with none empty, each a multiple of the quantum, none shorter than
+    the minimum unless S is, and no more of them than the card needs."""
+    plan = split_plan(B, S, K, G, hd)
+    n, rows = plan.n_split, plan.rows_per_split
+    assert plan.scratch_shape == (B, K, n, G, hd + 2)
+    assert n >= 1 and rows % SPLIT_QUANTUM == 0
+    assert (n - 1) * rows < S <= n * rows
+    assert rows >= min(SPLIT_MIN_ROWS, S)
+    assert n == 1 or B * K * (n - 1) < SPLIT_TARGET_BLOCKS
+    assert plan == split_plan(B, S, K, G, hd)
+
+
+def test_decode_split_plan_refuses_empty_shapes():
+    with pytest.raises(ValueError, match="split plan"):
+        split_plan(1, 0, 1, 1, 64)
+
+
+def _lengths_case(S, rows, which):
+    return {"zero": 0, "one": 1, "mid_split": rows + rows // 2 + 1,
+            "full": S, "past": S + 9}[which]
+
+
+@pytest.mark.parametrize("S", [600, 1000, 2048])
+@pytest.mark.parametrize("which", ["zero", "one", "mid_split", "full",
+                                   "past"])
+@pytest.mark.parametrize("bs", [32, 256])
+def test_decode_merge_of_split_partials_equals_the_plain_version(S, which,
+                                                                 bs):
+    """The split kernel's partials, computed split by split on the CPU,
+    and the merge kernel's formula give the plain version's result: the
+    empty splits and the length-0 row's sum(V)/Sp included."""
+    B, K, G, hd = 2, 1, 4, 64
+    plan = split_plan(B, S, K, G, hd)
+    assert plan.n_split > 1
+    length = min(_lengths_case(S, plan.rows_per_split, which), S + 9)
+    _, (qt, kt, vt), _ = _decode_inputs(B, S, K, G, hd, np.float32,
+                                        seed=S + bs)
+    lengths = torch.tensor([length, S], dtype=torch.int32)
+    part = split_partials_torch(qt, kt, vt, lengths, plan)
+    live = -(-min(max(length, 0) or S, S) // plan.rows_per_split)
+    assert bool(torch.isnan(part[0, :, live:]).all())   # never written
+    Sp = -(-S // min(bs, S)) * min(bs, S)
+    out = merge_partials_torch(part, lengths, S, Sp, plan)
+    if length <= S:
+        ref = gqa_decode_attention_torch(qt, kt, vt, lengths, block_s=bs)
+    else:   # lengths past S are taken as S
+        ref = gqa_decode_attention_torch(
+            qt, kt, vt, lengths.clamp(max=S), block_s=bs)
+    _close(out, ref.numpy(), np.float32)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("hd", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dispatch_takes_every_shape_it_took_before(hd, dtype):
+    """Every head dim and dtype the kernel took before still has a body:
+    bf16 the tensor-core one, f32 the CUDA-core one, and the argument
+    checks pass."""
+    assert kernel_body(dtype, hd) == ("wgmma_bf16" if dtype == torch.bfloat16
+                                      else "cuda_core_f32")
+    q = torch.zeros(2, 70, 8, hd, dtype=dtype)
+    k = torch.zeros(2, 90, 2, hd, dtype=dtype)
+    flash_check_args(q, k, k)
+
+
+@pytest.mark.parametrize("dtype,hd,error", [
+    (torch.float16, 64, TypeError), (torch.bfloat16, 48, ValueError),
+    (torch.float32, 256, ValueError)])
+def test_flash_dispatch_refuses_what_no_body_takes(dtype, hd, error):
+    with pytest.raises(error):
+        kernel_body(dtype, hd)
