@@ -14,7 +14,10 @@ It imports nothing of JAX or of the JAX package. Phases:
 1. print the card (``nvidia-smi``) and turn TF32 off for the comparisons;
 2. each kernel against its plain version on the card: a paged-decode
    sweep over G, hd, block size and dtype (permuted placement, trash
-   entries past each allocation, length-0 rows, full tables); the flash
+   entries past each allocation, length-0 rows, full tables) and wide
+   tables cut into several splits (lengths 0, 1, mid-block, on a split
+   boundary, full and past the table; entries past each row's bound out
+   of the pool, so that a read of one faults); the flash
    kernel's single-tile case on its own line, the reference's flash
    cases and a bf16 grid over head dims, head groups, masks and sequence
    shapes; the contiguous-decode grid of the reference's tests (plus
@@ -40,16 +43,20 @@ It imports nothing of JAX or of the JAX package. Phases:
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
    the least time the card could take (flash at every serve bucket, with
-   TFLOP/s; contiguous decode at the gather shape, at one 8192-token
-   request and at the static batch's shape), and
-   one whole gather decode step against one paged step at batch 16 (with
-   the gather copy's share);
+   TFLOP/s; paged decode at the serving shape and at one 8000-token
+   request through a 512-block table; contiguous decode at the gather
+   shape, at one 8192-token request and at the static batch's shape); the
+   decode kernels and their library calls twice, L2-cold (back-to-back
+   calls on 24 copies of their inputs in turn, as a step's 24 layers) and
+   L2-warm (one copy); and one whole gather decode step against one paged
+   step at batch 16 (with the gather copy's share);
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
    line. Any failure raises: the script then exits non-zero and prints
    no ``ok`` line. Without a CUDA device it exits 1 at once.
 """
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import statistics
@@ -65,22 +72,25 @@ HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
 BF16_FLOP_S = 989e12         # H100 SXM dense bf16 tensor rate (data sheet)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's kernel tolerances
 RTOL = 1e-2
+ROW_ATOL = 1e-2              # paged multi-split atol: of a row's largest |out|
 MODEL_TOL = 1e-3             # float32 logits, kernels vs plain, full width
 MODEL = "opt-1.3b"           # the served configuration, full width
 
 
-def close(a, b, what):
+def close(a, b, what, atol=None):
     """Max abs error of ``a`` against ``b``; raises past atol + rtol*|b|
-    (the reference tests' assert_allclose rule, atol by dtype)."""
+    (the reference tests' assert_allclose rule; atol by dtype unless
+    given, as a number or a tensor broadcast against ``b``)."""
     import torch
-    atol = TOL[str(b.dtype).replace("torch.", "")]
+    if atol is None:
+        atol = TOL[str(b.dtype).replace("torch.", "")]
     af, bf = a.float(), b.float()
     err = (af - bf).abs()
     if not bool(torch.isfinite(af).all()):
         raise AssertionError(f"{what}: non-finite output")
     if bool((err > atol + RTOL * bf.abs()).any()):
         raise AssertionError(f"{what}: max abs err {err.max().item():.3e} "
-                             f"over atol {atol}")
+                             f"past atol + {RTOL} x |reference|")
     return err.max().item()
 
 
@@ -156,6 +166,24 @@ def timed(fn, runs=20):
     return device_ms(fn, runs=runs), time_ms(fn, runs=runs)
 
 
+LAYERS = 24                  # OPT-1.3B: a decode step calls each kernel 24x
+
+
+def copies(tensors, n=LAYERS):
+    """``n`` copies of each tensor in ``tensors``, made on the device."""
+    return [[t.clone() for t in tensors] for _ in range(n)]
+
+
+def l2_cold_ms(fn, inputs):
+    """Mean device time of one call ``fn(*inputs[i])``, the calls back to
+    back as in :func:`device_ms` but each on the next of ``inputs`` in
+    turn, as a decode step calls a kernel on its 24 layers: with 24
+    copies of tens of MB, a call finds none of its inputs in the 50 MB
+    L2 (the single-buffer figure of :func:`device_ms` is L2-warm)."""
+    turn = itertools.cycle(inputs)
+    return device_ms(lambda: fn(*next(turn)), runs=len(inputs))
+
+
 def bound(nbytes, flops, flop_rate=BF16_FLOP_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the peak rate for their type."""
@@ -170,7 +198,7 @@ def paged_inputs(B, K, G, hd, BS, nb, dtype, lengths, seed, device="cuda"):
     table entries past a row's allocation name the trash block (last)."""
     import torch
     gen = torch.Generator().manual_seed(seed)
-    need = [max(0, -(-int(n) // BS)) for n in lengths]
+    need = [min(max(0, -(-int(n) // BS)), nb) for n in lengths]
     NB = sum(need) + 8 + 1
     perm = torch.randperm(NB - 1, generator=gen)
     table = torch.full((B, nb), NB - 1, dtype=torch.int32)
@@ -300,7 +328,8 @@ def phase_build():
 def phase_kernels(errs):
     import torch
     from repro_torch.kernels.paged_decode_attention import (
-        paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
+        paged_gqa_decode_attention, paged_gqa_decode_attention_torch,
+        paged_split_plan)
     n = 0
     for G in (1, 2, 4, 7, 8):
         for hd in (64, 80, 96, 128):
@@ -322,15 +351,96 @@ def phase_kernels(errs):
     print(f"[kernels] paged decode: {n} sweep cases within tolerance "
           f"(f32 {TOL['float32']}, bf16 {TOL['bfloat16']}, rtol {RTOL}); "
           f"max abs err {errs['paged']['sweep']:.3e}")
+    phase_paged_splits(errs)
     args = serve_decode_inputs()
     e = close(paged_gqa_decode_attention(*args),
               paged_gqa_decode_attention_torch(*args), "paged serving shape")
     errs["paged"]["serving_shape"] = e
+    plan = paged_split_plan(16, args[3].shape[1], 16, 32, 1, 64)
     print(f"[kernels] paged decode at the serving shape (B=16, K=32, G=1, "
-          f"hd=64, BS=16, bf16): max abs err {e:.3e}")
+          f"hd=64, BS=16, bf16, {plan.n_split} splits of "
+          f"{plan.rows_per_split}): max abs err {e:.3e}")
 
     phase_flash_kernel(errs)
     phase_decode_kernel(errs)
+
+
+def phase_paged_splits(errs):
+    """The paged kernel over wide tables that its plan cuts into several
+    splits, every (G, hd) at both dtypes and both block sizes: rows of
+    length 0, 1, ending mid-block, ending on a split boundary, filling the
+    table and past it; then batches of 32 with one split a row, where a
+    warp's share spans more than the 32 table entries it holds and its
+    window moves. Table entries past each row's bound name an id out of
+    the pool for the kernel (a read would fault) and the trash block for
+    the plain version. Each request's atol is cut to ``ROW_ATOL`` of its
+    own largest output where that is tighter than the dtype's: rows over
+    thousands of tokens average their values down to about 1e-2, below
+    bf16's 3e-2, which would then pass a dropped split."""
+    import itertools
+    import torch
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_gqa_decode_attention, paged_gqa_decode_attention_torch,
+        paged_split_plan)
+
+    def check(B, K, G, hd, BS, nb, dtype, lengths, seed, what):
+        plan = paged_split_plan(B, nb, BS, K, G, hd)
+        what = (f"{what} G={G} hd={hd} BS={BS} nb={nb} {dtype} lengths="
+                f"{lengths[:4]}{'...' if B > 4 else ''} ({plan.n_split} "
+                f"splits of {plan.rows_per_split})")
+        args = paged_inputs(B, K, G, hd, BS, nb, dtype, lengths, seed=seed)
+        q, kp, vp, table, lens = args
+        past = torch.where(table == kp.shape[0] - 1, 2 ** 30, table)
+        out = paged_gqa_decode_attention(q, kp, vp, past, lens)
+        ref = paged_gqa_decode_attention_torch(*args)
+        torch.cuda.synchronize()
+        for b, length in enumerate(lengths):
+            if length == 0 and not bool((out[b] == 0).all()):
+                raise AssertionError(f"{what}: length-0 row is not zero")
+        atol = (ROW_ATOL * ref.float().flatten(1).abs().amax(1)).clamp(
+            max=TOL[str(dtype).replace("torch.", "")])
+        return plan, close(out, ref, what, atol.view(-1, 1, 1))
+
+    e_split, n, K = 0.0, 0, 2
+    for i, (G, hd, BS, dtype) in enumerate(itertools.product(
+            (1, 2, 4, 7, 8), (64, 80, 96, 128), (16, 32),
+            (torch.float32, torch.bfloat16))):
+        nb = (256, 512)[i // 4 % 2]
+        S = nb * BS
+        rows = paged_split_plan(2, nb, BS, K, G, hd).rows_per_split
+        for lengths in ([0, S], [1, rows + BS // 2 + 1], [rows, 2 * rows],
+                        [S + 7]):
+            plan, e = check(len(lengths), K, G, hd, BS, nb, dtype, lengths,
+                            1000 + n, "paged split")
+            if plan.n_split < 2:
+                raise AssertionError(f"paged nb={nb} BS={BS}: one split")
+            e_split = max(e_split, e)
+            n += 1
+    # B*K >= 528: one split of the whole table; a warp's share of a long
+    # row is a quarter of it, past 32 blocks
+    B, K, BS, nb, n_win = 32, 32, 16, 512, 0
+    S = nb * BS
+    for hd, dtype in itertools.product((64, 128),
+                                       (torch.float32, torch.bfloat16)):
+        lengths = [S, S - 7, S // 2 + 9, 2100] + [
+            (37 * j * j + 11 * j) % 700 for j in range(B - 4)]
+        plan, e = check(B, K, 1, hd, BS, nb, dtype, lengths, 2000 + n_win,
+                        "paged window")
+        if min(plan.rows_per_split, S) // 4 <= 32 * BS:
+            raise AssertionError(f"paged window B={B} K={K}: a warp's "
+                                 f"share spans at most 32 blocks")
+        e_split = max(e_split, e)
+        n_win += 1
+    errs["paged"]["multi_split"] = e_split
+    print(f"[kernels] paged decode: {n} multi-split cases (B 1/2, K 2, G "
+          f"1/2/4/7/8 x hd 64/80/96/128 x BS 16/32 x f32/bf16, table width "
+          f"256/512; lengths 0, 1, mid-block, a split boundary, the full "
+          f"table and past it) and {n_win} window cases (B {B}, K {K}, G 1, "
+          f"hd 64/128, f32/bf16, BS {BS}, table width {nb}, one split, "
+          f"rows up to {S} tokens: a warp's table window moves) within "
+          f"tolerance, each request's atol min(dtype's, {ROW_ATOL} x its "
+          f"largest output); entries past each bound out of the pool, "
+          f"length-0 rows exactly 0; max abs err {e_split:.3e}")
 
 
 def phase_flash_kernel(errs):
@@ -825,7 +935,9 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
 
 
 def kernel_kind(name):
-    if "paged_decode_kernel" in name:
+    # the paged kernels' symbols (paged_decode_split_kernel,
+    # paged_decode_merge_kernel) hold the contiguous ones' names: test first
+    if "paged_decode_" in name:
         return "paged attention kernel"
     if "decode_split_kernel" in name or "decode_merge_kernel" in name:
         return "contiguous decode attention kernel"
@@ -893,45 +1005,13 @@ def phase_times(card, prefill_sizes, serve_reqs):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch)
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
     times = {}
-    q, kp, vp, table, lens = serve_decode_inputs()
-    B, H, hd = q.shape
-    K = kp.shape[2]
-    tokens = int(lens.sum())
-    isz = q.element_size()
-    nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
-              + table.numel() * 4 + lens.numel() * 4)
-    b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
-    k_ms, k_call = timed(lambda: paged_gqa_decode_attention(q, kp, vp, table,
-                                                           lens))
-    # a plain version issues hundreds of launches a call, more than the
-    # launch queue holds behind a sleep: one call end to end
-    p_ms = time_ms(lambda: paged_gqa_decode_attention_torch(
-        q, kp, vp, table, lens), runs=10)
-    # yardstick: SDPA on the gathered contiguous cache (gather excluded)
-    S = table.shape[1] * kp.shape[1]
-    kc = kp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
-    vc = vp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask))
-    times["paged_decode_attention"] = dict(
-        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-        call_ms=k_call, library_call_ms=l_call,
-        shape=f"B={B} H=K={K} hd={hd} BS=16 bf16, {tokens} context tokens, "
-              f"table width {table.shape[1]}",
-        library_call="scaled_dot_product_attention on the gathered "
-                     "contiguous cache with a length mask (gather excluded)")
-    print(f"[times] on {card}: paged decode at {times['paged_decode_attention']['shape']}: "
-          f"device time: kernel {k_ms * 1e3:.1f} us, SDPA yardstick "
-          f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}); "
-          f"{nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s achieved; one call end "
-          f"to end (CUDA events): kernel {k_call * 1e3:.1f} us, SDPA "
-          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
+    long_request = paged_inputs(1, 32, 1, 64, 16, 512, torch.bfloat16,
+                                [8000], seed=11)
+    paged = [time_paged(card, what, *args) for what, args in (
+        ("the paged serve's shape", serve_decode_inputs()),
+        ("one long request through a wide table", long_request))]
+    times["paged_decode_attention"] = dict(paged[0], other_shapes=paged[1:])
 
     shapes = [("the gather serve's shape", gather_decode_inputs()),
               ("one long request", decode_inputs(
@@ -981,6 +1061,69 @@ def phase_times(card, prefill_sizes, serve_reqs):
     return times
 
 
+def time_paged(card, what, q, kp, vp, table, lens):
+    """The paged decode kernel and its plain version at one shape, with
+    SDPA on the gathered contiguous cache as a yardstick (not the same
+    function: the gather is left out), beside the bytes bound; prints one
+    line and returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_gqa_decode_attention, paged_gqa_decode_attention_torch,
+        paged_split_plan)
+    B, H, hd = q.shape
+    _, BS, K, _ = kp.shape
+    nb = table.shape[1]
+    tokens = int(lens.sum())
+    isz = q.element_size()
+    nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
+              + table.numel() * 4 + lens.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
+    k_warm, k_call = timed(lambda: paged_gqa_decode_attention(
+        q, kp, vp, table, lens))
+    pools = copies((kp, vp))
+    k_ms = l2_cold_ms(lambda kp_l, vp_l: paged_gqa_decode_attention(
+        q, kp_l, vp_l, table, lens), pools)
+    del pools
+    # a plain version issues hundreds of launches a call, more than the
+    # launch queue holds behind a sleep: one call end to end
+    p_ms = time_ms(lambda: paged_gqa_decode_attention_torch(
+        q, kp, vp, table, lens), runs=10)
+    S = nb * BS
+    kc = kp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
+    vc = vp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+    sdpa = lambda kc_l, vc_l: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc_l, vc_l, attn_mask=mask)
+    l_warm, l_call = timed(lambda: sdpa(kc, vc))
+    caches = copies((kc, vc))
+    l_ms = l2_cold_ms(sdpa, caches)
+    del caches, kc, vc
+    torch.cuda.empty_cache()
+    plan = paged_split_plan(B, nb, BS, K, H // K, hd)
+    row = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        call_ms=k_call, library_call_ms=l_call, ms_l2_warm=k_warm,
+        library_ms_l2_warm=l_warm, gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+        n_split=plan.n_split,
+        shape=f"B={B} H=K={K} hd={hd} BS={BS} bf16, {tokens} context "
+              f"tokens, table width {nb} ({what})",
+        library_call="scaled_dot_product_attention on the gathered "
+                     "contiguous cache with a length mask (gather excluded)")
+    print(f"[times] on {card}: paged decode at {row['shape']}, "
+          f"{plan.n_split} splits of {plan.rows_per_split} rows: device "
+          f"time, L2-cold ({LAYERS} pools in turn): kernel "
+          f"{k_ms * 1e3:.1f} us, SDPA yardstick {l_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}), {row['gb_s']:.0f} GB/s achieved; "
+          f"L2-warm (one pool): kernel {k_warm * 1e3:.1f} us, SDPA "
+          f"{l_warm * 1e3:.1f} us; one call end to end (CUDA events): kernel "
+          f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us")
+    return row
+
+
 def time_decode(card, what, q, k, v, lens):
     """The contiguous decode kernel, its plain version and SDPA for the
     same function at one shape, beside the bytes bound; prints one line
@@ -996,7 +1139,11 @@ def time_decode(card, what, q, k, v, lens):
     nbytes = (2 * tokens * K * hd * isz + 2 * q.numel() * isz
               + lens.numel() * 4)
     b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
-    k_ms, k_call = timed(lambda: gqa_decode_attention(q, k, v, lens))
+    k_warm, k_call = timed(lambda: gqa_decode_attention(q, k, v, lens))
+    caches = copies((k, v))
+    k_ms = l2_cold_ms(lambda k_l, v_l: gqa_decode_attention(q, k_l, v_l, lens),
+                      caches)
+    del caches
     # a plain version issues hundreds of launches a call, more than the
     # launch queue holds behind a sleep: one call end to end
     p_ms = time_ms(lambda: gqa_decode_attention_torch(q, k, v, lens), runs=10)
@@ -1006,12 +1153,18 @@ def time_decode(card, what, q, k, v, lens):
     mask = (torch.arange(S, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
-    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask, enable_gqa=True))
+    sdpa = lambda kc_l, vc_l: F.scaled_dot_product_attention(  # noqa: E731
+        q4, kc_l, vc_l, attn_mask=mask, enable_gqa=True)
+    l_warm, l_call = timed(lambda: sdpa(kc, vc))
+    caches = copies((kc, vc))
+    l_ms = l2_cold_ms(sdpa, caches)
+    del caches, kc, vc
+    torch.cuda.empty_cache()
     plan = split_plan(B, S, K, H // K, hd)
     row = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-        call_ms=k_call, library_call_ms=l_call,
+        call_ms=k_call, library_call_ms=l_call, ms_l2_warm=k_warm,
+        library_ms_l2_warm=l_warm,
         gb_s=nbytes / (k_ms * 1e-3) / 1e9, n_split=plan.n_split,
         shape=f"B={B} H=K={K} hd={hd} S_pad={S} bf16, {tokens} context "
               f"tokens ({what})",
@@ -1020,9 +1173,11 @@ def time_decode(card, what, q, k, v, lens):
                      "[B,K,S,hd] before timing")
     print(f"[times] on {card}: contiguous decode at {row['shape']}, "
           f"{plan.n_split} splits of {plan.rows_per_split} rows: device "
-          f"time: kernel {k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, "
-          f"bound {b_ms * 1e3:.1f} us ({b_by}); {row['gb_s']:.0f} GB/s "
-          f"achieved; one call end to end (CUDA events): kernel "
+          f"time, L2-cold ({LAYERS} caches in turn): kernel "
+          f"{k_ms * 1e3:.1f} us, SDPA {l_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}), {row['gb_s']:.0f} GB/s achieved; "
+          f"L2-warm (one cache): kernel {k_warm * 1e3:.1f} us, SDPA "
+          f"{l_warm * 1e3:.1f} us; one call end to end (CUDA events): kernel "
           f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us")
     return row
@@ -1159,8 +1314,9 @@ def main() -> int:
             "shape": t["shape"], "max_abs_err_by_phase": errs[key],
             "launches_path": path,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
-            **{key: t[key] for key in ("by_bucket", "other_shapes")
-               if key in t}})
+            **{key: t[key] for key in (
+                "ms_l2_warm", "library_ms_l2_warm", "gb_s", "n_split",
+                "by_bucket", "other_shapes") if key in t}})
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,13 @@
-// Device helpers shared by the flash-prefill and contiguous-decode kernels
-// (sm_90a): conversions, a one-instruction exp2, the reference's finite
-// mask value, 16-byte asynchronous and read-only copies, the 128-byte
-// shared-memory swizzle that wgmma descriptors read, and the wgmma
-// instructions with their fences.
+// Device helpers shared by the flash-prefill, contiguous-decode and
+// paged-decode kernels (sm_90a): conversions, a one-instruction exp2, the
+// reference's finite mask value, 16-byte asynchronous and read-only
+// copies, the two decode kernels' lane groups (16-byte chunks of a row in
+// registers, the online softmax over a batch of rows, the merge of groups
+// and warps), the 128-byte shared-memory swizzle that wgmma
+// descriptors read, and the wgmma instructions with their fences.
 //
-// A change here changes both kernels: kernels/_build.py hashes every
-// csrc/*.cuh with each source, so an edited header rebuilds both.
+// A change here changes every kernel: kernels/_build.py hashes every
+// csrc/*.cuh with each source, so an edited header rebuilds them all.
 
 #pragma once
 
@@ -73,6 +75,179 @@ __device__ __forceinline__ void cp_async_wait() {
 // 16 read-only bytes from device memory into registers.
 __device__ __forceinline__ uint4 ldg16(const void* src) {
   return __ldg(reinterpret_cast<const uint4*>(src));
+}
+
+// ---------------------------------------------------- decode lane groups --
+// Both decode kernels stream a request's K/V rows for one KV head: a row
+// is hd * itemsize contiguous bytes. A group of lanes (that size over 16,
+// rounded up to a power of two: 8 lanes at bf16 hd 64) holds one row, one
+// 16-byte chunk of K and of V a lane, in registers. A warp loads kRows
+// rows at once and keeps kUnroll such loads in flight. Each group keeps
+// its own running (m, l, acc) per query head; groups merge by shuffles
+// and warps through shared memory at the end, and each split of the
+// sequence writes its unnormalised (acc[hd], m, l) per head to an f32
+// scratch that a second kernel merges.
+
+constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+template <typename T, int HD, int GM>
+struct Lanes {
+  static constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // a chunk
+  static constexpr int kChunks = HD / kElems;        // chunks a row
+  static constexpr int kGroup = pow2_at_least(kChunks);   // lanes a row
+  static constexpr int kRows = 32 / kGroup;          // rows a warp a load
+  // rows a lane keeps in flight a batch (the K and V chunks of each, and
+  // as many again for the next batch, in registers)
+  static constexpr int kUnroll = GM >= 8 ? 2 : 4;
+  static constexpr int kStep = kUnroll * kRows;      // rows a warp a batch
+  static_assert(HD % kElems == 0 && kGroup <= 32, "unsupported head dim");
+};
+
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const uint4& c, float (&f)[N]);
+template <>
+__device__ __forceinline__ void unpack<float, 4>(const uint4& c,
+                                                 float (&f)[4]) {
+  f[0] = __uint_as_float(c.x);
+  f[1] = __uint_as_float(c.y);
+  f[2] = __uint_as_float(c.z);
+  f[3] = __uint_as_float(c.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16, 8>(const uint4& c,
+                                                         float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(p[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+
+// Fold one batch of rows into a group's running state: slot u of the batch
+// at `row` is row row + u * kRows + grp, valid below w1 (kc/vc hold zeros
+// past it). A score is reduced over the group in log2(kGroup) shuffles;
+// all G query heads reuse the K chunk. `empty` scores every row 0 (the
+// contiguous kernel's length-0 quirk).
+template <typename T, int HD, int GM>
+__device__ __forceinline__ void fold_rows(
+    const uint4 (&kc)[Lanes<T, HD, GM>::kUnroll],
+    const uint4 (&vc)[Lanes<T, HD, GM>::kUnroll], int row, int w1, int grp,
+    const float (&qf)[GM][Lanes<T, HD, GM>::kElems], int G, float scale,
+    bool empty, float (&m)[GM], float (&l)[GM],
+    float (&acc)[GM][Lanes<T, HD, GM>::kElems]) {
+  using L = Lanes<T, HD, GM>;
+  constexpr int E = L::kElems;
+  float kf[L::kUnroll][E], vf[L::kUnroll][E];
+  bool valid[L::kUnroll];
+#pragma unroll
+  for (int u = 0; u < L::kUnroll; ++u) {
+    unpack<T, E>(kc[u], kf[u]);
+    unpack<T, E>(vc[u], vf[u]);
+    valid[u] = row + u * L::kRows + grp < w1;
+  }
+#pragma unroll
+  for (int g = 0; g < GM; ++g) {
+    if (g < G) {
+      float s[L::kUnroll];
+#pragma unroll
+      for (int u = 0; u < L::kUnroll; ++u) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) d = fmaf(qf[g][e], kf[u][e], d);
+#pragma unroll
+        for (int o = 1; o < L::kGroup; o <<= 1)
+          d += __shfl_xor_sync(0xffffffffu, d, o);
+        s[u] = empty ? 0.f : d * scale;
+      }
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < L::kUnroll; ++u)
+        if (valid[u]) mx = fmaxf(mx, s[u]);
+      const float alpha = expf(m[g] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int u = 0; u < L::kUnroll; ++u) {
+        const float p = valid[u] ? expf(s[u] - mx) : 0.f;
+        sum += p;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+      }
+      l[g] = alpha * l[g] + sum;
+      m[g] = mx;
+    }
+  }
+}
+
+// Merge the running states of a block's groups (lanes with the same chunk)
+// by shuffles, then of its kWarps warps through shared memory, and write
+// the split's unnormalised (acc[HD], m, l) of each of the G heads to
+// pb[G][HD + 2]. Every thread of the block calls it (one barrier).
+template <typename T, int HD, int GM, int kWarps>
+__device__ __forceinline__ void store_split(
+    float (&m)[GM], float (&l)[GM],
+    float (&acc)[GM][Lanes<T, HD, GM>::kElems], int G, float* pb) {
+  using L = Lanes<T, HD, GM>;
+  constexpr int E = L::kElems;
+  __shared__ float red_m[kWarps][GM], red_l[kWarps][GM];
+  __shared__ float red_acc[kWarps][GM][HD];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / L::kGroup, ch = lane % L::kGroup;
+#pragma unroll
+  for (int o = L::kGroup; o < 32; o <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float mx = fmaxf(m[g], m_o);
+      const float a = expf(m[g] - mx), a_o = expf(m_o - mx);
+      l[g] = a * l[g] + a_o * l_o;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+        acc[g][e] = a * acc[g][e] + a_o * acc_o;
+      }
+      m[g] = mx;
+    }
+  }
+  if (grp == 0 && ch < L::kChunks) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) red_acc[warp][g][ch * E + e] = acc[g][e];
+      if (ch == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * HD; i += kWarps * 32) {
+    const int g = i / HD, d = i - g * HD;
+    float mx = red_m[0][g];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
+    float a = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = expf(red_m[w][g] - mx);
+      a = fmaf(wt, red_acc[w][g][d], a);
+      lsum = fmaf(wt, red_l[w][g], lsum);
+    }
+    float* row = pb + g * (HD + 2);
+    row[d] = a;
+    if (d == 0) {
+      row[HD] = mx;
+      row[HD + 1] = lsum;
+    }
+  }
 }
 
 // ------------------------------------------------------ 128-byte swizzle --

@@ -42,7 +42,9 @@
 //
 // Head dim and dtype are template parameters (no loop tests d < hd); the
 // head group G runs in a register array sized for G rounded up to 1, 2, 4
-// or 8.
+// or 8. The lane groups, the fold of a batch of rows and the merge of
+// groups and warps are common.cuh's, shared with the paged kernel; the
+// merge of splits is written out here (common.cuh says why).
 //
 // Layouts: q/out [B, H, hd] contiguous; k/v [B, S, K, hd] with the last
 // dimension contiguous and equal element strides (sb, ss, sk) for both, every
@@ -60,47 +62,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;        // query heads a KV head
 constexpr int kMaxHd = 128;
 
-constexpr int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-template <typename T, int HD, int GM>
-struct Lanes {
-  static constexpr int kElems = 16 / static_cast<int>(sizeof(T));  // a chunk
-  static constexpr int kChunks = HD / kElems;        // chunks a row
-  static constexpr int kGroup = pow2_at_least(kChunks);   // lanes a row
-  static constexpr int kRows = 32 / kGroup;          // rows a warp a load
-  // rows a lane keeps in flight a batch (the K and V chunks of each, and
-  // as many again for the next batch, in registers)
-  static constexpr int kUnroll = GM >= 8 ? 2 : 4;
-  static constexpr int kStep = kUnroll * kRows;      // rows a warp a batch
-  static_assert(HD % kElems == 0 && kGroup <= 32, "unsupported head dim");
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void unpack(const uint4& c, float (&f)[N]);
-template <>
-__device__ __forceinline__ void unpack<float, 4>(const uint4& c,
-                                                 float (&f)[4]) {
-  f[0] = __uint_as_float(c.x);
-  f[1] = __uint_as_float(c.y);
-  f[2] = __uint_as_float(c.z);
-  f[3] = __uint_as_float(c.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16, 8>(const uint4& c,
-                                                         float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&c);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 x = __bfloat1622float2(p[j]);
-    f[2 * j] = x.x;
-    f[2 * j + 1] = x.y;
-  }
-}
-
 template <typename T, int HD, int GM>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -110,8 +71,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int rows_per_split, float scale) {
   using L = Lanes<T, HD, GM>;
   constexpr int E = L::kElems;
-  __shared__ float red_m[kWarps][GM], red_l[kWarps][GM];
-  __shared__ float red_acc[kWarps][GM][HD];
 
   const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
   const int length = lengths[b];
@@ -169,47 +128,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int row = w0; row < w1; row += L::kStep) {
     uint4 kn[L::kUnroll], vn[L::kUnroll];
     if (row + L::kStep < w1) load(kn, vn, row + L::kStep);
-    float kf[L::kUnroll][E], vf[L::kUnroll][E];
-    bool valid[L::kUnroll];
-#pragma unroll
-    for (int u = 0; u < L::kUnroll; ++u) {
-      unpack<T, E>(kc[u], kf[u]);
-      unpack<T, E>(vc[u], vf[u]);
-      valid[u] = row + u * L::kRows + grp < w1;
-    }
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      if (g < G) {
-        float s[L::kUnroll];
-#pragma unroll
-        for (int u = 0; u < L::kUnroll; ++u) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) d = fmaf(qf[g][e], kf[u][e], d);
-#pragma unroll
-          for (int o = 1; o < L::kGroup; o <<= 1)
-            d += __shfl_xor_sync(0xffffffffu, d, o);
-          s[u] = empty ? 0.f : d * scale;
-        }
-        float mx = m[g];
-#pragma unroll
-        for (int u = 0; u < L::kUnroll; ++u)
-          if (valid[u]) mx = fmaxf(mx, s[u]);
-        const float alpha = expf(m[g] - mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-#pragma unroll
-        for (int u = 0; u < L::kUnroll; ++u) {
-          const float p = valid[u] ? expf(s[u] - mx) : 0.f;
-          sum += p;
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
-        }
-        l[g] = alpha * l[g] + sum;
-        m[g] = mx;
-      }
-    }
+    fold_rows<T, HD, GM>(kc, vc, row, w1, grp, qf, G, scale, empty, m, l,
+                         acc);
 #pragma unroll
     for (int u = 0; u < L::kUnroll; ++u) {
       kc[u] = kn[u];
@@ -217,57 +137,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // merge the groups of this warp (lanes with the same chunk)
-#pragma unroll
-  for (int o = L::kGroup; o < 32; o <<= 1) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], o);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], o);
-      const float mx = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - mx), a_o = expf(m_o - mx);
-      l[g] = a * l[g] + a_o * l_o;
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], o);
-        acc[g][e] = a * acc[g][e] + a_o * acc_o;
-      }
-      m[g] = mx;
-    }
-  }
-  // ... then the warps, through shared memory
-  if (grp == 0 && has_chunk) {
-#pragma unroll
-    for (int g = 0; g < GM; ++g) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) red_acc[warp][g][ch * E + e] = acc[g][e];
-      if (ch == 0) {
-        red_m[warp][g] = m[g];
-        red_l[warp][g] = l[g];
-      }
-    }
-  }
-  __syncthreads();
-  float* pb = part + (((size_t)b * K + kh) * n_split + split) * G * (HD + 2);
-  for (int i = threadIdx.x; i < G * HD; i += kThreads) {
-    const int g = i / HD, d = i - g * HD;
-    float mx = red_m[0][g];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
-    float a = 0.f, lsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float wt = expf(red_m[w][g] - mx);
-      a = fmaf(wt, red_acc[w][g][d], a);
-      lsum = fmaf(wt, red_l[w][g], lsum);
-    }
-    float* row = pb + g * (HD + 2);
-    row[d] = a;
-    if (d == 0) {
-      row[HD] = mx;
-      row[HD + 1] = lsum;
-    }
-  }
+  store_split<T, HD, GM, kWarps>(
+      m, l, acc, G,
+      part + (((size_t)b * K + kh) * n_split + split) * G * (HD + 2));
 }
 
 // Merge the live splits of each (request, KV head): out = sum_s acc_s

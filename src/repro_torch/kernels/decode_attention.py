@@ -56,10 +56,12 @@ class SplitPlan:
     scratch_shape: Tuple[int, int, int, int, int]
 
 
+@functools.cache
 def split_plan(B: int, S: int, K: int, G: int, hd: int) -> SplitPlan:
     """The split of an ``S``-row cache, from the shapes alone (the lengths
     stay on the device): enough splits that ``B*K*n_split`` blocks fill the
-    card, none shorter than ``SPLIT_MIN_ROWS`` unless ``S`` is."""
+    card, none shorter than ``SPLIT_MIN_ROWS`` unless ``S`` is; cached,
+    being a pure function of the shapes."""
     if min(B, S, K, G, hd) < 1:
         raise ValueError(f"no split plan for B={B} S={S} K={K} G={G} "
                          f"hd={hd}")
@@ -113,6 +115,40 @@ def _live_rows(lengths: torch.Tensor, S: int) -> torch.Tensor:
     return torch.where(lens <= 0, torch.full_like(lens, S), lens)
 
 
+def split_partial_torch(qg: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                        empty: bool = False) -> torch.Tensor:
+    """One split of one request: ``qg [K, G, hd]`` f32 against its rows
+    ``kc/vc [n, K, hd]`` f32 -> the unnormalised ``(acc[hd], m, l)`` of
+    each head, ``[K, G, hd + 2]``. ``empty`` weighs every row 1 (``m =
+    0``), the contiguous kernel's length-0 quirk."""
+    K, G, hd = qg.shape
+    if empty:
+        m = torch.zeros((K, G))
+        p = torch.ones((K, G, kc.shape[0]))
+    else:
+        sc = torch.einsum("kgh,nkh->kgn", qg, kc) * hd ** -0.5
+        m = sc.amax(-1)
+        p = torch.exp(sc - m[..., None])
+    return torch.cat([torch.einsum("kgn,nkh->kgh", p, vc), m[..., None],
+                      p.sum(-1)[..., None]], -1)
+
+
+def merge_live_splits_torch(part: torch.Tensor,
+                            live: torch.Tensor) -> torch.Tensor:
+    """The merge kernels' formula over the splits ``live [B, n]`` marks:
+    ``sum_s acc_s e^{m_s - M} / max(sum_s l_s e^{m_s - M}, 1e-30)`` with
+    ``M = max_s m_s``, 0 where a row has none. Splits not marked are never
+    read. ``part [B, K, n, G, hd + 2]`` -> ``[B, K, G, hd]`` f32."""
+    hd = part.shape[-1] - 2
+    live = live[:, None, :, None]                        # [B, 1, n, 1]
+    acc = torch.where(live[..., None], part[..., :hd], 0.0)
+    m = torch.where(live, part[..., hd], float("-inf"))
+    l = torch.where(live, part[..., hd + 1], 0.0)
+    wt = torch.where(live, torch.exp(m - m.amax(2, keepdim=True)), 0.0)
+    return (acc * wt[..., None]).sum(2) / (l * wt).sum(2).clamp_min(
+        1e-30)[..., None]
+
+
 def split_partials_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor,
                          plan: SplitPlan) -> torch.Tensor:
@@ -132,39 +168,25 @@ def split_partials_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for s in range(plan.n_split):
             r0 = s * plan.rows_per_split
             r1 = min(r0 + plan.rows_per_split, int(n_tok[b]))
-            if r0 >= r1:
-                continue
-            kc, vc = k[b, r0:r1].float(), v[b, r0:r1].float()  # [n, K, hd]
-            if bool(empty[b]):
-                m = torch.zeros((K, G))
-                p = torch.ones((K, G, r1 - r0))
-            else:
-                sc = torch.einsum("kgh,nkh->kgn", qg[b], kc) * hd ** -0.5
-                m = sc.amax(-1)
-                p = torch.exp(sc - m[..., None])
-            part[b, :, s, :, :hd] = torch.einsum("kgn,nkh->kgh", p, vc)
-            part[b, :, s, :, hd] = m
-            part[b, :, s, :, hd + 1] = p.sum(-1)
+            if r0 < r1:
+                part[b, :, s] = split_partial_torch(
+                    qg[b], k[b, r0:r1].float(), v[b, r0:r1].float(),
+                    bool(empty[b]))
     return part
 
 
 def merge_partials_torch(part: torch.Tensor, lengths: torch.Tensor, S: int,
                          Sp: int, plan: SplitPlan) -> torch.Tensor:
-    """The merge kernel's formula over the live splits of each row:
-    ``sum_s acc_s e^{m_s - M} / max(sum_s l_s e^{m_s - M}, 1e-30)`` with
-    ``M = max_s m_s``, and ``sum_s acc_s / Sp`` for a length-0 row. Splits
-    past a row's length are never read. Returns ``[B, H, hd]`` f32."""
+    """The merge kernel's formula over the live splits of each row
+    (:func:`merge_live_splits_torch`), and ``sum_s acc_s / Sp`` for a
+    length-0 row. Splits past a row's length are never read. Returns
+    ``[B, H, hd]`` f32."""
     B, K, n, G, hd2 = part.shape
     hd = hd2 - 2
-    n_tok = _live_rows(lengths, S)
     live = (torch.arange(n)[None, :] * plan.rows_per_split
-            < n_tok[:, None])[:, None, :, None]          # [B, 1, n, 1]
-    acc = torch.where(live[..., None], part[..., :hd], 0.0)
-    m = torch.where(live, part[..., hd], float("-inf"))
-    l = torch.where(live, part[..., hd + 1], 0.0)
-    wt = torch.where(live, torch.exp(m - m.amax(2, keepdim=True)), 0.0)
-    out = (acc * wt[..., None]).sum(2) / (l * wt).sum(2).clamp_min(
-        1e-30)[..., None]
+            < _live_rows(lengths, S)[:, None])
+    out = merge_live_splits_torch(part, live)
+    acc = torch.where(live[:, None, :, None, None], part[..., :hd], 0.0)
     empty = (lengths.long() <= 0)[:, None, None, None]
     out = torch.where(empty, acc.sum(2) / Sp, out)
     return out.reshape(B, K * G, hd)

@@ -20,7 +20,7 @@ from repro.kernels.paged_decode_attention import (  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    SPLIT_MIN_ROWS, SPLIT_QUANTUM, SPLIT_TARGET_BLOCKS,
+    SPLIT_MIN_ROWS, SPLIT_QUANTUM, SPLIT_TARGET_BLOCKS, SplitPlan,
     _check_args as decode_check_args, gqa_decode_attention,
     gqa_decode_attention_torch, merge_partials_torch, split_partials_torch,
     split_plan)
@@ -28,7 +28,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     KERNEL_HEAD_DIMS, _check_args as flash_check_args, flash_attention,
     flash_attention_torch, kernel_body)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
-    paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
+    _check_args as paged_check_args, paged_gqa_decode_attention,
+    paged_gqa_decode_attention_torch, paged_merge_partials_torch,
+    paged_split_partials_torch, paged_split_plan)
 
 # the reference's own tolerances (tests/test_paged_kernel.py)
 TOL = {np.float32: 1e-4, "bfloat16": 3e-2}
@@ -134,6 +136,158 @@ def test_paged_result_independent_of_block_placement():
         outs.append(paged_gqa_decode_attention_torch(q, kp, vp, table,
                                                      lengths))
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("B,nb,BS,K,G,hd", [
+    (16, 64, 16, 32, 1, 64),   # the paged serve's shape: 2 splits of 512
+    (1, 512, 16, 32, 1, 64),   # one long request
+    (2, 256, 32, 2, 4, 128), (1, 4, 16, 2, 1, 64), (3, 5, 8, 2, 7, 80),
+    (1, 100, 48, 1, 8, 96), (2, 128, 8, 1, 2, 64), (4, 33, 24, 8, 8, 80),
+])
+def test_paged_split_plan_covers_the_table_in_whole_blocks(B, nb, BS, K, G,
+                                                           hd):
+    """The paged plan is the contiguous kernel's over ``nb * BS`` rows,
+    each split rounded up to whole blocks: its splits cover the table,
+    none empty, and it depends on the shapes alone."""
+    plan = paged_split_plan(B, nb, BS, K, G, hd)
+    n, rows = plan.n_split, plan.rows_per_split
+    base = split_plan(B, nb * BS, K, G, hd)
+    assert plan.scratch_shape == (B, K, n, G, hd + 2)
+    assert rows % BS == 0 and base.rows_per_split <= rows \
+        < base.rows_per_split + BS
+    assert (n - 1) * rows < nb * BS <= n * rows
+    assert 1 <= n <= base.n_split
+    assert plan == paged_split_plan(B, nb, BS, K, G, hd)
+
+
+def test_paged_split_plan_at_the_serving_shape():
+    plan = paged_split_plan(16, 64, 16, 32, 1, 64)
+    assert (plan.n_split, plan.rows_per_split) == (2, 512)
+
+
+@pytest.mark.parametrize("plan_of,shape", [
+    (paged_split_plan, (16, 64, 16, 32, 1, 64)),
+    (split_plan, (16, 704, 32, 1, 64)),
+])
+def test_split_plans_are_computed_once_a_shape(plan_of, shape):
+    """A decode step calls each wrapper once a layer at one shape: the
+    plan is cached, so the later calls compute nothing."""
+    plan_of.cache_clear()
+    first = plan_of(*shape)
+    assert plan_of(*shape) is first
+    info = plan_of.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+
+
+@pytest.mark.parametrize("zero", range(6))
+def test_paged_split_plan_refuses_empty_shapes(zero):
+    shape = [2, 4, 16, 2, 1, 64]
+    shape[zero] = 0
+    with pytest.raises(ValueError, match="paged split plan"):
+        paged_split_plan(*shape)
+
+
+def _split_and_merge(qt, kt, vt, table, lengths, plan):
+    BS, nb = kt.shape[1], table.shape[1]
+    part = paged_split_partials_torch(qt, kt, vt, table, lengths, plan)
+    return part, paged_merge_partials_torch(part, lengths, nb, BS, plan)
+
+
+def _forced_plan(B, nb, BS, K, G, hd, rows):
+    n = -(-nb * BS // rows)
+    return SplitPlan(n, rows, (B, K, n, G, hd + 2))
+
+
+@pytest.mark.parametrize("B,K,G,hd,BS,nb,NB,dtype", PAGED_CASES)
+@pytest.mark.parametrize("rows", ["plan", "one_block", "two_blocks"])
+def test_paged_split_arithmetic_vs_plain_and_pallas(B, K, G, hd, BS, nb, NB,
+                                                    dtype, rows):
+    """The split kernel's partials, written split by split through the
+    table, and the merge give the plain version's and the Pallas kernel's
+    result; splits past a row's bound stay unwritten."""
+    (qj, kj, vj), (qt, kt, vt), table, lengths = _paged_inputs(
+        B, K, G, hd, BS, nb, NB, dtype, seed=B * 10 + G)
+    plan = (paged_split_plan(B, nb, BS, K, G, hd) if rows == "plan" else
+            _forced_plan(B, nb, BS, K, G, hd,
+                         BS * (1 if rows == "one_block" else 2)))
+    tbl, lens = torch.from_numpy(table), torch.from_numpy(lengths)
+    part, out = _split_and_merge(qt, kt, vt, tbl, lens, plan)
+    for b, n in enumerate(lengths):
+        live = -(-int(n) // plan.rows_per_split)
+        assert not bool(torch.isnan(part[b, :, :live]).any())
+        assert bool(torch.isnan(part[b, :, live:]).all())
+    _close(out, paged_gqa_decode_attention_torch(qt, kt, vt, tbl,
+                                                 lens).float().numpy(), dtype)
+    _close(out, j_paged(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                        interpret=True), dtype)
+
+
+@pytest.mark.parametrize("which", ["zero", "one", "mid_block",
+                                   "split_boundary", "full", "past"])
+def test_paged_split_rows_at_the_edges(which):
+    """Rows of length 0 (exact zeros, no live split), 1, ending mid-block,
+    ending on a split boundary, filling the table and past it, over a
+    table that the plan cuts into several splits; blocks at permuted ids,
+    entries past each row's bound naming the trash block, or no block at
+    all (the split arithmetic never reads them)."""
+    B, K, G, hd, BS, nb = 2, 1, 2, 64, 8, 128
+    plan = paged_split_plan(B, nb, BS, K, G, hd)
+    rows = plan.rows_per_split
+    assert plan.n_split == 4 and rows == 256
+    length = {"zero": 0, "one": 1, "mid_block": rows + 3 * BS + 3,
+              "split_boundary": 2 * rows, "full": nb * BS,
+              "past": nb * BS + 9}[which]
+    lengths = np.array([length, rows + 5], np.int32)
+    NB = B * nb + 1                                # the last is the trash
+    rng = np.random.default_rng(len(which))
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, np.float32, (B, K * G, hd),
+                                         (NB, BS, K, hd), (NB, BS, K, hd))
+    table = rng.permutation(NB - 1)[:B * nb].reshape(B, nb).astype(np.int32)
+    poisoned = table.copy()
+    for b, n in enumerate(lengths):
+        used = min(-(-int(n) // BS), nb)
+        table[b, used:] = NB - 1
+        poisoned[b, used:] = NB + 1000             # out of the pool
+    lens = torch.from_numpy(lengths)
+    part, out = _split_and_merge(qt, kt, vt, torch.from_numpy(table), lens,
+                                 plan)
+    part_p, out_p = _split_and_merge(qt, kt, vt, torch.from_numpy(poisoned),
+                                     lens, plan)
+    assert torch.equal(out, out_p)
+    assert torch.equal(part.isnan(), part_p.isnan())
+    live = -(-min(length, nb * BS) // rows)
+    assert bool(torch.isnan(part[0, :, live:]).all())
+    assert not bool(torch.isnan(part[0, :, :live]).any())
+    if which == "zero":
+        assert live == 0 and bool((out[0] == 0).all())
+    plain = paged_gqa_decode_attention_torch(qt, kt, vt,
+                                             torch.from_numpy(table), lens)
+    _close(out, plain.numpy(), np.float32)
+    _close(out, j_paged(qj, kj, vj, jnp.asarray(table), jnp.asarray(lengths),
+                        interpret=True), np.float32)
+
+
+@pytest.mark.parametrize("G,hd,what", [
+    (16, 64, "G=16"), (2, 48, "hd=48"), (1, 32, "hd=32"), (4, 256, "hd=256"),
+    (64, 32, "G=64")])
+def test_paged_kernel_refuses_shapes_it_does_not_take(G, hd, what):
+    """The wrapper's checks run before any build: head shapes the kernel
+    has no body for raise ValueError naming the shape (the first port
+    took any hd <= 128 and G <= 64)."""
+    q = torch.zeros(1, 2 * G, hd)
+    pool = torch.zeros(4, 16, 2, hd)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lengths = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match=what):
+        paged_check_args(q, pool, pool, table, lengths)
+
+
+def test_paged_kernel_refuses_an_empty_table():
+    q = torch.zeros(1, 2, 64)
+    pool = torch.zeros(4, 16, 2, 64)
+    with pytest.raises(ValueError, match="nb >= 1"):
+        paged_check_args(q, pool, pool, torch.zeros(1, 0, dtype=torch.int32),
+                         torch.ones(1, dtype=torch.int32))
 
 
 # tests/test_kernels.py DECODE_CASES: the same strided grid
