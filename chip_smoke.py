@@ -19,32 +19,48 @@ It imports nothing of JAX or of the JAX package. Phases:
    boundary, full and past the table; entries past each row's bound out
    of the pool, so that a read of one faults); the flash
    kernel's single-tile case on its own line, the reference's flash
-   cases and a bf16 grid over head dims, head groups, masks and sequence
-   shapes; the contiguous-decode grid of the reference's tests (plus
-   G = 7 and hd 80/96), its length-0 rows against the TPU kernel's
-   formula and long caches cut into several splits; each at its serving
-   shape;
+   cases, a bf16 grid over head dims, head groups, masks and sequence
+   shapes and a grid with a length a request (the model's prefill
+   without a prefix); the flash kernel's prefix-masked entry over G, hd,
+   dtype, prefix pad, valid prefix length (0, 1, mid-block, the whole
+   pad), suffix length and lengths short of it, and bit for bit against
+   the plain entry (its own build) without a prefix; the
+   contiguous-decode grid of the
+   reference's tests (plus G = 7 and hd 80/96), its length-0 rows
+   against the TPU kernel's formula and long caches cut into several
+   splits; each at its serving shape; the sampler's threefry bits on the
+   card against the CPU's over a (seed, position) sweep;
 3. a model check at OPT-1.3B's full width in float32, cut to 2 layers:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
-   and greedy tokens must agree;
+   and greedy tokens must agree; then shared-prefix and long-prompt
+   serves with the prefix cache on and off, chunked and serial, which
+   must give the same tokens;
 4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
    random weights from a seed), each run with every kernel's launch
    counter set to 0 just before and read just after: the paged serve of
    32 ShareGPT-length requests, the gather-fallback serve of the first
    16 (and, for token agreement, the paged serve of the same 16, in
-   bfloat16 and again in float32), and a
-   static batch of 32 prompts with 64 decode steps on a dense cache;
-   each serve is followed by a ``torch.profiler`` window of 10 steady
-   decode steps at batch 16 (device busy time by kernel kind against
-   host wall time), and the flash kernel symbol a prefill launches
-   (bfloat16 and float32) is printed from a profile;
+   bfloat16 and again in float32), a
+   static batch of 32 prompts with 64 decode steps on a dense cache, the
+   shared-prefix serve (4 tenants x 8, prefix 256, suffix 32) with the
+   prefix cache on and off, the long/short serve (16 short prompts of 24,
+   8 long of 768) chunked by 192 and serial, and the paged serve's 32
+   requests sampled (temperature 0.8, top-k 50, top-p 0.95), twice;
+   the paged and the gather serve are each followed by a
+   ``torch.profiler`` window of 10 steady decode steps at batch 16
+   (device busy time by kernel kind against host wall time), and the
+   flash kernel symbol a prefill launches (bfloat16 and float32) is
+   printed from a profile;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
    the least time the card could take (flash at every serve bucket, with
-   TFLOP/s; paged decode at the serving shape and at one 8000-token
-   request through a 512-block table; contiguous decode at the gather
+   TFLOP/s, and with its length at a serial prefill of the paged serve;
+   its prefix-masked entry at the prefix serve's suffix and the chunked
+   serve's middle chunk; both beside SDPA with the same boolean mask;
+   paged decode at the serving shape and at one
+   8000-token request through a 512-block table; contiguous decode at the gather
    shape, at one 8192-token request and at the static batch's shape); the
    decode kernels and their library calls twice, L2-cold (back-to-back
    calls on 24 copies of their inputs in turn, as a step's 24 layers) and
@@ -236,29 +252,33 @@ def plain_attention():
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import \
         gqa_decode_attention_torch
-    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_torch, flash_prefix_attention_torch)
     from repro_torch.kernels.paged_decode_attention import \
         paged_gqa_decode_attention_torch
     saved = (ops.paged_decode_attention, ops.prefill_attention,
-             ops.decode_attention)
+             ops.prefill_prefix_attention, ops.decode_attention)
     ops.paged_decode_attention = paged_gqa_decode_attention_torch
     ops.prefill_attention = flash_attention_torch
+    ops.prefill_prefix_attention = flash_prefix_attention_torch
     ops.decode_attention = gqa_decode_attention_torch
     try:
         yield
     finally:
         (ops.paged_decode_attention, ops.prefill_attention,
-         ops.decode_attention) = saved
+         ops.prefill_prefix_attention, ops.decode_attention) = saved
 
 
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.decode_attention import gqa_decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_prefix_attention)
     from repro_torch.kernels.paged_decode_attention import \
         paged_gqa_decode_attention
     return {"paged_decode_attention": paged_gqa_decode_attention,
             "flash_attention": flash_attention,
+            "flash_prefix_attention": flash_prefix_attention,
             "decode_attention": gqa_decode_attention}
 
 
@@ -362,7 +382,9 @@ def phase_kernels(errs):
           f"{plan.rows_per_split}): max abs err {e:.3e}")
 
     phase_flash_kernel(errs)
+    phase_flash_prefix(errs)
     phase_decode_kernel(errs)
+    phase_threefry()
 
 
 def phase_paged_splits(errs):
@@ -454,11 +476,15 @@ def phase_flash_kernel(errs):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch)
 
-    def check(B, Sq, Skv, K, G, hd, causal, window, dtype, seed, what):
+    def check(B, Sq, Skv, K, G, hd, causal, window, dtype, seed, what,
+              lengths=None):
         q, k, v = flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed=seed)
-        return close(flash_attention(q, k, v, causal=causal, window=window),
-                     flash_attention_torch(q, k, v, causal=causal,
-                                           window=window), what)
+        kw = dict(causal=causal, window=window)
+        if lengths is not None:
+            kw["lengths"] = torch.tensor(lengths, dtype=torch.int32,
+                                         device="cuda")
+        return close(flash_attention(q, k, v, **kw),
+                     flash_attention_torch(q, k, v, **kw), what)
 
     e = check(1, 64, 64, 1, 1, 64, False, None, torch.bfloat16, 99,
               "flash single tile")
@@ -487,6 +513,20 @@ def phase_flash_kernel(errs):
             f"flash bf16 hd={hd} K={K} G={G} causal={causal} "
             f"window={window} Sq={Sq} Skv={Skv}"))
     errs["flash"]["bf16_grid"] = e_grid
+    # with a length a request (the model's prefill without a prefix): the
+    # second request's keys cut short of the sequence
+    len_grid = list(itertools.product(
+        (32, 64, 80, 96, 128), (torch.float32, torch.bfloat16),
+        ((True, None), (False, None), (True, 40)), (64, 100, 192)))
+    e_len = 0.0
+    for n, (hd, dtype, (causal, window), S) in enumerate(len_grid):
+        short = S - 5 - n % 7
+        e_len = max(e_len, check(
+            2, S, S, 2, 1 + n % 4, hd, causal, window, dtype, 400 + n,
+            f"flash with lengths hd={hd} {dtype} causal={causal} "
+            f"window={window} S={S} lengths=({S}, {short})",
+            lengths=(S, short)))
+    errs["flash"]["lengths"] = e_len
     for S in (64, 128, 256, 512, 1024):
         e = check(1, S, S, 32, 1, 64, True, None, torch.bfloat16, S,
                   f"flash serving shape S={S}")
@@ -498,7 +538,110 @@ def phase_flash_kernel(errs):
           f"x causal/non-causal/window 40 x (Sq,Skv) (64,64)/(100,100)/"
           f"(32,96)/(128,128)/(1024,1024)), max abs err {e_grid:.3e}; S in "
           f"64..1024 at H=K=32, hd=64, bf16 (max abs err "
-          f"{errs['flash']['serving_shape']:.3e}); within tolerance")
+          f"{errs['flash']['serving_shape']:.3e}); {len(len_grid)} cases "
+          f"with a length a request (hd 32-128 x f32/bf16 x causal/"
+          f"non-causal/window 40 x S 64/100/192, the second length 5-11 "
+          f"short), max abs err {e_len:.3e}; within tolerance")
+
+
+def prefix_inputs(B, S, K, G, hd, P, pl, suffix_lengths, dtype, seed,
+                  device="cuda"):
+    """Random q over a suffix of ``S`` and K/V over ``P`` prefix slots
+    (the first ``pl`` valid, the rest garbage) then the suffix; lengths
+    in ids, ``pl + suffix_lengths[b]``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)  # noqa: E731
+    lens = torch.tensor([pl + n for n in suffix_lengths], dtype=torch.int32)
+    return [t.to(device) for t in (mk(B, S, K * G, hd), mk(B, P + S, K, hd),
+                                   mk(B, P + S, K, hd), lens)]
+
+
+def phase_flash_prefix(errs):
+    """The flash kernel's prefix-masked entry against its plain version:
+    every prefix pad x valid prefix length (0, 1, mid-block, the whole
+    pad) x suffix length at both dtypes, the (G, hd) pairs in turn, then
+    every (G, hd, dtype) at a shape in turn; two requests a case, the
+    second's length short of its suffix. Then the entry without a prefix
+    (every length the sequence's) against the plain entry, bit for
+    bit."""
+    import itertools
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_prefix_attention, flash_prefix_attention_torch)
+    heads = list(itertools.product((1, 2, 4, 7, 8), (64, 80, 96, 128)))
+    dtypes = (torch.float32, torch.bfloat16)
+    shapes = [(P, pl, S) for P in (16, 32, 64, 512)
+              for pl in (0, 1, P // 2 + 3, P) for S in (16, 64, 192)]
+    cases = [(heads[n % len(heads)], dt, shape) for n, (dt, shape) in
+             enumerate(itertools.product(dtypes, shapes))]
+    cases += [((G, hd), dt, shapes[n % len(shapes)]) for n, ((G, hd), dt) in
+              enumerate(itertools.product(heads, dtypes))]
+    e_max = 0.0
+    for n, ((G, hd), dtype, (P, pl, S)) in enumerate(cases):
+        short = max(1, S - 5 - n % 7)
+        q, k, v, lens = prefix_inputs(2, S, 2, G, hd, P, pl, (S, short),
+                                      dtype, seed=3000 + n)
+        kw = dict(prefix_pad=P, prefix_len=pl, lengths=lens)
+        out = flash_prefix_attention(q, k, v, **kw)
+        e_max = max(e_max, close(
+            out, flash_prefix_attention_torch(q, k, v, **kw),
+            f"flash prefix G={G} hd={hd} {dtype} P_pad={P} prefix_len={pl} "
+            f"S={S} lengths={lens.tolist()}"))
+    errs["flash_prefix"]["sweep"] = e_max
+    n_same = 0
+    for hd, G, Sq, dtype in itertools.product((32, 64, 80, 96, 128), (1, 4),
+                                              (64, 100, 192), dtypes):
+        q, k, v = flash_inputs(2, Sq, Sq, 2, G, hd, dtype, seed=hd + Sq + G)
+        for lens in ((Sq, Sq), (Sq, Sq - 3 - hd % 7)):
+            lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            a = flash_prefix_attention(q, k, v, prefix_pad=0, prefix_len=0,
+                                       lengths=lens)
+            if not torch.equal(a, flash_attention(q, k, v, lengths=lens)):
+                raise AssertionError(
+                    f"flash prefix entry without a prefix differs from the "
+                    f"plain entry: hd={hd} G={G} Sq={Sq} {dtype} lengths "
+                    f"{lens.tolist()}")
+            n_same += 1
+    print(f"[kernels] flash prefix entry: {len(cases)} cases (P_pad "
+          f"16/32/64/512 x prefix_len 0/1/mid-block/P_pad x S 16/64/192 x "
+          f"f32/bf16, then every G 1/2/4/7/8 x hd 64/80/96/128 x dtype; "
+          f"B=2, K=2, the second length short of S, the prefix's masked "
+          f"tail random) within tolerance, max abs err {e_max:.3e}; "
+          f"without a prefix equal bit for bit to the plain causal entry "
+          f"(its own build) with the same lengths in {n_same} of {n_same} "
+          f"cases (hd 32-128, G 1/4, S 64/100/192, f32/bf16, lengths full "
+          f"and one short)")
+
+
+def phase_threefry():
+    """The sampler's threefry key, random bits and uniforms on the card
+    equal the CPU's (and so JAX's, which the CPU tests hold them to) over
+    a (seed, position) sweep; the Gumbel draw within 1e-6."""
+    import torch
+    from repro_torch.models import sampler
+    seeds = torch.tensor([0, 1, 7, 123456, 2 ** 32 - 1, 31, 32, 4097])
+    pos = torch.tensor([0, 1, 5, 161, 1023, 2 ** 31 - 1, 338, 2048])
+    seeds, pos = (t.repeat_interleave(8) if i == 0 else t.repeat(8)
+                  for i, t in enumerate((seeds, pos)))
+    V = 50272
+    out = {}
+    for dev in ("cpu", "cuda"):
+        keys = sampler.fold_in(sampler.prng_key(seeds.to(dev)), pos.to(dev))
+        out[dev] = (keys, sampler.random_bits(keys, V),
+                    sampler.uniform(keys, V, sampler.F32_TINY, 1.0),
+                    sampler.gumbel(keys, V))
+    for name, a, b in zip(("keys", "bits", "uniforms"), out["cpu"][:3],
+                          out["cuda"][:3]):
+        if not torch.equal(a, b.cpu()):
+            raise AssertionError(f"threefry {name} on the card differ from "
+                                 f"the CPU's")
+    g = (out["cpu"][3] - out["cuda"][3].cpu()).abs().max().item()
+    if g > 1e-6:
+        raise AssertionError(f"gumbel on the card differs by {g:.3e}")
+    print(f"[kernels] sampler: threefry keys, {V} random bits and uniforms "
+          f"a key equal to the CPU's bit for bit over {len(seeds)} (seed, "
+          f"position) pairs; gumbel max abs diff {g:.3e}")
 
 
 def phase_decode_kernel(errs):
@@ -647,7 +790,8 @@ def phase_model(errs):
         reset_launches()
         kern, kern_tok = run_model(model, prompts, 4, mode)
         want = {"paged_decode_attention": 0, "decode_attention": 0,
-                "flash_attention": 2 * 2, kernel: 4 * 2}
+                "flash_attention": 2 * 2, "flash_prefix_attention": 0,
+                kernel: 4 * 2}
         if read_launches() != want:
             raise AssertionError(f"model check ({mode}) did not run the "
                                  f"kernels: {read_launches()} != {want}")
@@ -681,11 +825,68 @@ def phase_model(errs):
     torch.cuda.empty_cache()
 
 
-def serve_workload():
+def phase_model_prefill_modes(errs):
+    """At OPT-1.3B's width in float32, cut to 2 layers: the shared-prefix
+    workload (4 tenants x 4, prefix 256, suffix 32) and a long/short one
+    (6 short prompts of 24, 3 long of 300), served serially without the
+    prefix cache, with it, chunked by 40 tokens (chunks end mid-block) and
+    both; every run must give the serial run's tokens, and the flash
+    kernel's prefix-masked entry must carry every prefill and chunk over a
+    prefix, its plain entry every other."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.workload import (long_short_workload,
+                                              shared_prefix_workload)
+    cfg = dataclasses.replace(get_config("opt-1.3b"), n_layers=2,
+                              dtype="float32")
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(2))
+    workloads = {
+        "shared prefix": lambda: shared_prefix_workload(
+            4, 4, cfg.vocab_size, prefix_len=256, suffix_len=32,
+            max_new_tokens=8, seed=1),
+        "long/short": lambda: long_short_workload(
+            6, 3, cfg.vocab_size, short_len=24, long_len=300, short_new=8,
+            long_new=4, every=2, seed=1)}
+    modes = {"serial": {}, "prefix cache": dict(prefix_cache=True),
+             "chunked 40": dict(prefill_chunk_tokens=40),
+             "chunked 40 + prefix cache": dict(prefill_chunk_tokens=40,
+                                               prefix_cache=True)}
+    for wl, make in workloads.items():
+        tokens = {}
+        for mode, kw in modes.items():
+            reqs = make()
+            engine = ContinuousBatchingEngine(
+                model, serve_config(max_batch=8, **kw))
+            reset_launches()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            want = prefill_launches(engine)
+            got = {k: read_launches()[k] for k in want}
+            if got != want:
+                raise AssertionError(f"2-layer {wl} {mode}: flash launches "
+                                     f"{got} != {want}")
+            tokens[mode] = [r.output_tokens for r in reqs]
+            if tokens[mode] != tokens["serial"]:
+                raise AssertionError(f"2-layer float32 {wl}: {mode} tokens "
+                                     f"differ from serial prefill's")
+            hits = engine.prefix.stats.hit_tokens if engine.prefix else 0
+            print(f"[model] OPT-1.3B width, 2 layers, float32, {wl} "
+                  f"({len(reqs)} requests), {mode}: tokens equal to serial "
+                  f"prefill's; {engine.prefill_tokens_computed} prefill "
+                  f"tokens computed, {hits} from the cache, {engine.chunks} "
+                  f"chunks, {engine.suffix_prefills} over a prefix")
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_workload(sampling=None):
     from repro_torch.configs import get_config
     from repro_torch.serving.workload import sharegpt_like
     return sharegpt_like(32, get_config(MODEL).vocab_size, seed=0,
-                         mean_in=161, mean_out=338, max_len=1024)
+                         mean_in=161, mean_out=338, max_len=1024,
+                         sampling=sampling)
 
 
 def decode_lengths():
@@ -735,23 +936,28 @@ def full_model(dtype=None):
     return model
 
 
-def serve_config(decode_mode="paged"):
+def serve_config(decode_mode="paged", **kw):
     from repro_torch.serving import EngineConfig
-    return EngineConfig(max_batch=16, block_size=16, kv_pool_tokens=32768,
-                        max_model_len=2048, prefill_bucket=64,
-                        decode_mode=decode_mode)
+    return EngineConfig(**{**dict(
+        max_batch=16, block_size=16, kv_pool_tokens=32768,
+        max_model_len=2048, prefill_bucket=64, decode_mode=decode_mode),
+        **kw})
 
 
-def serve(model, reqs, decode_mode, card):
+def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
     """Serve ``reqs`` to completion with the launch counters set to 0
     just before and read just after; every request must finish by
     length with in-range tokens, every logit must be finite, and each
     kernel must have launched exactly once a layer of each step of its
-    kind. Returns the engine, its metrics and the launch counts."""
+    kind: the decode kernel of the mode a decode step, the flash
+    kernel's prefix-masked entry a prefill or chunk over a prefix, its
+    plain entry every other prefill or chunk. Returns the engine, its
+    metrics and the launch counts."""
     import torch
     from repro_torch.serving import ContinuousBatchingEngine
     cfg = model.cfg
-    engine = ContinuousBatchingEngine(model, serve_config(decode_mode))
+    engine = ContinuousBatchingEngine(model,
+                                      serve_config(decode_mode, **ecfg_kw))
     torch.cuda.synchronize()
     with finite_logits(model) as finite:
         reset_launches()
@@ -769,16 +975,17 @@ def serve(model, reqs, decode_mode, card):
     steps = engine.decode_steps * cfg.n_layers
     want = {"paged_decode_attention": steps if decode_mode == "paged" else 0,
             "decode_attention": steps if decode_mode == "gather" else 0,
-            "flash_attention": engine.prefills * cfg.n_layers}
+            **prefill_launches(engine)}
+    tag = f"[serve {tag or decode_mode}]"
     if launches != want or not engine.decode_steps:
-        raise AssertionError(f"{decode_mode} serve: launch counts "
-                             f"{launches} != {want}")
-    tag = f"[serve {decode_mode}]"
+        raise AssertionError(f"{tag}: launch counts {launches} != {want}")
     print(f"{tag} on {card}: {len(reqs)} requests, "
           f"{metrics.output_tokens} output tokens, {engine.decode_steps} "
-          f"decode steps, {engine.prefills} prefills, {metrics.preemptions} "
-          f"preemptions; launches {launches} = steps (or prefills) x "
-          f"{cfg.n_layers} layers")
+          f"decode steps, {engine.prefills} prefills, {engine.chunks} "
+          f"prefill chunks ({engine.suffix_prefills} of them over a "
+          f"prefix), {metrics.preemptions} preemptions; launches "
+          f"{launches} = steps (or prefills and chunks) x {cfg.n_layers} "
+          f"layers")
     print(f"{tag} eager PyTorch, no CUDA graphs, on {card}: "
           f"throughput {metrics.throughput:.1f} tok/s, output "
           f"{metrics.output_throughput:.1f} tok/s, wall {metrics.wall_s:.2f} s,"
@@ -787,6 +994,16 @@ def serve(model, reqs, decode_mode, card):
     print(f"{tag} on {card}: TTFT {metrics.ttft.row()}; ITL "
           f"{metrics.itl.row()}; E2E {metrics.e2e.row(scale=1.0, unit='s')}")
     return engine, metrics, launches
+
+
+def prefill_launches(engine):
+    """The flash launches an engine's prefills must have made: its
+    prefix-masked entry once a layer for each prefill or chunk over a
+    prefix, its plain entry for each other."""
+    n = engine.model.cfg.n_layers
+    return {"flash_attention": (engine.prefills + engine.chunks
+                                - engine.suffix_prefills) * n,
+            "flash_prefix_attention": engine.suffix_prefills * n}
 
 
 def phase_serve(model, card):
@@ -848,6 +1065,113 @@ def agreement(a_reqs, b_reqs):
             f"{sum(x == y for x, y in pairs) / len(pairs) * 100:.2f}% of "
             f"{len(pairs)} output tokens equal position by position, "
             f"{first}")
+
+
+def phase_prefix_serve(model, card):
+    """The shared-prefix serve (the reference benchmark's shape: 4
+    tenants x 8, prefix 256, suffix 32, 32 new tokens, batch 8) with the
+    prefix cache off and on: prefill tokens computed, hit rate, TTFT,
+    throughput and token agreement; the cache must compute fewer prefill
+    tokens. Returns the cache-on run's launch counts."""
+    import torch
+    from repro_torch.serving.workload import shared_prefix_workload
+    runs = {}
+    for on in (False, True):
+        reqs = shared_prefix_workload(4, 8, model.cfg.vocab_size,
+                                      prefix_len=256, suffix_len=32,
+                                      max_new_tokens=32, seed=0)
+        tag = f"prefix cache {'on' if on else 'off'}"
+        engine, m, launches = serve(model, reqs, "paged", card, tag=tag,
+                                    max_batch=8, prefix_cache=on)
+        hit = f"hit rate {m.prefix.hit_rate * 100:.1f}% ({m.prefix.hits} " \
+              f"of {m.prefix.lookups} admissions)" if on else "no cache"
+        print(f"[serve {tag}] on {card}: {engine.prefill_tokens_computed} "
+              f"prefill tokens computed, {hit}; TTFT p50 "
+              f"{m.ttft.p50 * 1e3:.2f} ms p95 {m.ttft.p95 * 1e3:.2f} ms; "
+              f"output {m.output_throughput:.1f} tok/s; ITL p50 "
+              f"{m.itl.p50 * 1e3:.2f} ms p95 {m.itl.p95 * 1e3:.2f} ms")
+        n_layers = model.cfg.n_layers
+        if launches["flash_prefix_attention"] != (
+                n_layers * engine.suffix_prefills if on else 0):
+            raise AssertionError(f"[serve {tag}]: prefix entry launches "
+                                 f"{launches} for {engine.suffix_prefills} "
+                                 f"suffix prefills")
+        print(f"[serve {tag}] prefix entry launches "
+              f"{launches['flash_prefix_attention']} = "
+              f"{engine.suffix_prefills} suffix prefills x {n_layers} "
+              f"layers, plain entry {launches['flash_attention']}")
+        runs[on] = (reqs, engine.prefill_tokens_computed, launches)
+        del engine
+        torch.cuda.empty_cache()
+    if runs[True][1] >= runs[False][1]:
+        raise AssertionError(f"the prefix cache computed {runs[True][1]} "
+                             f"prefill tokens, not fewer than {runs[False][1]}")
+    print(f"[serve prefix cache] {model.cfg.dtype} token agreement, cache on "
+          f"vs off: {agreement(runs[True][0], runs[False][0])}")
+    return runs[True][2]
+
+
+def phase_chunked_serve(model, card):
+    """The long/short serve (the reference benchmark's shape: 16 short
+    prompts of 24 and 8 long of 768, one long after every 2 short, 24 and
+    6 new tokens, batch 4) chunked by 192 tokens and serially: ITL, the
+    scheduler stall, throughput and token agreement. Returns the chunked
+    run's launch counts."""
+    import torch
+    from repro_torch.serving.workload import long_short_workload
+    runs = {}
+    for chunk in (None, 192):
+        reqs = long_short_workload(16, 8, model.cfg.vocab_size, short_len=24,
+                                   long_len=768, short_new=24, long_new=6,
+                                   every=2, seed=0)
+        tag = f"chunked {chunk}" if chunk else "serial prefill"
+        engine, m, launches = serve(model, reqs, "paged", card, tag=tag,
+                                    max_batch=4, prefill_chunk_tokens=chunk)
+        print(f"[serve {tag}] on {card}: ITL p50 {m.itl.p50 * 1e3:.2f} ms "
+              f"p95 {m.itl.p95 * 1e3:.2f} ms p99 {m.itl.p99 * 1e3:.2f} ms; "
+              f"stall (admission + prefill a step) mean "
+              f"{m.stall_s_mean * 1e3:.2f} ms p95 {m.stall.p95 * 1e3:.2f} ms; "
+              f"{m.prefill_tokens_per_step:.1f} prompt and "
+              f"{m.decode_tokens_per_step:.2f} decode tokens a step; output "
+              f"{m.output_throughput:.1f} tok/s, total "
+              f"{m.throughput:.1f} tok/s; TTFT p95 {m.ttft.p95 * 1e3:.2f} ms")
+        runs[chunk] = (reqs, launches)
+        del engine
+        torch.cuda.empty_cache()
+    print(f"[serve chunked] {model.cfg.dtype} token agreement, chunked vs "
+          f"serial: {agreement(runs[192][0], runs[None][0])}")
+    return runs[192][1]
+
+
+def phase_sampled_serve(model, card, greedy):
+    """The paged serve's 32 requests sampled (temperature 0.8, top-k 50,
+    top-p 0.95, seed = request id), served twice: every token must be the
+    same in both runs; their agreement with ``greedy`` (the same requests
+    served greedily) is printed. Returns the first run's launch
+    counts."""
+    import torch
+    from repro_torch.serving.workload import SamplingParams
+    outs, launches = [], None
+    for run in range(2):
+        reqs = serve_workload(SamplingParams(temperature=0.8, top_k=50,
+                                             top_p=0.95, seed=0))
+        engine, m, counts = serve(model, reqs, "paged", card,
+                                  tag=f"sampled, run {run + 1}")
+        print(f"[serve sampled, run {run + 1}] on {card}: output "
+              f"{m.output_throughput:.1f} tok/s; ITL p50 "
+              f"{m.itl.p50 * 1e3:.2f} ms p95 {m.itl.p95 * 1e3:.2f} ms")
+        outs.append(reqs)
+        launches = launches or counts
+        del engine
+        torch.cuda.empty_cache()
+    if [r.output_tokens for r in outs[0]] != [r.output_tokens
+                                              for r in outs[1]]:
+        raise AssertionError("two sampled serves of the same requests gave "
+                             "different tokens")
+    print(f"[serve sampled] the two runs equal on every token "
+          f"({sum(r.generated for r in outs[0])} tokens); sampled vs the "
+          f"greedy paged serve: {agreement(outs[0], greedy)}")
+    return launches
 
 
 def phase_gather_serve(model, card, paged_all):
@@ -918,6 +1242,7 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError("static batch: token out of range")
     want = {"paged_decode_attention": 0, "flash_attention": cfg.n_layers,
+            "flash_prefix_attention": 0,
             "decode_attention": steps * cfg.n_layers}
     if launches != want:
         raise AssertionError(f"static batch: launch counts {launches} != "
@@ -1052,13 +1377,79 @@ def phase_times(card, prefill_sizes, serve_reqs):
                    tflop_s=flops / (k_ms * 1e-3) / 1e12,
                    gb_s=nbytes / (k_ms * 1e-3) / 1e9)
         by_bucket.append(row)
-        if S == main_s:
-            times["flash_attention"] = dict(
-                row, shape=f"B=1 S={S} H=K=32 hd=64 bf16 (the most frequent "
-                           f"serve prefill bucket)",
-                library_call="scaled_dot_product_attention(is_causal=True)")
-    times["flash_attention"]["by_bucket"] = by_bucket
+
+    main_len = statistics.median_low(
+        [r.prompt_len for r in serve_reqs
+         if -(-r.prompt_len // 64) * 64 == main_s])
+    serial = time_masked(card, f"a serial prefill in the paged serve's most "
+                               f"frequent bucket (prompt {main_len})",
+                         main_s, 0, 0, main_len)
+    times["flash_attention"] = dict(serial, by_bucket=by_bucket)
+    prefix = [time_masked(card, what, *args) for what, args in (
+        ("the prefix serve's suffix prefill", (64, 256, 256, 32)),
+        ("the chunked serve's middle chunk", (192, 512, 384, 192)))]
+    times["flash_prefix_attention"] = dict(prefix[0],
+                                           other_shapes=prefix[1:])
     return times
+
+
+def time_masked(card, what, S, P, pl, n):
+    """The flash kernel at one shape of the engine's prefills (B=1,
+    H=K=32, hd 64, bf16: a suffix of ``S`` rows, ``n`` valid, over ``P``
+    prefix slots of which ``pl`` are valid; the prefix-masked entry, or
+    where ``P`` is 0 the plain entry with the request's length), its
+    plain version and SDPA with the same boolean mask, beside the bound;
+    the bytes counted are q, the output and the K/V rows that hold a
+    valid id, the operations the mask's valid (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, lens = prefix_inputs(1, S, 32, 1, 64, P, pl, (n,),
+                                  torch.bfloat16, seed=S + P)
+    if P:
+        kernel, plain = fa.flash_prefix_attention, \
+            fa.flash_prefix_attention_torch
+        kw = dict(prefix_pad=P, prefix_len=pl, lengths=lens)
+        entry = "flash prefix entry"
+    else:
+        kernel, plain = fa.flash_attention, fa.flash_attention_torch
+        kw = dict(lengths=lens)
+        entry = "flash plain entry with lengths"
+    ids = fa.prefix_kv_ids(P, pl, S, "cuda")
+    q_ids = pl + torch.arange(S, device="cuda")[:, None]
+    mask = (ids >= 0) & (q_ids >= ids) & (ids < lens[0])
+    pairs = int(mask.sum())
+    H, K, hd = q.shape[2], k.shape[2], q.shape[3]
+    # q and out in full; of K and V only the rows holding a valid id: the
+    # valid prefix and the suffix up to the length
+    kv_rows = min(pl, P) + min(n, S)
+    nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size() + 4
+    b_ms, b_by = bound(nbytes, 4 * hd * H * pairs)
+    k_ms, k_call = timed(lambda: kernel(q, k, v, **kw))
+    p_ms = time_ms(lambda: plain(q, k, v, **kw), runs=10)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[None, None], enable_gqa=True))
+    e = close(kernel(q, k, v, **kw), plain(q, k, v, **kw),
+              f"{entry} at {what}")
+    row = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        call_ms=k_call, library_call_ms=l_call, max_abs_err=e,
+        tflop_s=4 * hd * H * pairs / (k_ms * 1e-3) / 1e12,
+        gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+        shape=f"B=1 S={S} ({n} valid)"
+              + (f" over P_pad={P} (prefix_len {pl})" if P else "")
+              + f" H=K=32 hd=64 bf16, {pairs} valid (query, key) pairs "
+                f"({what})",
+        library_call="scaled_dot_product_attention(attn_mask=the same "
+                     "boolean mask, enable_gqa=True)")
+    print(f"[times] on {card}: {entry} at {row['shape']}: device "
+          f"time: kernel {k_ms * 1e3:.1f} us, SDPA with the mask "
+          f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); kernel "
+          f"{row['tflop_s']:.2f} TFLOP/s, {row['gb_s']:.0f} GB/s; one call "
+          f"end to end: kernel {k_call * 1e3:.1f} us, SDPA "
+          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
+    return row
 
 
 def time_paged(card, what, q, kp, vp, table, lens):
@@ -1272,14 +1663,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     errs = {"paged": {"sweep": 0.0}, "decode": {},
-            "flash": {"reference_cases": 0.0, "serving_shape": 0.0}}
+            "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
+            "flash_prefix": {}}
     phase_kernels(errs)
     phase_model(errs)
+    phase_model_prefill_modes(errs)
     model = full_model()
     by_path = {"paged_serve": None, "gather_serve": None,
-               "static_batch": None}
+               "static_batch": None, "prefix_serve": None,
+               "chunked_serve": None, "sampled_serve": None}
     by_path["paged_serve"], prefill_sizes, paged_all = phase_serve(model,
                                                                    card)
+    by_path["prefix_serve"] = phase_prefix_serve(model, card)
+    by_path["chunked_serve"] = phase_chunked_serve(model, card)
+    by_path["sampled_serve"] = phase_sampled_serve(model, card, paged_all)
     by_path["gather_serve"] = phase_gather_serve(model, card, paged_all)
     by_path["static_batch"] = phase_static(model, card)
     phase_step_compare(model, card)
@@ -1294,12 +1691,16 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:76", "paged_serve"),
+        "flash_prefix_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:76", "prefix_serve"),
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:67", "gather_serve"),
     }
     for name, key in (("paged_decode_attention", "paged"),
                       ("flash_attention", "flash"),
+                      ("flash_prefix_attention", "flash_prefix"),
                       ("decode_attention", "decode")):
         t = times[name]
         source, replaces, path = meta[name]

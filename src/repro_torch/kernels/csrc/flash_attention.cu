@@ -51,6 +51,27 @@
 //   query row, scalar f32 products. Tensor cores would take f32 as TF32 and
 //   break the reference's 1e-4 float32 tolerance.
 //
+// Two entry points share the bodies, each with a build of its own
+// (kPrefix). `flash_attention` is the TPU kernel's API (top-left causal,
+// optional window), with an optional length a request (keys at or past it
+// masked): the model's prefill without a prefix. `flash_prefix_attention`
+// is the prefill of the model's `self_attn_seq` over a prefix
+// (src/repro/models/attention.py, the masks of its `_mask_builder`): K/V
+// are [prefix (P_pad slots) || suffix], prefix slots at or past the valid
+// prefix length pl take id -1, suffix slot j takes id pl + j - P_pad,
+// query row i id pl + i, and each request's keys are cut at its length (in
+// ids, from a device array). The plain entry is the case P_pad = pl = 0,
+// so both give the same bits there. Its build folds P_pad and pl away,
+// keeps the TPU kernel's whole-tile skip test as its loop bounds and tests
+// a slot against two bounds a row (RowKeys): on the card it runs as fast
+// as the TPU kernel's mask alone, where one build of both entries read 8%
+// slower and the prefix build at P_pad = 0 15% slower (tools/decode_ab.py).
+// Key tiles with no valid slot for a query tile are not visited: the
+// valid prefix's tiles, then the suffix's up to the length and the causal
+// diagonal (a tile may straddle the prefix's masked tail and the suffix;
+// it is visited once). Tiles not wholly valid for every row take the
+// per-element mask.
+//
 // Layouts (all contiguous): q/out [B, Sq, H, hd]; k/v [B, Skv, K, hd].
 // Grid (ceil(Sq/64), H, B), 128 threads a block, dynamic shared memory above
 // 48 KB (the kernel's attribute is raised before every launch).
@@ -66,6 +87,112 @@ constexpr int kBQ = 64;     // query rows a block (two threads a row)
 constexpr int kBKV = 64;    // keys a tile
 constexpr int kHalf = kBKV / 2;
 
+// The keys one query row sees. Without a prefix they are the slots
+// [lo, hi): the length, causality and the window folded into two bounds
+// once a row, so that an edge tile tests a slot with two comparisons, as
+// the TPU kernel's mask does (testing the mask's terms a slot made that
+// build 7% slower). With a prefix each slot's id comes first, then the
+// terms of the reference's `_mask_builder` (bounds there read 6-8%
+// slower). Both measured on the card with tools/decode_ab.py.
+template <bool kPrefix>
+struct RowKeys;
+
+template <>
+struct RowKeys<false> {
+  int lo, hi;
+
+  __device__ __forceinline__ bool valid(int j) const {
+    return j >= lo && j < hi;
+  }
+};
+
+template <>
+struct RowKeys<true> {
+  int qi, Skv, P_pad, pl, len, causal, window;
+
+  // prefix slot j < P_pad has id j, valid below pl; suffix slot j has id
+  // pl + j - P_pad; the row's id is pl + qi
+  __device__ __forceinline__ bool valid(int j) const {
+    const int id = j < P_pad ? (j < pl ? j : -1) : pl + j - P_pad;
+    bool ok = j < Skv && id >= 0 && id < len;
+    if (causal) ok = ok && pl + qi >= id;
+    if (window > 0) ok = ok && pl + qi - id < window;
+    return ok;
+  }
+};
+
+// Which keys a query row sees (see the header): `len` is the request's
+// length in ids. Without a prefix (kPrefix false) P_pad and pl are 0.
+template <bool kPrefix>
+struct Mask {
+  int Skv, P_pad, pl, len, causal, window;
+
+  __device__ __forceinline__ RowKeys<kPrefix> row(int qi) const {
+    if constexpr (kPrefix) {
+      return RowKeys<true>{qi, Skv, P_pad, pl, len, causal, window};
+    } else {
+      int hi = min(Skv, len);
+      if (causal) hi = min(hi, qi + 1);
+      return RowKeys<false>{window > 0 ? qi - window + 1 : 0, hi};
+    }
+  }
+  // valid prefix slots [0, prefix_end())
+  __device__ __forceinline__ int prefix_end() const {
+    return max(0, min(min(pl, P_pad), len));
+  }
+  // the key tiles query tile [q0, q0 + kBQ) visits: [0, n_pre), then
+  // [s_beg, s_end); without a prefix the TPU kernel's whole-tile skip test
+  // with the keys cut at len
+  __device__ __forceinline__ void tiles(int q0, int& n_pre, int& s_beg,
+                                        int& s_end) const {
+    if constexpr (kPrefix) {
+      n_pre = (prefix_end() + kBKV - 1) / kBKV;
+      int hi = min(Skv, P_pad + max(len - pl, 0));
+      if (causal) hi = min(hi, P_pad + q0 + kBQ);
+      s_end = (hi + kBKV - 1) / kBKV;
+      s_beg = max(n_pre, P_pad / kBKV);
+    } else {
+      n_pre = 0;
+      s_end = (min(Skv, len) + kBKV - 1) / kBKV;
+      if (causal) s_end = min(s_end, (q0 + kBQ - 1) / kBKV + 1);
+      s_beg = 0;
+    }
+    if (window > 0 && q0 - window - (kBKV - 1) >= 0)
+      s_beg = max(s_beg, (q0 - window - (kBKV - 1)) / kBKV + 1);
+    s_end = max(s_end, s_beg);
+  }
+  // the key tile of visited tile n
+  __device__ __forceinline__ int tile(int n, int n_pre, int s_beg) const {
+    if constexpr (kPrefix) return n < n_pre ? n : s_beg + n - n_pre;
+    return s_beg + n;
+  }
+  // is every slot of tile t valid for every row of query tile q0? (the
+  // others take the per-element mask)
+  __device__ __forceinline__ bool full(int q0, int t) const {
+    const int kv0 = t * kBKV;
+    if constexpr (kPrefix) {
+      if (kv0 + kBKV <= prefix_end()) return true;
+      if (kv0 < P_pad || kv0 + kBKV > P_pad + len - pl) return false;
+    } else if (kv0 + kBKV > len) {
+      return false;
+    }
+    return kv0 + kBKV <= Skv && (!causal || kv0 + kBKV - 1 - P_pad <= q0) &&
+           (window <= 0 || q0 + kBQ - 1 - (kv0 - P_pad) < window);
+  }
+};
+
+// the mask of request b: the prefix entry's, or without a prefix P_pad and
+// pl folded to 0 and the length Skv where no lengths are given
+template <bool kPrefix>
+__device__ __forceinline__ Mask<kPrefix> make_mask(const int* lens, int b,
+                                                   int Skv, int causal,
+                                                   int window, int P_pad,
+                                                   int pl) {
+  if constexpr (kPrefix)
+    return Mask<kPrefix>{Skv, P_pad, pl, lens[b], causal, window};
+  return Mask<kPrefix>{Skv, 0, 0, lens ? lens[b] : Skv, causal, window};
+}
+
 template <int HD>
 constexpr size_t smem_floats() {
   // q tile and k tile padded to HD + 1 (conflict-free row reads), v tile,
@@ -74,11 +201,12 @@ constexpr size_t smem_floats() {
          (size_t)kBKV * HD + (size_t)kBQ * (kBKV + 1);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-             int H, int K, int causal, int window, float scale) {
+             const T* __restrict__ v, T* __restrict__ out,
+             const int* __restrict__ lens, int Sq, int Skv, int H, int K,
+             int causal, int window, int P_pad, int pl, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kBQ][HD + 1]
   float* k_s = q_s + kBQ * (HD + 1);        // [kBKV][HD + 1]
@@ -89,6 +217,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 1, half = tid & 1;   // this thread's row and half
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / K);
   const int q0 = blockIdx.x * kBQ, qi = q0 + r;
+  const auto mk = make_mask<kPrefix>(lens, b, Skv, causal, window, P_pad, pl);
+  const auto keys = mk.row(qi);
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int rr = i / HD, d = i - rr * HD, qq = q0 + rr;
@@ -101,13 +231,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
 
-  const int n_tiles = (Skv + kBKV - 1) / kBKV;
-  for (int st = 0; st < n_tiles; ++st) {
-    const int kv0 = st * kBKV;
-    // the TPU kernel's whole-tile skip test, on this kernel's tiles
-    // (uniform across the block, so no thread skips a barrier alone)
-    if (causal && kv0 > q0 + kBQ - 1) continue;
-    if (window > 0 && kv0 + kBKV - 1 <= q0 - window) continue;
+  // the visited tiles (uniform across the block, so no thread skips a
+  // barrier alone)
+  int n_pre, s_beg, s_end;
+  mk.tiles(q0, n_pre, s_beg, s_end);
+  for (int n = 0; n < n_pre + s_end - s_beg; ++n) {
+    const int kv0 = mk.tile(n, n_pre, s_beg) * kBKV;
     __syncthreads();            // the previous tile's readers are done
     for (int i = tid; i < kBKV * HD; i += kThreads) {
       const int c = i / HD, d = i - c * HD, kk = kv0 + c;
@@ -129,10 +258,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
 #pragma unroll 8
       for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-      bool valid = kk < Skv;
-      if (causal) valid = valid && qi >= kk;
-      if (window > 0) valid = valid && qi - kk < window;
-      const float sc = valid ? dot * scale : kNegInf;
+      const float sc = keys.valid(kk) ? dot * scale : kNegInf;
       pr[c] = sc;
       mx = fmaxf(mx, sc);
     }
@@ -220,19 +346,17 @@ struct RowState {
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
 };
 
+template <bool kPrefix>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], RowState& st, float& a_lo, float& a_hi, bool edge,
-    int q_row, int kv0, int lane, int Skv, int causal, int window,
-    float c) {
-  if (edge) {   // a tile on the causal diagonal, the window's edge or Skv
+    const RowKeys<kPrefix>& k_lo, const RowKeys<kPrefix>& k_hi, int kv0,
+    int lane, float c) {
+  if (edge) {   // a tile some of whose slots are masked for some row
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int qi = q_row + 8 * ((i >> 1) & 1);
       const int kk = kv0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-      bool valid = kk < Skv;
-      if (causal) valid = valid && qi >= kk;
-      if (window > 0) valid = valid && qi - kk < window;
-      s[i] = valid ? s[i] * c : kNegInf;
+      const bool ok = ((i >> 1) & 1) ? k_hi.valid(kk) : k_lo.valid(kk);
+      s[i] = ok ? s[i] * c : kNegInf;
     }
   } else {
 #pragma unroll
@@ -281,13 +405,15 @@ __device__ __forceinline__ void pack_p(const float (&s)[32],
       p[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-template <int HD>
+template <int HD, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                   int K, int causal, int window, float scale) {
+                   __nv_bfloat16* __restrict__ out,
+                   const int* __restrict__ lens, int Sq, int Skv, int H,
+                   int K, int causal, int window, int P_pad, int pl,
+                   float scale) {
   using L = WgTile<HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s =
@@ -304,21 +430,16 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // out: q_row and q_row + 8
   const int q_row = q0 + 16 * warp + (lane >> 2);
 
-  // the TPU kernel's whole-tile skip test, on this kernel's 64-key tiles,
-  // as loop bounds: causal skips kv0 > q0 + 63, a window kv0 + 63 <=
-  // q0 - window
-  int t_end = (Skv + kBKV - 1) / kBKV;
-  if (causal) t_end = min(t_end, (q0 + kBQ - 1) / kBKV + 1);
-  int t_beg = 0;
-  if (window > 0 && q0 - window - (kBKV - 1) >= 0)
-    t_beg = (q0 - window - (kBKV - 1)) / kBKV + 1;
-  // tiles that need the per-element mask: past Skv, across the causal
-  // diagonal or across the window's far edge
-  auto edge = [&](int t) {
-    const int kv0 = t * kBKV;
-    return kv0 + kBKV > Skv || (causal && kv0 + kBKV - 1 > q0) ||
-           (window > 0 && q0 + kBQ - 1 - kv0 >= window);
-  };
+  const auto mk = make_mask<kPrefix>(lens, b, Skv, causal, window, P_pad, pl);
+  const auto k_lo = mk.row(q_row), k_hi = mk.row(q_row + 8);
+  // the visited key tiles, numbered n = 0 .. n_vis - 1 in the order they
+  // go through the ring
+  int n_pre, s_beg, s_end;
+  mk.tiles(q0, n_pre, s_beg, s_end);
+  const int n_vis = n_pre + s_end - s_beg;
+  auto tile = [&](int n) { return mk.tile(n, n_pre, s_beg); };
+  // tiles that need the per-element mask
+  auto edge = [&](int n) { return !mk.full(q0, tile(n)); };
 
   // padded head-dim columns: zero in every tile, once (no copy writes them)
   if constexpr (L::kPadChunks > 0) {
@@ -337,17 +458,17 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kg = k + ((size_t)b * Skv * K + kvh) * HD;
   const __nv_bfloat16* vg = v + ((size_t)b * Skv * K + kvh) * HD;
   const long long q_stride = (long long)H * HD, kv_stride = (long long)K * HD;
-  auto load_kv = [&](int t) {   // tile t into stage (t - t_beg) % kStages
-    if (t < t_end) {
-      const int off = ((t - t_beg) % kStages) * L::kBytes;
-      load_tile<HD>(k_s + off, kg, kv_stride, t * kBKV, Skv, tid);
-      load_tile<HD>(v_s + off, vg, kv_stride, t * kBKV, Skv, tid);
+  auto load_kv = [&](int n) {   // visited tile n into stage n % kStages
+    if (n < n_vis) {
+      const int off = (n % kStages) * L::kBytes;
+      load_tile<HD>(k_s + off, kg, kv_stride, tile(n) * kBKV, Skv, tid);
+      load_tile<HD>(v_s + off, vg, kv_stride, tile(n) * kBKV, Skv, tid);
     }
     cp_async_commit();
   };
   load_tile<HD>(q_s, qg, q_stride, q0, Sq, tid);
 #pragma unroll
-  for (int j = 0; j < kStages - 1; ++j) load_kv(t_beg + j);   // Q in #0
+  for (int j = 0; j < kStages - 1; ++j) load_kv(j);   // Q in #0
 
   // descriptors: K-major (Q, K) with 8-row groups 1024 B apart; MN-major
   // (V) with 8-key groups 1024 B apart and 64-column panels 8 KB apart
@@ -356,9 +477,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const uint64_t v_desc0 = smem_desc(smem_addr(v_s), 64 * 128, 1024);
   // S = Q K^T into s: HD_PAD/16 k-steps of 32 bytes along the swizzled
   // rows, a new 8 KB panel every 4 steps
-  auto issue_s = [&](float (&s)[32], int t) {
-    const uint64_t kd =
-        k_desc0 + ((((t - t_beg) % kStages) * L::kBytes) >> 4);
+  auto issue_s = [&](float (&s)[32], int n) {
+    const uint64_t kd = k_desc0 + (((n % kStages) * L::kBytes) >> 4);
 #pragma unroll
     for (int kk = 0; kk < L::kPad / 16; ++kk) {
       const uint64_t off = ((kk >> 2) * 8192 + (kk & 3) * 32) >> 4;
@@ -377,24 +497,23 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
   uint32_t p[4][4];
 
-  if (t_beg < t_end) {
+  if (n_vis > 0) {
     cp_async_wait<kStages - 2>();   // Q and the first tile landed ...
     fence_proxy_async();   // ... are visible to wgmma ...
     __syncthreads();       // ... from every thread
     wgmma_fence();
-    issue_s(s, t_beg);
+    issue_s(s, 0);
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_operand(s[i]);
     float a_lo, a_hi;
-    softmax_tile(s, row, a_lo, a_hi, edge(t_beg), q_row, t_beg * kBKV, lane,
-                 Skv, causal, window, c);
+    softmax_tile(s, row, a_lo, a_hi, edge(0), k_lo, k_hi, tile(0) * kBKV,
+                 lane, c);
     pack_p(s, p);
   }
-  // P V for tile t (its P in registers, its V in its stage)
-  auto issue_pv = [&](int t) {
-    const uint64_t vd =
-        v_desc0 + ((((t - t_beg) % kStages) * L::kBytes) >> 4);
+  // P V for visited tile n (its P in registers, its V in its stage)
+  auto issue_pv = [&](int n) {
+    const uint64_t vd = v_desc0 + (((n % kStages) * L::kBytes) >> 4);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {   // 16 keys = two 1 KB groups a step
       if constexpr (L::kPad == 64)
@@ -404,32 +523,32 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     wgmma_commit();
   };
-  // Each iteration: P_t is ready in registers and O holds tiles < t.
-  // Issue S_{t+1} = Q K_{t+1}^T and O += P_t V_t on the tensor cores; the
-  // softmax of tile t+1 runs in place on S while P_t V_t is in flight, and
-  // P_{t+1} is packed once both are done. Every iteration issues both
+  // Each iteration: P_n is ready in registers and O holds tiles < n.
+  // Issue S_{n+1} = Q K_{n+1}^T and O += P_n V_n on the tensor cores; the
+  // softmax of tile n+1 runs in place on S while P_n V_n is in flight, and
+  // P_{n+1} is packed once both are done. Every iteration issues both
   // products (the last tile's P V is peeled off below), so ptxas can tell
   // which one each wait retires and keeps them asynchronous. One barrier an
-  // iteration publishes tile t+1 and frees the stage of tile t-1, whose
-  // products every warp has waited for; the copy of tile t+kStages-1 then
+  // iteration publishes tile n+1 and frees the stage of tile n-1, whose
+  // products every warp has waited for; the copy of tile n+kStages-1 then
   // goes there.
-  for (int t = t_beg; t + 1 < t_end; ++t) {
-    cp_async_wait<kStages - 3>();   // tile t + 1 landed
+  for (int n = 0; n + 1 < n_vis; ++n) {
+    cp_async_wait<kStages - 3>();   // tile n + 1 landed
     fence_proxy_async();
     __syncthreads();
-    load_kv(t + kStages - 1);
+    load_kv(n + kStages - 1);
 #pragma unroll
     for (int i = 0; i < L::kPad / 2; ++i) fence_operand(o[i]);
     wgmma_fence();
-    issue_s(s, t + 1);
-    issue_pv(t);
-    wgmma_wait<1>();       // S_{t+1} is done; P_t V_t may still run
+    issue_s(s, n + 1);
+    issue_pv(n);
+    wgmma_wait<1>();       // S_{n+1} is done; P_n V_n may still run
 #pragma unroll
     for (int i = 0; i < 32; ++i) fence_operand(s[i]);
     float a_lo, a_hi;
-    softmax_tile(s, row, a_lo, a_hi, edge(t + 1), q_row, (t + 1) * kBKV,
-                 lane, Skv, causal, window, c);
-    wgmma_wait<0>();       // P_t V_t is done: O and P_t are free
+    softmax_tile(s, row, a_lo, a_hi, edge(n + 1), k_lo, k_hi,
+                 tile(n + 1) * kBKV, lane, c);
+    wgmma_wait<0>();       // P_n V_n is done: O and P_n are free
 #pragma unroll
     for (int i = 0; i < L::kPad / 2; ++i) {
       fence_operand(o[i]);
@@ -437,11 +556,11 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     pack_p(s, p);
   }
-  if (t_beg < t_end) {     // the last tile's P V (landed in the last wait)
+  if (n_vis > 0) {         // the last tile's P V (landed in the last wait)
 #pragma unroll
     for (int i = 0; i < L::kPad / 2; ++i) fence_operand(o[i]);
     wgmma_fence();
-    issue_pv(t_end - 1);
+    issue_pv(n_vis - 1);
     wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < L::kPad / 2; ++i) fence_operand(o[i]);
@@ -475,53 +594,77 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int B, int Sq, int Skv, int H, int K, int causal,
-                       int window, cudaStream_t stream) {
+// One call's arguments, for both entry points.
+struct Args {
+  const void *q, *k, *v;
+  void* out;
+  const int* lens;   // [B] lengths in ids (null: every length Skv)
+  int B, Sq, Skv, H, K, causal, window, P_pad, pl;
+  cudaStream_t stream;
+};
+
+template <int HD, bool kPrefix>
+cudaError_t launch_f32(const Args& a) {
   constexpr size_t smem = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<float, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_kernel<float, HD, kPrefix>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, K,
-      causal, window,
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  flash_kernel<float, HD, kPrefix><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lens,
+      a.Sq, a.Skv, a.H, a.K, a.causal, a.window, a.P_pad, a.pl,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, int B, int Sq, int Skv, int H, int K,
-                        int causal, int window, cudaStream_t stream) {
+template <int HD, bool kPrefix>
+cudaError_t launch_bf16(const Args& a) {
   constexpr size_t smem = WgTile<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_wgmma_kernel<HD, kPrefix>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_wgmma_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, K, causal, window,
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  flash_wgmma_kernel<HD, kPrefix><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.out), a.lens, a.Sq, a.Skv, a.H, a.K,
+      a.causal, a.window, a.P_pad, a.pl,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch(int body, const void* q, const void* k, const void* v,
-                   void* out, int B, int Sq, int Skv, int H, int K,
-                   int causal, int window, cudaStream_t s) {
+template <int HD, bool kPrefix>
+cudaError_t launch(int body, const Args& a) {
   switch (body) {
     case 0:
-      return launch_f32<HD>(q, k, v, out, B, Sq, Skv, H, K, causal, window, s);
+      return launch_f32<HD, kPrefix>(a);
     case 1:
-      return launch_bf16<HD>(q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                             s);
+      return launch_bf16<HD, kPrefix>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// each entry point takes its own build (kPrefix)
+template <bool kPrefix>
+cudaError_t dispatch(int hd, int body, const Args& a) {
+  if (a.B <= 0 || a.Sq <= 0 || a.H <= 0) return cudaSuccess;
+  if (a.Skv <= 0 || a.K <= 0 || a.H % a.K) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 32:
+      return launch<32, kPrefix>(body, a);
+    case 64:
+      return launch<64, kPrefix>(body, a);
+    case 80:
+      return launch<80, kPrefix>(body, a);
+    case 96:
+      return launch<96, kPrefix>(body, a);
+    case 128:
+      return launch<128, kPrefix>(body, a);
     default:
       return cudaErrorInvalidValue;
   }
@@ -532,33 +675,34 @@ cudaError_t launch(int body, const void* q, const void* k, const void* v,
 extern "C" {
 
 // body: 0 = float32 on the CUDA cores, 1 = bfloat16 on the tensor cores
-// (the wrapper picks it by dtype); window <= 0 means no window.
-// Returns a cudaError_t (0 = success).
+// (the wrapper picks it by dtype); window <= 0 means no window; lens [B]
+// (int32, on the device) each request's length, keys at or past it
+// masked, or null for none. Returns a cudaError_t (0 = success).
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int B, int Sq, int Skv, int H, int K, int hd, int causal,
-                    int window, int body, void* stream) {
-  if (B <= 0 || Sq <= 0 || H <= 0) return cudaSuccess;
-  if (Skv <= 0 || K <= 0 || H % K) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch<32>(body, q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                        s);
-    case 64:
-      return launch<64>(body, q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                        s);
-    case 80:
-      return launch<80>(body, q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                        s);
-    case 96:
-      return launch<96>(body, q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                        s);
-    case 128:
-      return launch<128>(body, q, k, v, out, B, Sq, Skv, H, K, causal, window,
-                         s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                    const int* lens, int B, int Sq, int Skv, int H, int K,
+                    int hd, int causal, int window, int body, void* stream) {
+  return dispatch<false>(hd, body,
+                         Args{q, k, v, out, lens, B, Sq, Skv, H, K, causal,
+                              window, 0, 0,
+                              static_cast<cudaStream_t>(stream)});
+}
+
+// The prefix-masked causal prefill: k/v hold prefix_pad prefix slots, the
+// first prefix_len of them valid, then the suffix; lens [B] (int32, on the
+// device) are each request's lengths in ids. A window with a prefix is
+// refused, as in the reference.
+int flash_prefix_attention(const void* q, const void* k, const void* v,
+                           void* out, const int* lens, int B, int Sq,
+                           int Skv, int H, int K, int hd, int prefix_pad,
+                           int prefix_len, int window, int body,
+                           void* stream) {
+  if (prefix_len < 0 || prefix_len > prefix_pad || prefix_pad > Skv ||
+      (window > 0 && prefix_pad > 0) || lens == nullptr)
+    return cudaErrorInvalidValue;
+  return dispatch<true>(hd, body,
+                        Args{q, k, v, out, lens, B, Sq, Skv, H, K, 1, window,
+                             prefix_pad, prefix_len,
+                             static_cast<cudaStream_t>(stream)});
 }
 
 const char* flash_attention_error_string(int code) {

@@ -8,7 +8,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.decode_attention import gqa_decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_prefix_attention)
 from repro_torch.kernels.paged_decode_attention import \
     paged_gqa_decode_attention
 
@@ -31,7 +32,21 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
+                      lengths: Optional[torch.Tensor] = None,
                       block_q: int = 128, block_s: int = 128) -> torch.Tensor:
-    """Tiled prefill attention. q:[B,Sq,H,hd], k/v:[B,Skv,K,hd]."""
+    """Tiled prefill attention. q:[B,Sq,H,hd], k/v:[B,Skv,K,hd],
+    lengths:[B] (optional: keys at or past it masked)."""
     return flash_attention(q, k, v, causal=causal, window=window,
-                           block_q=block_q, block_s=block_s)
+                           lengths=lengths, block_q=block_q,
+                           block_s=block_s)
+
+
+def prefill_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
+                             v_all: torch.Tensor, *, prefix_pad: int,
+                             prefix_len: int, lengths: torch.Tensor,
+                             window: Optional[int] = None) -> torch.Tensor:
+    """Causal prefill over ``[prefix || suffix]`` keys with the model's
+    masks. q:[B,S,H,hd], k/v_all:[B,prefix_pad+S,K,hd], lengths:[B]."""
+    return flash_prefix_attention(q, k_all, v_all, prefix_pad=prefix_pad,
+                                  prefix_len=prefix_len, lengths=lengths,
+                                  window=window)

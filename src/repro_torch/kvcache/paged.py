@@ -14,7 +14,11 @@ state. Writes are **in place** (``index_copy_`` / ``index_put_``) where
 the reference rebuilds donated buffers. Decode reads the pool either
 through a :class:`PagedCacheView` (zero-copy) or, in the gather
 fallback, through a dense copy (:meth:`PagedKVCache.gather`) whose new
-rows :meth:`PagedKVCache.scatter_new_token` writes back.
+rows :meth:`PagedKVCache.scatter_new_token` writes back. Suffix-only and
+chunked prefill read a request's written prefix through
+:meth:`PagedKVCache.gather_prefix` and write their rows token by token
+(:meth:`PagedKVCache.write_prefill` with ``n_tokens``);
+:meth:`PagedKVCache.ensure_writable` forks a shared block before a write.
 """
 from __future__ import annotations
 
@@ -262,11 +266,31 @@ class PagedKVCache:
         """KV bytes one written token occupies (block_bytes/block_size)."""
         return self.block_bytes / self.block_size
 
-    def write_prefill(self, req_id: int, cache_one: Dict[str, torch.Tensor]):
+    def write_prefill(self, req_id: int, cache_one: Dict[str, torch.Tensor],
+                      start_pos: int = 0, n_tokens: Optional[int] = None):
         """Store one request's prefill K/V (``[L, 1, S, K, hd]`` leaves)
-        into its allocated blocks, in place. Rows past the table's capacity
-        are dropped; a partly covered last block is zero-padded."""
-        blocks = self.manager.tables[req_id]
+        in place.
+
+        Without ``n_tokens`` the view fills the request's blocks from the
+        block-aligned ``start_pos`` on (a suffix-only prefill leaves the
+        cached prefix's blocks alone); rows past the table's capacity are
+        dropped and a partly covered last block is zero-padded.
+
+        With ``n_tokens`` the write is token-granular (the chunk scatter):
+        the view's first ``n_tokens`` rows go to the (block, slot) of
+        positions ``start_pos ..`` (any ``start_pos``: a chunk may end
+        mid-block), and its padding rows to the trash block. Every index
+        is taken from inside the table; a write past the table raises
+        (extend it first)."""
+        if n_tokens is not None:
+            return self._write_token_range(req_id, cache_one, start_pos,
+                                           n_tokens)
+        if start_pos % self.block_size:
+            raise ValueError(
+                f"start_pos ({start_pos}) must be block-aligned "
+                f"(block_size={self.block_size}); pass n_tokens for the "
+                f"token-granular chunk path")
+        blocks = self.manager.tables[req_id][start_pos // self.block_size:]
         nb = len(blocks)
         S_cap = nb * self.block_size
         phys = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
@@ -277,6 +301,63 @@ class PagedKVCache:
                     v, (0, 0, 0, 0, 0, S_cap - v.shape[1]))
             v = v.reshape(v.shape[0], nb, self.block_size, *v.shape[2:])
             leaf.index_copy_(1, phys, v.to(leaf.dtype))
+
+    def _write_token_range(self, req_id: int,
+                           cache_one: Dict[str, torch.Tensor],
+                           start_pos: int, n_tokens: int):
+        """Scatter the view's rows: the first ``n_tokens`` to positions
+        ``[start_pos, start_pos + n_tokens)``, the rest to the trash
+        block (the reference's ``scatter_chunk_jit``, whose clipped
+        table index the port does not need)."""
+        if n_tokens < 1:
+            raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+        table = self.manager.tables.get(req_id, [])
+        end = start_pos + n_tokens
+        if end > len(table) * self.block_size:
+            raise ValueError(
+                f"chunk write [{start_pos}, {end}) over-allocates past "
+                f"req {req_id}'s table ({len(table)} blocks x "
+                f"{self.block_size}); extend() the table first")
+        S = cache_one["k"].shape[2]
+        if S < n_tokens:
+            raise ValueError(f"the view holds {S} rows, fewer than "
+                             f"n_tokens={n_tokens}")
+        pos = start_pos + np.arange(S)
+        addr = np.empty((2, S), np.int64)                    # block, slot
+        addr[0] = self.trash_block
+        addr[0, :n_tokens] = np.asarray(table, np.int64)[
+            pos[:n_tokens] // self.block_size]
+        addr[1] = pos % self.block_size
+        phys, sib = torch.from_numpy(addr).to(self.device)
+        for name, leaf in self.pool.items():
+            leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
+
+    def gather_prefix(self, blocks: Sequence[int],
+                      nb_pad: int) -> Dict[str, torch.Tensor]:
+        """Dense prefix K/V for a suffix-only or chunk prefill: ``{"k",
+        "v"}``, each ``[L, 1, nb_pad * BS, K, hd]``, holding ``blocks``
+        (the prompt's first ``len(blocks)`` blocks) and the trash block
+        past them; the attention masks rows past the valid prefix length
+        (``prefix_len``)."""
+        table = np.full((nb_pad,), self.trash_block, np.int64)
+        blocks = list(blocks)[:nb_pad]
+        table[:len(blocks)] = blocks
+        idx = torch.from_numpy(table).to(self.device)
+        P = nb_pad * self.block_size
+        return {name: leaf[:, idx].reshape(leaf.shape[0], 1, P,
+                                           *leaf.shape[3:])
+                for name, leaf in self.pool.items()}
+
+    def ensure_writable(self, req_id: int, pos: int):
+        """Copy-on-write fork of the block holding ``pos`` if another
+        owner shares it: a fresh block takes a copy of its contents on
+        the device and the request's table entry. A no-op for a private
+        block (the common case: a dictionary lookup)."""
+        if not self.manager.needs_cow(req_id, pos):
+            return
+        old, new = self.manager.copy_on_write(req_id, pos // self.block_size)
+        for leaf in self.pool.values():
+            leaf[:, new] = leaf[:, old]
 
     def view(self, req_ids: Sequence[int], positions: Sequence[int],
              nb_pad: int, batch_pad: int) -> PagedCacheView:

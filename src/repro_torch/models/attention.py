@@ -48,23 +48,47 @@ def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-                  positions: torch.Tensor, causal: bool
+                  positions: torch.Tensor, causal: bool,
+                  window: Optional[int] = None,
+                  lengths: Optional[torch.Tensor] = None,
+                  prefix_k: Optional[torch.Tensor] = None,
+                  prefix_v: Optional[torch.Tensor] = None,
+                  prefix_len: int = 0
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self-attention (prefill). Returns
-    ``(out [B,S,D], (k, v))`` with ``k/v [B,S,K,hd]``.
+    """Full-sequence self-attention (prefill). Returns ``(out [B,S,D],
+    (k, v))`` with ``k/v [B,S,K,hd]``, the suffix's own K/V.
 
-    Attention runs through the tiled prefill kernel, whose causal mask
-    is top-left aligned over the padded sequence. The reference also masks
-    keys at or past each request's length; for every valid query row
-    (``q < length``) causality already hides those keys, so valid rows
-    agree. Padded query rows differ, but they only produce K/V at
-    positions ``>= length``, which decode overwrites before it reads them.
+    With ``lengths`` (each request's total valid length, prefix included)
+    keys at or past it are masked, as the reference masks them, so padded
+    query rows equal the reference's too. Without a prefix this is the
+    flash kernel's plain entry (top-left causal, optional window). With
+    ``prefix_k/v`` (``[B, P_pad, K, hd]``, gathered from the pool) the
+    sequence is the *suffix* of a longer prompt: queries attend over
+    ``[prefix || suffix]``, ``positions`` are absolute and the first
+    ``prefix_len`` prefix rows are valid (it may land mid-block); that is
+    the kernel's prefix-masked entry, whose masks are the reference's
+    (``_mask_builder``) row for row.
     """
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, cfg, positions)
-    o = ops.prefill_attention(
-        q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous(), k.contiguous(),
-        v.contiguous(), causal=causal)
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous()
+    if prefix_k is None:
+        o = ops.prefill_attention(q, k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window,
+                                  lengths=lengths)
+    else:
+        if not causal:
+            raise NotImplementedError(
+                "bidirectional prefill over a prefix (ROADMAP.md, next "
+                "slices: non-dense families)")
+        pad = prefix_k.shape[1]
+        k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
+        v_all = torch.cat([prefix_v.to(v.dtype), v], dim=1)
+        if lengths is None:
+            lengths = torch.full((B,), prefix_len + S, device=x.device)
+        o = ops.prefill_prefix_attention(
+            q, k_all.contiguous(), v_all.contiguous(), prefix_pad=pad,
+            prefix_len=prefix_len, lengths=lengths, window=window)
     return out_project(p, o.reshape(B, S, -1), cfg), (k, v)
 
 

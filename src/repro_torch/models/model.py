@@ -2,8 +2,9 @@
 ``repro.models.model`` for ``arch_type == "dense"``).
 
 Public entry points:
-  prefill      — process a (padded) prompt batch, return last-position
-                 logits and every layer's K/V
+  prefill      — process a (padded) prompt batch, or the suffix of one
+                 over its cached prefix, return last-position logits
+                 and every layer's K/V
   decode_step  — one token for every request, either against a
                  :class:`~repro_torch.kvcache.view.PagedCacheView` (the
                  zero-copy paged path: block-table attention on the
@@ -66,11 +67,17 @@ class Block(nn.Module):
                              norm_apply(self.ln2.tree(), x, self.cfg),
                              self.cfg)
 
-    def seq(self, x: torch.Tensor, positions: torch.Tensor
+    def seq(self, x: torch.Tensor, positions: torch.Tensor,
+            lengths: Optional[torch.Tensor],
+            prefix: Optional[Tuple[torch.Tensor, torch.Tensor]],
+            prefix_len: int
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        pk, pv = prefix if prefix is not None else (None, None)
         h, (k, v) = attention.self_attn_seq(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
-            self.cfg, positions=positions, causal=self.cfg.causal)
+            self.cfg, positions=positions, causal=self.cfg.causal,
+            lengths=lengths, prefix_k=pk, prefix_v=pv,
+            prefix_len=prefix_len)
         return self._mlp(x + h), k, v
 
     def decode(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,25 +139,45 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None,
+                prefix: Optional[Dict[str, torch.Tensor]] = None,
+                prefix_len: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
         lengths ``lengths [B]``). Returns ``(logits [B, vocab],
         {"k", "v"})``: float32 logits at each request's last valid
         position, and every layer's K/V as ``[L, B, max(S, cache_len),
-        K, hd]`` (rows past ``S`` zero)."""
+        K, hd]`` (rows past ``S`` zero).
+
+        Suffix-only prefill (the prefix cache, and each chunk of a
+        chunked prefill): ``prefix`` is ``{"k", "v"}`` of ``[L, B, P_pad,
+        K, hd]`` dense prefix K/V (e.g. from
+        :meth:`~repro_torch.kvcache.paged.PagedKVCache.gather_prefix`) of
+        which the first ``prefix_len`` rows are valid, and ``tokens``
+        holds only the suffix: positions start at ``prefix_len``,
+        ``lengths`` (required) stay suffix-local, and the returned cache
+        covers the suffix alone (the reference's ``prefill(prefix=,
+        prefix_len=)``)."""
         cfg, dev = self.cfg, self.device
         tokens = torch.as_tensor(tokens, device=dev)
         B, S = tokens.shape
-        positions = torch.arange(S, device=dev)
+        attn_lengths = None
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=dev)
+            attn_lengths = (lengths + prefix_len).to(torch.int32)
+        elif prefix is not None:
+            raise ValueError("suffix prefill requires lengths")
+        positions = prefix_len + torch.arange(S, device=dev)
         x = embed_apply(self.embed.tree(), tokens.long(), positions, cfg)
         ks, vs = [], []
-        for blk in self.layers:
-            x, k, v = blk.seq(x, positions)
+        for l, blk in enumerate(self.layers):
+            pkv = None if prefix is None else (prefix["k"][l],
+                                               prefix["v"][l])
+            x, k, v = blk.seq(x, positions, attn_lengths, pkv, prefix_len)
             ks.append(k)
             vs.append(v)
         if lengths is not None:
-            last = torch.as_tensor(lengths, device=dev).long() - 1
+            last = lengths.long() - 1
             x = x[torch.arange(B, device=dev), last][:, None]
         else:
             x = x[:, -1:]

@@ -4,4 +4,7 @@ from repro_torch.serving.engine import (ContinuousBatchingEngine,  # noqa
                                         EngineConfig, RequestTooLarge)
 from repro_torch.serving.metrics import Percentiles, ServingMetrics  # noqa
 from repro_torch.serving.workload import (Request, RequestState,  # noqa
-                                          SamplingParams, sharegpt_like)
+                                          SamplingParams,
+                                          long_short_workload,
+                                          shared_prefix_workload,
+                                          sharegpt_like)

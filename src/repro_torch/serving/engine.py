@@ -1,12 +1,19 @@
 """Continuous-batching serving engine (Orca/vLLM-style) on the paged KV
-pool: the synchronous, serial-prefill, greedy slice of
-``repro.serving.engine``.
+pool: the synchronous slice of ``repro.serving.engine``.
 
 Each engine iteration admits waiting requests FCFS under ``max_batch``
-and the pool's free-block watermark (each admitted prompt is prefilled
-at batch 1 in a padded length bucket and emits its first token), then
-runs one decode step for every running request at its own position, in
-one of the reference's two decode modes:
+and the pool's free-block watermark, runs prefill work, then one decode
+step for every running request at its own position. Prefill is serial by
+default (each admitted prompt is prefilled at batch 1 in a padded length
+bucket and emits its first token) or chunked (``prefill_chunk_tokens``:
+admission reserves a seat, and every step runs up to that many prompt
+tokens, FCFS, each chunk attending over the request's already-written
+pool KV and writing its rows token by token, so a long prompt streams in
+between decode steps). With ``prefix_cache`` a radix index over full
+blocks splices a prompt's longest cached prefix into its block table and
+only the rest is prefilled. Every prefill goes through the flash
+kernel's prefix-masked entry. Decode runs in one of the reference's two
+modes:
 
 * ``paged`` (the default) — zero-copy: attention reads the physical KV
   blocks through the block tables, and each layer's new K/V row is
@@ -21,20 +28,23 @@ one of the reference's two decode modes:
   into the pool.
 
 If the pool runs out of blocks mid-decode the youngest running requests
-are preempted and recomputed later; greedy decode regenerates identical
-tokens.
+are preempted and recomputed later. Tokens are greedy or sampled
+(temperature, top-k, top-p) with the reference's counter-based RNG, keyed
+on each request's seed and position, so preemption, batch composition
+and chunked against serial prefill all leave a request's tokens as they
+are; sampling runs on the device and only the ``[B]`` ids come back.
 
-Features of the reference engine outside this slice (prefix cache,
-chunked prefill, overlapped stepping, speculative decoding, load
-shedding, deadlines and sampled decoding) raise ``NotImplementedError``
-when asked for; ROADMAP.md lists them as the next slices.
+Features of the reference engine outside this slice (overlapped
+stepping, speculative decoding, load shedding and deadlines) raise
+``NotImplementedError`` when asked for; ROADMAP.md lists them as the next
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +52,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.paged import PagedKVCache
+from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
+                                        prefix_cache_supported)
 from repro_torch.models.model import Model
 from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
@@ -72,11 +84,15 @@ class EngineConfig:
     max_model_len: int = 1024
     prefill_bucket: int = 64            # pad prompts to multiples of this
     decode_mode: str = "paged"          # or "gather" (the dense-copy fallback)
+    # radix prefix cache over full blocks (opt-in), and a cap on the
+    # blocks it holds (None: bounded only by LRU eviction)
+    prefix_cache: bool = False
+    prefix_cache_blocks: Optional[int] = None
+    # chunked prefill: a step's prompt-token budget (None: serial)
+    prefill_chunk_tokens: Optional[int] = None
     # the reference's other features; any value but the default raises
     # NotImplementedError (see the module docstring)
-    prefix_cache: bool = False
     overlap: bool = False
-    prefill_chunk_tokens: Optional[int] = None
     max_waiting: Optional[int] = None
     shed_kv_fraction: Optional[float] = None
     shed_queue_delay_s: Optional[float] = None
@@ -110,11 +126,16 @@ class EngineConfig:
             raise ValueError(
                 f"decode_mode must be 'paged' or 'gather', "
                 f"got {self.decode_mode!r}")
-        if self.prefix_cache:
-            raise _not_ported("prefix_cache", "prefix-aware prefill")
-        if self.prefill_chunk_tokens is not None:
-            raise _not_ported("prefill_chunk_tokens",
-                              "prefix-aware prefill (chunked prefill)")
+        if self.prefix_cache_blocks is not None \
+                and self.prefix_cache_blocks < 1:
+            raise ValueError(
+                f"prefix_cache_blocks must be >= 1 (or None for "
+                f"unbounded), got {self.prefix_cache_blocks}")
+        if self.prefill_chunk_tokens is not None \
+                and self.prefill_chunk_tokens < 1:
+            raise ValueError(
+                f"prefill_chunk_tokens must be >= 1 (or None for serial "
+                f"admission-time prefill), got {self.prefill_chunk_tokens}")
         if self.overlap:
             raise _not_ported("overlap", "scheduler/executor overlap")
         if self.speculate:
@@ -153,16 +174,43 @@ class ContinuousBatchingEngine:
             self.cfg, num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
             block_size=ecfg.block_size, device=self.device)
         self.sched = Scheduler(self)
+        # chunked prefill and the prefix cache need per-token-addressable
+        # KV; an unsupported config falls back, the reason recorded
+        ok, why = prefix_cache_supported(self.cfg)
+        self.chunking = ecfg.prefill_chunk_tokens is not None and ok
+        self.chunking_disabled_reason = (
+            why if ecfg.prefill_chunk_tokens is not None else None)
+        self.prefix: Optional[PrefixIndex] = None
+        self.prefix_disabled_reason = why if ecfg.prefix_cache else None
+        if ecfg.prefix_cache and ok:
+            self.prefix = PrefixIndex(self.pool.manager,
+                                      max_blocks=ecfg.prefix_cache_blocks)
         # serving-timeline clock (seconds since start); run() installs one
         self.clock: Optional[Callable[[], float]] = None
+        self.reset_stats()
+
+    def reset_stats(self):
+        """Clear the telemetry (e.g. after a warm-up run); the prefix
+        index keeps its contents, only its counters reset."""
         self.decode_steps = 0        # decode steps run
-        self.prefills = 0            # admission prefills run
+        self.prefills = 0            # whole or suffix prefills run
+        self.chunks = 0              # chunk prefills run
+        # prefills and chunks that attend over a prefix in the pool (a
+        # prefix-cache hit, or a chunk after the prompt's first)
+        self.suffix_prefills = 0
         self.itl_samples: List[float] = []
         self.batch_samples: List[int] = []
         self.kv_fraction_samples: List[float] = []
         self.max_kv_fraction = 0.0
         self.preemptions = 0
         self.prefill_tokens_computed = 0
+        # per step: seconds of admission and prefill before the decode
+        # launch (the head-of-line share of ITL), prompt and decode tokens
+        self.stall_samples: List[float] = []
+        self.prefill_token_samples: List[int] = []
+        self.decode_token_samples: List[int] = []
+        if self.prefix is not None:
+            self.prefix.stats = PrefixStats()
 
     # scheduler state, re-exported under the reference engine's names
     @property
@@ -178,6 +226,14 @@ class ContinuousBatchingEngine:
         self.sched.running = v
 
     @property
+    def prefilling(self) -> List[Request]:
+        return self.sched.prefilling
+
+    @property
+    def _prefilled(self):
+        return self.sched._prefilled
+
+    @property
     def _tokens(self):
         return self.sched._tokens
 
@@ -187,8 +243,8 @@ class ContinuousBatchingEngine:
 
     @property
     def busy(self) -> bool:
-        """Any request still queued or decoding?"""
-        return bool(self.waiting or self.running)
+        """Any request still queued, prefilling or decoding?"""
+        return bool(self.waiting or self.prefilling or self.running)
 
     def add_request(self, req: Request):
         if req.prompt_len + 1 > self.ecfg.max_model_len:
@@ -197,9 +253,6 @@ class ContinuousBatchingEngine:
                 f"first output token exceeds max_model_len "
                 f"({self.ecfg.max_model_len}); reject or truncate the "
                 f"prompt upstream")
-        if not req.sampling.greedy:
-            raise _not_ported(f"request {req.req_id}: temperature > 0",
-                              "bit-exact sampled decoding")
         if req.sampling.has_deadline:
             raise _not_ported(f"request {req.req_id}: deadlines",
                               "observability")
@@ -246,8 +299,11 @@ class ContinuousBatchingEngine:
 
     def _complete_prefill(self, req: Request, logits: torch.Tensor,
                           now: float):
-        """The first output token from the prompt's last logits, then the
-        decode bookkeeping and the finish-or-run decision."""
+        """The one completion protocol of every prefill mode: the first
+        output token sampled from the prompt's last logits (RNG counter
+        ``prompt_len``, the same for serial, suffix-only and chunked
+        prefill), the decode bookkeeping, the prompt's full blocks
+        registered in the prefix index, and the finish-or-run decision."""
         rid = req.req_id
         tok = int(sample_tokens(logits, *stack_sampling([req.sampling]),
                                 positions_array([req.prompt_len]))[0])
@@ -255,21 +311,61 @@ class ContinuousBatchingEngine:
         self._pos[rid] = req.prompt_len
         req.generated = 1
         req.output_tokens.append(tok)
+        if self.prefix is not None:
+            self.prefix.insert(req.prompt, self.pool.manager.tables[rid])
         self._post_prefill(req, now)
 
-    def _prefill(self, req: Request) -> torch.Tensor:
-        """Serial whole-prompt prefill at batch 1, padded to a multiple of
-        ``prefill_bucket``; writes the K/V into the request's blocks and
-        returns the last-position logits."""
-        S = _bucket(req.prompt_len, self.ecfg.prefill_bucket)
+    def _suffix_prefill(self, req: Request, start: int, n: int,
+                        prefix_blocks: int, nb_pad: int
+                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Prefill prompt positions ``[start, start + n)`` at batch 1,
+        padded to a multiple of ``prefill_bucket``, over the prefix in the
+        request's first ``prefix_blocks`` blocks (gathered into a dense
+        copy ``nb_pad`` blocks wide; none when ``start`` is 0). Returns
+        the last position's logits and the rows' K/V."""
+        S = _bucket(n, self.ecfg.prefill_bucket)
         toks = np.zeros((1, S), np.int64)
-        toks[0, :req.prompt_len] = req.prompt
-        logits, cache = self.model.prefill(
+        toks[0, :n] = req.prompt[start:start + n]
+        prefix = None
+        if start:
+            prefix = self.pool.gather_prefix(
+                self.pool.manager.tables[req.req_id][:prefix_blocks], nb_pad)
+            self.suffix_prefills += 1
+        return self.model.prefill(
             torch.from_numpy(toks).to(self.device),
-            torch.tensor([req.prompt_len], device=self.device), cache_len=S)
-        self.pool.write_prefill(req.req_id, cache)
+            torch.tensor([n], device=self.device), cache_len=S,
+            prefix=prefix, prefix_len=start)
+
+    def _prefill(self, req: Request, n_cached: int = 0) -> torch.Tensor:
+        """Serial prefill of the uncached part of the prompt (all of it
+        without a prefix-cache hit), attending over the cached prefix's
+        ``n_cached`` tokens (whole blocks); writes its K/V into the
+        request's own blocks and returns the last-position logits."""
+        nb_cached = n_cached // self.ecfg.block_size
+        logits, cache = self._suffix_prefill(
+            req, n_cached, req.prompt_len - n_cached, nb_cached,
+            _pow2_bucket(nb_cached))
+        self.pool.write_prefill(req.req_id, cache, start_pos=n_cached)
         self.prefills += 1
-        self.prefill_tokens_computed += req.prompt_len
+        self.prefill_tokens_computed += req.prompt_len - n_cached
+        return logits
+
+    def _run_chunk(self, req: Request, done: int, chunk: int
+                   ) -> torch.Tensor:
+        """Prefill prompt positions ``[done, done + chunk)`` over the KV
+        already in the pool (``done`` need not be block-aligned) and write
+        the chunk's rows token by token; returns its last logits (only the
+        final chunk's are used). The prefix is gathered in a power-of-two
+        number of blocks, as in the reference."""
+        blocks = len(self.pool.manager.tables[req.req_id])
+        nb_prefix = -(-done // self.ecfg.block_size)
+        logits, cache = self._suffix_prefill(
+            req, done, chunk, nb_prefix,
+            min(_pow2_bucket(nb_prefix), _pow2_bucket(blocks)))
+        self.pool.write_prefill(req.req_id, cache, start_pos=done,
+                                n_tokens=chunk)
+        self.chunks += 1
+        self.prefill_tokens_computed += chunk
         return logits
 
     def step(self, now: float) -> bool:
@@ -278,6 +374,9 @@ class ContinuousBatchingEngine:
         plan = self.sched.plan(now)
         if not plan.has_decode:
             if plan.n_prefill:     # KV streamed in with no decode step
+                self.stall_samples.append(plan.t_sched)
+                self.prefill_token_samples.append(plan.n_prefill)
+                self.decode_token_samples.append(0)
                 self.kv_fraction_samples.append(
                     self.pool.manager.used_fraction)
                 self.max_kv_fraction = max(self.max_kv_fraction,
@@ -290,6 +389,9 @@ class ContinuousBatchingEngine:
             next_tokens = self._decode_gather(plan)
         dt = time.perf_counter() - plan.t0
         self.itl_samples.append(dt)
+        self.stall_samples.append(plan.t_sched)
+        self.prefill_token_samples.append(plan.n_prefill)
+        self.decode_token_samples.append(len(reqs))
         self.batch_samples.append(len(reqs))
         self.kv_fraction_samples.append(self.pool.manager.used_fraction)
         self.max_kv_fraction = max(self.max_kv_fraction,
@@ -367,4 +469,8 @@ class ContinuousBatchingEngine:
         return collect(list(requests), wall, self.itl_samples,
                        self.max_kv_fraction, self.batch_samples,
                        kv_samples=self.kv_fraction_samples,
-                       preemptions=self.preemptions)
+                       preemptions=self.preemptions,
+                       prefix=self.prefix.stats if self.prefix else None,
+                       stall_samples=self.stall_samples,
+                       prefill_token_samples=self.prefill_token_samples,
+                       decode_token_samples=self.decode_token_samples)

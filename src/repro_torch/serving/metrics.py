@@ -1,13 +1,15 @@
 """Serving metrics: throughput, TTFT/ITL/E2E percentiles, KV usage,
-preemptions and finish reasons (the subset of ``repro.serving.metrics``
-that the port's engine fills)."""
+preemptions, finish reasons, prefix-cache reuse and the per-step
+scheduler stall (the subset of ``repro.serving.metrics`` that the port's
+engine fills)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.kvcache.prefix import PrefixStats
 from repro_torch.serving.workload import Request
 
 
@@ -49,6 +51,15 @@ class ServingMetrics:
     kv_used_mean: float = 0.0
     preemptions: int = 0
     finish_reasons: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # prefix-cache reuse counters (None when the cache was off)
+    prefix: Optional[PrefixStats] = None
+    # per-step seconds of admission and prefill before the decode launch
+    # (a serial long prefill is one large sample, chunked prefill many
+    # bounded ones), and the mean prompt / decode tokens a step
+    stall_s_mean: float = 0.0
+    stall: Percentiles = dataclasses.field(default_factory=Percentiles)
+    prefill_tokens_per_step: float = 0.0
+    decode_tokens_per_step: float = 0.0
 
     @property
     def throughput(self) -> float:
@@ -59,11 +70,19 @@ class ServingMetrics:
         return self.output_tokens / max(self.wall_s, 1e-9)
 
 
+def _mean(xs: Sequence[float]) -> float:
+    return float(np.mean(xs)) if len(xs) else 0.0
+
+
 def collect(requests: List[Request], wall_s: float,
             itl_samples: Sequence[float], max_kv_fraction: float,
             batch_samples: Sequence[int],
             kv_samples: Sequence[float] = (),
-            preemptions: int = 0) -> ServingMetrics:
+            preemptions: int = 0,
+            prefix: Optional[PrefixStats] = None,
+            stall_samples: Sequence[float] = (),
+            prefill_token_samples: Sequence[int] = (),
+            decode_token_samples: Sequence[int] = ()) -> ServingMetrics:
     done = [r for r in requests if r.t_done is not None]
     e2e = [r.t_done - r.arrival_s for r in done]
     ttft = [r.t_first_token - r.arrival_s for r in done
@@ -88,4 +107,9 @@ def collect(requests: List[Request], wall_s: float,
         e2e=Percentiles.from_samples(e2e),
         kv_used_mean=float(np.mean(kv_samples)) if len(kv_samples) else 0.0,
         preemptions=preemptions,
-        finish_reasons=finish)
+        finish_reasons=finish,
+        prefix=prefix,
+        stall_s_mean=_mean(stall_samples),
+        stall=Percentiles.from_samples(stall_samples),
+        prefill_tokens_per_step=_mean(prefill_token_samples),
+        decode_tokens_per_step=_mean(decode_token_samples))

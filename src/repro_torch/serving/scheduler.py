@@ -1,12 +1,18 @@
-"""Scheduler: admission, preemption and decode-batch planning (the
-synchronous, serial-prefill subset of ``repro.serving.scheduler``).
+"""Scheduler: admission, chunked prefill, preemption and decode-batch
+planning (the synchronous subset of ``repro.serving.scheduler``).
 
-:class:`Scheduler` owns the request-phase state (arrival queue, running
-set, per-request next token and write position) and compresses one
-engine iteration's decisions into a :class:`StepPlan`: who is admitted
-(each admission runs its whole prompt's prefill at once), who is
-preempted for blocks, and which requests take a decode token at which
-positions. The engine keeps the compute.
+:class:`Scheduler` owns the request-phase state (arrival queue, the
+PREFILLING and RUNNING sets, per-request chunk progress, next token and
+write position) and compresses one engine iteration's decisions into a
+:class:`StepPlan`: who is admitted (with the prefix cache, a prompt's
+longest cached prefix is spliced into its table first), which prompt
+chunks stream in, who is preempted for blocks, and which requests take a
+decode token at which positions. The engine keeps the compute.
+
+Two prefill modes, as in the reference: serial (each admission prefills
+its whole uncached prompt at once) and chunked (admission reserves a
+seat and the first chunk's blocks; every step then runs up to
+``prefill_chunk_tokens`` prompt tokens, FCFS, beside the decode batch).
 """
 from __future__ import annotations
 
@@ -24,16 +30,25 @@ if TYPE_CHECKING:   # pragma: no cover - typing only
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
     """One iteration's decode work order. ``reqs``/``rids``/``positions``
-    are parallel: ``reqs[i]`` takes one token at ``positions[i]``."""
+    are parallel: ``reqs[i]`` takes one token at ``positions[i]``.
+    ``t_sched`` is the schedule phase (admission and prefill) in seconds,
+    ``p0`` the engine's preemption count before the step."""
     reqs: List[Request]
     rids: List[int]
     positions: List[int]
     n_prefill: int                # prompt tokens computed this iteration
     t0: float                     # perf_counter at step start
+    t_sched: float = 0.0
+    p0: int = 0
 
     @property
     def has_decode(self) -> bool:
         return bool(self.rids)
+
+
+def _too_large(msg: str, req_id: int):
+    from repro_torch.serving.engine import RequestTooLarge
+    return RequestTooLarge(msg, req_id)
 
 
 class Scheduler:
@@ -43,40 +58,151 @@ class Scheduler:
         self.eng = engine
         self.waiting: deque = deque()
         self.running: List[Request] = []
+        # chunked mode: admitted requests whose prompt is still streaming
+        # into the pool, FCFS, and how many prompt tokens each has written
+        self.prefilling: List[Request] = []
+        self._prefilled: Dict[int, int] = {}
         self._tokens: Dict[int, int] = {}    # rid -> next input token
         self._pos: Dict[int, int] = {}       # rid -> write position
 
     def admit(self, now: float):
-        """FCFS admission under ``max_batch`` and the pool watermark; each
-        admitted request is prefilled at once and emits its first token."""
+        """FCFS admission under ``max_batch`` and the pool watermark. A
+        prefix-cache hit is pinned before any eviction, and only the
+        uncached suffix needs free blocks; cache-only blocks are evicted
+        (LRU) when that closes the gap. Serial mode prefills each
+        admission at once; chunked mode reserves its first chunk."""
         eng = self.eng
         mgr = eng.pool.manager
+        bs = eng.ecfg.block_size
         while (self.waiting
-               and len(self.running) < eng.ecfg.max_batch
+               and len(self.running) + len(self.prefilling)
+               < eng.ecfg.max_batch
                and self.waiting[0].arrival_s <= now):
             req = self.waiting[0]
-            need = mgr.blocks_needed(req.prompt_len + 1)
-            if mgr.free_blocks - need < mgr.watermark_blocks:
-                if not self.running:
+            hit: List[int] = []
+            if eng.prefix is not None:
+                hit = eng.prefix.match(req.prompt)
+                for b in hit:
+                    mgr.incref(b)
+            n_cached = len(hit) * bs
+            if eng.chunking:
+                first = min(eng.ecfg.prefill_chunk_tokens,
+                            req.prompt_len + 1 - n_cached)
+                need_new = mgr.blocks_needed(n_cached + first) - len(hit)
+            else:
+                need_new = mgr.blocks_needed(req.prompt_len + 1) - len(hit)
+            short = need_new + mgr.watermark_blocks - mgr.free_blocks
+            # flush warm entries only when that can close the whole gap
+            if eng.prefix is not None \
+                    and 0 < short <= eng.prefix.cached_blocks:
+                eng.prefix.evict(short)
+            if mgr.free_blocks - need_new < mgr.watermark_blocks:
+                for b in hit:               # unpin (the cache ref remains)
+                    mgr.decref(b)
+                if not self.running and not self.prefilling:
                     # nothing in flight will ever free a block
-                    from repro_torch.serving.engine import RequestTooLarge
-                    raise RequestTooLarge(
-                        f"KV pool exhausted: request {req.req_id} "
-                        f"(prompt_len={req.prompt_len}) needs {need} blocks "
-                        f"but the idle pool has {mgr.free_blocks} free "
-                        f"({mgr.num_blocks} total, {mgr.watermark_blocks} "
-                        f"reserved) — raise kv_pool_tokens or lower "
-                        f"max_model_len", req.req_id)
+                    evictable = (eng.prefix.cached_blocks
+                                 if eng.prefix is not None else 0)
+                    if (mgr.free_blocks + evictable - need_new
+                            < mgr.watermark_blocks):
+                        raise _too_large(
+                            f"KV pool exhausted: request {req.req_id} "
+                            f"(prompt_len={req.prompt_len}) needs "
+                            f"{need_new} blocks but the idle pool has "
+                            f"{mgr.free_blocks} free ({mgr.num_blocks} "
+                            f"total, {mgr.watermark_blocks} reserved) — "
+                            f"raise kv_pool_tokens or lower max_model_len",
+                            req.req_id)
+                    eng.prefix.evict(need_new + mgr.watermark_blocks
+                                     - mgr.free_blocks)
+                    continue                # retry the same head request
                 break
             self.waiting.popleft()
-            mgr.allocate(req.req_id, req.prompt_len + 1)
-            eng._complete_prefill(req, eng._prefill(req), now)
+            if hit:
+                mgr.share(req.req_id, hit)
+                for b in hit:               # the table's ref replaces the pin
+                    mgr.decref(b)
+            if eng.prefix is not None:
+                eng.prefix.record_admit(req.prompt_len, n_cached)
+            if eng.chunking:
+                mgr.extend(req.req_id, n_cached + first)
+                self._prefilled[req.req_id] = n_cached
+                self.prefilling.append(req)
+                continue
+            mgr.allocate(req.req_id, req.prompt_len + 1 - n_cached)
+            eng._complete_prefill(req, eng._prefill(req, n_cached), now)
+
+    def prefill_step(self, now: float) -> int:
+        """Run up to ``prefill_chunk_tokens`` prompt tokens of chunked
+        prefill, FCFS across PREFILLING requests (leftover budget flows to
+        the next in line); a request whose last chunk ran emits its first
+        token. Returns the prompt tokens computed."""
+        eng = self.eng
+        if not eng.chunking or not self.prefilling:
+            return 0
+        budget = eng.ecfg.prefill_chunk_tokens
+        spent = 0
+        while budget > 0 and self.prefilling:
+            req = self.prefilling[0]
+            rid = req.req_id
+            done = self._prefilled[rid]
+            remaining = req.prompt_len - done
+            chunk = min(budget, remaining)
+            final = chunk == remaining
+            # the final chunk also covers the first decode token's slot
+            target = done + chunk + (1 if final else 0)
+            if not self._reserve_for_chunk(rid, target):
+                break                    # strict FCFS: wait for blocks
+            logits = eng._run_chunk(req, done, chunk)
+            self._prefilled[rid] = done + chunk
+            spent += chunk
+            budget -= chunk
+            if final:
+                self.prefilling.pop(0)
+                self._prefilled.pop(rid, None)
+                eng._complete_prefill(req, logits, now)
+        return spent
+
+    def _reserve_for_chunk(self, rid: int, target_tokens: int) -> bool:
+        """Extend ``rid``'s table to cover ``target_tokens`` under the
+        watermark. Under pressure: evict cache-only prefix blocks; if
+        nothing is decoding (no block will free itself), preempt the
+        youngest *other* prefilling request; a lone request that cannot
+        fit raises."""
+        eng = self.eng
+        mgr = eng.pool.manager
+        while True:
+            short = target_tokens - mgr.covered_tokens(rid)
+            if short <= 0:
+                return True
+            gap = mgr.blocks_needed(short) + mgr.watermark_blocks \
+                - mgr.free_blocks
+            if eng.prefix is not None \
+                    and 0 < gap <= eng.prefix.cached_blocks:
+                eng.prefix.evict(gap)
+            if mgr.can_allocate(short):
+                mgr.extend(rid, target_tokens)
+                return True
+            if self.running:
+                return False             # decode completions free blocks
+            victims = [r for r in self.prefilling if r.req_id != rid]
+            if not victims:
+                raise _too_large(
+                    "KV pool exhausted: a single request's prompt exceeds "
+                    "pool capacity (raise kv_pool_tokens or lower "
+                    "max_model_len)", rid)
+            self.preempt(victims[-1])
 
     def preempt(self, req: Request):
-        """Recompute-style preemption: release everything, requeue first;
-        greedy decode regenerates identical tokens on re-admission."""
+        """Recompute-style preemption of a running or half-prefilled
+        request: release everything, requeue first; re-admission redoes
+        the prefix match and restreams the prompt, and the counter-based
+        sampler replays the same tokens."""
         eng = self.eng
         rid = req.req_id
+        if req in self.prefilling:
+            self.prefilling.remove(req)
+        self._prefilled.pop(rid, None)
         eng.pool.release(rid)
         self._tokens.pop(rid, None)
         self._pos.pop(rid, None)
@@ -86,38 +212,56 @@ class Scheduler:
 
     def ensure_step_capacity(self):
         """Make sure every running request can take its token this step:
-        while the requests crossing a block boundary outnumber the free
-        blocks, preempt the youngest running request."""
-        mgr = self.eng.pool.manager
+        while the requests crossing a block boundary (or needing a
+        copy-on-write fork) outnumber the free blocks, evict cache-only
+        prefix blocks, then preempt half-prefilled requests youngest
+        first, then the youngest running request."""
+        eng = self.eng
+        mgr = eng.pool.manager
         while True:
-            need = sum(1 for r in self.running
-                       if mgr.needs_block(r.req_id, self._pos[r.req_id] + 1))
+            need = 0
+            for r in self.running:
+                pos = self._pos[r.req_id]
+                if mgr.needs_block(r.req_id, pos + 1) \
+                        or mgr.needs_cow(r.req_id, pos):
+                    need += 1
             if need <= mgr.free_blocks:
                 return
+            if eng.prefix is not None \
+                    and eng.prefix.evict(need - mgr.free_blocks):
+                continue
+            if self.prefilling:
+                self.preempt(self.prefilling[-1])
+                continue
             if len(self.running) <= 1:
-                from repro_torch.serving.engine import RequestTooLarge
-                raise RequestTooLarge(
+                raise _too_large(
                     "KV pool exhausted: a single request exceeds pool "
                     "capacity (raise kv_pool_tokens or lower max_model_len)",
                     self.running[0].req_id)
             self.preempt(self.running.pop())
 
     def plan(self, now: float) -> StepPlan:
-        """Admission, capacity preemption and the decode batch, with the
-        block for each row's token reserved."""
+        """Admission, prefill work (serial admissions or this step's
+        chunks), capacity preemption and the decode batch, with each
+        row's block reserved and any shared block it writes forked."""
         eng = self.eng
         t0 = time.perf_counter()
         pf0 = eng.prefill_tokens_computed
+        p0 = eng.preemptions
         self.admit(now)
+        self.prefill_step(now)
         n_prefill = eng.prefill_tokens_computed - pf0
+        t_sched = time.perf_counter() - t0
         if not self.running:
             return StepPlan(reqs=[], rids=[], positions=[],
-                            n_prefill=n_prefill, t0=t0)
+                            n_prefill=n_prefill, t0=t0, t_sched=t_sched,
+                            p0=p0)
         self.ensure_step_capacity()        # may preempt -> shrink running
         reqs = list(self.running)
         rids = [r.req_id for r in reqs]
         positions = [self._pos[rid] for rid in rids]
         for rid, pos in zip(rids, positions):
             eng.pool.manager.append_token(rid, pos + 1)
+            eng.pool.ensure_writable(rid, pos)
         return StepPlan(reqs=reqs, rids=rids, positions=positions,
-                        n_prefill=n_prefill, t0=t0)
+                        n_prefill=n_prefill, t0=t0, t_sched=t_sched, p0=p0)

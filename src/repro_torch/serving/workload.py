@@ -1,12 +1,14 @@
-"""Request/response data model + the ShareGPT-statistics workload
-generator (the port's own copy of ``repro.serving.workload``).
+"""Request/response data model + the workload generators (the port's own
+copy of ``repro.serving.workload``).
 
 :class:`Request` is the frozen input (prompt token ids, arrival time and
 a :class:`SamplingParams`); :class:`RequestState` is the engine-owned
-output. :func:`sharegpt_like` makes the same numpy draws as the
-reference for the same arguments, so both packages serve identical
-requests: the paper samples ShareGPT requests with mean 161 input / 338
-output tokens, and lengths here are lognormal around those means.
+output. :func:`sharegpt_like`, :func:`shared_prefix_workload` and
+:func:`long_short_workload` make the same numpy draws as the reference
+for the same arguments, so both packages serve identical requests: the
+paper samples ShareGPT requests with mean 161 input / 338 output tokens,
+and lengths here are lognormal around those means; the other two are
+the prefix cache's and chunked prefill's target shapes.
 """
 from __future__ import annotations
 
@@ -291,6 +293,99 @@ def arrival_times(n: int, rate: float, *, pattern: str = "poisson",
     ramp = np.linspace(0.5, 1.5, n)
     scale = (1.0 / rate) / float(np.mean(1.0 / ramp))
     return np.cumsum(rng.exponential(scale, size=n) / ramp)
+
+
+def shared_prefix_workload(n_tenants: int, per_tenant: int, vocab: int, *,
+                           prefix_len: int = 256, suffix_len: int = 32,
+                           max_new_tokens: int = 16, seed: int = 0,
+                           arrival_rate: Optional[float] = None,
+                           arrival_pattern: str = "poisson",
+                           burst_size: int = 8,
+                           interleave: bool = True,
+                           sampling: Optional[SamplingParams] = None
+                           ) -> List[Request]:
+    """Shared-system-prompt workload: N tenants x M requests.
+
+    Each tenant has one random ``prefix_len``-token system prompt; every
+    request appends its own random ``suffix_len``-token tail. This is the
+    prefix cache's target shape (and its worst case when disabled: the
+    same prefix KV recomputed and stored M times per tenant).
+
+    ``interleave=True`` plays tenants round-robin (request i of every
+    tenant, then request i+1, ...), so a warm cache sees hits immediately
+    after each tenant's first prefill; ``False`` plays tenants
+    back-to-back. Arrivals default to t=0 (offline batch); pass
+    ``arrival_rate`` (+ pattern) for timed streams.
+    """
+    if n_tenants < 1 or per_tenant < 1:
+        raise ValueError(f"need >= 1 tenant and >= 1 request/tenant, got "
+                         f"{n_tenants} x {per_tenant}")
+    if prefix_len < 1 or suffix_len < 1:
+        raise ValueError(f"prefix_len and suffix_len must be >= 1, got "
+                         f"{prefix_len}/{suffix_len}")
+    rng = np.random.default_rng(seed)
+    prefixes = [rng.integers(0, vocab, size=prefix_len).astype(np.int32)
+                for _ in range(n_tenants)]
+    if interleave:
+        order = [(t, j) for j in range(per_tenant)
+                 for t in range(n_tenants)]
+    else:
+        order = [(t, j) for t in range(n_tenants)
+                 for j in range(per_tenant)]
+    n = len(order)
+    arrivals = np.zeros(n)
+    if arrival_rate:
+        arrivals = arrival_times(n, arrival_rate, pattern=arrival_pattern,
+                                 rng=np.random.default_rng((seed, 1)),
+                                 burst_size=burst_size)
+    reqs = []
+    for i, (t, _) in enumerate(order):
+        suffix = rng.integers(0, vocab, size=suffix_len).astype(np.int32)
+        prompt = np.concatenate([prefixes[t], suffix])
+        reqs.append(Request(
+            req_id=i, prompt=prompt, arrival_s=float(arrivals[i]),
+            sampling=_request_sampling(sampling, i, max_new_tokens)))
+    return reqs
+
+
+def long_short_workload(n_short: int, n_long: int, vocab: int, *,
+                        short_len: int = 24, long_len: int = 384,
+                        short_new: int = 24, long_new: int = 16,
+                        every: int = 4, seed: int = 0,
+                        sampling: Optional[SamplingParams] = None
+                        ) -> List[Request]:
+    """Head-of-line-blocking stress shape: a stream of short chatty
+    prompts with a long prompt injected after every ``every`` short ones.
+
+    Under serial admission-time prefill each long prompt freezes every
+    running short request's decode for its full prefill; under chunked
+    prefill the long prompt streams in ``prefill_chunk_tokens``-sized
+    slices between decode steps. All requests arrive at t=0 (offline
+    order = list order, so the FCFS scheduler is deterministic), shorts
+    first so the decode loop is busy when the first long prompt hits.
+    """
+    if n_short < 1 or n_long < 0:
+        raise ValueError(f"need >= 1 short and >= 0 long requests, got "
+                         f"{n_short}/{n_long}")
+    if short_len < 1 or long_len < 1 or every < 1:
+        raise ValueError(f"short_len/long_len/every must be >= 1, got "
+                         f"{short_len}/{long_len}/{every}")
+    rng = np.random.default_rng(seed)
+    shapes: List[tuple] = []
+    longs_left, shorts_left = n_long, n_short
+    while shorts_left or longs_left:
+        take = min(every, shorts_left)
+        shapes.extend([(short_len, short_new)] * take)
+        shorts_left -= take
+        if longs_left:
+            shapes.append((long_len, long_new))
+            longs_left -= 1
+    reqs = []
+    for i, (lin, lout) in enumerate(shapes):
+        prompt = rng.integers(0, vocab, size=lin).astype(np.int32)
+        reqs.append(Request(req_id=i, prompt=prompt,
+                            sampling=_request_sampling(sampling, i, lout)))
+    return reqs
 
 
 def sharegpt_like(n: int, vocab: int, *, seed: int = 0,

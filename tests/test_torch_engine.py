@@ -8,6 +8,9 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+# tier-1 runs in several worker processes at once: one intra-op thread
+# each keeps them from oversubscribing the cores (about 3x faster there)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -281,12 +284,14 @@ def test_workload_and_helpers_match_reference():
 
 
 def test_out_of_slice_requests_raise(models):
+    """Deadlines are still out of the slice; sampled requests are in it
+    and are queued."""
     _, _, tcfg, tmodel = models
     eng = ContinuousBatchingEngine(tmodel, EngineConfig(), device="cpu")
     sampled = sharegpt_like(1, tcfg.vocab_size, seed=0,
                             sampling=SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_request(sampled[0])
+    eng.add_request(sampled[0])
+    assert list(eng.waiting) == sampled
     timed = sharegpt_like(1, tcfg.vocab_size, seed=0,
                           sampling=SamplingParams(deadline_s=1.0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

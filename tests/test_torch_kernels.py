@@ -8,6 +8,9 @@ import shutil
 import pytest
 
 torch = pytest.importorskip("torch")
+# tier-1 runs in several worker processes at once: one intra-op thread
+# each keeps them from oversubscribing the cores (about 3x faster there)
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -17,6 +20,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as j_flash  # noqa: E402
 from repro.kernels.paged_decode_attention import (  # noqa: E402
     paged_gqa_decode_attention as j_paged)
+from repro.models.attention import _attention_core, _mask_builder  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -26,7 +30,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     split_plan)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     KERNEL_HEAD_DIMS, _check_args as flash_check_args, flash_attention,
-    flash_attention_torch, kernel_body)
+    flash_attention_torch, flash_prefix_attention,
+    flash_prefix_attention_torch, kernel_body, prefix_kv_ids)
 from repro_torch.kernels.paged_decode_attention import (  # noqa: E402
     _check_args as paged_check_args, paged_gqa_decode_attention,
     paged_gqa_decode_attention_torch, paged_merge_partials_torch,
@@ -547,3 +552,157 @@ def test_flash_dispatch_takes_every_shape_it_took_before(hd, dtype):
 def test_flash_dispatch_refuses_what_no_body_takes(dtype, hd, error):
     with pytest.raises(error):
         kernel_body(dtype, hd)
+
+
+# ------------------------------------------------ flash, prefix entry ----
+# (B, S, K, G, hd, prefix_pad, prefix_len, suffix lengths, dtype):
+# prefix_len mid-block, 0 and the whole pad; lengths short of S; no
+# prefix with lengths (the serial prefill); G = 7, hd 80/96
+PREFIX_CASES = [
+    (2, 16, 2, 2, 64, 16, 5, (16, 9), np.float32),
+    (1, 24, 1, 4, 32, 32, 32, (24,), np.float32),
+    (2, 32, 2, 1, 64, 64, 0, (32, 1), np.float32),
+    (1, 40, 1, 7, 80, 48, 41, (33,), np.float32),
+    (2, 64, 2, 4, 128, 0, 0, (64, 50), np.float32),
+    (1, 17, 4, 2, 96, 128, 100, (17,), np.float32),
+    (2, 48, 2, 2, 64, 32, 19, (48, 30), "bfloat16"),
+]
+
+
+def _reference_prefix_attention(q, k, v, P, pl, lengths):
+    """The reference model's prefill attention over [prefix || suffix]:
+    ``_attention_core`` under ``_mask_builder``, as ``self_attn_seq``
+    calls them."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    kv_ids = jnp.concatenate([jnp.where(jnp.arange(P) < pl, jnp.arange(P),
+                                        -1), pl + jnp.arange(S)])
+    mask_fn = _mask_builder(causal=True, window=None, kv_ids=kv_ids,
+                            lengths=jnp.asarray(lengths))
+    o = _attention_core(q.reshape(B, S, K, H // K, hd), k, v, mask_fn, 512,
+                        q_offset=pl)
+    return o.reshape(B, S, H, hd)
+
+
+@pytest.mark.parametrize("B,S,K,G,hd,P,pl,sfx,dtype", PREFIX_CASES)
+def test_flash_prefix_plain_vs_reference_masks(B, S, K, G, hd, P, pl, sfx,
+                                               dtype):
+    """Every query row, padded ones included, against the reference's
+    masked prefill attention; the prefix's masked tail holds garbage."""
+    rng = np.random.default_rng(P + pl + S)
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, dtype, (B, S, K * G, hd),
+                                         (B, P + S, K, hd), (B, P + S, K, hd))
+    lengths = np.asarray(sfx, np.int32) + pl
+    out = flash_prefix_attention_torch(
+        qt, kt, vt, prefix_pad=P, prefix_len=pl,
+        lengths=torch.from_numpy(lengths))
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, _reference_prefix_attention(qj, kj, vj, P, pl, lengths),
+           dtype)
+
+
+def test_flash_prefix_without_prefix_is_the_causal_entry():
+    """prefix_pad = 0 with every length Sq is plain causal attention:
+    the two plain versions agree to float32 rounding (on the card the
+    kernel's two entries agree bit for bit, ``chip_smoke.py``)."""
+    rng = np.random.default_rng(3)
+    _, (q, k, v) = _arrays(rng, np.float32, (2, 70, 4, 64), (2, 70, 2, 64),
+                           (2, 70, 2, 64))
+    a = flash_prefix_attention_torch(q, k, v, prefix_pad=0, prefix_len=0,
+                                     lengths=torch.tensor([70, 70]))
+    b = flash_attention_torch(q, k, v)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-6, rtol=0)
+
+
+# (B, S, K, G, hd, causal, window, lengths, dtype): the plain entry with a
+# length a request, the model's prefill without a prefix; padded query
+# rows included (each keeps a valid key)
+LENGTH_CASES = [
+    (2, 70, 2, 2, 64, True, None, (70, 41), np.float32),
+    (1, 33, 1, 7, 80, True, None, (20,), np.float32),
+    (2, 48, 2, 1, 96, False, None, (48, 5), np.float32),
+    (2, 64, 1, 4, 32, True, 16, (64, 60), np.float32),
+    (3, 40, 2, 2, 128, True, None, (1, 40, 17), "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("B,S,K,G,hd,causal,window,lens,dtype", LENGTH_CASES)
+def test_flash_lengths_plain_vs_reference_masks(B, S, K, G, hd, causal,
+                                                window, lens, dtype):
+    """Every query row against the reference's masked prefill attention
+    (``_attention_core`` under ``_mask_builder`` without a prefix)."""
+    rng = np.random.default_rng(S + hd)
+    (qj, kj, vj), (qt, kt, vt) = _arrays(rng, dtype, (B, S, K * G, hd),
+                                         (B, S, K, hd), (B, S, K, hd))
+    lengths = np.asarray(lens, np.int32)
+    out = flash_attention_torch(qt, kt, vt, causal=causal, window=window,
+                                lengths=torch.from_numpy(lengths))
+    mask_fn = _mask_builder(causal=causal, window=window,
+                            kv_ids=jnp.arange(S), lengths=jnp.asarray(lengths))
+    ref = _attention_core(qj.reshape(B, S, K, G, hd), kj, vj, mask_fn, 512,
+                          q_offset=0).reshape(B, S, K * G, hd)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    _close(out, ref, dtype)
+
+
+def test_flash_prefix_without_prefix_equals_the_plain_entry_with_lengths():
+    """prefix_pad = 0 with lengths short of Sq is the plain entry with the
+    same lengths: the two plain versions agree to float32 rounding (on the
+    card the kernel's two builds agree bit for bit, ``chip_smoke.py``)."""
+    rng = np.random.default_rng(5)
+    _, (q, k, v) = _arrays(rng, np.float32, (2, 70, 4, 64), (2, 70, 2, 64),
+                           (2, 70, 2, 64))
+    lengths = torch.tensor([70, 23])
+    a = flash_prefix_attention_torch(q, k, v, prefix_pad=0, prefix_len=0,
+                                     lengths=lengths)
+    b = flash_attention_torch(q, k, v, lengths=lengths)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-6, rtol=0)
+
+
+def test_flash_wrapper_with_lengths_takes_the_plain_version_on_cpu():
+    rng = np.random.default_rng(6)
+    _, (q, k, v) = _arrays(rng, np.float32, (2, 24, 2, 64), (2, 24, 1, 64),
+                           (2, 24, 1, 64))
+    lengths = torch.tensor([24, 9])
+    f0 = flash_attention.launches
+    a = ops.prefill_attention(q, k, v, lengths=lengths)
+    assert torch.equal(a, flash_attention_torch(q, k, v, lengths=lengths))
+    assert flash_attention.launches == f0
+    with pytest.raises(ValueError, match="lengths"):
+        flash_attention(q, k, v, lengths=torch.tensor([24]))
+
+
+def test_prefix_kv_ids_match_the_reference_layout():
+    ids = prefix_kv_ids(16, 5, 4)
+    assert ids.tolist() == [0, 1, 2, 3, 4] + [-1] * 11 + [5, 6, 7, 8]
+
+
+def test_flash_prefix_wrapper_takes_the_plain_version_on_cpu():
+    rng = np.random.default_rng(4)
+    _, (q, k, v) = _arrays(rng, np.float32, (1, 8, 2, 64), (1, 24, 1, 64),
+                           (1, 24, 1, 64))
+    lengths = torch.tensor([20])
+    n0 = flash_prefix_attention.launches
+    a = ops.prefill_prefix_attention(q, k, v, prefix_pad=16, prefix_len=12,
+                                     lengths=lengths)
+    b = flash_prefix_attention_torch(q, k, v, prefix_pad=16, prefix_len=12,
+                                     lengths=lengths)
+    assert torch.equal(a, b)
+    assert flash_prefix_attention.launches == n0
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(prefix_pad=16, prefix_len=17), ValueError),
+    (dict(prefix_pad=40, prefix_len=0), ValueError),
+    (dict(prefix_pad=16, prefix_len=4, window=8), NotImplementedError),
+    (dict(prefix_pad=0, prefix_len=0, window=0), ValueError)])
+def test_flash_prefix_refuses_what_the_reference_refuses(kw, error):
+    """prefix_len within [0, prefix_pad], the pad within the keys, and no
+    window over a prefix (the reference's ``self_attn_seq`` raises)."""
+    q = torch.zeros(1, 8, 2, 64)
+    k = torch.zeros(1, 24, 2, 64)
+    with pytest.raises(error):
+        flash_prefix_attention(q, k, k, lengths=torch.tensor([8]), **kw)
+    with pytest.raises(ValueError, match="lengths"):
+        flash_prefix_attention(q, k, k, prefix_pad=16, prefix_len=4,
+                               lengths=torch.tensor([8, 8]))

@@ -7,6 +7,9 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+# tier-1 runs in several worker processes at once: one intra-op thread
+# each keeps them from oversubscribing the cores (about 3x faster there)
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -201,6 +204,49 @@ def test_self_attn_seq_valid_rows(name, bias, rules):
     _close(vt, vj)
 
 
+@pytest.mark.parametrize("name,bias", [("opt-1.3b", False),
+                                       ("qwen2.5-3b", True)])
+@pytest.mark.parametrize("P,pl", [(16, 11), (32, 32), (0, 0)])
+def test_self_attn_seq_prefix_and_lengths_every_row(name, bias, P, pl,
+                                                    rules):
+    """A suffix over a gathered prefix (``prefix_len`` mid-block, the
+    whole pad, or no prefix) with each request's length: every query
+    row, padded rows included, and the suffix's K/V against the
+    reference's ``self_attn_seq``."""
+    jcfg, tcfg, pj, pt = _attn_inputs(name, bias)
+    rng = np.random.default_rng(P + pl)
+    S = 16
+    x = rng.normal(size=(2, S, 256)).astype(np.float32)
+    pk, pv = (rng.normal(size=(2, P, tcfg.n_kv_heads, tcfg.hd))
+              .astype(np.float32) for _ in range(2))
+    lengths = np.array([S, 9], np.int32) + pl
+    pos = (pl + np.arange(S)).astype(np.int32)
+    kw = dict(prefix_len=pl) if P else {}
+    ot, (kt, vt) = TA.self_attn_seq(
+        pt, _t(x), tcfg, positions=_t(pos), causal=True,
+        lengths=_t(lengths), prefix_k=_t(pk) if P else None,
+        prefix_v=_t(pv) if P else None, **kw)
+    oj, (kj, vj) = JA.self_attn_seq(
+        pj, jnp.asarray(x), jcfg, rules, positions=jnp.asarray(pos),
+        causal=True, lengths=jnp.asarray(lengths),
+        prefix_k=jnp.asarray(pk) if P else None,
+        prefix_v=jnp.asarray(pv) if P else None,
+        prefix_len=jnp.int32(pl) if P else None)
+    _close(ot, oj)
+    _close(kt, kj)
+    _close(vt, vj)
+
+
+def test_self_attn_seq_refuses_a_window_over_a_prefix():
+    _, tcfg, _, pt = _attn_inputs("opt-1.3b", False)
+    x = torch.zeros(1, 8, 256)
+    pk = torch.zeros(1, 16, tcfg.n_kv_heads, tcfg.hd)
+    with pytest.raises(NotImplementedError, match="window"):
+        TA.self_attn_seq(pt, x, tcfg, positions=torch.arange(8) + 4,
+                         causal=True, window=4, lengths=torch.tensor([12]),
+                         prefix_k=pk, prefix_v=pk, prefix_len=4)
+
+
 def test_paged_self_attn_decode(rules):
     jcfg, tcfg, pj, pt = _attn_inputs("qwen2.5-3b", True)
     rng = np.random.default_rng(8)
@@ -309,6 +355,45 @@ def test_prefill_and_paged_decode_logits(name, bias, rules):
         tokens = np.asarray(jnp.argmax(lj[:2], -1), np.int32)
         assert tokens.tolist() == lt[:2].argmax(-1).tolist()
         positions += 1
+
+
+@pytest.mark.parametrize("name,bias", [("opt-1.3b", False),
+                                       ("llama-2-7b", False),
+                                       ("qwen2.5-3b", True)])
+def test_suffix_prefill_over_a_cached_prefix(name, bias, rules):
+    """``prefill(prefix=, prefix_len=)`` (the prefix cache's and chunked
+    prefill's call): the suffix's logits and K/V equal the reference's
+    suffix prefill on the same gathered prefix, and the whole prompt's
+    prefill (the prefix ends mid-block, its masked tail is garbage)."""
+    jcfg, tcfg = _configs(name)
+    jp, tp = _params(jcfg, tcfg, seed=2, bias=bias)
+    model = Model(tcfg, tp, device=CPU)
+    rng = np.random.default_rng(8)
+    N, pl, P, S = 29, 19, 32, 16
+    prompt = rng.integers(0, tcfg.vocab_size, N).astype(np.int32)
+    full_l, full_c = model.prefill(_t(prompt[None]), _t(np.array([N])),
+                                   cache_len=N)
+    _, pre = model.prefill(_t(prompt[None, :pl]), _t(np.array([pl])))
+    prefix = {k: torch.cat([c, torch.randn(c.shape[0], 1, P - pl,
+                                           *c.shape[3:])], dim=2)
+              for k, c in pre.items()}
+    toks = np.zeros((1, S), np.int32)
+    toks[0, :N - pl] = prompt[pl:]
+    lens = np.array([N - pl], np.int32)
+    lt, ct = model.prefill(_t(toks), _t(lens), cache_len=S, prefix=prefix,
+                           prefix_len=pl)
+    jprefix = {"stack": [{k: jnp.asarray(c.numpy())
+                          for k, c in prefix.items()}], "rem": []}
+    lj, cj, _ = JM.prefill(jp, jcfg, rules, {"tokens": jnp.asarray(toks),
+                                             "lengths": jnp.asarray(lens)},
+                           cache_len=S, prefix=jprefix, prefix_len=pl)
+    _close(lt, lj)
+    _close(lt, full_l)
+    for k in ("k", "v"):
+        _close(ct[k], cj["stack"][0][k])
+        _close(ct[k][:, :, :N - pl], full_c[k][:, :, pl:N])
+    with pytest.raises(ValueError, match="lengths"):
+        model.prefill(_t(toks), prefix=prefix, prefix_len=pl)
 
 
 DENSE = [("opt-1.3b", False), ("llama-2-7b", False),
