@@ -34,24 +34,30 @@ It imports nothing of JAX or of the JAX package. Phases:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
    and greedy tokens must agree; then shared-prefix and long-prompt
-   serves with the prefix cache on and off, chunked and serial, which
-   must give the same tokens;
+   serves with the prefix cache on and off, chunked and serial, with
+   eager decode steps and overlapped, which must give the same tokens;
 4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
    random weights from a seed), each run with every kernel's launch
-   counter set to 0 just before and read just after: the paged serve of
-   32 ShareGPT-length requests, the gather-fallback serve of the first
-   16 (and, for token agreement, the paged serve of the same 16, in
-   bfloat16 and again in float32), a
-   static batch of 32 prompts with 64 decode steps on a dense cache, the
+   counter set to 0 just before and read just after (a CUDA graph's
+   launches, recorded at its capture, are added at each replay), every
+   logit finite (eager calls folded here, replayed steps by their graph):
+   the paged serve of 32 ShareGPT-length requests (paged decode steps
+   replayed from one CUDA graph a bucket, the engine's default), the
    shared-prefix serve (4 tenants x 8, prefix 256, suffix 32) with the
    prefix cache on and off, the long/short serve (16 short prompts of 24,
-   8 long of 768) chunked by 192 and serial, and the paged serve's 32
-   requests sampled (temperature 0.8, top-k 50, top-p 0.95), twice;
-   the paged and the gather serve are each followed by a
-   ``torch.profiler`` window of 10 steady decode steps at batch 16
-   (device busy time by kernel kind against host wall time), and the
-   flash kernel symbol a prefill launches (bfloat16 and float32) is
-   printed from a profile;
+   8 long of 768) chunked by 192 and serial, the paged serve's 32
+   requests sampled (temperature 0.8, top-k 50, top-p 0.95); the greedy
+   and the sampled serve again with eager decode steps and with CUDA
+   graphs and overlap (tokens equal to the graphs' in every way); the
+   gather-fallback serve of the first 16, sync and overlapped (and, for
+   token agreement, the paged serve of the same 16, in bfloat16 and
+   again in float32); a static batch of 32 prompts with 64 decode steps
+   on a dense cache. Each paged way and the gather serve are followed by
+   a ``torch.profiler`` window of 10 steady decode steps at batch 16
+   (device busy time by kernel kind against host wall time; with graphs,
+   the paged kernel's replayed launches against the trace's count of
+   its symbol), and the flash kernel symbol a prefill launches (bfloat16
+   and float32) is printed from a profile;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -64,8 +70,10 @@ It imports nothing of JAX or of the JAX package. Phases:
    shape, at one 8192-token request and at the static batch's shape); the
    decode kernels and their library calls twice, L2-cold (back-to-back
    calls on 24 copies of their inputs in turn, as a step's 24 layers) and
-   L2-warm (one copy); and one whole gather decode step against one paged
-   step at batch 16 (with the gather copy's share);
+   L2-warm (one copy); one paged step at batch 16 replayed from its
+   graph against the same step eager (tokens, logits), greedy and
+   sampled; and one whole gather decode step against one paged step,
+   replayed and eager, at batch 16 (with the gather copy's share);
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
    line. Any failure raises: the script then exits non-zero and prints
    no ``ok`` line. Without a CUDA device it exits 1 at once.
@@ -293,16 +301,20 @@ def read_launches():
 
 @contextlib.contextmanager
 def finite_logits(model):
-    """Fold every prefill and decode step's logits into one on-device
-    finiteness flag (no sync per step); yields the flag."""
+    """Fold every eager prefill and decode step's logits into one
+    on-device finiteness flag (no sync per step); yields the flag. A
+    replayed step runs no Python: its graph folds its own logits into the
+    engine's ``steps.finite`` at every replay, so a call being captured
+    is left alone here (the graph must not write into this flag)."""
     import torch
     finite = torch.ones((), dtype=torch.bool, device="cuda")
 
     def checked(fn):
         def call(*a, **kw):
             out = fn(*a, **kw)
-            logits = out[0] if isinstance(out, tuple) else out
-            finite.logical_and_(torch.isfinite(logits).all())
+            if not torch.cuda.is_current_stream_capturing():
+                logits = out[0] if isinstance(out, tuple) else out
+                finite.logical_and_(torch.isfinite(logits).all())
             return out
         return call
     model.prefill = checked(model.prefill)
@@ -829,8 +841,9 @@ def phase_model_prefill_modes(errs):
     """At OPT-1.3B's width in float32, cut to 2 layers: the shared-prefix
     workload (4 tenants x 4, prefix 256, suffix 32) and a long/short one
     (6 short prompts of 24, 3 long of 300), served serially without the
-    prefix cache, with it, chunked by 40 tokens (chunks end mid-block) and
-    both; every run must give the serial run's tokens, and the flash
+    prefix cache, with it, chunked by 40 tokens (chunks end mid-block),
+    both, with eager decode steps, overlapped, and overlapped with both;
+    every run must give the serial run's tokens, and the flash
     kernel's prefix-masked entry must carry every prefill and chunk over a
     prefix, its plain entry every other."""
     import torch
@@ -852,7 +865,11 @@ def phase_model_prefill_modes(errs):
     modes = {"serial": {}, "prefix cache": dict(prefix_cache=True),
              "chunked 40": dict(prefill_chunk_tokens=40),
              "chunked 40 + prefix cache": dict(prefill_chunk_tokens=40,
-                                               prefix_cache=True)}
+                                               prefix_cache=True),
+             "eager decode steps": dict(cuda_graphs=False),
+             "overlap": dict(overlap=True),
+             "overlap, chunked 40 + prefix cache": dict(
+                 overlap=True, prefill_chunk_tokens=40, prefix_cache=True)}
     for wl, make in workloads.items():
         tokens = {}
         for mode, kw in modes.items():
@@ -964,7 +981,7 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
         metrics = engine.run(reqs)
         torch.cuda.synchronize()
         launches = read_launches()
-        if not bool(finite):
+        if not bool(finite) or not bool(engine.steps.finite):
             raise AssertionError(f"{decode_mode} serve: NaN or inf logits")
     for r in reqs:
         if r.finish_reason != "length" or r.generated != r.max_new_tokens:
@@ -986,7 +1003,7 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
           f"prefix), {metrics.preemptions} preemptions; launches "
           f"{launches} = steps (or prefills and chunks) x {cfg.n_layers} "
           f"layers")
-    print(f"{tag} eager PyTorch, no CUDA graphs, on {card}: "
+    print(f"{tag} {step_mode(engine)}, on {card}: "
           f"throughput {metrics.throughput:.1f} tok/s, output "
           f"{metrics.output_throughput:.1f} tok/s, wall {metrics.wall_s:.2f} s,"
           f" mean batch {metrics.avg_batch:.2f}, KV peak "
@@ -994,6 +1011,20 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
     print(f"{tag} on {card}: TTFT {metrics.ttft.row()}; ITL "
           f"{metrics.itl.row()}; E2E {metrics.e2e.row(scale=1.0, unit='s')}")
     return engine, metrics, launches
+
+
+def step_mode(engine):
+    """How an engine ran its decode steps: eager, or replayed from CUDA
+    graphs (how many captured, in how long), and whether overlapped."""
+    st = engine.steps
+    mode = ("eager PyTorch decode steps, no CUDA graphs"
+            if not st.graphs_on else
+            f"CUDA graphs ({len(st.graphs)} captured in {st.capture_s:.2f} "
+            f"s, {st.replays} replays)")
+    if engine.ecfg.overlap:
+        mode += (f", overlapped ({engine.commit_waits} of "
+                 f"{engine.decode_steps} commits waited for the device)")
+    return mode
 
 
 def prefill_launches(engine):
@@ -1007,15 +1038,15 @@ def prefill_launches(engine):
 
 
 def phase_serve(model, card):
-    """The paged serve of all 32 requests, then its decode profile and
-    the flash kernel its prefills launch."""
+    """The paged serve of all 32 requests (CUDA graphs, sync), then the
+    flash kernel its prefills launch (its decode profiles are
+    :func:`phase_graph_modes`')."""
     import torch
     reqs = serve_workload()
     engine, _, launches = serve(model, reqs, "paged", card)
     prefill_sizes = sorted({-(-r.prompt_len // 64) * 64 for r in reqs})
     del engine
     torch.cuda.empty_cache()
-    profile_decode(model, "paged", card)
     prefill_symbol(model, card)
     return launches, prefill_sizes, reqs
 
@@ -1143,35 +1174,77 @@ def phase_chunked_serve(model, card):
     return runs[192][1]
 
 
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=0)
+
+
 def phase_sampled_serve(model, card, greedy):
     """The paged serve's 32 requests sampled (temperature 0.8, top-k 50,
-    top-p 0.95, seed = request id), served twice: every token must be the
-    same in both runs; their agreement with ``greedy`` (the same requests
-    served greedily) is printed. Returns the first run's launch
-    counts."""
+    top-p 0.95, seed = request id) with CUDA graphs, sync, and their
+    agreement with ``greedy`` (the same requests served greedily); the
+    serves of :func:`phase_graph_modes` must give the same tokens.
+    Returns the requests and the launch counts."""
     import torch
     from repro_torch.serving.workload import SamplingParams
-    outs, launches = [], None
-    for run in range(2):
-        reqs = serve_workload(SamplingParams(temperature=0.8, top_k=50,
-                                             top_p=0.95, seed=0))
-        engine, m, counts = serve(model, reqs, "paged", card,
-                                  tag=f"sampled, run {run + 1}")
-        print(f"[serve sampled, run {run + 1}] on {card}: output "
-              f"{m.output_throughput:.1f} tok/s; ITL p50 "
-              f"{m.itl.p50 * 1e3:.2f} ms p95 {m.itl.p95 * 1e3:.2f} ms")
-        outs.append(reqs)
-        launches = launches or counts
-        del engine
-        torch.cuda.empty_cache()
-    if [r.output_tokens for r in outs[0]] != [r.output_tokens
-                                              for r in outs[1]]:
-        raise AssertionError("two sampled serves of the same requests gave "
-                             "different tokens")
-    print(f"[serve sampled] the two runs equal on every token "
-          f"({sum(r.generated for r in outs[0])} tokens); sampled vs the "
-          f"greedy paged serve: {agreement(outs[0], greedy)}")
-    return launches
+    reqs = serve_workload(SamplingParams(**SAMPLED))
+    engine, _, launches = serve(model, reqs, "paged", card, tag="sampled")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[serve sampled] sampled vs the greedy paged serve: "
+          f"{agreement(reqs, greedy)}")
+    return reqs, launches
+
+
+WAYS = {"eager, sync": dict(cuda_graphs=False),
+        "graphs, sync": {},
+        "graphs, overlap": dict(overlap=True)}
+
+
+def first_difference(a_reqs, b_reqs):
+    """The first request and output position where two serves differ."""
+    for a, b in zip(a_reqs, b_reqs):
+        for i, (x, y) in enumerate(zip(a.output_tokens, b.output_tokens)):
+            if x != y:
+                return f"request {a.req_id}, output token {i}: {x} vs {y}"
+        if len(a.output_tokens) != len(b.output_tokens):
+            return f"request {a.req_id}: lengths differ"
+    return None
+
+
+def phase_graph_modes(model, card, runs):
+    """The paged serve and the sampled serve three ways, each served
+    afresh here: eager decode steps, CUDA graphs, CUDA graphs with
+    overlap. Every way's tokens must equal those of ``runs[kind]`` (the
+    graphs-sync serves of the earlier phases); each way's serve metrics
+    and profile window are printed, then a table of them."""
+    import torch
+    from repro_torch.serving.workload import SamplingParams
+    table = []
+    for kind, sampling in (("greedy", None), ("sampled", SAMPLED)):
+        sp = SamplingParams(**sampling) if sampling else None
+        for way, kw in WAYS.items():
+            reqs = serve_workload(sp)
+            engine, m, _ = serve(model, reqs, "paged", card,
+                                 tag=f"{kind}, {way}", **kw)
+            del engine
+            torch.cuda.empty_cache()
+            diff = first_difference(runs[kind], reqs)
+            if diff:
+                raise AssertionError(f"{kind} serve, {way}: tokens differ "
+                                     f"from the graphs-sync serve at {diff}")
+            prof = profile_decode(model, "paged", card, sampling=sp,
+                                  tag=f"paged, {kind}, {way}", **kw)
+            table.append(f"{kind}, {way}: output "
+                         f"{m.output_throughput:.1f} tok/s, ITL p50 "
+                         f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} "
+                         f"ms, TTFT p50 {m.ttft.p50 * 1e3:.1f} p95 "
+                         f"{m.ttft.p95 * 1e3:.1f} ms; steady step busy "
+                         f"{prof['busy']:.3f} ms, wall {prof['wall']:.3f} "
+                         f"ms, idle {prof['idle'] * 100:.1f}%")
+        print(f"[graphs] {kind} paged serve: eager, graphs and graphs with "
+              f"overlap equal to the earlier graphs serve on all "
+              f"{sum(r.generated for r in runs[kind])} tokens")
+    for row in table:
+        print(f"[graphs] on {card}: {row}")
 
 
 def phase_gather_serve(model, card, paged_all):
@@ -1186,6 +1259,19 @@ def phase_gather_serve(model, card, paged_all):
     del engine
     torch.cuda.empty_cache()
     profile_decode(model, "gather", card)
+    over = serve_workload()[:16]
+    engine, _, _ = serve(model, over, "gather", card, tag="gather, overlap",
+                         overlap=True)
+    del engine
+    torch.cuda.empty_cache()
+    diff = first_difference(reqs, over)
+    if diff:
+        raise AssertionError(f"gather serve with overlap: tokens differ "
+                             f"from sync at {diff}")
+    print(f"[serve gather] with overlap equal to sync on all "
+          f"{sum(r.generated for r in reqs)} tokens")
+    profile_decode(model, "gather", card, tag="gather, overlap",
+                   overlap=True)
     paged_reqs = serve_workload()[:16]
     engine, _, _ = serve(model, paged_reqs, "paged", card)
     del engine
@@ -1273,16 +1359,21 @@ def kernel_kind(name):
     return "other (norms, elementwise, indexing, copies)"
 
 
-def profile_decode(model, decode_mode, card, steps=10):
+def profile_decode(model, decode_mode, card, steps=10, sampling=None,
+                   tag=None, **ecfg_kw):
     """Where a steady decode step's time goes: ``torch.profiler`` over
     ``steps`` engine steps at batch 16 (after 20 warm steps and as many
     unprofiled, timed ones), device busy time by kernel kind against the
-    host's wall time of an unprofiled step."""
+    host's wall time of an unprofiled step. With CUDA graphs and no
+    overlap, the paged kernel's launch counter over the profiled steps
+    and the trace's count of its split kernel must both be steps x
+    layers. Returns ``{"busy", "wall", "idle"}`` (ms, ms, share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ContinuousBatchingEngine
-    engine = ContinuousBatchingEngine(model, serve_config(decode_mode))
-    for r in serve_workload()[:16]:
+    engine = ContinuousBatchingEngine(model,
+                                      serve_config(decode_mode, **ecfg_kw))
+    for r in serve_workload(sampling)[:16]:
         engine.add_request(r)
     for _ in range(21):                  # admits all 16, then warm steps
         engine.step(0.0)
@@ -1292,6 +1383,7 @@ def profile_decode(model, decode_mode, card, steps=10):
         engine.step(0.0)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    before = read_launches()["paged_decode_attention"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1299,6 +1391,7 @@ def profile_decode(model, decode_mode, card, steps=10):
             engine.step(0.0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    counted = read_launches()["paged_decode_attention"] - before
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -1313,16 +1406,28 @@ def profile_decode(model, decode_mode, card, steps=10):
     parts = ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
                       for k, v in sorted(by_kind.items(),
                                          key=lambda kv: -kv[1]))
-    print(f"[profile {decode_mode}] on {card}: {steps} decode steps at batch "
-          f"{len(engine.running)} ({ctx} context tokens at the end), "
+    tag = f"[profile {tag or decode_mode}]"
+    idle = 1 - busy / plain_wall_ms
+    print(f"{tag} on {card}, {step_mode(engine)}: {steps} decode steps at "
+          f"batch {len(engine.running)} ({ctx} context tokens at the end), "
           f"torch.profiler: device busy {busy:.3f} ms/step, "
           f"{len(kernels) / steps:.0f} device ops/step; host wall "
           f"{plain_wall_ms:.3f} ms/step unprofiled ({wall_ms:.3f} profiled),"
-          f" so the device idles {(1 - busy / plain_wall_ms) * 100:.1f}% of "
-          f"an unprofiled step")
-    print(f"[profile {decode_mode}] device time per step: {parts}")
+          f" so the device idles {idle * 100:.1f}% of an unprofiled step")
+    print(f"{tag} device time per step: {parts}")
+    if decode_mode == "paged":
+        traced = sum("paged_decode_split_kernel" in e.name for e in kernels)
+        want = steps * model.cfg.n_layers
+        print(f"{tag} paged kernel over the profiled steps: launch counter "
+              f"+{counted}, trace {traced} paged_decode_split_kernel "
+              f"(steps x layers = {want})")
+        if engine.steps.graphs_on and not engine.ecfg.overlap \
+                and not counted == traced == want:
+            raise AssertionError(f"{tag}: replayed launches {counted} and "
+                                 f"traced kernels {traced} != {want}")
     del engine
     torch.cuda.empty_cache()
+    return {"busy": busy, "wall": plain_wall_ms, "idle": idle}
 
 
 def phase_times(card, prefill_sizes, serve_reqs):
@@ -1575,15 +1680,22 @@ def time_decode(card, what, q, k, v, lens):
 
 
 def phase_step_compare(model, card):
-    """One whole engine decode step at batch 16, paged against gather
-    (the port's counterpart of ``benchmarks/decode_datapath.py``), on one
-    pool holding the 16 requests at half their output budget, timed in
-    turns (paged, gather, gather, paged); then the gather copy and the
-    scatter alone."""
+    """One whole engine decode step at batch 16 on one pool holding the
+    16 requests at half their output budget: the paged step replayed from
+    its CUDA graph, greedy and sampled, against the same step eager (the
+    same tokens, logits within 3e-2 and reported bit for bit); then the
+    replayed paged, eager paged and gather steps (the port's counterpart
+    of ``benchmarks/decode_datapath.py``), timed in turns (paged, eager,
+    gather, gather, eager, paged); then the gather copy and the scatter
+    alone."""
     import torch
+    from repro_torch.models.sampler import (positions_array, sample_tokens,
+                                            stack_sampling)
     from repro_torch.serving import ContinuousBatchingEngine
     from repro_torch.serving.engine import _bucket
     from repro_torch.serving.scheduler import StepPlan
+    from repro_torch.serving.steps import StepFunctions
+    from repro_torch.serving.workload import SamplingParams
     cfg = model.cfg
     engine = ContinuousBatchingEngine(model, serve_config())
     reqs = serve_workload()[:16]
@@ -1598,9 +1710,39 @@ def phase_step_compare(model, card):
         engine._pos[r.req_id] = pos
     plan = StepPlan(reqs=reqs, rids=rids, positions=positions, n_prefill=0,
                     t0=0.0)
-    steps = {"paged": engine._decode_paged, "gather": engine._decode_gather}
-    ms = {"paged": [], "gather": []}
-    for mode in ("paged", "gather", "gather", "paged"):
+    eager = StepFunctions(model, engine.pool, max_batch=16,
+                          max_model_len=2048, cuda_graphs=False)
+    tokens = [engine._tokens[r] for r in rids]
+    for kind, sp in (("greedy", None), ("sampled", SamplingParams(**SAMPLED))):
+        sreqs = serve_workload(sp)[:16]
+        for _ in range(2):        # the first call captures, the second replays
+            got = engine.steps.paged(sreqs, rids, positions, tokens)
+        key = engine.steps.paged_bucket(rids) + (sp is not None,)
+        replayed = engine.steps.graphs[key].logits[:16].clone()
+        view = engine.pool.view(rids, positions, key[1], key[0])
+        inp = torch.zeros((key[0],), dtype=torch.long, device="cuda")
+        inp[:16] = torch.tensor(tokens)
+        want_logits = model.decode_step(inp, view)[:16]
+        want = sample_tokens(
+            want_logits, *stack_sampling([r.sampling for r in sreqs]),
+            positions_array([p + 1 for p in positions]))
+        err = (replayed - want_logits).abs().max().item()
+        same = bool(torch.equal(replayed, want_logits))
+        if err > TOL["bfloat16"] or got[:16].tolist() != want.tolist():
+            raise AssertionError(f"replayed {kind} step: logits differ by "
+                                 f"{err:.3e} or tokens differ from eager")
+        print(f"[step] on {card}: the {kind} paged step at batch 16 "
+              f"replayed from its CUDA graph (bucket {key}) against the same "
+              f"step eager: tokens equal, logits "
+              + ("equal bit for bit" if same else
+                 f"max abs err {err:.3e} (tolerance {TOL['bfloat16']})"))
+    steps = {"paged": engine._decode_paged,
+             "paged eager": lambda p: eager.paged(
+                 p.reqs, p.rids, p.positions, tokens)[:16].cpu(),
+             "gather": engine._decode_gather}
+    ms = {mode: [] for mode in steps}
+    for mode in ("paged", "paged eager", "gather", "gather", "paged eager",
+                 "paged"):
         ms[mode].append(time_ms(lambda: steps[mode](plan), runs=20))
     busy = {mode: busy_ms(lambda: fn(plan)) for mode, fn in steps.items()}
     pad_blocks = engine.pool.manager.blocks_needed(
@@ -1617,25 +1759,29 @@ def phase_step_compare(model, card):
     g_dev = device_ms(lambda: [leaf[:, table]
                                for leaf in engine.pool.pool.values()])
     view_bytes = sum(t.numel() * t.element_size() for t in cache.values())
-    paged, gather = statistics.mean(ms["paged"]), statistics.mean(ms["gather"])
+    mean = {mode: statistics.mean(v) for mode, v in ms.items()}
     print(f"[step] on {card}: one decode step at batch 16, "
           f"{sum(positions)} context tokens, full-width {cfg.name} "
-          f"{cfg.dtype}, {cfg.n_layers} layers: paged {ms['paged'][0]:.3f} / "
-          f"{ms['paged'][1]:.3f} ms, gather {ms['gather'][0]:.3f} / "
-          f"{ms['gather'][1]:.3f} ms (turns paged, gather, gather, paged); "
-          f"gather / paged {gather / paged:.2f}x; device busy a step "
-          f"(torch.profiler): paged {busy['paged']:.3f} ms, gather "
-          f"{busy['gather']:.3f} ms")
+          f"{cfg.dtype}, {cfg.n_layers} layers, end to end (turns paged, "
+          f"eager, gather, gather, eager, paged): paged replayed "
+          f"{ms['paged'][0]:.3f} / {ms['paged'][1]:.3f} ms, paged eager "
+          f"{ms['paged eager'][0]:.3f} / {ms['paged eager'][1]:.3f} ms, "
+          f"gather {ms['gather'][0]:.3f} / {ms['gather'][1]:.3f} ms; gather "
+          f"/ paged eager {mean['gather'] / mean['paged eager']:.2f}x, "
+          f"paged eager / replayed {mean['paged eager'] / mean['paged']:.2f}"
+          f"x; device busy a step (torch.profiler): paged replayed "
+          f"{busy['paged']:.3f} ms, eager {busy['paged eager']:.3f} ms, "
+          f"gather {busy['gather']:.3f} ms")
     print(f"[step] on {card}: the gather copy ([{cfg.n_layers}, 16, "
           f"{pad_blocks * 16}, {cfg.n_kv_heads}, {cfg.hd}] K and V, "
           f"{view_bytes / 1e9:.2f} GB written, as many read): device "
           f"{g_dev:.3f} ms ({2 * view_bytes / (g_dev * 1e-3) / 1e9:.0f} GB/s),"
           f" end to end {g_ms:.3f} ms; the scatter back: end to end "
           f"{s_ms:.3f} ms; copy and scatter are "
-          f"{(g_ms + s_ms) / gather * 100:.1f}% of the gather step's time; "
-          f"the copy is {g_dev / busy['gather'] * 100:.1f}% of its device "
-          f"busy time")
-    del engine, cache
+          f"{(g_ms + s_ms) / mean['gather'] * 100:.1f}% of the gather step's "
+          f"time; the copy is {g_dev / busy['gather'] * 100:.1f}% of its "
+          f"device busy time")
+    del engine, eager, cache
     torch.cuda.empty_cache()
 
 
@@ -1676,7 +1822,10 @@ def main() -> int:
                                                                    card)
     by_path["prefix_serve"] = phase_prefix_serve(model, card)
     by_path["chunked_serve"] = phase_chunked_serve(model, card)
-    by_path["sampled_serve"] = phase_sampled_serve(model, card, paged_all)
+    sampled_all, by_path["sampled_serve"] = phase_sampled_serve(
+        model, card, paged_all)
+    phase_graph_modes(model, card, {"greedy": paged_all,
+                                    "sampled": sampled_all})
     by_path["gather_serve"] = phase_gather_serve(model, card, paged_all)
     by_path["static_batch"] = phase_static(model, card)
     phase_step_compare(model, card)

@@ -3,7 +3,7 @@
 CPU tensor runs the kernel's plain PyTorch version."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -50,3 +50,16 @@ def prefill_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
     return flash_prefix_attention(q, k_all, v_all, prefix_pad=prefix_pad,
                                   prefix_len=prefix_len, lengths=lengths,
                                   window=window)
+
+
+def launch_counters() -> Dict[str, Callable]:
+    """Each kernel's wrapper, by kernel name; its ``launches`` counts the
+    launches made where the kernel runs (read from the kernel modules at
+    call time)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import paged_decode_attention as pg
+    return {"paged_decode_attention": pg.paged_gqa_decode_attention,
+            "flash_attention": fl.flash_attention,
+            "flash_prefix_attention": fl.flash_prefix_attention,
+            "decode_attention": dec.gqa_decode_attention}

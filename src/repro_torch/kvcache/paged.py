@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kvcache.view import PagedCacheView
+from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
 
 
 class BlockManager:
@@ -359,38 +359,48 @@ class PagedKVCache:
         for leaf in self.pool.values():
             leaf[:, new] = leaf[:, old]
 
-    def view(self, req_ids: Sequence[int], positions: Sequence[int],
-             nb_pad: int, batch_pad: int) -> PagedCacheView:
-        """Zero-copy :class:`PagedCacheView` over the pool for ``req_ids``.
+    def fill_view(self, fields: Dict[str, np.ndarray],
+                  req_ids: Sequence[int], positions: Sequence[int]):
+        """Write a decode step's block tables, lengths and positions into
+        the host ``fields`` of :func:`~repro_torch.kvcache.view.step_fields`
+        (whose shapes give ``batch_pad`` and ``nb_pad``).
 
         ``positions[i]`` is the write position of request i's new token.
-        ``nb_pad``/``batch_pad`` are the bucketed table width and batch
-        size; rows past ``len(req_ids)`` are padding: a table row of trash
+        Rows past ``len(req_ids)`` are padding: a table row of trash
         blocks, position 0 and length 0. (The reference lets padding rows
         drift to small nonzero positions, which its clamped gathers
         tolerate; here every padding row is rebuilt each step so that its
         write address ``tables[i, 0]`` is always in range.)
         """
+        table = fields["tables"]
+        batch_pad, nb_pad = table.shape
         B = len(req_ids)
         if B > batch_pad:
             raise ValueError(f"{B} requests exceed batch_pad={batch_pad}")
-        # table, lengths and positions in one buffer: one upload a step
-        n_tab = batch_pad * nb_pad
-        buf = np.zeros((n_tab + 2 * batch_pad,), np.int32)
-        table = buf[:n_tab].reshape(batch_pad, nb_pad)
-        lens = buf[n_tab:n_tab + batch_pad]
-        pos = buf[n_tab + batch_pad:]
         table[:] = self.trash_block
         for i, rid in enumerate(req_ids):
             blocks = self.manager.tables.get(rid, [])[:nb_pad]
             table[i, :len(blocks)] = blocks
+        pos, lens = fields["positions"], fields["lengths"]
+        pos[:] = 0
         pos[:B] = positions
+        lens[:] = 0
         lens[:B] = pos[:B] + 1
-        dev = torch.from_numpy(buf).to(self.device)
-        return PagedCacheView(
-            self.pool, dev[:n_tab].view(batch_pad, nb_pad),
-            dev[n_tab:n_tab + batch_pad], dev[n_tab + batch_pad:],
-            self.block_size)
+
+    def view(self, req_ids: Sequence[int], positions: Sequence[int],
+             nb_pad: int, batch_pad: int) -> PagedCacheView:
+        """Zero-copy :class:`PagedCacheView` over the pool for ``req_ids``
+        in fresh device tensors (one upload); ``nb_pad``/``batch_pad`` are
+        the bucketed table width and batch size, and the rows are
+        :meth:`fill_view`'s. The engine's steps fill static buffers
+        instead (:mod:`repro_torch.serving.steps`)."""
+        buf = np.zeros((step_size(batch_pad, nb_pad),), np.int32)
+        self.fill_view(step_fields(buf, batch_pad, nb_pad), req_ids,
+                       positions)
+        dev = step_fields(torch.from_numpy(buf).to(self.device), batch_pad,
+                          nb_pad)
+        return PagedCacheView(self.pool, dev["tables"], dev["lengths"],
+                              dev["positions"], self.block_size)
 
     def gather(self, req_ids: Sequence[int],
                pad_blocks: int) -> Dict[str, torch.Tensor]:

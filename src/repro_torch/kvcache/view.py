@@ -1,11 +1,48 @@
 """Zero-copy view of the paged KV pool (counterpart of
-``repro.kvcache.view``)."""
+``repro.kvcache.view``), and the packed layout of a decode step's inputs.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
+import numpy as np
 import torch
+
+# a decode step's [B] input vectors, after its [B, nb] block table, in one
+# packed int32 buffer; the float fields hold float32 bits
+STEP_VECTORS = ("lengths", "positions", "tokens", "use_prev", "prev_rows",
+                "top_k", "temperature", "top_p")
+_FLOAT_FIELDS = ("temperature", "top_p")
+
+Buffer = Union[np.ndarray, torch.Tensor]
+
+
+def step_size(batch_pad: int, nb_pad: int) -> int:
+    """int32 words of one step's packed inputs (:func:`step_fields`)."""
+    return batch_pad * (nb_pad + len(STEP_VECTORS) + 2)
+
+
+def step_fields(buf: Buffer, batch_pad: int,
+                nb_pad: int) -> Dict[str, Buffer]:
+    """Views of a decode step's inputs packed in the 1-D int32 ``buf``
+    (numpy on the host, a tensor on the device; at least
+    :func:`step_size` words), the same layout on both sides, so that one
+    copy moves a step's inputs up: ``tables [batch_pad, nb_pad]``, then
+    each of :data:`STEP_VECTORS` ``[batch_pad]`` (``temperature`` and
+    ``top_p`` as float32), then ``keys [batch_pad, 2]`` (32-bit words,
+    :func:`~repro_torch.models.sampler.fold_keys`)."""
+    f32 = np.float32 if isinstance(buf, np.ndarray) else torch.float32
+    n_tab = batch_pad * nb_pad
+    out: Dict[str, Buffer] = {
+        "tables": buf[:n_tab].reshape(batch_pad, nb_pad)}
+    at = n_tab
+    for name in STEP_VECTORS:
+        v = buf[at:at + batch_pad]
+        out[name] = v.view(f32) if name in _FLOAT_FIELDS else v
+        at += batch_pad
+    out["keys"] = buf[at:at + 2 * batch_pad].reshape(batch_pad, 2)
+    return out
 
 
 @dataclasses.dataclass

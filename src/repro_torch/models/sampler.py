@@ -12,12 +12,17 @@ the low-range Gumbel (``-log(-log(u))`` of a uniform in ``[tiny, 1)``).
 The bits and the uniforms equal JAX's exactly; ``log`` may differ from
 XLA's by an ULP, so the Gumbel values agree within 1e-6.
 
-The draw runs on the logits' device and only the ``[B]`` ids come back;
-the ``[B]`` keys are folded on the host (a few hundred operations on a
-handful of words, which on the card would each be a launch) and go up
-with the other sampling vectors in two copies. Torch has no ``<<`` on
-``uint32`` on the CPU, so the 32-bit words are held in ``int64`` and
-masked with ``0xFFFFFFFF``.
+The draw runs on the logits' device and only the ``[B]`` ids come back.
+The ``[B]`` keys are folded on the host in numpy (:func:`fold_keys`: a
+few hundred operations on a handful of words, which on the card would
+each be a launch). :func:`sample_tokens_device` is the draw on ``[B]``
+vectors already on the device, with the greedy-or-sampled choice made by
+the caller: it issues no host-to-device copy and reads nothing back, so
+a CUDA graph can capture it (the reference's ``lax.cond`` on "any row
+sampled" becomes that host decision, with the same tokens).
+:func:`sample_tokens` is the entry for host vectors, which it uploads.
+Torch has no ``<<`` on ``uint32`` on the CPU, so the 32-bit words are
+held in ``int64`` and masked with ``0xFFFFFFFF``.
 """
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter words ``(x1,
     x2)`` under the key ``(k1, k2)``; every argument holds 32-bit words
-    in int64 and they broadcast together. JAX's ``threefry2x32_p``."""
+    in int64 (torch tensors, or numpy arrays for :func:`fold_keys`) and
+    they broadcast together. JAX's ``threefry2x32_p``."""
     ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
     x = [(x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32]
     for i in range(5):
@@ -85,9 +91,9 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     23 bits as the mantissa of a float in ``[1, 2)``, less 1, scaled."""
     mant = (random_bits(key, n) >> 9) | 0x3F800000
     f = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    # float32 bounds as Python scalars: no host-to-device copy
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return (f * float(hi - lo) + float(lo)).clamp_min(float(lo))
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -96,27 +102,51 @@ def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     return -torch.log(-torch.log(uniform(key, n, F32_TINY, 1.0)))
 
 
+def fold_keys(seed, positions) -> np.ndarray:
+    """``fold_in(PRNGKey(seed), position)`` of ``[B]`` host vectors, in
+    numpy on the host: ``[B, 2]`` int64 words, equal to :func:`fold_in`'s
+    (the same :func:`threefry2x32` on numpy ``int64``)."""
+    seed = np.asarray(seed).astype(np.int64) & MASK32
+    data = np.asarray(positions).astype(np.int64) & MASK32
+    zero = np.zeros_like(seed)
+    return np.stack(threefry2x32(zero, seed, np.zeros_like(data), data),
+                    axis=-1)
+
+
+def sample_tokens_device(logits: torch.Tensor, temperature: torch.Tensor,
+                         top_k: torch.Tensor, top_p: torch.Tensor,
+                         keys: torch.Tensor, sampled: bool) -> torch.Tensor:
+    """One token per row from ``[B]`` vectors on the logits' device
+    (``keys [B, 2]`` from :func:`fold_keys`). ``sampled`` is the host's
+    choice: False when no row samples (one argmax), True otherwise
+    (greedy rows, ``temperature <= 0``, still take the argmax). Returns
+    ``[B]`` int32 token ids; nothing is copied to or from the host."""
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    if not sampled:
+        return greedy
+    draw = _sample(logits, temperature, top_k.long(), top_p,
+                   keys.long() & MASK32)
+    return torch.where(temperature <= 0.0, greedy, draw)
+
+
 def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p, seed,
                   positions) -> torch.Tensor:
     """One token per row; every argument after ``logits`` is a ``[B]``
     host array (numpy, a list or a CPU tensor). ``positions[i]`` is the
     sequence position the token will occupy, the RNG counter. Returns
     ``[B]`` int32 token ids on the logits' device. An all-greedy batch is
-    one argmax."""
-    greedy = logits.argmax(dim=-1).to(torch.int32)
-    host = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt)  # noqa
-    temp = host(temperature, torch.float32)
-    if not bool((temp > 0).any()):
-        return greedy
-    keys = fold_in(prng_key(host(np.asarray(seed).astype(np.int64),
-                                 torch.int64)),
-                   host(np.asarray(positions).astype(np.int64), torch.int64))
-    ints = torch.cat([host(np.asarray(top_k).astype(np.int64),
-                           torch.int64)[:, None], keys], 1).to(logits.device)
-    floats = torch.stack([temp, host(top_p, torch.float32)]).to(
-        logits.device)
-    sampled = _sample(logits, floats[0], ints[:, 0], floats[1], ints[:, 1:])
-    return torch.where(floats[0] <= 0.0, greedy, sampled)
+    one argmax. The vectors go up in two copies and the draw is
+    :func:`sample_tokens_device`'s."""
+    temp = np.asarray(temperature, np.float32)
+    if not (temp > 0).any():
+        return sample_tokens_device(logits, None, None, None, None, False)
+    ints = np.concatenate([np.asarray(top_k).astype(np.int64)[:, None],
+                           fold_keys(seed, positions)], 1)
+    floats = np.stack([temp, np.asarray(top_p, np.float32)])
+    ints, floats = (torch.from_numpy(a).to(logits.device)
+                    for a in (ints, floats))
+    return sample_tokens_device(logits, floats[0], ints[:, 0], floats[1],
+                                ints[:, 1:], True)
 
 
 def _sample(logits, temperature, top_k, top_p, keys):
@@ -171,6 +201,7 @@ def positions_array(positions: Sequence[int],
     return pos
 
 
-__all__: List[str] = ["sample_tokens", "stack_sampling", "positions_array",
+__all__: List[str] = ["sample_tokens", "sample_tokens_device", "fold_keys",
+                      "stack_sampling", "positions_array",
                       "threefry2x32", "prng_key", "fold_in", "random_bits",
                       "uniform", "gumbel"]

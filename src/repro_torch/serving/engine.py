@@ -34,10 +34,20 @@ on each request's seed and position, so preemption, batch composition
 and chunked against serial prefill all leave a request's tokens as they
 are; sampling runs on the device and only the ``[B]`` ids come back.
 
-Features of the reference engine outside this slice (overlapped
-stepping, speculative decoding, load shedding and deadlines) raise
-``NotImplementedError`` when asked for; ROADMAP.md lists them as the next
-slices.
+The paged step runs on static buffers and, on a CUDA device, replays one
+CUDA graph a ``(batch_pad, nb_pad, sampled)`` bucket, captured at the
+bucket's first use (:mod:`repro_torch.serving.steps`, the reference's
+``StepFunctions``); ``cuda_graphs=False`` keeps it eager, for comparison.
+With ``overlap`` the :class:`~repro_torch.serving.executor.Executor`
+keeps two decode steps in flight and commits each an iteration or two
+later, with the same tokens as the synchronous loop. Prefills and the
+gather step stay eager. :meth:`ContinuousBatchingEngine.abort` and
+:meth:`~ContinuousBatchingEngine.evict_request` finish a request in any
+phase and reclaim its blocks.
+
+Features of the reference engine outside this slice (speculative
+decoding, load shedding and deadlines) raise ``NotImplementedError`` when
+asked for; ROADMAP.md lists them as the next slices.
 """
 from __future__ import annotations
 
@@ -57,9 +67,12 @@ from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
 from repro_torch.models.model import Model
 from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
+from repro_torch.serving.executor import Executor
 from repro_torch.serving.metrics import ServingMetrics, collect
 from repro_torch.serving.scheduler import Scheduler, StepPlan
-from repro_torch.serving.workload import FINISH_LENGTH, FINISH_STOP, Request
+from repro_torch.serving.steps import StepFunctions, pow2_bucket
+from repro_torch.serving.workload import (FINISH_ABORT, FINISH_FAILED,
+                                          FINISH_LENGTH, FINISH_STOP, Request)
 
 
 class RequestTooLarge(RuntimeError):
@@ -90,9 +103,13 @@ class EngineConfig:
     prefix_cache_blocks: Optional[int] = None
     # chunked prefill: a step's prompt-token budget (None: serial)
     prefill_chunk_tokens: Optional[int] = None
+    # two decode steps in flight, committed an iteration or two later
+    overlap: bool = False
+    # on a CUDA device, replay the paged step from one CUDA graph a bucket
+    # (False: every step eager, the same kernels, for comparison)
+    cuda_graphs: bool = True
     # the reference's other features; any value but the default raises
     # NotImplementedError (see the module docstring)
-    overlap: bool = False
     max_waiting: Optional[int] = None
     shed_kv_fraction: Optional[float] = None
     shed_queue_delay_s: Optional[float] = None
@@ -136,8 +153,6 @@ class EngineConfig:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1 (or None for serial "
                 f"admission-time prefill), got {self.prefill_chunk_tokens}")
-        if self.overlap:
-            raise _not_ported("overlap", "scheduler/executor overlap")
         if self.speculate:
             raise _not_ported("speculate", "speculative verify")
         if (self.max_waiting, self.shed_kv_fraction,
@@ -149,11 +164,7 @@ def _bucket(n: int, b: int) -> int:
     return max(b, ((n + b - 1) // b) * b)
 
 
-def _pow2_bucket(n: int, lo: int = 1) -> int:
-    p = lo
-    while p < n:
-        p *= 2
-    return p
+_pow2_bucket = pow2_bucket
 
 
 class ContinuousBatchingEngine:
@@ -174,6 +185,12 @@ class ContinuousBatchingEngine:
             self.cfg, num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
             block_size=ecfg.block_size, device=self.device)
         self.sched = Scheduler(self)
+        self.steps = StepFunctions(model, self.pool,
+                                   max_batch=ecfg.max_batch,
+                                   max_model_len=ecfg.max_model_len,
+                                   cuda_graphs=ecfg.cuda_graphs)
+        self._executor = Executor(self)
+        self.step_count = 0          # step() calls, counted from 1
         # chunked prefill and the prefix cache need per-token-addressable
         # KV; an unsupported config falls back, the reason recorded
         ok, why = prefix_cache_supported(self.cfg)
@@ -209,6 +226,10 @@ class ContinuousBatchingEngine:
         self.stall_samples: List[float] = []
         self.prefill_token_samples: List[int] = []
         self.decode_token_samples: List[int] = []
+        self.queued_aborts = 0       # aborts caught in the arrival queue
+        # overlapped commits that found their step still running (the
+        # device set the pace), of decode_steps
+        self.commit_waits = 0
         if self.prefix is not None:
             self.prefix.stats = PrefixStats()
 
@@ -275,6 +296,9 @@ class ContinuousBatchingEngine:
         self.pool.release(req.req_id)
         self._tokens.pop(req.req_id, None)
         self._pos.pop(req.req_id, None)
+        self.sched._dispatched.pop(req.req_id, None)
+        # its rows of any step still in flight never commit
+        self._executor.invalidate(req.req_id)
 
     def _finish_or_run(self, req: Request, t_done: float) -> bool:
         """Finish protocol for the just-produced last token: a stop token
@@ -297,6 +321,45 @@ class ContinuousBatchingEngine:
         if not self._finish_or_run(req, req.state.t_first_token):
             self.running.append(req)
 
+    def abort(self, req_id: int, now: float = 0.0) -> bool:
+        """Cancel a request in any phase: queued (nothing allocated; counted
+        in ``queued_aborts``), prefilling (chunk progress dropped) or
+        decoding (its in-flight rows discarded). Every block is released
+        (shared prefix blocks back to their cache-only count) and the
+        request finishes with ``finish_reason="abort"``. Returns False for
+        an unknown or finished request."""
+        req = next((r for r in self.waiting if r.req_id == req_id), None)
+        if req is not None:
+            self.waiting.remove(req)
+            self.queued_aborts += 1
+        else:
+            for lst in (self.prefilling, self.running):
+                req = next((r for r in lst if r.req_id == req_id), None)
+                if req is not None:
+                    lst.remove(req)
+                    break
+        if req is None:
+            return False
+        self._prefilled.pop(req_id, None)
+        self._finish(req, max(self._now(now), req.arrival_s),
+                     reason=FINISH_ABORT)
+        return True
+
+    def evict_request(self, req_id: int, now: float = 0.0,
+                      reason: str = FINISH_FAILED) -> Optional[Request]:
+        """Force-finish one request with the caller's reason, releasing its
+        blocks (as :meth:`abort`, but a queued eviction is not a client
+        abort). Returns the request, or None if unknown or finished."""
+        for lst in (self.waiting, self.prefilling, self.running):
+            req = next((r for r in lst if r.req_id == req_id), None)
+            if req is not None:
+                lst.remove(req)
+                self._prefilled.pop(req_id, None)
+                self._finish(req, max(self._now(now), req.arrival_s),
+                             reason=reason)
+                return req
+        return None
+
     def _complete_prefill(self, req: Request, logits: torch.Tensor,
                           now: float):
         """The one completion protocol of every prefill mode: the first
@@ -309,6 +372,9 @@ class ContinuousBatchingEngine:
                                 positions_array([req.prompt_len]))[0])
         self._tokens[rid] = tok
         self._pos[rid] = req.prompt_len
+        # the first token is dispatched and committed: the overlap
+        # planner's length gate starts here
+        self.sched._dispatched[rid] = 1
         req.generated = 1
         req.output_tokens.append(tok)
         if self.prefix is not None:
@@ -369,18 +435,17 @@ class ContinuousBatchingEngine:
         return logits
 
     def step(self, now: float) -> bool:
-        """One engine iteration. Returns False when fully idle. The step
-        timer starts before admission, so prefill stalls show in ITL."""
+        """One engine iteration. Returns False when fully idle. In sync
+        mode the decode step runs and commits here; under overlap the
+        executor dispatches it and commits earlier ones. The step timer
+        starts before admission, so prefill stalls show in ITL."""
+        self.step_count += 1
+        if self.ecfg.overlap:
+            return self._executor.step(now)
         plan = self.sched.plan(now)
         if not plan.has_decode:
             if plan.n_prefill:     # KV streamed in with no decode step
-                self.stall_samples.append(plan.t_sched)
-                self.prefill_token_samples.append(plan.n_prefill)
-                self.decode_token_samples.append(0)
-                self.kv_fraction_samples.append(
-                    self.pool.manager.used_fraction)
-                self.max_kv_fraction = max(self.max_kv_fraction,
-                                           self.pool.manager.used_fraction)
+                self._record_prefill_only(plan)
             return self.busy
         reqs = plan.reqs
         if self.decode_mode == "paged":
@@ -388,14 +453,7 @@ class ContinuousBatchingEngine:
         else:
             next_tokens = self._decode_gather(plan)
         dt = time.perf_counter() - plan.t0
-        self.itl_samples.append(dt)
-        self.stall_samples.append(plan.t_sched)
-        self.prefill_token_samples.append(plan.n_prefill)
-        self.decode_token_samples.append(len(reqs))
-        self.batch_samples.append(len(reqs))
-        self.kv_fraction_samples.append(self.pool.manager.used_fraction)
-        self.max_kv_fraction = max(self.max_kv_fraction,
-                                   self.pool.manager.used_fraction)
+        self._record_decode(dt, plan, len(reqs))
         still = []
         for i, r in enumerate(reqs):
             self._pos[r.req_id] += 1
@@ -408,44 +466,52 @@ class ContinuousBatchingEngine:
         self.running = still
         return True
 
+    def _record_kv(self):
+        self.kv_fraction_samples.append(self.pool.manager.used_fraction)
+        self.max_kv_fraction = max(self.max_kv_fraction,
+                                   self.pool.manager.used_fraction)
+
+    def _record_prefill_only(self, plan: StepPlan):
+        """The series of an iteration that streamed KV in with no decode
+        step."""
+        self.stall_samples.append(plan.t_sched)
+        self.prefill_token_samples.append(plan.n_prefill)
+        self.decode_token_samples.append(0)
+        self._record_kv()
+
+    def _record_decode(self, itl: float, plan: StepPlan, n_decode: int):
+        """The series of a committed decode step of ``n_decode`` rows."""
+        self.itl_samples.append(itl)
+        self.stall_samples.append(plan.t_sched)
+        self.prefill_token_samples.append(plan.n_prefill)
+        self.decode_token_samples.append(n_decode)
+        self.batch_samples.append(n_decode)
+        self._record_kv()
+
     def _decode_paged(self, plan: StepPlan) -> np.ndarray:
-        """One zero-copy decode step over the bucketed batch; returns the
-        next token of each live row (padding rows are greedy and cut)."""
-        rids, B = plan.rids, len(plan.rids)
-        max_blocks = max(len(self.pool.manager.tables[rid]) for rid in rids)
-        nb_pad = _pow2_bucket(max_blocks, lo=4)
-        batch_pad = _pow2_bucket(B)
-        view = self.pool.view(rids, plan.positions, nb_pad, batch_pad)
-        tokens = np.zeros((batch_pad,), np.int64)
-        tokens[:B] = [self._tokens[rid] for rid in rids]
-        logits = self.model.decode_step(
-            torch.from_numpy(tokens).to(self.device), view)
-        temp, top_k, top_p, seed = stack_sampling(
-            [r.sampling for r in plan.reqs], pad_to=batch_pad)
-        next_tokens = sample_tokens(
-            logits, temp, top_k, top_p, seed,
-            positions_array([p + 1 for p in plan.positions], batch_pad))
+        """One zero-copy decode step over the bucketed batch (a graph
+        replay on a CUDA device); returns the next token of each live
+        row (padding rows are greedy and cut)."""
+        out = self.steps.paged(plan.reqs, plan.rids, plan.positions,
+                               [self._tokens[rid] for rid in plan.rids])
         self.decode_steps += 1
-        return next_tokens[:B].cpu().numpy()
+        return out[:len(plan.rids)].cpu().numpy()
+
+    def _gather_blocks(self, plan: StepPlan) -> int:
+        """The gather step's blocks a request: the longest context padded
+        to a multiple of four blocks."""
+        return self.pool.manager.blocks_needed(
+            _bucket(max(plan.positions) + 1, self.ecfg.block_size * 4))
 
     def _decode_gather(self, plan: StepPlan) -> np.ndarray:
         """One dense-copy decode step (the reference's ``_decode_gather``):
         gather, decode at ``lengths = pos + 1``, scatter the new rows
         back, then sample; returns the next token of each row."""
-        rids = plan.rids
-        pad_blocks = self.pool.manager.blocks_needed(
-            _bucket(max(plan.positions) + 1, self.ecfg.block_size * 4))
-        cache = self.pool.gather(rids, pad_blocks)
-        host = np.array([[self._tokens[rid] for rid in rids],
-                         plan.positions], np.int64)
-        tokens, pos = torch.from_numpy(host).to(self.device)
-        logits = self.model.decode_step(tokens, cache, pos, lengths=pos + 1)
-        self.pool.scatter_new_token(rids, plan.positions, cache)
-        next_tokens = sample_tokens(
-            logits, *stack_sampling([r.sampling for r in plan.reqs]),
-            positions_array([p + 1 for p in plan.positions]))
+        out = self.steps.gather(plan.reqs, plan.rids, plan.positions,
+                                [self._tokens[rid] for rid in plan.rids],
+                                pad_blocks=self._gather_blocks(plan))
         self.decode_steps += 1
-        return next_tokens.cpu().numpy()
+        return out.cpu().numpy()
 
     def run(self, requests: List[Request]) -> ServingMetrics:
         """Batch-offline loop: submit everything, step to completion with
@@ -473,4 +539,5 @@ class ContinuousBatchingEngine:
                        prefix=self.prefix.stats if self.prefix else None,
                        stall_samples=self.stall_samples,
                        prefill_token_samples=self.prefill_token_samples,
-                       decode_token_samples=self.decode_token_samples)
+                       decode_token_samples=self.decode_token_samples,
+                       queued_aborts=self.queued_aborts)

@@ -1,6 +1,6 @@
 """Serving metrics: throughput, TTFT/ITL/E2E percentiles, KV usage,
-preemptions, finish reasons, prefix-cache reuse and the per-step
-scheduler stall (the subset of ``repro.serving.metrics`` that the port's
+preemptions, finish reasons, aborts caught in the queue, prefix-cache
+reuse and the per-step scheduler stall (the subset of ``repro.serving.metrics`` that the port's
 engine fills)."""
 from __future__ import annotations
 
@@ -60,6 +60,8 @@ class ServingMetrics:
     stall: Percentiles = dataclasses.field(default_factory=Percentiles)
     prefill_tokens_per_step: float = 0.0
     decode_tokens_per_step: float = 0.0
+    # aborts that caught the request still in the arrival queue
+    queued_aborts: int = 0
 
     @property
     def throughput(self) -> float:
@@ -82,7 +84,8 @@ def collect(requests: List[Request], wall_s: float,
             prefix: Optional[PrefixStats] = None,
             stall_samples: Sequence[float] = (),
             prefill_token_samples: Sequence[int] = (),
-            decode_token_samples: Sequence[int] = ()) -> ServingMetrics:
+            decode_token_samples: Sequence[int] = (),
+            queued_aborts: int = 0) -> ServingMetrics:
     done = [r for r in requests if r.t_done is not None]
     e2e = [r.t_done - r.arrival_s for r in done]
     ttft = [r.t_first_token - r.arrival_s for r in done
@@ -112,4 +115,5 @@ def collect(requests: List[Request], wall_s: float,
         stall_s_mean=_mean(stall_samples),
         stall=Percentiles.from_samples(stall_samples),
         prefill_tokens_per_step=_mean(prefill_token_samples),
-        decode_tokens_per_step=_mean(decode_token_samples))
+        decode_tokens_per_step=_mean(decode_token_samples),
+        queued_aborts=queued_aborts)

@@ -1,18 +1,31 @@
 """Scheduler: admission, chunked prefill, preemption and decode-batch
-planning (the synchronous subset of ``repro.serving.scheduler``).
+planning (counterpart of ``repro.serving.scheduler``, without deadlines,
+shedding and speculation).
 
 :class:`Scheduler` owns the request-phase state (arrival queue, the
-PREFILLING and RUNNING sets, per-request chunk progress, next token and
-write position) and compresses one engine iteration's decisions into a
-:class:`StepPlan`: who is admitted (with the prefix cache, a prompt's
-longest cached prefix is spliced into its table first), which prompt
-chunks stream in, who is preempted for blocks, and which requests take a
-decode token at which positions. The engine keeps the compute.
+PREFILLING and RUNNING sets, per-request chunk progress, next token,
+write position and dispatch count) and compresses one engine iteration's
+decisions into a :class:`StepPlan`: who is admitted (with the prefix
+cache, a prompt's longest cached prefix is spliced into its table
+first), which prompt chunks stream in, who is preempted for blocks, and
+which requests take a decode token at which positions. The engine keeps
+the compute, and the :class:`~repro_torch.serving.executor.Executor`
+dispatches the plans under overlap.
 
 Two prefill modes, as in the reference: serial (each admission prefills
 its whole uncached prompt at once) and chunked (admission reserves a
 seat and the first chunk's blocks; every step then runs up to
 ``prefill_chunk_tokens`` prompt tokens, FCFS, beside the decode batch).
+
+Overlap-aware planning (the reference's rules): under
+``EngineConfig.overlap`` a request's next step is planned while its
+previous step's token is still on the device, so a plan reads only
+host-knowable state. A request is planned again only while its
+``_dispatched`` count (tokens planned, in flight included) is below its
+length budget; ``_pos`` advances when a step is planned (in sync mode,
+when it commits), so in both modes ``_pos`` at plan time is where the
+next token writes. A stop token is found only at commit: the executor
+then discards the request's rows of the steps still in flight.
 """
 from __future__ import annotations
 
@@ -32,7 +45,9 @@ class StepPlan:
     """One iteration's decode work order. ``reqs``/``rids``/``positions``
     are parallel: ``reqs[i]`` takes one token at ``positions[i]``.
     ``t_sched`` is the schedule phase (admission and prefill) in seconds,
-    ``p0`` the engine's preemption count before the step."""
+    ``p0`` the engine's preemption count before the step, ``step`` the
+    engine step that planned it and ``now`` its serving-timeline stamp
+    (an overlapped plan commits an iteration or two later)."""
     reqs: List[Request]
     rids: List[int]
     positions: List[int]
@@ -40,6 +55,8 @@ class StepPlan:
     t0: float                     # perf_counter at step start
     t_sched: float = 0.0
     p0: int = 0
+    step: int = 0
+    now: float = 0.0
 
     @property
     def has_decode(self) -> bool:
@@ -64,6 +81,9 @@ class Scheduler:
         self._prefilled: Dict[int, int] = {}
         self._tokens: Dict[int, int] = {}    # rid -> next input token
         self._pos: Dict[int, int] = {}       # rid -> write position
+        # rid -> output tokens planned, in-flight ones included (equal to
+        # state.generated after every sync step; ahead of it under overlap)
+        self._dispatched: Dict[int, int] = {}
 
     def admit(self, now: float):
         """FCFS admission under ``max_batch`` and the pool watermark. A
@@ -74,9 +94,7 @@ class Scheduler:
         eng = self.eng
         mgr = eng.pool.manager
         bs = eng.ecfg.block_size
-        while (self.waiting
-               and len(self.running) + len(self.prefilling)
-               < eng.ecfg.max_batch
+        while (self.waiting and self._seats() < eng.ecfg.max_batch
                and self.waiting[0].arrival_s <= now):
             req = self.waiting[0]
             hit: List[int] = []
@@ -206,9 +224,30 @@ class Scheduler:
         eng.pool.release(rid)
         self._tokens.pop(rid, None)
         self._pos.pop(rid, None)
+        self._dispatched.pop(rid, None)
+        eng._executor.invalidate(rid)
         req.state.reset_for_requeue()
         self.waiting.appendleft(req)
         eng.preemptions += 1
+
+    def _seats(self) -> int:
+        """Batch seats taken: the prefilling requests and the running ones
+        still to be planned. Under overlap a request whose last token is
+        dispatched gives its seat up at once, where the reference's keeps
+        it until that token commits: admissions, and with them every
+        step's batch, are then the sync loop's (in bf16 a different batch
+        rounds differently)."""
+        return len(self.prefilling) + sum(map(self._needs_step,
+                                              self.running))
+
+    def _needs_step(self, req: Request) -> bool:
+        """Does ``req`` take a decode token this step? In sync mode every
+        running request does; under overlap, only while its planned output
+        is below its length budget (a request at its budget stays running
+        until its last in-flight token commits)."""
+        if not self.eng.ecfg.overlap:
+            return True
+        return self._dispatched.get(req.req_id, 0) < self.eng._limit(req)
 
     def ensure_step_capacity(self):
         """Make sure every running request can take its token this step:
@@ -221,6 +260,8 @@ class Scheduler:
         while True:
             need = 0
             for r in self.running:
+                if not self._needs_step(r):
+                    continue
                 pos = self._pos[r.req_id]
                 if mgr.needs_block(r.req_id, pos + 1) \
                         or mgr.needs_cow(r.req_id, pos):
@@ -252,16 +293,26 @@ class Scheduler:
         self.prefill_step(now)
         n_prefill = eng.prefill_tokens_computed - pf0
         t_sched = time.perf_counter() - t0
+        empty = StepPlan(reqs=[], rids=[], positions=[], n_prefill=n_prefill,
+                         t0=t0, t_sched=t_sched, p0=p0, step=eng.step_count,
+                         now=now)
         if not self.running:
-            return StepPlan(reqs=[], rids=[], positions=[],
-                            n_prefill=n_prefill, t0=t0, t_sched=t_sched,
-                            p0=p0)
+            return empty
         self.ensure_step_capacity()        # may preempt -> shrink running
-        reqs = list(self.running)
+        reqs = [r for r in self.running if self._needs_step(r)]
+        if not reqs:
+            return dataclasses.replace(empty,
+                                       t_sched=time.perf_counter() - t0)
         rids = [r.req_id for r in reqs]
         positions = [self._pos[rid] for rid in rids]
         for rid, pos in zip(rids, positions):
             eng.pool.manager.append_token(rid, pos + 1)
             eng.pool.ensure_writable(rid, pos)
+            self._dispatched[rid] = self._dispatched.get(rid, 0) + 1
+            if eng.ecfg.overlap:
+                # the plan pins this token's position; the commit, an
+                # iteration or two later, only appends its value
+                self._pos[rid] = pos + 1
         return StepPlan(reqs=reqs, rids=rids, positions=positions,
-                        n_prefill=n_prefill, t0=t0, t_sched=t_sched, p0=p0)
+                        n_prefill=n_prefill, t0=t0, t_sched=t_sched, p0=p0,
+                        step=eng.step_count, now=now)

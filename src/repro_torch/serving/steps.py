@@ -1,0 +1,300 @@
+"""The engine's decode steps on static buffers, the paged one replayed
+from one CUDA graph per bucket (counterpart of ``StepFunctions`` and
+``_paged_decode_fn`` in ``repro.serving.engine``).
+
+The reference compiles each step once per shape bucket, and its paged
+step puts decode and sampling in one program, so a step costs one
+dispatch. Eager PyTorch issues some 1200 launches for the same work,
+and the host, not the device, then sets the pace. Here the paged step
+(``Model.decode_step`` on a :class:`PagedCacheView`, then
+:func:`~repro_torch.models.sampler.sample_tokens_device`) is one
+``torch.cuda.CUDAGraph`` a ``(batch_pad, nb_pad, sampled)`` bucket:
+
+* A step's inputs (block tables, lengths, positions, input tokens, the
+  chain map of an overlapped step, the sampling vectors and the host
+  folded RNG keys) are packed on the host into a pinned staging buffer
+  (:func:`~repro_torch.kvcache.view.step_fields`) and go up in one
+  non-blocking copy into one static device buffer that every bucket
+  reads at its own offsets. The staging buffers are a ring with an event
+  an upload, so none is rewritten while its copy is pending.
+* An overlapped step's chained input tokens are gathered on the device
+  from the previous step's output, before the replay (:meth:`_chain`).
+* The step that first meets a bucket runs eagerly on a side stream (the
+  warm-up: it loads the kernel libraries and cuBLAS, so nothing is built
+  inside a capture), then the bucket's graph is captured; every later
+  step of the bucket replays it. All graphs share one memory pool. A
+  capture or replay that fails raises: nothing falls back to the eager
+  step. ``EngineConfig(cuda_graphs=False)`` runs every step eagerly on
+  the same buffers, for comparison.
+* A graph's kernels run with no Python, so the kernels' ``launches``
+  counters are read around each capture (and put back: a capture
+  launches nothing) and the difference is added at each replay.
+* Every step folds the finiteness of its logits into :attr:`finite`, on
+  the device, with no sync.
+
+The graphs capture the pool's addresses, so the pool is written in
+place (as it always is in the port) and every write to it goes on the
+stream of the replays: a discarded overlapped step's KV writes are then
+ordered before any later owner's, the counterpart of the reference's
+donated-pool chaining. On the CPU the same bodies run eagerly on the same
+buffers. The gather step stays eager in both places.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.ops import launch_counters
+from repro_torch.kvcache.paged import PagedKVCache
+from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
+from repro_torch.models.model import Model
+from repro_torch.models.sampler import fold_keys, sample_tokens_device
+
+# staging buffers in the ring: the executor's two retained steps, the one
+# being dispatched and one to spare
+STAGING_SLOTS = 4
+
+# an overlapped step's chained rows: the previous step's [n] device
+# output, and {row: the row of that output holding its input token}
+Chain = Tuple[torch.Tensor, Dict[int, int]]
+
+
+def pow2_bucket(n: int, lo: int = 1) -> int:
+    """The smallest ``lo * 2**k`` at least ``n`` (the reference's
+    ``_pow2_bucket``)."""
+    p = lo
+    while p < n:
+        p *= 2
+    return p
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launch count, by kernel name."""
+    return {name: fn.launches for name, fn in launch_counters().items()}
+
+
+def take_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a :func:`launch_counts`),
+    and the counters put back to ``before``: what a capture recorded
+    but did not launch."""
+    delta = {}
+    for name, fn in launch_counters().items():
+        delta[name] = fn.launches - before[name]
+        fn.launches = before[name]
+    return delta
+
+
+def add_launches(delta: Dict[str, int]):
+    """Count a replay's launches (a :func:`take_launches` delta)."""
+    for name, fn in launch_counters().items():
+        fn.launches += delta[name]
+
+
+class CapturedStep:
+    """One bucket's graph, its static outputs, and the kernel launches
+    that one replay makes."""
+    __slots__ = ("graph", "tokens", "logits", "launches")
+
+    def __init__(self, graph, tokens: torch.Tensor, logits: torch.Tensor,
+                 launches: Dict[str, int]):
+        self.graph = graph
+        self.tokens = tokens        # [batch_pad] int32, rewritten a replay
+        self.logits = logits        # [batch_pad, vocab] float32
+        self.launches = launches
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.tokens
+
+
+class _Staging:
+    """A ring of host staging buffers for one static device buffer;
+    pinned on a CUDA device, where each upload records an event that the
+    slot's next writer waits on."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.bufs = [torch.zeros((n,), dtype=torch.int32,
+                                 pin_memory=self.cuda)
+                     for _ in range(STAGING_SLOTS)]
+        self.uploaded: List[Optional[torch.cuda.Event]] = \
+            [None] * STAGING_SLOTS
+        self.slot = 0
+        self.device_buf = torch.zeros((n,), dtype=torch.int32, device=device)
+
+    def host(self) -> np.ndarray:
+        """The next slot, once its last upload has been read."""
+        self.slot = (self.slot + 1) % STAGING_SLOTS
+        ev = self.uploaded[self.slot]
+        if ev is not None:
+            ev.synchronize()
+        return self.bufs[self.slot].numpy()
+
+    def upload(self, n: int) -> torch.Tensor:
+        """Copy the current slot's first ``n`` words up; returns the
+        device buffer's first ``n``."""
+        dst = self.device_buf[:n]
+        dst.copy_(self.bufs[self.slot][:n], non_blocking=True)
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self.uploaded[self.slot] = ev
+        return dst
+
+
+class StepFunctions:
+    """An engine's decode steps over its pool (one :class:`StepFunctions`
+    a pool: the graphs capture its addresses). ``max_batch`` and
+    ``max_model_len`` size the static buffers; ``cuda_graphs=False``
+    keeps every step eager on a CUDA device."""
+
+    def __init__(self, model: Model, pool: PagedKVCache, *, max_batch: int,
+                 max_model_len: int, cuda_graphs: bool = True):
+        self.model = model
+        self.pool = pool
+        self.device = pool.device
+        self.graphs_on = cuda_graphs and self.device.type == "cuda"
+        nb_max = pow2_bucket(pool.manager.blocks_needed(max_model_len), lo=4)
+        self._staging = _Staging(step_size(pow2_bucket(max_batch), nb_max),
+                                 self.device)
+        # every step's logits finite so far
+        self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+        self.graphs: Dict[Tuple[int, int, bool], CapturedStep] = {}
+        self.capture_s = 0.0         # seconds spent capturing graphs
+        self.replays = 0
+        if self.graphs_on:
+            self._mempool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+
+    # ----------------------------------------------------------- inputs --
+    def _stage(self, reqs: Sequence, positions: Sequence[int],
+               tokens: Sequence[int], chain: Optional[Chain],
+               batch_pad: int, nb_pad: int,
+               rids: Optional[Sequence[int]]
+               ) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """Pack one step's inputs on the host, copy them up, and gather
+        chained tokens on the device. Returns the device fields and
+        whether any row samples. Padding rows are greedy with seed 0."""
+        B = len(reqs)
+        n = step_size(batch_pad, nb_pad)
+        f = step_fields(self._staging.host()[:n], batch_pad, nb_pad)
+        if rids is not None:
+            self.pool.fill_view(f, rids, positions)
+        else:
+            f["positions"][:] = 0
+            f["positions"][:B] = positions
+            f["lengths"][:] = f["positions"] + 1
+        f["tokens"][:] = 0
+        f["tokens"][:B] = tokens
+        f["use_prev"][:] = 0
+        f["prev_rows"][:] = 0
+        if chain is not None:
+            for i, row in chain[1].items():
+                f["use_prev"][i] = 1
+                f["prev_rows"][i] = row
+        sp = [r.sampling for r in reqs]
+        sampled = any(s.temperature > 0 for s in sp)
+        if sampled:
+            for name in ("temperature", "top_k", "top_p"):
+                f[name][:] = 1 if name == "top_p" else 0
+                f[name][:B] = [getattr(s, name) for s in sp]
+            seed = np.zeros((batch_pad,), np.int64)
+            seed[:B] = [np.uint32(s.seed) for s in sp]
+            pos = np.zeros((batch_pad,), np.int64)
+            pos[:B] = np.asarray(positions, np.int64) + 1
+            f["keys"].view(np.uint32)[:] = fold_keys(seed, pos)
+        dev = step_fields(self._staging.upload(n), batch_pad, nb_pad)
+        if chain is not None:
+            self._chain(dev, chain[0])
+        return dev, sampled
+
+    @staticmethod
+    def _chain(dev: Dict[str, torch.Tensor], prev: torch.Tensor):
+        """Chained rows take their input token from the previous step's
+        device output, the value the sync loop would have copied through
+        the host (the reference's ``_chain_tokens_fn``). Queued before
+        this step's replay, which may rewrite ``prev``."""
+        dev["tokens"].copy_(torch.where(
+            dev["use_prev"] != 0, prev.index_select(0, dev["prev_rows"]),
+            dev["tokens"]))
+
+    # ------------------------------------------------------------ paged --
+    def _paged_body(self, dev: Dict[str, torch.Tensor], sampled: bool
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The captured step: decode on the static view, fold finiteness,
+        sample. Reads and writes device tensors only."""
+        view = PagedCacheView(self.pool.pool, dev["tables"], dev["lengths"],
+                              dev["positions"], self.pool.block_size)
+        logits = self.model.decode_step(dev["tokens"], view)
+        self.finite.logical_and_(torch.isfinite(logits).all())
+        return sample_tokens_device(logits, dev["temperature"], dev["top_k"],
+                                    dev["top_p"], dev["keys"],
+                                    sampled), logits
+
+    def paged_bucket(self, rids: Sequence[int]) -> Tuple[int, int]:
+        """``(batch_pad, nb_pad)``: the batch and the widest table padded
+        to powers of two (at least 4 blocks), as in the reference."""
+        max_blocks = max(len(self.pool.manager.tables[r]) for r in rids)
+        return pow2_bucket(len(rids)), pow2_bucket(max_blocks, lo=4)
+
+    def paged(self, reqs: Sequence, rids: Sequence[int],
+              positions: Sequence[int], tokens: Sequence[int],
+              chain: Optional[Chain] = None) -> torch.Tensor:
+        """One zero-copy decode step: request ``rids[i]`` writes at
+        ``positions[i]`` and takes ``tokens[i]`` as input (or, for a row
+        in ``chain``, the previous step's output). Returns the
+        ``[batch_pad]`` int32 next tokens on the device (padding rows
+        greedy), which a later replay of the same bucket rewrites."""
+        batch_pad, nb_pad = self.paged_bucket(rids)
+        dev, sampled = self._stage(reqs, positions, tokens, chain,
+                                   batch_pad, nb_pad, rids)
+        key = (batch_pad, nb_pad, sampled)
+        step = self.graphs.get(key)
+        if step is not None:
+            self.replays += 1
+            return step.replay()
+        if not self.graphs_on:
+            return self._paged_body(dev, sampled)[0]
+        return self._first_use(key, dev, sampled)
+
+    def _first_use(self, key, dev, sampled) -> torch.Tensor:
+        """Run a new bucket's step eagerly on the side stream (the
+        warm-up), then capture its graph into the shared pool."""
+        cur = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(cur)
+        with torch.cuda.stream(self._side):
+            tokens, _ = self._paged_body(dev, sampled)
+        cur.wait_stream(self._side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        with torch.cuda.graph(graph, pool=self._mempool, stream=self._side):
+            static = self._paged_body(dev, sampled)
+        self.graphs[key] = CapturedStep(graph, *static,
+                                        take_launches(before))
+        self.capture_s += time.perf_counter() - t0
+        return tokens
+
+    # ----------------------------------------------------------- gather --
+    def gather(self, reqs: Sequence, rids: Sequence[int],
+               positions: Sequence[int], tokens: Sequence[int],
+               chain: Optional[Chain] = None,
+               pad_blocks: int = 0) -> torch.Tensor:
+        """One dense-copy decode step (the reference's gather fallback),
+        eager: gather ``pad_blocks`` blocks a request, decode at
+        ``lengths = pos + 1``, scatter the new rows back, sample. Returns
+        the ``[B]`` int32 next tokens on the device."""
+        dev, sampled = self._stage(reqs, positions, tokens, chain,
+                                   len(rids), 0, None)
+        cache = self.pool.gather(rids, pad_blocks)
+        logits = self.model.decode_step(dev["tokens"], cache,
+                                        dev["positions"],
+                                        lengths=dev["lengths"])
+        self.pool.scatter_new_token(rids, positions, cache)
+        self.finite.logical_and_(torch.isfinite(logits).all())
+        return sample_tokens_device(logits, dev["temperature"], dev["top_k"],
+                                    dev["top_p"], dev["keys"], sampled)
