@@ -21,10 +21,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    kernel's single-tile case on its own line, the reference's flash
    cases, a bf16 grid over head dims, head groups, masks and sequence
    shapes and a grid with a length a request (the model's prefill
-   without a prefix); the flash kernel's prefix-masked entry over G, hd,
-   dtype, prefix pad, valid prefix length (0, 1, mid-block, the whole
-   pad), suffix length and lengths short of it, and bit for bit against
-   the plain entry (its own build) without a prefix; the
+   without a prefix); the flash kernel's prefix-masked entry, its prefix
+   length read from a device tensor, over G, hd, dtype, prefix pad, valid
+   prefix length (0, 1, mid-block, the whole pad), suffix length and
+   lengths short of it, bit for bit against the plain entry (its own
+   build) without a prefix, and captured in a CUDA graph, then replayed
+   at other prefix lengths bit for bit against direct calls; the
    contiguous-decode grid of the
    reference's tests (plus G = 7 and hd 80/96), its length-0 rows
    against the TPU kernel's formula and long caches cut into several
@@ -34,30 +36,38 @@ It imports nothing of JAX or of the JAX package. Phases:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
    and greedy tokens must agree; then shared-prefix and long-prompt
-   serves with the prefix cache on and off, chunked and serial, with
-   eager decode steps and overlapped, which must give the same tokens;
+   serves with the prefix cache on and off, chunked and serial, every
+   step replayed from CUDA graphs (prefills and chunks included), every
+   step eager, and overlapped, which must give the same tokens;
 4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
    random weights from a seed), each run with every kernel's launch
    counter set to 0 just before and read just after (a CUDA graph's
    launches, recorded at its capture, are added at each replay), every
    logit finite (eager calls folded here, replayed steps by their graph):
-   the paged serve of 32 ShareGPT-length requests (paged decode steps
-   replayed from one CUDA graph a bucket, the engine's default), the
-   shared-prefix serve (4 tenants x 8, prefix 256, suffix 32) with the
-   prefix cache on and off, the long/short serve (16 short prompts of 24,
-   8 long of 768) chunked by 192 and serial, the paged serve's 32
-   requests sampled (temperature 0.8, top-k 50, top-p 0.95); the greedy
-   and the sampled serve again with eager decode steps and with CUDA
-   graphs and overlap (tokens equal to the graphs' in every way); the
-   gather-fallback serve of the first 16, sync and overlapped (and, for
-   token agreement, the paged serve of the same 16, in bfloat16 and
-   again in float32); a static batch of 32 prompts with 64 decode steps
-   on a dense cache. Each paged way and the gather serve are followed by
-   a ``torch.profiler`` window of 10 steady decode steps at batch 16
-   (device busy time by kernel kind against host wall time; with graphs,
-   the paged kernel's replayed launches against the trace's count of
-   its symbol), and the flash kernel symbol a prefill launches (bfloat16
-   and float32) is printed from a profile;
+   the paged serve of 32 ShareGPT-length requests (every step, prefills
+   included, replayed from one CUDA graph a bucket, the engine's
+   default), the shared-prefix serve (4 tenants x 8, prefix 256, suffix
+   32) with the prefix cache on and off, the long/short serve (16 short
+   prompts of 24, 8 long of 768) chunked by 192 and serial, the paged
+   serve's 32 requests sampled (temperature 0.8, top-k 50, top-p 0.95);
+   the greedy and the sampled serve again with every step eager and with
+   CUDA graphs and overlap, the prefix and the chunked serve again eager
+   (tokens equal to the graphs' in every way); the gather-fallback serve
+   of the first 16 with graphs, eager and overlapped (and, for token
+   agreement, the paged serve of the same 16, in bfloat16 and again in
+   float32); a static batch of 32 prompts with 64 decode steps on a
+   dense cache. Each paged and gather way is followed by a
+   ``torch.profiler`` window of 10 steady decode steps at batch 16
+   (device busy time by kernel kind against host wall time; with graphs
+   and no overlap, the decode kernel's replayed launches against the
+   trace's count of its symbol), and the flash kernel symbol a prefill
+   launches (bfloat16 and float32) is printed from a profile. Then a
+   profile of the whole prefix and chunked serves on warm engines (busy
+   against wall, graphs and eager); the prefix cache off and on in
+   turns, three warm serves a side (TTFT); and one prefill at each serve
+   shape through the engine's step, replayed and eager (host wall,
+   device busy, idle, flash launches against the trace). Each serve
+   prints the device memory its engine holds (KV pool, graph pools);
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -65,18 +75,22 @@ It imports nothing of JAX or of the JAX package. Phases:
    TFLOP/s, and with its length at a serial prefill of the paged serve;
    its prefix-masked entry at the prefix serve's suffix and the chunked
    serve's middle chunk; both beside SDPA with the same boolean mask;
-   paged decode at the serving shape and at one
-   8000-token request through a 512-block table; contiguous decode at the gather
-   shape, at one 8192-token request and at the static batch's shape); the
-   decode kernels and their library calls twice, L2-cold (back-to-back
-   calls on 24 copies of their inputs in turn, as a step's 24 layers) and
-   L2-warm (one copy); one paged step at batch 16 replayed from its
-   graph against the same step eager (tokens, logits), greedy and
-   sampled; and one whole gather decode step against one paged step,
-   replayed and eager, at batch 16 (with the gather copy's share);
+   paged decode at the serving shape and at one 8000-token request
+   through a 512-block table; contiguous decode at the gather shape, at
+   one 8192-token request and at the static batch's shape); the decode
+   kernels and their library calls twice, L2-cold (back-to-back calls on
+   24 copies of their inputs in turn, as a step's 24 layers) and L2-warm
+   (one copy); one paged and one gather step at batch 16, each replayed
+   from its graph against the same step eager (tokens, logits), greedy
+   and sampled; each prefill shape replayed against the same prefill
+   eager (logits, first token, the pool rows written), each suffix
+   bucket also at two prefix lengths it was not captured at; and one
+   whole gather decode step against one paged step, replayed and eager,
+   at batch 16 (with the gather copy's share);
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
    line. Any failure raises: the script then exits non-zero and prints
-   no ``ok`` line. Without a CUDA device it exits 1 at once.
+   no ``ok`` line. Without a CUDA device it exits 1 at once. Each phase
+   prints its seconds (``[phase]``).
 """
 import contextlib
 import dataclasses
@@ -325,6 +339,16 @@ def finite_logits(model):
         del model.prefill, model.decode_step
 
 
+def release():
+    """Free what the last engine held: an engine sits in a reference
+    cycle (engine, scheduler, executor), so its CUDA graphs and their
+    memory pools go only with a collection."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- phases ----
 def phase_build():
     from repro_torch.kernels import _build
@@ -569,14 +593,23 @@ def prefix_inputs(B, S, K, G, hd, P, pl, suffix_lengths, dtype, seed,
                                    mk(B, P + S, K, hd), lens)]
 
 
+def device_int(n):
+    """``n`` as a 0-dim int32 tensor on the card (how the engine's steps
+    hand the flash kernel's prefix entry its prefix length)."""
+    import torch
+    return torch.tensor(n, dtype=torch.int32).cuda()
+
+
 def phase_flash_prefix(errs):
-    """The flash kernel's prefix-masked entry against its plain version:
-    every prefix pad x valid prefix length (0, 1, mid-block, the whole
-    pad) x suffix length at both dtypes, the (G, hd) pairs in turn, then
-    every (G, hd, dtype) at a shape in turn; two requests a case, the
-    second's length short of its suffix. Then the entry without a prefix
-    (every length the sequence's) against the plain entry, bit for
-    bit."""
+    """The flash kernel's prefix-masked entry, its prefix length read from
+    the device, against its plain version: every prefix pad x valid
+    prefix length (0, 1, mid-block, the whole pad) x suffix length at both
+    dtypes, the (G, hd) pairs in turn, then every (G, hd, dtype) at a
+    shape in turn; two requests a case, the second's length short of its
+    suffix. Then the entry without a prefix (every length the sequence's)
+    against the plain entry, bit for bit; then one call captured in a CUDA
+    graph and replayed at prefix lengths it was not captured at, bit for
+    bit against the same call made directly."""
     import itertools
     import torch
     from repro_torch.kernels.flash_attention import (
@@ -595,7 +628,8 @@ def phase_flash_prefix(errs):
         q, k, v, lens = prefix_inputs(2, S, 2, G, hd, P, pl, (S, short),
                                       dtype, seed=3000 + n)
         kw = dict(prefix_pad=P, prefix_len=pl, lengths=lens)
-        out = flash_prefix_attention(q, k, v, **kw)
+        out = flash_prefix_attention(q, k, v, **dict(
+            kw, prefix_len=device_int(pl)))
         e_max = max(e_max, close(
             out, flash_prefix_attention_torch(q, k, v, **kw),
             f"flash prefix G={G} hd={hd} {dtype} P_pad={P} prefix_len={pl} "
@@ -607,7 +641,8 @@ def phase_flash_prefix(errs):
         q, k, v = flash_inputs(2, Sq, Sq, 2, G, hd, dtype, seed=hd + Sq + G)
         for lens in ((Sq, Sq), (Sq, Sq - 3 - hd % 7)):
             lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
-            a = flash_prefix_attention(q, k, v, prefix_pad=0, prefix_len=0,
+            a = flash_prefix_attention(q, k, v, prefix_pad=0,
+                                       prefix_len=device_int(0),
                                        lengths=lens)
             if not torch.equal(a, flash_attention(q, k, v, lengths=lens)):
                 raise AssertionError(
@@ -615,6 +650,7 @@ def phase_flash_prefix(errs):
                     f"plain entry: hd={hd} G={G} Sq={Sq} {dtype} lengths "
                     f"{lens.tolist()}")
             n_same += 1
+    n_graph = phase_flash_prefix_graph()
     print(f"[kernels] flash prefix entry: {len(cases)} cases (P_pad "
           f"16/32/64/512 x prefix_len 0/1/mid-block/P_pad x S 16/64/192 x "
           f"f32/bf16, then every G 1/2/4/7/8 x hd 64/80/96/128 x dtype; "
@@ -623,7 +659,46 @@ def phase_flash_prefix(errs):
           f"without a prefix equal bit for bit to the plain causal entry "
           f"(its own build) with the same lengths in {n_same} of {n_same} "
           f"cases (hd 32-128, G 1/4, S 64/100/192, f32/bf16, lengths full "
-          f"and one short)")
+          f"and one short); prefix length read from the device in every "
+          f"case; a call captured in a CUDA graph at prefix_len 384 and "
+          f"replayed at {n_graph} other lengths equal bit for bit to the "
+          f"direct call at each")
+
+
+def phase_flash_prefix_graph():
+    """The prefix entry captured in a CUDA graph (the chunked serve's
+    middle chunk: S=192 over P_pad 512, prefix length 384, bf16), then
+    the length tensor rewritten and the graph replayed: each replay must
+    equal a direct call at that length bit for bit (a length frozen at
+    capture would mask with 384). Returns the lengths replayed."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_prefix_attention
+    q, k, v, _ = prefix_inputs(1, 192, 32, 1, 64, 512, 384, (192,),
+                               torch.bfloat16, seed=77)
+    pl, lens = device_int(384), device_int(384 + 192).reshape(1)
+    kw = dict(prefix_pad=512, prefix_len=pl, lengths=lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_prefix_attention(q, k, v, **kw)          # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_prefix_attention(q, k, v, **kw)
+    flash_prefix_attention.launches -= 1               # captured, not run
+    others = (0, 1, 200, 383, 385, 500, 512)
+    for n in others:
+        pl.fill_(n)
+        lens.fill_(n + 192)
+        graph.replay()
+        want = flash_prefix_attention(q, k, v, prefix_pad=512,
+                                      prefix_len=n, lengths=lens)
+        if not torch.equal(out, want):
+            raise AssertionError(f"flash prefix entry replayed at "
+                                 f"prefix_len {n}: differs from the direct "
+                                 f"call (a length frozen at capture?)")
+    del graph
+    return len(others)
 
 
 def phase_threefry():
@@ -834,7 +909,7 @@ def phase_model(errs):
               + (" and equal to the paged steps'" if mode == "gather"
                  else ""))
     del model
-    torch.cuda.empty_cache()
+    release()
 
 
 def phase_model_prefill_modes(errs):
@@ -842,10 +917,11 @@ def phase_model_prefill_modes(errs):
     workload (4 tenants x 4, prefix 256, suffix 32) and a long/short one
     (6 short prompts of 24, 3 long of 300), served serially without the
     prefix cache, with it, chunked by 40 tokens (chunks end mid-block),
-    both, with eager decode steps, overlapped, and overlapped with both;
-    every run must give the serial run's tokens, and the flash
-    kernel's prefix-masked entry must carry every prefill and chunk over a
-    prefix, its plain entry every other."""
+    both, with every step eager, overlapped, and overlapped with both;
+    every run must give the serial run's tokens (every step but the eager
+    run's replayed from CUDA graphs, prefills and chunks included), and
+    the flash kernel's prefix-masked entry must carry every prefill and
+    chunk over a prefix, its plain entry every other."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -866,7 +942,7 @@ def phase_model_prefill_modes(errs):
              "chunked 40": dict(prefill_chunk_tokens=40),
              "chunked 40 + prefix cache": dict(prefill_chunk_tokens=40,
                                                prefix_cache=True),
-             "eager decode steps": dict(cuda_graphs=False),
+             "eager steps": dict(cuda_graphs=False),
              "overlap": dict(overlap=True),
              "overlap, chunked 40 + prefix cache": dict(
                  overlap=True, prefill_chunk_tokens=40, prefix_cache=True)}
@@ -893,9 +969,10 @@ def phase_model_prefill_modes(errs):
                   f"({len(reqs)} requests), {mode}: tokens equal to serial "
                   f"prefill's; {engine.prefill_tokens_computed} prefill "
                   f"tokens computed, {hits} from the cache, {engine.chunks} "
-                  f"chunks, {engine.suffix_prefills} over a prefix")
+                  f"chunks, {engine.suffix_prefills} over a prefix; "
+                  f"{step_mode(engine)}")
     del model
-    torch.cuda.empty_cache()
+    release()
 
 
 def serve_workload(sampling=None):
@@ -973,6 +1050,9 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
     import torch
     from repro_torch.serving import ContinuousBatchingEngine
     cfg = model.cfg
+    torch.cuda.synchronize()
+    release()
+    base = torch.cuda.memory_reserved()
     engine = ContinuousBatchingEngine(model,
                                       serve_config(decode_mode, **ecfg_kw))
     torch.cuda.synchronize()
@@ -1010,17 +1090,35 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
           f"{metrics.max_kv_fraction * 100:.1f}%")
     print(f"{tag} on {card}: TTFT {metrics.ttft.row()}; ITL "
           f"{metrics.itl.row()}; E2E {metrics.e2e.row(scale=1.0, unit='s')}")
+    release()
+    held = torch.cuda.memory_reserved() - base
+    kv = sum(t.numel() * t.element_size() for t in engine.pool.pool.values())
+    print(f"{tag} memory: the engine holds {held / 1e9:.3f} GB of device "
+          f"memory reserved after the serve: the KV pool {kv / 1e9:.3f} GB, "
+          f"the graph pools and step buffers {(held - kv) / 1e9:.3f} GB")
     return engine, metrics, launches
 
 
+def graph_kinds(steps):
+    """The graphs a ``StepFunctions`` captured, counted by kind: paged
+    decode, gather decode, prefill without and over a prefix."""
+    kinds = {}
+    for key in steps.graphs:
+        kind = key[0] if isinstance(key[0], str) else "paged"
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
+
+
 def step_mode(engine):
-    """How an engine ran its decode steps: eager, or replayed from CUDA
-    graphs (how many captured, in how long), and whether overlapped."""
+    """How an engine ran its steps: eager, or replayed from CUDA graphs
+    (how many captured of each kind, in how long), and whether
+    overlapped."""
     st = engine.steps
-    mode = ("eager PyTorch decode steps, no CUDA graphs"
+    mode = ("eager PyTorch steps, no CUDA graphs"
             if not st.graphs_on else
-            f"CUDA graphs ({len(st.graphs)} captured in {st.capture_s:.2f} "
-            f"s, {st.replays} replays)")
+            f"CUDA graphs ({len(st.graphs)} captured: "
+            f"{graph_kinds(st) or 'none'}, in {st.capture_s:.2f} s; "
+            f"{st.replays} replays)")
     if engine.ecfg.overlap:
         mode += (f", overlapped ({engine.commit_waits} of "
                  f"{engine.decode_steps} commits waited for the device)")
@@ -1041,12 +1139,11 @@ def phase_serve(model, card):
     """The paged serve of all 32 requests (CUDA graphs, sync), then the
     flash kernel its prefills launch (its decode profiles are
     :func:`phase_graph_modes`')."""
-    import torch
     reqs = serve_workload()
     engine, _, launches = serve(model, reqs, "paged", card)
     prefill_sizes = sorted({-(-r.prompt_len // 64) * 64 for r in reqs})
     del engine
-    torch.cuda.empty_cache()
+    release()
     prefill_symbol(model, card)
     return launches, prefill_sizes, reqs
 
@@ -1098,19 +1195,32 @@ def agreement(a_reqs, b_reqs):
             f"{first}")
 
 
+def prefix_workload(model, seed=0):
+    """The shared-prefix serve's requests: 4 tenants x 8, prefix 256,
+    suffix 32, 32 new tokens."""
+    from repro_torch.serving.workload import shared_prefix_workload
+    return shared_prefix_workload(4, 8, model.cfg.vocab_size, prefix_len=256,
+                                  suffix_len=32, max_new_tokens=32, seed=seed)
+
+
+def chunked_workload(model, seed=0):
+    """The long/short serve's requests: 16 prompts of 24 and 8 of 768,
+    one long after every 2 short, 24 and 6 new tokens."""
+    from repro_torch.serving.workload import long_short_workload
+    return long_short_workload(16, 8, model.cfg.vocab_size, short_len=24,
+                               long_len=768, short_new=24, long_new=6,
+                               every=2, seed=seed)
+
+
 def phase_prefix_serve(model, card):
     """The shared-prefix serve (the reference benchmark's shape: 4
     tenants x 8, prefix 256, suffix 32, 32 new tokens, batch 8) with the
     prefix cache off and on: prefill tokens computed, hit rate, TTFT,
     throughput and token agreement; the cache must compute fewer prefill
     tokens. Returns the cache-on run's launch counts."""
-    import torch
-    from repro_torch.serving.workload import shared_prefix_workload
     runs = {}
     for on in (False, True):
-        reqs = shared_prefix_workload(4, 8, model.cfg.vocab_size,
-                                      prefix_len=256, suffix_len=32,
-                                      max_new_tokens=32, seed=0)
+        reqs = prefix_workload(model)
         tag = f"prefix cache {'on' if on else 'off'}"
         engine, m, launches = serve(model, reqs, "paged", card, tag=tag,
                                     max_batch=8, prefix_cache=on)
@@ -1133,12 +1243,24 @@ def phase_prefix_serve(model, card):
               f"layers, plain entry {launches['flash_attention']}")
         runs[on] = (reqs, engine.prefill_tokens_computed, launches)
         del engine
-        torch.cuda.empty_cache()
+        release()
     if runs[True][1] >= runs[False][1]:
         raise AssertionError(f"the prefix cache computed {runs[True][1]} "
                              f"prefill tokens, not fewer than {runs[False][1]}")
     print(f"[serve prefix cache] {model.cfg.dtype} token agreement, cache on "
           f"vs off: {agreement(runs[True][0], runs[False][0])}")
+    eager = prefix_workload(model)
+    engine, _, _ = serve(model, eager, "paged", card,
+                         tag="prefix cache on, eager", max_batch=8,
+                         prefix_cache=True, cuda_graphs=False)
+    del engine
+    release()
+    diff = first_difference(runs[True][0], eager)
+    if diff:
+        raise AssertionError(f"prefix serve, every step eager: tokens differ "
+                             f"from the graphs serve at {diff}")
+    print(f"[serve prefix cache] every step eager equal to CUDA graphs on all "
+          f"{sum(r.generated for r in eager)} tokens")
     return runs[True][2]
 
 
@@ -1148,13 +1270,9 @@ def phase_chunked_serve(model, card):
     6 new tokens, batch 4) chunked by 192 tokens and serially: ITL, the
     scheduler stall, throughput and token agreement. Returns the chunked
     run's launch counts."""
-    import torch
-    from repro_torch.serving.workload import long_short_workload
     runs = {}
     for chunk in (None, 192):
-        reqs = long_short_workload(16, 8, model.cfg.vocab_size, short_len=24,
-                                   long_len=768, short_new=24, long_new=6,
-                                   every=2, seed=0)
+        reqs = chunked_workload(model)
         tag = f"chunked {chunk}" if chunk else "serial prefill"
         engine, m, launches = serve(model, reqs, "paged", card, tag=tag,
                                     max_batch=4, prefill_chunk_tokens=chunk)
@@ -1168,10 +1286,231 @@ def phase_chunked_serve(model, card):
               f"{m.throughput:.1f} tok/s; TTFT p95 {m.ttft.p95 * 1e3:.2f} ms")
         runs[chunk] = (reqs, launches)
         del engine
-        torch.cuda.empty_cache()
+        release()
     print(f"[serve chunked] {model.cfg.dtype} token agreement, chunked vs "
           f"serial: {agreement(runs[192][0], runs[None][0])}")
+    eager = chunked_workload(model)
+    engine, _, _ = serve(model, eager, "paged", card,
+                         tag="chunked 192, eager", max_batch=4,
+                         prefill_chunk_tokens=192, cuda_graphs=False)
+    del engine
+    release()
+    diff = first_difference(runs[192][0], eager)
+    if diff:
+        raise AssertionError(f"chunked serve, every step eager: tokens "
+                             f"differ from the graphs serve at {diff}")
+    print(f"[serve chunked] every step eager equal to CUDA graphs on all "
+          f"{sum(r.generated for r in eager)} tokens")
     return runs[192][1]
+
+
+def warm_engine(model, make, **ecfg_kw):
+    """An engine whose buckets the serve ``make`` builds are captured: it
+    serves ``make(seed=1)`` (the same shapes, other tokens) first, then
+    its prefix cache is emptied and its counters reset, so that a serve
+    of ``make(seed=0)`` starts as on a fresh engine, graphs aside."""
+    from repro_torch.serving import ContinuousBatchingEngine
+    engine = ContinuousBatchingEngine(model, serve_config(**ecfg_kw))
+    engine.run(make(model, seed=1))
+    rewarm(engine)
+    return engine
+
+
+def rewarm(engine):
+    """Empty a warm engine's prefix cache and reset its counters."""
+    import torch
+    torch.cuda.synchronize()
+    if engine.prefix is not None:
+        engine.prefix.clear()
+    engine.reset_stats()
+
+
+def serve_profile(engine, make):
+    """Device busy seconds of a serve of ``make(seed=0)`` on a warm
+    engine under ``torch.profiler`` (device activity only), by kernel
+    kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rewarm(engine)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.run(make(engine.model))
+        torch.cuda.synchronize()
+    by_kind = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kind = kernel_kind(e.name)
+            by_kind[kind] = by_kind.get(kind, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e6
+    if not by_kind:
+        raise AssertionError("profiler recorded no device activity")
+    return by_kind
+
+
+def phase_serve_profiles(model, card):
+    """The prefix serve (cache on) and the chunked serve (chunks of
+    192), with CUDA graphs and every step eager, each on a warm engine
+    (:func:`warm_engine`): first every serve timed, then the prefix cache
+    off and on in turns (off, on, on, off, off, on), each on its own warm
+    engine with graphs (TTFT, the stall, prefill tokens, the means of
+    each side), and only then the first serves with graphs again under
+    ``torch.profiler``: device busy time by kernel kind against the
+    unprofiled serve's host wall, and the idle share (an eager serve's
+    trace, some 150k kernels, takes tens of seconds to read: its device
+    work is the same, and its idle share is that of the steps'
+    profiles)."""
+    import torch
+    serves = {}
+    for what, make, kw in (
+            ("prefix serve, cache on", prefix_workload,
+             dict(max_batch=8, prefix_cache=True)),
+            ("chunked serve, chunks of 192", chunked_workload,
+             dict(max_batch=4, prefill_chunk_tokens=192))):
+        for way, extra in (("graphs", {}), ("eager", dict(cuda_graphs=False))):
+            engine = warm_engine(model, make, **kw, **extra)
+            m = engine.run(make(model))
+            torch.cuda.synchronize()
+            serves[f"{what}, {way}"] = (engine, make, m)
+            print(f"[profile {what}, {way}] on {card}, {step_mode(engine)}, "
+                  f"warm: serve wall {m.wall_s * 1e3:.1f} ms; "
+                  f"{engine.prefills} prefills and {engine.chunks} chunks "
+                  f"({engine.suffix_prefills} over a prefix), "
+                  f"{engine.decode_steps} decode steps; TTFT p50 "
+                  f"{m.ttft.p50 * 1e3:.2f} p95 {m.ttft.p95 * 1e3:.2f} ms; "
+                  f"stall mean {m.stall_s_mean * 1e3:.2f} p95 "
+                  f"{m.stall.p95 * 1e3:.2f} ms; ITL p50 "
+                  f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} ms; "
+                  f"output {m.output_throughput:.1f} tok/s")
+    ttft = {False: [], True: []}
+    for on in (False, True, True, False, False, True):
+        engine = warm_engine(model, prefix_workload, max_batch=8,
+                             prefix_cache=on)
+        m = engine.run(prefix_workload(model))
+        torch.cuda.synchronize()
+        ttft[on].append((m.ttft.p50, m.ttft.p95, m.stall.p95))
+        print(f"[prefix ttft] on {card}: cache {'on' if on else 'off'}, warm "
+              f"graphs: TTFT p50 {m.ttft.p50 * 1e3:.2f} p95 "
+              f"{m.ttft.p95 * 1e3:.2f} ms; stall p95 "
+              f"{m.stall.p95 * 1e3:.2f} ms; {engine.prefill_tokens_computed} "
+              f"prefill tokens computed; wall {m.wall_s * 1e3:.1f} ms; output "
+              f"{m.output_throughput:.1f} tok/s")
+        del engine
+        release()
+    mean = {on: [statistics.mean(x[i] for x in ttft[on]) * 1e3
+                 for i in range(3)] for on in ttft}
+    print(f"[prefix ttft] on {card}: means of 3 serves a side, cache off / "
+          f"on: TTFT p50 {mean[False][0]:.2f} / {mean[True][0]:.2f} ms, p95 "
+          f"{mean[False][1]:.2f} / {mean[True][1]:.2f} ms; stall p95 "
+          f"{mean[False][2]:.2f} / {mean[True][2]:.2f} ms")
+    for tag, (engine, make, m) in serves.items():
+        if not engine.steps.graphs_on:
+            continue
+        by_kind = serve_profile(engine, make)
+        busy = sum(by_kind.values())
+        parts = ", ".join(f"{k} {v * 1e3:.1f} ms ({v / busy * 100:.1f}%)"
+                          for k, v in sorted(by_kind.items(),
+                                             key=lambda kv: -kv[1]))
+        print(f"[profile {tag}] on {card}: device busy {busy * 1e3:.1f} ms "
+              f"(torch.profiler, the same serve again) against the "
+              f"unprofiled serve's wall {m.wall_s * 1e3:.1f} ms: idle "
+              f"{(1 - busy / m.wall_s) * 100:.1f}%; device time: {parts}")
+    del serves, engine
+    release()
+
+
+# (what, prompt tokens this call, prompt position it starts at): the
+# serves' prefill shapes
+PREFILL_SHAPES = (("a serial prefill of the paged serve (prompt 161)", 161, 0),
+                  ("a serial prefill of 1000 tokens", 1000, 0),
+                  ("the prefix serve's suffix", 32, 256),
+                  ("the chunked serve's middle chunk", 192, 384))
+
+
+def prefill_pool(engine, seed=3):
+    """Random contents in an engine's pool and one request (id 0) whose
+    1040-token table covers every prefill shape; returns its prompt."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(seed)
+    for leaf in engine.pool.pool.values():
+        leaf.normal_(generator=gen)
+    engine.pool.manager.allocate(0, 1040)
+    return np.random.default_rng(seed).integers(
+        0, engine.model.cfg.vocab_size, 1040)
+
+
+def prefill_call(engine, prompt, n, start):
+    """One prefill step of ``n`` prompt tokens from ``start`` on request
+    0, as the engine calls it; returns a closure and the bucket."""
+    from repro_torch.serving.steps import pow2_bucket
+    nb = -(-start // engine.ecfg.block_size)
+    toks = prompt[start:start + n].tolist()
+    key = engine.steps.prefill_key(n, start, pow2_bucket(nb))
+    return (lambda: engine.steps.prefill(0, toks, start, nb,
+                                         pow2_bucket(nb))), key
+
+
+def phase_prefill_steps(model, card, runs=20):
+    """One prefill at each of the serves' shapes, through the engine's
+    step (``steps.prefill``: staging, one upload, then the bucket's
+    graph replayed, or every kernel launched eagerly): the host wall of
+    one call until its logits are on the device (call, then synchronize;
+    median of ``runs``), its device busy time (``torch.profiler`` over
+    5 calls, behind two kernels of a few microseconds that open the
+    window), the idle share. With graphs, the flash launches counted
+    over the profiled calls must equal the trace's flash kernels, 5 x
+    layers. Returns the rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ContinuousBatchingEngine
+    rows = {}
+    for graphs in (True, False):
+        engine = ContinuousBatchingEngine(
+            model, serve_config(cuda_graphs=graphs))
+        prompt = prefill_pool(engine)
+        for what, n, start in PREFILL_SHAPES:
+            call, key = prefill_call(engine, prompt, n, start)
+            call()
+            call()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            before = read_launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                # a kernel of a few microseconds opens the window: a
+                # trace may miss the first kernel after it starts
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.time_range.end - e.time_range.start
+                       for e in ops) / 1e3 / 5
+            after = read_launches()
+            counted = sum(after[k] - before[k] for k in (
+                "flash_attention", "flash_prefix_attention"))
+            traced = sum("flash" in e.name for e in ops)
+            want = 5 * model.cfg.n_layers
+            if not counted == traced == want:
+                raise AssertionError(f"prefill {key}: flash launches counted "
+                                     f"{counted}, traced {traced}, != {want}")
+            wall = statistics.median(walls)
+            way = "replayed" if graphs else "eager"
+            rows[(what, way)] = dict(key=key, wall_ms=wall, busy_ms=busy,
+                                     idle=1 - busy / wall,
+                                     ops=len(ops) / 5)
+            print(f"[prefill] on {card}: {what}, bucket {key}, {way}: host "
+                  f"wall {wall:.3f} ms a call (median of {runs}), device "
+                  f"busy {busy:.3f} ms, idle {(1 - busy / wall) * 100:.1f}%, "
+                  f"{len(ops) / 5:.0f} device ops a call; flash launches "
+                  f"counted {counted}, traced {traced} over 5 calls")
+        del engine
+        release()
+    return rows
 
 
 SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=0)
@@ -1183,12 +1522,11 @@ def phase_sampled_serve(model, card, greedy):
     agreement with ``greedy`` (the same requests served greedily); the
     serves of :func:`phase_graph_modes` must give the same tokens.
     Returns the requests and the launch counts."""
-    import torch
     from repro_torch.serving.workload import SamplingParams
     reqs = serve_workload(SamplingParams(**SAMPLED))
     engine, _, launches = serve(model, reqs, "paged", card, tag="sampled")
     del engine
-    torch.cuda.empty_cache()
+    release()
     print(f"[serve sampled] sampled vs the greedy paged serve: "
           f"{agreement(reqs, greedy)}")
     return reqs, launches
@@ -1216,7 +1554,6 @@ def phase_graph_modes(model, card, runs):
     overlap. Every way's tokens must equal those of ``runs[kind]`` (the
     graphs-sync serves of the earlier phases); each way's serve metrics
     and profile window are printed, then a table of them."""
-    import torch
     from repro_torch.serving.workload import SamplingParams
     table = []
     for kind, sampling in (("greedy", None), ("sampled", SAMPLED)):
@@ -1226,7 +1563,7 @@ def phase_graph_modes(model, card, runs):
             engine, m, _ = serve(model, reqs, "paged", card,
                                  tag=f"{kind}, {way}", **kw)
             del engine
-            torch.cuda.empty_cache()
+            release()
             diff = first_difference(runs[kind], reqs)
             if diff:
                 raise AssertionError(f"{kind} serve, {way}: tokens differ "
@@ -1248,34 +1585,43 @@ def phase_graph_modes(model, card, runs):
 
 
 def phase_gather_serve(model, card, paged_all):
-    """The gather-fallback serve of the first 16 requests and its decode
-    profile, then the paged serve of the same 16 for token agreement
-    (beside, as a control, the same 16 in the 32-request paged serve,
-    where other batches surround them), and the same agreement with the
-    model in float32."""
-    import torch
-    reqs = serve_workload()[:16]
-    engine, _, launches = serve(model, reqs, "gather", card)
-    del engine
-    torch.cuda.empty_cache()
-    profile_decode(model, "gather", card)
-    over = serve_workload()[:16]
-    engine, _, _ = serve(model, over, "gather", card, tag="gather, overlap",
-                         overlap=True)
-    del engine
-    torch.cuda.empty_cache()
-    diff = first_difference(reqs, over)
-    if diff:
-        raise AssertionError(f"gather serve with overlap: tokens differ "
-                             f"from sync at {diff}")
-    print(f"[serve gather] with overlap equal to sync on all "
+    """The gather-fallback serve of the first 16 requests three ways (CUDA
+    graphs, sync, whose launch counts it returns; every step eager; CUDA
+    graphs with overlap), equal on every token, each followed by its
+    decode profile and then a table of them; the paged serve of the same
+    16 for token agreement (beside, as a control, the same 16 in the
+    32-request paged serve, where other batches surround them), and the
+    same agreement with the model in float32."""
+    table, runs = [], {}
+    for way in ("graphs, sync", "eager, sync", "graphs, overlap"):
+        kw = WAYS[way]
+        reqs = serve_workload()[:16]
+        engine, m, launches = serve(model, reqs, "gather", card,
+                                    tag=f"gather, {way}", **kw)
+        del engine
+        release()
+        runs[way] = (reqs, launches)
+        diff = first_difference(runs["graphs, sync"][0], reqs)
+        if diff:
+            raise AssertionError(f"gather serve, {way}: tokens differ from "
+                                 f"the graphs-sync serve at {diff}")
+        prof = profile_decode(model, "gather", card, tag=f"gather, {way}",
+                              **kw)
+        table.append(f"gather, {way}: output {m.output_throughput:.1f} "
+                     f"tok/s, ITL p50 {m.itl.p50 * 1e3:.2f} p95 "
+                     f"{m.itl.p95 * 1e3:.2f} ms, TTFT p50 "
+                     f"{m.ttft.p50 * 1e3:.1f} p95 {m.ttft.p95 * 1e3:.1f} ms; "
+                     f"steady step busy {prof['busy']:.3f} ms, wall "
+                     f"{prof['wall']:.3f} ms, idle {prof['idle'] * 100:.1f}%")
+    reqs, launches = runs["graphs, sync"]
+    print(f"[serve gather] eager and overlapped equal to graphs, sync on all "
           f"{sum(r.generated for r in reqs)} tokens")
-    profile_decode(model, "gather", card, tag="gather, overlap",
-                   overlap=True)
+    for row in table:
+        print(f"[graphs] on {card}: {row}")
     paged_reqs = serve_workload()[:16]
     engine, _, _ = serve(model, paged_reqs, "paged", card)
     del engine
-    torch.cuda.empty_cache()
+    release()
     print(f"[serve gather] {model.cfg.dtype} token agreement, gather vs the "
           f"paged serve of the same 16 requests: "
           f"{agreement(reqs, paged_reqs)}")
@@ -1285,17 +1631,18 @@ def phase_gather_serve(model, card, paged_all):
     # the same pair in float32 at full depth: rounding, not the data path,
     # is what may still tell the two modes apart
     f32 = full_model(dtype="float32")
-    runs = {}
+    f32_runs = {}
     for mode in ("gather", "paged"):
-        runs[mode] = serve_workload()[:16]
-        engine, _, _ = serve(f32, runs[mode], mode, card)
+        f32_runs[mode] = serve_workload()[:16]
+        engine, _, _ = serve(f32, f32_runs[mode], mode, card)
         del engine
-        torch.cuda.empty_cache()
+        release()
     print(f"[serve gather] float32 token agreement, gather vs paged on the "
-          f"same 16 requests: {agreement(runs['gather'], runs['paged'])}")
+          f"same 16 requests: "
+          f"{agreement(f32_runs['gather'], f32_runs['paged'])}")
     prefill_symbol(f32, card)
     del f32
-    torch.cuda.empty_cache()
+    release()
     return launches
 
 
@@ -1341,7 +1688,7 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
           f"{batch * steps / (t2 - t1):.1f} output tok/s; launches "
           f"{launches}")
     del cache
-    torch.cuda.empty_cache()
+    release()
     return launches
 
 
@@ -1359,15 +1706,47 @@ def kernel_kind(name):
     return "other (norms, elementwise, indexing, copies)"
 
 
+def steady_steps(engine, steps, wrap=contextlib.nullcontext):
+    """``steps`` engine steps ending in a sync, inside ``wrap()``, done
+    again (up to three times) while a window met a new bucket: a bucket's
+    first use and capture are set-up, not a steady step. Returns the
+    context ``wrap()`` gave, the host wall ms a step and the kernel
+    launches counted, of the last window."""
+    import torch
+    for _ in range(3):
+        n = len(engine.steps.graphs)
+        before = read_launches()
+        with wrap() as ctx:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step(0.0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        if len(engine.steps.graphs) == n:
+            after = read_launches()
+            return ctx, ms, {k: after[k] - before[k] for k in after}
+    raise AssertionError("three windows in a row met a new bucket")
+
+
+# each decode mode's kernel: its launch counter and its split kernel's
+# symbol in a trace (the paged symbols hold the contiguous ones' names)
+DECODE_KERNEL = {"paged": ("paged_decode_attention",
+                           lambda name: "paged_decode_split_kernel" in name),
+                 "gather": ("decode_attention",
+                            lambda name: "decode_split_kernel" in name
+                            and "paged_decode_" not in name)}
+
+
 def profile_decode(model, decode_mode, card, steps=10, sampling=None,
                    tag=None, **ecfg_kw):
     """Where a steady decode step's time goes: ``torch.profiler`` over
     ``steps`` engine steps at batch 16 (after 20 warm steps and as many
-    unprofiled, timed ones), device busy time by kernel kind against the
-    host's wall time of an unprofiled step. With CUDA graphs and no
-    overlap, the paged kernel's launch counter over the profiled steps
-    and the trace's count of its split kernel must both be steps x
-    layers. Returns ``{"busy", "wall", "idle"}`` (ms, ms, share)."""
+    unprofiled, timed ones; a window that met a new bucket is run again),
+    device busy time by kernel kind against the host's wall time of an
+    unprofiled step. With CUDA graphs and no overlap, the decode kernel's
+    launch counter over the profiled steps and the trace's count of its
+    split kernel must both be steps x layers. Returns ``{"busy", "wall",
+    "idle"}`` (ms, ms, share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ContinuousBatchingEngine
@@ -1378,20 +1757,11 @@ def profile_decode(model, decode_mode, card, steps=10, sampling=None,
     for _ in range(21):                  # admits all 16, then warm steps
         engine.step(0.0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()             # the same window, unprofiled
-    for _ in range(steps):
-        engine.step(0.0)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    before = read_launches()["paged_decode_attention"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            engine.step(0.0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    counted = read_launches()["paged_decode_attention"] - before
+    _, plain_wall_ms, _ = steady_steps(engine, steps)   # unprofiled
+    counter, is_split = DECODE_KERNEL[decode_mode]
+    prof, wall_ms, launched = steady_steps(engine, steps, lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    counted = launched[counter]
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -1415,18 +1785,19 @@ def profile_decode(model, decode_mode, card, steps=10, sampling=None,
           f"{plain_wall_ms:.3f} ms/step unprofiled ({wall_ms:.3f} profiled),"
           f" so the device idles {idle * 100:.1f}% of an unprofiled step")
     print(f"{tag} device time per step: {parts}")
-    if decode_mode == "paged":
-        traced = sum("paged_decode_split_kernel" in e.name for e in kernels)
-        want = steps * model.cfg.n_layers
-        print(f"{tag} paged kernel over the profiled steps: launch counter "
-              f"+{counted}, trace {traced} paged_decode_split_kernel "
-              f"(steps x layers = {want})")
-        if engine.steps.graphs_on and not engine.ecfg.overlap \
-                and not counted == traced == want:
-            raise AssertionError(f"{tag}: replayed launches {counted} and "
-                                 f"traced kernels {traced} != {want}")
+    # under overlap the trace also holds steps dispatched before the
+    # window, so the counts are held equal in sync mode only
+    traced = sum(is_split(e.name) for e in kernels)
+    want = steps * model.cfg.n_layers
+    print(f"{tag} {counter} over the profiled steps: launch counter "
+          f"+{counted}, trace {traced} split kernels (steps x layers = "
+          f"{want})")
+    if engine.steps.graphs_on and not engine.ecfg.overlap \
+            and not counted == traced == want:
+        raise AssertionError(f"{tag}: replayed launches {counted} and "
+                             f"traced kernels {traced} != {want}")
     del engine
-    torch.cuda.empty_cache()
+    release()
     return {"busy": busy, "wall": plain_wall_ms, "idle": idle}
 
 
@@ -1514,7 +1885,7 @@ def time_masked(card, what, S, P, pl, n):
     if P:
         kernel, plain = fa.flash_prefix_attention, \
             fa.flash_prefix_attention_torch
-        kw = dict(prefix_pad=P, prefix_len=pl, lengths=lens)
+        kw = dict(prefix_pad=P, prefix_len=device_int(pl), lengths=lens)
         entry = "flash prefix entry"
     else:
         kernel, plain = fa.flash_attention, fa.flash_attention_torch
@@ -1597,7 +1968,7 @@ def time_paged(card, what, q, kp, vp, table, lens):
     caches = copies((kc, vc))
     l_ms = l2_cold_ms(sdpa, caches)
     del caches, kc, vc
-    torch.cuda.empty_cache()
+    release()
     plan = paged_split_plan(B, nb, BS, K, H // K, hd)
     row = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1655,7 +2026,7 @@ def time_decode(card, what, q, k, v, lens):
     caches = copies((kc, vc))
     l_ms = l2_cold_ms(sdpa, caches)
     del caches, kc, vc
-    torch.cuda.empty_cache()
+    release()
     plan = split_plan(B, S, K, H // K, hd)
     row = dict(
         ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1679,20 +2050,37 @@ def time_decode(card, what, q, k, v, lens):
     return row
 
 
+def replay_check(kind, what, key, replayed, want_logits, got, want, card):
+    """A replayed step's logits and tokens against the same step eager:
+    tokens equal and logits within 3e-2, reported bit for bit."""
+    import torch
+    err = (replayed - want_logits).abs().max().item()
+    same = bool(torch.equal(replayed, want_logits))
+    if err > TOL["bfloat16"] or got.tolist() != want.tolist():
+        raise AssertionError(f"replayed {kind} {what}: logits differ by "
+                             f"{err:.3e} or tokens differ from eager")
+    print(f"[step] on {card}: the {kind} {what} replayed from its CUDA "
+          f"graph (bucket {key}) against the same step eager: tokens equal, "
+          f"logits " + ("equal bit for bit" if same else
+                        f"max abs err {err:.3e} (tolerance "
+                        f"{TOL['bfloat16']})"))
+    return same
+
+
 def phase_step_compare(model, card):
     """One whole engine decode step at batch 16 on one pool holding the
-    16 requests at half their output budget: the paged step replayed from
-    its CUDA graph, greedy and sampled, against the same step eager (the
-    same tokens, logits within 3e-2 and reported bit for bit); then the
-    replayed paged, eager paged and gather steps (the port's counterpart
-    of ``benchmarks/decode_datapath.py``), timed in turns (paged, eager,
-    gather, gather, eager, paged); then the gather copy and the scatter
-    alone."""
+    16 requests at half their output budget: the paged step and the
+    gather step, each replayed from its CUDA graph, greedy and sampled,
+    against the same step eager (the same tokens, logits within 3e-2 and
+    reported bit for bit); then the replayed and eager paged and gather
+    steps (the port's counterpart of ``benchmarks/decode_datapath.py``),
+    timed in turns (paged, paged eager, gather, gather eager, gather
+    eager, gather, paged eager, paged); then the gather copy and the
+    scatter alone."""
     import torch
     from repro_torch.models.sampler import (positions_array, sample_tokens,
                                             stack_sampling)
     from repro_torch.serving import ContinuousBatchingEngine
-    from repro_torch.serving.engine import _bucket
     from repro_torch.serving.scheduler import StepPlan
     from repro_torch.serving.steps import StepFunctions
     from repro_torch.serving.workload import SamplingParams
@@ -1726,27 +2114,36 @@ def phase_step_compare(model, card):
         want = sample_tokens(
             want_logits, *stack_sampling([r.sampling for r in sreqs]),
             positions_array([p + 1 for p in positions]))
-        err = (replayed - want_logits).abs().max().item()
-        same = bool(torch.equal(replayed, want_logits))
-        if err > TOL["bfloat16"] or got[:16].tolist() != want.tolist():
-            raise AssertionError(f"replayed {kind} step: logits differ by "
-                                 f"{err:.3e} or tokens differ from eager")
-        print(f"[step] on {card}: the {kind} paged step at batch 16 "
-              f"replayed from its CUDA graph (bucket {key}) against the same "
-              f"step eager: tokens equal, logits "
-              + ("equal bit for bit" if same else
-                 f"max abs err {err:.3e} (tolerance {TOL['bfloat16']})"))
+        replay_check(kind, "paged step at batch 16", key, replayed,
+                     want_logits, got[:16], want, card)
+        pad = engine.steps.gather_bucket(positions)
+        for _ in range(2):        # the first call captures, the second replays
+            got = engine.steps.gather(sreqs, rids, positions, tokens)
+        key = ("gather", 16, pad, sp is not None)
+        replayed = engine.steps.graphs[key].logits.clone()
+        cache = engine.pool.gather(rids, pad)
+        pos = torch.tensor(positions, device="cuda")
+        want_logits = model.decode_step(torch.tensor(tokens, device="cuda"),
+                                        cache, pos, lengths=pos + 1)
+        engine.pool.scatter_new_token(rids, positions, cache)
+        del cache
+        want = sample_tokens(
+            want_logits, *stack_sampling([r.sampling for r in sreqs]),
+            positions_array([p + 1 for p in positions]))
+        replay_check(kind, "gather step at batch 16", key, replayed,
+                     want_logits, got, want, card)
     steps = {"paged": engine._decode_paged,
              "paged eager": lambda p: eager.paged(
                  p.reqs, p.rids, p.positions, tokens)[:16].cpu(),
-             "gather": engine._decode_gather}
+             "gather": engine._decode_gather,
+             "gather eager": lambda p: eager.gather(
+                 p.reqs, p.rids, p.positions, tokens).cpu()}
     ms = {mode: [] for mode in steps}
-    for mode in ("paged", "paged eager", "gather", "gather", "paged eager",
-                 "paged"):
+    for mode in ("paged", "paged eager", "gather", "gather eager",
+                 "gather eager", "gather", "paged eager", "paged"):
         ms[mode].append(time_ms(lambda: steps[mode](plan), runs=20))
     busy = {mode: busy_ms(lambda: fn(plan)) for mode, fn in steps.items()}
-    pad_blocks = engine.pool.manager.blocks_needed(
-        _bucket(max(positions) + 1, 4 * 16))
+    pad_blocks = engine.steps.gather_bucket(positions)
     cache = engine.pool.gather(rids, pad_blocks)
     g_ms = time_ms(lambda: engine.pool.gather(rids, pad_blocks), runs=20)
     s_ms = time_ms(lambda: engine.pool.scatter_new_token(rids, positions,
@@ -1762,16 +2159,19 @@ def phase_step_compare(model, card):
     mean = {mode: statistics.mean(v) for mode, v in ms.items()}
     print(f"[step] on {card}: one decode step at batch 16, "
           f"{sum(positions)} context tokens, full-width {cfg.name} "
-          f"{cfg.dtype}, {cfg.n_layers} layers, end to end (turns paged, "
-          f"eager, gather, gather, eager, paged): paged replayed "
-          f"{ms['paged'][0]:.3f} / {ms['paged'][1]:.3f} ms, paged eager "
-          f"{ms['paged eager'][0]:.3f} / {ms['paged eager'][1]:.3f} ms, "
-          f"gather {ms['gather'][0]:.3f} / {ms['gather'][1]:.3f} ms; gather "
-          f"/ paged eager {mean['gather'] / mean['paged eager']:.2f}x, "
-          f"paged eager / replayed {mean['paged eager'] / mean['paged']:.2f}"
-          f"x; device busy a step (torch.profiler): paged replayed "
+          f"{cfg.dtype}, {cfg.n_layers} layers, end to end (CUDA events; "
+          f"turns paged, paged eager, gather, gather eager and back): paged "
+          f"replayed {ms['paged'][0]:.3f} / {ms['paged'][1]:.3f} ms, paged "
+          f"eager {ms['paged eager'][0]:.3f} / {ms['paged eager'][1]:.3f} "
+          f"ms, gather replayed {ms['gather'][0]:.3f} / "
+          f"{ms['gather'][1]:.3f} ms, gather eager "
+          f"{ms['gather eager'][0]:.3f} / {ms['gather eager'][1]:.3f} ms; "
+          f"gather / paged replayed {mean['gather'] / mean['paged']:.2f}x, "
+          f"eager {mean['gather eager'] / mean['paged eager']:.2f}x; device "
+          f"busy a step (torch.profiler): paged replayed "
           f"{busy['paged']:.3f} ms, eager {busy['paged eager']:.3f} ms, "
-          f"gather {busy['gather']:.3f} ms")
+          f"gather replayed {busy['gather']:.3f} ms, eager "
+          f"{busy['gather eager']:.3f} ms")
     print(f"[step] on {card}: the gather copy ([{cfg.n_layers}, 16, "
           f"{pad_blocks * 16}, {cfg.n_kv_heads}, {cfg.hd}] K and V, "
           f"{view_bytes / 1e9:.2f} GB written, as many read): device "
@@ -1782,7 +2182,69 @@ def phase_step_compare(model, card):
           f"time; the copy is {g_dev / busy['gather'] * 100:.1f}% of its "
           f"device busy time")
     del engine, eager, cache
-    torch.cuda.empty_cache()
+    release()
+
+
+def phase_prefill_compare(model, card):
+    """Each prefill body replayed from its CUDA graph against the same
+    prefill eager (the dense prefix gathered with a host table, the model
+    with an int prefix length): logits and first token, and the rows the
+    replay wrote into the pool against the eager call's K/V, at every
+    shape of :data:`PREFILL_SHAPES`; then each suffix bucket replayed at
+    two prefix lengths it was not captured at (the prefix length is read
+    from the device at every replay). Returns how many compared bit for
+    bit, of how many."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.steps import bucket, pow2_bucket
+    engine = ContinuousBatchingEngine(model, serve_config())
+    prompt = prefill_pool(engine, seed=5)
+    table = engine.pool.manager.tables[0]
+    cases = [(n, start) for _, n, start in PREFILL_SHAPES]
+    cases += [(32, 250), (32, 200), (192, 400), (192, 500)]
+    n_same = 0
+    for n, start in cases:
+        call, key = prefill_call(engine, prompt, n, start)
+        first = key not in engine.steps.graphs
+        for _ in range(2 if first else 1):
+            call()
+        replayed = engine.steps.graphs[key].logits.clone()
+        S = bucket(n, engine.ecfg.prefill_bucket)
+        toks = torch.zeros((1, S), dtype=torch.long)
+        toks[0, :n] = torch.from_numpy(prompt[start:start + n])
+        nb = -(-start // 16)
+        prefix = (engine.pool.gather_prefix(table[:nb], pow2_bucket(nb))
+                  if start else None)
+        want, cache = model.prefill(toks.cuda(), torch.tensor(
+            [n], device="cuda"), cache_len=S, prefix=prefix, prefix_len=start)
+        rows = torch.arange(start, start + n, device="cuda")
+        phys = torch.tensor(table, device="cuda")[rows // 16]
+        same = replay_check(
+            "prefill", f"of {n} tokens from position {start}" + (
+                "" if first else " (a bucket captured at another prefix "
+                "length)"), key, replayed, want, replayed.argmax(-1),
+            want.argmax(-1), card)
+        for name, leaf in engine.pool.pool.items():
+            written = leaf[:, phys, rows % 16]
+            close(written, cache[name][:, 0, :n],
+                  f"prefill {key} from {start}: the replay's pool rows "
+                  f"({name}) against the eager call's K/V")
+            same = same and bool(torch.equal(written, cache[name][:, 0, :n]))
+        n_same += same
+    print(f"[step] on {card}: {len(cases)} prefills replayed, {n_same} equal "
+          f"to eager bit for bit in logits and in the pool rows they wrote; "
+          f"{step_mode(engine)}")
+    del engine
+    release()
+    return n_same, len(cases)
+
+
+def phase(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1798,7 +2260,7 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     t_start = time.perf_counter()
-    phase_build()
+    phase("0, build", phase_build)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1811,27 +2273,35 @@ def main() -> int:
     errs = {"paged": {"sweep": 0.0}, "decode": {},
             "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
             "flash_prefix": {}}
-    phase_kernels(errs)
-    phase_model(errs)
-    phase_model_prefill_modes(errs)
+    phase("2, kernels", phase_kernels, errs)
+    phase("3, model", phase_model, errs)
+    phase("3, prefill modes", phase_model_prefill_modes, errs)
     model = full_model()
     by_path = {"paged_serve": None, "gather_serve": None,
                "static_batch": None, "prefix_serve": None,
                "chunked_serve": None, "sampled_serve": None}
-    by_path["paged_serve"], prefill_sizes, paged_all = phase_serve(model,
-                                                                   card)
-    by_path["prefix_serve"] = phase_prefix_serve(model, card)
-    by_path["chunked_serve"] = phase_chunked_serve(model, card)
-    sampled_all, by_path["sampled_serve"] = phase_sampled_serve(
-        model, card, paged_all)
-    phase_graph_modes(model, card, {"greedy": paged_all,
-                                    "sampled": sampled_all})
-    by_path["gather_serve"] = phase_gather_serve(model, card, paged_all)
-    by_path["static_batch"] = phase_static(model, card)
-    phase_step_compare(model, card)
+    by_path["paged_serve"], prefill_sizes, paged_all = phase(
+        "4, paged serve", phase_serve, model, card)
+    by_path["prefix_serve"] = phase("4, prefix serve", phase_prefix_serve,
+                                    model, card)
+    by_path["chunked_serve"] = phase("4, chunked serve", phase_chunked_serve,
+                                     model, card)
+    sampled_all, by_path["sampled_serve"] = phase(
+        "4, sampled serve", phase_sampled_serve, model, card, paged_all)
+    phase("4, graph modes", phase_graph_modes, model, card,
+          {"greedy": paged_all, "sampled": sampled_all})
+    by_path["gather_serve"] = phase("4, gather serve", phase_gather_serve,
+                                    model, card, paged_all)
+    by_path["static_batch"] = phase("4, static batch", phase_static, model,
+                                    card)
+    phase("4, serve profiles", phase_serve_profiles, model, card)
+    phase("4, prefill steps", phase_prefill_steps, model, card)
+    phase("5, step compare", phase_step_compare, model, card)
+    phase("5, prefill compare", phase_prefill_compare, model, card)
     del model
-    torch.cuda.empty_cache()
-    times = phase_times(card, prefill_sizes, serve_workload())
+    release()
+    times = phase("5, kernel times", phase_times, card, prefill_sizes,
+                  serve_workload())
     kernels = []
     meta = {   # source, the TPU kernel's entry, the path whose run counts
         "paged_decode_attention": (

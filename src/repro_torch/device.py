@@ -19,3 +19,12 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def on_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``: a tensor is moved (nothing happens
+    where it already lies, so a captured step body may call this), other
+    data is copied up."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.as_tensor(x, device=device)

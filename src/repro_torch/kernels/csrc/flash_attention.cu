@@ -60,10 +60,13 @@
 // are [prefix (P_pad slots) || suffix], prefix slots at or past the valid
 // prefix length pl take id -1, suffix slot j takes id pl + j - P_pad,
 // query row i id pl + i, and each request's keys are cut at its length (in
-// ids, from a device array). The plain entry is the case P_pad = pl = 0,
-// so both give the same bits there. Its build folds P_pad and pl away,
-// keeps the TPU kernel's whole-tile skip test as its loop bounds and tests
-// a slot against two bounds a row (RowKeys): on the card it runs as fast
+// ids, from a device array). pl too is read from the device when a block
+// starts, so a CUDA graph that captured the launch replays it at whatever
+// prefix length the engine staged for that replay (a scalar argument would
+// be frozen at its captured value). The plain entry is the case P_pad =
+// pl = 0, so both give the same bits there. Its build folds P_pad and pl
+// away, keeps the TPU kernel's whole-tile skip test as its loop bounds and
+// tests a slot against two bounds a row (RowKeys): on the card it runs as fast
 // as the TPU kernel's mask alone, where one build of both entries read 8%
 // slower and the prefix build at P_pad = 0 15% slower (tools/decode_ab.py).
 // Key tiles with no valid slot for a query tile are not visited: the
@@ -181,15 +184,16 @@ struct Mask {
   }
 };
 
-// the mask of request b: the prefix entry's, or without a prefix P_pad and
-// pl folded to 0 and the length Skv where no lengths are given
+// the mask of request b: the prefix entry's, with the valid prefix length
+// *plen read from the device, or without a prefix P_pad and pl folded to 0
+// and the length Skv where no lengths are given
 template <bool kPrefix>
-__device__ __forceinline__ Mask<kPrefix> make_mask(const int* lens, int b,
+__device__ __forceinline__ Mask<kPrefix> make_mask(const int* lens,
+                                                   const int* plen, int b,
                                                    int Skv, int causal,
-                                                   int window, int P_pad,
-                                                   int pl) {
+                                                   int window, int P_pad) {
   if constexpr (kPrefix)
-    return Mask<kPrefix>{Skv, P_pad, pl, lens[b], causal, window};
+    return Mask<kPrefix>{Skv, P_pad, *plen, lens[b], causal, window};
   return Mask<kPrefix>{Skv, 0, 0, lens ? lens[b] : Skv, causal, window};
 }
 
@@ -205,8 +209,9 @@ template <typename T, int HD, bool kPrefix>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out,
-             const int* __restrict__ lens, int Sq, int Skv, int H, int K,
-             int causal, int window, int P_pad, int pl, float scale) {
+             const int* __restrict__ lens, const int* __restrict__ plen,
+             int Sq, int Skv, int H, int K, int causal, int window,
+             int P_pad, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;                        // [kBQ][HD + 1]
   float* k_s = q_s + kBQ * (HD + 1);        // [kBKV][HD + 1]
@@ -217,7 +222,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 1, half = tid & 1;   // this thread's row and half
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / K);
   const int q0 = blockIdx.x * kBQ, qi = q0 + r;
-  const auto mk = make_mask<kPrefix>(lens, b, Skv, causal, window, P_pad, pl);
+  const auto mk =
+      make_mask<kPrefix>(lens, plen, b, Skv, causal, window, P_pad);
   const auto keys = mk.row(qi);
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
@@ -411,9 +417,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ out,
-                   const int* __restrict__ lens, int Sq, int Skv, int H,
-                   int K, int causal, int window, int P_pad, int pl,
-                   float scale) {
+                   const int* __restrict__ lens,
+                   const int* __restrict__ plen, int Sq, int Skv, int H,
+                   int K, int causal, int window, int P_pad, float scale) {
   using L = WgTile<HD>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* q_s =
@@ -430,7 +436,8 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   // out: q_row and q_row + 8
   const int q_row = q0 + 16 * warp + (lane >> 2);
 
-  const auto mk = make_mask<kPrefix>(lens, b, Skv, causal, window, P_pad, pl);
+  const auto mk =
+      make_mask<kPrefix>(lens, plen, b, Skv, causal, window, P_pad);
   const auto k_lo = mk.row(q_row), k_hi = mk.row(q_row + 8);
   // the visited key tiles, numbered n = 0 .. n_vis - 1 in the order they
   // go through the ring
@@ -599,7 +606,8 @@ struct Args {
   const void *q, *k, *v;
   void* out;
   const int* lens;   // [B] lengths in ids (null: every length Skv)
-  int B, Sq, Skv, H, K, causal, window, P_pad, pl;
+  const int* plen;   // the valid prefix length (the prefix entry only)
+  int B, Sq, Skv, H, K, causal, window, P_pad;
   cudaStream_t stream;
 };
 
@@ -614,7 +622,7 @@ cudaError_t launch_f32(const Args& a) {
   flash_kernel<float, HD, kPrefix><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<float*>(a.out), a.lens,
-      a.Sq, a.Skv, a.H, a.K, a.causal, a.window, a.P_pad, a.pl,
+      a.plen, a.Sq, a.Skv, a.H, a.K, a.causal, a.window, a.P_pad,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return cudaGetLastError();
 }
@@ -631,8 +639,8 @@ cudaError_t launch_bf16(const Args& a) {
       static_cast<const __nv_bfloat16*>(a.q),
       static_cast<const __nv_bfloat16*>(a.k),
       static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<__nv_bfloat16*>(a.out), a.lens, a.Sq, a.Skv, a.H, a.K,
-      a.causal, a.window, a.P_pad, a.pl,
+      static_cast<__nv_bfloat16*>(a.out), a.lens, a.plen, a.Sq, a.Skv, a.H,
+      a.K, a.causal, a.window, a.P_pad,
       static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
   return cudaGetLastError();
 }
@@ -682,26 +690,28 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     const int* lens, int B, int Sq, int Skv, int H, int K,
                     int hd, int causal, int window, int body, void* stream) {
   return dispatch<false>(hd, body,
-                         Args{q, k, v, out, lens, B, Sq, Skv, H, K, causal,
-                              window, 0, 0,
+                         Args{q, k, v, out, lens, nullptr, B, Sq, Skv, H, K,
+                              causal, window, 0,
                               static_cast<cudaStream_t>(stream)});
 }
 
 // The prefix-masked causal prefill: k/v hold prefix_pad prefix slots, the
-// first prefix_len of them valid, then the suffix; lens [B] (int32, on the
-// device) are each request's lengths in ids. A window with a prefix is
-// refused, as in the reference.
+// first *prefix_len of them valid, then the suffix; lens [B] (int32, on the
+// device) are each request's lengths in ids, and prefix_len (one int32, on
+// the device, read by the kernel) must lie in [0, prefix_pad]: the wrapper
+// checks it where it is known on the host, the engine where it stages it.
+// A window with a prefix is refused, as in the reference.
 int flash_prefix_attention(const void* q, const void* k, const void* v,
-                           void* out, const int* lens, int B, int Sq,
-                           int Skv, int H, int K, int hd, int prefix_pad,
-                           int prefix_len, int window, int body,
-                           void* stream) {
-  if (prefix_len < 0 || prefix_len > prefix_pad || prefix_pad > Skv ||
-      (window > 0 && prefix_pad > 0) || lens == nullptr)
+                           void* out, const int* lens,
+                           const int* prefix_len, int B, int Sq, int Skv,
+                           int H, int K, int hd, int prefix_pad, int window,
+                           int body, void* stream) {
+  if (prefix_pad < 0 || prefix_pad > Skv || (window > 0 && prefix_pad > 0) ||
+      lens == nullptr || prefix_len == nullptr)
     return cudaErrorInvalidValue;
   return dispatch<true>(hd, body,
-                        Args{q, k, v, out, lens, B, Sq, Skv, H, K, 1, window,
-                             prefix_pad, prefix_len,
+                        Args{q, k, v, out, lens, prefix_len, B, Sq, Skv, H, K,
+                             1, window, prefix_pad,
                              static_cast<cudaStream_t>(stream)});
 }
 

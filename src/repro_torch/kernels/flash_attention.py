@@ -15,7 +15,10 @@ masks of the reference's ``_mask_builder`` over ``[prefix || suffix]``
 keys, with the prefix's padding masked, absolute query positions and
 each request's length (:func:`flash_prefix_attention_torch` is its plain
 version). It carries the suffix-only prefills of the prefix cache and
-every chunk after a prompt's first.
+every chunk after a prompt's first. Its valid prefix length may be a
+0-dim int32 tensor on the device, which the kernel reads when it runs: a
+CUDA graph that captured the call then replays it at the length staged
+for that replay.
 
 Layout: ``q [B,Sq,H,hd]``; ``k/v [B,Skv,K,hd]`` (contiguous) ->
 ``[B,Sq,H,hd]`` in ``q.dtype``. ``block_q``/``block_s`` are the plain
@@ -31,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -112,11 +115,15 @@ def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def prefix_kv_ids(prefix_pad: int, prefix_len: int, s: int,
+PrefixLen = Union[int, torch.Tensor]
+
+
+def prefix_kv_ids(prefix_pad: int, prefix_len: PrefixLen, s: int,
                   device=None) -> torch.Tensor:
     """Token ids of the keys ``[prefix (prefix_pad slots) || suffix (s)]``:
     ``j`` below ``prefix_len``, -1 in the prefix's padding, ``prefix_len +
-    (j - prefix_pad)`` in the suffix (the reference's ``self_attn_seq``)."""
+    (j - prefix_pad)`` in the suffix (the reference's ``self_attn_seq``).
+    ``prefix_len`` is an int or a 0-dim integer tensor."""
     j = torch.arange(prefix_pad + s, device=device)
     return torch.where(j < prefix_pad, torch.where(j < prefix_len, j, -1),
                        prefix_len + j - prefix_pad)
@@ -124,13 +131,15 @@ def prefix_kv_ids(prefix_pad: int, prefix_len: int, s: int,
 
 def flash_prefix_attention_torch(q: torch.Tensor, k_all: torch.Tensor,
                                  v_all: torch.Tensor, *, prefix_pad: int,
-                                 prefix_len: int, lengths: torch.Tensor,
+                                 prefix_len: PrefixLen,
+                                 lengths: torch.Tensor,
                                  window: Optional[int] = None
                                  ) -> torch.Tensor:
     """The plain version: one masked f32 softmax over every key. Query row
     ``i`` (id ``prefix_len + i``) sees key ids ``>= 0``, not after its own,
     below its request's ``lengths[b]`` and, with a window, closer than
-    ``window``. A row with no valid key is outside the contract."""
+    ``window``. ``prefix_len`` is an int or a 0-dim integer tensor. A row
+    with no valid key is outside the contract."""
     B, Sq, H, hd = q.shape
     Skv, K = k_all.shape[1], k_all.shape[2]
     dev = q.device
@@ -152,11 +161,11 @@ def flash_prefix_attention_torch(q: torch.Tensor, k_all: torch.Tensor,
 def _entry(name: str = NAME):
     """The library's entry point ``name``: ``flash_attention`` or
     ``flash_prefix_attention``, bound with its argument types (five
-    pointers, then 9 or 10 ints, then the stream)."""
+    pointers, or six with the prefix length's, then 9 ints, then the
+    stream)."""
     fn = getattr(_build.library(NAME), name)
-    fn.argtypes = ([ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * (9 if name == NAME else 10)
-                   + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * (5 if name == NAME else 6)
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -225,7 +234,19 @@ flash_attention.launches = 0
 
 
 def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
-    if not 0 <= prefix_len <= prefix_pad <= k_all.shape[1]:
+    if isinstance(prefix_len, torch.Tensor):
+        # its value is the caller's to keep in [0, prefix_pad]: reading it
+        # here would wait for the device
+        if prefix_len.dim() or prefix_len.dtype.is_floating_point \
+                or prefix_len.device != q.device:
+            raise ValueError(f"prefix_len must be an int or a 0-dim integer "
+                             f"tensor on {q.device}, got "
+                             f"{tuple(prefix_len.shape)} {prefix_len.dtype} "
+                             f"on {prefix_len.device}")
+        if not 0 <= prefix_pad <= k_all.shape[1]:
+            raise ValueError(f"need 0 <= prefix_pad ({prefix_pad}) <= the "
+                             f"keys ({k_all.shape[1]})")
+    elif not 0 <= prefix_len <= prefix_pad <= k_all.shape[1]:
         raise ValueError(f"need 0 <= prefix_len ({prefix_len}) <= prefix_pad "
                          f"({prefix_pad}) <= the keys ({k_all.shape[1]})")
     if window is not None and prefix_pad:
@@ -242,7 +263,7 @@ def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
 
 def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
                            v_all: torch.Tensor, *, prefix_pad: int,
-                           prefix_len: int, lengths: torch.Tensor,
+                           prefix_len: PrefixLen, lengths: torch.Tensor,
                            window: Optional[int] = None) -> torch.Tensor:
     """Causal prefill attention of a suffix over ``[prefix || suffix]``
     keys: the kernel for CUDA tensors, the plain version for CPU tensors.
@@ -251,9 +272,12 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
     ``k_all/v_all [B, prefix_pad + S', K, hd]`` the prefix's
     ``prefix_pad`` slots (the first ``prefix_len`` valid) and then the
     suffix's; ``lengths [B]`` each request's total valid length in ids
-    (prefix included). With ``prefix_pad = 0`` this is
-    :func:`flash_attention` (causal, the same lengths), bit for bit on the
-    card; the model takes that entry for a prefill without a prefix."""
+    (prefix included). ``prefix_len`` is an int, checked here, or a 0-dim
+    integer tensor on ``q``'s device (int32 for the kernel, which reads it
+    when it runs), whose value the caller keeps in ``[0, prefix_pad]``.
+    With ``prefix_pad = 0`` this is :func:`flash_attention` (causal, the
+    same lengths), bit for bit on the card; the model takes that entry for
+    a prefill without a prefix."""
     _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window)
     if q.device.type == "cpu":
         return flash_prefix_attention_torch(
@@ -263,6 +287,13 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k_all, v_all)
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if isinstance(prefix_len, torch.Tensor):
+        if prefix_len.dtype != torch.int32:
+            raise TypeError(f"prefix_len must be int32, got "
+                            f"{prefix_len.dtype}")
+        plen = prefix_len
+    else:
+        plen = torch.full((), prefix_len, dtype=torch.int32, device=q.device)
     B, Sq, H, hd = q.shape
     Skv, K = k_all.shape[1], k_all.shape[2]
     out = torch.empty_like(q)
@@ -271,8 +302,8 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = _entry("flash_prefix_attention")(
             q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
-            lens.data_ptr(), B, Sq, Skv, H, K, hd, prefix_pad, prefix_len,
-            window or 0, _BODY_CODES[kernel_body(q.dtype, hd)],
+            lens.data_ptr(), plen.data_ptr(), B, Sq, Skv, H, K, hd,
+            prefix_pad, window or 0, _BODY_CODES[kernel_body(q.dtype, hd)],
             torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
     flash_prefix_attention.launches += 1

@@ -3,7 +3,7 @@
 CPU tensor runs the kernel's plain PyTorch version."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
@@ -43,10 +43,12 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def prefill_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
                              v_all: torch.Tensor, *, prefix_pad: int,
-                             prefix_len: int, lengths: torch.Tensor,
+                             prefix_len: Union[int, torch.Tensor],
+                             lengths: torch.Tensor,
                              window: Optional[int] = None) -> torch.Tensor:
     """Causal prefill over ``[prefix || suffix]`` keys with the model's
-    masks. q:[B,S,H,hd], k/v_all:[B,prefix_pad+S,K,hd], lengths:[B]."""
+    masks. q:[B,S,H,hd], k/v_all:[B,prefix_pad+S,K,hd], lengths:[B],
+    prefix_len an int or a 0-dim int32 tensor on the device."""
     return flash_prefix_attention(q, k_all, v_all, prefix_pad=prefix_pad,
                                   prefix_len=prefix_len, lengths=lengths,
                                   window=window)

@@ -19,6 +19,14 @@ chunked prefill read a request's written prefix through
 :meth:`PagedKVCache.gather_prefix` and write their rows token by token
 (:meth:`PagedKVCache.write_prefill` with ``n_tokens``);
 :meth:`PagedKVCache.ensure_writable` forks a shared block before a write.
+
+Those eager methods build their indices on the host and upload them. The
+engine's steps (:mod:`repro_torch.serving.steps`) stage the same indices
+in one packed upload (:meth:`PagedKVCache.fill_prefill`,
+:meth:`PagedKVCache.fill_view`) and then gather and write through them on
+the device alone (:meth:`PagedKVCache.gather_tables`,
+:meth:`PagedKVCache.write_rows`, :meth:`PagedKVCache.scatter_rows`), so
+that a CUDA graph can capture the step.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
+
+Fields = Dict[str, np.ndarray]
 
 
 class BlockManager:
@@ -347,6 +357,78 @@ class PagedKVCache:
         return {name: leaf[:, idx].reshape(leaf.shape[0], 1, P,
                                            *leaf.shape[3:])
                 for name, leaf in self.pool.items()}
+
+    def fill_prefill(self, fields: Fields, req_id: int,
+                     tokens: Sequence[int], start: int, prefix_blocks: int):
+        """Stage one prefill of prompt positions ``[start, start + n)``
+        (``n = len(tokens)``) in the host ``fields`` of
+        :func:`~repro_torch.kvcache.view.prefill_fields`, whose shapes give
+        the row bucket ``S`` and the prefix pad ``nb_pad``: the tokens
+        (zeros past ``n``), ``n``, ``start`` as the prefix's valid length,
+        the request's first ``prefix_blocks`` blocks then the trash block,
+        and each row's write address, rows past ``n`` to the trash block
+        (the token-granular write of :meth:`write_prefill` with
+        ``n_tokens``, for every prefill). A write past the table raises
+        (extend it first), as does a prefix longer than its pad."""
+        S = fields["tokens"].shape[1]
+        nb_pad = fields["table"].shape[0]
+        n = len(tokens)
+        if not 1 <= n <= S:
+            raise ValueError(f"a prefill of {n} tokens does not fit its "
+                             f"bucket of {S} rows")
+        if start > nb_pad * self.block_size:
+            raise ValueError(f"prefix of {start} tokens exceeds its pad of "
+                             f"{nb_pad} blocks x {self.block_size}")
+        table = self.manager.tables.get(req_id, [])
+        if start + n > len(table) * self.block_size:
+            raise ValueError(
+                f"prefill write [{start}, {start + n}) over-allocates past "
+                f"req {req_id}'s table ({len(table)} blocks x "
+                f"{self.block_size}); extend() the table first")
+        fields["tokens"][0, :n] = tokens
+        fields["tokens"][0, n:] = 0
+        fields["n"][0] = n
+        fields["prefix_len"][()] = start
+        prefix = table[:min(prefix_blocks, nb_pad)]
+        fields["table"][:] = self.trash_block
+        fields["table"][:len(prefix)] = prefix
+        pos = start + np.arange(S)
+        fields["blocks"][:] = self.trash_block
+        fields["blocks"][:n] = np.asarray(table)[pos[:n] // self.block_size]
+        fields["slots"][:] = pos % self.block_size
+
+    def gather_tables(self, tables: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A dense copy ``{"k", "v"}``, each ``[L, B, nb * BS, K, hd]``, of
+        the blocks named by the device tables ``[B, nb]``: the prefix of a
+        prefill (B = 1) or the gather step's caches. Issues no upload."""
+        B, nb = tables.shape
+        idx = tables.long()
+        return {name: leaf[:, idx].reshape(leaf.shape[0], B,
+                                           nb * self.block_size,
+                                           *leaf.shape[3:])
+                for name, leaf in self.pool.items()}
+
+    def write_rows(self, cache_one: Dict[str, torch.Tensor],
+                   blocks: torch.Tensor, slots: torch.Tensor):
+        """Write a prefill's rows (``[L, 1, S, K, hd]`` leaves) in place at
+        the staged device addresses ``(blocks[i], slots[i])`` (the
+        reference's ``scatter_chunk_jit``). Issues no upload."""
+        phys, sib = blocks.long(), slots.long()
+        for name, leaf in self.pool.items():
+            leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
+
+    def scatter_rows(self, tables: torch.Tensor, positions: torch.Tensor,
+                     cache: Dict[str, torch.Tensor]):
+        """The gather step's write back: row ``b`` of the dense ``cache``
+        at ``positions[b]`` (every layer) to its physical (block, slot),
+        the address computed on the device from the step's ``tables``
+        (:meth:`scatter_new_token` computes it on the host)."""
+        rows = torch.arange(tables.shape[0], device=tables.device)
+        pos = positions.long()
+        phys = tables.long()[rows, pos // self.block_size]
+        sib = pos % self.block_size
+        for name, leaf in self.pool.items():
+            leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
 
     def ensure_writable(self, req_id: int, pos: int):
         """Copy-on-write fork of the block holding ``pos`` if another

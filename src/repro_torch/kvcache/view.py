@@ -1,5 +1,6 @@
 """Zero-copy view of the paged KV pool (counterpart of
-``repro.kvcache.view``), and the packed layout of a decode step's inputs.
+``repro.kvcache.view``), and the packed layouts of a decode step's and of
+a prefill's inputs.
 """
 from __future__ import annotations
 
@@ -42,6 +43,30 @@ def step_fields(buf: Buffer, batch_pad: int,
         out[name] = v.view(f32) if name in _FLOAT_FIELDS else v
         at += batch_pad
     out["keys"] = buf[at:at + 2 * batch_pad].reshape(batch_pad, 2)
+    return out
+
+
+def prefill_size(S: int, nb_pad: int) -> int:
+    """int32 words of one prefill's packed inputs (:func:`prefill_fields`)."""
+    return 3 * S + nb_pad + 2
+
+
+def prefill_fields(buf: Buffer, S: int, nb_pad: int) -> Dict[str, Buffer]:
+    """Views of one prefill's inputs (batch 1, ``S`` rows in its bucket)
+    packed in the 1-D int32 ``buf``, the same layout on the host and the
+    device: ``tokens [1, S]``; ``n [1]``, the valid rows; ``prefix_len``
+    (0-dim), the prompt position of row 0 and the prefix's valid length;
+    ``table [nb_pad]``, the prefix's blocks then the trash block; and
+    ``blocks [S]``, ``slots [S]``, the (block, slot) each row's K/V is
+    written to, padding rows' in the trash block."""
+    out: Dict[str, Buffer] = {"tokens": buf[:S].reshape(1, S),
+                              "n": buf[S:S + 1],
+                              "prefix_len": buf[S + 1:S + 2].reshape(())}
+    at = S + 2
+    out["table"] = buf[at:at + nb_pad]
+    at += nb_pad
+    out["blocks"] = buf[at:at + S]
+    out["slots"] = buf[at + S:at + 2 * S]
     return out
 
 

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import on_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
@@ -53,7 +54,7 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                   lengths: Optional[torch.Tensor] = None,
                   prefix_k: Optional[torch.Tensor] = None,
                   prefix_v: Optional[torch.Tensor] = None,
-                  prefix_len: int = 0
+                  prefix_len: Union[int, torch.Tensor] = 0
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention (prefill). Returns ``(out [B,S,D],
     (k, v))`` with ``k/v [B,S,K,hd]``, the suffix's own K/V.
@@ -65,9 +66,10 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     ``prefix_k/v`` (``[B, P_pad, K, hd]``, gathered from the pool) the
     sequence is the *suffix* of a longer prompt: queries attend over
     ``[prefix || suffix]``, ``positions`` are absolute and the first
-    ``prefix_len`` prefix rows are valid (it may land mid-block); that is
-    the kernel's prefix-masked entry, whose masks are the reference's
-    (``_mask_builder``) row for row.
+    ``prefix_len`` prefix rows are valid (it may land mid-block; an int,
+    or a 0-dim int32 tensor on the device, which the kernel reads when it
+    runs); that is the kernel's prefix-masked entry, whose masks are the
+    reference's (``_mask_builder``) row for row.
     """
     B, S, _ = x.shape
     q, k, v = qkv_project(p, x, cfg, positions)
@@ -85,7 +87,10 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_v.to(v.dtype), v], dim=1)
         if lengths is None:
-            lengths = torch.full((B,), prefix_len + S, device=x.device)
+            total = prefix_len + S
+            lengths = (total.reshape(1).expand(B)
+                       if isinstance(total, torch.Tensor) else
+                       torch.full((B,), total, device=x.device))
         o = ops.prefill_prefix_attention(
             q, k_all.contiguous(), v_all.contiguous(), prefix_pad=pad,
             prefix_len=prefix_len, lengths=lengths, window=window)
@@ -115,7 +120,7 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
             "sliding-window ring decode is not ported yet (ROADMAP.md, "
             "next slices: non-dense families)")
     B = x.shape[0]
-    pos = torch.as_tensor(pos, device=x.device)
+    pos = on_device(pos, x.device)
     ragged = pos.dim() == 1
     q, k_new, v_new = qkv_project(p, x, cfg,
                                   pos[:, None] if ragged else pos.reshape(1))

@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig, require_slice
-from repro_torch.device import resolve_device
+from repro_torch.device import on_device, resolve_device
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
 from repro_torch.models.layers import (embed_apply, mlp_apply, norm_apply,
@@ -70,7 +70,7 @@ class Block(nn.Module):
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor],
             prefix: Optional[Tuple[torch.Tensor, torch.Tensor]],
-            prefix_len: int
+            prefix_len: Union[int, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         pk, pv = prefix if prefix is not None else (None, None)
         h, (k, v) = attention.self_attn_seq(
@@ -141,7 +141,7 @@ class Model(nn.Module):
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
                 prefix: Optional[Dict[str, torch.Tensor]] = None,
-                prefix_len: int = 0
+                prefix_len: Union[int, torch.Tensor] = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
         lengths ``lengths [B]``). Returns ``(logits [B, vocab],
@@ -157,13 +157,15 @@ class Model(nn.Module):
         holds only the suffix: positions start at ``prefix_len``,
         ``lengths`` (required) stay suffix-local, and the returned cache
         covers the suffix alone (the reference's ``prefill(prefix=,
-        prefix_len=)``)."""
+        prefix_len=)``). ``prefix_len`` may be a 0-dim int32 tensor on
+        the device (a captured step's staged length): nothing here reads a
+        tensor back to the host."""
         cfg, dev = self.cfg, self.device
-        tokens = torch.as_tensor(tokens, device=dev)
+        tokens = on_device(tokens, dev)
         B, S = tokens.shape
         attn_lengths = None
         if lengths is not None:
-            lengths = torch.as_tensor(lengths, device=dev)
+            lengths = on_device(lengths, dev)
             attn_lengths = (lengths + prefix_len).to(torch.int32)
         elif prefix is not None:
             raise ValueError("suffix prefill requires lengths")
@@ -224,7 +226,7 @@ class Model(nn.Module):
             return self._logits(x)
         if pos is None:
             raise ValueError("decode_step on a dense cache needs pos")
-        pos = torch.as_tensor(pos, device=self.device)
+        pos = on_device(pos, self.device)
         emb_pos = pos.long()[:, None] if pos.dim() else pos.long().reshape(1)
         x = embed_apply(self.embed.tree(), tokens.long()[:, None], emb_pos,
                         self.cfg)

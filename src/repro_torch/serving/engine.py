@@ -11,9 +11,10 @@ tokens, FCFS, each chunk attending over the request's already-written
 pool KV and writing its rows token by token, so a long prompt streams in
 between decode steps). With ``prefix_cache`` a radix index over full
 blocks splices a prompt's longest cached prefix into its block table and
-only the rest is prefilled. Every prefill goes through the flash
-kernel's prefix-masked entry. Decode runs in one of the reference's two
-modes:
+only the rest is prefilled. A prefill over a prefix (a cache hit, a
+chunk after the prompt's first) goes through the flash kernel's
+prefix-masked entry, every other through its plain entry with the
+request's length. Decode runs in one of the reference's two modes:
 
 * ``paged`` (the default) — zero-copy: attention reads the physical KV
   blocks through the block tables, and each layer's new K/V row is
@@ -34,14 +35,15 @@ on each request's seed and position, so preemption, batch composition
 and chunked against serial prefill all leave a request's tokens as they
 are; sampling runs on the device and only the ``[B]`` ids come back.
 
-The paged step runs on static buffers and, on a CUDA device, replays one
-CUDA graph a ``(batch_pad, nb_pad, sampled)`` bucket, captured at the
-bucket's first use (:mod:`repro_torch.serving.steps`, the reference's
-``StepFunctions``); ``cuda_graphs=False`` keeps it eager, for comparison.
-With ``overlap`` the :class:`~repro_torch.serving.executor.Executor`
-keeps two decode steps in flight and commits each an iteration or two
-later, with the same tokens as the synchronous loop. Prefills and the
-gather step stay eager. :meth:`ContinuousBatchingEngine.abort` and
+Every step (the paged and the gather decode step, each prefill and
+chunk) runs on static buffers and, on a CUDA device, replays one CUDA
+graph a shape bucket, captured at the bucket's first use
+(:mod:`repro_torch.serving.steps`, the reference's ``StepFunctions``);
+``cuda_graphs=False`` keeps them eager, for comparison. With ``overlap``
+the :class:`~repro_torch.serving.executor.Executor` keeps two decode
+steps in flight and commits each an iteration or two later, with the
+same tokens as the synchronous loop; prefills replay on the same stream,
+so the pool's writes stay in order. :meth:`ContinuousBatchingEngine.abort` and
 :meth:`~ContinuousBatchingEngine.evict_request` finish a request in any
 phase and reclaim its blocks.
 
@@ -54,7 +56,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -70,7 +72,7 @@ from repro_torch.models.sampler import (positions_array, sample_tokens,
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.metrics import ServingMetrics, collect
 from repro_torch.serving.scheduler import Scheduler, StepPlan
-from repro_torch.serving.steps import StepFunctions, pow2_bucket
+from repro_torch.serving.steps import StepFunctions, bucket, pow2_bucket
 from repro_torch.serving.workload import (FINISH_ABORT, FINISH_FAILED,
                                           FINISH_LENGTH, FINISH_STOP, Request)
 
@@ -105,8 +107,9 @@ class EngineConfig:
     prefill_chunk_tokens: Optional[int] = None
     # two decode steps in flight, committed an iteration or two later
     overlap: bool = False
-    # on a CUDA device, replay the paged step from one CUDA graph a bucket
-    # (False: every step eager, the same kernels, for comparison)
+    # on a CUDA device, replay every step (paged or gather decode, each
+    # prefill) from one CUDA graph a bucket (False: every step eager, the
+    # same kernels, for comparison)
     cuda_graphs: bool = True
     # the reference's other features; any value but the default raises
     # NotImplementedError (see the module docstring)
@@ -160,10 +163,7 @@ class EngineConfig:
             raise _not_ported("load shedding", "observability")
 
 
-def _bucket(n: int, b: int) -> int:
-    return max(b, ((n + b - 1) // b) * b)
-
-
+_bucket = bucket
 _pow2_bucket = pow2_bucket
 
 
@@ -188,6 +188,7 @@ class ContinuousBatchingEngine:
         self.steps = StepFunctions(model, self.pool,
                                    max_batch=ecfg.max_batch,
                                    max_model_len=ecfg.max_model_len,
+                                   prefill_bucket=ecfg.prefill_bucket,
                                    cuda_graphs=ecfg.cuda_graphs)
         self._executor = Executor(self)
         self.step_count = 0          # step() calls, counted from 1
@@ -382,57 +383,42 @@ class ContinuousBatchingEngine:
         self._post_prefill(req, now)
 
     def _suffix_prefill(self, req: Request, start: int, n: int,
-                        prefix_blocks: int, nb_pad: int
-                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Prefill prompt positions ``[start, start + n)`` at batch 1,
-        padded to a multiple of ``prefill_bucket``, over the prefix in the
-        request's first ``prefix_blocks`` blocks (gathered into a dense
-        copy ``nb_pad`` blocks wide; none when ``start`` is 0). Returns
-        the last position's logits and the rows' K/V."""
-        S = _bucket(n, self.ecfg.prefill_bucket)
-        toks = np.zeros((1, S), np.int64)
-        toks[0, :n] = req.prompt[start:start + n]
-        prefix = None
+                        prefix_blocks: int) -> torch.Tensor:
+        """Prefill prompt positions ``[start, start + n)`` at batch 1 over
+        the prefix in the request's first ``prefix_blocks`` blocks
+        (gathered in a power-of-two number of blocks, as in the reference;
+        none when ``start`` is 0), writing the rows token by token (the
+        engine's step, a graph replay on a CUDA device). Returns the last
+        position's ``[1, vocab]`` logits."""
         if start:
-            prefix = self.pool.gather_prefix(
-                self.pool.manager.tables[req.req_id][:prefix_blocks], nb_pad)
             self.suffix_prefills += 1
-        return self.model.prefill(
-            torch.from_numpy(toks).to(self.device),
-            torch.tensor([n], device=self.device), cache_len=S,
-            prefix=prefix, prefix_len=start)
+        self.prefill_tokens_computed += n
+        return self.steps.prefill(req.req_id, req.prompt[start:start + n],
+                                  start, prefix_blocks,
+                                  _pow2_bucket(prefix_blocks))
 
     def _prefill(self, req: Request, n_cached: int = 0) -> torch.Tensor:
         """Serial prefill of the uncached part of the prompt (all of it
         without a prefix-cache hit), attending over the cached prefix's
         ``n_cached`` tokens (whole blocks); writes its K/V into the
         request's own blocks and returns the last-position logits."""
-        nb_cached = n_cached // self.ecfg.block_size
-        logits, cache = self._suffix_prefill(
-            req, n_cached, req.prompt_len - n_cached, nb_cached,
-            _pow2_bucket(nb_cached))
-        self.pool.write_prefill(req.req_id, cache, start_pos=n_cached)
+        if n_cached % self.ecfg.block_size:
+            raise ValueError(
+                f"a cached prefix of {n_cached} tokens is not block-aligned "
+                f"(block_size={self.ecfg.block_size})")
         self.prefills += 1
-        self.prefill_tokens_computed += req.prompt_len - n_cached
-        return logits
+        return self._suffix_prefill(req, n_cached, req.prompt_len - n_cached,
+                                    n_cached // self.ecfg.block_size)
 
     def _run_chunk(self, req: Request, done: int, chunk: int
                    ) -> torch.Tensor:
         """Prefill prompt positions ``[done, done + chunk)`` over the KV
         already in the pool (``done`` need not be block-aligned) and write
         the chunk's rows token by token; returns its last logits (only the
-        final chunk's are used). The prefix is gathered in a power-of-two
-        number of blocks, as in the reference."""
-        blocks = len(self.pool.manager.tables[req.req_id])
-        nb_prefix = -(-done // self.ecfg.block_size)
-        logits, cache = self._suffix_prefill(
-            req, done, chunk, nb_prefix,
-            min(_pow2_bucket(nb_prefix), _pow2_bucket(blocks)))
-        self.pool.write_prefill(req.req_id, cache, start_pos=done,
-                                n_tokens=chunk)
+        final chunk's are used)."""
         self.chunks += 1
-        self.prefill_tokens_computed += chunk
-        return logits
+        return self._suffix_prefill(req, done, chunk,
+                                    -(-done // self.ecfg.block_size))
 
     def step(self, now: float) -> bool:
         """One engine iteration. Returns False when fully idle. In sync
@@ -497,19 +483,12 @@ class ContinuousBatchingEngine:
         self.decode_steps += 1
         return out[:len(plan.rids)].cpu().numpy()
 
-    def _gather_blocks(self, plan: StepPlan) -> int:
-        """The gather step's blocks a request: the longest context padded
-        to a multiple of four blocks."""
-        return self.pool.manager.blocks_needed(
-            _bucket(max(plan.positions) + 1, self.ecfg.block_size * 4))
-
     def _decode_gather(self, plan: StepPlan) -> np.ndarray:
         """One dense-copy decode step (the reference's ``_decode_gather``):
         gather, decode at ``lengths = pos + 1``, scatter the new rows
         back, then sample; returns the next token of each row."""
         out = self.steps.gather(plan.reqs, plan.rids, plan.positions,
-                                [self._tokens[rid] for rid in plan.rids],
-                                pad_blocks=self._gather_blocks(plan))
+                                [self._tokens[rid] for rid in plan.rids])
         self.decode_steps += 1
         return out.cpu().numpy()
 

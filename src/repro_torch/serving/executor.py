@@ -160,8 +160,7 @@ class Executor:
                                   tokens, chain)
         else:
             out = eng.steps.gather(plan.reqs, plan.rids, plan.positions,
-                                   tokens, chain,
-                                   pad_blocks=eng._gather_blocks(plan))
+                                   tokens, chain)
         eng.decode_steps += 1
         entry = InFlightStep(plan, out)
         self._inflight.append(entry)

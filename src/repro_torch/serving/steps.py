@@ -1,19 +1,45 @@
-"""The engine's decode steps on static buffers, the paged one replayed
-from one CUDA graph per bucket (counterpart of ``StepFunctions`` and
-``_paged_decode_fn`` in ``repro.serving.engine``).
+"""The engine's steps on static buffers, each replayed from one CUDA graph
+per bucket (counterpart of ``StepFunctions`` in ``repro.serving.engine``
+and of its ``_prefill_fn``, ``_prefix_prefill_fn``, ``_chunk_prefill_fn``,
+``_decode_fn`` and ``_paged_decode_fn``; its ``spec_verify`` is not
+ported yet).
 
-The reference compiles each step once per shape bucket, and its paged
-step puts decode and sampling in one program, so a step costs one
-dispatch. Eager PyTorch issues some 1200 launches for the same work,
-and the host, not the device, then sets the pace. Here the paged step
-(``Model.decode_step`` on a :class:`PagedCacheView`, then
-:func:`~repro_torch.models.sampler.sample_tokens_device`) is one
-``torch.cuda.CUDAGraph`` a ``(batch_pad, nb_pad, sampled)`` bucket:
+The reference compiles each step once per shape bucket, so a step costs
+one dispatch. Eager PyTorch issues some 1100-1200 launches for a decode
+step and 46-49 a layer for a prefill, and the host, not the device, then
+sets the pace. Here every step is one ``torch.cuda.CUDAGraph`` a bucket:
+
+* ``(batch_pad, nb_pad, sampled)``, the paged decode step
+  (``Model.decode_step`` on a :class:`PagedCacheView`, then
+  :func:`~repro_torch.models.sampler.sample_tokens_device`): batch and
+  table padded to powers of two;
+* ``("gather", B, pad_blocks, sampled)``, the gather fallback's step: a
+  dense copy of ``pad_blocks`` blocks a request through the staged
+  tables, ``Model.decode_step`` on it (the contiguous decode kernel), the
+  new rows scattered back at addresses computed on the device, sampling.
+  The reference's shapes, with no batch padding: padding rows would copy
+  trash blocks and inflate the very copy the gather path is measured by;
+* ``("prefill", S)``, a prefill without a prefix (serial, or a chunked
+  prompt's first chunk): the flash kernel's plain entry with the
+  request's length, then the rows written token by token;
+* ``("suffix", S, nb_pad)``, a prefill over a prefix in the pool (a
+  prefix-cache hit, every later chunk): the prefix gathered through the
+  staged table, the flash kernel's prefix-masked entry with the prefix
+  length read from the device, then the write. One program for the
+  reference's ``_prefix_prefill_fn`` and ``_chunk_prefill_fn``.
+
+``S`` is the prompt rows' bucket (a multiple of ``prefill_bucket``),
+``nb_pad`` the prefix's blocks padded to a power of two. A prefill graph
+returns its ``[1, vocab]`` logits, which the engine samples at once (the
+first token's sample stays outside the graph, as the reference's separate
+``sample`` call does).
 
 * A step's inputs (block tables, lengths, positions, input tokens, the
   chain map of an overlapped step, the sampling vectors and the host
-  folded RNG keys) are packed on the host into a pinned staging buffer
-  (:func:`~repro_torch.kvcache.view.step_fields`) and go up in one
+  folded RNG keys; a prefill's tokens, length, prefix length, prefix
+  table and write addresses) are packed on the host into a pinned
+  staging buffer (:func:`~repro_torch.kvcache.view.step_fields`,
+  :func:`~repro_torch.kvcache.view.prefill_fields`) and go up in one
   non-blocking copy into one static device buffer that every bucket
   reads at its own offsets. The staging buffers are a ring with an event
   an upload, so none is rewritten while its copy is pending.
@@ -22,7 +48,11 @@ and the host, not the device, then sets the pace. Here the paged step
 * The step that first meets a bucket runs eagerly on a side stream (the
   warm-up: it loads the kernel libraries and cuBLAS, so nothing is built
   inside a capture), then the bucket's graph is captured; every later
-  step of the bucket replays it. All graphs share one memory pool. A
+  step of the bucket replays it. The decode graphs share one memory
+  pool and the prefill graphs another: a graph may reuse, for its
+  intermediates, memory that a graph captured later holds as its output,
+  and a prefill replayed between two overlapped decode steps must not
+  overwrite the earlier step's output before the later one reads it. A
   capture or replay that fails raises: nothing falls back to the eager
   step. ``EngineConfig(cuda_graphs=False)`` runs every step eagerly on
   the same buffers, for comparison.
@@ -37,19 +67,21 @@ place (as it always is in the port) and every write to it goes on the
 stream of the replays: a discarded overlapped step's KV writes are then
 ordered before any later owner's, the counterpart of the reference's
 donated-pool chaining. On the CPU the same bodies run eagerly on the same
-buffers. The gather step stays eager in both places.
+buffers.
 """
 from __future__ import annotations
 
+import gc
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kvcache.paged import PagedKVCache
-from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
+from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
+                                      prefill_size, step_fields, step_size)
 from repro_torch.models.model import Model
 from repro_torch.models.sampler import fold_keys, sample_tokens_device
 
@@ -61,6 +93,10 @@ STAGING_SLOTS = 4
 # output, and {row: the row of that output holding its input token}
 Chain = Tuple[torch.Tensor, Dict[int, int]]
 
+# a body's outputs: the [batch] next tokens (None for a prefill) and the
+# float32 logits
+Outputs = Tuple[Optional[torch.Tensor], torch.Tensor]
+
 
 def pow2_bucket(n: int, lo: int = 1) -> int:
     """The smallest ``lo * 2**k`` at least ``n`` (the reference's
@@ -69,6 +105,12 @@ def pow2_bucket(n: int, lo: int = 1) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def bucket(n: int, b: int) -> int:
+    """``n`` rounded up to a multiple of ``b``, at least ``b`` (the
+    reference's ``_bucket``)."""
+    return max(b, ((n + b - 1) // b) * b)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -98,14 +140,15 @@ class CapturedStep:
     that one replay makes."""
     __slots__ = ("graph", "tokens", "logits", "launches")
 
-    def __init__(self, graph, tokens: torch.Tensor, logits: torch.Tensor,
-                 launches: Dict[str, int]):
+    def __init__(self, graph, tokens: Optional[torch.Tensor],
+                 logits: torch.Tensor, launches: Dict[str, int]):
         self.graph = graph
-        self.tokens = tokens        # [batch_pad] int32, rewritten a replay
-        self.logits = logits        # [batch_pad, vocab] float32
+        self.tokens = tokens        # [batch] int32 (None: a prefill)
+        self.logits = logits        # [batch, vocab] float32
         self.launches = launches
 
-    def replay(self) -> torch.Tensor:
+    def replay(self) -> Optional[torch.Tensor]:
+        """Run the graph; its outputs are rewritten in place."""
         self.graph.replay()
         add_launches(self.launches)
         return self.tokens
@@ -147,47 +190,47 @@ class _Staging:
 
 
 class StepFunctions:
-    """An engine's decode steps over its pool (one :class:`StepFunctions`
-    a pool: the graphs capture its addresses). ``max_batch`` and
-    ``max_model_len`` size the static buffers; ``cuda_graphs=False``
-    keeps every step eager on a CUDA device."""
+    """An engine's steps over its pool (one :class:`StepFunctions` a
+    pool: the graphs capture its addresses). ``max_batch``,
+    ``max_model_len`` and ``prefill_bucket`` size the static buffers;
+    ``cuda_graphs=False`` keeps every step eager on a CUDA device."""
 
     def __init__(self, model: Model, pool: PagedKVCache, *, max_batch: int,
-                 max_model_len: int, cuda_graphs: bool = True):
+                 max_model_len: int, prefill_bucket: int = 64,
+                 cuda_graphs: bool = True):
         self.model = model
         self.pool = pool
         self.device = pool.device
+        self.prefill_bucket = prefill_bucket
         self.graphs_on = cuda_graphs and self.device.type == "cuda"
         nb_max = pow2_bucket(pool.manager.blocks_needed(max_model_len), lo=4)
         self._staging = _Staging(step_size(pow2_bucket(max_batch), nb_max),
                                  self.device)
+        self._prefill_staging = _Staging(
+            prefill_size(bucket(max_model_len, prefill_bucket), nb_max),
+            self.device)
         # every step's logits finite so far
         self.finite = torch.ones((), dtype=torch.bool, device=self.device)
-        self.graphs: Dict[Tuple[int, int, bool], CapturedStep] = {}
+        self.graphs: Dict[Tuple, CapturedStep] = {}
         self.capture_s = 0.0         # seconds spent capturing graphs
         self.replays = 0
         if self.graphs_on:
-            self._mempool = torch.cuda.graph_pool_handle()
+            self._decode_pool = torch.cuda.graph_pool_handle()
+            self._prefill_pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
 
     # ----------------------------------------------------------- inputs --
     def _stage(self, reqs: Sequence, positions: Sequence[int],
                tokens: Sequence[int], chain: Optional[Chain],
                batch_pad: int, nb_pad: int,
-               rids: Optional[Sequence[int]]
-               ) -> Tuple[Dict[str, torch.Tensor], bool]:
-        """Pack one step's inputs on the host, copy them up, and gather
-        chained tokens on the device. Returns the device fields and
+               rids: Sequence[int]) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """Pack one decode step's inputs on the host, copy them up, and
+        gather chained tokens on the device. Returns the device fields and
         whether any row samples. Padding rows are greedy with seed 0."""
         B = len(reqs)
         n = step_size(batch_pad, nb_pad)
         f = step_fields(self._staging.host()[:n], batch_pad, nb_pad)
-        if rids is not None:
-            self.pool.fill_view(f, rids, positions)
-        else:
-            f["positions"][:] = 0
-            f["positions"][:B] = positions
-            f["lengths"][:] = f["positions"] + 1
+        self.pool.fill_view(f, rids, positions)
         f["tokens"][:] = 0
         f["tokens"][:B] = tokens
         f["use_prev"][:] = 0
@@ -223,17 +266,21 @@ class StepFunctions:
             dev["tokens"]))
 
     # ------------------------------------------------------------ paged --
-    def _paged_body(self, dev: Dict[str, torch.Tensor], sampled: bool
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _paged_body(self, dev: Dict[str, torch.Tensor],
+                    sampled: bool) -> Outputs:
         """The captured step: decode on the static view, fold finiteness,
         sample. Reads and writes device tensors only."""
         view = PagedCacheView(self.pool.pool, dev["tables"], dev["lengths"],
                               dev["positions"], self.pool.block_size)
         logits = self.model.decode_step(dev["tokens"], view)
+        return self._sample(logits, dev, sampled), logits
+
+    def _sample(self, logits: torch.Tensor, dev: Dict[str, torch.Tensor],
+                sampled: bool) -> torch.Tensor:
+        """Fold the logits' finiteness, then pick each row's token."""
         self.finite.logical_and_(torch.isfinite(logits).all())
         return sample_tokens_device(logits, dev["temperature"], dev["top_k"],
-                                    dev["top_p"], dev["keys"],
-                                    sampled), logits
+                                    dev["top_p"], dev["keys"], sampled)
 
     def paged_bucket(self, rids: Sequence[int]) -> Tuple[int, int]:
         """``(batch_pad, nb_pad)``: the batch and the widest table padded
@@ -252,49 +299,129 @@ class StepFunctions:
         batch_pad, nb_pad = self.paged_bucket(rids)
         dev, sampled = self._stage(reqs, positions, tokens, chain,
                                    batch_pad, nb_pad, rids)
-        key = (batch_pad, nb_pad, sampled)
+        return self._run((batch_pad, nb_pad, sampled),
+                         lambda: self._paged_body(dev, sampled),
+                         "decode")[0]
+
+    # ----------------------------------------------------------- gather --
+    def _gather_body(self, dev: Dict[str, torch.Tensor],
+                     sampled: bool) -> Outputs:
+        """The gather step: the dense copy through the staged tables,
+        decode at ``lengths = pos + 1``, the new rows scattered back,
+        finiteness folded, sampling. Reads and writes device tensors
+        only."""
+        cache = self.pool.gather_tables(dev["tables"])
+        logits = self.model.decode_step(dev["tokens"], cache,
+                                        dev["positions"],
+                                        lengths=dev["lengths"])
+        self.pool.scatter_rows(dev["tables"], dev["positions"], cache)
+        return self._sample(logits, dev, sampled), logits
+
+    def gather_bucket(self, positions: Sequence[int]) -> int:
+        """The gather step's blocks a request: the longest context padded
+        to a multiple of four blocks, as in the reference."""
+        return self.pool.manager.blocks_needed(
+            bucket(max(positions) + 1, self.pool.block_size * 4))
+
+    def gather(self, reqs: Sequence, rids: Sequence[int],
+               positions: Sequence[int], tokens: Sequence[int],
+               chain: Optional[Chain] = None) -> torch.Tensor:
+        """One dense-copy decode step (the reference's gather fallback):
+        gather :meth:`gather_bucket` blocks a request, decode at
+        ``lengths = pos + 1``, scatter the new rows back, sample; the
+        bucket is ``("gather", B, pad_blocks, sampled)``. Returns the
+        ``[B]`` int32 next tokens on the device, which a later replay of
+        the same bucket rewrites."""
+        pad_blocks = self.gather_bucket(positions)
+        dev, sampled = self._stage(reqs, positions, tokens, chain,
+                                   len(rids), pad_blocks, rids)
+        return self._run(("gather", len(rids), pad_blocks, sampled),
+                         lambda: self._gather_body(dev, sampled),
+                         "decode")[0]
+
+    # ---------------------------------------------------------- prefill --
+    def _prefill_body(self, dev: Dict[str, torch.Tensor],
+                      over_prefix: bool) -> Outputs:
+        """A prefill at batch 1: over a prefix (gathered through the
+        staged table, attended with the prefix length read from the
+        device) or without one; the rows written at the staged addresses;
+        finiteness folded. Reads and writes device tensors only."""
+        prefix, prefix_len = None, 0
+        if over_prefix:
+            prefix = self.pool.gather_tables(dev["table"][None])
+            prefix_len = dev["prefix_len"]
+        logits, cache = self.model.prefill(dev["tokens"], dev["n"],
+                                           prefix=prefix,
+                                           prefix_len=prefix_len)
+        self.pool.write_rows(cache, dev["blocks"], dev["slots"])
+        self.finite.logical_and_(torch.isfinite(logits).all())
+        return None, logits
+
+    def prefill_key(self, n: int, start: int, nb_pad: int) -> Tuple:
+        """The bucket of a prefill of ``n`` prompt tokens from position
+        ``start``: ``("prefill", S)`` without a prefix, ``("suffix", S,
+        nb_pad)`` over one."""
+        S = bucket(n, self.prefill_bucket)
+        return ("suffix", S, nb_pad) if start else ("prefill", S)
+
+    def prefill(self, rid: int, tokens: Sequence[int], start: int,
+                prefix_blocks: int, nb_pad: int) -> torch.Tensor:
+        """Prefill prompt positions ``[start, start + len(tokens))`` of
+        request ``rid`` at batch 1 over the prefix already in its first
+        ``prefix_blocks`` blocks (gathered ``nb_pad`` blocks wide; none
+        when ``start`` is 0), writing the rows' K/V into its blocks.
+        Returns the ``[1, vocab]`` float32 logits of the last prompt
+        token, which a later replay of the same bucket rewrites."""
+        key = self.prefill_key(len(tokens), start, nb_pad)
+        S, nb = key[1], nb_pad if start else 0
+        n = prefill_size(S, nb)
+        f = prefill_fields(self._prefill_staging.host()[:n], S, nb)
+        self.pool.fill_prefill(f, rid, tokens, start, prefix_blocks)
+        dev = prefill_fields(self._prefill_staging.upload(n), S, nb)
+        return self._run(key, lambda: self._prefill_body(dev, bool(start)),
+                         "prefill")[1]
+
+    # ----------------------------------------------------------- graphs --
+    def _run(self, key: Tuple, body: Callable[[], Outputs],
+             pool: str) -> Outputs:
+        """Replay ``key``'s graph; or, with none yet, run ``body``
+        eagerly (without graphs) or as the bucket's first use."""
         step = self.graphs.get(key)
         if step is not None:
             self.replays += 1
-            return step.replay()
+            step.replay()
+            return step.tokens, step.logits
         if not self.graphs_on:
-            return self._paged_body(dev, sampled)[0]
-        return self._first_use(key, dev, sampled)
+            return body()
+        return self._first_use(key, body, pool)
 
-    def _first_use(self, key, dev, sampled) -> torch.Tensor:
+    def _first_use(self, key: Tuple, body: Callable[[], Outputs],
+                   pool: str) -> Outputs:
         """Run a new bucket's step eagerly on the side stream (the
-        warm-up), then capture its graph into the shared pool."""
+        warm-up), then capture its graph into the ``pool`` graphs'
+        memory pool (``"decode"`` or ``"prefill"``)."""
         cur = torch.cuda.current_stream(self.device)
         self._side.wait_stream(cur)
         with torch.cuda.stream(self._side):
-            tokens, _ = self._paged_body(dev, sampled)
+            out = body()
         cur.wait_stream(self._side)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
-        with torch.cuda.graph(graph, pool=self._mempool, stream=self._side):
-            static = self._paged_body(dev, sampled)
+        # no collection during the capture: an engine left in a reference
+        # cycle (engine, scheduler, executor) would take its graphs down
+        # with it, and a capture refuses the calls that free them
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=self._side, pool=(
+                    self._decode_pool if pool == "decode"
+                    else self._prefill_pool)):
+                static = body()
+        finally:
+            if collecting:
+                gc.enable()
         self.graphs[key] = CapturedStep(graph, *static,
                                         take_launches(before))
         self.capture_s += time.perf_counter() - t0
-        return tokens
-
-    # ----------------------------------------------------------- gather --
-    def gather(self, reqs: Sequence, rids: Sequence[int],
-               positions: Sequence[int], tokens: Sequence[int],
-               chain: Optional[Chain] = None,
-               pad_blocks: int = 0) -> torch.Tensor:
-        """One dense-copy decode step (the reference's gather fallback),
-        eager: gather ``pad_blocks`` blocks a request, decode at
-        ``lengths = pos + 1``, scatter the new rows back, sample. Returns
-        the ``[B]`` int32 next tokens on the device."""
-        dev, sampled = self._stage(reqs, positions, tokens, chain,
-                                   len(rids), 0, None)
-        cache = self.pool.gather(rids, pad_blocks)
-        logits = self.model.decode_step(dev["tokens"], cache,
-                                        dev["positions"],
-                                        lengths=dev["lengths"])
-        self.pool.scatter_new_token(rids, positions, cache)
-        self.finite.logical_and_(torch.isfinite(logits).all())
-        return sample_tokens_device(logits, dev["temperature"], dev["top_k"],
-                                    dev["top_p"], dev["keys"], sampled)
+        return out

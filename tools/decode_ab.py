@@ -14,7 +14,11 @@ flash prefill (``flash_attention``, the TPU kernel's entry) and, where
 the checkout has it, flash prefix-masked (``flash_prefix_attention``)
 wrappers on inputs made here from fixed seeds, saves their outputs and
 times, and prints one JSON line. ``--kernels`` takes a subset (say
-``flash,prefix``: only the flash kernel is then built). With
+``flash,prefix``: only the flash kernel is then built).
+``--device-prefix-len`` hands the prefix entry its valid prefix length
+as a 0-dim int32 tensor on the card, made once a case (the engine's
+captured steps pass it so, and the kernel reads it when it runs), for a
+checkout whose wrapper takes one; without it the length is an int. With
 ``--against`` the line also says, for each kernel both runs called, on
 how many cases the outputs equal the other run's bit for bit and the
 largest difference elsewhere.
@@ -124,19 +128,26 @@ FLASH_SIZES = (64, 128, 256, 512, 1024)
 KINDS = ("decode", "paged", "flash", "prefix")
 
 
-def prefix_inputs(gen, S, K, G, hd, P, pl, suffix_lengths, dtype):
+def prefix_inputs(gen, S, K, G, hd, P, pl, suffix_lengths, dtype,
+                  on_device):
     """q over a suffix of ``S`` rows, K/V over ``P`` prefix slots (the
-    first ``pl`` valid) then the suffix, and the lengths in ids."""
+    first ``pl`` valid) then the suffix, the lengths in ids, and the
+    prefix's keywords (its length an int, or with ``on_device`` a 0-dim
+    int32 tensor on the card)."""
     B = len(suffix_lengths)
+    if on_device:
+        pl_arg = torch.tensor(pl, dtype=torch.int32).cuda()
+    else:
+        pl_arg = pl
     return (randn(gen, (B, S, K * G, hd), dtype),
             randn(gen, (B, P + S, K, hd), dtype),
             randn(gen, (B, P + S, K, hd), dtype),
             torch.tensor([pl + n for n in suffix_lengths],
                          dtype=torch.int32).cuda(),
-            dict(prefix_pad=P, prefix_len=pl))
+            dict(prefix_pad=P, prefix_len=pl_arg))
 
 
-def prefix_cases():
+def prefix_cases(on_device):
     """(name, q, k_all, v_all, lengths, kwargs): the prefix entry over
     head dims, head groups, prefix pads and valid lengths (0, 1,
     mid-block, the pad), suffix lengths and both dtypes; two requests a
@@ -148,7 +159,7 @@ def prefix_cases():
         pl = (0, 1, P // 2 + 3, P)[i % 4] if P else 0
         yield (f"prefix hd={hd} K={K} G={G} {dtype} P={P} pl={pl} S={S}",
                *prefix_inputs(gen, S, K, G, hd, P, pl, (S, S - 7 - i % 5),
-                              dtype))
+                              dtype, on_device))
 
 
 PREFIX_SHAPES = (("serial 93 in 128", (128, 0, 0, 93)),
@@ -185,9 +196,10 @@ def issue_and_device_us(fn, runs=RUNS, repeats=REPEATS):
     return statistics.median(host), statistics.median(dev)
 
 
-def serving_times(fns):
+def serving_times(fns, on_device):
     """Host and device µs of each wrapper in ``fns`` (kind -> wrapper) at
-    the serving shapes."""
+    the serving shapes (``on_device``: the prefix entry's length as a
+    device tensor)."""
     gen = torch.Generator().manual_seed(7)
     B, K, hd, BS, nb, S = 16, 32, 64, 16, 64, 704
     pq, kp, vp, table, lens = paged_case(gen, B, K, 1, hd, BS, nb,
@@ -208,7 +220,7 @@ def serving_times(fns):
     if "prefix" in fns:
         for name, (S, P, pl, n) in PREFIX_SHAPES:
             q, ka, va, ln, kw = prefix_inputs(gen, S, K, 1, hd, P, pl, (n,),
-                                              torch.bfloat16)
+                                              torch.bfloat16, on_device)
             calls.append((f"prefix {name}", functools.partial(
                 fns["prefix"], q, ka, va, lengths=ln, **kw)))
     out = {}
@@ -227,6 +239,9 @@ def main() -> int:
                     help="another run's --out to compare outputs with")
     ap.add_argument("--kernels", default=",".join(KINDS),
                     help=f"comma-separated subset of {','.join(KINDS)}")
+    ap.add_argument("--device-prefix-len", action="store_true",
+                    help="pass the prefix entry its prefix length as a "
+                         "0-dim int32 tensor on the card")
     args = ap.parse_args()
     kinds = args.kernels.split(",")
     if set(kinds) - set(KINDS):
@@ -249,7 +264,8 @@ def main() -> int:
              "flash": lambda: ((n, q, k, v, dict(causal=c))
                                for n, q, k, v, c in flash_cases()),
              "prefix": lambda: ((n, q, k, v, dict(kw, lengths=ln))
-                                for n, q, k, v, ln, kw in prefix_cases())}
+                                for n, q, k, v, ln, kw in prefix_cases(
+                                    args.device_prefix_len))}
     outputs = {}
     for kind, fn in fns.items():
         for name, *inputs in cases[kind]():
@@ -259,7 +275,8 @@ def main() -> int:
                 kw = {}
             outputs[name] = fn(*inputs, **kw).cpu()
     result = {"root": str(args.root), "card": torch.cuda.get_device_name(0),
-              "times": serving_times(fns)}
+              "device_prefix_len": args.device_prefix_len,
+              "times": serving_times(fns, args.device_prefix_len)}
     if args.against:
         other = torch.load(args.against)["outputs"]
         for kind in fns:
