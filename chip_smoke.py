@@ -38,7 +38,11 @@ It imports nothing of JAX or of the JAX package. Phases:
    and greedy tokens must agree; then shared-prefix and long-prompt
    serves with the prefix cache on and off, chunked and serial, every
    step replayed from CUDA graphs (prefills and chunks included), every
-   step eager, and overlapped, which must give the same tokens;
+   step eager, and overlapped, which must give the same tokens; then 8
+   repetitive requests greedy, and sampled with the prefix cache and
+   chunked prefill, speculation off and on, four ways (graphs, eager,
+   graphs with overlap, the kernels' plain versions): every run's
+   tokens equal;
 4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
    random weights from a seed), each run with every kernel's launch
    counter set to 0 just before and read just after (a CUDA graph's
@@ -56,7 +60,13 @@ It imports nothing of JAX or of the JAX package. Phases:
    of the first 16 with graphs, eager and overlapped (and, for token
    agreement, the paged serve of the same 16, in bfloat16 and again in
    float32); a static batch of 32 prompts with 64 decode steps on a
-   dense cache. Each paged and gather way is followed by a
+   dense cache; the speculative serve (16 repetitive requests, prompt
+   96, 128 new tokens, batch 4, ``spec_k`` 8), greedy and sampled,
+   speculation off and on (eager, graphs cold and warm, graphs with
+   overlap; greedy also off and eager), with a profile window of verify
+   steps (busy against wall a decode iteration; the paged kernel's
+   replayed launches against the counters and the trace) and the token
+   agreement with speculation off. Each paged and gather way is followed by a
    ``torch.profiler`` window of 10 steady decode steps at batch 16
    (device busy time by kernel kind against host wall time; with graphs
    and no overlap, the decode kernel's replayed launches against the
@@ -84,9 +94,13 @@ It imports nothing of JAX or of the JAX package. Phases:
    from its graph against the same step eager (tokens, logits), greedy
    and sampled; each prefill shape replayed against the same prefill
    eager (logits, first token, the pool rows written), each suffix
-   bucket also at two prefix lengths it was not captured at; and one
+   bucket also at two prefix lengths it was not captured at; one
    whole gather decode step against one paged step, replayed and eager,
-   at batch 16 (with the gather copy's share);
+   at batch 16 (with the gather copy's share); one verify step at
+   ``(4, nb_pad, 8)`` replayed against eager (tokens, acceptance,
+   logits, pool rows: bit for bit), its iteration 0 against the plain
+   paged step (bit for bit), and its device busy time against 9 paged
+   steps';
 6. print the card, a ``{"kernels": [...]}`` line and, last, the ``ok``
    line. Any failure raises: the script then exits non-zero and prints
    no ``ok`` line. Without a CUDA device it exits 1 at once. Each phase
@@ -975,6 +989,100 @@ def phase_model_prefill_modes(errs):
     release()
 
 
+def spec_workload(vocab, n=16, prompt_len=96, max_new_tokens=128, seed=0,
+                  sampling=None):
+    """Speculation's target shape (``benchmarks/speculative.py``'s
+    workload): self-repetitive prompts, phrases of 8 tokens from a pool
+    of 3 a request, 95% of them repeats."""
+    from repro_torch.serving.workload import repetitive_workload
+    return repetitive_workload(n, vocab, prompt_len=prompt_len,
+                               max_new_tokens=max_new_tokens,
+                               repeat_rate=0.95, phrase_len=8, pool_size=3,
+                               seed=seed, sampling=sampling)
+
+
+# a low temperature and top-k 3: some sampled tokens repeat the context,
+# so sampled drafts are accepted past the key block's first offset
+SPEC_SAMPLED = dict(temperature=0.5, top_k=3, top_p=0.9, seed=0)
+
+
+def phase_model_speculative(errs):
+    """At OPT-1.3B's width in float32, cut to 2 layers: 8 repetitive
+    requests (prompt 96, 32 new tokens, batch 4, ``spec_k`` 8) greedy, and
+    sampled with the prefix cache and chunked prefill (chunks of 40) on,
+    speculation off and on, four ways: CUDA graphs, every step eager,
+    graphs with overlap, and every step eager through the kernels' plain
+    versions (sampled at temperature 0.5, top-k 3, top-p 0.9, where
+    drafts are accepted). Every run must give the first run's tokens,
+    launch each kernel once a layer of each step of its kind (the paged
+    kernel ``K_pad + 1`` times a verify step; none in the plain runs),
+    keep its logits finite and bring every block home."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.workload import SamplingParams
+    cfg = dataclasses.replace(get_config("opt-1.3b"), n_layers=2,
+                              dtype="float32")
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(3))
+    kinds = {"greedy": (None, {}),
+             "sampled, prefix cache + chunked 40": (
+                 SamplingParams(**SPEC_SAMPLED),
+                 dict(prefix_cache=True, prefill_chunk_tokens=40))}
+    ways = {"graphs": {}, "eager steps": dict(cuda_graphs=False),
+            "graphs + overlap": dict(overlap=True),
+            "plain versions": dict(cuda_graphs=False)}
+    for kind, (sp, kind_kw) in kinds.items():
+        first = None
+        for way, way_kw in ways.items():
+            for spec in (False, True):
+                reqs = spec_workload(cfg.vocab_size, n=8, max_new_tokens=32,
+                                     seed=1, sampling=sp)
+                engine = ContinuousBatchingEngine(model, serve_config(
+                    max_batch=4, speculate=spec, spec_k=8, **kind_kw,
+                    **way_kw))
+                plain = way == "plain versions"
+                with plain_attention() if plain else contextlib.nullcontext():
+                    reset_launches()
+                    m = engine.run(reqs)
+                    torch.cuda.synchronize()
+                tag = (f"2-layer float32 {kind}, {way}, speculation "
+                       f"{'on' if spec else 'off'}")
+                steps = (engine.decode_steps + engine.verify_iterations) * 2
+                want = {"paged_decode_attention": steps,
+                        "decode_attention": 0, **prefill_launches(engine)}
+                if plain:
+                    want = dict.fromkeys(want, 0)
+                if read_launches() != want:
+                    raise AssertionError(f"{tag}: launches {read_launches()}"
+                                         f" != {want}")
+                if not bool(engine.steps.finite):
+                    raise AssertionError(f"{tag}: NaN or inf logits")
+                if engine.prefix is not None:
+                    engine.prefix.clear()
+                mgr = engine.pool.manager
+                if mgr.free_blocks != mgr.num_blocks:
+                    raise AssertionError(f"{tag}: {mgr.free_blocks} of "
+                                         f"{mgr.num_blocks} blocks free")
+                if spec and not m.spec_steps:
+                    raise AssertionError(f"{tag}: no verify step ran")
+                first = first or reqs
+                diff = first_difference(first, reqs)
+                if diff:
+                    raise AssertionError(f"{tag}: tokens differ from the "
+                                         f"graphs run's without speculation "
+                                         f"at {diff}")
+                print(f"[model] OPT-1.3B width, {tag}: tokens equal to the "
+                      f"graphs run without speculation; {engine.decode_steps}"
+                      f" plain steps, {m.spec_row()}, "
+                      f"{engine.verify_iterations} verify iterations; "
+                      f"{step_mode(engine)}")
+                del engine
+                release()
+    del model
+    release()
+
+
 def serve_workload(sampling=None):
     from repro_torch.configs import get_config
     from repro_torch.serving.workload import sharegpt_like
@@ -1039,46 +1147,77 @@ def serve_config(decode_mode="paged", **kw):
 
 
 def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
-    """Serve ``reqs`` to completion with the launch counters set to 0
-    just before and read just after; every request must finish by
-    length with in-range tokens, every logit must be finite, and each
-    kernel must have launched exactly once a layer of each step of its
-    kind: the decode kernel of the mode a decode step, the flash
-    kernel's prefix-masked entry a prefill or chunk over a prefix, its
-    plain entry every other prefill or chunk. Returns the engine, its
-    metrics and the launch counts."""
+    """Serve ``reqs`` to completion on a new engine (:func:`run_served`),
+    then print the device memory the engine holds, which it also keeps
+    as ``engine.graph_pool_bytes`` (the graph pools and step buffers).
+    Returns the engine, its metrics and the launch counts."""
     import torch
     from repro_torch.serving import ContinuousBatchingEngine
-    cfg = model.cfg
     torch.cuda.synchronize()
     release()
     base = torch.cuda.memory_reserved()
     engine = ContinuousBatchingEngine(model,
                                       serve_config(decode_mode, **ecfg_kw))
     torch.cuda.synchronize()
+    tag = f"[serve {tag or decode_mode}]"
+    metrics, launches = run_served(engine, reqs, card, tag)
+    release()
+    held = torch.cuda.memory_reserved() - base
+    kv = sum(t.numel() * t.element_size() for t in engine.pool.pool.values())
+    engine.graph_pool_bytes = held - kv
+    print(f"{tag} memory: the engine holds {held / 1e9:.3f} GB of device "
+          f"memory reserved after the serve: the KV pool {kv / 1e9:.3f} GB, "
+          f"the graph pools and step buffers {(held - kv) / 1e9:.3f} GB")
+    return engine, metrics, launches
+
+
+def run_served(engine, reqs, card, tag):
+    """Serve ``reqs`` to completion on ``engine`` with the launch counters
+    set to 0 just before and read just after; every request must finish
+    by length with in-range tokens, every logit must be finite, every
+    block must be back in the pool (the prefix cache's aside), and each
+    kernel must have launched exactly once a layer of each step of its
+    kind: the decode kernel of the mode a decode step (the paged kernel
+    ``K_pad + 1`` times a verify step), the flash kernel's prefix-masked
+    entry a prefill or chunk over a prefix, its plain entry every other
+    prefill or chunk. Returns the metrics and the launch counts."""
+    import torch
+    model = engine.model
+    cfg = model.cfg
+    decode_mode = engine.decode_mode
     with finite_logits(model) as finite:
         reset_launches()
         metrics = engine.run(reqs)
         torch.cuda.synchronize()
         launches = read_launches()
         if not bool(finite) or not bool(engine.steps.finite):
-            raise AssertionError(f"{decode_mode} serve: NaN or inf logits")
+            raise AssertionError(f"{tag}: NaN or inf logits")
     for r in reqs:
         if r.finish_reason != "length" or r.generated != r.max_new_tokens:
             raise AssertionError(f"request {r.req_id}: {r.finish_reason}, "
                                  f"{r.generated}/{r.max_new_tokens} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r.output_tokens):
             raise AssertionError(f"request {r.req_id}: token out of range")
-    steps = engine.decode_steps * cfg.n_layers
+    mgr = engine.pool.manager
+    cached = engine.prefix.cached_blocks if engine.prefix else 0
+    if mgr.free_blocks + cached != mgr.num_blocks:
+        raise AssertionError(f"{tag}: {mgr.free_blocks} free + {cached} "
+                             f"cached of {mgr.num_blocks} blocks after the "
+                             f"serve")
+    steps = (engine.decode_steps + engine.verify_iterations) * cfg.n_layers
     want = {"paged_decode_attention": steps if decode_mode == "paged" else 0,
             "decode_attention": steps if decode_mode == "gather" else 0,
             **prefill_launches(engine)}
-    tag = f"[serve {tag or decode_mode}]"
-    if launches != want or not engine.decode_steps:
+    if launches != want or not steps:
         raise AssertionError(f"{tag}: launch counts {launches} != {want}")
+    spec = ""
+    if engine.speculator is not None:
+        spec = (f", {metrics.spec_steps} verify steps of "
+                f"{engine.verify_iterations} decode iterations "
+                f"({metrics.spec_row()})")
     print(f"{tag} on {card}: {len(reqs)} requests, "
           f"{metrics.output_tokens} output tokens, {engine.decode_steps} "
-          f"decode steps, {engine.prefills} prefills, {engine.chunks} "
+          f"decode steps{spec}, {engine.prefills} prefills, {engine.chunks} "
           f"prefill chunks ({engine.suffix_prefills} of them over a "
           f"prefix), {metrics.preemptions} preemptions; launches "
           f"{launches} = steps (or prefills and chunks) x {cfg.n_layers} "
@@ -1090,13 +1229,7 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
           f"{metrics.max_kv_fraction * 100:.1f}%")
     print(f"{tag} on {card}: TTFT {metrics.ttft.row()}; ITL "
           f"{metrics.itl.row()}; E2E {metrics.e2e.row(scale=1.0, unit='s')}")
-    release()
-    held = torch.cuda.memory_reserved() - base
-    kv = sum(t.numel() * t.element_size() for t in engine.pool.pool.values())
-    print(f"{tag} memory: the engine holds {held / 1e9:.3f} GB of device "
-          f"memory reserved after the serve: the KV pool {kv / 1e9:.3f} GB, "
-          f"the graph pools and step buffers {(held - kv) / 1e9:.3f} GB")
-    return engine, metrics, launches
+    return metrics, launches
 
 
 def graph_kinds(steps):
@@ -1121,7 +1254,8 @@ def step_mode(engine):
             f"{st.replays} replays)")
     if engine.ecfg.overlap:
         mode += (f", overlapped ({engine.commit_waits} of "
-                 f"{engine.decode_steps} commits waited for the device)")
+                 f"{engine.decode_steps + engine.spec_steps} commits waited "
+                 f"for the device)")
     return mode
 
 
@@ -1582,6 +1716,169 @@ def phase_graph_modes(model, card, runs):
               f"{sum(r.generated for r in runs[kind])} tokens")
     for row in table:
         print(f"[graphs] on {card}: {row}")
+
+
+SPEC_SERVE = dict(max_batch=4, speculate=True, spec_k=8)
+SPEC_WAYS = {"off, graphs": dict(speculate=False),
+             "off, eager": dict(speculate=False, cuda_graphs=False),
+             "on, eager": dict(cuda_graphs=False),
+             "on, graphs": {},
+             "on, graphs + overlap": dict(overlap=True)}
+
+
+def phase_spec_serve(model, card):
+    """The speculative serve: 16 repetitive requests (prompt 96, 128 new
+    tokens, the shape of ``benchmarks/speculative.py``), batch 4,
+    ``spec_k`` 8, greedy and sampled, speculation off (graphs; greedy also
+    eager), on eager, on with graphs (cold, then warm: the same engine
+    serves the workload at another seed), on with graphs and overlap.
+    Each serve checks launches, finite logits and the pool
+    (:func:`run_served`); a profile window of verify steps follows the
+    warm serve; token agreement with speculation off is reported. Returns
+    the greedy graphs serve's launch counts."""
+    from repro_torch.serving.workload import SamplingParams
+    vocab = model.cfg.vocab_size
+    table, launches = [], None
+    for kind, sampling in (("greedy", None), ("sampled", SAMPLED)):
+        sp = SamplingParams(**sampling) if sampling else None
+        runs = {}
+        for way, kw in SPEC_WAYS.items():
+            if kind == "sampled" and way == "off, eager":
+                continue
+            reqs = spec_workload(vocab, sampling=sp)
+            tag = f"spec {kind}, {way}"
+            engine, m, got = serve(model, reqs, "paged", card, tag=tag,
+                                   **{**SPEC_SERVE, **kw})
+            runs[way] = reqs
+            table.append(spec_table_row(tag, engine, m))
+            if way == "on, graphs":
+                launches = launches or got
+                rewarm(engine)
+                wtag = f"spec {kind}, on, graphs, warm"
+                wm, _ = run_served(engine, spec_workload(vocab, seed=1,
+                                                         sampling=sp),
+                                   card, f"[serve {wtag}]")
+                table.append(spec_table_row(wtag, engine, wm))
+                spec_profile(engine, sp, card, kind)
+            del engine
+            release()
+        for way, reqs in runs.items():
+            if way != "off, graphs":
+                print(f"[spec] {kind}, bf16, {way} against off, graphs: "
+                      f"{agreement(runs['off, graphs'], reqs)}")
+    for row in table:
+        print(f"[spec] on {card}: {row}")
+    return launches
+
+
+def spec_table_row(tag, engine, m):
+    """One line of the speculative serves' table."""
+    st = engine.steps
+    verify = sum(1 for k in st.graphs if k[0] == "verify")
+    pool = getattr(engine, "graph_pool_bytes", None)
+    return (f"{tag}: output {m.output_throughput:.1f} tok/s, ITL p50 "
+            f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} ms, "
+            f"{m.spec_steps} verify steps, drafted {m.spec_drafted}, "
+            f"accepted {m.spec_accepted} "
+            f"({m.spec_acceptance_rate * 100:.1f}%), "
+            f"{m.decode_tokens_per_step:.2f} tokens a step; {verify} verify "
+            f"graphs of {len(st.graphs)}, capture {st.capture_s:.2f} s, "
+            + (f"graph pools and step buffers {pool / 1e9:.3f} GB"
+               if pool is not None else "graph pools as the cold serve's"))
+
+
+def spec_window(engine, steps, wrap=contextlib.nullcontext):
+    """``steps`` engine steps ending in a sync inside ``wrap()``, done again
+    (up to three times) while a window met a new bucket. Returns the
+    context, the host wall ms a step, the counters before the last window
+    (plain steps, verify steps, verify iterations, committed tokens, paged
+    launches) and whether it met no new bucket."""
+    import torch
+    for _ in range(3):
+        n = len(engine.steps.graphs)
+        c0 = (engine.decode_steps, engine.spec_steps,
+              engine.verify_iterations, sum(engine.decode_token_samples),
+              read_launches()["paged_decode_attention"])
+        with wrap() as ctx:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                engine.step(0.0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        if len(engine.steps.graphs) == n:
+            return ctx, ms, c0, True
+    return ctx, ms, c0, False
+
+
+def spec_profile(engine, sp, card, kind, steps=10):
+    """``torch.profiler`` over ``steps`` engine steps of 4 repetitive
+    requests (150 new tokens, so that their tables stay in the buckets the
+    serves captured) on a warm graphs engine after 8 warm steps: device
+    busy against the host wall of an unprofiled window, the verify steps
+    and decode iterations in it, and the paged kernel's replayed launches
+    against the counters' (plain steps + verify iterations) x layers and
+    the trace's count of its split kernel (a trace short of it, and only
+    short, is taken again, up to three windows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    rewarm(engine)
+    for r in spec_workload(engine.model.cfg.vocab_size, n=4,
+                           max_new_tokens=150, seed=2, sampling=sp):
+        engine.add_request(r)
+    for _ in range(8):
+        engine.step(0.0)
+    torch.cuda.synchronize()
+    _, plain_wall_ms, c0, _ = spec_window(engine, steps)     # unprofiled
+    # a verify step's work scales with its iterations: the two windows
+    # are compared a decode iteration (a plain step is one)
+    plain_iters = (engine.decode_steps - c0[0]) + (engine.verify_iterations
+                                                   - c0[2])
+    wall_iter = plain_wall_ms * steps / max(plain_iters, 1)
+    tag = f"[profile spec {kind}]"
+    # the counter must equal the steps' launches in every window; a trace
+    # may hold fewer kernel records than launches (one short of 120 and
+    # one short of 1824 have been seen on the card), never more, so a
+    # short trace is measured again
+    for attempt in range(3):
+        prof, _, c0, steady = spec_window(engine, steps, lambda: profile(
+            activities=[ProfilerActivity.CUDA]))
+        plain_steps, verify_steps, iters, toks, counted = (
+            a - b for a, b in zip((engine.decode_steps, engine.spec_steps,
+                                   engine.verify_iterations,
+                                   sum(engine.decode_token_samples),
+                                   read_launches()["paged_decode_attention"]),
+                                  c0))
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            raise AssertionError("profiler recorded no device activity")
+        traced = sum("paged_decode_split_kernel" in e.name for e in kernels)
+        want = (plain_steps + iters) * engine.model.cfg.n_layers
+        print(f"{tag} paged_decode_attention over the profiled steps: "
+              f"launch counter +{counted}, trace {traced} split kernels "
+              f"((plain steps + verify iterations) x layers = {want})")
+        if counted != want or traced > want:
+            raise AssertionError(f"{tag}: replayed launches {counted} and "
+                                 f"traced kernels {traced} != {want}")
+        if traced == want:
+            break
+    else:
+        raise AssertionError(f"{tag}: three traces short of {want} split "
+                             f"kernels")
+    busy = sum(e.time_range.end - e.time_range.start
+               for e in kernels) / 1e3 / steps
+    busy_iter = busy * steps / max(plain_steps + iters, 1)
+    print(f"{tag} on {card}, {step_mode(engine)}: {steps} steps at batch "
+          f"{len(engine.running)}: {verify_steps} verify steps of {iters} "
+          f"decode iterations and {plain_steps} plain steps, {toks} tokens "
+          f"committed; torch.profiler: device busy {busy:.3f} ms/step, "
+          f"{busy_iter:.3f} ms a decode iteration; an unprofiled window of "
+          f"{plain_iters} iterations: host wall {plain_wall_ms:.3f} ms/step, "
+          f"{wall_iter:.3f} ms a decode iteration, so the device idles "
+          f"{(1 - busy_iter / wall_iter) * 100:.1f}%"
+          + ("" if steady else "; a window met a new bucket"))
+    for r in list(engine.running) + list(engine.waiting):
+        engine.abort(r.req_id)
 
 
 def phase_gather_serve(model, card, paged_all):
@@ -2239,6 +2536,116 @@ def phase_prefill_compare(model, card):
     return n_same, len(cases)
 
 
+def phase_verify_compare(model, card, K=8):
+    """One verify step at ``(batch 4, nb_pad, K_pad 8)`` on three requests
+    of the serve workload at half their output budget and a padding row,
+    over random pool rows: a full draft, a draft wrong at its fourth
+    token and none, the drafts taken from 9 plain paged steps of the same
+    bucket (eager, on a copy of the pool). The verify step replayed from
+    its CUDA graph against the same step eager (on another copy): tokens,
+    acceptance and logits bit for bit, and the pool rows written; its
+    iteration 0 against the plain paged step on the same inputs, bit for
+    bit in logits; the accepted prefixes must be the drafted 8, 3 and 0.
+    Then its device busy time and end-to-end time, replayed, against
+    ``K + 1`` replayed paged steps of the same bucket, and eager."""
+    import torch
+    from repro_torch.kvcache.paged import PagedKVCache
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.steps import StepFunctions, split_verify
+    engine = ContinuousBatchingEngine(model, serve_config(
+        max_batch=4, kv_pool_tokens=8192, speculate=True, spec_k=K))
+    pool = engine.pool
+    gen = torch.Generator("cuda").manual_seed(4)
+    for leaf in pool.pool.values():
+        leaf.normal_(generator=gen)
+    twins = [PagedKVCache(model.cfg, num_blocks=pool.num_blocks,
+                          block_size=pool.block_size, device="cuda")
+             for _ in range(2)]
+    for twin in twins:
+        for name, leaf in pool.pool.items():
+            twin.pool[name].copy_(leaf)
+    reqs = serve_workload()[:3]
+    rids = [r.req_id for r in reqs]
+    positions = decode_lengths()[:3]
+    tokens = [r.req_id + 1 for r in reqs]
+    for p in (pool, *twins):
+        for rid, pos in zip(rids, positions):
+            p.manager.allocate(rid, pos + K + 2)
+    serial = StepFunctions(model, twins[1], max_batch=4, max_model_len=2048,
+                           cuda_graphs=False)
+    batch_pad, nb_pad = serial.paged_bucket(rids)
+    dev, hot = serial._stage(reqs, positions, tokens, None, batch_pad,
+                             nb_pad, rids)
+    out, plain_logits = serial._paged_body(dev, hot)
+    s = [out[:3].tolist()]
+    for j in range(1, K + 1):
+        s.append(serial.paged(reqs, rids, [p + j for p in positions],
+                              s[-1])[:3].tolist())
+    s = np.asarray(s, np.int64).T
+    wrong = (s + 1) % model.cfg.vocab_size
+    drafts = [np.asarray(d, np.int32) for d in (
+        s[0, :K], np.r_[s[1, :3], wrong[1, 3], s[1, 4:K]], s[2, :0])]
+    eager = StepFunctions(model, twins[0], max_batch=4, max_model_len=2048,
+                          cuda_graphs=False, spec_k=K)
+    key = ("verify",) + eager.verify_bucket(rids, drafts) + (False,)
+    if key != ("verify", batch_pad, nb_pad, K, False):
+        raise AssertionError(f"verify bucket {key}")
+    dev, hot = eager._stage(reqs, positions, tokens, None, batch_pad, nb_pad,
+                            rids, drafts, K)
+    packed_e, logits_e = eager._verify_body(dev, K, hot)
+    for _ in range(2):        # the first call captures, the second replays
+        engine.steps.verify(reqs, rids, positions, tokens, drafts)
+    step = engine.steps.graphs[key]
+    packed_r, logits_r = step.tokens.clone(), step.logits.clone()
+    torch.cuda.synchronize()
+    ys, oks = split_verify(packed_r.cpu().numpy())
+    accepted = [int(oks[i].sum()) for i in range(3)]
+    checks = {
+        "tokens and acceptance, replayed = eager": torch.equal(packed_r,
+                                                               packed_e),
+        "logits, replayed = eager": torch.equal(logits_r, logits_e),
+        "iteration 0's logits = the plain paged step's": torch.equal(
+            logits_e, plain_logits),
+        "pool rows, replayed = eager": all(
+            torch.equal(leaf[:, :pool.num_blocks],
+                        twins[0].pool[name][:, :pool.num_blocks])
+            for name, leaf in pool.pool.items()),
+        "accepted prefixes 8, 3, 0": accepted == [K, 3, 0],
+        "the committed tokens are the plain steps'": all(
+            ys[i, :n + 1].tolist() == s[i, :n + 1].tolist()
+            for i, n in enumerate(accepted)),
+        "logits finite": bool(engine.steps.finite) and bool(eager.finite)}
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"verify step {key}: {what} fails")
+    print(f"[verify] on {card}: one verify step, bucket {key}, 3 requests "
+          f"({sum(positions)} context tokens) and a padding row: "
+          + "; ".join(f"{what}: yes" for what in checks))
+    vcall = lambda: engine.steps.verify(  # noqa: E731
+        reqs, rids, positions, tokens, drafts)
+    pcall = lambda: engine.steps.paged(  # noqa: E731
+        reqs, rids, positions, tokens)
+    for _ in range(2):
+        pcall()
+    busy = {"verify": busy_ms(vcall), "paged": busy_ms(pcall)}
+    wall = {"verify": time_ms(vcall, runs=20),
+            "paged": time_ms(pcall, runs=20),
+            "verify eager": time_ms(lambda: eager.verify(
+                reqs, rids, positions, tokens, drafts), runs=5, warmup=1)}
+    print(f"[verify] on {card}: device busy (torch.profiler) a verify step "
+          f"{busy['verify']:.3f} ms against a paged step's "
+          f"{busy['paged']:.3f} ms x (K_pad + 1 = {K + 1}) = "
+          f"{busy['paged'] * (K + 1):.3f} ms (ratio "
+          f"{busy['verify'] / (busy['paged'] * (K + 1)):.3f}); end to end "
+          f"(CUDA events): verify replayed {wall['verify']:.3f} ms, paged "
+          f"replayed {wall['paged']:.3f} ms (x {K + 1} = "
+          f"{wall['paged'] * (K + 1):.3f}), verify eager "
+          f"{wall['verify eager']:.3f} ms")
+    del engine, eager, serial, twins
+    release()
+    return busy, wall
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -2276,10 +2683,12 @@ def main() -> int:
     phase("2, kernels", phase_kernels, errs)
     phase("3, model", phase_model, errs)
     phase("3, prefill modes", phase_model_prefill_modes, errs)
+    phase("3, speculation", phase_model_speculative, errs)
     model = full_model()
     by_path = {"paged_serve": None, "gather_serve": None,
                "static_batch": None, "prefix_serve": None,
-               "chunked_serve": None, "sampled_serve": None}
+               "chunked_serve": None, "sampled_serve": None,
+               "spec_serve": None}
     by_path["paged_serve"], prefill_sizes, paged_all = phase(
         "4, paged serve", phase_serve, model, card)
     by_path["prefix_serve"] = phase("4, prefix serve", phase_prefix_serve,
@@ -2296,8 +2705,11 @@ def main() -> int:
                                     card)
     phase("4, serve profiles", phase_serve_profiles, model, card)
     phase("4, prefill steps", phase_prefill_steps, model, card)
+    by_path["spec_serve"] = phase("4, speculative serve", phase_spec_serve,
+                                  model, card)
     phase("5, step compare", phase_step_compare, model, card)
     phase("5, prefill compare", phase_prefill_compare, model, card)
+    phase("5, verify compare", phase_verify_compare, model, card)
     del model
     release()
     times = phase("5, kernel times", phase_times, card, prefill_sizes,

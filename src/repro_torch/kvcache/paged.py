@@ -18,7 +18,9 @@ rows :meth:`PagedKVCache.scatter_new_token` writes back. Suffix-only and
 chunked prefill read a request's written prefix through
 :meth:`PagedKVCache.gather_prefix` and write their rows token by token
 (:meth:`PagedKVCache.write_prefill` with ``n_tokens``);
-:meth:`PagedKVCache.ensure_writable` forks a shared block before a write.
+:meth:`PagedKVCache.ensure_writable` forks a shared block before a write,
+and :meth:`PagedKVCache.rollback` releases the table tail a speculative
+verify step reserved for drafts that did not commit.
 
 Those eager methods build their indices on the host and upload them. The
 engine's steps (:mod:`repro_torch.serving.steps`) stage the same indices
@@ -515,6 +517,20 @@ class PagedKVCache:
         rows = torch.arange(len(req_ids), device=self.device)
         for name, leaf in self.pool.items():
             leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
+
+    def rollback(self, rid: int, n_tokens: int) -> List[int]:
+        """Shrink ``rid``'s KV to its first ``n_tokens`` tokens (the
+        reference's ``rollback``): the table is truncated to the blocks
+        those tokens need, and whole blocks past them are released
+        (ref-counted: a prefix-shared block survives in its other owners'
+        tables and in the prefix index). Rows past ``n_tokens`` in the
+        kept tail block are not zeroed: the lengths mask them, and the
+        next write at those positions lands on the same (block, slot).
+        Returns the dropped physical block ids."""
+        if n_tokens < 0:
+            raise ValueError(f"n_tokens must be >= 0, got {n_tokens}")
+        return self.manager.truncate(rid,
+                                     self.manager.blocks_needed(n_tokens))
 
     def release(self, rid: int):
         self.manager.release(rid)

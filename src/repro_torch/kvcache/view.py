@@ -1,6 +1,6 @@
 """Zero-copy view of the paged KV pool (counterpart of
-``repro.kvcache.view``), and the packed layouts of a decode step's and of
-a prefill's inputs.
+``repro.kvcache.view``), and the packed layouts of a decode step's, a
+verify step's and a prefill's inputs.
 """
 from __future__ import annotations
 
@@ -43,6 +43,31 @@ def step_fields(buf: Buffer, batch_pad: int,
         out[name] = v.view(f32) if name in _FLOAT_FIELDS else v
         at += batch_pad
     out["keys"] = buf[at:at + 2 * batch_pad].reshape(batch_pad, 2)
+    return out
+
+
+def verify_size(batch_pad: int, nb_pad: int, K_pad: int) -> int:
+    """int32 words of one verify step's packed inputs
+    (:func:`verify_fields`)."""
+    return step_size(batch_pad, nb_pad) + batch_pad * (3 * K_pad + 3)
+
+
+def verify_fields(buf: Buffer, batch_pad: int, nb_pad: int,
+                  K_pad: int) -> Dict[str, Buffer]:
+    """Views of a speculative verify step's inputs packed in the 1-D int32
+    ``buf``, the same layout on the host and the device: the paged step's
+    fields (:func:`step_fields`), then ``drafts [batch_pad, K_pad]``,
+    ``draft_len [batch_pad]`` and ``key_block [batch_pad, K_pad + 1, 2]``,
+    the sampling key of each counter a row may reach in the step
+    (:func:`~repro_torch.serving.spec.verify.verify_keys`)."""
+    out = step_fields(buf, batch_pad, nb_pad)
+    at = step_size(batch_pad, nb_pad)
+    out["drafts"] = buf[at:at + batch_pad * K_pad].reshape(batch_pad, K_pad)
+    at += batch_pad * K_pad
+    out["draft_len"] = buf[at:at + batch_pad]
+    at += batch_pad
+    out["key_block"] = buf[at:at + batch_pad * (K_pad + 1) * 2].reshape(
+        batch_pad, K_pad + 1, 2)
     return out
 
 

@@ -6,5 +6,6 @@ from repro_torch.serving.metrics import Percentiles, ServingMetrics  # noqa
 from repro_torch.serving.workload import (Request, RequestState,  # noqa
                                           SamplingParams,
                                           long_short_workload,
+                                          repetitive_workload,
                                           shared_prefix_workload,
                                           sharegpt_like)

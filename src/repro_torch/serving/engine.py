@@ -35,9 +35,18 @@ on each request's seed and position, so preemption, batch composition
 and chunked against serial prefill all leave a request's tokens as they
 are; sampling runs on the device and only the ``[B]`` ids come back.
 
-Every step (the paged and the gather decode step, each prefill and
-chunk) runs on static buffers and, on a CUDA device, replays one CUDA
-graph a shape bucket, captured at the bucket's first use
+With ``speculate`` (the reference's speculative decoding, paged mode
+only) a prompt-lookup drafter proposes up to ``spec_k`` tokens a request
+from its own prompt and output, and a step with any draft is a verify
+step: ``K + 1`` serial decode iterations with the acceptance on the
+device (:mod:`repro_torch.serving.spec`). Each row commits its accepted
+drafts plus one sampled token, token by token through the finish
+protocol, and the table tail reserved for the rest is rolled back; the
+tokens are serial decode's.
+
+Every step (the paged and the gather decode step, a verify step, each
+prefill and chunk) runs on static buffers and, on a CUDA device, replays
+one CUDA graph a shape bucket, captured at the bucket's first use
 (:mod:`repro_torch.serving.steps`, the reference's ``StepFunctions``);
 ``cuda_graphs=False`` keeps them eager, for comparison. With ``overlap``
 the :class:`~repro_torch.serving.executor.Executor` keeps two decode
@@ -47,9 +56,9 @@ so the pool's writes stay in order. :meth:`ContinuousBatchingEngine.abort` and
 :meth:`~ContinuousBatchingEngine.evict_request` finish a request in any
 phase and reclaim its blocks.
 
-Features of the reference engine outside this slice (speculative
-decoding, load shedding and deadlines) raise ``NotImplementedError`` when
-asked for; ROADMAP.md lists them as the next slices.
+Features of the reference engine outside this slice (load shedding and
+deadlines) raise ``NotImplementedError`` when asked for; ROADMAP.md lists
+them as the next slices.
 """
 from __future__ import annotations
 
@@ -72,7 +81,10 @@ from repro_torch.models.sampler import (positions_array, sample_tokens,
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.metrics import ServingMetrics, collect
 from repro_torch.serving.scheduler import Scheduler, StepPlan
-from repro_torch.serving.steps import StepFunctions, bucket, pow2_bucket
+from repro_torch.serving.spec import Drafter, PromptLookupDrafter
+from repro_torch.serving.spec.verify import accepted_prefix
+from repro_torch.serving.steps import (StepFunctions, bucket, pow2_bucket,
+                                       split_verify)
 from repro_torch.serving.workload import (FINISH_ABORT, FINISH_FAILED,
                                           FINISH_LENGTH, FINISH_STOP, Request)
 
@@ -107,16 +119,26 @@ class EngineConfig:
     prefill_chunk_tokens: Optional[int] = None
     # two decode steps in flight, committed an iteration or two later
     overlap: bool = False
-    # on a CUDA device, replay every step (paged or gather decode, each
-    # prefill) from one CUDA graph a bucket (False: every step eager, the
-    # same kernels, for comparison)
+    # on a CUDA device, replay every step (paged or gather decode, verify,
+    # each prefill) from one CUDA graph a bucket (False: every step eager,
+    # the same kernels, for comparison)
     cuda_graphs: bool = True
+    # speculative decoding (prompt-lookup drafts, off by default): verify
+    # up to spec_k drafted tokens a request a step; the tokens stay
+    # serial decode's. Needs the paged decode path and per-token KV;
+    # other configs fall back, the reason in spec_disabled_reason
+    speculate: bool = False
+    spec_k: int = 8                     # most draft tokens a step
+    spec_ngram: int = 3                 # longest prompt-lookup n-gram
+    # overlap only: every spec_probe_every-th iteration with rows chained
+    # to an in-flight plain step plans nothing, so the drafter sees
+    # committed context
+    spec_probe_every: int = 8
     # the reference's other features; any value but the default raises
     # NotImplementedError (see the module docstring)
     max_waiting: Optional[int] = None
     shed_kv_fraction: Optional[float] = None
     shed_queue_delay_s: Optional[float] = None
-    speculate: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -156,8 +178,15 @@ class EngineConfig:
             raise ValueError(
                 f"prefill_chunk_tokens must be >= 1 (or None for serial "
                 f"admission-time prefill), got {self.prefill_chunk_tokens}")
-        if self.speculate:
-            raise _not_ported("speculate", "speculative verify")
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if self.spec_ngram < 1:
+            raise ValueError(
+                f"spec_ngram must be >= 1, got {self.spec_ngram}")
+        if self.spec_probe_every < 1:
+            raise ValueError(
+                f"spec_probe_every must be >= 1, got "
+                f"{self.spec_probe_every}")
         if (self.max_waiting, self.shed_kv_fraction,
                 self.shed_queue_delay_s) != (None, None, None):
             raise _not_ported("load shedding", "observability")
@@ -185,16 +214,30 @@ class ContinuousBatchingEngine:
             self.cfg, num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
             block_size=ecfg.block_size, device=self.device)
         self.sched = Scheduler(self)
-        self.steps = StepFunctions(model, self.pool,
-                                   max_batch=ecfg.max_batch,
-                                   max_model_len=ecfg.max_model_len,
-                                   prefill_bucket=ecfg.prefill_bucket,
-                                   cuda_graphs=ecfg.cuda_graphs)
+        # chunked prefill, the prefix cache and speculation need
+        # per-token-addressable KV; an unsupported config falls back, the
+        # reason recorded
+        ok, why = prefix_cache_supported(self.cfg)
+        # speculation also needs the paged pool's tables to roll back
+        self.speculator: Optional[Drafter] = None
+        self.spec_disabled_reason: Optional[str] = None
+        if ecfg.speculate:
+            if not ok:
+                self.spec_disabled_reason = why
+            elif self.decode_mode != "paged":
+                self.spec_disabled_reason = (
+                    "decode_mode 'gather' (dense-copy fallback has no "
+                    "paged block tables to roll back)")
+            else:
+                self.speculator = PromptLookupDrafter(
+                    max_ngram=ecfg.spec_ngram, max_k=ecfg.spec_k)
+        self.steps = StepFunctions(
+            model, self.pool, max_batch=ecfg.max_batch,
+            max_model_len=ecfg.max_model_len,
+            prefill_bucket=ecfg.prefill_bucket, cuda_graphs=ecfg.cuda_graphs,
+            spec_k=ecfg.spec_k if self.speculator is not None else None)
         self._executor = Executor(self)
         self.step_count = 0          # step() calls, counted from 1
-        # chunked prefill and the prefix cache need per-token-addressable
-        # KV; an unsupported config falls back, the reason recorded
-        ok, why = prefix_cache_supported(self.cfg)
         self.chunking = ecfg.prefill_chunk_tokens is not None and ok
         self.chunking_disabled_reason = (
             why if ecfg.prefill_chunk_tokens is not None else None)
@@ -210,7 +253,7 @@ class ContinuousBatchingEngine:
     def reset_stats(self):
         """Clear the telemetry (e.g. after a warm-up run); the prefix
         index keeps its contents, only its counters reset."""
-        self.decode_steps = 0        # decode steps run
+        self.decode_steps = 0        # plain decode steps run
         self.prefills = 0            # whole or suffix prefills run
         self.chunks = 0              # chunk prefills run
         # prefills and chunks that attend over a prefix in the pool (a
@@ -231,6 +274,15 @@ class ContinuousBatchingEngine:
         # overlapped commits that found their step still running (the
         # device set the pace), of decode_steps
         self.commit_waits = 0
+        # speculation: verify steps committed, draft tokens proposed,
+        # accepted and rejected, each verify step's acceptance rate; and
+        # the decode iterations of the verify steps run (K_pad + 1 each)
+        self.spec_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
+        self.spec_acceptance_samples: List[float] = []
+        self.verify_iterations = 0
         if self.prefix is not None:
             self.prefix.stats = PrefixStats()
 
@@ -300,6 +352,8 @@ class ContinuousBatchingEngine:
         self.sched._dispatched.pop(req.req_id, None)
         # its rows of any step still in flight never commit
         self._executor.invalidate(req.req_id)
+        if self.speculator is not None:
+            self.speculator.forget(req.req_id)
 
     def _finish_or_run(self, req: Request, t_done: float) -> bool:
         """Finish protocol for the just-produced last token: a stop token
@@ -434,6 +488,10 @@ class ContinuousBatchingEngine:
                 self._record_prefill_only(plan)
             return self.busy
         reqs = plan.reqs
+        if plan.drafts is not None:
+            # a verify step: a variable number of tokens a row
+            self._spec_step_sync(plan, now)
+            return True
         if self.decode_mode == "paged":
             next_tokens = self._decode_paged(plan)
         else:
@@ -465,12 +523,15 @@ class ContinuousBatchingEngine:
         self.decode_token_samples.append(0)
         self._record_kv()
 
-    def _record_decode(self, itl: float, plan: StepPlan, n_decode: int):
-        """The series of a committed decode step of ``n_decode`` rows."""
+    def _record_decode(self, itl: float, plan: StepPlan, n_decode: int,
+                       tokens: Optional[int] = None):
+        """The series of a committed decode step of ``n_decode`` rows that
+        committed ``tokens`` tokens (one a row unless a verify step's)."""
         self.itl_samples.append(itl)
         self.stall_samples.append(plan.t_sched)
         self.prefill_token_samples.append(plan.n_prefill)
-        self.decode_token_samples.append(n_decode)
+        self.decode_token_samples.append(
+            n_decode if tokens is None else tokens)
         self.batch_samples.append(n_decode)
         self._record_kv()
 
@@ -491,6 +552,94 @@ class ContinuousBatchingEngine:
                                 [self._tokens[rid] for rid in plan.rids])
         self.decode_steps += 1
         return out.cpu().numpy()
+
+    # ------------------------------------------------ speculative decode --
+    def rollback_kv(self, rid: int, n_tokens: int) -> List[int]:
+        """Token-granular KV rollback (:meth:`PagedKVCache.rollback`),
+        refused for a request mid-prefill: its chunk progress tracks the
+        table's tail (preempt or abort it instead)."""
+        if rid in self._prefilled:
+            raise RuntimeError(
+                f"KV rollback of request {rid} during PREFILLING "
+                f"({self._prefilled[rid]} prompt tokens streamed): chunked "
+                f"prefill progress tracks the table tail — preempt or "
+                f"abort instead of rolling back mid-prefill")
+        return self.pool.rollback(rid, n_tokens)
+
+    def _dispatch_verify(self, plan: StepPlan, tokens, chain=None
+                         ) -> torch.Tensor:
+        """Queue one verify step (a graph replay on a CUDA device) and
+        count its ``K_pad + 1`` decode iterations; returns its
+        ``[batch_pad, 2 (K_pad + 1)]`` device output
+        (:meth:`StepFunctions.verify`)."""
+        out = self.steps.verify(plan.reqs, plan.rids, plan.positions,
+                                tokens, plan.drafts, chain)
+        self.verify_iterations += out.shape[1] // 2
+        return out
+
+    def _verify_paged(self, plan: StepPlan):
+        """One verify step in sync mode; returns host ``(ys, oks)`` of the
+        live rows."""
+        out = self._dispatch_verify(
+            plan, [self._tokens[rid] for rid in plan.rids])
+        return split_verify(out[:len(plan.rids)].cpu().numpy())
+
+    def _spec_commit(self, plan: StepPlan, ys: np.ndarray, oks: np.ndarray,
+                     t_done: float, valid: Optional[List[bool]] = None
+                     ) -> int:
+        """Commit one verify step: a row's accepted drafts plus its
+        correction or bonus token, token by token through the serial
+        finish protocol (a stop token ends the request mid-span and the
+        rest is discarded), then the table tail reserved for drafts that
+        did not commit is rolled back. Shared by the sync step and the
+        executor (``valid`` masks rows invalidated in flight). Returns
+        the tokens committed."""
+        drafted = accepted = committed = 0
+        for i, r in enumerate(plan.reqs):
+            if valid is not None and not valid[i]:
+                continue
+            rid = r.req_id
+            dl = len(plan.drafts[i])
+            n_ok = accepted_prefix(oks[i], dl)
+            drafted += dl
+            accepted += n_ok
+            if self.speculator is not None:
+                self.speculator.observe(rid, n_ok, dl)
+            finished = False
+            for j in range(n_ok + 1):
+                tok = int(ys[i][j])
+                self._pos[rid] += 1
+                self._tokens[rid] = tok
+                r.state.generated += 1
+                r.state.output_tokens.append(tok)
+                committed += 1
+                if self._finish_or_run(r, t_done):
+                    finished = True
+                    break
+            if not finished:
+                # every committed position's K/V is written; the next
+                # input token's slot is reserved again by the next plan
+                self.rollback_kv(rid, self._pos[rid])
+                # the plan counted the worst case (1 + k): what committed
+                self.sched._dispatched[rid] = r.state.generated
+        self.running = [r for r in self.running
+                        if r.state.finish_reason is None]
+        self.spec_steps += 1
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.spec_rejected += drafted - accepted
+        if drafted:
+            self.spec_acceptance_samples.append(accepted / drafted)
+        return committed
+
+    def _spec_step_sync(self, plan: StepPlan, now: float):
+        """A verify step in sync mode: verify, commit, and the plain
+        step's series (the decode-token sample counts committed tokens:
+        more than the batch is speculation's gain)."""
+        ys, oks = self._verify_paged(plan)
+        dt = time.perf_counter() - plan.t0
+        committed = self._spec_commit(plan, ys, oks, now + dt)
+        self._record_decode(dt, plan, len(plan.reqs), committed)
 
     def run(self, requests: List[Request]) -> ServingMetrics:
         """Batch-offline loop: submit everything, step to completion with
@@ -519,4 +668,9 @@ class ContinuousBatchingEngine:
                        stall_samples=self.stall_samples,
                        prefill_token_samples=self.prefill_token_samples,
                        decode_token_samples=self.decode_token_samples,
-                       queued_aborts=self.queued_aborts)
+                       queued_aborts=self.queued_aborts,
+                       spec_steps=self.spec_steps,
+                       spec_drafted=self.spec_drafted,
+                       spec_accepted=self.spec_accepted,
+                       spec_rejected=self.spec_rejected,
+                       spec_acceptance_samples=self.spec_acceptance_samples)

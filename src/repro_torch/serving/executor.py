@@ -1,5 +1,5 @@
 """Executor: overlapped step dispatch (counterpart of
-``repro.serving.executor``, without speculative verify steps).
+``repro.serving.executor``).
 
 Under ``EngineConfig.overlap`` each engine iteration ``i`` runs
 
@@ -27,6 +27,13 @@ Tokens equal the synchronous loop's:
   dispatch, on the one stream every later pool write also takes, so a
   block's next owner writes after them.
 
+A speculative verify step chains none of its rows: how many tokens a row
+commits is known only at its commit, so no later plan can read its output
+by position. Its requests are left out of planning (``_spec_pending``)
+until it commits, through the engine's ``_spec_commit``. Its rows chained
+to the previous plain step ride it draft-free, their input gathered on
+the device as a plain step's.
+
 A device error from step N surfaces when step N is committed, an
 iteration or two later: it is raised again with ``err.engine_step = N``
 and a note. On the CPU the steps finish at dispatch, so the executor runs
@@ -40,7 +47,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.serving.scheduler import StepPlan
-from repro_torch.serving.steps import Chain
+from repro_torch.serving.steps import Chain, split_verify
 
 
 def _is_ready(entry: "InFlightStep") -> bool:
@@ -49,13 +56,14 @@ def _is_ready(entry: "InFlightStep") -> bool:
 
 
 class InFlightStep:
-    """One dispatched, uncommitted decode step."""
+    """One dispatched, uncommitted decode or verify step."""
     __slots__ = ("plan", "device_tokens", "host_tokens", "done", "valid")
 
     def __init__(self, plan: StepPlan, device_tokens: torch.Tensor):
         self.plan = plan
         # the step's output on the device: the chain source of the next
-        # dispatch (valid until the same bucket's next replay)
+        # dispatch (valid until the same bucket's next replay); a verify
+        # step's tokens and acceptance mask
         self.device_tokens = device_tokens
         # its copy in (pinned) host memory, complete once ``done`` fires
         self.host_tokens = torch.empty(
@@ -88,12 +96,15 @@ class Executor:
         # invalidation
         self._chain: Dict[int, Tuple[InFlightStep, int]] = {}
         self._last: Optional[InFlightStep] = None   # newest dispatch
+        # rids with a verify step in flight: not planned until it commits
+        self._spec_pending: set = set()
         self._t_last_commit: Optional[float] = None
 
     def reset(self):
         """Drop every in-flight step without committing."""
         self._inflight.clear()
         self._chain.clear()
+        self._spec_pending.clear()
         self._last = None
         self._t_last_commit = None
 
@@ -102,6 +113,7 @@ class Executor:
         eviction): discard its uncommitted rows, and drop any step whose
         rows are now all dead (it commits nothing)."""
         self._chain.pop(rid, None)
+        self._spec_pending.discard(rid)
         for entry in list(self._inflight):
             hit = False
             for i, r in enumerate(entry.plan.rids):
@@ -155,6 +167,15 @@ class Executor:
     def _dispatch(self, plan: StepPlan):
         eng = self.eng
         tokens, chain = self._input_tokens(plan.rids)
+        if plan.drafts is not None:
+            # no row is chained to a verify step, and its requests sit
+            # planning out until it commits
+            entry = InFlightStep(plan, eng._dispatch_verify(plan, tokens,
+                                                            chain))
+            self._inflight.append(entry)
+            self._last = entry
+            self._spec_pending.update(plan.rids)
+            return
         if eng.decode_mode == "paged":
             out = eng.steps.paged(plan.reqs, plan.rids, plan.positions,
                                   tokens, chain)
@@ -172,7 +193,8 @@ class Executor:
     def _commit(self, entry: InFlightStep):
         """Retire one step: wait for its tokens (already on the host in a
         host-bound steady state), then bookkeeping and the finish
-        protocol for every still-valid row, and telemetry."""
+        protocol for every still-valid row (a verify step's through the
+        engine's ``_spec_commit``), and telemetry."""
         eng = self.eng
         plan = entry.plan
         if not _is_ready(entry):
@@ -189,6 +211,9 @@ class Executor:
                          f"at its commit)")
             raise
         t_done = plan.now + (time.perf_counter() - plan.t0)
+        if plan.drafts is not None:
+            self._commit_verify(entry, host_tokens, t_done)
+            return
         n_valid = 0
         for i, r in enumerate(plan.reqs):
             if not entry.valid[i]:
@@ -217,3 +242,21 @@ class Executor:
         eng._record_decode(t - (plan.t0 if t_prev is None else t_prev),
                            plan, n_valid)
 
+    def _commit_verify(self, entry: InFlightStep, out, t_done: float):
+        """Retire a verify step: its requests return to planning, and the
+        engine commits its still-valid rows token by token."""
+        eng = self.eng
+        plan = entry.plan
+        for rid in plan.rids:
+            self._spec_pending.discard(rid)
+        n_valid = sum(entry.valid)
+        ys, oks = split_verify(out)
+        committed = eng._spec_commit(plan, ys, oks, t_done,
+                                     valid=entry.valid)
+        if not n_valid:
+            return
+        t = time.perf_counter()
+        t_prev = self._t_last_commit
+        self._t_last_commit = t
+        eng._record_decode(t - (plan.t0 if t_prev is None else t_prev),
+                           plan, n_valid, committed)

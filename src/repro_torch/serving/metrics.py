@@ -1,7 +1,7 @@
 """Serving metrics: throughput, TTFT/ITL/E2E percentiles, KV usage,
 preemptions, finish reasons, aborts caught in the queue, prefix-cache
-reuse and the per-step scheduler stall (the subset of ``repro.serving.metrics`` that the port's
-engine fills)."""
+reuse, the per-step scheduler stall and the speculation counters (the
+subset of ``repro.serving.metrics`` that the port's engine fills)."""
 from __future__ import annotations
 
 import dataclasses
@@ -62,6 +62,15 @@ class ServingMetrics:
     decode_tokens_per_step: float = 0.0
     # aborts that caught the request still in the arrival queue
     queued_aborts: int = 0
+    # speculative decoding (all zero unless EngineConfig.speculate): verify
+    # steps run, draft tokens proposed / accepted / rejected, and each
+    # verify step's acceptance rate (accepted / drafted)
+    spec_steps: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    spec_rejected: int = 0
+    spec_acceptance_series: List[float] = \
+        dataclasses.field(default_factory=list)
 
     @property
     def throughput(self) -> float:
@@ -70,6 +79,17 @@ class ServingMetrics:
     @property
     def output_throughput(self) -> float:
         return self.output_tokens / max(self.wall_s, 1e-9)
+
+    @property
+    def spec_acceptance_rate(self) -> float:
+        """Accepted fraction of all drafted tokens (0 when never drafted)."""
+        return self.spec_accepted / max(self.spec_drafted, 1)
+
+    def spec_row(self) -> str:
+        return (f"spec: steps={self.spec_steps} "
+                f"drafted={self.spec_drafted} "
+                f"accepted={self.spec_accepted} "
+                f"({self.spec_acceptance_rate * 100:.0f}%)")
 
 
 def _mean(xs: Sequence[float]) -> float:
@@ -85,7 +105,13 @@ def collect(requests: List[Request], wall_s: float,
             stall_samples: Sequence[float] = (),
             prefill_token_samples: Sequence[int] = (),
             decode_token_samples: Sequence[int] = (),
-            queued_aborts: int = 0) -> ServingMetrics:
+            queued_aborts: int = 0,
+            spec_steps: int = 0,
+            spec_drafted: int = 0,
+            spec_accepted: int = 0,
+            spec_rejected: int = 0,
+            spec_acceptance_samples: Sequence[float] = ()
+            ) -> ServingMetrics:
     done = [r for r in requests if r.t_done is not None]
     e2e = [r.t_done - r.arrival_s for r in done]
     ttft = [r.t_first_token - r.arrival_s for r in done
@@ -116,4 +142,9 @@ def collect(requests: List[Request], wall_s: float,
         stall=Percentiles.from_samples(stall_samples),
         prefill_tokens_per_step=_mean(prefill_token_samples),
         decode_tokens_per_step=_mean(decode_token_samples),
-        queued_aborts=queued_aborts)
+        queued_aborts=queued_aborts,
+        spec_steps=spec_steps,
+        spec_drafted=spec_drafted,
+        spec_accepted=spec_accepted,
+        spec_rejected=spec_rejected,
+        spec_acceptance_series=list(spec_acceptance_samples))

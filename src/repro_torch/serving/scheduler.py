@@ -1,6 +1,6 @@
 """Scheduler: admission, chunked prefill, preemption and decode-batch
-planning (counterpart of ``repro.serving.scheduler``, without deadlines,
-shedding and speculation).
+planning, speculative drafts included (counterpart of
+``repro.serving.scheduler``, without deadlines and shedding).
 
 :class:`Scheduler` owns the request-phase state (arrival queue, the
 PREFILLING and RUNNING sets, per-request chunk progress, next token,
@@ -26,13 +26,27 @@ length budget; ``_pos`` advances when a step is planned (in sync mode,
 when it commits), so in both modes ``_pos`` at plan time is where the
 next token writes. A stop token is found only at commit: the executor
 then discards the request's rows of the steps still in flight.
+
+Speculation (the reference's rules): with a drafter, a plan asks it for a
+draft a request, clipped so that the worst case (``1 + k`` tokens) stays
+inside the output budget. If any row has a draft the plan is a verify
+step: each row's draft span is reserved (shrunk rather than dipping into
+the watermark reserve), ``_dispatched`` counts the worst case, corrected
+at commit, and ``_pos`` is left alone, since the committed length
+depends on acceptance. Under overlap a request whose verify step is in
+flight is not planned again until it commits, and a request whose plain
+step is in flight rides draft-free; every ``spec_probe_every``-th
+iteration with such chained rows plans nothing, so that the pipeline
+drains and the drafter sees committed context.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import TYPE_CHECKING, Dict, List
+from typing import TYPE_CHECKING, Dict, List, Optional
+
+import numpy as np
 
 from repro_torch.serving.workload import Request
 
@@ -47,7 +61,8 @@ class StepPlan:
     ``t_sched`` is the schedule phase (admission and prefill) in seconds,
     ``p0`` the engine's preemption count before the step, ``step`` the
     engine step that planned it and ``now`` its serving-timeline stamp
-    (an overlapped plan commits an iteration or two later)."""
+    (an overlapped plan commits an iteration or two later). ``drafts``,
+    parallel to ``reqs``, makes the plan a speculative verify step."""
     reqs: List[Request]
     rids: List[int]
     positions: List[int]
@@ -57,6 +72,7 @@ class StepPlan:
     p0: int = 0
     step: int = 0
     now: float = 0.0
+    drafts: Optional[List[np.ndarray]] = None
 
     @property
     def has_decode(self) -> bool:
@@ -84,6 +100,8 @@ class Scheduler:
         # rid -> output tokens planned, in-flight ones included (equal to
         # state.generated after every sync step; ahead of it under overlap)
         self._dispatched: Dict[int, int] = {}
+        # overlap with speculation: iterations since the last drain
+        self._spec_probe = 0
 
     def admit(self, now: float):
         """FCFS admission under ``max_batch`` and the pool watermark. A
@@ -226,25 +244,35 @@ class Scheduler:
         self._pos.pop(rid, None)
         self._dispatched.pop(rid, None)
         eng._executor.invalidate(rid)
+        if eng.speculator is not None:
+            # the drafter's context is the output the requeue resets
+            eng.speculator.forget(rid)
         req.state.reset_for_requeue()
         self.waiting.appendleft(req)
         eng.preemptions += 1
 
     def _seats(self) -> int:
-        """Batch seats taken: the prefilling requests and the running ones
-        still to be planned. Under overlap a request whose last token is
-        dispatched gives its seat up at once, where the reference's keeps
-        it until that token commits: admissions, and with them every
-        step's batch, are then the sync loop's (in bf16 a different batch
-        rounds differently)."""
-        return len(self.prefilling) + sum(map(self._needs_step,
-                                              self.running))
+        """Batch seats taken: the prefilling requests, the running ones
+        still to be planned and those with a verify step in flight. Under
+        overlap a request whose last token is dispatched gives its seat up
+        at once, where the reference's keeps it until that token commits:
+        admissions, and with them every step's batch, are then the sync
+        loop's (in bf16 a different batch rounds differently). A request
+        whose verify step is in flight keeps its seat: how many tokens it
+        commits is not known yet."""
+        pending = self.eng._executor._spec_pending
+        return len(self.prefilling) + sum(
+            r.req_id in pending or self._needs_step(r) for r in self.running)
 
     def _needs_step(self, req: Request) -> bool:
         """Does ``req`` take a decode token this step? In sync mode every
         running request does; under overlap, only while its planned output
         is below its length budget (a request at its budget stays running
-        until its last in-flight token commits)."""
+        until its last in-flight token commits). A request with a verify
+        step in flight is not planned until that step commits: its next
+        write position depends on how many drafts are accepted."""
+        if req.req_id in self.eng._executor._spec_pending:
+            return False
         if not self.eng.ecfg.overlap:
             return True
         return self._dispatched.get(req.req_id, 0) < self.eng._limit(req)
@@ -298,16 +326,39 @@ class Scheduler:
                          now=now)
         if not self.running:
             return empty
+        if (eng.speculator is not None and eng.ecfg.overlap
+                and any(r.req_id in eng._executor._chain
+                        for r in self.running)):
+            # chained rows hide their newest tokens from the drafter, so
+            # under overlap speculation would never engage after a plain
+            # dispatch: every spec_probe_every-th such iteration plans
+            # nothing, the executor drains, and the next plan sees
+            # committed context (verify steps chain no row)
+            self._spec_probe += 1
+            if self._spec_probe >= eng.ecfg.spec_probe_every:
+                self._spec_probe = 0
+                return dataclasses.replace(
+                    empty, t_sched=time.perf_counter() - t0)
         self.ensure_step_capacity()        # may preempt -> shrink running
         reqs = [r for r in self.running if self._needs_step(r)]
         if not reqs:
             return dataclasses.replace(empty,
                                        t_sched=time.perf_counter() - t0)
         rids = [r.req_id for r in reqs]
+        drafts = (self._plan_drafts(reqs)
+                  if eng.speculator is not None else None)
+        spec = drafts is not None and any(len(d) for d in drafts)
         positions = [self._pos[rid] for rid in rids]
-        for rid, pos in zip(rids, positions):
+        for i, (rid, pos) in enumerate(zip(rids, positions)):
             eng.pool.manager.append_token(rid, pos + 1)
             eng.pool.ensure_writable(rid, pos)
+            if spec:
+                # a verify step: reserve the draft span, count the worst
+                # case (corrected at commit), leave _pos to the commit
+                k = self._reserve_span(rid, pos, len(drafts[i]))
+                drafts[i] = drafts[i][:k]
+                self._dispatched[rid] = self._dispatched.get(rid, 0) + 1 + k
+                continue
             self._dispatched[rid] = self._dispatched.get(rid, 0) + 1
             if eng.ecfg.overlap:
                 # the plan pins this token's position; the commit, an
@@ -315,4 +366,45 @@ class Scheduler:
                 self._pos[rid] = pos + 1
         return StepPlan(reqs=reqs, rids=rids, positions=positions,
                         n_prefill=n_prefill, t0=t0, t_sched=t_sched, p0=p0,
-                        step=eng.step_count, now=now)
+                        step=eng.step_count, now=now,
+                        drafts=drafts if spec else None)
+
+    def _plan_drafts(self, reqs: List[Request]) -> List[np.ndarray]:
+        """A draft a planned request, from the drafter: at most ``spec_k``
+        and at most the output budget left past the verify step's one
+        sure token. Under overlap a request whose plain step is in flight
+        gets none (its committed history is not on the host yet) and
+        rides the verify step draft-free."""
+        eng = self.eng
+        chained = eng._executor._chain if eng.ecfg.overlap else {}
+        drafts: List[np.ndarray] = []
+        for r in reqs:
+            rid = r.req_id
+            cap = min(eng.ecfg.spec_k,
+                      eng._limit(r) - self._dispatched.get(rid, 0) - 1)
+            if cap < 1 or rid in chained:
+                drafts.append(np.zeros((0,), np.int32))
+            else:
+                drafts.append(np.asarray(eng.speculator.propose(r, cap),
+                                         np.int32))
+        return drafts
+
+    def _reserve_span(self, rid: int, pos: int, k: int) -> int:
+        """Reserve blocks for a ``k``-token draft span on top of the base
+        token's (the verify step writes positions ``pos .. pos + k``). The
+        span shrinks rather than dipping into the watermark reserve,
+        which a running request's serial token may need. Forks any shared
+        block the span writes into. Returns the reserved draft length."""
+        if k <= 0:
+            return 0
+        eng = self.eng
+        mgr = eng.pool.manager
+        while k > 0 and not mgr.can_extend(rid, pos + 1 + k):
+            k -= 1
+        if k == 0:
+            return 0
+        mgr.extend(rid, pos + 1 + k)
+        bs = eng.ecfg.block_size
+        for b in range(pos // bs + 1, (pos + k) // bs + 1):
+            eng.pool.ensure_writable(rid, b * bs)
+        return k

@@ -1,8 +1,7 @@
 """The engine's steps on static buffers, each replayed from one CUDA graph
 per bucket (counterpart of ``StepFunctions`` in ``repro.serving.engine``
 and of its ``_prefill_fn``, ``_prefix_prefill_fn``, ``_chunk_prefill_fn``,
-``_decode_fn`` and ``_paged_decode_fn``; its ``spec_verify`` is not
-ported yet).
+``_decode_fn``, ``_paged_decode_fn`` and ``spec_verify``).
 
 The reference compiles each step once per shape bucket, so a step costs
 one dispatch. Eager PyTorch issues some 1100-1200 launches for a decode
@@ -26,7 +25,13 @@ sets the pace. Here every step is one ``torch.cuda.CUDAGraph`` a bucket:
   prefix-cache hit, every later chunk): the prefix gathered through the
   staged table, the flash kernel's prefix-masked entry with the prefix
   length read from the device, then the write. One program for the
-  reference's ``_prefix_prefill_fn`` and ``_chunk_prefill_fn``.
+  reference's ``_prefix_prefill_fn`` and ``_chunk_prefill_fn``;
+* ``("verify", batch_pad, nb_pad, K_pad, sampled)``, a speculative verify
+  step (:func:`~repro_torch.serving.spec.verify.spec_verify_body`):
+  ``K_pad + 1`` paged decode iterations with the acceptance gating on the
+  device, the paged step's buckets plus the longest draft padded to a
+  power of two; it returns ``[batch_pad, 2 (K_pad + 1)]`` int32, the
+  sampled tokens then the acceptance mask.
 
 ``S`` is the prompt rows' bucket (a multiple of ``prefill_bucket``),
 ``nb_pad`` the prefix's blocks padded to a power of two. A prefill graph
@@ -36,7 +41,8 @@ first token's sample stays outside the graph, as the reference's separate
 
 * A step's inputs (block tables, lengths, positions, input tokens, the
   chain map of an overlapped step, the sampling vectors and the host
-  folded RNG keys; a prefill's tokens, length, prefix length, prefix
+  folded RNG keys; a verify step's drafts and the keys of every counter a
+  row may reach; a prefill's tokens, length, prefix length, prefix
   table and write addresses) are packed on the host into a pinned
   staging buffer (:func:`~repro_torch.kvcache.view.step_fields`,
   :func:`~repro_torch.kvcache.view.prefill_fields`) and go up in one
@@ -81,9 +87,12 @@ import torch
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
-                                      prefill_size, step_fields, step_size)
+                                      prefill_size, step_fields, step_size,
+                                      verify_fields, verify_size)
 from repro_torch.models.model import Model
 from repro_torch.models.sampler import fold_keys, sample_tokens_device
+from repro_torch.serving.spec.verify import (spec_verify_body, stack_drafts,
+                                             verify_keys)
 
 # staging buffers in the ring: the executor's two retained steps, the one
 # being dispatched and one to spare
@@ -111,6 +120,14 @@ def bucket(n: int, b: int) -> int:
     """``n`` rounded up to a multiple of ``b``, at least ``b`` (the
     reference's ``_bucket``)."""
     return max(b, ((n + b - 1) // b) * b)
+
+
+def split_verify(out: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """A verify step's output on the host (``[B, 2 (K_pad + 1)]``, see
+    :meth:`StepFunctions.verify`) as ``(ys, oks)``: the sampled tokens and
+    the boolean acceptance mask, each ``[B, K_pad + 1]``."""
+    n = out.shape[1] // 2
+    return out[:, :n], out[:, n:].astype(bool)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -143,7 +160,9 @@ class CapturedStep:
     def __init__(self, graph, tokens: Optional[torch.Tensor],
                  logits: torch.Tensor, launches: Dict[str, int]):
         self.graph = graph
-        self.tokens = tokens        # [batch] int32 (None: a prefill)
+        # [batch] int32 (None: a prefill; a verify step's tokens and
+        # acceptance mask, [batch, 2 (K_pad + 1)])
+        self.tokens = tokens
         self.logits = logits        # [batch, vocab] float32
         self.launches = launches
 
@@ -192,20 +211,24 @@ class _Staging:
 class StepFunctions:
     """An engine's steps over its pool (one :class:`StepFunctions` a
     pool: the graphs capture its addresses). ``max_batch``,
-    ``max_model_len`` and ``prefill_bucket`` size the static buffers;
+    ``max_model_len``, ``prefill_bucket`` and, with speculation,
+    ``spec_k`` (the longest draft) size the static buffers;
     ``cuda_graphs=False`` keeps every step eager on a CUDA device."""
 
     def __init__(self, model: Model, pool: PagedKVCache, *, max_batch: int,
                  max_model_len: int, prefill_bucket: int = 64,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, spec_k: Optional[int] = None):
         self.model = model
         self.pool = pool
         self.device = pool.device
         self.prefill_bucket = prefill_bucket
         self.graphs_on = cuda_graphs and self.device.type == "cuda"
         nb_max = pow2_bucket(pool.manager.blocks_needed(max_model_len), lo=4)
-        self._staging = _Staging(step_size(pow2_bucket(max_batch), nb_max),
-                                 self.device)
+        words = step_size(pow2_bucket(max_batch), nb_max)
+        if spec_k is not None:      # the largest verify layout too
+            words = verify_size(pow2_bucket(max_batch), nb_max,
+                                pow2_bucket(spec_k))
+        self._staging = _Staging(words, self.device)
         self._prefill_staging = _Staging(
             prefill_size(bucket(max_model_len, prefill_bucket), nb_max),
             self.device)
@@ -222,15 +245,25 @@ class StepFunctions:
     # ----------------------------------------------------------- inputs --
     def _stage(self, reqs: Sequence, positions: Sequence[int],
                tokens: Sequence[int], chain: Optional[Chain],
-               batch_pad: int, nb_pad: int,
-               rids: Sequence[int]) -> Tuple[Dict[str, torch.Tensor], bool]:
-        """Pack one decode step's inputs on the host, copy them up, and
-        gather chained tokens on the device. Returns the device fields and
-        whether any row samples. Padding rows are greedy with seed 0."""
+               batch_pad: int, nb_pad: int, rids: Sequence[int],
+               drafts: Optional[Sequence[np.ndarray]] = None,
+               K_pad: int = 0) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """Pack one decode step's inputs (with ``drafts``, a verify step's,
+        ``K_pad`` wide) on the host, copy them up, and gather chained
+        tokens on the device. Returns the device fields and whether any
+        row samples. Padding rows are greedy with seed 0."""
         B = len(reqs)
-        n = step_size(batch_pad, nb_pad)
-        f = step_fields(self._staging.host()[:n], batch_pad, nb_pad)
+        if drafts is None:
+            layout, shape = step_fields, (batch_pad, nb_pad)
+            n = step_size(*shape)
+        else:
+            layout, shape = verify_fields, (batch_pad, nb_pad, K_pad)
+            n = verify_size(*shape)
+        f = layout(self._staging.host()[:n], *shape)
         self.pool.fill_view(f, rids, positions)
+        if drafts is not None:
+            f["drafts"][:], f["draft_len"][:] = stack_drafts(
+                drafts, batch_pad, K_pad)
         f["tokens"][:] = 0
         f["tokens"][:B] = tokens
         f["use_prev"][:] = 0
@@ -248,9 +281,13 @@ class StepFunctions:
             seed = np.zeros((batch_pad,), np.int64)
             seed[:B] = [np.uint32(s.seed) for s in sp]
             pos = np.zeros((batch_pad,), np.int64)
-            pos[:B] = np.asarray(positions, np.int64) + 1
-            f["keys"].view(np.uint32)[:] = fold_keys(seed, pos)
-        dev = step_fields(self._staging.upload(n), batch_pad, nb_pad)
+            pos[:B] = positions
+            if drafts is None:
+                f["keys"].view(np.uint32)[:] = fold_keys(seed, pos + 1)
+            else:
+                f["key_block"].view(np.uint32)[:] = verify_keys(seed, pos,
+                                                                K_pad)
+        dev = layout(self._staging.upload(n), *shape)
         if chain is not None:
             self._chain(dev, chain[0])
         return dev, sampled
@@ -301,6 +338,43 @@ class StepFunctions:
                                    batch_pad, nb_pad, rids)
         return self._run((batch_pad, nb_pad, sampled),
                          lambda: self._paged_body(dev, sampled),
+                         "decode")[0]
+
+    # ----------------------------------------------------------- verify --
+    def _verify_body(self, dev: Dict[str, torch.Tensor], K_pad: int,
+                     sampled: bool) -> Outputs:
+        """The captured verify step: ``K_pad + 1`` decode iterations on
+        the static fields, every iteration's finiteness folded; returns
+        the sampled tokens and the acceptance mask in one int32 tensor,
+        and iteration 0's logits. Reads and writes device tensors only."""
+        ys, oks, logits, finite = spec_verify_body(self.model, self.pool,
+                                                   dev, K_pad, sampled)
+        self.finite.logical_and_(finite)
+        return torch.cat([ys, oks.to(torch.int32)], 1), logits
+
+    def verify_bucket(self, rids: Sequence[int],
+                      drafts: Sequence[np.ndarray]) -> Tuple[int, int, int]:
+        """``(batch_pad, nb_pad, K_pad)``: the paged step's buckets and the
+        longest draft padded to a power of two, as in the reference."""
+        K_pad = pow2_bucket(max((len(d) for d in drafts), default=1), lo=1)
+        return self.paged_bucket(rids) + (K_pad,)
+
+    def verify(self, reqs: Sequence, rids: Sequence[int],
+               positions: Sequence[int], tokens: Sequence[int],
+               drafts: Sequence[np.ndarray],
+               chain: Optional[Chain] = None) -> torch.Tensor:
+        """One speculative verify step: request ``rids[i]`` takes
+        ``tokens[i]`` (or, in ``chain``, the previous step's output) at
+        ``positions[i]`` and has the draft ``drafts[i]`` checked, its
+        span's blocks already reserved. Returns ``[batch_pad, 2 (K_pad +
+        1)]`` int32 on the device: each row's ``K_pad + 1`` sampled tokens,
+        then its acceptance mask; a later replay of the same bucket
+        rewrites it."""
+        batch_pad, nb_pad, K_pad = self.verify_bucket(rids, drafts)
+        dev, sampled = self._stage(reqs, positions, tokens, chain,
+                                   batch_pad, nb_pad, rids, drafts, K_pad)
+        return self._run(("verify", batch_pad, nb_pad, K_pad, sampled),
+                         lambda: self._verify_body(dev, K_pad, sampled),
                          "decode")[0]
 
     # ----------------------------------------------------------- gather --

@@ -4,11 +4,12 @@ copy of ``repro.serving.workload``).
 :class:`Request` is the frozen input (prompt token ids, arrival time and
 a :class:`SamplingParams`); :class:`RequestState` is the engine-owned
 output. :func:`sharegpt_like`, :func:`shared_prefix_workload` and
-:func:`long_short_workload` make the same numpy draws as the reference
-for the same arguments, so both packages serve identical requests: the
-paper samples ShareGPT requests with mean 161 input / 338 output tokens,
-and lengths here are lognormal around those means; the other two are
-the prefix cache's and chunked prefill's target shapes.
+:func:`long_short_workload` and :func:`repetitive_workload` make the
+same numpy draws as the reference for the same arguments, so both
+packages serve identical requests: the paper samples ShareGPT requests
+with mean 161 input / 338 output tokens, and lengths here are lognormal
+around those means; the other three are the prefix cache's, chunked
+prefill's and speculative decoding's target shapes.
 """
 from __future__ import annotations
 
@@ -385,6 +386,68 @@ def long_short_workload(n_short: int, n_long: int, vocab: int, *,
         prompt = rng.integers(0, vocab, size=lin).astype(np.int32)
         reqs.append(Request(req_id=i, prompt=prompt,
                             sampling=_request_sampling(sampling, i, lout)))
+    return reqs
+
+
+def repetitive_workload(n: int, vocab: int, *, prompt_len: int = 96,
+                        max_new_tokens: int = 48, repeat_rate: float = 0.9,
+                        phrase_len: int = 8, pool_size: int = 4,
+                        seed: int = 0,
+                        arrival_rate: Optional[float] = None,
+                        sampling: Optional[SamplingParams] = None
+                        ) -> List[Request]:
+    """Highly self-repetitive prompts: the speculative-decoding target
+    shape (templated prose, code, extraction tasks that quote their
+    input — text whose continuation has often *already appeared*).
+
+    Each prompt is a stream of ``phrase_len``-token phrases drawn from a
+    per-request pool of ``pool_size`` distinct phrases: with probability
+    ``repeat_rate`` the next phrase is one the prompt already used
+    (re-drawn uniformly — an n-gram the prompt-lookup drafter can match),
+    otherwise it is fresh random text. Knobs:
+
+    * ``repeat_rate`` — fraction of phrases that repeat earlier material;
+      1.0 is pure template text (drafter heaven), 0.0 is fully random
+      (the drafter proposes nothing and speculation costs ~zero);
+    * ``phrase_len`` — repeated-run length; longer phrases let one
+      accepted n-gram match carry more draft tokens;
+    * ``pool_size`` — distinct phrases per request; smaller pools repeat
+      sooner.
+
+    Prompts are request-private (no cross-request sharing), so prefix
+    caching gets no free hits — what this workload measures is
+    *within-request* repetition, the drafter's signal.
+    """
+    if not 0.0 <= repeat_rate <= 1.0:
+        raise ValueError(f"repeat_rate must be in [0, 1], "
+                         f"got {repeat_rate}")
+    if prompt_len < 1 or phrase_len < 1 or pool_size < 1:
+        raise ValueError(f"prompt_len/phrase_len/pool_size must be >= 1, "
+                         f"got {prompt_len}/{phrase_len}/{pool_size}")
+    rng = np.random.default_rng(seed)
+    arrivals = np.zeros(n)
+    if arrival_rate:
+        arrivals = arrival_times(n, arrival_rate,
+                                 rng=np.random.default_rng((seed, 1)))
+    reqs = []
+    for i in range(n):
+        pool = [rng.integers(0, vocab, size=phrase_len).astype(np.int32)
+                for _ in range(pool_size)]
+        used: List[np.ndarray] = []
+        parts: List[np.ndarray] = []
+        total = 0
+        while total < prompt_len:
+            if used and rng.random() < repeat_rate:
+                phrase = used[int(rng.integers(len(used)))]
+            else:
+                phrase = pool[int(rng.integers(len(pool)))]
+                used.append(phrase)
+            parts.append(phrase)
+            total += phrase_len
+        prompt = np.concatenate(parts)[:prompt_len]
+        reqs.append(Request(
+            req_id=i, prompt=prompt, arrival_s=float(arrivals[i]),
+            sampling=_request_sampling(sampling, i, max_new_tokens)))
     return reqs
 
 

@@ -7,7 +7,7 @@ preemption in a starved pool and the gather mode (the families of
 ``tests/test_overlap.py``); a mid-overlap abort reclaims the dispatched
 step's blocks and leaves the survivors' tokens as they were; eviction,
 queued aborts, a deferred device error's attribution, and speculation
-still out of the slice."""
+accepted under overlap."""
 import dataclasses
 
 import pytest
@@ -252,6 +252,10 @@ def test_deferred_device_error_names_its_step(models):
     assert not eng._executor._inflight and not eng._executor._chain
 
 
-def test_speculation_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(overlap=True, speculate=True)
+def test_speculation_still_raises(models):
+    """Speculation under overlap is ported, so it no longer raises: the
+    config is accepted and the overlapped engine builds its drafter
+    (``tests/test_torch_speculative.py`` holds its tokens)."""
+    eng = _engine(models, overlap=True, speculate=True)
+    assert eng.ecfg.overlap and eng.speculator is not None
+    assert not eng._executor._spec_pending

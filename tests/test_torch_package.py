@@ -1,6 +1,7 @@
 """Hygiene of the PyTorch port: it imports neither JAX nor the JAX
-package, its entry points default to the card, and every feature outside
-its slice raises instead of being ignored."""
+package, its entry points default to the card, every feature outside
+its slice raises instead of being ignored, and the ported speculation
+flags are accepted."""
 import ast
 import pathlib
 import subprocess
@@ -45,7 +46,7 @@ def test_no_jax_or_reference_import(path):
 
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.serving.spec, repro_torch.kernels.ops; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -67,15 +68,28 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu").type == "cpu"
 
 
-# overlap is in the slice since the executor was ported; with speculation
-# it still raises (speculation's own)
+# overlap and speculation are in the slice since their ports; load
+# shedding still raises
 @pytest.mark.parametrize("flag", [
-    {"overlap": True, "speculate": True}, {"speculate": True},
     {"max_waiting": 4},
     {"shed_kv_fraction": 0.9}, {"shed_queue_delay_s": 1.0}])
 def test_out_of_slice_engine_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         EngineConfig(**flag)
+
+
+@pytest.mark.parametrize("flag", [
+    {"overlap": True, "speculate": True}, {"speculate": True}])
+def test_speculation_flags_accepted(flag):
+    """Speculative decoding is ported: the config is accepted and a paged
+    engine on the CPU builds its drafter."""
+    cfg = EngineConfig(**flag)
+    assert cfg.speculate and cfg.overlap == flag.get("overlap", False)
+    engine = ContinuousBatchingEngine(
+        Model(reduced(get_config("opt-1.3b")), device="cpu"), cfg,
+        device="cpu")
+    assert engine.speculator is not None and \
+        engine.spec_disabled_reason is None
 
 
 def test_engine_config_validation_kept():
