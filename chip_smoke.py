@@ -66,7 +66,19 @@ It imports nothing of JAX or of the JAX package. Phases:
    overlap; greedy also off and eager), with a profile window of verify
    steps (busy against wall a decode iteration; the paged kernel's
    replayed launches against the counters and the trace) and the token
-   agreement with speculation off. Each paged and gather way is followed by a
+   agreement with speculation off; then observability (``[obs]``): the
+   paged serve's 32 requests with ``Observability(audit_memory=True,
+   windows=True)`` attached, with graphs and overlap and with graphs
+   sync, tokens equal to the observer off, each step variant's live
+   roofline (no bandwidth or compute share above 1), the memory-gap
+   partition exact on every step, the Chrome trace written to
+   ``chiprun_out/obs_trace.json`` and validated; the CUDA-event device
+   time of 10 steady decode steps between 0.95 x the profiler's busy
+   time and the host wall time of a step; output tok/s with the
+   observer off and on in turns on a warm overlapped engine; and a
+   deadline and shedding serve (``max_waiting``, end-to-end and TTFT
+   deadlines, ``try_add_request``; the counters add up, an expired
+   request keeps its partial output). Each paged and gather way is followed by a
    ``torch.profiler`` window of 10 steady decode steps at batch 16
    (device busy time by kernel kind against host wall time; with graphs
    and no overlap, the decode kernel's replayed launches against the
@@ -120,8 +132,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12        # H100 SXM device memory rate (data sheet)
-BF16_FLOP_S = 989e12         # H100 SXM dense bf16 tensor rate (data sheet)
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}   # the reference's kernel tolerances
 RTOL = 1e-2
 ROW_ATOL = 1e-2              # paged multi-split atol: of a row's largest |out|
@@ -236,10 +246,20 @@ def l2_cold_ms(fn, inputs):
     return device_ms(lambda: fn(*next(turn)), runs=len(inputs))
 
 
-def bound(nbytes, flops, flop_rate=BF16_FLOP_S):
+def card_peaks():
+    """The card's data-sheet peaks: the port's ``H100_SXM5_80GB`` entry
+    (dense bf16 tensor rate, device memory rate), the one source the
+    live roofline reads too."""
+    from repro_torch.core.hardware import H100_SXM5_80GB
+    return H100_SXM5_80GB
+
+
+def bound(nbytes, flops, flop_rate=None):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak rate for their type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_rate
+    operations over the peak rate for their type (bf16 by default)."""
+    hw = card_peaks()
+    flop_rate = hw.peak_flops if flop_rate is None else flop_rate
+    t_bytes, t_ops = nbytes / hw.hbm_bw, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1146,10 +1166,11 @@ def serve_config(decode_mode="paged", **kw):
         **kw})
 
 
-def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
+def serve(model, reqs, decode_mode, card, tag=None, obs=None, **ecfg_kw):
     """Serve ``reqs`` to completion on a new engine (:func:`run_served`),
-    then print the device memory the engine holds, which it also keeps
-    as ``engine.graph_pool_bytes`` (the graph pools and step buffers).
+    with the ``Observability`` ``obs`` attached if given, then print the
+    device memory the engine holds, which it also keeps as
+    ``engine.graph_pool_bytes`` (the graph pools and step buffers).
     Returns the engine, its metrics and the launch counts."""
     import torch
     from repro_torch.serving import ContinuousBatchingEngine
@@ -1158,6 +1179,8 @@ def serve(model, reqs, decode_mode, card, tag=None, **ecfg_kw):
     base = torch.cuda.memory_reserved()
     engine = ContinuousBatchingEngine(model,
                                       serve_config(decode_mode, **ecfg_kw))
+    if obs is not None:
+        obs.attach(engine)
     torch.cuda.synchronize()
     tag = f"[serve {tag or decode_mode}]"
     metrics, launches = run_served(engine, reqs, card, tag)
@@ -1687,9 +1710,11 @@ def phase_graph_modes(model, card, runs):
     afresh here: eager decode steps, CUDA graphs, CUDA graphs with
     overlap. Every way's tokens must equal those of ``runs[kind]`` (the
     graphs-sync serves of the earlier phases); each way's serve metrics
-    and profile window are printed, then a table of them."""
+    and profile window are printed, then a table of them. Returns each
+    ``(kind, way)``'s requests, metrics and profile."""
     from repro_torch.serving.workload import SamplingParams
     table = []
+    served = {}
     for kind, sampling in (("greedy", None), ("sampled", SAMPLED)):
         sp = SamplingParams(**sampling) if sampling else None
         for way, kw in WAYS.items():
@@ -1704,6 +1729,7 @@ def phase_graph_modes(model, card, runs):
                                      f"from the graphs-sync serve at {diff}")
             prof = profile_decode(model, "paged", card, sampling=sp,
                                   tag=f"paged, {kind}, {way}", **kw)
+            served[kind, way] = dict(reqs=reqs, metrics=m, prof=prof)
             table.append(f"{kind}, {way}: output "
                          f"{m.output_throughput:.1f} tok/s, ITL p50 "
                          f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} "
@@ -1716,6 +1742,7 @@ def phase_graph_modes(model, card, runs):
               f"{sum(r.generated for r in runs[kind])} tokens")
     for row in table:
         print(f"[graphs] on {card}: {row}")
+    return served
 
 
 SPEC_SERVE = dict(max_batch=4, speculate=True, spec_k=8)
@@ -1800,6 +1827,10 @@ def spec_window(engine, steps, wrap=contextlib.nullcontext):
               engine.verify_iterations, sum(engine.decode_token_samples),
               read_launches()["paged_decode_attention"])
         with wrap() as ctx:
+            # a kernel of a few microseconds opens the window: a trace may
+            # miss the first kernel after it starts (as phase_prefill_steps)
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(steps):
                 engine.step(0.0)
@@ -1879,6 +1910,276 @@ def spec_profile(engine, sp, card, kind, steps=10):
           + ("" if steady else "; a window met a new bucket"))
     for r in list(engine.running) + list(engine.waiting):
         engine.abort(r.req_id)
+
+
+# ------------------------------------------------------- observability ----
+def obs_roofline(ob, tag, card):
+    """Print each step variant's live roofline summary (steps, mean
+    bandwidth and compute shares of the card's peaks, arithmetic
+    intensity, device time, the verdicts); fail if any sample's share of
+    either peak is above 1 (a census that undercounts). Returns the
+    decode summary."""
+    from repro_torch.core.census import VARIANTS
+    hw = ob.roofline.hw
+    for variant in VARIANTS:
+        samples = ob.roofline.variant_samples(variant)
+        if not samples:
+            continue
+        s = ob.roofline.summary(variant)
+        verdicts = {}
+        for x in samples:
+            verdicts[x.bound(hw)] = verdicts.get(x.bound(hw), 0) + 1
+        print(f"[obs] {tag} on {card}: {variant}: {s['steps']} steps, "
+              f"bw_util mean {s['bw_util_mean'] * 100:.2f}%, mfu mean "
+              f"{s['mfu_mean'] * 100:.3f}%, ai mean {s['ai_mean']:.2f} "
+              f"flop/B, device_s mean {s['device_s_mean'] * 1e3:.3f} ms, "
+              f"bound {verdicts}")
+    over = [x for x in ob.roofline.samples
+            if x.bw_util(hw) > 1.0 or x.compute_util(hw) > 1.0]
+    if over:
+        x = over[0]
+        raise AssertionError(
+            f"{tag}: {len(over)} samples above a peak, e.g. {x.variant} "
+            f"step {x.step}: {x.bytes:.4g} B and {x.flops:.4g} FLOP in "
+            f"{x.device_s * 1e3:.3f} ms (bw {x.bw_util(hw):.3f}, compute "
+            f"{x.compute_util(hw):.3f}): the census undercounts")
+    rep = ob.roofline.report("decode", arch=MODEL)
+    if rep is not None:
+        print(f"[obs] {tag} roofline_report('decode') of the last decode "
+              f"step (arch | shape | mesh | compute ms | memory ms | "
+              f"collective ms | dominant | useful | GB): {rep.row()}")
+    return ob.roofline.summary("decode")
+
+
+def obs_memory_gap(ob, tag, card):
+    """Print the memory-gap report; every audited step's partition must
+    be exact."""
+    aud = ob.auditor
+    if aud.audits != len(aud.steps) or not aud.audits:
+        raise AssertionError(f"{tag}: {aud.audits} audits, "
+                             f"{len(aud.steps)} kept")
+    for wb in aud.steps:
+        if wb.physical_bytes != wb.pool_bytes:
+            raise AssertionError(f"{tag}: step {wb.step}: partition "
+                                 f"{wb.physical_bytes} != {wb.pool_bytes}")
+    rep = aud.report()
+    mean = rep["mean_bytes"]
+    print(f"[obs] {tag} memory gap on {card}: {aud.audits} steps, the "
+          f"partition exact on each; pool {rep['pool_bytes'] / 1e9:.3f} GB; "
+          f"means: used {mean['used'] / 1e9:.4f} GB, block-pad "
+          f"{mean['block_pad'] / 1e9:.4f} GB, prefix-held "
+          f"{mean['prefix_held'] / 1e9:.4f} GB, free {mean['free'] / 1e9:.4f}"
+          f" GB; overlays: reserved-unused {mean['reserved_unused'] / 1e9:.4f}"
+          f" GB, bucket-pad {mean['bucket_pad'] / 1e9:.4f} GB; peak used "
+          f"{rep['peak_used_bytes'] / 1e9:.4f} GB at step "
+          f"{rep['peak_used_step']} ({rep['peak_used_tokens_per_req']:.1f} "
+          f"tokens a request); gap {rep['gap_fraction_mean'] * 100:.1f}% "
+          f"of the pool, worst term {rep['worst_term']}")
+
+
+def obs_steady(model, card, prof):
+    """The event-timed device time of 10 steady decode steps at batch 16
+    (profile_decode's setup: the serve's first 16 requests, 21 warm
+    steps, an untimed window, then the window read), held between 0.95 x
+    the torch.profiler busy time of phase 4's graphs-sync window and the
+    host wall time of a step there. Returns (device ms, wall ms)."""
+    import torch
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.obs import Observability
+    engine = ContinuousBatchingEngine(model, serve_config("paged"))
+    obs = Observability()
+    ob = obs.attach(engine)
+    for r in serve_workload()[:16]:
+        engine.add_request(r)
+    for _ in range(21):
+        engine.step(0.0)
+    torch.cuda.synchronize()
+    steady_steps(engine, 10)
+    _, wall_ms, _ = steady_steps(engine, 10)
+    samples = ob.roofline.variant_samples("decode")[-10:]
+    if len(samples) != 10 or any(s.batch != 16 for s in samples):
+        raise AssertionError(f"steady window: {[s.batch for s in samples]}")
+    dev_ms = statistics.mean(s.device_s for s in samples) * 1e3
+    hw = ob.roofline.hw
+    print(f"[obs] steady decode on {card}: 10 steps at batch 16 "
+          f"({sum(engine._pos.values())} context tokens at the end): "
+          f"CUDA-event device time {dev_ms:.3f} ms/step (min "
+          f"{min(s.device_s for s in samples) * 1e3:.3f}, max "
+          f"{max(s.device_s for s in samples) * 1e3:.3f}); phase 4's "
+          f"torch.profiler busy {prof['busy']:.3f} ms, host wall "
+          f"{prof['wall']:.3f} ms a step (observer off); this window's host "
+          f"wall {wall_ms:.3f} ms with the observer on; bw_util "
+          f"{statistics.mean(s.bw_util(hw) for s in samples) * 100:.2f}%, "
+          f"mfu {statistics.mean(s.compute_util(hw) for s in samples) * 100:.3f}"
+          f"%, {samples[-1].bytes / 1e9:.4f} GB and "
+          f"{samples[-1].flops / 1e9:.2f} GFLOP a step")
+    if not 0.95 * prof["busy"] <= dev_ms <= prof["wall"]:
+        raise AssertionError(
+            f"event-timed device time {dev_ms:.3f} ms outside [0.95 x busy "
+            f"{prof['busy']:.3f}, wall {prof['wall']:.3f}]")
+    del engine, obs, ob
+    release()
+    return dev_ms, wall_ms
+
+
+def obs_deadlines(model, card):
+    """A deadline and shedding serve (graphs, overlap, an observer): 48
+    requests of the ShareGPT prompts submitted 4 a step through
+    ``try_add_request`` at the serving clock, with ``max_waiting=8``;
+    every fourth carries a 0.4 s end-to-end deadline and 400 new tokens
+    (admitted first, it expires mid-decode), every fourth after it a
+    50 ms TTFT deadline and 32 tokens, the rest 48 tokens. Every request
+    must finish (length or stop), be shed or expire; the counters must add
+    up; an expired request keeps its partial output; every block must be
+    back."""
+    import torch
+    from repro_torch.serving import (ContinuousBatchingEngine, Request,
+                                     SamplingParams)
+    from repro_torch.serving.metrics import collect_from_engine
+    from repro_torch.serving.obs import Observability
+    from repro_torch.serving.obs.windows import STREAM_DEADLINE
+    engine = ContinuousBatchingEngine(
+        model, serve_config(overlap=True, max_waiting=8))
+    obs = Observability(windows=True)
+    obs.attach(engine)
+    prompts = [r.prompt for r in serve_workload()]
+    kinds = (dict(deadline_s=0.4, max_new_tokens=400),
+             dict(ttft_deadline_s=0.05, max_new_tokens=32),
+             dict(max_new_tokens=48), dict(max_new_tokens=48))
+    reqs, verdicts = [], {}
+    t0 = time.perf_counter()
+    while len(reqs) < 48 or engine.busy:
+        now = time.perf_counter() - t0
+        for _ in range(4 if len(reqs) < 48 else 0):
+            i = len(reqs)
+            req = Request(i, prompts[i % 32], arrival_s=now,
+                          sampling=SamplingParams(**kinds[i % 4]))
+            reqs.append(req)
+            reason = engine.try_add_request(req, now)
+            verdicts[reason] = verdicts.get(reason, 0) + 1
+        engine.step(now)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finish = {}
+    for r in reqs:
+        finish[r.finish_reason] = finish.get(r.finish_reason, 0) + 1
+    m = collect_from_engine(engine, reqs, wall)
+    expired = [r for r in reqs if r.finish_reason == "deadline"]
+    partial = [r for r in expired if 0 < r.generated < r.max_new_tokens]
+    misses = sum(v for _, v in obs.windows.samples(STREAM_DEADLINE))
+    mgr = engine.pool.manager
+    print(f"[obs] deadlines and shedding on {card}: {len(reqs)} requests in "
+          f"{wall:.2f} s; try_add_request verdicts {verdicts}; finish "
+          f"{finish}; shed {engine.shed} {engine.shed_reasons}, deadline "
+          f"expired {engine.deadline_expired} ({len(partial)} mid-decode, "
+          f"partial outputs of {[r.generated for r in partial]} tokens kept)"
+          f"; windows deadline misses {misses:.0f}; output "
+          f"{m.output_throughput:.1f} tok/s")
+    if set(finish) - {"length", "stop", "shed", "deadline"} \
+            or any(r.t_done is None for r in reqs):
+        raise AssertionError(f"unexpected finishes {finish}")
+    if not (engine.shed == finish.get("shed", 0) == m.shed
+            == sum(engine.shed_reasons.values())
+            == len(reqs) - verdicts.get(None, 0) > 0):
+        raise AssertionError(f"shed counters disagree: {engine.shed}, "
+                             f"{finish}, {engine.shed_reasons}, {verdicts}")
+    if not (engine.deadline_expired == finish.get("deadline", 0)
+            == m.deadline_expired == misses > 0):
+        raise AssertionError(f"deadline counters disagree: "
+                             f"{engine.deadline_expired}, {finish}, {misses}")
+    if not partial or any(len(r.output_tokens) != r.generated
+                          for r in expired):
+        raise AssertionError("no expired request kept a partial output")
+    if sum(finish.values()) != len(reqs) or m.n_completed != len(reqs) \
+            or mgr.free_blocks != mgr.num_blocks:
+        raise AssertionError(f"{mgr.free_blocks} of {mgr.num_blocks} "
+                             f"blocks free at the end")
+    del engine, obs
+    release()
+
+
+def phase_obs(model, card, modes):
+    """Observability on the card: the paged serve's 32 requests with
+    ``Observability(audit_memory=True, windows=True)`` attached, graphs
+    and overlap, then graphs and sync; each serve's tokens equal to
+    phase 4's with the observer off, each variant's live roofline
+    printed (no share above 1), the memory-gap partition exact on every
+    step, the trace written under ``chiprun_out/`` and valid. Then the
+    event-timed device time of 10 steady steps against phase 4's
+    profiler window, the observer's cost under overlap on a warm engine
+    (off, on, on, off, off, on), and the deadline and shedding serve."""
+    import torch
+    from repro_torch.serving.obs import Observability, validate_chrome_trace
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    engines = {}
+    for way, kw in (("graphs, overlap", dict(overlap=True)),
+                    ("graphs, sync", {})):
+        obs = Observability(audit_memory=True, windows=True)
+        reqs = serve_workload()
+        engine, m, _ = serve(model, reqs, "paged", card,
+                             tag=f"obs on, {way}", obs=obs, **kw)
+        off = modes["greedy", way]
+        diff = first_difference(off["reqs"], reqs)
+        if diff:
+            raise AssertionError(f"{way}: observer on differs from off at "
+                                 f"{diff}")
+        ob = obs.observer(0)
+        tag = f"obs on, {way}"
+        print(f"[obs] {tag}: tokens equal to the observer-off serve on all "
+              f"{sum(r.generated for r in reqs)} tokens; hardware "
+              f"{obs.hw.name} ({obs.hw.device_name}, {obs.hw.power_w:.0f} W "
+              f"entry), census of {obs.census.compiles} buckets, "
+              f"{ob.captures} first uses (warm-up + capture), errors "
+              f"{len(obs.census.errors)}")
+        obs_roofline(ob, tag, card)
+        obs_memory_gap(ob, tag, card)
+        ph = ob.phase_summary()
+        print(f"[obs] {tag} phases on {card}: {ph['steps']} steps, means: "
+              f"schedule {ph['schedule_s'] * 1e3:.3f} ms, dispatch "
+              f"{ph['dispatch_s'] * 1e3:.3f} ms, device "
+              f"{ph['device_s'] * 1e3:.3f} ms, host {ph['host_s'] * 1e3:.3f}"
+              f" ms, gap {ph['gap_s'] * 1e3:.3f} ms, dispatch ahead "
+              f"{ph['dispatch_ahead_s'] * 1e3:.3f} ms, total "
+              f"{ph['total_s'] * 1e3:.3f} ms; host-gap fraction "
+              f"{ph['host_gap_fraction'] * 100:.1f}%; output "
+              f"{m.output_throughput:.1f} tok/s (observer off, phase 4: "
+              f"{off['metrics'].output_throughput:.1f})")
+        if way == "graphs, overlap":
+            path = str(out_dir / "obs_trace.json")
+            obs.export_chrome_trace(path)
+            errs = validate_chrome_trace(path)
+            if errs:
+                raise AssertionError(f"trace: {errs[:5]}")
+            print(f"[obs] trace: {obs.trace.n_events} events "
+                  f"({obs.trace.dropped} dropped) in {path}, "
+                  f"validate_chrome_trace: []")
+        engines[way] = (engine, obs, ob)
+    dev_ms, _ = obs_steady(model, card, modes["greedy", "graphs, sync"]
+                           ["prof"])
+    # the observer's cost: the warm overlapped engine, off / on in turns
+    engine, obs, ob = engines["graphs, overlap"]
+    del engines
+    want = modes["greedy", "graphs, overlap"]["reqs"]
+    tps = {False: [], True: []}
+    for on in (False, True, True, False, False, True):
+        engine.obs = ob if on else None
+        engine.reset_stats()
+        reqs = serve_workload()
+        m = engine.run(reqs)
+        torch.cuda.synchronize()
+        if first_difference(want, reqs):
+            raise AssertionError("a warm serve's tokens differ")
+        tps[on].append(m.output_throughput)
+    off, on = statistics.median(tps[False]), statistics.median(tps[True])
+    print(f"[obs] observer cost on {card}, warm graphs + overlap, the "
+          f"32-request serve off, on, on, off, off, on: output tok/s off "
+          f"{tps[False]}, on {tps[True]}; medians {off:.1f} / {on:.1f} "
+          f"({(on / off - 1) * 100:+.2f}%)")
+    del engine, obs, ob
+    release()
+    obs_deadlines(model, card)
+    return dev_ms
 
 
 def phase_gather_serve(model, card, paged_all):
@@ -2697,8 +2998,8 @@ def main() -> int:
                                      model, card)
     sampled_all, by_path["sampled_serve"] = phase(
         "4, sampled serve", phase_sampled_serve, model, card, paged_all)
-    phase("4, graph modes", phase_graph_modes, model, card,
-          {"greedy": paged_all, "sampled": sampled_all})
+    modes = phase("4, graph modes", phase_graph_modes, model, card,
+                  {"greedy": paged_all, "sampled": sampled_all})
     by_path["gather_serve"] = phase("4, gather serve", phase_gather_serve,
                                     model, card, paged_all)
     by_path["static_batch"] = phase("4, static batch", phase_static, model,
@@ -2707,6 +3008,7 @@ def main() -> int:
     phase("4, prefill steps", phase_prefill_steps, model, card)
     by_path["spec_serve"] = phase("4, speculative serve", phase_spec_serve,
                                   model, card)
+    phase("4, observability", phase_obs, model, card, modes)
     phase("5, step compare", phase_step_compare, model, card)
     phase("5, prefill compare", phase_prefill_compare, model, card)
     phase("5, verify compare", phase_verify_compare, model, card)

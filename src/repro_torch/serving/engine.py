@@ -56,21 +56,34 @@ so the pool's writes stay in order. :meth:`ContinuousBatchingEngine.abort` and
 :meth:`~ContinuousBatchingEngine.evict_request` finish a request in any
 phase and reclaim its blocks.
 
-Features of the reference engine outside this slice (load shedding and
-deadlines) raise ``NotImplementedError`` when asked for; ROADMAP.md lists
-them as the next slices.
+Requests may carry deadlines (``deadline_s``, ``ttft_deadline_s``): each
+step first finishes every request past its deadline, in any phase, its
+partial output kept. :meth:`ContinuousBatchingEngine.try_add_request`
+applies admission control (``max_waiting``, ``shed_kv_fraction``,
+``shed_queue_delay_s``, and a deadline the estimated queue delay already
+blows), finishing a rejected request as ``shed`` instead of queueing it.
+
+An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
+receives every lifecycle event, every prefill and decode step's bucket
+census, live attention work and device time (CUDA events around the
+step's replay, read once its output is on the host), and each step's
+end. Detached, each hook site costs one attribute check and no event is
+recorded. Every per-step series is bounded
+(:class:`~repro_torch.serving.obs.series.BoundedSeries`,
+``series_maxlen``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.census import LiveWork
 from repro_torch.device import resolve_device
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
@@ -79,7 +92,9 @@ from repro_torch.models.model import Model
 from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
 from repro_torch.serving.executor import Executor
-from repro_torch.serving.metrics import ServingMetrics, collect
+from repro_torch.serving.metrics import ServingMetrics, collect_from_engine
+from repro_torch.serving.obs.series import (DEFAULT_SERIES_MAXLEN,
+                                            BoundedSeries)
 from repro_torch.serving.scheduler import Scheduler, StepPlan
 from repro_torch.serving.spec import Drafter, PromptLookupDrafter
 from repro_torch.serving.spec.verify import accepted_prefix
@@ -96,11 +111,6 @@ class RequestTooLarge(RuntimeError):
     def __init__(self, msg: str, req_id: int):
         super().__init__(msg)
         self.req_id = req_id
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, next slices: {item})")
 
 
 @dataclasses.dataclass
@@ -134,11 +144,20 @@ class EngineConfig:
     # to an in-flight plain step plans nothing, so the drafter sees
     # committed context
     spec_probe_every: int = 8
-    # the reference's other features; any value but the default raises
-    # NotImplementedError (see the module docstring)
+    # --- admission control / load shedding (all off by default) ---
+    # bound on the arrival queue: a submit past it is shed ("queue_full")
     max_waiting: Optional[int] = None
+    # refuse submits while the pool is fuller than this fraction and
+    # requests already queue behind it ("kv_pressure")
     shed_kv_fraction: Optional[float] = None
+    # refuse submits once the estimated queue delay exceeds this bound
+    # ("queue_delay"); a submit whose own deadline the estimate blows is
+    # shed as "deadline_unmeetable" even without it
     shed_queue_delay_s: Optional[float] = None
+    # bound on every per-step series (ITL, KV occupancy, stall, token
+    # splits, preemptions, the observer's samples): a series reaching it
+    # decimates itself (uniform 1-in-N over the whole run)
+    series_maxlen: int = DEFAULT_SERIES_MAXLEN
 
     def __post_init__(self):
         if self.max_batch < 1:
@@ -187,9 +206,23 @@ class EngineConfig:
             raise ValueError(
                 f"spec_probe_every must be >= 1, got "
                 f"{self.spec_probe_every}")
-        if (self.max_waiting, self.shed_kv_fraction,
-                self.shed_queue_delay_s) != (None, None, None):
-            raise _not_ported("load shedding", "observability")
+        if self.max_waiting is not None and self.max_waiting < 1:
+            raise ValueError(
+                f"max_waiting must be >= 1 (or None for an unbounded "
+                f"queue), got {self.max_waiting}")
+        if self.shed_kv_fraction is not None \
+                and not 0.0 < self.shed_kv_fraction <= 1.0:
+            raise ValueError(
+                f"shed_kv_fraction must be in (0, 1] (or None to "
+                f"disable), got {self.shed_kv_fraction}")
+        if self.shed_queue_delay_s is not None \
+                and self.shed_queue_delay_s <= 0:
+            raise ValueError(
+                f"shed_queue_delay_s must be > 0 (or None to disable), "
+                f"got {self.shed_queue_delay_s}")
+        if self.series_maxlen < 2:
+            raise ValueError(
+                f"series_maxlen must be >= 2, got {self.series_maxlen}")
 
 
 _bucket = bucket
@@ -238,6 +271,10 @@ class ContinuousBatchingEngine:
             spec_k=ecfg.spec_k if self.speculator is not None else None)
         self._executor = Executor(self)
         self.step_count = 0          # step() calls, counted from 1
+        self.replica_id = 0
+        # observability hook sink (serving.obs): None = detached; an
+        # attached observer also turns the steps' device-time marks on
+        self._obs = None
         self.chunking = ecfg.prefill_chunk_tokens is not None and ok
         self.chunking_disabled_reason = (
             why if ecfg.prefill_chunk_tokens is not None else None)
@@ -259,18 +296,29 @@ class ContinuousBatchingEngine:
         # prefills and chunks that attend over a prefix in the pool (a
         # prefix-cache hit, or a chunk after the prompt's first)
         self.suffix_prefills = 0
-        self.itl_samples: List[float] = []
-        self.batch_samples: List[int] = []
-        self.kv_fraction_samples: List[float] = []
+        ml = self.ecfg.series_maxlen
+        self.itl_samples: List[float] = BoundedSeries(ml)
+        self.batch_samples: List[int] = BoundedSeries(ml)
+        self.kv_fraction_samples: List[float] = BoundedSeries(ml)
         self.max_kv_fraction = 0.0
         self.preemptions = 0
         self.prefill_tokens_computed = 0
         # per step: seconds of admission and prefill before the decode
-        # launch (the head-of-line share of ITL), prompt and decode tokens
-        self.stall_samples: List[float] = []
-        self.prefill_token_samples: List[int] = []
-        self.decode_token_samples: List[int] = []
+        # launch (the head-of-line share of ITL), prompt and decode tokens,
+        # and the preemptions it made
+        self.stall_samples: List[float] = BoundedSeries(ml)
+        self.prefill_token_samples: List[int] = BoundedSeries(ml)
+        self.decode_token_samples: List[int] = BoundedSeries(ml)
+        self.preemption_samples: List[int] = BoundedSeries(ml)
         self.queued_aborts = 0       # aborts caught in the arrival queue
+        # robustness counters (also broken down in finish_reasons)
+        self.deadline_expired = 0
+        self.shed = 0
+        self.shed_reasons: Dict[str, int] = {}
+        # the newest decode step's bucket facts, kept only while observed:
+        # (rows_pad, table width, live table entries), the memory-gap
+        # auditor's bucket-pad overlay
+        self._last_buckets = None
         # overlapped commits that found their step still running (the
         # device set the pace), of decode_steps
         self.commit_waits = 0
@@ -281,7 +329,7 @@ class ContinuousBatchingEngine:
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_rejected = 0
-        self.spec_acceptance_samples: List[float] = []
+        self.spec_acceptance_samples: List[float] = BoundedSeries(ml)
         self.verify_iterations = 0
         if self.prefix is not None:
             self.prefix.stats = PrefixStats()
@@ -316,6 +364,16 @@ class ContinuousBatchingEngine:
         return self.sched._pos
 
     @property
+    def obs(self):
+        """The attached observer (None: detached)."""
+        return self._obs
+
+    @obs.setter
+    def obs(self, observer):
+        self._obs = observer
+        self.steps.timing = observer is not None
+
+    @property
     def busy(self) -> bool:
         """Any request still queued, prefilling or decoding?"""
         return bool(self.waiting or self.prefilling or self.running)
@@ -328,9 +386,35 @@ class ContinuousBatchingEngine:
                 f"({self.ecfg.max_model_len}); reject or truncate the "
                 f"prompt upstream")
         if req.sampling.has_deadline:
-            raise _not_ported(f"request {req.req_id}: deadlines",
-                              "observability")
+            self.sched._has_deadlines = True
         self.waiting.append(req)
+        if self.obs is not None:
+            self.obs.on_submit(req)
+
+    # ----------------------------------------------- admission control --
+    def estimated_queue_delay_s(self) -> float:
+        """See :meth:`Scheduler.estimated_queue_delay_s`."""
+        return self.sched.estimated_queue_delay_s()
+
+    def shed_check(self, req: Request, now: float) -> Optional[str]:
+        """Would admission control reject ``req`` submitted at ``now``?
+        See :meth:`Scheduler.shed_check`."""
+        return self.sched.shed_check(req, now)
+
+    def shed_request(self, req: Request, now: float, reason: str):
+        """See :meth:`Scheduler.shed_request`."""
+        self.sched.shed_request(req, now, reason)
+
+    def try_add_request(self, req: Request, now: float) -> Optional[str]:
+        """Admission-controlled enqueue: shed ``req`` (returning the
+        reason) or accept it (returning None). An overloaded engine
+        degrades by rejecting work; it never raises on it."""
+        reason = self.shed_check(req, now)
+        if reason is not None:
+            self.shed_request(req, now, reason)
+            return reason
+        self.add_request(req)
+        return None
 
     def _now(self, fallback: float) -> float:
         return self.clock() if self.clock is not None else fallback
@@ -354,6 +438,8 @@ class ContinuousBatchingEngine:
         self._executor.invalidate(req.req_id)
         if self.speculator is not None:
             self.speculator.forget(req.req_id)
+        if self.obs is not None:
+            self.obs.on_finish(req, reason)
 
     def _finish_or_run(self, req: Request, t_done: float) -> bool:
         """Finish protocol for the just-produced last token: a stop token
@@ -373,6 +459,8 @@ class ContinuousBatchingEngine:
         token, or a stop token first) or move it to the decode batch.
         ``now`` may be ahead of the clock after an arrival fast-forward."""
         req.state.t_first_token = max(now, self._now(now))
+        if self.obs is not None:
+            self.obs.on_first_token(req)
         if not self._finish_or_run(req, req.state.t_first_token):
             self.running.append(req)
 
@@ -437,19 +525,35 @@ class ContinuousBatchingEngine:
         self._post_prefill(req, now)
 
     def _suffix_prefill(self, req: Request, start: int, n: int,
-                        prefix_blocks: int) -> torch.Tensor:
+                        prefix_blocks: int, variant: str) -> torch.Tensor:
         """Prefill prompt positions ``[start, start + n)`` at batch 1 over
         the prefix in the request's first ``prefix_blocks`` blocks
         (gathered in a power-of-two number of blocks, as in the reference;
         none when ``start`` is 0), writing the rows token by token (the
         engine's step, a graph replay on a CUDA device). Returns the last
-        position's ``[1, vocab]`` logits."""
+        position's ``[1, vocab]`` logits. An observer gets the call as
+        ``variant`` (the reference's name for it)."""
         if start:
             self.suffix_prefills += 1
         self.prefill_tokens_computed += n
-        return self.steps.prefill(req.req_id, req.prompt[start:start + n],
-                                  start, prefix_blocks,
-                                  _pow2_bucket(prefix_blocks))
+        nb_pad = _pow2_bucket(prefix_blocks)
+        call = lambda: self.steps.prefill(  # noqa: E731
+            req.req_id, req.prompt[start:start + n], start, prefix_blocks,
+            nb_pad)
+        obs = self.obs
+        if obs is None:
+            return call()
+        S = self.steps.prefill_key(n, start, nb_pad)[1]
+        sc = obs.census.get(variant, (S, nb_pad) if start else (S,),
+                            cfg=self.cfg, block_size=self.ecfg.block_size)
+        t0 = time.perf_counter()
+        logits = call()
+        t1 = time.perf_counter()
+        obs.on_prefill(req, variant, sc, t0, t1, self.steps.last, tokens=n,
+                       live=LiveWork(rows=n, context=start,
+                                     entries=prefix_blocks),
+                       step=self.step_count)
+        return logits
 
     def _prefill(self, req: Request, n_cached: int = 0) -> torch.Tensor:
         """Serial prefill of the uncached part of the prompt (all of it
@@ -462,7 +566,9 @@ class ContinuousBatchingEngine:
                 f"(block_size={self.ecfg.block_size})")
         self.prefills += 1
         return self._suffix_prefill(req, n_cached, req.prompt_len - n_cached,
-                                    n_cached // self.ecfg.block_size)
+                                    n_cached // self.ecfg.block_size,
+                                    "prefix_prefill" if n_cached
+                                    else "prefill")
 
     def _run_chunk(self, req: Request, done: int, chunk: int
                    ) -> torch.Tensor:
@@ -472,7 +578,8 @@ class ContinuousBatchingEngine:
         final chunk's are used)."""
         self.chunks += 1
         return self._suffix_prefill(req, done, chunk,
-                                    -(-done // self.ecfg.block_size))
+                                    -(-done // self.ecfg.block_size),
+                                    "chunk_prefill" if done else "prefill")
 
     def step(self, now: float) -> bool:
         """One engine iteration. Returns False when fully idle. In sync
@@ -485,7 +592,8 @@ class ContinuousBatchingEngine:
         plan = self.sched.plan(now)
         if not plan.has_decode:
             if plan.n_prefill:     # KV streamed in with no decode step
-                self._record_prefill_only(plan)
+                self._record_prefill_only(plan,
+                                          self.preemptions - plan.p0)
             return self.busy
         reqs = plan.reqs
         if plan.drafts is not None:
@@ -497,7 +605,8 @@ class ContinuousBatchingEngine:
         else:
             next_tokens = self._decode_gather(plan)
         dt = time.perf_counter() - plan.t0
-        self._record_decode(dt, plan, len(reqs))
+        self._record_decode(dt, plan, len(reqs),
+                            preempted=self.preemptions - plan.p0)
         still = []
         for i, r in enumerate(reqs):
             self._pos[r.req_id] += 1
@@ -508,6 +617,10 @@ class ContinuousBatchingEngine:
             if not self._finish_or_run(r, now + dt):
                 still.append(r)
         self.running = still
+        if self.obs is not None:
+            # last statement of the step: the host phase runs to here
+            self.obs.end_step(self, t0=plan.t0, t_sched_s=plan.t_sched,
+                              n_prefill=plan.n_prefill, n_decode=len(reqs))
         return True
 
     def _record_kv(self):
@@ -515,16 +628,21 @@ class ContinuousBatchingEngine:
         self.max_kv_fraction = max(self.max_kv_fraction,
                                    self.pool.manager.used_fraction)
 
-    def _record_prefill_only(self, plan: StepPlan):
+    def _record_prefill_only(self, plan: StepPlan, preempted: int):
         """The series of an iteration that streamed KV in with no decode
-        step."""
+        step (``preempted``: the preemptions since the last sample), and
+        the observer's step end."""
         self.stall_samples.append(plan.t_sched)
         self.prefill_token_samples.append(plan.n_prefill)
         self.decode_token_samples.append(0)
+        self.preemption_samples.append(preempted)
         self._record_kv()
+        if self.obs is not None:
+            self.obs.end_step(self, t0=plan.t0, t_sched_s=plan.t_sched,
+                              n_prefill=plan.n_prefill, n_decode=0)
 
     def _record_decode(self, itl: float, plan: StepPlan, n_decode: int,
-                       tokens: Optional[int] = None):
+                       tokens: Optional[int] = None, preempted: int = 0):
         """The series of a committed decode step of ``n_decode`` rows that
         committed ``tokens`` tokens (one a row unless a verify step's)."""
         self.itl_samples.append(itl)
@@ -532,26 +650,74 @@ class ContinuousBatchingEngine:
         self.prefill_token_samples.append(plan.n_prefill)
         self.decode_token_samples.append(
             n_decode if tokens is None else tokens)
+        self.preemption_samples.append(preempted)
         self.batch_samples.append(n_decode)
         self._record_kv()
+
+    def _step_facts(self, variant: str, plan: StepPlan):
+        """An observed decode, gather or verify step's bucket census and
+        live attention work (:class:`~repro_torch.core.census.LiveWork`:
+        its rows, their summed lengths, their live table entries), read
+        on the host at staging; stashes the bucket facts for the
+        memory-gap auditor. Returns ``(census, live)``."""
+        rids, positions = plan.rids, plan.positions
+        if variant == "decode_gather":
+            width = self.steps.gather_bucket(positions)
+            bucket: Tuple = (len(rids), width)
+        elif variant == "spec_verify":
+            bucket = self.steps.verify_bucket(rids, plan.drafts)
+            width = bucket[1]
+        else:
+            bucket = self.steps.paged_bucket(rids)
+            width = bucket[1]
+        tables = self.pool.manager.tables
+        entries = sum(min(len(tables[r]), width) for r in rids)
+        self._last_buckets = (bucket[0], width, entries)
+        live = LiveWork(rows=len(rids), context=sum(positions) + len(rids),
+                        entries=entries)
+        return self.obs.census.get(variant, bucket, cfg=self.cfg,
+                                   block_size=self.ecfg.block_size), live
+
+    def _observed_sync(self, variant: str, plan: StepPlan, dispatch,
+                       fetch) -> np.ndarray:
+        """Run one sync decode, gather or verify step: ``dispatch()``
+        queues it, ``fetch(out)`` brings its tokens to the host; an
+        attached observer gets its census, live work, host stamps and
+        device-time marks."""
+        obs = self.obs
+        if obs is None:
+            return fetch(dispatch())
+        sc, live = self._step_facts(variant, plan)
+        t0 = time.perf_counter()
+        out = dispatch()
+        t1 = time.perf_counter()
+        timing = self.steps.last
+        host = fetch(out)
+        obs.on_decode(sc, t0, t1, time.perf_counter(), timing,
+                      batch=len(plan.rids), variant=variant, live=live)
+        return host
 
     def _decode_paged(self, plan: StepPlan) -> np.ndarray:
         """One zero-copy decode step over the bucketed batch (a graph
         replay on a CUDA device); returns the next token of each live
         row (padding rows are greedy and cut)."""
-        out = self.steps.paged(plan.reqs, plan.rids, plan.positions,
-                               [self._tokens[rid] for rid in plan.rids])
         self.decode_steps += 1
-        return out[:len(plan.rids)].cpu().numpy()
+        return self._observed_sync(
+            "decode", plan,
+            lambda: self.steps.paged(plan.reqs, plan.rids, plan.positions,
+                                     [self._tokens[r] for r in plan.rids]),
+            lambda out: out[:len(plan.rids)].cpu().numpy())
 
     def _decode_gather(self, plan: StepPlan) -> np.ndarray:
         """One dense-copy decode step (the reference's ``_decode_gather``):
         gather, decode at ``lengths = pos + 1``, scatter the new rows
         back, then sample; returns the next token of each row."""
-        out = self.steps.gather(plan.reqs, plan.rids, plan.positions,
-                                [self._tokens[rid] for rid in plan.rids])
         self.decode_steps += 1
-        return out.cpu().numpy()
+        return self._observed_sync(
+            "decode_gather", plan,
+            lambda: self.steps.gather(plan.reqs, plan.rids, plan.positions,
+                                      [self._tokens[r] for r in plan.rids]),
+            lambda out: out.cpu().numpy())
 
     # ------------------------------------------------ speculative decode --
     def rollback_kv(self, rid: int, n_tokens: int) -> List[int]:
@@ -580,9 +746,11 @@ class ContinuousBatchingEngine:
     def _verify_paged(self, plan: StepPlan):
         """One verify step in sync mode; returns host ``(ys, oks)`` of the
         live rows."""
-        out = self._dispatch_verify(
-            plan, [self._tokens[rid] for rid in plan.rids])
-        return split_verify(out[:len(plan.rids)].cpu().numpy())
+        return split_verify(self._observed_sync(
+            "spec_verify", plan,
+            lambda: self._dispatch_verify(
+                plan, [self._tokens[r] for r in plan.rids]),
+            lambda out: out[:len(plan.rids)].cpu().numpy()))
 
     def _spec_commit(self, plan: StepPlan, ys: np.ndarray, oks: np.ndarray,
                      t_done: float, valid: Optional[List[bool]] = None
@@ -630,6 +798,9 @@ class ContinuousBatchingEngine:
         self.spec_rejected += drafted - accepted
         if drafted:
             self.spec_acceptance_samples.append(accepted / drafted)
+        if self.obs is not None:
+            self.obs.on_spec(self, drafted=drafted, accepted=accepted,
+                             committed=committed)
         return committed
 
     def _spec_step_sync(self, plan: StepPlan, now: float):
@@ -639,7 +810,12 @@ class ContinuousBatchingEngine:
         ys, oks = self._verify_paged(plan)
         dt = time.perf_counter() - plan.t0
         committed = self._spec_commit(plan, ys, oks, now + dt)
-        self._record_decode(dt, plan, len(plan.reqs), committed)
+        self._record_decode(dt, plan, len(plan.reqs), committed,
+                            preempted=self.preemptions - plan.p0)
+        if self.obs is not None:
+            self.obs.end_step(self, t0=plan.t0, t_sched_s=plan.t_sched,
+                              n_prefill=plan.n_prefill,
+                              n_decode=len(plan.reqs))
 
     def run(self, requests: List[Request]) -> ServingMetrics:
         """Batch-offline loop: submit everything, step to completion with
@@ -660,17 +836,4 @@ class ContinuousBatchingEngine:
             wall = time.perf_counter() - t_start
         finally:
             self.clock = prev_clock
-        return collect(list(requests), wall, self.itl_samples,
-                       self.max_kv_fraction, self.batch_samples,
-                       kv_samples=self.kv_fraction_samples,
-                       preemptions=self.preemptions,
-                       prefix=self.prefix.stats if self.prefix else None,
-                       stall_samples=self.stall_samples,
-                       prefill_token_samples=self.prefill_token_samples,
-                       decode_token_samples=self.decode_token_samples,
-                       queued_aborts=self.queued_aborts,
-                       spec_steps=self.spec_steps,
-                       spec_drafted=self.spec_drafted,
-                       spec_accepted=self.spec_accepted,
-                       spec_rejected=self.spec_rejected,
-                       spec_acceptance_samples=self.spec_acceptance_samples)
+        return collect_from_engine(self, requests, wall)

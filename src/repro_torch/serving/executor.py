@@ -38,6 +38,16 @@ A device error from step N surfaces when step N is committed, an
 iteration or two later: it is raised again with ``err.engine_step = N``
 and a note. On the CPU the steps finish at dispatch, so the executor runs
 synchronously, with the same planning, chaining and invalidation.
+
+With an observer attached each dispatch keeps its bucket census, live
+work, host stamps and the device-time marks around its replay, and the
+commit closes the step through ``end_step_overlap``: ``device_s`` from
+the step's marks, ``gap_s`` from the previous dispatch's end mark to this
+one's start mark (the device's own idle time), read once the step's
+tokens are on the host; the dispatch cadence, the host share and how far
+ahead of the previous step's completion the dispatch landed are the
+reference's host-clock terms (a step-start probe of each in-flight
+step's copy event stamps when the host first saw it done).
 """
 from __future__ import annotations
 
@@ -57,7 +67,8 @@ def _is_ready(entry: "InFlightStep") -> bool:
 
 class InFlightStep:
     """One dispatched, uncommitted decode or verify step."""
-    __slots__ = ("plan", "device_tokens", "host_tokens", "done", "valid")
+    __slots__ = ("plan", "device_tokens", "host_tokens", "done", "valid",
+                 "obs", "t_seen_ready")
 
     def __init__(self, plan: StepPlan, device_tokens: torch.Tensor):
         self.plan = plan
@@ -77,6 +88,11 @@ class InFlightStep:
         # rows are discarded, never committed, when their request
         # finishes, aborts or is preempted while the step is in flight
         self.valid = [True] * len(plan.rids)
+        # observed: (variant, census, live work, t_call, t_ret, timing,
+        # the previous dispatch's timing); and when a step-start probe
+        # first saw its copy done (host clock)
+        self.obs = None
+        self.t_seen_ready: Optional[float] = None
 
 
 class Executor:
@@ -99,6 +115,12 @@ class Executor:
         # rids with a verify step in flight: not planned until it commits
         self._spec_pending: set = set()
         self._t_last_commit: Optional[float] = None
+        self._preempt_seen = 0
+        # observed steps: the newest dispatch's device-time marks, and the
+        # previous commit's completion estimate and dispatch call time
+        self._last_timing = None
+        self._prev_ready_est: Optional[float] = None
+        self._prev_t_call: Optional[float] = None
 
     def reset(self):
         """Drop every in-flight step without committing."""
@@ -107,6 +129,16 @@ class Executor:
         self._spec_pending.clear()
         self._last = None
         self._t_last_commit = None
+        self._last_timing = None
+        self._prev_ready_est = None
+        self._prev_t_call = None
+
+    def _preempted(self) -> int:
+        """Preemptions since the last sample (a commit trails its plan)."""
+        eng = self.eng
+        delta = max(0, eng.preemptions - self._preempt_seen)
+        self._preempt_seen = eng.preemptions
+        return delta
 
     def invalidate(self, rid: int):
         """A request left the active set (finish, abort, preemption,
@@ -129,6 +161,13 @@ class Executor:
         the newest ``DEPTH`` steps (all of them when nothing was
         dispatched, which drains the window)."""
         eng = self.eng
+        if eng.obs is not None:
+            # a step whose tokens are already on the host before planning
+            # starts finished at the latest now (the reference's probe)
+            t_start = time.perf_counter()
+            for entry in self._inflight:
+                if entry.t_seen_ready is None and _is_ready(entry):
+                    entry.t_seen_ready = t_start
         plan = eng.sched.plan(now)
         if plan.has_decode:
             self._dispatch(plan)
@@ -136,7 +175,7 @@ class Executor:
         while len(self._inflight) > keep:
             self._commit(self._inflight.pop(0))
         if not plan.has_decode and plan.n_prefill:
-            eng._record_prefill_only(plan)
+            eng._record_prefill_only(plan, self._preempted())
         return eng.busy or bool(self._inflight)
 
     # --------------------------------------------------------- dispatch --
@@ -168,24 +207,38 @@ class Executor:
         eng = self.eng
         tokens, chain = self._input_tokens(plan.rids)
         if plan.drafts is not None:
-            # no row is chained to a verify step, and its requests sit
-            # planning out until it commits
-            entry = InFlightStep(plan, eng._dispatch_verify(plan, tokens,
-                                                            chain))
-            self._inflight.append(entry)
-            self._last = entry
-            self._spec_pending.update(plan.rids)
-            return
-        if eng.decode_mode == "paged":
-            out = eng.steps.paged(plan.reqs, plan.rids, plan.positions,
-                                  tokens, chain)
+            variant = "spec_verify"
+            call = lambda: eng._dispatch_verify(  # noqa: E731
+                plan, tokens, chain)
+        elif eng.decode_mode == "paged":
+            variant = "decode"
+            call = lambda: eng.steps.paged(  # noqa: E731
+                plan.reqs, plan.rids, plan.positions, tokens, chain)
         else:
-            out = eng.steps.gather(plan.reqs, plan.rids, plan.positions,
-                                   tokens, chain)
-        eng.decode_steps += 1
+            variant = "decode_gather"
+            call = lambda: eng.steps.gather(  # noqa: E731
+                plan.reqs, plan.rids, plan.positions, tokens, chain)
+        facts = None
+        if eng.obs is not None:
+            sc, live = eng._step_facts(variant, plan)
+            t_call = time.perf_counter()
+            out = call()
+            t_ret = time.perf_counter()
+            facts = (variant, sc, live, t_call, t_ret, eng.steps.last,
+                     self._last_timing)
+            self._last_timing = eng.steps.last
+        else:
+            out = call()
         entry = InFlightStep(plan, out)
+        entry.obs = facts
         self._inflight.append(entry)
         self._last = entry
+        if plan.drafts is not None:
+            # no row is chained to a verify step, and its requests sit
+            # planning out until it commits
+            self._spec_pending.update(plan.rids)
+            return
+        eng.decode_steps += 1
         for row, rid in enumerate(plan.rids):
             self._chain[rid] = (entry, row)
 
@@ -197,7 +250,9 @@ class Executor:
         engine's ``_spec_commit``), and telemetry."""
         eng = self.eng
         plan = entry.plan
-        if not _is_ready(entry):
+        t_fetch_call = time.perf_counter()
+        waited = not _is_ready(entry)
+        if waited:
             eng.commit_waits += 1
         try:
             if entry.done is not None:
@@ -210,9 +265,20 @@ class Executor:
                          f"{plan.step} (dispatched under overlap, surfaced "
                          f"at its commit)")
             raise
+        t_fetch_ret = time.perf_counter()
+        # the host's estimate of when the step finished (the reference's):
+        # exact when the fetch waited, else when a probe first saw it done,
+        # else the fetch call (it finished some time before)
+        if waited:
+            ready_est = t_fetch_ret
+        elif entry.t_seen_ready is not None:
+            ready_est = entry.t_seen_ready
+        else:
+            ready_est = t_fetch_call
         t_done = plan.now + (time.perf_counter() - plan.t0)
         if plan.drafts is not None:
-            self._commit_verify(entry, host_tokens, t_done)
+            self._commit_verify(entry, host_tokens, t_done, ready_est,
+                                t_fetch_ret)
             return
         n_valid = 0
         for i, r in enumerate(plan.reqs):
@@ -232,17 +298,10 @@ class Executor:
             eng._finish_or_run(r, t_done)
         eng.running = [r for r in eng.running
                        if r.state.finish_reason is None]
-        if not n_valid:
-            return
-        # ITL under overlap: the cadence of commits, which is what a
-        # streaming client sees
-        t = time.perf_counter()
-        t_prev = self._t_last_commit
-        self._t_last_commit = t
-        eng._record_decode(t - (plan.t0 if t_prev is None else t_prev),
-                           plan, n_valid)
+        self._retire(entry, n_valid, None, ready_est, t_fetch_ret)
 
-    def _commit_verify(self, entry: InFlightStep, out, t_done: float):
+    def _commit_verify(self, entry: InFlightStep, out, t_done: float,
+                       ready_est: float, t_fetch_ret: float):
         """Retire a verify step: its requests return to planning, and the
         engine commits its still-valid rows token by token."""
         eng = self.eng
@@ -253,10 +312,39 @@ class Executor:
         ys, oks = split_verify(out)
         committed = eng._spec_commit(plan, ys, oks, t_done,
                                      valid=entry.valid)
-        if not n_valid:
-            return
-        t = time.perf_counter()
-        t_prev = self._t_last_commit
-        self._t_last_commit = t
-        eng._record_decode(t - (plan.t0 if t_prev is None else t_prev),
-                           plan, n_valid, committed)
+        self._retire(entry, n_valid, committed, ready_est, t_fetch_ret)
+
+    def _retire(self, entry: InFlightStep, n_valid: int,
+                committed: Optional[int], ready_est: float,
+                t_fetch_ret: float):
+        """A committed step's series (ITL under overlap: the cadence of
+        commits, which is what a streaming client sees) and, observed,
+        its ``end_step_overlap``."""
+        eng = self.eng
+        plan = entry.plan
+        if n_valid:
+            t = time.perf_counter()
+            t_prev = self._t_last_commit
+            self._t_last_commit = t
+            eng._record_decode(t - (plan.t0 if t_prev is None else t_prev),
+                               plan, n_valid, committed,
+                               preempted=self._preempted())
+            if entry.obs is not None and eng.obs is not None:
+                variant, sc, live, t_call, t_ret, timing, prev = entry.obs
+                prev_ready = self._prev_ready_est
+                ahead = (max(0.0, prev_ready - t_ret)
+                         if prev_ready is not None else 0.0)
+                total_s = t_call - (self._prev_t_call
+                                    if self._prev_t_call is not None
+                                    else plan.t0)
+                eng.obs.end_step_overlap(
+                    eng, step=plan.step, t0=plan.t0,
+                    t_sched_s=plan.t_sched, n_prefill=plan.n_prefill,
+                    n_decode=n_valid, sc=sc, batch=len(plan.rids),
+                    t_call=t_call, t_ret=t_ret, timing=timing,
+                    prev_timing=prev, ready_est=ready_est,
+                    dispatch_ahead_s=ahead, total_s=max(total_s, 0.0),
+                    host_s=t - t_fetch_ret, variant=variant, live=live)
+        if entry.obs is not None:
+            self._prev_ready_est = ready_est
+            self._prev_t_call = entry.obs[3]

@@ -1,14 +1,18 @@
-"""Scheduler: admission, chunked prefill, preemption and decode-batch
-planning, speculative drafts included (counterpart of
-``repro.serving.scheduler``, without deadlines and shedding).
+"""Scheduler: admission control, deadlines, admission, chunked prefill,
+preemption and decode-batch planning, speculative drafts included
+(counterpart of ``repro.serving.scheduler``).
 
 :class:`Scheduler` owns the request-phase state (arrival queue, the
 PREFILLING and RUNNING sets, per-request chunk progress, next token,
 write position and dispatch count) and compresses one engine iteration's
-decisions into a :class:`StepPlan`: who is admitted (with the prefix
-cache, a prompt's longest cached prefix is spliced into its table
-first), which prompt chunks stream in, who is preempted for blocks, and
-which requests take a decode token at which positions. The engine keeps
+decisions into a :class:`StepPlan`: whose deadline expired (in any
+phase), who is admitted (with the prefix cache, a prompt's longest
+cached prefix is spliced into its table first), which prompt chunks
+stream in, who is preempted for blocks, and which requests take a decode
+token at which positions. Admission control (:meth:`Scheduler.shed_check`)
+rejects a submit as the reference does: a full queue, a full pool with a
+queue behind it, an estimated queue delay past the bound, or a deadline
+the estimate already blows. The engine keeps
 the compute, and the :class:`~repro_torch.serving.executor.Executor`
 dispatches the plans under overlap.
 
@@ -48,7 +52,8 @@ from typing import TYPE_CHECKING, Dict, List, Optional
 
 import numpy as np
 
-from repro_torch.serving.workload import Request
+from repro_torch.serving.workload import (FINISH_DEADLINE, FINISH_SHED,
+                                          Request)
 
 if TYPE_CHECKING:   # pragma: no cover - typing only
     from repro_torch.serving.engine import ContinuousBatchingEngine
@@ -100,8 +105,87 @@ class Scheduler:
         # rid -> output tokens planned, in-flight ones included (equal to
         # state.generated after every sync step; ahead of it under overlap)
         self._dispatched: Dict[int, int] = {}
+        # deadlines are scanned for only once a request carries one
+        self._has_deadlines = False
         # overlap with speculation: iterations since the last drain
         self._spec_probe = 0
+
+    # ----------------------------------------------- admission control --
+    def estimated_queue_delay_s(self) -> float:
+        """Wait estimate for a newly queued request: the tokens queued
+        ahead of it (prompts plus output budgets) over the recent decode
+        token rate (the last 32 steps' decode tokens over their ITL). Zero
+        until the engine has decode samples: a cold start never sheds."""
+        eng = self.eng
+        itl = eng.itl_samples[-32:]
+        toks = eng.decode_token_samples[-32:]
+        if not itl or not sum(toks):
+            return 0.0
+        tok_per_s = sum(toks) / max(sum(itl), 1e-9)
+        ahead = sum(r.prompt_len + r.sampling.max_new_tokens
+                    for r in self.waiting)
+        return ahead / tok_per_s
+
+    def shed_check(self, req: Request, now: float) -> Optional[str]:
+        """The shed reason admission control gives ``req`` submitted at
+        ``now`` (``queue_full``, ``kv_pressure``, ``queue_delay``,
+        ``deadline_unmeetable``), or None to accept. Pure: the caller
+        sheds. With no shedding knob and no deadline everything is
+        accepted."""
+        eng = self.eng
+        ecfg = eng.ecfg
+        if ecfg.max_waiting is not None \
+                and len(self.waiting) >= ecfg.max_waiting:
+            return "queue_full"
+        if ecfg.shed_kv_fraction is not None and self.waiting \
+                and eng.pool.manager.used_fraction >= ecfg.shed_kv_fraction:
+            return "kv_pressure"
+        if ecfg.shed_queue_delay_s is not None or req.sampling.has_deadline:
+            est = self.estimated_queue_delay_s()
+            if ecfg.shed_queue_delay_s is not None \
+                    and est > ecfg.shed_queue_delay_s:
+                return "queue_delay"
+            # a request whose queue wait alone blows its own deadline
+            # would only be admitted to expire: reject it now
+            dl = req.sampling.ttft_deadline_s
+            if dl is None:
+                dl = req.sampling.deadline_s
+            if dl is not None and max(now, req.arrival_s) + est \
+                    > req.arrival_s + dl:
+                return "deadline_unmeetable"
+        return None
+
+    def shed_request(self, req: Request, now: float, reason: str):
+        """Finish a rejected request (it never entered a queue and holds
+        no block) with ``finish_reason="shed"``, counted by reason."""
+        eng = self.eng
+        req.state.finish_reason = FINISH_SHED
+        req.state.t_done = max(now, req.arrival_s)
+        eng.shed += 1
+        eng.shed_reasons[reason] = eng.shed_reasons.get(reason, 0) + 1
+        if eng.obs is not None:
+            eng.obs.on_shed(req, reason)
+
+    # -------------------------------------------------------- deadlines --
+    def expire_deadlines(self, now: float):
+        """Finish every request past its deadline, in any phase: queued
+        (it never starts), prefilling (its partial prompt KV released) or
+        decoding (its partial output kept, its blocks and prefix pins
+        released this step; under overlap its rows of the steps in flight
+        are invalidated). Deadline-free serving skips the scan."""
+        if not self._has_deadlines:
+            return
+        eng = self.eng
+        for lst in (self.waiting, self.prefilling, self.running):
+            expired = [r for r in lst if r.sampling.expired(
+                r.arrival_s, now,
+                first_token=r.state.t_first_token is not None)]
+            for req in expired:
+                lst.remove(req)
+                self._prefilled.pop(req.req_id, None)
+                eng._finish(req, max(now, req.arrival_s),
+                            reason=FINISH_DEADLINE)
+                eng.deadline_expired += 1
 
     def admit(self, now: float):
         """FCFS admission under ``max_batch`` and the pool watermark. A
@@ -154,6 +238,8 @@ class Scheduler:
                     continue                # retry the same head request
                 break
             self.waiting.popleft()
+            if eng.obs is not None:
+                eng.obs.on_admit(req)
             if hit:
                 mgr.share(req.req_id, hit)
                 for b in hit:               # the table's ref replaces the pin
@@ -250,6 +336,8 @@ class Scheduler:
         req.state.reset_for_requeue()
         self.waiting.appendleft(req)
         eng.preemptions += 1
+        if eng.obs is not None:
+            eng.obs.on_preempt(req)
 
     def _seats(self) -> int:
         """Batch seats taken: the prefilling requests, the running ones
@@ -310,13 +398,15 @@ class Scheduler:
             self.preempt(self.running.pop())
 
     def plan(self, now: float) -> StepPlan:
-        """Admission, prefill work (serial admissions or this step's
-        chunks), capacity preemption and the decode batch, with each
-        row's block reserved and any shared block it writes forked."""
+        """Deadlines, admission, prefill work (serial admissions or this
+        step's chunks), capacity preemption and the decode batch, with
+        each row's block reserved and any shared block it writes
+        forked."""
         eng = self.eng
         t0 = time.perf_counter()
         pf0 = eng.prefill_tokens_computed
         p0 = eng.preemptions
+        self.expire_deadlines(now)
         self.admit(now)
         self.prefill_step(now)
         n_prefill = eng.prefill_tokens_computed - pf0

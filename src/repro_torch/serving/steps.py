@@ -67,6 +67,11 @@ first token's sample stays outside the graph, as the reference's separate
   launches nothing) and the difference is added at each replay.
 * Every step folds the finiteness of its logits into :attr:`finite`, on
   the device, with no sync.
+* With :attr:`StepFunctions.timing` on (an observer is attached), each
+  replay (or eager body) is bracketed by two timing CUDA events on the
+  engine's stream, kept as :attr:`StepFunctions.last`
+  (:class:`StepTiming`); nothing is recorded inside a capture, and a
+  bucket's first use is marked as such. Off, no event is created.
 
 The graphs capture the pool's addresses, so the pool is written in
 place (as it always is in the port) and every write to it goes on the
@@ -150,6 +155,59 @@ def add_launches(delta: Dict[str, int]):
     """Count a replay's launches (a :func:`take_launches` delta)."""
     for name, fn in launch_counters().items():
         fn.launches += delta[name]
+
+
+def _mark(device: torch.device):
+    """A device-time mark on the current stream: a timing CUDA event on a
+    CUDA device, the host clock on the CPU (where a step's body runs at
+    dispatch)."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+class StepTiming:
+    """One step's device-time marks (:meth:`StepFunctions._run`): CUDA
+    events recorded on the engine's stream right before and right after
+    its replay or eager body, or host stamps on the CPU. A bucket's first
+    use (the eager warm-up on the side stream, then the capture) has no
+    marks: ``first_use`` holds its host ``(start, end)`` instead."""
+    __slots__ = ("start", "end", "first_use")
+
+    def __init__(self, start, end,
+                 first_use: Optional[Tuple[float, float]] = None):
+        self.start = start
+        self.end = end
+        self.first_use = first_use
+
+    def ready(self) -> bool:
+        """Has the device passed the end mark? (Non-blocking.)"""
+        return self.first_use is not None or isinstance(self.end, float) \
+            or self.end.query()
+
+    @property
+    def device_s(self) -> float:
+        """Seconds between the marks (0 for a first use); read only once
+        :meth:`ready`."""
+        if self.first_use is not None:
+            return 0.0
+        return _between(self.start, self.end)
+
+    def gap_after(self, prev: Optional["StepTiming"]) -> float:
+        """The device's idle seconds between ``prev``'s end mark and this
+        step's start mark (0 without both)."""
+        if prev is None or prev.first_use is not None \
+                or self.first_use is not None:
+            return 0.0
+        return max(_between(prev.end, self.start), 0.0)
+
+
+def _between(a, b) -> float:
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) / 1e3
 
 
 class CapturedStep:
@@ -237,6 +295,10 @@ class StepFunctions:
         self.graphs: Dict[Tuple, CapturedStep] = {}
         self.capture_s = 0.0         # seconds spent capturing graphs
         self.replays = 0
+        # device-time marks around each step (an observer is attached):
+        # the newest step's StepTiming; off, no event is created
+        self.timing = False
+        self.last: Optional[StepTiming] = None
         if self.graphs_on:
             self._decode_pool = torch.cuda.graph_pool_handle()
             self._prefill_pool = torch.cuda.graph_pool_handle()
@@ -459,15 +521,30 @@ class StepFunctions:
     def _run(self, key: Tuple, body: Callable[[], Outputs],
              pool: str) -> Outputs:
         """Replay ``key``'s graph; or, with none yet, run ``body``
-        eagerly (without graphs) or as the bucket's first use."""
+        eagerly (without graphs) or as the bucket's first use. With
+        :attr:`timing` on, the replay (or eager body) is bracketed by
+        device-time marks, kept in :attr:`last`; a first use is marked as
+        such instead (nothing is recorded inside a capture)."""
         step = self.graphs.get(key)
         if step is not None:
             self.replays += 1
+            start = _mark(self.device) if self.timing else None
             step.replay()
+            if self.timing:
+                self.last = StepTiming(start, _mark(self.device))
             return step.tokens, step.logits
         if not self.graphs_on:
-            return body()
-        return self._first_use(key, body, pool)
+            start = _mark(self.device) if self.timing else None
+            out = body()
+            if self.timing:
+                self.last = StepTiming(start, _mark(self.device))
+            return out
+        t0 = time.perf_counter()
+        out = self._first_use(key, body, pool)
+        if self.timing:
+            self.last = StepTiming(None, None, first_use=(
+                t0, time.perf_counter()))
+        return out
 
     def _first_use(self, key: Tuple, body: Callable[[], Outputs],
                    pool: str) -> Outputs:

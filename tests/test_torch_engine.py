@@ -29,7 +29,7 @@ from repro_torch.kvcache.paged import BlockManager, PagedKVCache  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import params_from_numpy  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingEngine,  # noqa: E402
-                                 EngineConfig, RequestTooLarge,
+                                 EngineConfig, Request, RequestTooLarge,
                                  SamplingParams, sharegpt_like)
 from repro_torch.serving.engine import _bucket, _pow2_bucket  # noqa: E402
 from repro_torch.serving.metrics import Percentiles  # noqa: E402
@@ -284,15 +284,20 @@ def test_workload_and_helpers_match_reference():
 
 
 def test_out_of_slice_requests_raise(models):
-    """Deadlines are still out of the slice; sampled requests are in it
-    and are queued."""
+    """Sampled requests and requests with deadlines are in the slice and
+    are queued; a prompt the model length cannot hold still raises."""
     _, _, tcfg, tmodel = models
     eng = ContinuousBatchingEngine(tmodel, EngineConfig(), device="cpu")
     sampled = sharegpt_like(1, tcfg.vocab_size, seed=0,
                             sampling=SamplingParams(temperature=0.7))
     eng.add_request(sampled[0])
     assert list(eng.waiting) == sampled
-    timed = sharegpt_like(1, tcfg.vocab_size, seed=0,
+    timed = sharegpt_like(1, tcfg.vocab_size, seed=1,
                           sampling=SamplingParams(deadline_s=1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.add_request(timed[0])
+    eng.add_request(timed[0])
+    assert list(eng.waiting) == sampled + timed
+    assert eng.sched._has_deadlines
+    too_long = Request(req_id=9, prompt=np.zeros(
+        EngineConfig().max_model_len, np.int32), max_new_tokens=4)
+    with pytest.raises(ValueError, match="max_model_len"):
+        eng.add_request(too_long)

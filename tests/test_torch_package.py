@@ -44,9 +44,28 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+OBS_MODULES = ["core/__init__.py", "core/census.py", "core/hardware.py",
+               "core/roofline.py"] + [
+    f"serving/obs/{m}.py" for m in ("__init__", "auditor", "dashboard",
+                                    "export", "observer", "roofline",
+                                    "series", "trace", "windows")]
+
+
+def test_observability_modules_are_checked():
+    """Every module of the observability slice is among the files the
+    import check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(OBS_MODULES) <= checked
+
+
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
-            "repro_torch.serving.spec, repro_torch.kernels.ops; "
+            "repro_torch.serving.spec, repro_torch.kernels.ops, "
+            "repro_torch.core.census, repro_torch.core.roofline, "
+            "repro_torch.serving.obs.observer, "
+            "repro_torch.serving.obs.export, "
+            "repro_torch.serving.obs.dashboard; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
@@ -68,14 +87,17 @@ def test_entry_points_default_to_the_card():
     assert resolve_device("cpu").type == "cpu"
 
 
-# overlap and speculation are in the slice since their ports; load
-# shedding still raises
+# overlap, speculation and load shedding are in the slice since their
+# ports: a shedding knob is accepted, and a value out of its range raises
+# as the reference's does
 @pytest.mark.parametrize("flag", [
     {"max_waiting": 4},
     {"shed_kv_fraction": 0.9}, {"shed_queue_delay_s": 1.0}])
 def test_out_of_slice_engine_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EngineConfig(**flag)
+    (name, value), = flag.items()
+    assert getattr(EngineConfig(**flag), name) == value
+    with pytest.raises(ValueError, match=name):
+        EngineConfig(**{name: 0 if name != "shed_kv_fraction" else 1.5})
 
 
 @pytest.mark.parametrize("flag", [
