@@ -9,9 +9,15 @@ returns a ``torch.dtype``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+# block kinds of ArchConfig.block_plan (the reference's names)
+ATTN = "attn"          # self-attention block (causal or bidirectional)
+CROSS = "cross"        # cross-attention block (VLM image layers)
+SSM = "ssm"            # Mamba2 SSD block
+SHARED_ATTN = "shared_attn"  # attention block with weights shared across occurrences
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +100,75 @@ class ArchConfig:
     @property
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    def block_plan(self) -> Tuple[str, ...]:
+        """The sequence of block kinds, length == n_layers."""
+        if self.arch_type == "ssm":
+            return (SSM,) * self.n_layers
+        if self.arch_type == "hybrid":
+            # every `attn_every`-th block is the shared attention block
+            return tuple(SHARED_ATTN if self.attn_every
+                         and (i + 1) % self.attn_every == 0 else SSM
+                         for i in range(self.n_layers))
+        if self.arch_type == "vlm":
+            return tuple(CROSS if self.cross_every
+                         and (i + 1) % self.cross_every == 0 else ATTN
+                         for i in range(self.n_layers))
+        return (ATTN,) * self.n_layers
+
+    def num_params(self) -> int:
+        """Analytic parameter count (the reference's; the memory the
+        replication planner and the performance model count)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.hd
+        counts = 0
+        plan = self.block_plan()
+        n_attn = sum(1 for k in plan if k in (ATTN, CROSS))
+        n_shared = 1 if any(k == SHARED_ATTN for k in plan) else 0
+        n_ssm = sum(1 for k in plan if k == SSM)
+        # attention blocks
+        attn_p = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        if self.qkv_bias:
+            attn_p += (self.n_heads + 2 * self.n_kv_heads) * hd
+        # mlp per block
+        if self.moe:
+            e = self.moe.num_experts
+            mlp_p = e * (3 if self.act == "swiglu" else 2) * d * f + d * e
+            if self.moe.dense_residual:
+                mlp_p += (3 if self.act == "swiglu" else 2) * d * f
+        else:
+            mlp_p = (3 if self.act == "swiglu" else 2) * d * f
+        counts += n_attn * (attn_p + mlp_p + 2 * d)
+        counts += n_shared * (attn_p + mlp_p + 2 * d)
+        if n_ssm:
+            s = self.ssm
+            d_in = s.expand * d
+            nheads = d_in // s.head_dim
+            ssm_p = d * (2 * d_in + 2 * s.ngroups * s.d_state + nheads) \
+                + d_in * d + s.conv_width * (d_in + 2 * s.ngroups * s.d_state) \
+                + 2 * nheads + d
+            counts += n_ssm * ssm_p
+        counts += v * d * (1 if self.tie_embeddings else 2)
+        if self.pos == "learned":
+            counts += self.max_position * d
+        counts += d  # final norm
+        return counts
+
+    def active_params(self) -> int:
+        """Active parameters per token (MoE: only top_k experts count)."""
+        if not self.moe:
+            return self.num_params()
+        d, f = self.d_model, self.d_ff
+        e, k = self.moe.num_experts, self.moe.top_k
+        per_expert = (3 if self.act == "swiglu" else 2) * d * f
+        return self.num_params() - (e - k) * per_expert * self.n_layers
+
+    def kv_bytes_per_token(self, dtype_bytes: int = 2) -> int:
+        """KV-cache bytes appended per generated token (per request)."""
+        plan = self.block_plan()
+        n_kv_layers = sum(1 for k in plan if k in (ATTN, CROSS, SHARED_ATTN))
+        return n_kv_layers * 2 * self.n_kv_heads * self.hd * dtype_bytes
 
     def validate(self) -> None:
         if self.d_model <= 0 or self.n_layers <= 0:

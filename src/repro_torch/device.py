@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -28,3 +29,11 @@ def on_device(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.as_tensor(x, device=device)
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """A context that makes ``stream`` the current CUDA stream of the
+    calling thread (nothing for ``None``, an engine on the CPU)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -26,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}    # loaded libraries, by source name
+# replicas stepping on several threads may meet a kernel first at once:
+# one builds and loads it, the others wait
+_LIBS_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -87,13 +91,14 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use. Its
     ``<name>_error_string`` entry point is bound here; the caller binds
     the kernel's own entry point."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _LIBS[name] = lib
     return lib
 
 

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 
 NAME = "decode_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -266,7 +267,7 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       plan.n_split, plan.rows_per_split, _DTYPES[q.dtype],
                       torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    gqa_decode_attention.launches += 1
+    count_launch(gqa_decode_attention)
     return out
 
 

@@ -39,6 +39,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 
 NAME = "flash_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -225,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window or 0, _BODY_CODES[kernel_body(q.dtype, hd)],
                       torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 
@@ -306,7 +307,7 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
             prefix_pad, window or 0, _BODY_CODES[kernel_body(q.dtype, hd)],
             torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    flash_prefix_attention.launches += 1
+    count_launch(flash_prefix_attention)
     return out
 
 

@@ -29,6 +29,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.launches import count_launch
 from repro_torch.kernels.decode_attention import (
     KERNEL_HEAD_DIMS, MAX_GROUP, SplitPlan, merge_live_splits_torch,
     split_partial_torch, split_plan)
@@ -216,7 +217,7 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                       _DTYPES[q.dtype],
                       torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    paged_gqa_decode_attention.launches += 1
+    count_launch(paged_gqa_decode_attention)
     return out
 
 

@@ -267,6 +267,13 @@ class PagedKVCache:
             t.numel() * t.element_size() // (num_blocks + 1)
             for t in self.pool.values())
 
+    def reset(self):
+        """Forget every allocation (a fresh allocator over the same
+        tensors): the pool of a respawned engine, whose stream has been
+        drained. The blocks' contents stay; nothing reads a slot before it
+        is written again."""
+        self.manager = BlockManager(self.num_blocks, self.block_size)
+
     @property
     def pool_bytes(self) -> int:
         """Accountable pool bytes: every real physical block (the trash

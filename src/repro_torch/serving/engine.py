@@ -63,6 +63,14 @@ applies admission control (``max_waiting``, ``shed_kv_fraction``,
 ``shed_queue_delay_s``, and a deadline the estimated queue delay already
 blows), finishing a rejected request as ``shed`` instead of queueing it.
 
+On a CUDA device each engine queues all its device work on a CUDA
+stream of its own (:attr:`ContinuousBatchingEngine.stream`), so engines
+co-located on one card and stepped on their own threads
+(:mod:`repro_torch.serving.cluster`) run their kernels at the same time.
+A cluster's fault injector (``engine.faults``,
+:mod:`repro_torch.serving.faults`) is consulted at the top of each step,
+before anything is dispatched, and at admission.
+
 An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
 receives every lifecycle event, every prefill and decode step's bucket
 census, live attention work and device time (CUDA events around the
@@ -84,7 +92,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.census import LiveWork
-from repro_torch.device import resolve_device
+from repro_torch.device import on_stream, resolve_device
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
                                         prefix_cache_supported)
@@ -92,6 +100,7 @@ from repro_torch.models.model import Model
 from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
 from repro_torch.serving.executor import Executor
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.metrics import ServingMetrics, collect_from_engine
 from repro_torch.serving.obs.series import (DEFAULT_SERIES_MAXLEN,
                                             BoundedSeries)
@@ -231,10 +240,14 @@ _pow2_bucket = pow2_bucket
 
 class ContinuousBatchingEngine:
     """Serves requests through ``model`` on its device; ``device=None``
-    means the card and must match the model's."""
+    means the card and must match the model's. ``steps``, a dead
+    engine's :class:`StepFunctions` built for the same model and
+    configuration, rebuilds the engine over its pool tensors, graphs and
+    stream with a fresh allocator (a cluster's respawn)."""
 
     def __init__(self, model: Model, ecfg: EngineConfig, *,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 steps: Optional[StepFunctions] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine asked "
@@ -243,10 +256,6 @@ class ContinuousBatchingEngine:
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg
         self.decode_mode = ecfg.decode_mode
-        self.pool = PagedKVCache(
-            self.cfg, num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
-            block_size=ecfg.block_size, device=self.device)
-        self.sched = Scheduler(self)
         # chunked prefill, the prefix cache and speculation need
         # per-token-addressable KV; an unsupported config falls back, the
         # reason recorded
@@ -264,13 +273,45 @@ class ContinuousBatchingEngine:
             else:
                 self.speculator = PromptLookupDrafter(
                     max_ngram=ecfg.spec_ngram, max_k=ecfg.spec_k)
-        self.steps = StepFunctions(
-            model, self.pool, max_batch=ecfg.max_batch,
-            max_model_len=ecfg.max_model_len,
-            prefill_bucket=ecfg.prefill_bucket, cuda_graphs=ecfg.cuda_graphs,
-            spec_k=ecfg.spec_k if self.speculator is not None else None)
+        spec_k = ecfg.spec_k if self.speculator is not None else None
+        if steps is None:
+            # the engine's own stream: every device operation of the
+            # engine is queued on it, so engines stepped on several host
+            # threads run on the card at the same time
+            stream = None
+            if self.device.type == "cuda":
+                stream = torch.cuda.Stream(self.device)
+                # the weights were written on the caller's stream
+                stream.wait_stream(torch.cuda.current_stream(self.device))
+            with on_stream(stream):
+                self.pool = PagedKVCache(
+                    self.cfg,
+                    num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
+                    block_size=ecfg.block_size, device=self.device)
+                steps = StepFunctions(
+                    model, self.pool, max_batch=ecfg.max_batch,
+                    max_model_len=ecfg.max_model_len,
+                    prefill_bucket=ecfg.prefill_bucket,
+                    cuda_graphs=ecfg.cuda_graphs, spec_k=spec_k,
+                    stream=stream)
+            if stream is not None:
+                # and the caller's later work sees the zeroed pool
+                torch.cuda.current_stream(self.device).wait_stream(stream)
+        else:
+            # a dead engine's steps (a respawn): its pool tensors, graphs
+            # and stream, with a fresh allocator; the caller drained the
+            # stream first
+            steps.check_reuse(model, ecfg, spec_k)
+            steps.pool.reset()
+            steps.timing, steps.last = False, None
+            self.pool = steps.pool
+        self.steps = steps
+        self.sched = Scheduler(self)
         self._executor = Executor(self)
         self.step_count = 0          # step() calls, counted from 1
+        # fault injection (serving.faults): a cluster installs one
+        # injector and this engine's replica id; None consults no hook
+        self.faults: Optional[FaultInjector] = None
         self.replica_id = 0
         # observability hook sink (serving.obs): None = detached; an
         # attached observer also turns the steps' device-time marks on
@@ -286,6 +327,12 @@ class ContinuousBatchingEngine:
         # serving-timeline clock (seconds since start); run() installs one
         self.clock: Optional[Callable[[], float]] = None
         self.reset_stats()
+
+    @property
+    def stream(self) -> Optional[torch.cuda.Stream]:
+        """The CUDA stream the engine queues its device work on (None on
+        the CPU)."""
+        return self.steps.stream
 
     def reset_stats(self):
         """Clear the telemetry (e.g. after a warm-up run); the prefix
@@ -471,6 +518,10 @@ class ContinuousBatchingEngine:
         (shared prefix blocks back to their cache-only count) and the
         request finishes with ``finish_reason="abort"``. Returns False for
         an unknown or finished request."""
+        with on_stream(self.stream):
+            return self._abort(req_id, now)
+
+    def _abort(self, req_id: int, now: float) -> bool:
         req = next((r for r in self.waiting if r.req_id == req_id), None)
         if req is not None:
             self.waiting.remove(req)
@@ -493,6 +544,11 @@ class ContinuousBatchingEngine:
         """Force-finish one request with the caller's reason, releasing its
         blocks (as :meth:`abort`, but a queued eviction is not a client
         abort). Returns the request, or None if unknown or finished."""
+        with on_stream(self.stream):
+            return self._evict(req_id, now, reason)
+
+    def _evict(self, req_id: int, now: float, reason: str
+               ) -> Optional[Request]:
         for lst in (self.waiting, self.prefilling, self.running):
             req = next((r for r in lst if r.req_id == req_id), None)
             if req is not None:
@@ -582,11 +638,22 @@ class ContinuousBatchingEngine:
                                     "chunk_prefill" if done else "prefill")
 
     def step(self, now: float) -> bool:
-        """One engine iteration. Returns False when fully idle. In sync
-        mode the decode step runs and commits here; under overlap the
-        executor dispatches it and commits earlier ones. The step timer
-        starts before admission, so prefill stalls show in ITL."""
+        """One engine iteration, its device work queued on the engine's
+        stream. Returns False when fully idle. In sync mode the decode
+        step runs and commits here; under overlap the executor dispatches
+        it and commits earlier ones. The step timer starts before
+        admission, so prefill stalls show in ITL."""
         self.step_count += 1
+        if self.faults is not None:
+            # may sleep (delay, the watchdog's trigger) or raise
+            # InjectedFault (kill, the cluster's quarantine trigger): on
+            # the host, before any mutation and before any dispatch, so
+            # injected faults stay ordered under overlap too
+            self.faults.on_step(self.replica_id, self.step_count)
+        with on_stream(self.stream):
+            return self._step(now)
+
+    def _step(self, now: float) -> bool:
         if self.ecfg.overlap:
             return self._executor.step(now)
         plan = self.sched.plan(now)

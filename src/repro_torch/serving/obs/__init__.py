@@ -18,7 +18,7 @@ _EXPORTS = {
     "StepCensus": "roofline", "StepCensusCache": "roofline",
     "EngineObserver": "observer", "Observability": "observer",
     "StepPhases": "observer",
-    "SERVING_SPECS": "export",
+    "SERVING_SPECS": "export", "CLUSTER_SPECS": "export",
     "MetricSpec": "export", "MetricsEmitter": "export",
     "lint_prometheus": "export", "metrics_from_json": "export",
     "metrics_to_json": "export", "prometheus_text": "export",

@@ -1,25 +1,20 @@
-"""Metrics export, the serving half (counterpart of
-``repro.serving.obs.export``): registry-backed Prometheus text
-exposition, a stable JSON schema with loss-free reload, and a periodic
-emitter.
+"""Metrics export (counterpart of ``repro.serving.obs.export``):
+registry-backed Prometheus text exposition, a stable JSON schema with
+loss-free reload, and a periodic emitter.
 
-The **registry** (:data:`SERVING_SPECS`) is the single mapping from
-Prometheus metric names to ``ServingMetrics`` fields, with the
-reference's schema string and metric names, so one scraper reads both
-packages. Three export surfaces:
+The **registry** (:data:`SERVING_SPECS` / :data:`CLUSTER_SPECS`) is the
+single mapping from Prometheus metric names to ``ServingMetrics`` /
+``ClusterMetrics`` fields, with the reference's schema string and metric
+names, so one scraper reads both packages. Three export surfaces:
 
 * :func:`prometheus_text` — text exposition format (``# HELP`` /
   ``# TYPE`` + samples; percentile triples become ``summary`` quantile
   series, dict-valued counters become labeled series), linted by
   :func:`lint_prometheus`;
 * :func:`metrics_to_json` / :func:`metrics_from_json` — versioned JSON
-  round-trip of the dataclasses (nested ``Percentiles``, ``PrefixStats``
-  and ``MemoryGapStats`` included);
+  round-trip of the dataclasses (nested ``Percentiles``, ``PrefixStats``,
+  ``MemoryGapStats`` and per-replica ``ReplicaStats`` included);
 * :class:`MetricsEmitter` — periodic file/stdout snapshots.
-
-The cluster half (``CLUSTER_SPECS``, ``ClusterMetrics``) waits for the
-replicated cluster's port (ROADMAP.md queue 1 item 4): a cluster
-document raises ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -32,6 +27,7 @@ import sys
 from typing import Callable, Dict, List, Optional, Union
 
 from repro_torch.kvcache.prefix import PrefixStats
+from repro_torch.serving.cluster.metrics import ClusterMetrics, ReplicaStats
 from repro_torch.serving.metrics import Percentiles, ServingMetrics
 from repro_torch.serving.obs.auditor import MemoryGapStats
 
@@ -167,6 +163,59 @@ def _resolve(obj, path: str):
     return obj
 
 
+CLUSTER_SPECS: List[MetricSpec] = [
+    MetricSpec("cluster_wall_seconds", "gauge", "Cluster wall time",
+               "wall_s"),
+    MetricSpec("cluster_replicas", "gauge", "Replica count", "n_replicas"),
+    MetricSpec("cluster_requests_completed_total", "counter",
+               "Requests finished across the cluster", "completed"),
+    MetricSpec("cluster_tokens_total", "counter",
+               "Input + output tokens across replicas", "total_tokens"),
+    MetricSpec("cluster_throughput_tokens_per_second", "gauge",
+               "Aggregate total-token throughput", "throughput"),
+    MetricSpec("cluster_goodput_requests_per_second", "gauge",
+               "Completed requests per second", "goodput_rps"),
+    MetricSpec("cluster_ttft_seconds", "summary",
+               "Time-to-first-token across replicas", "ttft"),
+    MetricSpec("cluster_itl_seconds", "summary",
+               "Pooled decode-step latency", "itl"),
+    MetricSpec("cluster_e2e_seconds", "summary",
+               "Request E2E latency across replicas", "e2e"),
+    MetricSpec("cluster_queue_depth_mean", "gauge",
+               "Mean summed queue depth", "mean_queue_depth"),
+    MetricSpec("cluster_queue_depth_max", "gauge",
+               "Peak summed queue depth", "max_queue_depth"),
+    MetricSpec("cluster_kv_used_fraction_peak", "gauge",
+               "Peak KV occupancy over replicas", "peak_kv_fraction"),
+    MetricSpec("cluster_finish_reasons_total", "labeled",
+               "Completed requests by finish reason", "finish_reasons"),
+    # --- fault tolerance ---
+    MetricSpec("cluster_faults_total", "counter",
+               "Replica failures observed (injected or real)", "faults"),
+    MetricSpec("cluster_redriven_total", "counter",
+               "Stranded requests re-admitted on survivors", "redriven"),
+    MetricSpec("cluster_lost_total", "counter",
+               "Requests finished failed (redrive budget spent)", "lost"),
+    MetricSpec("cluster_shed_total", "counter",
+               "Admission-control rejections", "shed"),
+    MetricSpec("cluster_deadline_expired_total", "counter",
+               "Deadline expiries across replicas", "deadline_expired"),
+    MetricSpec("cluster_watchdog_trips_total", "counter",
+               "Wedged-replica detections", "watchdog_trips"),
+    MetricSpec("cluster_availability", "gauge",
+               "Mean per-replica availability", "availability"),
+    # --- speculative decoding (summed across replicas) ---
+    MetricSpec("cluster_spec_steps_total", "counter",
+               "Speculative verify steps across replicas", "spec_steps"),
+    MetricSpec("cluster_spec_drafted_tokens_total", "counter",
+               "Draft tokens proposed across replicas", "spec_drafted"),
+    MetricSpec("cluster_spec_accepted_tokens_total", "counter",
+               "Draft tokens accepted across replicas", "spec_accepted"),
+    MetricSpec("cluster_spec_rejected_tokens_total", "counter",
+               "Draft tokens rejected across replicas", "spec_rejected"),
+]
+
+
 def _fmt(v: float) -> str:
     if isinstance(v, bool):
         return "1" if v else "0"
@@ -198,8 +247,13 @@ def _emit_spec(lines: List[str], spec: MetricSpec, obj,
         lines.append(f"{base} {_fmt(val)}")
 
 
-def prometheus_text(metrics: ServingMetrics) -> str:
-    """Render a metrics object in Prometheus text exposition format."""
+def prometheus_text(metrics: Union[ServingMetrics, ClusterMetrics]) -> str:
+    """Render a metrics object in Prometheus text exposition format.
+
+    A :class:`ClusterMetrics` exports its cluster-level registry plus
+    every replica's :class:`ServingMetrics` with a ``replica="i"`` label,
+    so per-replica imbalance survives the export.
+    """
     lines: List[str] = []
     seen_types: set = set()
 
@@ -217,7 +271,11 @@ def prometheus_text(metrics: ServingMetrics) -> str:
                 lines.append(f"# TYPE {name} {kind}")
             _emit_spec(lines, spec, obj, labels)
 
-    if isinstance(metrics, ServingMetrics):
+    if isinstance(metrics, ClusterMetrics):
+        emit(CLUSTER_SPECS, metrics, {})
+        for rs in metrics.per_replica:
+            emit(SERVING_SPECS, rs.metrics, {"replica": str(rs.replica)})
+    elif isinstance(metrics, ServingMetrics):
         emit(SERVING_SPECS, metrics, {})
     else:
         raise TypeError(f"cannot export {type(metrics).__name__}")
@@ -280,10 +338,8 @@ def lint_prometheus(text: str) -> List[str]:
 
 
 # ------------------------------------------------------------------ JSON --
-def metrics_to_json(metrics: ServingMetrics) -> dict:
+def metrics_to_json(metrics: Union[ServingMetrics, ClusterMetrics]) -> dict:
     """Versioned, loss-free JSON form (``metrics_from_json`` inverts)."""
-    if not isinstance(metrics, ServingMetrics):
-        raise TypeError(f"cannot export {type(metrics).__name__}")
     return {"schema": SCHEMA, "type": type(metrics).__name__,
             "data": dataclasses.asdict(metrics)}
 
@@ -303,7 +359,21 @@ def _serving_from(d: dict) -> ServingMetrics:
     return ServingMetrics(**d)
 
 
-def metrics_from_json(doc: Union[dict, str]) -> ServingMetrics:
+def _cluster_from(d: dict) -> ClusterMetrics:
+    d = dict(d)
+    for key in ("ttft", "itl", "e2e"):
+        d[key] = _percentiles(d[key])
+    reps = []
+    for rd in d["per_replica"]:
+        rd = dict(rd)
+        rd["metrics"] = _serving_from(rd["metrics"])
+        reps.append(ReplicaStats(**rd))
+    d["per_replica"] = reps
+    return ClusterMetrics(**d)
+
+
+def metrics_from_json(doc: Union[dict, str]
+                      ) -> Union[ServingMetrics, ClusterMetrics]:
     """Reload a :func:`metrics_to_json` document (dict, JSON string, or
     file path) into the original dataclass. Fails loudly on unknown
     schema/type — a silent partial reload would poison downstream
@@ -321,9 +391,7 @@ def metrics_from_json(doc: Union[dict, str]) -> ServingMetrics:
     if kind == "ServingMetrics":
         return _serving_from(doc["data"])
     if kind == "ClusterMetrics":
-        raise NotImplementedError(
-            "ClusterMetrics are not ported yet (ROADMAP.md, queue 1 item 4: "
-            "the replicated cluster)")
+        return _cluster_from(doc["data"])
     raise ValueError(f"unknown metrics type {kind!r}")
 
 
@@ -339,7 +407,7 @@ class MetricsEmitter:
     def __init__(self, path: Optional[str] = None, *,
                  interval_s: float = 10.0, fmt: str = "json",
                  provider: Optional[Callable[
-                     [], ServingMetrics]] = None):
+                     [], Union[ServingMetrics, ClusterMetrics]]] = None):
         if fmt not in ("json", "prom"):
             raise ValueError(f"fmt must be 'json' or 'prom', got {fmt!r}")
         if interval_s <= 0:
@@ -354,7 +422,7 @@ class MetricsEmitter:
         self._last: Optional[float] = None
 
     def tick(self, now: float,
-             provider: Callable[[], ServingMetrics]
+             provider: Callable[[], Union[ServingMetrics, ClusterMetrics]]
              ) -> bool:
         """Emit if an interval elapsed (``now`` is any monotonic clock —
         the serving timeline works). Returns whether it emitted."""
@@ -364,7 +432,7 @@ class MetricsEmitter:
         self.emit(provider())
         return True
 
-    def emit(self, metrics: ServingMetrics):
+    def emit(self, metrics: Union[ServingMetrics, ClusterMetrics]):
         if self.fmt == "prom":
             payload = prometheus_text(metrics)
         else:

@@ -59,12 +59,6 @@ from repro_torch.serving.obs.windows import (
 from repro_torch.serving.workload import FINISH_DEADLINE
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 item 4: the "
-        f"replicated cluster)")
-
-
 @dataclasses.dataclass(frozen=True)
 class StepPhases:
     """One engine step's time, attributed to its phases (seconds).
@@ -526,10 +520,16 @@ class Observability:
         return ob
 
     def attach_cluster(self, cluster) -> "Observability":
-        raise _not_ported("attaching observability to a cluster")
+        """Attach to every replica of a cluster, each on its own trace
+        rows, and install the session as the cluster's event sink."""
+        cluster.obs = self
+        for rep in cluster.replicas:
+            self.attach(rep.engine, rep.idx)
+        return self
 
     def attach_backend(self, backend) -> "Observability":
-        """Attach to an engine (a cluster backend is not ported)."""
+        """Attach to an engine or a cluster (duck-typed on
+        ``replicas``)."""
         if hasattr(backend, "replicas"):
             return self.attach_cluster(backend)
         self.attach(backend)
@@ -540,7 +540,12 @@ class Observability:
 
     def replica_event(self, pid: int, name: str,
                       args: Optional[dict] = None):
-        raise _not_ported("cluster replica events")
+        """Cluster-level instant on a replica's step track (redrive /
+        quarantine / respawn / watchdog / evict) — no-op for a replica
+        that was never attached."""
+        ob = self.observers.get(pid)
+        if ob is not None:
+            ob.event(name, args)
 
     # ----------------------------------------------------------- export --
     def export_chrome_trace(self, path: str) -> str:

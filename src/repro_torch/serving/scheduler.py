@@ -194,6 +194,11 @@ class Scheduler:
         (LRU) when that closes the gap. Serial mode prefills each
         admission at once; chunked mode reserves its first chunk."""
         eng = self.eng
+        if eng.faults is not None and eng.faults.steals_allocation(
+                eng.replica_id, eng.step_count):
+            # injected transient allocation failure: admission skips a
+            # step (requests wait, shed or expire; nothing crashes)
+            return
         mgr = eng.pool.manager
         bs = eng.ecfg.block_size
         while (self.waiting and self._seats() < eng.ecfg.max_batch

@@ -62,9 +62,14 @@ first token's sample stays outside the graph, as the reference's separate
   capture or replay that fails raises: nothing falls back to the eager
   step. ``EngineConfig(cuda_graphs=False)`` runs every step eagerly on
   the same buffers, for comparison.
-* A graph's kernels run with no Python, so the kernels' ``launches``
-  counters are read around each capture (and put back: a capture
-  launches nothing) and the difference is added at each replay.
+* A graph's kernels run with no Python, so the launches a capture
+  records are tallied on the capturing thread, apart from the kernels'
+  ``launches`` counters (a capture launches nothing, and replicas on
+  other threads go on counting theirs), and added at each replay.
+* Every step is queued on the caller's current stream; an engine makes
+  that its own :attr:`StepFunctions.stream`. Captures take one lock a
+  process and capture in ``thread_local`` mode, so an engine may capture
+  while others, on other threads and streams, replay and synchronise.
 * Every step folds the finiteness of its logits into :attr:`finite`, on
   the device, with no sync.
 * With :attr:`StepFunctions.timing` on (an observer is attached), each
@@ -83,12 +88,14 @@ buffers.
 from __future__ import annotations
 
 import gc
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels.launches import add_counts, tally_launches
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
@@ -102,6 +109,12 @@ from repro_torch.serving.spec.verify import (spec_verify_body, stack_drafts,
 # staging buffers in the ring: the executor's two retained steps, the one
 # being dispatched and one to spare
 STAGING_SLOTS = 4
+
+# one graph capture at a time in the process: torch.cuda.graph
+# synchronises the device and empties the allocator's cache as it begins,
+# which another thread's capture would not survive, and the collector is
+# switched off process-wide for the capture
+_CAPTURE_LOCK = threading.Lock()
 
 # an overlapped step's chained rows: the previous step's [n] device
 # output, and {row: the row of that output holding its input token}
@@ -142,8 +155,9 @@ def launch_counts() -> Dict[str, int]:
 
 def take_launches(before: Dict[str, int]) -> Dict[str, int]:
     """The launches counted since ``before`` (a :func:`launch_counts`),
-    and the counters put back to ``before``: what a capture recorded
-    but did not launch."""
+    and the counters put back to ``before`` (one thread's view; a capture
+    counts on its own thread's tally instead, which other threads'
+    launches do not reach)."""
     delta = {}
     for name, fn in launch_counters().items():
         delta[name] = fn.launches - before[name]
@@ -152,9 +166,10 @@ def take_launches(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def add_launches(delta: Dict[str, int]):
-    """Count a replay's launches (a :func:`take_launches` delta)."""
-    for name, fn in launch_counters().items():
-        fn.launches += delta[name]
+    """Count a replay's launches (by kernel name), under the counters'
+    lock: replicas replay on several threads."""
+    counters = launch_counters()
+    add_counts({counters[name]: n for name, n in delta.items()})
 
 
 def _mark(device: torch.device):
@@ -275,10 +290,16 @@ class StepFunctions:
 
     def __init__(self, model: Model, pool: PagedKVCache, *, max_batch: int,
                  max_model_len: int, prefill_bucket: int = 64,
-                 cuda_graphs: bool = True, spec_k: Optional[int] = None):
+                 cuda_graphs: bool = True, spec_k: Optional[int] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
         self.model = model
         self.pool = pool
         self.device = pool.device
+        # the stream its engine queues every step on (None: the caller's
+        # current stream, and on the CPU)
+        self.stream = stream
+        self.sizing = (max_batch, max_model_len, prefill_bucket,
+                       cuda_graphs, spec_k)
         self.prefill_bucket = prefill_bucket
         self.graphs_on = cuda_graphs and self.device.type == "cuda"
         nb_max = pow2_bucket(pool.manager.blocks_needed(max_model_len), lo=4)
@@ -303,6 +324,29 @@ class StepFunctions:
             self._decode_pool = torch.cuda.graph_pool_handle()
             self._prefill_pool = torch.cuda.graph_pool_handle()
             self._side = torch.cuda.Stream(self.device)
+
+    def check_reuse(self, model: Model, ecfg, spec_k: Optional[int]):
+        """Refuse an engine these steps were not built for: they hold one
+        model, one pool's geometry and buffers sized for one
+        configuration."""
+        if model is not self.model:
+            raise ValueError("the StepFunctions were built for a different "
+                             "Model instance")
+        if self.pool.block_size != ecfg.block_size \
+                or self.pool.num_blocks * self.pool.block_size \
+                != ecfg.kv_pool_tokens:
+            raise ValueError(
+                f"the StepFunctions' pool has {self.pool.num_blocks} blocks "
+                f"of block_size={self.pool.block_size}; the engine asks for "
+                f"{ecfg.kv_pool_tokens} tokens in blocks of "
+                f"{ecfg.block_size}")
+        want = (ecfg.max_batch, ecfg.max_model_len, ecfg.prefill_bucket,
+                ecfg.cuda_graphs, spec_k)
+        if want != self.sizing:
+            raise ValueError(
+                f"the StepFunctions were sized for (max_batch, "
+                f"max_model_len, prefill_bucket, cuda_graphs, spec_k) = "
+                f"{self.sizing}, the engine asks for {want}")
 
     # ----------------------------------------------------------- inputs --
     def _stage(self, reqs: Sequence, positions: Sequence[int],
@@ -556,23 +600,30 @@ class StepFunctions:
         with torch.cuda.stream(self._side):
             out = body()
         cur.wait_stream(self._side)
-        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        # no collection during the capture: an engine left in a reference
-        # cycle (engine, scheduler, executor) would take its graphs down
-        # with it, and a capture refuses the calls that free them
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, stream=self._side, pool=(
-                    self._decode_pool if pool == "decode"
-                    else self._prefill_pool)):
-                static = body()
-        finally:
-            if collecting:
-                gc.enable()
-        self.graphs[key] = CapturedStep(graph, *static,
-                                        take_launches(before))
-        self.capture_s += time.perf_counter() - t0
+        with _CAPTURE_LOCK:
+            t0 = time.perf_counter()
+            # no collection during the capture: an engine left in a
+            # reference cycle (engine, scheduler, executor) would take its
+            # graphs down with it, and a capture refuses the calls that
+            # free them
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                # thread_local: other threads' engines go on synchronising
+                # (staging events, token copies) while this one captures;
+                # the launches the capture records are this thread's tally
+                with tally_launches() as tally, torch.cuda.graph(
+                        graph, stream=self._side, pool=(
+                            self._decode_pool if pool == "decode"
+                            else self._prefill_pool),
+                        capture_error_mode="thread_local"):
+                    static = body()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.capture_s += time.perf_counter() - t0
+        self.graphs[key] = CapturedStep(graph, *static, {
+            name: tally.get(fn, 0)
+            for name, fn in launch_counters().items()})
         return out

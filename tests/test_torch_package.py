@@ -59,13 +59,30 @@ def test_observability_modules_are_checked():
     assert set(OBS_MODULES) <= checked
 
 
+CLUSTER_MODULES = ["serving/faults.py", "core/replication.py",
+                   "core/perfmodel.py", "core/bca.py",
+                   "kernels/launches.py"] + [
+    f"serving/cluster/{m}.py" for m in ("__init__", "autoscale", "cluster",
+                                        "metrics", "router")]
+
+
+def test_cluster_modules_are_checked():
+    """Every module of the replication slice is among the files the
+    import check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(CLUSTER_MODULES) <= checked
+
+
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.serving.spec, repro_torch.kernels.ops, "
             "repro_torch.core.census, repro_torch.core.roofline, "
             "repro_torch.serving.obs.observer, "
             "repro_torch.serving.obs.export, "
-            "repro_torch.serving.obs.dashboard; "
+            "repro_torch.serving.obs.dashboard, "
+            "repro_torch.serving.cluster, repro_torch.serving.faults, "
+            "repro_torch.core.replication, repro_torch.core.bca; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
