@@ -68,8 +68,8 @@ It imports nothing of JAX or of the JAX package. Phases:
    float32); a static batch of 32 prompts with 64 decode steps on a
    dense cache; the speculative serve (16 repetitive requests, prompt
    96, 128 new tokens, batch 4, ``spec_k`` 8), greedy and sampled,
-   speculation off and on (eager, graphs cold and warm, graphs with
-   overlap; greedy also off and eager), with a profile window of verify
+   speculation off and on (graphs cold and warm, graphs with overlap),
+   with a profile window of verify
    steps (busy against wall a decode iteration; the paged kernel's
    replayed launches against the counters and the trace) and the token
    agreement with speculation off; then observability (``[obs]``): the
@@ -100,7 +100,18 @@ It imports nothing of JAX or of the JAX package. Phases:
    request finished, redrives, the trace's events); and the BCA loop:
    ``measure_curves`` at batch 4, 8, 16 and 32 on short serves,
    ``decide`` on the card's peaks with at most 4 replicas, and the
-   decided cluster served. Each paged and gather way is followed by a
+   decided cluster served; then the serving API and the launcher
+   (``[api]``, ``[launcher_*]``): the paged serve's 32 requests through
+   ``ServingAPI`` on an overlapped engine, the first streamed and the
+   rest drained (tokens equal to ``engine.run``'s graphs + overlap
+   serve), the first 16 through ``AsyncServingAPI`` on 16 concurrent
+   streams with the longest aborted mid-stream, the first 16 through the
+   facade over an R=2 cluster with replica 1 killed (nothing lost), and
+   ``repro_torch.launch.serve.main`` three times in process (64 requests
+   overlapped; ``--bca --replicas auto --stream`` with a trace, a
+   Prometheus file and the memory audit, both validated; two replicas
+   with prefix affinity and the prefix cache), each run's launches
+   against its engines' steps. Each paged and gather way is followed by a
    ``torch.profiler`` window of 10 steady decode steps at batch 16
    (device busy time by kernel kind against host wall time; with graphs
    and no overlap, the decode kernel's replayed launches against the
@@ -1135,8 +1146,9 @@ def cluster_engines(cluster, before=()):
     return engines
 
 
-def serve_cluster(cluster, reqs, tag, faults=0):
-    """Serve ``reqs`` on ``cluster`` with the launch counters set to 0
+def serve_cluster(cluster, reqs, tag, faults=0, drive=None):
+    """Serve ``reqs`` on ``cluster`` (``cluster.run``, or ``drive(cluster,
+    reqs)``, which returns the metrics) with the launch counters set to 0
     just before and read just after: every request must finish by length,
     every engine's logits stay finite, every healthy replica's blocks come
     home, the cluster must see ``faults`` failures, and each kernel must
@@ -1147,7 +1159,7 @@ def serve_cluster(cluster, reqs, tag, faults=0):
     import torch
     before = [rep.engine for rep in cluster.replicas]
     reset_launches()
-    m = cluster.run(reqs)
+    m = (drive or type(cluster).run)(cluster, reqs)
     torch.cuda.synchronize()
     launches = read_launches()
     engines = cluster_engines(cluster, before)
@@ -1159,16 +1171,10 @@ def serve_cluster(cluster, reqs, tag, faults=0):
     if m.faults != faults or m.lost:
         raise AssertionError(f"{tag}: {m.faults} faults (want {faults}), "
                              f"{m.lost} requests lost")
-    layers = engines[0].model.cfg.n_layers
-    want = {"paged_decode_attention": 0, "decode_attention": 0,
-            "flash_attention": 0, "flash_prefix_attention": 0}
     for e in engines:
         if not bool(e.steps.finite):
             raise AssertionError(f"{tag}: NaN or inf logits")
-        want["paged_decode_attention"] += (e.decode_steps
-                                           + e.verify_iterations) * layers
-        for k, v in prefill_launches(e).items():
-            want[k] += v
+    want = expected_launches(engines)
     for rep in cluster.replicas:
         mgr = rep.engine.pool.manager
         cached = rep.engine.prefix.cached_blocks if rep.engine.prefix else 0
@@ -1361,10 +1367,11 @@ def serve(model, reqs, decode_mode, card, tag=None, obs=None, **ecfg_kw):
     return engine, metrics, launches
 
 
-def run_served(engine, reqs, card, tag):
-    """Serve ``reqs`` to completion on ``engine`` with the launch counters
-    set to 0 just before and read just after; every request must finish
-    by length with in-range tokens, every logit must be finite, every
+def run_served(engine, reqs, card, tag, drive=None):
+    """Serve ``reqs`` to completion on ``engine`` (``engine.run``, or
+    ``drive(engine, reqs)``, which returns the metrics) with the launch
+    counters set to 0 just before and read just after; every request must
+    finish by length with in-range tokens, every logit must be finite, every
     block must be back in the pool (the prefix cache's aside), and each
     kernel must have launched exactly once a layer of each step of its
     kind: the decode kernel of the mode a decode step (the paged kernel
@@ -1374,10 +1381,9 @@ def run_served(engine, reqs, card, tag):
     import torch
     model = engine.model
     cfg = model.cfg
-    decode_mode = engine.decode_mode
     with finite_logits(model) as finite:
         reset_launches()
-        metrics = engine.run(reqs)
+        metrics = (drive or type(engine).run)(engine, reqs)
         torch.cuda.synchronize()
         launches = read_launches()
         if not bool(finite) or not bool(engine.steps.finite):
@@ -1395,9 +1401,7 @@ def run_served(engine, reqs, card, tag):
                              f"cached of {mgr.num_blocks} blocks after the "
                              f"serve")
     steps = (engine.decode_steps + engine.verify_iterations) * cfg.n_layers
-    want = {"paged_decode_attention": steps if decode_mode == "paged" else 0,
-            "decode_attention": steps if decode_mode == "gather" else 0,
-            **prefill_launches(engine)}
+    want = expected_launches([engine])
     if launches != want or not steps:
         raise AssertionError(f"{tag}: launch counts {launches} != {want}")
     spec = ""
@@ -1447,6 +1451,23 @@ def step_mode(engine):
                  f"{engine.decode_steps + engine.spec_steps} commits waited "
                  f"for the device)")
     return mode
+
+
+def expected_launches(engines):
+    """The launches ``engines`` must have made since the counters were set
+    to 0: each kernel once a layer of each step of its kind, summed (the
+    decode kernel of the engine's mode a decode step, the paged kernel
+    ``K_pad + 1`` times a verify step, the flash entries as
+    :func:`prefill_launches`)."""
+    want = dict.fromkeys(launch_counters(), 0)
+    for e in engines:
+        decode = ("paged_decode_attention" if e.decode_mode == "paged"
+                  else "decode_attention")
+        want[decode] += (e.decode_steps + e.verify_iterations) \
+            * e.model.cfg.n_layers
+        for k, v in prefill_launches(e).items():
+            want[k] += v
+    return want
 
 
 def prefill_launches(engine):
@@ -1914,8 +1935,6 @@ def phase_graph_modes(model, card, runs):
 
 SPEC_SERVE = dict(max_batch=4, speculate=True, spec_k=8)
 SPEC_WAYS = {"off, graphs": dict(speculate=False),
-             "off, eager": dict(speculate=False, cuda_graphs=False),
-             "on, eager": dict(cuda_graphs=False),
              "on, graphs": {},
              "on, graphs + overlap": dict(overlap=True)}
 
@@ -1923,9 +1942,11 @@ SPEC_WAYS = {"off, graphs": dict(speculate=False),
 def phase_spec_serve(model, card):
     """The speculative serve: 16 repetitive requests (prompt 96, 128 new
     tokens, the shape of ``benchmarks/speculative.py``), batch 4,
-    ``spec_k`` 8, greedy and sampled, speculation off (graphs; greedy also
-    eager), on eager, on with graphs (cold, then warm: the same engine
-    serves the workload at another seed), on with graphs and overlap.
+    ``spec_k`` 8, greedy and sampled, speculation off (graphs), on with
+    graphs (cold, then warm: the same engine serves the workload at
+    another seed), on with graphs and overlap (an eager verify step is
+    held against the replayed one in phase 5, and eager speculation runs
+    in phase 3).
     Each serve checks launches, finite logits and the pool
     (:func:`run_served`); a profile window of verify steps follows the
     warm serve; token agreement with speculation off is reported. Returns
@@ -1937,8 +1958,6 @@ def phase_spec_serve(model, card):
         sp = SamplingParams(**sampling) if sampling else None
         runs = {}
         for way, kw in SPEC_WAYS.items():
-            if kind == "sampled" and way == "off, eager":
-                continue
             reqs = spec_workload(vocab, sampling=sp)
             tag = f"spec {kind}, {way}"
             engine, m, got = serve(model, reqs, "paged", card, tag=tag,
@@ -2703,6 +2722,250 @@ def phase_cluster(model, card):
           f"{m.itl.p50 / base.itl.p50:.3f}x")
     release()
     return r2_launches
+
+
+# ------------------------------------------------ serving API, launcher ----
+API_KILL_AT = 40             # the facade's cluster kills replica 1 here
+API_ABORT_AFTER = 8          # the async facade aborts one stream here
+
+
+def api_stream_drain(backend, reqs, strict=True):
+    """Submit ``reqs`` through a ``ServingAPI``, stream the first, drain
+    the rest: the first stream's deltas must reassemble to its drained
+    output, and every drained output must be its request's tokens (with
+    ``strict``; otherwise the requests whose emitted history differs from
+    the tokens a redrive regenerated in another batch are counted).
+    Returns the session's metrics."""
+    from repro_torch.serving import ServingAPI
+    api = ServingAPI(backend)
+    handles = [api.submit(r) for r in reqs]
+    events = list(api.stream(handles[0]))
+    outs = api.drain()
+    first = outs[handles[0].req_id]
+    if tuple(t for e in events for t in e.new_token_ids) != first.token_ids \
+            or not events[-1].finished:
+        raise AssertionError("streamed deltas do not reassemble to the "
+                             "drained output")
+    differ = [h.req_id for h in handles
+              if list(outs[h.req_id].token_ids) != h.request.output_tokens]
+    if differ and strict:
+        raise AssertionError(f"requests {differ}: drained output is not "
+                             f"the request's tokens")
+    print(f"[api] stream: request {handles[0].req_id} in {len(events)} "
+          f"events, {len(first.token_ids)} tokens; {len(differ)} drained "
+          f"outputs differ from their request's final tokens")
+    return api.metrics()
+
+
+def api_async(model, card, a_reqs):
+    """``AsyncServingAPI`` over a new overlapped engine: the first 16
+    requests of the paged serve streamed concurrently (16 ``async for``
+    consumers), the longest aborted after :data:`API_ABORT_AFTER` tokens.
+    Every
+    stream's deltas must reassemble to its drained output, the aborted
+    one end ``abort`` and the rest ``length``, every block come home
+    after ``aclose`` (which joins the pump thread and waits for the
+    engine's stream), and the launches (graphs captured on the pump
+    thread) match the steps. Returns the launch counts."""
+    import asyncio
+    import torch
+    from repro_torch.serving import AsyncServingAPI, ContinuousBatchingEngine
+    release()
+    engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
+    reqs = serve_workload()[:16]
+    victim = max(reqs, key=lambda r: r.max_new_tokens).req_id
+
+    async def serve_async():
+        api = AsyncServingAPI(engine)
+        handles = [await api.submit(r) for r in reqs]
+
+        async def consume(h):
+            toks, aborted = [], False
+            async for ev in api.stream(h):
+                toks.extend(ev.new_token_ids)
+                if ev.finished:
+                    return toks, ev.finish_reason
+                if h.req_id == victim and not aborted \
+                        and len(toks) >= API_ABORT_AFTER:
+                    aborted = await api.abort(h)
+            return toks, None
+        streamed = await asyncio.gather(*(consume(h) for h in handles))
+        outs = await api.drain()
+        await api.aclose()
+        return streamed, outs
+
+    t0 = time.perf_counter()
+    reset_launches()
+    streamed, outs = asyncio.run(serve_async())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    wall = time.perf_counter() - t0
+    for r, (toks, reason) in zip(reqs, streamed):
+        out = outs[r.req_id]
+        want = "abort" if r.req_id == victim else "length"
+        if tuple(toks) != out.token_ids or reason != out.finish_reason \
+                or reason != want:
+            raise AssertionError(f"[api async] request {r.req_id}: streamed "
+                                 f"{len(toks)} tokens ({reason}), drained "
+                                 f"{len(out.token_ids)} ({out.finish_reason})"
+                                 f", want {want}")
+    mgr = engine.pool.manager
+    want = expected_launches([engine])
+    if mgr.free_blocks != mgr.num_blocks or engine.busy:
+        raise AssertionError(f"[api async] {mgr.num_blocks - mgr.free_blocks}"
+                             f" blocks held after the drain")
+    if launches != want or not bool(engine.steps.finite):
+        raise AssertionError(f"[api async] launch counts {launches} != "
+                             f"{want}, or NaN or inf logits")
+    kept = [r for r in reqs if r.req_id != victim]
+    by_id = {r.req_id: r for r in a_reqs}
+    print(f"[api async] on {card}: 16 concurrent streams over "
+          f"{step_mode(engine)}; request {victim} aborted after "
+          f"{len(outs[victim].token_ids)} tokens, blocks all home; "
+          f"{sum(len(o.token_ids) for o in outs.values())} tokens in "
+          f"{wall:.2f} s; launches {launches}; against (a): "
+          f"{agreement([by_id[r.req_id] for r in kept], kept)}")
+    del engine
+    release()
+    return launches
+
+
+def api_cluster(model, card, a_reqs):
+    """``ServingAPI`` over an R=2 co-located cluster (sync, 16384 KV tokens
+    a replica) with replica 1 killed at its step :data:`API_KILL_AT`, as
+    ``--inject-fault replica=1,step=40`` does: the facade's pump redrives
+    its requests onto replica 0; every request must finish by length,
+    none be lost. Returns the launch counts."""
+    from repro_torch.serving import FaultInjector, ReplicatedCluster
+    release()
+    cluster = ReplicatedCluster.colocated(
+        model, serve_config(kv_pool_tokens=16384), 2, mode="sync",
+        faults=FaultInjector.parse(f"replica=1,step={API_KILL_AT}"))
+    reqs = serve_workload()[:16]
+    m, launches = serve_cluster(
+        cluster, reqs, "[api cluster]", faults=1,
+        drive=lambda c, r: api_stream_drain(c, r, strict=False))
+    if not m.redriven:
+        raise AssertionError("[api cluster]: nothing was redriven")
+    by_id = {r.req_id: r for r in a_reqs}
+    print(f"[api cluster] on {card}: R=2 through the facade, replica 1 "
+          f"killed at its step {API_KILL_AT}: {m.completed} of {len(reqs)} "
+          f"finished, {m.redriven} redriven, {m.lost} lost; launches "
+          f"{launches}; against (a): "
+          f"{agreement([by_id[r.req_id] for r in reqs], reqs)}")
+    del cluster
+    release()
+    return launches
+
+
+LAUNCHER_RUNS = (
+    ("launcher_overlap", ["--requests", "64", "--overlap"]),
+    ("launcher_bca", ["--bca", "--replicas", "auto", "--stream",
+                      "--trace", "{out}/launcher_trace.json",
+                      "--metrics-out", "{out}/launcher_metrics.prom",
+                      "--audit-memory"]),
+    ("launcher_prefix", ["--replicas", "2", "--policy", "prefix-affinity",
+                         "--prefix-cache", "--shared-prefix-tenants", "4"]),
+)
+
+
+def launcher_run(card, tag, flags):
+    """``repro_torch.launch.serve.main`` in this process at full width,
+    its output printed under ``[tag]``, with the launch counters set to 0
+    just before and read just after: every engine it built must keep its
+    logits finite and launch each kernel once a layer of each step of its
+    kind, and every request finish by length or stop. Returns the launch
+    counts."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving import ContinuousBatchingEngine
+    made = []
+    init = ContinuousBatchingEngine.__init__
+
+    def recorded(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+    argv = ["--arch", MODEL] + [f.format(out=ROOT / "chiprun_out")
+                                for f in flags]
+    release()
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    ContinuousBatchingEngine.__init__ = recorded
+    try:
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            metrics = launcher.main(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        ContinuousBatchingEngine.__init__ = init
+        for line in out.getvalue().splitlines():
+            print(f"[{tag}] {line}")
+    wall = time.perf_counter() - t0
+    want = expected_launches(made)
+    reasons = {k: v for k, v in metrics.finish_reasons.items() if v}
+    if set(reasons) - {"length", "stop"}:
+        raise AssertionError(f"[{tag}] finish reasons {reasons}")
+    if launches != want or not all(bool(e.steps.finite) for e in made):
+        raise AssertionError(f"[{tag}] launch counts {launches} != {want}, "
+                             f"or NaN or inf logits")
+    need = ["paged_decode_attention", "flash_attention"] + (
+        ["flash_prefix_attention"] if "--prefix-cache" in flags else [])
+    if not all(launches[k] for k in need):
+        raise AssertionError(f"[{tag}] a kernel of {need} never launched: "
+                             f"{launches}")
+    print(f"[{tag}] on {card}: python -m repro_torch.launch.serve "
+          f"{' '.join(argv)}: {len(made)} engine(s), {wall:.1f} s; "
+          f"paged {launches['paged_decode_attention']}, flash "
+          f"{launches['flash_attention']}, flash prefix "
+          f"{launches['flash_prefix_attention']} launches (= each engine's "
+          f"steps x layers)")
+    made.clear()
+    release()
+    return launches
+
+
+def phase_api(model, card, modes):
+    """The serving API and the launcher on the card: (a) ``ServingAPI``
+    over one overlapped engine with the paged serve's 32 requests, the
+    first streamed and the rest drained, token for token the graphs +
+    overlap serve of ``engine.run`` (the first differing step printed
+    and fatal); (b) ``AsyncServingAPI`` (:func:`api_async`); (c) the
+    facade over an R=2 cluster with a kill (:func:`api_cluster`); (d) the
+    launcher's three runs (:data:`LAUNCHER_RUNS`), the trace validated
+    and the Prometheus file linted. Returns each path's launch counts."""
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.obs import lint_prometheus, validate_chrome_trace
+    release()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    reqs = serve_workload()
+    engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
+    _, got = run_served(engine, reqs, card, "[serve api, graphs, overlap]",
+                        drive=api_stream_drain)
+    del engine
+    release()
+    diff = first_difference(modes["greedy", "graphs, overlap"]["reqs"], reqs)
+    if diff:
+        raise AssertionError(f"[api] the facade's tokens differ from "
+                             f"engine.run's at {diff}")
+    print(f"[api] ServingAPI stream + drain equals engine.run (graphs, "
+          f"overlap) on all {sum(r.generated for r in reqs)} tokens")
+    paths = {"api_serve": got,
+             "api_async": api_async(model, card, reqs),
+             "api_cluster": api_cluster(model, card, reqs)}
+    for tag, flags in LAUNCHER_RUNS:
+        paths[tag] = launcher_run(card, tag, flags)
+    out = ROOT / "chiprun_out"
+    errs = validate_chrome_trace(str(out / "launcher_trace.json"))
+    lint = lint_prometheus((out / "launcher_metrics.prom").read_text())
+    if errs or lint:
+        raise AssertionError(f"[launcher_bca] trace {errs[:3]}, "
+                             f"Prometheus {lint[:3]}")
+    print("[launcher_bca] the trace passes validate_chrome_trace and the "
+          "metrics file lint_prometheus")
+    return paths
 
 
 def phase_gather_serve(model, card, paged_all):
@@ -3544,6 +3807,8 @@ def main() -> int:
     phase("4, observability", phase_obs, model, card, modes)
     by_path["cluster_serve"] = phase("4, cluster", phase_cluster, model,
                                      card)
+    by_path.update(phase("4, serving API and launcher", phase_api, model,
+                         card, modes))
     phase("5, step compare", phase_step_compare, model, card)
     phase("5, prefill compare", phase_prefill_compare, model, card)
     phase("5, verify compare", phase_verify_compare, model, card)

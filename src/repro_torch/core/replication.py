@@ -7,13 +7,15 @@ counts ``model_bytes`` once a replica, as the reference does. The port's
 co-located replicas (``ReplicatedCluster.colocated``) run in one process
 and share one set of weights, so on the card they hold the weights once
 and the plan overstates their memory by ``(R - 1) x model_bytes``. The
-reference's ``slice_mesh`` has its counterpart in
-:func:`repro_torch.serving.cluster.slice_devices`.
+reference's ``slice_mesh`` has its counterpart in :func:`slice_devices`,
+which splits a list of devices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Sequence, Union
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hardware import Hardware
@@ -57,3 +59,18 @@ class ReplicationPlanner:
             n_replicas=n, per_replica_batch=b_opt, model_bytes=model_b,
             kv_bytes_per_replica=kv_b, total_bytes=n * per_replica,
             capacity_bytes=cap)
+
+
+def slice_devices(devices: Sequence[Union[str, torch.device]],
+                  n_replicas: int) -> List[List[torch.device]]:
+    """Split ``devices`` into ``n_replicas`` disjoint slices in order (the
+    reference's ``slice_mesh`` over a list of devices); raises if the count
+    does not divide."""
+    devs = [torch.device(d) for d in devices]
+    if n_replicas < 1:
+        raise ValueError(f"need >= 1 replica, got {n_replicas}")
+    if not devs or len(devs) % n_replicas:
+        raise ValueError(f"{len(devs)} devices not divisible by "
+                         f"{n_replicas}")
+    per = len(devs) // n_replicas
+    return [devs[i * per:(i + 1) * per] for i in range(n_replicas)]

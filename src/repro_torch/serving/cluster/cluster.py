@@ -91,6 +91,7 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.core.replication import slice_devices
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster.metrics import (ClusterMetrics, ReplicaStats,
                                                  aggregate)
@@ -499,10 +500,11 @@ class ReplicatedCluster:
 
     # --------------------------------------------------------------- run --
     def run(self, requests: Sequence[Request]) -> ClusterMetrics:
-        """Serve ``requests`` to completion (the batch-offline loop; the
-        reference's goes through its serving API, which is not ported
-        yet)."""
-        return self._run_impl(requests)
+        """Batch-offline wrapper over the streaming facade
+        (:class:`repro_torch.serving.api.ServingAPI`); online callers
+        submit, stream and abort through the facade instead."""
+        from repro_torch.serving.api import ServingAPI
+        return ServingAPI(self).run(requests)
 
     def _run_impl(self, requests: Sequence[Request]) -> ClusterMetrics:
         """Serve ``requests`` to completion and return aggregate metrics.
@@ -754,18 +756,3 @@ def _drain(eng: ContinuousBatchingEngine) -> bool:
     except RuntimeError:
         return False
     return True
-
-
-def slice_devices(devices: Sequence[Union[str, torch.device]],
-                  n_replicas: int) -> List[List[torch.device]]:
-    """Split ``devices`` into ``n_replicas`` disjoint slices in order (the
-    reference's ``slice_mesh`` over a list of devices); raises if the count
-    does not divide."""
-    devs = [torch.device(d) for d in devices]
-    if n_replicas < 1:
-        raise ValueError(f"need >= 1 replica, got {n_replicas}")
-    if not devs or len(devs) % n_replicas:
-        raise ValueError(f"{len(devs)} devices not divisible by "
-                         f"{n_replicas}")
-    per = len(devs) // n_replicas
-    return [devs[i * per:(i + 1) * per] for i in range(n_replicas)]

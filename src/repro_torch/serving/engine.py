@@ -101,7 +101,7 @@ from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
 from repro_torch.serving.executor import Executor
 from repro_torch.serving.faults import FaultInjector
-from repro_torch.serving.metrics import ServingMetrics, collect_from_engine
+from repro_torch.serving.metrics import ServingMetrics
 from repro_torch.serving.obs.series import (DEFAULT_SERIES_MAXLEN,
                                             BoundedSeries)
 from repro_torch.serving.scheduler import Scheduler, StepPlan
@@ -885,22 +885,12 @@ class ContinuousBatchingEngine:
                               n_decode=len(plan.reqs))
 
     def run(self, requests: List[Request]) -> ServingMetrics:
-        """Batch-offline loop: submit everything, step to completion with
-        arrival fast-forwarding and a monotonic ``now``, collect metrics
-        (the semantics of the reference's ``_EngineBackend.run``)."""
-        for r in requests:
-            self.add_request(r)
-        prev_clock = self.clock
-        t_start = time.perf_counter()
-        self.clock = lambda: time.perf_counter() - t_start
-        try:
-            now = 0.0
-            while self.busy:
-                if not self.running and self.waiting:
-                    now = max(now, self.waiting[0].arrival_s)
-                self.step(now)
-                now = max(now, time.perf_counter() - t_start)
-            wall = time.perf_counter() - t_start
-        finally:
-            self.clock = prev_clock
-        return collect_from_engine(self, requests, wall)
+        """Batch-offline wrapper over the streaming facade
+        (:class:`repro_torch.serving.api.ServingAPI`): submit everything,
+        step to completion with arrival fast-forwarding (never past a
+        prompt still being prefilled) and a monotonic ``now``, collect
+        metrics. The wall clock installed for timestamping is restored on
+        exit, so back-to-back runs, or facade or step use after a run,
+        never stamp against a stale epoch."""
+        from repro_torch.serving.api import ServingAPI
+        return ServingAPI(self).run(requests)

@@ -74,6 +74,33 @@ def test_cluster_modules_are_checked():
     assert set(CLUSTER_MODULES) <= checked
 
 
+API_MODULES = ["serving/__init__.py", "serving/api.py", "core/__init__.py",
+               "core/simulator.py", "core/intensity.py", "launch/__init__.py",
+               "launch/serve.py"]
+
+
+def test_api_modules_are_checked():
+    """Every module of the serving API and launcher slice is among the
+    files the import check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(API_MODULES) <= checked
+
+
+def test_serving_exports_every_name_of_the_reference():
+    """``repro_torch.serving`` exports every name ``repro.serving`` does
+    (read from the reference's source, so nothing of JAX is imported)."""
+    import repro_torch.serving as port
+    names = set()
+    tree = ast.parse((ROOT / "src" / "repro" / "serving" /
+                      "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    assert len(names) == 57
+    assert sorted(n for n in names if not hasattr(port, n)) == []
+
+
 def test_importing_the_engine_loads_no_jax():
     code = ("import sys; import repro_torch.serving.engine, "
             "repro_torch.serving.spec, repro_torch.kernels.ops, "
@@ -82,7 +109,9 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.serving.obs.export, "
             "repro_torch.serving.obs.dashboard, "
             "repro_torch.serving.cluster, repro_torch.serving.faults, "
-            "repro_torch.core.replication, repro_torch.core.bca; "
+            "repro_torch.core.replication, repro_torch.core.bca, "
+            "repro_torch.serving.api, repro_torch.launch.serve, "
+            "repro_torch.core.simulator, repro_torch.core.intensity; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
