@@ -28,7 +28,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    build) without a prefix, and captured in a CUDA graph, then replayed
    at other prefix lengths bit for bit against direct calls; the
    contiguous-decode grid of the
-   reference's tests (plus G = 7 and hd 80/96), its length-0 rows
+   reference's tests (plus G = 7 and hd 80/96/112), its length-0 rows
    against the TPU kernel's formula and long caches cut into several
    splits; each at its serving shape; the sampler's threefry bits on the
    card against the CPU's over a (seed, position) sweep;
@@ -48,7 +48,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    replica's share, threaded, and overlapped (sync and threaded), and
    threaded with replica 1 killed mid-serve, greedy and sampled, with
    and without a respawn (replica 1 must serve again): equal tokens
-   everywhere, launches counted across the replicas' threads;
+   everywhere, launches counted across the replicas' threads; then the
+   non-dense families at full width in float32, cut to two layers
+   (zamba2 to two periods of six): olmoe-1b-7b, mamba2-1.3b and
+   zamba2-7b (head dim 112), 2 prefills and 4 paged and 4 gather decode
+   steps each through the kernels and their plain versions, tokens
+   identical and logits within ``MODEL_TOL``;
 4. the main paths at full width and depth (24-layer OPT-1.3B, bfloat16,
    random weights from a seed), each run with every kernel's launch
    counter set to 0 just before and read just after (a CUDA graph's
@@ -122,7 +127,21 @@ It imports nothing of JAX or of the JAX package. Phases:
    turns, three warm serves a side (TTFT); and one prefill at each serve
    shape through the engine's step, replayed and eager (host wall,
    device busy, idle, flash launches against the trace). Each serve
-   prints the device memory its engine holds (KV pool, graph pools);
+   prints the device memory its engine holds (KV pool, graph pools).
+   Last, the non-dense families at full width and depth in bfloat16
+   (``[families ...]``), each built, served and released before the
+   next: olmoe-1b-7b (64 experts, top 8, capacity-routed), mamba2-1.3b
+   and zamba2-7b (Mamba2 state in per-slot pool leaves, a shared
+   attention block at head dim 112), each a paged serve of 16
+   ShareGPT-length requests (graphs + overlap, batch 16) and a gather
+   serve of the first 8, launches exact (the decode kernel once an
+   attention layer a step: 16, 0 and 13; the flash kernel once an
+   attention layer a prefill), every block and state slot home; output
+   tok/s, ITL p50, the memory held (weights, K/V pool, dense state,
+   graph pools), paged-vs-gather token agreement; and a profile window
+   of 10 steady steps at batch 16 (busy, host wall, idle share, busy by
+   kernel kind), then 3 eager steps under named scopes for the expert
+   GEMMs' and the SSM state update's share of the device time;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -130,8 +149,9 @@ It imports nothing of JAX or of the JAX package. Phases:
    TFLOP/s, and with its length at a serial prefill of the paged serve;
    its prefix-masked entry at the prefix serve's suffix and the chunked
    serve's middle chunk; both beside SDPA with the same boolean mask;
-   paged decode at the serving shape and at one 8000-token request
-   through a 512-block table; contiguous decode at the gather shape, at
+   paged decode at the serving shape, at one 8000-token request
+   through a 512-block table and at olmoe's (K 16, hd 128) and zamba2's
+   (K 32, hd 112) serving shapes; contiguous decode at the gather shape, at
    one 8192-token request and at the static batch's shape); the decode
    kernels and their library calls twice, L2-cold (back-to-back calls on
    24 copies of their inputs in turn, as a step's 24 layers) and L2-warm
@@ -170,6 +190,12 @@ RTOL = 1e-2
 ROW_ATOL = 1e-2              # paged multi-split atol: of a row's largest |out|
 MODEL_TOL = 1e-3             # float32 logits, kernels vs plain, full width
 MODEL = "opt-1.3b"           # the served configuration, full width
+# the non-dense families, each served at full width and depth
+FAMILIES = ("olmoe-1b-7b", "mamba2-1.3b", "zamba2-7b")
+# the float32 model check's depth: two layers, zamba2 two periods of six
+# (its shared attention block twice)
+MODEL_CHECK_LAYERS = {MODEL: 2, "olmoe-1b-7b": 2, "mamba2-1.3b": 2,
+                      "zamba2-7b": 12}
 
 
 def close(a, b, what, atol=None):
@@ -455,7 +481,7 @@ def phase_kernels(errs):
         paged_split_plan)
     n = 0
     for G in (1, 2, 4, 7, 8):
-        for hd in (64, 80, 96, 128):
+        for hd in (64, 80, 96, 112, 128):
             for BS in (16, 32):
                 for dtype in (torch.float32, torch.bfloat16):
                     nb = 4
@@ -487,7 +513,62 @@ def phase_kernels(errs):
     phase_flash_kernel(errs)
     phase_flash_prefix(errs)
     phase_decode_kernel(errs)
+    phase_family_kernels(errs)
     phase_threefry()
+
+
+def phase_family_kernels(errs):
+    """The three kernels at the shapes the non-dense families' bf16
+    serves give them, against their plain versions: paged decode at the
+    paged serve's (B=16), contiguous decode at the gather serve's (the
+    first 8 requests, the batch unpadded) and the flash kernel's plain
+    entry at each serial prefill of the paged serve (B=1, the prompt's
+    bucket of 64 with its length); each family's heads."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
+    for name in FAMILIES:
+        heads = family_heads(name)
+        if heads is None:
+            continue
+        K, G, hd = heads
+        tag = f"{name}_serving_shape"
+        args = serve_decode_inputs(K, G, hd)
+        errs["paged"][tag] = close(
+            paged_gqa_decode_attention(*args),
+            paged_gqa_decode_attention_torch(*args),
+            f"paged decode at {name}'s paged serve")
+        q, k, v, lens = gather_decode_inputs(8, K, G, hd)
+        errs["decode"][tag] = close(
+            gqa_decode_attention(q, k, v, lens),
+            gqa_decode_attention_torch(q, k, v, lens),
+            f"contiguous decode at {name}'s gather serve")
+        s_pad = k.shape[1]
+        prefills = sorted({(-(-r.prompt_len // 64) * 64, r.prompt_len)
+                           for r in family_workload(get_config(name))})
+        e_flash = 0.0
+        for S, n in prefills:
+            q, k, v = flash_inputs(1, S, S, K, G, hd, torch.bfloat16, seed=n)
+            lengths = torch.tensor([n], dtype=torch.int32, device="cuda")
+            e_flash = max(e_flash, close(
+                flash_attention(q, k, v, lengths=lengths),
+                flash_attention_torch(q, k, v, lengths=lengths),
+                f"flash at {name}'s prefill S={S} length {n}"))
+        errs["flash"][tag] = e_flash
+        print(f"[kernels] at {name}'s serving shapes (H={K * G}, K={K}, "
+              f"hd={hd}, bf16), kernels vs plain versions: paged decode "
+              f"(B=16, table width {args[3].shape[1]}) max abs err "
+              f"{errs['paged'][tag]:.3e}; contiguous decode (B=8, S_pad="
+              f"{s_pad}) max abs err {errs['decode'][tag]:.3e}; flash's "
+              f"plain entry "
+              f"at the {len(prefills)} serial prefills (S "
+              f"{prefills[0][0]}..{prefills[-1][0]}) max abs err "
+              f"{e_flash:.3e}; within tolerance")
 
 
 def phase_paged_splits(errs):
@@ -528,7 +609,7 @@ def phase_paged_splits(errs):
 
     e_split, n, K = 0.0, 0, 2
     for i, (G, hd, BS, dtype) in enumerate(itertools.product(
-            (1, 2, 4, 7, 8), (64, 80, 96, 128), (16, 32),
+            (1, 2, 4, 7, 8), (64, 80, 96, 112, 128), (16, 32),
             (torch.float32, torch.bfloat16))):
         nb = (256, 512)[i // 4 % 2]
         S = nb * BS
@@ -558,7 +639,8 @@ def phase_paged_splits(errs):
         n_win += 1
     errs["paged"]["multi_split"] = e_split
     print(f"[kernels] paged decode: {n} multi-split cases (B 1/2, K 2, G "
-          f"1/2/4/7/8 x hd 64/80/96/128 x BS 16/32 x f32/bf16, table width "
+          f"1/2/4/7/8 x hd 64/80/96/112/128 x BS 16/32 x f32/bf16, table "
+          f"width "
           f"256/512; lengths 0, 1, mid-block, a split boundary, the full "
           f"table and past it) and {n_win} window cases (B {B}, K {K}, G 1, "
           f"hd 64/128, f32/bf16, BS {BS}, table width {nb}, one split, "
@@ -605,7 +687,7 @@ def phase_flash_kernel(errs):
         errs["flash"]["reference_cases"] = max(
             errs["flash"]["reference_cases"], e)
     grid = list(itertools.product(
-        (32, 64, 80, 96, 128), ((2, 1), (1, 4), (2, 4), (1, 8)),
+        (32, 64, 80, 96, 112, 128), ((2, 1), (1, 4), (2, 4), (1, 8)),
         ((True, None), (False, None), (True, 40)),
         ((64, 64), (100, 100), (32, 96), (128, 128), (1024, 1024))))
     e_grid = 0.0
@@ -619,7 +701,7 @@ def phase_flash_kernel(errs):
     # with a length a request (the model's prefill without a prefix): the
     # second request's keys cut short of the sequence
     len_grid = list(itertools.product(
-        (32, 64, 80, 96, 128), (torch.float32, torch.bfloat16),
+        (32, 64, 80, 96, 112, 128), (torch.float32, torch.bfloat16),
         ((True, None), (False, None), (True, 40)), (64, 100, 192)))
     e_len = 0.0
     for n, (hd, dtype, (causal, window), S) in enumerate(len_grid):
@@ -637,7 +719,8 @@ def phase_flash_kernel(errs):
                                              e)
     print(f"[kernels] flash prefill: {len(cases)} reference cases (max abs "
           f"err {errs['flash']['reference_cases']:.3e}); {len(grid)} bf16 "
-          f"grid cases (hd 32/64/80/96/128 x (K,G) (2,1)/(1,4)/(2,4)/(1,8) "
+          f"grid cases (hd 32/64/80/96/112/128 x (K,G) "
+          f"(2,1)/(1,4)/(2,4)/(1,8) "
           f"x causal/non-causal/window 40 x (Sq,Skv) (64,64)/(100,100)/"
           f"(32,96)/(128,128)/(1024,1024)), max abs err {e_grid:.3e}; S in "
           f"64..1024 at H=K=32, hd=64, bf16 (max abs err "
@@ -681,7 +764,7 @@ def phase_flash_prefix(errs):
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_prefix_attention, flash_prefix_attention_torch)
-    heads = list(itertools.product((1, 2, 4, 7, 8), (64, 80, 96, 128)))
+    heads = list(itertools.product((1, 2, 4, 7, 8), (64, 80, 96, 112, 128)))
     dtypes = (torch.float32, torch.bfloat16)
     shapes = [(P, pl, S) for P in (16, 32, 64, 512)
               for pl in (0, 1, P // 2 + 3, P) for S in (16, 64, 192)]
@@ -703,8 +786,8 @@ def phase_flash_prefix(errs):
             f"S={S} lengths={lens.tolist()}"))
     errs["flash_prefix"]["sweep"] = e_max
     n_same = 0
-    for hd, G, Sq, dtype in itertools.product((32, 64, 80, 96, 128), (1, 4),
-                                              (64, 100, 192), dtypes):
+    for hd, G, Sq, dtype in itertools.product(
+            (32, 64, 80, 96, 112, 128), (1, 4), (64, 100, 192), dtypes):
         q, k, v = flash_inputs(2, Sq, Sq, 2, G, hd, dtype, seed=hd + Sq + G)
         for lens in ((Sq, Sq), (Sq, Sq - 3 - hd % 7)):
             lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -720,7 +803,7 @@ def phase_flash_prefix(errs):
     n_graph = phase_flash_prefix_graph()
     print(f"[kernels] flash prefix entry: {len(cases)} cases (P_pad "
           f"16/32/64/512 x prefix_len 0/1/mid-block/P_pad x S 16/64/192 x "
-          f"f32/bf16, then every G 1/2/4/7/8 x hd 64/80/96/128 x dtype; "
+          f"f32/bf16, then every G 1/2/4/7/8 x hd 64/80/96/112/128 x dtype; "
           f"B=2, K=2, the second length short of S, the prefix's masked "
           f"tail random) within tolerance, max abs err {e_max:.3e}; "
           f"without a prefix equal bit for bit to the plain causal entry "
@@ -809,7 +892,7 @@ def phase_decode_kernel(errs):
     e_grid = e_zero = 0.0
     grid = list(itertools.product(
         (1, 2, 5), (64, 100, 256), ((1, 8), (2, 4), (4, 1), (8, 1), (2, 7)),
-        (64, 80, 96, 128), (32, 256), (torch.float32, torch.bfloat16)))
+        (64, 80, 96, 112, 128), (32, 256), (torch.float32, torch.bfloat16)))
     gen = torch.Generator().manual_seed(0)
     for n, (B, S, (K, G), hd, bs, dtype) in enumerate(grid):
         lengths = torch.randint(1, S + 1, (B,), generator=gen).tolist()
@@ -861,7 +944,7 @@ def phase_decode_kernel(errs):
     errs["decode"]["multi_split"] = e_split
     print(f"[kernels] contiguous decode: {len(grid)} grid cases (B 1/2/5, S "
           f"64/100/256, (K,G) (1,8)/(2,4)/(4,1)/(8,1)/(2,7), hd "
-          f"64/80/96/128, block_s 32/256, f32 and bf16) max abs err "
+          f"64/80/96/112/128, block_s 32/256, f32 and bf16) max abs err "
           f"{e_grid:.3e}; {n_zero} cases with a length-0 row equal to "
           f"sum(V)/Sp, max abs err {e_zero:.3e}; {n_split} multi-split "
           f"cases (B 1/2, S 4096/8192, (K,G) (2,4)/(8,1), hd 64/128, f32 "
@@ -888,7 +971,7 @@ def run_model(model, prompts, steps, mode):
     from repro_torch.serving.engine import _bucket, _pow2_bucket
     cfg = model.cfg
     pool = PagedKVCache(cfg, num_blocks=128, block_size=16,
-                        device="cuda")
+                        device="cuda", max_batch=len(prompts))
     logits_all, tokens = [], []
     for rid, p in enumerate(prompts):
         S = _bucket(len(p), 64)
@@ -929,52 +1012,63 @@ def run_model(model, prompts, steps, mode):
     return logits_all, history
 
 
-def phase_model(errs):
+def phase_model(errs, name, n_layers, seed=1):
+    """One configuration at full width in float32, cut to ``n_layers``:
+    two prefills and four paged, then four gather, decode steps through
+    the kernels and through their plain versions; logits within
+    ``MODEL_TOL``, greedy tokens identical, the gather steps' tokens equal
+    to the paged steps', and the kernels launched once an attention layer
+    a call by the kernel run and never by the plain run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(get_config("opt-1.3b"), n_layers=2,
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
                               dtype="float32")
-    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(1))
-    rng = np.random.default_rng(1)
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(seed))
+    n_attn = attention_layers(cfg)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (161, 97)]
+    tag = "model_check" if name == MODEL else f"{name}_model_check"
     paged_tok = None
     for mode, kernel in (("paged", "paged_decode_attention"),
                          ("gather", "decode_attention")):
         reset_launches()
         kern, kern_tok = run_model(model, prompts, 4, mode)
         want = {"paged_decode_attention": 0, "decode_attention": 0,
-                "flash_attention": 2 * 2, "flash_prefix_attention": 0,
-                kernel: 4 * 2}
+                "flash_attention": 2 * n_attn, "flash_prefix_attention": 0,
+                kernel: 4 * n_attn}
         if read_launches() != want:
-            raise AssertionError(f"model check ({mode}) did not run the "
-                                 f"kernels: {read_launches()} != {want}")
+            raise AssertionError(f"model check {name} ({mode}) did not run "
+                                 f"the kernels: {read_launches()} != {want}")
         with plain_attention():
             plain, plain_tok = run_model(model, prompts, 4, mode)
         if read_launches() != want:
-            raise AssertionError(f"the plain {mode} run launched a kernel")
+            raise AssertionError(f"the plain {mode} run of {name} launched "
+                                 f"a kernel")
         err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
         if not all(bool(torch.isfinite(a).all()) for a in kern):
-            raise AssertionError(f"model check ({mode}): non-finite logits")
+            raise AssertionError(f"model check {name} ({mode}): non-finite "
+                                 f"logits")
         if err > MODEL_TOL or kern_tok != plain_tok:
             raise AssertionError(
-                f"model check ({mode}): logits differ by {err:.3e} "
+                f"model check {name} ({mode}): logits differ by {err:.3e} "
                 f"(tolerance {MODEL_TOL}) or tokens differ: {kern_tok} vs "
                 f"{plain_tok}")
         paged_tok = paged_tok or kern_tok
         if kern_tok != paged_tok:
-            raise AssertionError(f"gather-mode tokens {kern_tok} differ from "
-                                 f"the paged steps' {paged_tok}")
-        key = "paged" if mode == "paged" else "decode"
-        errs[key]["model_check"] = err
-        errs["flash"]["model_check"] = max(
-            errs["flash"].get("model_check", 0.0), err)
-        print(f"[model] OPT-1.3B width, 2 layers, float32: 2 prefills + 4 "
-              f"{mode} decode steps, kernels vs plain versions: logits max "
-              f"abs err {err:.3e} (tolerance {MODEL_TOL}), greedy tokens "
-              f"equal {kern_tok[-1]}"
-              + (" and equal to the paged steps'" if mode == "gather"
-                 else ""))
+            raise AssertionError(f"{name}: gather-mode tokens {kern_tok} "
+                                 f"differ from the paged steps' {paged_tok}")
+        if n_attn:
+            key = "paged" if mode == "paged" else "decode"
+            errs[key][tag] = err
+            errs["flash"][tag] = max(errs["flash"].get(tag, 0.0), err)
+        print(f"[model] {name} width, {n_layers} layers ({n_attn} with "
+              f"attention), float32: 2 prefills + 4 {mode} decode steps, "
+              f"kernels vs plain versions: logits max abs err {err:.3e} "
+              f"(tolerance {MODEL_TOL}), greedy tokens equal {kern_tok[-1]}"
+              + (" and equal to the paged steps' at every step"
+                 if mode == "gather" else "")
+              + f"; launches {read_launches()}")
     del model
     release()
 
@@ -1291,27 +1385,39 @@ def decode_lengths():
             for r in serve_workload()[:16]]
 
 
-def serve_decode_inputs():
+def serve_decode_inputs(K=32, G=1, hd=64, seed=7):
     """The paged kernel's serving shape: the 16 decode lengths, blocks at
-    permuted ids."""
+    permuted ids; OPT-1.3B's heads, or a family's (the families' serves
+    draw the same lengths)."""
     import torch
     lengths = decode_lengths()
     nb = 4
     while nb * 16 < max(lengths):
         nb *= 2
-    return paged_inputs(16, 32, 1, 64, 16, nb, torch.bfloat16, lengths,
-                        seed=7)
+    return paged_inputs(16, K, G, hd, 16, nb, torch.bfloat16, lengths,
+                        seed=seed)
 
 
-def gather_decode_inputs():
-    """The contiguous kernel's serving shape: the 16 decode lengths in a
-    dense cache padded as the gather step pads it (``S_pad`` a multiple
-    of four 16-token blocks)."""
+def gather_decode_inputs(B=16, K=32, G=1, hd=64, seed=8):
+    """The contiguous kernel's serving shape: the first ``B`` decode
+    lengths (16 in OPT-1.3B's gather serve, 8 in a family's) in a dense
+    cache padded as the gather step pads it (``S_pad`` a multiple of four
+    16-token blocks; the batch unpadded)."""
     import torch
-    lengths = decode_lengths()
+    lengths = decode_lengths()[:B]
     S_pad = -(-max(lengths) // 64) * 64
-    return decode_inputs(16, S_pad, 32, 1, 64, torch.bfloat16, lengths,
-                         seed=8)
+    return decode_inputs(B, S_pad, K, G, hd, torch.bfloat16, lengths,
+                         seed=seed)
+
+
+def family_heads(name):
+    """A family's attention heads ``(K, G, hd)`` (olmoe 16, 1, 128;
+    zamba2 32, 1, 112), or None where it has no attention (mamba2)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if not attention_layers(cfg):
+        return None
+    return cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd
 
 
 def full_model(dtype=None):
@@ -1362,7 +1468,8 @@ def serve(model, reqs, decode_mode, card, tag=None, obs=None, **ecfg_kw):
     kv = sum(t.numel() * t.element_size() for t in engine.pool.pool.values())
     engine.graph_pool_bytes = held - kv
     print(f"{tag} memory: the engine holds {held / 1e9:.3f} GB of device "
-          f"memory reserved after the serve: the KV pool {kv / 1e9:.3f} GB, "
+          f"memory reserved after the serve: the pool (K/V and any dense "
+          f"state) {kv / 1e9:.3f} GB, "
           f"the graph pools and step buffers {(held - kv) / 1e9:.3f} GB")
     return engine, metrics, launches
 
@@ -1400,7 +1507,7 @@ def run_served(engine, reqs, card, tag, drive=None):
         raise AssertionError(f"{tag}: {mgr.free_blocks} free + {cached} "
                              f"cached of {mgr.num_blocks} blocks after the "
                              f"serve")
-    steps = (engine.decode_steps + engine.verify_iterations) * cfg.n_layers
+    steps = engine.decode_steps + engine.verify_iterations
     want = expected_launches([engine])
     if launches != want or not steps:
         raise AssertionError(f"{tag}: launch counts {launches} != {want}")
@@ -1414,8 +1521,8 @@ def run_served(engine, reqs, card, tag, drive=None):
           f"decode steps{spec}, {engine.prefills} prefills, {engine.chunks} "
           f"prefill chunks ({engine.suffix_prefills} of them over a "
           f"prefix), {metrics.preemptions} preemptions; launches "
-          f"{launches} = steps (or prefills and chunks) x {cfg.n_layers} "
-          f"layers")
+          f"{launches} = steps (or prefills and chunks) x "
+          f"{attention_layers(cfg)} attention layers")
     print(f"{tag} {step_mode(engine)}, on {card}: "
           f"throughput {metrics.throughput:.1f} tok/s, output "
           f"{metrics.output_throughput:.1f} tok/s, wall {metrics.wall_s:.2f} s,"
@@ -1453,6 +1560,13 @@ def step_mode(engine):
     return mode
 
 
+def attention_layers(cfg):
+    """The layers that run attention kernels (every layer of a dense or
+    MoE model, a hybrid's shared-block occurrences, none of an SSM)."""
+    from repro_torch.core.census import layer_counts
+    return layer_counts(cfg)["kv"]
+
+
 def expected_launches(engines):
     """The launches ``engines`` must have made since the counters were set
     to 0: each kernel once a layer of each step of its kind, summed (the
@@ -1464,7 +1578,7 @@ def expected_launches(engines):
         decode = ("paged_decode_attention" if e.decode_mode == "paged"
                   else "decode_attention")
         want[decode] += (e.decode_steps + e.verify_iterations) \
-            * e.model.cfg.n_layers
+            * attention_layers(e.model.cfg)
         for k, v in prefill_launches(e).items():
             want[k] += v
     return want
@@ -1474,7 +1588,7 @@ def prefill_launches(engine):
     """The flash launches an engine's prefills must have made: its
     prefix-masked entry once a layer for each prefill or chunk over a
     prefix, its plain entry for each other."""
-    n = engine.model.cfg.n_layers
+    n = attention_layers(engine.model.cfg)
     return {"flash_attention": (engine.prefills + engine.chunks
                                 - engine.suffix_prefills) * n,
             "flash_prefix_attention": engine.suffix_prefills * n}
@@ -3200,14 +3314,20 @@ def phase_times(card, prefill_sizes, serve_reqs):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch)
     times = {}
+    heads = {name: family_heads(name) for name in FAMILIES}
+    heads = {name: h for name, h in heads.items() if h}
     long_request = paged_inputs(1, 32, 1, 64, 16, 512, torch.bfloat16,
                                 [8000], seed=11)
     paged = [time_paged(card, what, *args) for what, args in (
         ("the paged serve's shape", serve_decode_inputs()),
-        ("one long request through a wide table", long_request))]
+        ("one long request through a wide table", long_request),
+        *((f"{name}'s paged serve", serve_decode_inputs(*h))
+          for name, h in heads.items()))]
     times["paged_decode_attention"] = dict(paged[0], other_shapes=paged[1:])
 
     shapes = [("the gather serve's shape", gather_decode_inputs()),
+              *((f"{name}'s gather serve", gather_decode_inputs(8, *h))
+                for name, h in heads.items()),
               ("one long request", decode_inputs(
                   1, 8192, 32, 1, 64, torch.bfloat16, [8192], seed=9)),
               ("the static batch at its middle step", decode_inputs(
@@ -3742,6 +3862,249 @@ def phase_verify_compare(model, card, K=8):
     return busy, wall
 
 
+# ------------------------------------------------- non-dense families ----
+
+
+def family_workload(cfg, n=16):
+    """16 ShareGPT-length requests in the model's vocabulary."""
+    from repro_torch.serving.workload import sharegpt_like
+    return sharegpt_like(n, cfg.vocab_size, seed=0, mean_in=161,
+                         mean_out=338, max_len=1024)
+
+
+def family_model(name):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def slots_home(engine, tag):
+    """Every state slot of a state-keeping model's pool is free again."""
+    pool = engine.pool
+    if pool.free_slots != (engine.ecfg.max_batch if pool.state_names
+                           else 0):
+        raise AssertionError(f"{tag}: {pool.free_slots} state slots free "
+                             f"of {engine.ecfg.max_batch} after the serve")
+
+
+def family_graph_check(model, card, n=24, cap=40):
+    """The state staged through ``slots`` and read and written inside
+    captured graphs under overlap, held to eager steps: ``n`` requests of
+    the family workload, each cut to ``cap`` new tokens, at batch 16 (so
+    the last eight take the slots and blocks of finished ones), served
+    with CUDA graphs and overlap, then with eager synchronous steps;
+    every output token must be equal."""
+    from repro_torch.serving.workload import Request
+    name = model.cfg.name
+    served = {}
+    for way in ("graphs, overlap", "eager, sync"):
+        reqs = [Request(r.req_id, r.prompt, min(r.max_new_tokens, cap))
+                for r in family_workload(model.cfg, n)]
+        tag = f"families {name} {way}"
+        engine, _, _ = serve(model, reqs, "paged", card, tag=tag,
+                             **WAYS[way])
+        slots_home(engine, tag)
+        del engine
+        release()
+        served[way] = reqs
+    diff = first_difference(*served.values())
+    if diff:
+        raise AssertionError(f"{name}: the graphs + overlap serve differs "
+                             f"from the eager sync serve at {diff}")
+    print(f"[families {name}] graphs + overlap against eager sync, {n} "
+          f"requests cut to {cap} new tokens at batch 16 (slots reused): "
+          f"all {sum(r.generated for r in served['eager, sync'])} output "
+          f"tokens equal")
+
+
+def family_memory(engine):
+    """The device memory an engine's serve held: weights, the K/V pool,
+    the dense-state slots and the graph pools with the step buffers."""
+    pool = engine.pool
+    weights = sum(p.numel() * p.element_size()
+                  for p in engine.model.parameters())
+    kv = sum(pool.pool[n].numel() * pool.pool[n].element_size()
+             for n in pool.kv_names)
+    return (f"weights {gb(weights)}, K/V pool {gb(kv)}, dense state "
+            f"{gb(pool.dense_state_bytes)}, graph pools and step buffers "
+            f"{gb(engine.graph_pool_bytes)}")
+
+
+@contextlib.contextmanager
+def scopes():
+    """Open a ``torch.profiler.record_function`` range around the expert
+    GEMMs (``moe._expert_ffn``) and the SSM state update
+    (``ssm._state_update``), the reference's ``expert_ffn`` and
+    ``ssm_state_update`` scopes, for an eager profile window."""
+    import torch
+    from repro_torch.models import moe, ssm
+    saved = (moe._expert_ffn, ssm._state_update)
+
+    def scoped(name, fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+    moe._expert_ffn = scoped("expert_ffn", saved[0])
+    ssm._state_update = scoped("ssm_state_update", saved[1])
+    try:
+        yield
+    finally:
+        moe._expert_ffn, ssm._state_update = saved
+
+
+def step_bound(engine):
+    """The least time of the engine's next decode step: the bytes its
+    census counts (``step_census`` at its bucket plus the live attention
+    terms) over the card's memory rate; with that, the census's GB and
+    the perfmodel's step time (``decode_step_terms``, which prices an
+    MoE step from its active parameters), both at the same rows and
+    mean context."""
+    from repro_torch.core import census as C
+    from repro_torch.core.perfmodel import decode_step_terms
+    rids = [r.req_id for r in engine.running]
+    positions = [engine._pos[r] for r in rids]
+    bucket = engine.steps.paged_bucket(rids)
+    tables = engine.pool.manager.tables
+    live = C.LiveWork(rows=len(rids), context=sum(positions) + len(rids),
+                      entries=sum(min(len(tables[r]), bucket[1])
+                                  for r in rids))
+    cfg, bs = engine.cfg, engine.ecfg.block_size
+    nbytes = C.step_census(cfg, "decode", bucket, bs).bytes + \
+        C.attention_cost(cfg, "decode", bucket, live, bs).bytes
+    model_s = decode_step_terms(cfg, len(rids), live.context // len(rids),
+                                card_peaks()).gpu_s
+    return bound(nbytes, 0.0)[0], nbytes / 1e9, model_s * 1e3
+
+
+def family_profile(model, card, steps=10):
+    """A steady window at batch 16 on a graphs + overlap engine:
+    ``torch.profiler`` device busy by kernel kind against the host wall of
+    an unprofiled window; then the same engine's steps run eagerly for
+    three more steps under named scopes, which give the expert GEMMs' and
+    the SSM state update's share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ContinuousBatchingEngine
+    name = model.cfg.name
+    engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
+    for r in family_workload(model.cfg):
+        engine.add_request(r)
+    for _ in range(21):                  # admits all 16, then warm steps
+        engine.step(0.0)
+    torch.cuda.synchronize()
+    _, wall_ms, _ = steady_steps(engine, steps)
+    prof, _, _ = steady_steps(engine, steps, lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("profiler recorded no device activity")
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / steps
+    busy = sum(by_kind.values())
+    idle = 1 - busy / wall_ms
+    parts = ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
+                      for k, v in sorted(by_kind.items(),
+                                         key=lambda kv: -kv[1]))
+    print(f"[families {name} profile] on {card}, {step_mode(engine)}: "
+          f"{steps} decode steps at batch {len(engine.running)}: device busy "
+          f"{busy:.3f} ms/step, host wall {wall_ms:.3f} ms/step unprofiled, "
+          f"so the device idles {idle * 100:.1f}%; by kind: {parts}")
+    bound_ms, census_gb, model_ms = step_bound(engine)
+    print(f"[families {name} profile] on {card}: the step's census moves "
+          f"{census_gb:.3f} GB (every weight, every expert's, the state "
+          f"read and written, the live K/V), a bound of {bound_ms:.3f} ms at "
+          f"the card's {card_peaks().hbm_bw / 1e12:.2f} TB/s: busy is "
+          f"{busy / bound_ms:.2f} x it; the perfmodel (active parameters) "
+          f"prices the step at {model_ms:.3f} ms")
+    st = engine.steps
+    saved = st.graphs, st.graphs_on
+    st.graphs, st.graphs_on = {}, False
+    try:
+        with scopes(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as ep:
+            for _ in range(3):
+                engine.step(0.0)
+            torch.cuda.synchronize()
+    finally:
+        st.graphs, st.graphs_on = saved
+    rows = {e.key: e for e in ep.key_averages()}
+
+    def dev_us(key):
+        e = rows.get(key)
+        return 0.0 if e is None else getattr(
+            e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+    eager_busy = sum((e.time_range.end - e.time_range.start)
+                     for e in ep.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    shares = {k: dev_us(k) / max(eager_busy, 1e-9)
+              for k in ("expert_ffn", "ssm_state_update")}
+    print(f"[families {name} profile] on {card}: 3 eager steps under named "
+          f"scopes: device {eager_busy / 3e3:.3f} ms/step, the expert "
+          f"GEMMs (expert_ffn) {shares['expert_ffn'] * 100:.1f}% and the "
+          f"SSM state update (ssm_state_update) "
+          f"{shares['ssm_state_update'] * 100:.1f}% of it")
+    del engine
+    release()
+    return dict(busy_ms=busy, wall_ms=wall_ms, idle=idle, by_kind=by_kind,
+                shares=shares, bound_ms=bound_ms)
+
+
+def phase_families(card):
+    """Each non-dense family at full width and depth in bfloat16, random
+    weights from seed 0, built, served and released before the next: a
+    paged serve of 16 ShareGPT-length requests (CUDA graphs, overlapped,
+    batch 16) and a gather serve of the first 8, each with exact launch
+    counts (the paged or contiguous decode kernel once an attention layer
+    a step: 16 for olmoe, none for mamba2, 13 for zamba2; the flash
+    kernel once an attention layer a prefill), finite logits and every
+    block and state slot home; then :func:`family_graph_check` and a
+    profile window. Returns each serve's launch counts by path and the
+    profile numbers."""
+    import torch
+    by_path, profiles = {}, {}
+    for name in FAMILIES:
+        model, init_s = family_model(name)
+        cfg = model.cfg
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[families {name}] {cfg.arch_type}: {cfg.n_layers} layers "
+              f"({attention_layers(cfg)} with attention), d_model "
+              f"{cfg.d_model}, head dim {cfg.hd}, {cfg.dtype}, "
+              f"{n_params / 1e9:.3f} B parameters, random init in "
+              f"{init_s:.1f} s")
+        outs = {}
+        for mode, n in (("paged", 16), ("gather", 8)):
+            part = family_workload(cfg)[:n]
+            engine, m, launches = serve(model, part, mode, card,
+                                        tag=f"families {name} {mode}",
+                                        overlap=True)
+            slots_home(engine, f"{name} {mode}")
+            print(f"[families {name} {mode}] on {card}: output "
+                  f"{m.output_throughput:.1f} tok/s, ITL p50 "
+                  f"{m.itl.p50 * 1e3:.2f} ms; {family_memory(engine)}")
+            by_path[f"{name} {mode}_serve"] = launches
+            outs[mode] = part
+            del engine
+            release()
+        print(f"[families {name}] paged vs gather, the first 8 requests: "
+              f"{agreement(outs['paged'][:8], outs['gather'])}")
+        family_graph_check(model, card)
+        profiles[name] = family_profile(model, card)
+        del model
+        release()
+        torch.cuda.synchronize()
+    return by_path, profiles
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -3777,7 +4140,8 @@ def main() -> int:
             "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
             "flash_prefix": {}}
     phase("2, kernels", phase_kernels, errs)
-    phase("3, model", phase_model, errs)
+    for name, n_layers in MODEL_CHECK_LAYERS.items():
+        phase(f"3, model {name}", phase_model, errs, name, n_layers)
     phase("3, prefill modes", phase_model_prefill_modes, errs)
     phase("3, speculation", phase_model_speculative, errs)
     phase("3, cluster", phase_model_cluster)
@@ -3814,6 +4178,8 @@ def main() -> int:
     phase("5, verify compare", phase_verify_compare, model, card)
     del model
     release()
+    family_paths, _ = phase("4, non-dense families", phase_families, card)
+    by_path.update(family_paths)
     times = phase("5, kernel times", phase_times, card, prefill_sizes,
                   serve_workload())
     kernels = []

@@ -57,8 +57,10 @@ import dataclasses
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.models.params import param_specs
+from repro_torch.configs.base import ATTN, SHARED_ATTN, SSM, ArchConfig
+from repro_torch.models.moe import capacity, token_chunks
+from repro_torch.models.params import (attn_specs, block_specs, param_specs,
+                                       ssm_dims)
 
 
 @dataclasses.dataclass
@@ -98,7 +100,7 @@ LOGIT_BYTES = 4                  # logits are float32
 # elementwise operations an element of the MLP activation (relu: one max;
 # swiglu: the sigmoid, its product and the gate product; tanh-gelu's
 # polynomial); only relu is held against the reference's census
-_ACT_OPS = {"relu": 1, "swiglu": 3, "gelu": 8}
+_ACT_OPS = {"relu": 1, "swiglu": 6, "gelu": 8}
 _NORM_OPS = {"layernorm": 8, "rmsnorm": 4}
 
 
@@ -125,28 +127,44 @@ def _numel(shape) -> int:
     return n
 
 
-def param_count(cfg: ArchConfig) -> int:
-    """Every parameter of the model (the port's dense decoders)."""
-    specs = param_specs(cfg)
-    total = sum(_numel(s.shape) for s in specs["embed"].values())
-    for grp in specs["stack"][0].values():
-        total += sum(_numel(s.shape) for s in grp.values())
-    total += sum(_numel(s.shape) for s in specs["final_norm"].values())
+def _tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tree_numel(v) for v in tree)
+    return _numel(tree.shape)
+
+
+def param_count(cfg: ArchConfig, active: bool = False) -> int:
+    """Every parameter of the model; with ``active``, an MoE model's
+    parameters a token uses (its ``top_k`` experts of each MoE layer, as
+    the reference's ``active_params`` counts them)."""
+    total = _tree_numel(param_specs(cfg))
+    if active and cfg.moe is not None:
+        n_moe = cfg.block_plan().count(ATTN)
+        total -= (cfg.moe.num_experts - cfg.moe.top_k) * n_moe \
+            * _mlp_weights(cfg)
     return total
 
 
-def _layer_params(cfg: ArchConfig) -> Dict[str, int]:
-    """One layer's parameter counts by group (``attn``, ``ffn``, norms),
-    and its GEMM weights' (biases excluded)."""
-    stack = param_specs(cfg)["stack"][0]
-    L = cfg.n_layers
-    out = {grp: sum(_numel(s.shape) for s in leaves.values()) // L
-           for grp, leaves in stack.items()}
-    out["gemm"] = sum(_numel(s.shape) // L
-                      for grp in ("attn", "ffn")
-                      for name, s in stack[grp].items()
-                      if name.startswith("w"))
-    return out
+def _mlp_weights(cfg: ArchConfig) -> int:
+    """One dense MLP's (or one expert's) GEMM weights."""
+    return (3 if cfg.act == "swiglu" else 2) * cfg.d_model * cfg.d_ff
+
+
+def layer_counts(cfg: ArchConfig) -> Dict[str, int]:
+    """The plan's layers by what they run: ``kv`` attention layers
+    (``ATTN`` and each ``SHARED_ATTN`` occurrence), ``mlp`` dense FFNs
+    (the dense family's, the shared block's and an MoE model's dense
+    residual branch), ``moe`` routed FFNs and ``ssm`` Mamba2 mixers."""
+    plan = cfg.block_plan()
+    n_attn, n_shared = plan.count(ATTN), plan.count(SHARED_ATTN)
+    moe = cfg.moe is not None
+    return {"kv": n_attn + n_shared,
+            "mlp": n_shared + (n_attn if not moe or cfg.moe.dense_residual
+                               else 0),
+            "moe": n_attn if moe else 0,
+            "ssm": plan.count(SSM)}
 
 
 def variant_shape(variant: str, bucket: Tuple, block_size: int
@@ -175,6 +193,51 @@ def variant_shape(variant: str, bucket: Tuple, block_size: int
                      f"{VARIANTS})")
 
 
+def expert_rows(cfg: ArchConfig, variant: str, rows: int) -> int:
+    """Rows an MoE layer's expert GEMMs run over in a step of ``rows``
+    padded rows: ``E * C`` a token chunk, ``C`` at the prefill capacity
+    factor in a prefill and at the serve factor in a decode step (the
+    dispatch buffer every expert reads, whatever the routing)."""
+    moe = cfg.moe
+    cf = moe.capacity_factor if variant in PREFILL_VARIANTS \
+        else cfg.serve_capacity_factor
+    n = token_chunks(rows)
+    return n * moe.num_experts * capacity(cf, moe.top_k, rows // n,
+                                          moe.num_experts)
+
+
+def _ssm_cost(cfg: ArchConfig, variant: str, rows: int) -> ClassCost:
+    """One Mamba2 layer: the in/out projections, the conv, the gated
+    norm, and the SSD einsums (a prefill's chunked scan over its rows
+    padded to whole chunks) or the decode state update; bytes: the
+    weights, the activations and the state (a decode step reads and
+    writes each row's, a prefill writes its own; the gather step also
+    copies each row's out of its slot and back)."""
+    s, isz = cfg.ssm, itemsize(cfg)
+    d = cfg.d_model
+    d_in, nh, conv_ch = ssm_dims(cfg)
+    P, N, G, W = s.head_dim, s.d_state, s.ngroups, s.conv_width
+    width = 2 * d_in + 2 * G * N + nh
+    state = nh * P * N * 4 + (W - 1) * conv_ch * isz
+    flops = rows * (2 * d * width + 2 * d_in * d + 2 * W * conv_ch
+                    + 8 * d_in)
+    if variant in PREFILL_VARIANTS:
+        Q = min(s.chunk, rows)
+        n_chunks = -(-rows // Q)
+        flops += n_chunks * (2 * Q * Q * G * N + 3 * Q * Q * nh
+                             + 2 * Q * Q * nh * P + 6 * Q * nh * P * N)
+        state_bytes = state
+    else:
+        flops += rows * 6 * nh * P * N
+        state_bytes = 2 * rows * state
+        if variant == "decode_gather":
+            state_bytes *= 2
+    weights = _tree_numel(block_specs(cfg, SSM)["ssm"])
+    acts = rows * (d + width + 2 * conv_ch + 2 * d_in + d)
+    return ClassCost(flops=float(flops),
+                     bytes=float((weights + acts) * isz + state_bytes))
+
+
 def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
                 block_size: int) -> OpCensus:
     """The cost a step's bucket fixes: every class but attention's live
@@ -183,25 +246,47 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
                                                        block_size)
     isz = itemsize(cfg)
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    f, L, V = cfg.d_ff, cfg.n_layers, cfg.padded_vocab
-    gated = cfg.act == "swiglu"
-    lp = _layer_params(cfg)
-    embed = param_specs(cfg)["embed"]
+    f, V = cfg.d_ff, cfg.padded_vocab
+    n = layer_counts(cfg)
+    up = (2 if cfg.act == "swiglu" else 1) * f
+    act_ops = _ACT_OPS.get(cfg.act, 1)
+    specs = param_specs(cfg)
+    embed = specs["embed"]
     learned = "pos" in embed
     unemb = _numel((embed.get("unemb") or embed["tok"]).shape)
     c = OpCensus()
 
     mm = c.per_class["matmul"]
-    up = (2 if gated else 1) * f
-    ew = rows * f * _ACT_OPS.get(cfg.act, 1)
+    attn_w = d * (H + 2 * K) * hd + H * hd * d
+    ew = 0
     if cfg.qkv_bias:
-        ew += rows * (H + 2 * K) * hd
-    mm.flops = L * (2.0 * rows * lp["gemm"] + ew)
-    acts = (rows * d + rows * (H + 2 * K) * hd      # qkv in, out
-            + rows * H * hd + rows * d              # o in, out
-            + rows * d + rows * up                  # up in, out
-            + rows * f + rows * d)                  # down in, out
-    mm.bytes = L * (lp["attn"] + lp["ffn"] + acts) * isz
+        ew += (H + 2 * K) * hd
+    if cfg.pos == "rope":
+        # the rotations of q and k, and the angles they share
+        ew += 3 * (H + K) * hd + hd + 1
+    mm.flops = n["kv"] * rows * (2.0 * attn_w + ew) \
+        + n["mlp"] * rows * (2.0 * _mlp_weights(cfg) + f * act_ops)
+    norm_p = _tree_numel(specs["final_norm"])
+    attn_p = _tree_numel(attn_specs(cfg))
+    mm.bytes = (n["kv"] * (attn_p + rows * (2 * d + (2 * H + 2 * K) * hd))
+                + n["mlp"] * (_mlp_weights(cfg)
+                              + rows * (2 * d + up + f))) * isz
+    if n["moe"]:
+        E, k = cfg.moe.num_experts, cfg.moe.top_k
+        ec = expert_rows(cfg, variant, rows)
+        mm.flops += n["moe"] * ec * (2.0 * _mlp_weights(cfg) + f * act_ops)
+        mm.bytes += n["moe"] * (E * _mlp_weights(cfg)
+                                + ec * (2 * d + up + f)) * isz
+        moe = c.per_class["moe_dispatch"]
+        # the float32 router and its softmax; the dispatch buffer's
+        # write and read; the combine's gather, weights and sum
+        moe.flops = n["moe"] * (rows * (2.0 * d * E + 5 * E)
+                                + 3.0 * rows * k * d)
+        moe.bytes = n["moe"] * (d * E * 4 + rows * E * 4 + rows * d * isz
+                                + 2 * ec * d * isz
+                                + rows * k * d * isz + rows * d * isz)
+    if n["ssm"]:
+        c.per_class["ssm"].add(_ssm_cost(cfg, variant, rows), n["ssm"])
 
     head = c.per_class["head"]
     head.flops = 2.0 * out_rows * d * V
@@ -213,18 +298,19 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
 
     other = c.per_class["other"]
     norm = _NORM_OPS.get(cfg.norm, 8)
-    other.flops = (2 * L + 1) * rows * d * norm + 2 * L * rows * d \
+    n_norms = 2 * n["kv"] + n["ssm"] + 1
+    n_res = 2 * n["kv"] + n["ssm"]
+    other.flops = n_norms * rows * d * norm + n_res * rows * d \
         + out_rows * V
-    other.bytes = ((2 * L + 1) * 2 * rows * d + 2 * L * 3 * rows * d
-                   + (2 * L + 1) * lp["ln1"]) * isz \
-        + out_rows * V * LOGIT_BYTES
+    other.bytes = (n_norms * 2 * rows * d + n_res * 3 * rows * d
+                   + n_norms * norm_p) * isz + out_rows * V * LOGIT_BYTES
     if variant in PREFILL_VARIANTS:
         head.flops += embed_ops
     else:
         other.flops += embed_ops
 
     attn = c.per_class["attention"]
-    attn.bytes = 2.0 * copy_tokens * L * 2 * K * hd * isz
+    attn.bytes = 2.0 * copy_tokens * n["kv"] * 2 * K * hd * isz
 
     for cls in c.per_class.values():
         cls.flops *= iters
@@ -241,7 +327,7 @@ def attention_cost(cfg: ArchConfig, variant: str, bucket: Tuple,
     """A step's live attention terms (the module docstring's formula)
     from its :class:`LiveWork`."""
     _, _, _, iters = variant_shape(variant, bucket, block_size)
-    H, hd, L = cfg.n_heads, cfg.hd, cfg.n_layers
+    H, hd, L = cfg.n_heads, cfg.hd, layer_counts(cfg)["kv"]
     rows = live.rows
     if variant in PREFILL_VARIANTS:
         reads = rows + live.context

@@ -86,9 +86,10 @@ def roofline_report(census: OpCensus, hw: Hardware, *, arch: str = "",
 
 def model_flops_for(cfg, shape_kind: str, batch: int, seq: int,
                     train: bool) -> float:
-    """6*N*D (dense; the port serves no MoE); decode processes batch
+    """6*N*D (dense) / 6*N_active*D (MoE: the top-k experts of each MoE
+    layer, as the reference counts them); decode processes batch
     tokens."""
-    n = param_count(cfg)
+    n = param_count(cfg, active=True)
     tokens = batch * seq if shape_kind != "decode" else batch
     mult = 6.0 if train else 2.0
     return mult * n * tokens

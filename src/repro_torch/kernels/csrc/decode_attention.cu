@@ -235,6 +235,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       err = dispatch_g<T, 96>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
                               n_split, rows_per_split, s);
       break;
+    case 112:
+      err = dispatch_g<T, 112>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
+                               n_split, rows_per_split, s);
+      break;
     case 128:
       err = dispatch_g<T, 128>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
                                n_split, rows_per_split, s);

@@ -671,6 +671,8 @@ cudaError_t dispatch(int hd, int body, const Args& a) {
       return launch<80, kPrefix>(body, a);
     case 96:
       return launch<96, kPrefix>(body, a);
+    case 112:
+      return launch<112, kPrefix>(body, a);
     case 128:
       return launch<128, kPrefix>(body, a);
     default:

@@ -244,6 +244,10 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
       err = dispatch_g<T, 96>(q, k_pool, v_pool, table, lengths, part, B, K,
                               G, BS, nb, n_split, rows_per_split, s);
       break;
+    case 112:
+      err = dispatch_g<T, 112>(q, k_pool, v_pool, table, lengths, part, B, K,
+                               G, BS, nb, n_split, rows_per_split, s);
+      break;
     case 128:
       err = dispatch_g<T, 128>(q, k_pool, v_pool, table, lengths, part, B, K,
                                G, BS, nb, n_split, rows_per_split, s);

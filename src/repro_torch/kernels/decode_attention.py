@@ -37,7 +37,7 @@ from repro_torch.kernels.launches import count_launch
 NAME = "decode_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (64, 80, 96, 128)
+KERNEL_HEAD_DIMS = (64, 80, 96, 112, 128)
 MAX_GROUP = 8
 # the split plan: enough (request, KV head, split) blocks to fill the
 # H100's 132 SMs four deep, each split at least SPLIT_MIN_ROWS rows, in

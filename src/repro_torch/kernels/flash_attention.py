@@ -43,7 +43,7 @@ from repro_torch.kernels.launches import count_launch
 
 NAME = "flash_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
-KERNEL_HEAD_DIMS = (32, 64, 80, 96, 128)
+KERNEL_HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 # each dtype's body, and the code the C entry point takes for it
 _BODIES = {torch.float32: "cuda_core_f32", torch.bfloat16: "wgmma_bf16"}
 _BODY_CODES = {"cuda_core_f32": 0, "wgmma_bf16": 1}
@@ -254,7 +254,7 @@ def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
         raise NotImplementedError(
             "a sliding window over a prefix: the gathered prefix has no "
             "ring arithmetic (the reference refuses it too; ROADMAP.md, "
-            "next slices: non-dense families)")
+            "slice 13: sliding-window ring decode)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 (or None), got {window}")
     if lengths.shape != (q.shape[0],):

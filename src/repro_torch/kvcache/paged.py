@@ -7,11 +7,18 @@ control by a free-block watermark (:class:`BlockManager`, a copy of the
 reference's).
 
 :class:`PagedKVCache` holds the pool as ``{"k", "v"}``, each
-``[L, NB+1, BS, K, hd]`` in the model's dtype on its device. Block ``NB``
-is the *trash* block: batch-padding rows write there, so the engine can
-pad the running batch to power-of-two buckets without touching live
-state. Writes are **in place** (``index_copy_`` / ``index_put_``) where
-the reference rebuilds donated buffers. Decode reads the pool either
+``[n_kv, NB+1, BS, K, hd]`` in the model's dtype on its device, over the
+attention layers of the block plan. Block ``NB`` is the *trash* block:
+batch-padding rows write there, so the engine can pad the running batch
+to power-of-two buckets without touching live state. A plan with SSM
+layers also holds their decode state as dense per-request slots
+(the reference's dense-state leaves): ``{"h", "conv"}``, each
+``[n_ssm, max_batch+1, ...]`` (``h`` float32, ``conv`` the model's
+dtype). A request takes a slot at its prefill and gives it back with its
+blocks (:meth:`PagedKVCache.release`: on finish, abort, eviction and
+preemption); slot ``max_batch`` is the *trash* slot of padding rows.
+Writes are **in place** (``index_copy_`` / ``index_put_``) where the
+reference rebuilds donated buffers. Decode reads the pool either
 through a :class:`PagedCacheView` (zero-copy) or, in the gather
 fallback, through a dense copy (:meth:`PagedKVCache.gather`) whose new
 rows :meth:`PagedKVCache.scatter_new_token` writes back. Suffix-only and
@@ -39,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
+from repro_torch.models.params import STATE_DTYPES, cache_layers, state_shapes
 
 Fields = Dict[str, np.ndarray]
 
@@ -247,32 +255,78 @@ class BlockManager:
 
 
 class PagedKVCache:
-    """Physical paged pool for a dense decoder's attention K/V."""
+    """Physical paged pool: attention K/V in blocks and, for SSM layers,
+    dense-state slots (``max_batch`` of them; required then)."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
-                 device: torch.device):
+                 device: torch.device, max_batch: Optional[int] = None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.device = torch.device(device)
         self.manager = BlockManager(num_blocks, block_size)
         self.trash_block = num_blocks          # physical block for padding
-        shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
-                 cfg.hd)
-        self.pool: Dict[str, torch.Tensor] = {
-            name: torch.zeros(shape, dtype=cfg.activation_dtype,
-                              device=self.device) for name in ("k", "v")}
-        # one physical block's bytes summed over every paged leaf (the
-        # reference's accounting, integer-equal to it)
+        layers = cache_layers(cfg)
+        self.pool: Dict[str, torch.Tensor] = {}
+        if layers["kv"]:
+            shape = (len(layers["kv"]), num_blocks + 1, block_size,
+                     cfg.n_kv_heads, cfg.hd)
+            self.pool = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
+                                           device=self.device)
+                         for name in ("k", "v")}
+        self.kv_names = tuple(self.pool)
+        if layers["ssm"] and max_batch is None:
+            raise ValueError(f"{cfg.name}: a pool with SSM state needs "
+                             f"max_batch (its dense-state slots)")
+        self.max_batch = max_batch or 0
+        self.trash_slot = self.max_batch       # dense slot for padding
+        if layers["ssm"]:
+            for name, shape in state_shapes(cfg, self.max_batch + 1).items():
+                self.pool[name] = torch.zeros(
+                    (len(layers["ssm"]),) + shape, device=self.device,
+                    dtype=STATE_DTYPES.get(name, cfg.activation_dtype))
+        self.state_names = tuple(n for n in self.pool
+                                 if n not in self.kv_names)
+        self._reset_slots()
+        # one physical block's bytes summed over every paged leaf, and the
+        # dense-state slots' bytes (the reference's accounting, each
+        # integer-equal to it)
         self.block_bytes: int = sum(
-            t.numel() * t.element_size() // (num_blocks + 1)
-            for t in self.pool.values())
+            self.pool[n].numel() * self.pool[n].element_size()
+            // (num_blocks + 1) for n in self.kv_names)
+        self.dense_state_bytes: int = sum(
+            self.pool[n].numel() * self.pool[n].element_size()
+            for n in self.state_names)
+
+    def _reset_slots(self):
+        self._slots: Dict[int, int] = {}
+        self._free_slots: List[int] = list(range(self.max_batch)) \
+            if self.state_names else []
 
     def reset(self):
         """Forget every allocation (a fresh allocator over the same
-        tensors): the pool of a respawned engine, whose stream has been
-        drained. The blocks' contents stay; nothing reads a slot before it
-        is written again."""
+        tensors, every slot free): the pool of a respawned engine, whose
+        stream has been drained. The blocks' and slots' contents stay;
+        nothing reads one before it is written again."""
         self.manager = BlockManager(self.num_blocks, self.block_size)
+        self._reset_slots()
+
+    @property
+    def free_slots(self) -> int:
+        """Dense-state slots free (0 for a pool without state)."""
+        return len(self._free_slots)
+
+    def _slot(self, rid: int) -> int:
+        """``rid``'s dense-state slot, taken on first use (the
+        reference's ``_slot``; the trash slot for a pool without state)."""
+        if not self.state_names:
+            return self.trash_slot
+        if rid not in self._slots:
+            if not self._free_slots:
+                raise RuntimeError(
+                    f"no free dense-state slot for request {rid}: "
+                    f"{self.max_batch} slots, all held")
+            self._slots[rid] = self._free_slots.pop()
+        return self._slots[rid]
 
     @property
     def pool_bytes(self) -> int:
@@ -313,7 +367,12 @@ class PagedKVCache:
         nb = len(blocks)
         S_cap = nb * self.block_size
         phys = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
-        for name, leaf in self.pool.items():
+        slot = self._slot(req_id)
+        for name in self.state_names:
+            self.pool[name][:, slot] = cache_one[name][:, 0].to(
+                self.pool[name].dtype)
+        for name in self.kv_names:
+            leaf = self.pool[name]
             v = cache_one[name][:, 0, :S_cap]                  # [L,S,K,hd]
             if v.shape[1] < S_cap:
                 v = torch.nn.functional.pad(
@@ -330,6 +389,7 @@ class PagedKVCache:
         table index the port does not need)."""
         if n_tokens < 1:
             raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+        self._no_state("token-granular prefill writes")
         table = self.manager.tables.get(req_id, [])
         end = start_pos + n_tokens
         if end > len(table) * self.block_size:
@@ -348,8 +408,17 @@ class PagedKVCache:
             pos[:n_tokens] // self.block_size]
         addr[1] = pos % self.block_size
         phys, sib = torch.from_numpy(addr).to(self.device)
-        for name, leaf in self.pool.items():
+        for name in self.kv_names:
+            leaf = self.pool[name]
             leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
+
+    def _no_state(self, what: str):
+        """Refuse a per-token operation on a pool with dense state (the
+        reference's refusal; the engine never asks for one)."""
+        if self.state_names:
+            raise NotImplementedError(
+                f"{what} over non-KV (dense-state) leaves: chunked prefill "
+                f"and the prefix cache require per-token state")
 
     def gather_prefix(self, blocks: Sequence[int],
                       nb_pad: int) -> Dict[str, torch.Tensor]:
@@ -358,14 +427,15 @@ class PagedKVCache:
         (the prompt's first ``len(blocks)`` blocks) and the trash block
         past them; the attention masks rows past the valid prefix length
         (``prefix_len``)."""
+        self._no_state("prefix gather")
         table = np.full((nb_pad,), self.trash_block, np.int64)
         blocks = list(blocks)[:nb_pad]
         table[:len(blocks)] = blocks
         idx = torch.from_numpy(table).to(self.device)
         P = nb_pad * self.block_size
-        return {name: leaf[:, idx].reshape(leaf.shape[0], 1, P,
-                                           *leaf.shape[3:])
-                for name, leaf in self.pool.items()}
+        return {name: self.pool[name][:, idx].reshape(
+                    self.pool[name].shape[0], 1, P, *self.pool[name].shape[3:])
+                for name in self.kv_names}
 
     def fill_prefill(self, fields: Fields, req_id: int,
                      tokens: Sequence[int], start: int, prefix_blocks: int):
@@ -377,8 +447,10 @@ class PagedKVCache:
         the request's first ``prefix_blocks`` blocks then the trash block,
         and each row's write address, rows past ``n`` to the trash block
         (the token-granular write of :meth:`write_prefill` with
-        ``n_tokens``, for every prefill). A write past the table raises
-        (extend it first), as does a prefix longer than its pad."""
+        ``n_tokens``, for every prefill), and the request's dense-state
+        slot (taken here; the trash slot for a pool without state). A
+        write past the table raises (extend it first), as does a prefix
+        longer than its pad, and a prefix over dense state."""
         S = fields["tokens"].shape[1]
         nb_pad = fields["table"].shape[0]
         n = len(tokens)
@@ -405,39 +477,64 @@ class PagedKVCache:
         fields["blocks"][:] = self.trash_block
         fields["blocks"][:n] = np.asarray(table)[pos[:n] // self.block_size]
         fields["slots"][:] = pos % self.block_size
+        if start:
+            self._no_state("a prefill over a prefix")
+        fields["state_slot"][0] = self._slot(req_id)
 
-    def gather_tables(self, tables: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """A dense copy ``{"k", "v"}``, each ``[L, B, nb * BS, K, hd]``, of
-        the blocks named by the device tables ``[B, nb]``: the prefix of a
-        prefill (B = 1) or the gather step's caches. Issues no upload."""
+    def gather_tables(self, tables: torch.Tensor,
+                      slots: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
+        """A dense copy ``{"k", "v"}``, each ``[n_kv, B, nb * BS, K,
+        hd]``, of the blocks named by the device tables ``[B, nb]``: the
+        prefix of a prefill (B = 1) or the gather step's caches; with
+        ``slots [B]``, also the state ``{"h", "conv"}`` ``[n_ssm, B,
+        ...]`` at those dense-state slots. Issues no upload."""
         B, nb = tables.shape
         idx = tables.long()
-        return {name: leaf[:, idx].reshape(leaf.shape[0], B,
-                                           nb * self.block_size,
-                                           *leaf.shape[3:])
-                for name, leaf in self.pool.items()}
+        out = {name: self.pool[name][:, idx].reshape(
+                   self.pool[name].shape[0], B, nb * self.block_size,
+                   *self.pool[name].shape[3:])
+               for name in self.kv_names}
+        if slots is not None:
+            for name in self.state_names:
+                out[name] = self.pool[name][:, slots.long()]
+        return out
 
     def write_rows(self, cache_one: Dict[str, torch.Tensor],
-                   blocks: torch.Tensor, slots: torch.Tensor):
-        """Write a prefill's rows (``[L, 1, S, K, hd]`` leaves) in place at
-        the staged device addresses ``(blocks[i], slots[i])`` (the
-        reference's ``scatter_chunk_jit``). Issues no upload."""
+                   blocks: torch.Tensor, slots: torch.Tensor,
+                   state_slot: Optional[torch.Tensor] = None):
+        """Write a prefill's rows (``[n_kv, 1, S, K, hd]`` leaves) in place
+        at the staged device addresses ``(blocks[i], slots[i])`` (the
+        reference's ``scatter_chunk_jit``), and its final state
+        (``[n_ssm, 1, ...]``) at the staged dense-state slot
+        ``state_slot [1]``. Issues no upload."""
         phys, sib = blocks.long(), slots.long()
-        for name, leaf in self.pool.items():
+        for name in self.kv_names:
+            leaf = self.pool[name]
             leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
+        for name in self.state_names:
+            leaf = self.pool[name]
+            leaf.index_copy_(1, state_slot.long(),
+                             cache_one[name].to(leaf.dtype))
 
     def scatter_rows(self, tables: torch.Tensor, positions: torch.Tensor,
-                     cache: Dict[str, torch.Tensor]):
+                     cache: Dict[str, torch.Tensor],
+                     slots: Optional[torch.Tensor] = None):
         """The gather step's write back: row ``b`` of the dense ``cache``
         at ``positions[b]`` (every layer) to its physical (block, slot),
         the address computed on the device from the step's ``tables``
-        (:meth:`scatter_new_token` computes it on the host)."""
+        (:meth:`scatter_new_token` computes it on the host), and each
+        row's state to its dense-state slot ``slots[b]``."""
         rows = torch.arange(tables.shape[0], device=tables.device)
         pos = positions.long()
         phys = tables.long()[rows, pos // self.block_size]
         sib = pos % self.block_size
-        for name, leaf in self.pool.items():
+        for name in self.kv_names:
+            leaf = self.pool[name]
             leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
+        for name in self.state_names:
+            leaf = self.pool[name]
+            leaf.index_copy_(1, slots.long(), cache[name].to(leaf.dtype))
 
     def ensure_writable(self, req_id: int, pos: int):
         """Copy-on-write fork of the block holding ``pos`` if another
@@ -447,21 +544,23 @@ class PagedKVCache:
         if not self.manager.needs_cow(req_id, pos):
             return
         old, new = self.manager.copy_on_write(req_id, pos // self.block_size)
-        for leaf in self.pool.values():
-            leaf[:, new] = leaf[:, old]
+        for name in self.kv_names:
+            self.pool[name][:, new] = self.pool[name][:, old]
 
     def fill_view(self, fields: Dict[str, np.ndarray],
                   req_ids: Sequence[int], positions: Sequence[int]):
-        """Write a decode step's block tables, lengths and positions into
-        the host ``fields`` of :func:`~repro_torch.kvcache.view.step_fields`
-        (whose shapes give ``batch_pad`` and ``nb_pad``).
+        """Write a decode step's block tables, lengths, positions and
+        dense-state slots into the host ``fields`` of
+        :func:`~repro_torch.kvcache.view.step_fields` (whose shapes give
+        ``batch_pad`` and ``nb_pad``).
 
         ``positions[i]`` is the write position of request i's new token.
         Rows past ``len(req_ids)`` are padding: a table row of trash
-        blocks, position 0 and length 0. (The reference lets padding rows
-        drift to small nonzero positions, which its clamped gathers
-        tolerate; here every padding row is rebuilt each step so that its
-        write address ``tables[i, 0]`` is always in range.)
+        blocks, position 0, length 0 and the trash slot. (The reference
+        lets padding rows drift to small nonzero positions, which its
+        clamped gathers tolerate; here every padding row is rebuilt each
+        step so that its write address ``tables[i, 0]`` is always in
+        range.)
         """
         table = fields["tables"]
         batch_pad, nb_pad = table.shape
@@ -477,6 +576,9 @@ class PagedKVCache:
         pos[:B] = positions
         lens[:] = 0
         lens[:B] = pos[:B] + 1
+        slots = fields["slots"]
+        slots[:] = self.trash_slot
+        slots[:B] = [self._slot(rid) for rid in req_ids]
 
     def view(self, req_ids: Sequence[int], positions: Sequence[int],
              nb_pad: int, batch_pad: int) -> PagedCacheView:
@@ -491,24 +593,24 @@ class PagedKVCache:
         dev = step_fields(torch.from_numpy(buf).to(self.device), batch_pad,
                           nb_pad)
         return PagedCacheView(self.pool, dev["tables"], dev["lengths"],
-                              dev["positions"], self.block_size)
+                              dev["positions"], self.block_size,
+                              dev["slots"])
 
     def gather(self, req_ids: Sequence[int],
                pad_blocks: int) -> Dict[str, torch.Tensor]:
         """A dense copy of the requests' caches (the gather fallback):
-        ``{"k", "v"}``, each ``[L, B, pad_blocks * BS, K, hd]``. Slots past
-        a request's allocation read the trash block; the decode step's
-        lengths mask them."""
+        ``{"k", "v"}``, each ``[n_kv, B, pad_blocks * BS, K, hd]``, and
+        their state at their slots. Slots past a request's allocation
+        read the trash block; the decode step's lengths mask them."""
         table = np.full((len(req_ids), pad_blocks), self.trash_block,
                         np.int64)
         for i, rid in enumerate(req_ids):
             blocks = self.manager.tables.get(rid, [])[:pad_blocks]
             table[i, :len(blocks)] = blocks
-        idx = torch.from_numpy(table).to(self.device)
-        return {name: leaf[:, idx].reshape(leaf.shape[0], len(req_ids),
-                                           pad_blocks * self.block_size,
-                                           *leaf.shape[3:])
-                for name, leaf in self.pool.items()}
+        slots = torch.tensor([self._slot(r) for r in req_ids],
+                             device=self.device)
+        return self.gather_tables(torch.from_numpy(table).to(self.device),
+                                  slots)
 
     def scatter_new_token(self, req_ids: Sequence[int],
                           positions: Sequence[int],
@@ -522,8 +624,14 @@ class PagedKVCache:
                           pos % self.block_size, pos)
         phys, sib, pos = torch.from_numpy(addr).to(self.device)
         rows = torch.arange(len(req_ids), device=self.device)
-        for name, leaf in self.pool.items():
+        for name in self.kv_names:
+            leaf = self.pool[name]
             leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
+        slots = torch.tensor([self._slot(r) for r in req_ids],
+                             device=self.device)
+        for name in self.state_names:
+            self.pool[name].index_copy_(1, slots,
+                                        cache[name].to(self.pool[name].dtype))
 
     def rollback(self, rid: int, n_tokens: int) -> List[int]:
         """Shrink ``rid``'s KV to its first ``n_tokens`` tokens (the
@@ -540,4 +648,7 @@ class PagedKVCache:
                                      self.manager.blocks_needed(n_tokens))
 
     def release(self, rid: int):
+        """Free ``rid``'s blocks and its dense-state slot."""
         self.manager.release(rid)
+        if rid in self._slots:
+            self._free_slots.append(self._slots.pop(rid))

@@ -42,7 +42,12 @@ from repro_torch.kvcache.paged import BlockManager
 def prefix_cache_supported(cfg: ArchConfig) -> Tuple[bool, Optional[str]]:
     """(ok, reason-if-not): can prompts of this config share KV blocks?
     The reference's gate, with its block-plan test read from the family
-    (SSM, hybrid and VLM plans hold non-attention blocks)."""
+    (SSM, hybrid and VLM plans hold non-attention blocks). Its reasons
+    also turn chunked prefill and speculation off. The port serves the
+    MoE, SSM and hybrid families with all three off; the VLM family
+    (cross-attention, per-slot image K/V), the bidirectional encoder and
+    sliding-window configs, which this gate also refuses, wait for
+    ROADMAP.md's slice 13."""
     if cfg.arch_type in ("ssm", "hybrid", "vlm"):
         return False, ("non-attention state (SSM/cross-attn) is not "
                        "per-token addressable")

@@ -5,15 +5,15 @@ verify step's and a prefill's inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 # a decode step's [B] input vectors, after its [B, nb] block table, in one
 # packed int32 buffer; the float fields hold float32 bits
-STEP_VECTORS = ("lengths", "positions", "tokens", "use_prev", "prev_rows",
-                "top_k", "temperature", "top_p")
+STEP_VECTORS = ("lengths", "positions", "slots", "tokens", "use_prev",
+                "prev_rows", "top_k", "temperature", "top_p")
 _FLOAT_FIELDS = ("temperature", "top_p")
 
 Buffer = Union[np.ndarray, torch.Tensor]
@@ -73,7 +73,7 @@ def verify_fields(buf: Buffer, batch_pad: int, nb_pad: int,
 
 def prefill_size(S: int, nb_pad: int) -> int:
     """int32 words of one prefill's packed inputs (:func:`prefill_fields`)."""
-    return 3 * S + nb_pad + 2
+    return 3 * S + nb_pad + 3
 
 
 def prefill_fields(buf: Buffer, S: int, nb_pad: int) -> Dict[str, Buffer]:
@@ -83,7 +83,8 @@ def prefill_fields(buf: Buffer, S: int, nb_pad: int) -> Dict[str, Buffer]:
     (0-dim), the prompt position of row 0 and the prefix's valid length;
     ``table [nb_pad]``, the prefix's blocks then the trash block; and
     ``blocks [S]``, ``slots [S]``, the (block, slot) each row's K/V is
-    written to, padding rows' in the trash block."""
+    written to, padding rows' in the trash block; ``state_slot [1]``,
+    the dense-state slot the prompt's final SSM state is written to."""
     out: Dict[str, Buffer] = {"tokens": buf[:S].reshape(1, S),
                               "n": buf[S:S + 1],
                               "prefix_len": buf[S + 1:S + 2].reshape(())}
@@ -92,6 +93,7 @@ def prefill_fields(buf: Buffer, S: int, nb_pad: int) -> Dict[str, Buffer]:
     at += nb_pad
     out["blocks"] = buf[at:at + S]
     out["slots"] = buf[at + S:at + 2 * S]
+    out["state_slot"] = buf[at + 2 * S:at + 2 * S + 1]
     return out
 
 
@@ -100,9 +102,12 @@ class PagedCacheView:
     """What :meth:`repro_torch.kvcache.paged.PagedKVCache.view` hands the
     model for a decode step instead of a gathered ``[B, S_pad, ...]`` copy.
 
-    pool       ``{"k", "v"}``, each ``[L, NB+1, BS, K, hd]`` physical blocks
-               (block ``NB`` is the trash block). The model writes the new
-               token's rows into it in place.
+    pool       ``{"k", "v"}``, each ``[n_kv, NB+1, BS, K, hd]`` physical
+               blocks (block ``NB`` is the trash block), and for SSM
+               layers ``{"h", "conv"}``, each ``[n_ssm, max_batch+1,
+               ...]`` dense-state slots (slot ``max_batch`` is the trash
+               slot). The model writes the new token's rows and the new
+               state into it in place.
     tables     ``[B, nb]`` int32 — physical block id per logical block;
                entries past a request's allocation name the trash block.
     lengths    ``[B]`` int32 — valid tokens per request *including* the
@@ -110,12 +115,13 @@ class PagedCacheView:
     positions  ``[B]`` int32 — write position of this step's new token
                (0 for padding rows, whose table row is all trash).
     block_size tokens per physical block.
-
-    The dense family keeps no per-request dense state, so the reference's
-    ``slots`` field has no counterpart here.
+    slots      ``[B]`` int32 — dense-state slot per request (the trash
+               slot for padding rows); None where the pool holds no
+               state.
     """
     pool: Dict[str, torch.Tensor]
     tables: torch.Tensor
     lengths: torch.Tensor
     positions: torch.Tensor
     block_size: int
+    slots: Optional[torch.Tensor] = None

@@ -81,8 +81,8 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     else:
         if not causal:
             raise NotImplementedError(
-                "bidirectional prefill over a prefix (ROADMAP.md, next "
-                "slices: non-dense families)")
+                "bidirectional prefill over a prefix (ROADMAP.md, slice "
+                "13: the encoder)")
         pad = prefix_k.shape[1]
         k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_v.to(v.dtype), v], dim=1)
@@ -118,7 +118,7 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     if window is not None:
         raise NotImplementedError(
             "sliding-window ring decode is not ported yet (ROADMAP.md, "
-            "next slices: non-dense families)")
+            "slice 13: sliding-window ring decode)")
     B = x.shape[0]
     pos = on_device(pos, x.device)
     ragged = pos.dim() == 1

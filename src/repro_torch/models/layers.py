@@ -31,6 +31,15 @@ def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def gated_rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor,
+                        gate: torch.Tensor) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: ``norm(x * silu(gate))`` (eps 1e-6), the
+    gate's SiLU in float32 and the product in ``x``'s dtype."""
+    xf = (x * F.silu(gate.float()).to(x.dtype)).float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + 1e-6) * scale.float()).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Split-half rotary embedding. x: [..., S, H, hd]; positions: [S] or

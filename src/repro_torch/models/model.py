@@ -1,40 +1,60 @@
-"""The dense decoder as an ``nn.Module`` (counterpart of
-``repro.models.model`` for ``arch_type == "dense"``).
+"""The decoder families as an ``nn.Module`` (counterpart of
+``repro.models.model``): dense, MoE, SSM (Mamba2) and hybrid (Mamba2
+with one shared attention block every ``attn_every`` layers).
 
 Public entry points:
   prefill      — process a (padded) prompt batch, or the suffix of one
                  over its cached prefix, return last-position logits
-                 and every layer's K/V
+                 and every layer's cache entry
   decode_step  — one token for every request, either against a
                  :class:`~repro_torch.kvcache.view.PagedCacheView` (the
                  zero-copy paged path: block-table attention on the
-                 physical pool) or against a dense ``{"k", "v"}`` cache
-                 (the static-batch loop and the engine's gather
-                 fallback: contiguous decode attention); new K/V rows are
-                 written in place either way
+                 physical pool, SSM state read and written at the view's
+                 slots) or against a dense cache (the static-batch loop
+                 and the engine's gather fallback: contiguous decode
+                 attention); new K/V rows and new state are written in
+                 place either way
   init_cache   — a zeroed dense cache
 
-The reference stacks its layers under one ``lax.scan`` and flattens the
-pool to ``[L*(NB+1), ...]`` with ``layer * n_phys`` added to the tables;
-eager PyTorch needs neither, so each layer is its own :class:`Block` and
-receives its contiguous pool layer ``pool["k"][l]``.
+Every cache is one flat dict (:func:`~repro_torch.models.params.
+cache_layers`): ``k``/``v`` ``[n_kv_layers, B, S, K, hd]`` for the
+attention layers (``ATTN`` and each ``SHARED_ATTN`` occurrence, each with
+K/V of its own), ``h`` ``[n_ssm_layers, B, H, P, N]`` (float32) and
+``conv`` ``[n_ssm_layers, B, W-1, conv_ch]`` for the SSM layers, each
+kind in plan order. The paged pool has the same keys with the block
+(``k``/``v``) or slot (``h``/``conv``) axis in place of ``B``.
+
+The reference stacks each period's layers under one ``lax.scan`` and
+flattens the pool to ``[L*N, ...]`` with ``layer * N`` added to the
+tables and slots; eager PyTorch needs neither, so each layer is a module
+of its own and receives its contiguous pool layer.
+
+An MoE block routes at the config's ``moe.capacity_factor`` in a
+prefill and at ``serve_capacity_factor`` in a decode step, over every
+row it is given, batch padding included, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ArchConfig, require_slice
+from repro_torch.configs.base import (SHARED_ATTN, SSM, ArchConfig,
+                                      require_slice)
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
 from repro_torch.models.layers import (embed_apply, mlp_apply, norm_apply,
                                        unembed_apply)
-from repro_torch.models.params import init_params
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.params import (STATE_DTYPES, cache_layers,
+                                       init_params, layer_sources,
+                                       state_shapes)
+from repro_torch.models.ssm import ssm_decode, ssm_seq
 
 Tree = Dict[str, object]
+Cache = Dict[str, torch.Tensor]
 
 
 class Leaves(nn.Module):
@@ -51,56 +71,107 @@ class Leaves(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-norm attention block: ``x + attn(ln1(x))``, then
-    ``x + mlp(ln2(x))``."""
+    """One pre-norm attention block: ``x + attn(ln1(x))``, then ``x +
+    ffn(ln2(x))``, the FFN dense or (``moe``) routed."""
 
-    def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict]):
+    def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict],
+                 moe: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.moe = moe
         self.ln1 = Leaves(leaves["ln1"])
         self.attn = Leaves(leaves["attn"])
         self.ln2 = Leaves(leaves["ln2"])
-        self.ffn = Leaves(leaves["ffn"])
+        ffn = dict(leaves["ffn"])
+        dense = ffn.pop("dense", None)
+        self.ffn = Leaves(ffn)
+        self.dense = Leaves(dense) if dense is not None else None
 
-    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp_apply(self.ffn.tree(),
-                             norm_apply(self.ln2.tree(), x, self.cfg),
-                             self.cfg)
+    def _ffn(self, x: torch.Tensor, capacity_factor: float) -> torch.Tensor:
+        h = norm_apply(self.ln2.tree(), x, self.cfg)
+        if not self.moe:
+            return x + mlp_apply(self.ffn.tree(), h, self.cfg)
+        p = self.ffn.tree()
+        if self.dense is not None:
+            p["dense"] = self.dense.tree()
+        return x + moe_ffn(p, h, self.cfg, capacity_factor=capacity_factor)
 
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor],
             prefix: Optional[Tuple[torch.Tensor, torch.Tensor]],
             prefix_len: Union[int, torch.Tensor]
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            ) -> Tuple[torch.Tensor, Cache]:
         pk, pv = prefix if prefix is not None else (None, None)
         h, (k, v) = attention.self_attn_seq(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
             self.cfg, positions=positions, causal=self.cfg.causal,
             lengths=lengths, prefix_k=pk, prefix_v=pv,
             prefix_len=prefix_len)
-        return self._mlp(x + h), k, v
+        cf = self.cfg.moe.capacity_factor if self.moe else 1.0
+        return self._ffn(x + h, cf), {"k": k, "v": v}
 
-    def decode(self, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               pos: torch.Tensor,
+    def decode(self, x: torch.Tensor, entry: Cache, pos: torch.Tensor,
                lengths: Optional[torch.Tensor]) -> torch.Tensor:
         h = attention.self_attn_decode(
-            self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg), k, v,
-            self.cfg, pos=pos, lengths=lengths)
-        return self._mlp(x + h)
+            self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
+            entry["k"], entry["v"], self.cfg, pos=pos, lengths=lengths)
+        return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
-    def decode_paged(self, x: torch.Tensor, k_pool: torch.Tensor,
-                     v_pool: torch.Tensor,
+    def decode_paged(self, x: torch.Tensor, entry: Cache,
                      view: PagedCacheView) -> torch.Tensor:
         h = attention.paged_self_attn_decode(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
-            k_pool, v_pool, self.cfg, tables=view.tables,
+            entry["k"], entry["v"], self.cfg, tables=view.tables,
             lengths=view.lengths, positions=view.positions,
             block_size=view.block_size)
-        return self._mlp(x + h)
+        return self._ffn(x + h, self.cfg.serve_capacity_factor)
+
+
+class SSMBlock(nn.Module):
+    """One pre-norm Mamba2 block: ``x + ssm(ln1(x))``."""
+
+    def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict]):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = Leaves(leaves["ln1"])
+        self.ssm = Leaves(leaves["ssm"])
+
+    def seq(self, x: torch.Tensor, positions: torch.Tensor,
+            lengths: Optional[torch.Tensor], prefix, prefix_len
+            ) -> Tuple[torch.Tensor, Cache]:
+        if prefix is not None:
+            raise NotImplementedError("prefix KV reuse over SSM state")
+        h, state = ssm_seq(self.ssm.tree(),
+                           norm_apply(self.ln1.tree(), x, self.cfg), self.cfg)
+        return x + h, state
+
+    def decode(self, x: torch.Tensor, entry: Cache, pos=None,
+               lengths=None) -> torch.Tensor:
+        """One token against the dense state ``entry`` ``{"h", "conv"}``
+        (``[B, ...]`` views), rewritten in place."""
+        h, new = ssm_decode(self.ssm.tree(),
+                            norm_apply(self.ln1.tree(), x, self.cfg),
+                            entry, self.cfg)
+        for name, t in new.items():
+            entry[name].copy_(t)
+        return x + h
+
+    def decode_paged(self, x: torch.Tensor, entry: Cache,
+                     view: PagedCacheView) -> torch.Tensor:
+        """One token against the pool's state at ``view.slots`` (padding
+        rows name the trash slot), written back there."""
+        slots = view.slots.long()
+        state = {name: t.index_select(0, slots) for name, t in entry.items()}
+        h, new = ssm_decode(self.ssm.tree(),
+                            norm_apply(self.ln1.tree(), x, self.cfg),
+                            state, self.cfg)
+        for name, t in entry.items():
+            t.index_copy_(0, slots, new[name].to(t.dtype))
+        return x + h
 
 
 class Model(nn.Module):
-    """A dense decoder on one device.
+    """A decoder of a ported family on one device.
 
     ``params`` is a tree in the reference's layout (from
     :func:`~repro_torch.models.params.init_params` or
@@ -120,15 +191,39 @@ class Model(nn.Module):
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
             params = init_params(cfg, generator, device=self.device)
-        to_dev = lambda leaves: {n: t.to(self.device)   # noqa: E731
-                                 for n, t in leaves.items()}
+
+        def to_dev(tree, rep=None):
+            if isinstance(tree, dict):
+                return {n: to_dev(t, rep) for n, t in tree.items()}
+            return (tree if rep is None else tree[rep]).to(self.device)
+
         self.embed = Leaves(to_dev(params["embed"]))
-        stack = params["stack"][0]
-        self.layers = nn.ModuleList(
-            Block(cfg, {grp: to_dev({n: t[l] for n, t in leaves.items()})
-                        for grp, leaves in stack.items()})
-            for l in range(cfg.n_layers))
+        self.shared = Block(cfg, to_dev(params["shared"])) \
+            if "shared" in params else None
+        layers: List[nn.Module] = []
+        for kind, (where, i, rep) in zip(cfg.block_plan(),
+                                          layer_sources(cfg)):
+            if kind == SHARED_ATTN:
+                layers.append(self.shared)
+                continue
+            leaves = to_dev(params[where][i], rep)
+            layers.append(SSMBlock(cfg, leaves) if kind == SSM else
+                          Block(cfg, leaves, moe=cfg.moe is not None))
+        self.layers = nn.ModuleList(layers)
         self.final_norm = Leaves(to_dev(params["final_norm"]))
+        # each layer's cache keys and its index along their leading dim
+        self._entries: List[Tuple[Tuple[str, ...], int]] = []
+        at = {i: ("k", "v") for i in cache_layers(cfg)["kv"]}
+        at.update({i: ("h", "conv") for i in cache_layers(cfg)["ssm"]})
+        seen = {"k": 0, "h": 0}
+        for l in range(cfg.n_layers):
+            keys = at[l]
+            self._entries.append((keys, seen[keys[0]]))
+            seen[keys[0]] += 1
+
+    def _entry(self, cache: Cache, l: int) -> Cache:
+        keys, i = self._entries[l]
+        return {name: cache[name][i] for name in keys}
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """[B,1,D] final hidden -> [B, vocab] float32 logits."""
@@ -140,18 +235,20 @@ class Model(nn.Module):
     def prefill(self, tokens: torch.Tensor,
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
-                prefix: Optional[Dict[str, torch.Tensor]] = None,
+                prefix: Optional[Cache] = None,
                 prefix_len: Union[int, torch.Tensor] = 0
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
-        lengths ``lengths [B]``). Returns ``(logits [B, vocab],
-        {"k", "v"})``: float32 logits at each request's last valid
-        position, and every layer's K/V as ``[L, B, max(S, cache_len),
-        K, hd]`` (rows past ``S`` zero).
+        lengths ``lengths [B]``). Returns ``(logits [B, vocab], cache)``:
+        float32 logits at each request's last valid position, and the
+        cache (module docstring) with K/V ``[n_kv, B, max(S, cache_len),
+        K, hd]`` (rows past ``S`` zero) and each SSM layer's state after
+        all ``S`` rows, padding rows included (the reference's state
+        ignores the lengths too).
 
         Suffix-only prefill (the prefix cache, and each chunk of a
-        chunked prefill): ``prefix`` is ``{"k", "v"}`` of ``[L, B, P_pad,
-        K, hd]`` dense prefix K/V (e.g. from
+        chunked prefill; attention-only plans): ``prefix`` is ``{"k",
+        "v"}`` of ``[n_kv, B, P_pad, K, hd]`` dense prefix K/V (e.g. from
         :meth:`~repro_torch.kvcache.paged.PagedKVCache.gather_prefix`) of
         which the first ``prefix_len`` rows are valid, and ``tokens``
         holds only the suffix: positions start at ``prefix_len``,
@@ -171,47 +268,60 @@ class Model(nn.Module):
             raise ValueError("suffix prefill requires lengths")
         positions = prefix_len + torch.arange(S, device=dev)
         x = embed_apply(self.embed.tree(), tokens.long(), positions, cfg)
-        ks, vs = [], []
+        parts: Dict[str, List[torch.Tensor]] = {}
         for l, blk in enumerate(self.layers):
-            pkv = None if prefix is None else (prefix["k"][l],
-                                               prefix["v"][l])
-            x, k, v = blk.seq(x, positions, attn_lengths, pkv, prefix_len)
-            ks.append(k)
-            vs.append(v)
+            # an SSM layer's prefix is () (the prefix holds no state): it
+            # refuses it, as the reference does
+            keys, i = self._entries[l]
+            pkv = None if prefix is None else tuple(
+                prefix[n][i] for n in keys if n in prefix)
+            x, entry = blk.seq(x, positions, attn_lengths, pkv, prefix_len)
+            for name, t in entry.items():
+                parts.setdefault(name, []).append(t)
         if lengths is not None:
             last = lengths.long() - 1
             x = x[torch.arange(B, device=dev), last][:, None]
         else:
             x = x[:, -1:]
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        cache = {name: torch.stack(ts) for name, ts in parts.items()}
         if cache_len is not None and cache_len > S:
             pad = (0, 0, 0, 0, 0, cache_len - S)
-            cache = {n: torch.nn.functional.pad(c, pad)
-                     for n, c in cache.items()}
+            for name in ("k", "v"):
+                if name in cache:
+                    cache[name] = torch.nn.functional.pad(cache[name], pad)
         return self._logits(x), cache
 
-    def init_cache(self, batch: int, kv_len: int) -> Dict[str, torch.Tensor]:
-        """A zeroed dense cache ``{"k", "v"}``, each ``[L, batch, kv_len,
-        K, hd]`` in the model's dtype on its device."""
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, cfg.hd)
-        return {n: torch.zeros(shape, dtype=cfg.activation_dtype,
-                               device=self.device) for n in ("k", "v")}
+    def init_cache(self, batch: int, kv_len: int) -> Cache:
+        """A zeroed dense cache (module docstring) for ``batch`` rows of
+        ``kv_len`` K/V slots, on the model's device."""
+        cfg, dev = self.cfg, self.device
+        n = cache_layers(cfg)
+        out = {}
+        if n["kv"]:
+            shape = (len(n["kv"]), batch, kv_len, cfg.n_kv_heads, cfg.hd)
+            out = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
+                                     device=dev) for name in ("k", "v")}
+        if n["ssm"]:
+            for name, shape in state_shapes(cfg, batch).items():
+                out[name] = torch.zeros(
+                    (len(n["ssm"]),) + shape, device=dev,
+                    dtype=STATE_DTYPES.get(name, cfg.activation_dtype))
+        return out
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor,
-                    cache: Union[PagedCacheView, Dict[str, torch.Tensor]],
+                    cache: Union[PagedCacheView, Cache],
                     pos: Optional[Union[int, torch.Tensor]] = None,
                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One token for every row (``tokens [B]``); returns float32
         logits ``[B, vocab]``.
 
-        With a :class:`PagedCacheView` the positions and lengths come
-        from the view, and each layer's new K/V rows go into
-        ``view.pool``. With a dense cache ``{"k", "v": [L, B, S, K,
-        hd]}`` (from :meth:`prefill` or :meth:`init_cache`) ``pos`` is
-        one position for the batch or a ``[B]`` tensor, ``lengths`` the
-        optional ``[B]`` valid lengths (see
+        With a :class:`PagedCacheView` the positions, lengths and state
+        slots come from the view, and each layer's new K/V rows and new
+        state go into ``view.pool``. With a dense cache (from
+        :meth:`prefill` or :meth:`init_cache`) ``pos`` is one position
+        for the batch or a ``[B]`` tensor, ``lengths`` the optional
+        ``[B]`` valid lengths (see
         :func:`~repro_torch.models.attention.self_attn_decode`), and the
         cache is **updated in place**, where the reference returns a new
         one.
@@ -221,8 +331,7 @@ class Model(nn.Module):
             x = embed_apply(self.embed.tree(), tokens.long()[:, None], pos_t,
                             self.cfg)
             for l, blk in enumerate(self.layers):
-                x = blk.decode_paged(x, cache.pool["k"][l],
-                                     cache.pool["v"][l], cache)
+                x = blk.decode_paged(x, self._entry(cache.pool, l), cache)
             return self._logits(x)
         if pos is None:
             raise ValueError("decode_step on a dense cache needs pos")
@@ -231,5 +340,5 @@ class Model(nn.Module):
         x = embed_apply(self.embed.tree(), tokens.long()[:, None], emb_pos,
                         self.cfg)
         for l, blk in enumerate(self.layers):
-            x = blk.decode(x, cache["k"][l], cache["v"][l], pos, lengths)
+            x = blk.decode(x, self._entry(cache, l), pos, lengths)
         return self._logits(x)

@@ -287,7 +287,8 @@ class ContinuousBatchingEngine:
                 self.pool = PagedKVCache(
                     self.cfg,
                     num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
-                    block_size=ecfg.block_size, device=self.device)
+                    block_size=ecfg.block_size, device=self.device,
+                    max_batch=ecfg.max_batch)
                 steps = StepFunctions(
                     model, self.pool, max_batch=ecfg.max_batch,
                     max_model_len=ecfg.max_model_len,

@@ -192,7 +192,11 @@ class Scheduler:
         prefix-cache hit is pinned before any eviction, and only the
         uncached suffix needs free blocks; cache-only blocks are evicted
         (LRU) when that closes the gap. Serial mode prefills each
-        admission at once; chunked mode reserves its first chunk."""
+        admission at once; chunked mode reserves its first chunk. A
+        config with SSM state also needs a free dense-state slot: under
+        overlap a request at its length budget gives its seat up before
+        its last token commits, but keeps its slot until then: the slot is
+        released with its blocks, when it finishes."""
         eng = self.eng
         if eng.faults is not None and eng.faults.steals_allocation(
                 eng.replica_id, eng.step_count):
@@ -201,7 +205,9 @@ class Scheduler:
             return
         mgr = eng.pool.manager
         bs = eng.ecfg.block_size
+        pool = eng.pool
         while (self.waiting and self._seats() < eng.ecfg.max_batch
+               and (not pool.state_names or pool.free_slots)
                and self.waiting[0].arrival_s <= now):
             req = self.waiting[0]
             hit: List[int] = []

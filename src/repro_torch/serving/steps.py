@@ -414,7 +414,8 @@ class StepFunctions:
         """The captured step: decode on the static view, fold finiteness,
         sample. Reads and writes device tensors only."""
         view = PagedCacheView(self.pool.pool, dev["tables"], dev["lengths"],
-                              dev["positions"], self.pool.block_size)
+                              dev["positions"], self.pool.block_size,
+                              dev["slots"])
         logits = self.model.decode_step(dev["tokens"], view)
         return self._sample(logits, dev, sampled), logits
 
@@ -490,11 +491,12 @@ class StepFunctions:
         decode at ``lengths = pos + 1``, the new rows scattered back,
         finiteness folded, sampling. Reads and writes device tensors
         only."""
-        cache = self.pool.gather_tables(dev["tables"])
+        cache = self.pool.gather_tables(dev["tables"], dev["slots"])
         logits = self.model.decode_step(dev["tokens"], cache,
                                         dev["positions"],
                                         lengths=dev["lengths"])
-        self.pool.scatter_rows(dev["tables"], dev["positions"], cache)
+        self.pool.scatter_rows(dev["tables"], dev["positions"], cache,
+                               dev["slots"])
         return self._sample(logits, dev, sampled), logits
 
     def gather_bucket(self, positions: Sequence[int]) -> int:
@@ -533,7 +535,8 @@ class StepFunctions:
         logits, cache = self.model.prefill(dev["tokens"], dev["n"],
                                            prefix=prefix,
                                            prefix_len=prefix_len)
-        self.pool.write_rows(cache, dev["blocks"], dev["slots"])
+        self.pool.write_rows(cache, dev["blocks"], dev["slots"],
+                             dev["state_slot"])
         self.finite.logical_and_(torch.isfinite(logits).all())
         return None, logits
 

@@ -153,9 +153,38 @@ def test_launcher_prints_the_reference_lines(flags, reference_weights,
     assert want <= heads
 
 
+def test_launcher_prints_the_reference_lines_on_olmoe(monkeypatch, capsys):
+    """``--arch olmoe-1b-7b``: the same advisor line (the full config's
+    analytics: BCA over the model's decode curves, the chunk budget) and
+    finish lines as the reference's launcher, on its reduced weights.
+    The reference plans a model other than the paper's for a TPU v5e,
+    the port for the card it runs on (the H100 SXM5 entry on the CPU):
+    the reference is given the port's entry. (mamba2's and zamba2's
+    analytics, none of which fails on a family, are held below with the
+    simulator's.)"""
+    argv = ["--arch", "olmoe-1b-7b", "--reduced", "--requests", "2",
+            "--bca", "--no-speculate"]
+    fields = {f.name for f in dataclasses.fields(j_hardware.Hardware)}
+    monkeypatch.setattr("repro.core.TPU_V5E", j_hardware.Hardware(**{
+        k: v for k, v in dataclasses.asdict(H100_SXM5_80GB).items()
+        if k in fields}))
+    jweights = jax.tree.map(np.asarray, j_init_params(
+        j_reduced(j_get_config("olmoe-1b-7b")), jax.random.PRNGKey(0)))
+    monkeypatch.setattr(tserve, "make_model", lambda cfg, device: Model(
+        cfg, params_from_numpy(cfg, jweights, device=device),
+        device=device))
+    tserve.main(argv + ["--device", "cpu"])
+    port = _compared(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    jserve.main()
+    ref = _compared(capsys.readouterr().out)
+    assert port == ref
+    assert {"[BCA]", "[engine]"} <= {line.split()[0] for line in ref}
+
+
 # ----------------------------------------------------------- analytics ----
 MODELS = ["opt-1.3b", "opt-2.7b", "llama-2-7b", "llama-2-13b", "qwen2.5-3b",
-          "internlm2-1.8b"]
+          "internlm2-1.8b", "olmoe-1b-7b", "mamba2-1.3b", "zamba2-7b"]
 
 
 def _close(a, b):
