@@ -30,8 +30,13 @@ It imports nothing of JAX or of the JAX package. Phases:
    contiguous-decode grid of the
    reference's tests (plus G = 7 and hd 80/96/112), its length-0 rows
    against the TPU kernel's formula and long caches cut into several
-   splits; each at its serving shape; the sampler's threefry bits on the
-   card against the CPU's over a (seed, position) sweep;
+   splits; each at its serving shape; slice 13's shapes (the flash
+   kernel not causal, 128 rows onto the VLM's 1601 image rows and
+   hubert's 8 x 1024 with lengths at hd 80, windowed at S=10240 under a
+   window of 8192; the contiguous kernel at the VLM's cross decode, B=16
+   over 1601 rows at G 8, and the ring decode, B=4 over 8192 slots);
+   the sampler's threefry bits on the card against the CPU's over a
+   (seed, position) sweep;
 3. a model check at OPT-1.3B's full width in float32, cut to 2 layers:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
@@ -141,7 +146,26 @@ It imports nothing of JAX or of the JAX package. Phases:
    graph pools), paged-vs-gather token agreement; and a profile window
    of 10 steady steps at batch 16 (busy, host wall, idle share, busy by
    kernel kind), then 3 eager steps under named scopes for the expert
-   GEMMs' and the SSM state update's share of the device time;
+   GEMMs' and the SSM state update's share of the device time. Then
+   slice 13 (``[slice13 ...]``): llama-3.2-vision-90b at full width cut
+   to two periods (10 layers, 8 self-attention and 2 cross, bf16, 21.3
+   GB; 13.1 MB of image K/V a slot), a paged serve of 16 ShareGPT-length
+   requests (graphs + overlap, batch 16) and a gather serve of the first
+   8 through the engine's zero image stub, launches exact (8 paged and 2
+   contiguous a paged step, 10 contiguous a gather step, 10 flash a
+   prefill), every block and slot home, ITL beside the census bound;
+   the VLM in float32 at one period (5 layers) with seeded random image
+   embeddings, a prefill and 16 decode steps through the kernels and
+   their plain versions, tokens identical; hubert-xlarge at full width
+   and depth (48 layers), ``Model.forward`` on 8 x 1024 seeded
+   embeddings with lengths, bf16 (its relative error against the plain
+   run within 3e-2, ms a call beside the operations' bound) and float32
+   (within ``MODEL_TOL``); internlm2-1.8b at full width and depth with
+   a sliding window of 8192, the static-batch loop on 4 prompts of
+   10240 tokens (the ring wraps at prefill) and 256 greedy steps (one
+   flash launch a layer a prefill, one contiguous a layer a step), and
+   in float32 at 2 layers, kernels against plain across the wrap, tokens
+   identical;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -152,7 +176,9 @@ It imports nothing of JAX or of the JAX package. Phases:
    paged decode at the serving shape, at one 8000-token request
    through a 512-block table and at olmoe's (K 16, hd 128) and zamba2's
    (K 32, hd 112) serving shapes; contiguous decode at the gather shape, at
-   one 8192-token request and at the static batch's shape); the decode
+   one 8192-token request, at the static batch's shape, at the VLM's
+   cross decode and at the ring decode; the flash kernel's plain entry
+   at slice 13's three shapes beside SDPA with the same mask); the decode
    kernels and their library calls twice, L2-cold (back-to-back calls on
    24 copies of their inputs in turn, as a step's 24 layers) and L2-warm
    (one copy); one paged and one gather step at batch 16, each replayed
@@ -514,16 +540,75 @@ def phase_kernels(errs):
     phase_flash_prefix(errs)
     phase_decode_kernel(errs)
     phase_family_kernels(errs)
+    phase_slice13_kernels(errs)
     phase_threefry()
 
 
+def phase_slice13_kernels(errs):
+    """The flash kernel's plain entry and the contiguous decode kernel at
+    the shapes slice 13's paths give them, bf16, against their plain
+    versions: the VLM's cross-attention prefill (not causal, 128 rows
+    onto 1601 image rows, H 64, K 8, hd 128) and decode (B=16, every
+    length 1601, G 8); hubert's bidirectional forward (B=8, S=1024,
+    lengths 1024 down to 800, H = K = 16, hd 80); the windowed prefill
+    (one S=10240 row block, window 8192, K 8, G 2, hd 128) and the ring
+    decode (B=4 over 8192 slots, G 2)."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch, split_plan)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    cases = []
+    q, k, v = flash_inputs(1, 128, 1601, 8, 8, 128, torch.bfloat16, seed=51)
+    errs["flash"]["vlm_cross_prefill"] = close(
+        flash_attention(q, k, v, causal=False),
+        flash_attention_torch(q, k, v, causal=False),
+        "flash, not causal, Sq=128 onto Skv=1601")
+    cases.append(("flash, not causal, Sq=128, Skv=1601, H 64, K 8, hd 128",
+                  errs["flash"]["vlm_cross_prefill"]))
+    q, k, v = flash_inputs(8, 1024, 1024, 16, 1, 80, torch.bfloat16, seed=52)
+    lengths = torch.tensor([1024 - 32 * i for i in range(8)],
+                           dtype=torch.int32, device="cuda")
+    errs["flash"]["hubert_bidirectional"] = close(
+        flash_attention(q, k, v, causal=False, lengths=lengths),
+        flash_attention_torch(q, k, v, causal=False, lengths=lengths),
+        "flash, not causal, S=1024 with lengths, hd 80")
+    cases.append(("flash, not causal, B=8, S=1024, lengths 1024..800, "
+                  "H = K = 16, hd 80", errs["flash"]["hubert_bidirectional"]))
+    q, k, v = flash_inputs(1, 10240, 10240, 8, 2, 128, torch.bfloat16,
+                           seed=53)
+    errs["flash"]["window_prefill"] = close(
+        flash_attention(q, k, v, window=8192),
+        flash_attention_torch(q, k, v, window=8192),
+        "flash, causal, S=10240, window 8192")
+    cases.append(("flash, causal, S=10240, window 8192, K 8, G 2, hd 128",
+                  errs["flash"]["window_prefill"]))
+    for tag, B, S, G in (("vlm_cross_decode", 16, 1601, 8),
+                         ("ring_decode", 4, 8192, 2)):
+        args = decode_inputs(B, S, 8, G, 128, torch.bfloat16, [S] * B,
+                             seed=54 + G)
+        errs["decode"][tag] = close(gqa_decode_attention(*args),
+                                    gqa_decode_attention_torch(*args),
+                                    f"contiguous decode B={B} S={S} G={G}")
+        plan = split_plan(B, S, 8, G, 128)
+        cases.append((f"contiguous decode, B={B}, S={S}, K 8, G {G}, hd "
+                      f"128 ({plan.n_split} splits of {plan.rows_per_split})",
+                      errs["decode"][tag]))
+    torch.cuda.synchronize()
+    for what, e in cases:
+        print(f"[kernels] slice 13: {what}, bf16, kernel vs plain: max abs "
+              f"err {e:.3e} (tolerance {TOL['bfloat16']})")
+
+
 def phase_family_kernels(errs):
-    """The three kernels at the shapes the non-dense families' bf16
-    serves give them, against their plain versions: paged decode at the
-    paged serve's (B=16), contiguous decode at the gather serve's (the
-    first 8 requests, the batch unpadded) and the flash kernel's plain
-    entry at each serial prefill of the paged serve (B=1, the prompt's
-    bucket of 64 with its length); each family's heads."""
+    """The three kernels at the shapes the non-dense families' and the
+    VLM's bf16 serves give their self-attention, against their plain
+    versions: paged decode at the paged serve's (B=16), contiguous decode
+    at the gather serve's (the first 8 requests, the batch unpadded) and
+    the flash kernel's plain entry at each serial prefill of the paged
+    serve (B=1, the prompt's bucket of 64 with its length); each model's
+    heads (the VLM's cross-attention shapes are
+    :func:`phase_slice13_kernels`')."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import (
@@ -532,7 +617,7 @@ def phase_family_kernels(errs):
                                                      flash_attention_torch)
     from repro_torch.kernels.paged_decode_attention import (
         paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
-    for name in FAMILIES:
+    for name in FAMILIES + (VLM,):
         heads = family_heads(name)
         if heads is None:
             continue
@@ -960,12 +1045,14 @@ def phase_decode_kernel(errs):
           f"context tokens): max abs err {e:.3e}")
 
 
-def run_model(model, prompts, steps, mode):
-    """Prefill each prompt at batch 1 into a paged pool, then ``steps``
-    greedy decode steps: ``paged`` in a batch bucket with a padding row,
-    or ``gather`` as the engine's fallback runs them (dense copy,
-    ``lengths = pos + 1``, scatter back). Returns the logits of every
-    call and the greedy tokens."""
+def run_model(model, prompts, steps, mode, img=None, feed=None):
+    """Prefill each prompt at batch 1 into a paged pool (a VLM's with its
+    row of ``img``, whose image K/V go into the request's slot), then
+    ``steps`` greedy decode steps: ``paged`` in a batch bucket with a
+    padding row, or ``gather`` as the engine's fallback runs them (dense
+    copy, ``lengths = pos + 1``, scatter back). Each step takes the
+    greedy tokens of the call before, or those of ``feed`` (an earlier
+    run's). Returns the logits of every call and the greedy tokens."""
     import torch
     from repro_torch.kvcache.paged import PagedKVCache
     from repro_torch.serving.engine import _bucket, _pow2_bucket
@@ -978,9 +1065,9 @@ def run_model(model, prompts, steps, mode):
         toks = torch.zeros((1, S), dtype=torch.long)
         toks[0, :len(p)] = torch.from_numpy(p)
         pool.manager.allocate(rid, len(p) + 1)
-        logits, cache = model.prefill(toks.cuda(),
-                                      torch.tensor([len(p)], device="cuda"),
-                                      cache_len=S)
+        logits, cache = model.prefill(
+            toks.cuda(), torch.tensor([len(p)], device="cuda"), cache_len=S,
+            img_embeds=None if img is None else img[rid:rid + 1])
         pool.write_prefill(rid, cache)
         logits_all.append(logits)
         tokens.append(int(logits.argmax(-1)))
@@ -989,6 +1076,8 @@ def run_model(model, prompts, steps, mode):
     rids = list(range(len(prompts)))
     batch_pad = _pow2_bucket(len(prompts) + 1)
     for _ in range(steps):
+        if feed is not None:
+            tokens = feed[len(history) - 1]
         for rid in rids:
             pool.manager.append_token(rid, positions[rid] + 1)
         if mode == "paged":
@@ -1012,36 +1101,45 @@ def run_model(model, prompts, steps, mode):
     return logits_all, history
 
 
-def phase_model(errs, name, n_layers, seed=1):
+def phase_model(errs, name, n_layers, seed=1, steps=4):
     """One configuration at full width in float32, cut to ``n_layers``:
-    two prefills and four paged, then four gather, decode steps through
-    the kernels and through their plain versions; logits within
+    two prefills and ``steps`` paged, then ``steps`` gather, decode steps
+    through the kernels and through their plain versions; logits within
     ``MODEL_TOL``, greedy tokens identical, the gather steps' tokens equal
-    to the paged steps', and the kernels launched once an attention layer
-    a call by the kernel run and never by the plain run."""
+    to the paged steps', and the kernels launched once an attention or
+    cross layer a call by the kernel run and never by the plain run. A
+    VLM prefills with seeded random image embeddings, so its decode steps
+    read non-zero image K/V from the pool's slots; the same run with zero
+    embeddings (fed the same tokens) must move every call's logits by
+    more than ``MODEL_TOL``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
                               dtype="float32")
     model = Model(cfg, generator=torch.Generator("cuda").manual_seed(seed))
-    n_attn = attention_layers(cfg)
+    n_attn, n_cross = attention_layers(cfg), cross_layers(cfg)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (161, 97)]
+    img = torch.randn((len(prompts), cfg.n_img_tokens, cfg.d_model),
+                      generator=torch.Generator("cuda").manual_seed(seed + 1),
+                      device="cuda") if n_cross else None
     tag = "model_check" if name == MODEL else f"{name}_model_check"
     paged_tok = None
     for mode, kernel in (("paged", "paged_decode_attention"),
                          ("gather", "decode_attention")):
         reset_launches()
-        kern, kern_tok = run_model(model, prompts, 4, mode)
+        kern, kern_tok = run_model(model, prompts, steps, mode, img)
         want = {"paged_decode_attention": 0, "decode_attention": 0,
-                "flash_attention": 2 * n_attn, "flash_prefix_attention": 0,
-                kernel: 4 * n_attn}
+                "flash_attention": 2 * (n_attn + n_cross),
+                "flash_prefix_attention": 0}
+        want[kernel] += steps * n_attn
+        want["decode_attention"] += steps * n_cross
         if read_launches() != want:
             raise AssertionError(f"model check {name} ({mode}) did not run "
                                  f"the kernels: {read_launches()} != {want}")
         with plain_attention():
-            plain, plain_tok = run_model(model, prompts, 4, mode)
+            plain, plain_tok = run_model(model, prompts, steps, mode, img)
         if read_launches() != want:
             raise AssertionError(f"the plain {mode} run of {name} launched "
                                  f"a kernel")
@@ -1058,17 +1156,31 @@ def phase_model(errs, name, n_layers, seed=1):
         if kern_tok != paged_tok:
             raise AssertionError(f"{name}: gather-mode tokens {kern_tok} "
                                  f"differ from the paged steps' {paged_tok}")
+        moved = ""
+        if n_cross:
+            zero, _ = run_model(model, prompts, steps, mode,
+                                torch.zeros_like(img), feed=kern_tok)
+            least = min((a - b).abs().max().item()
+                        for a, b in zip(kern, zero))
+            if not least > MODEL_TOL:
+                raise AssertionError(
+                    f"model check {name} ({mode}): zero image embeddings "
+                    f"move a call's logits by only {least:.3e}: the image "
+                    f"K/V were not read")
+            moved = (f"; the image moves every call's logits by at least "
+                     f"{least:.3e}")
         if n_attn:
-            key = "paged" if mode == "paged" else "decode"
-            errs[key][tag] = err
-            errs["flash"][tag] = max(errs["flash"].get(tag, 0.0), err)
+            keys = {"paged" if mode == "paged" else "decode", "flash"}
+            for key in keys | ({"decode"} if n_cross else set()):
+                errs[key][tag] = max(errs[key].get(tag, 0.0), err)
         print(f"[model] {name} width, {n_layers} layers ({n_attn} with "
-              f"attention), float32: 2 prefills + 4 {mode} decode steps, "
+              f"attention" + (f", {n_cross} cross" if n_cross else "")
+              + f"), float32: 2 prefills + {steps} {mode} decode steps, "
               f"kernels vs plain versions: logits max abs err {err:.3e} "
               f"(tolerance {MODEL_TOL}), greedy tokens equal {kern_tok[-1]}"
               + (" and equal to the paged steps' at every step"
                  if mode == "gather" else "")
-              + f"; launches {read_launches()}")
+              + f"; launches {want}{moved}")
     del model
     release()
 
@@ -1412,7 +1524,8 @@ def gather_decode_inputs(B=16, K=32, G=1, hd=64, seed=8):
 
 def family_heads(name):
     """A family's attention heads ``(K, G, hd)`` (olmoe 16, 1, 128;
-    zamba2 32, 1, 112), or None where it has no attention (mamba2)."""
+    zamba2 32, 1, 112; the VLM 8, 8, 128), or None where it has no
+    attention (mamba2)."""
     from repro_torch.configs import get_config
     cfg = get_config(name)
     if not attention_layers(cfg):
@@ -1522,7 +1635,9 @@ def run_served(engine, reqs, card, tag, drive=None):
           f"prefill chunks ({engine.suffix_prefills} of them over a "
           f"prefix), {metrics.preemptions} preemptions; launches "
           f"{launches} = steps (or prefills and chunks) x "
-          f"{attention_layers(cfg)} attention layers")
+          f"{attention_layers(cfg)} attention layers"
+          + (f" (and {cross_layers(cfg)} cross-attention layers)"
+             if cross_layers(cfg) else ""))
     print(f"{tag} {step_mode(engine)}, on {card}: "
           f"throughput {metrics.throughput:.1f} tok/s, output "
           f"{metrics.output_throughput:.1f} tok/s, wall {metrics.wall_s:.2f} s,"
@@ -1561,24 +1676,35 @@ def step_mode(engine):
 
 
 def attention_layers(cfg):
-    """The layers that run attention kernels (every layer of a dense or
-    MoE model, a hybrid's shared-block occurrences, none of an SSM)."""
+    """The layers that run self-attention kernels (every layer of a dense
+    or MoE model, a hybrid's shared-block occurrences, none of an SSM, a
+    VLM's ``ATTN`` layers)."""
     from repro_torch.core.census import layer_counts
     return layer_counts(cfg)["kv"]
+
+
+def cross_layers(cfg):
+    """A VLM's cross-attention layers (none elsewhere): each runs the
+    flash kernel's plain entry in a prefill and the contiguous decode
+    kernel in every decode step, paged or gather."""
+    from repro_torch.core.census import layer_counts
+    return layer_counts(cfg)["cross"]
 
 
 def expected_launches(engines):
     """The launches ``engines`` must have made since the counters were set
     to 0: each kernel once a layer of each step of its kind, summed (the
     decode kernel of the engine's mode a decode step, the paged kernel
-    ``K_pad + 1`` times a verify step, the flash entries as
+    ``K_pad + 1`` times a verify step, the contiguous kernel once a
+    cross layer a decode step, the flash entries as
     :func:`prefill_launches`)."""
     want = dict.fromkeys(launch_counters(), 0)
     for e in engines:
         decode = ("paged_decode_attention" if e.decode_mode == "paged"
                   else "decode_attention")
-        want[decode] += (e.decode_steps + e.verify_iterations) \
-            * attention_layers(e.model.cfg)
+        steps = e.decode_steps + e.verify_iterations
+        want[decode] += steps * attention_layers(e.model.cfg)
+        want["decode_attention"] += steps * cross_layers(e.model.cfg)
         for k, v in prefill_launches(e).items():
             want[k] += v
     return want
@@ -1587,10 +1713,13 @@ def expected_launches(engines):
 def prefill_launches(engine):
     """The flash launches an engine's prefills must have made: its
     prefix-masked entry once a layer for each prefill or chunk over a
-    prefix, its plain entry for each other."""
-    n = attention_layers(engine.model.cfg)
+    prefix, its plain entry for each other (and once a cross layer for
+    every prefill)."""
+    cfg = engine.model.cfg
+    n, x = attention_layers(cfg), cross_layers(cfg)
     return {"flash_attention": (engine.prefills + engine.chunks
-                                - engine.suffix_prefills) * n,
+                                - engine.suffix_prefills) * n
+            + engine.prefills * x,
             "flash_prefix_attention": engine.suffix_prefills * n}
 
 
@@ -3331,7 +3460,13 @@ def phase_times(card, prefill_sizes, serve_reqs):
               ("one long request", decode_inputs(
                   1, 8192, 32, 1, 64, torch.bfloat16, [8192], seed=9)),
               ("the static batch at its middle step", decode_inputs(
-                  32, 192, 32, 1, 64, torch.bfloat16, [160] * 32, seed=10))]
+                  32, 192, 32, 1, 64, torch.bfloat16, [160] * 32, seed=10)),
+              ("the VLM's cross-attention decode, every length 1601",
+               decode_inputs(16, 1601, 8, 8, 128, torch.bfloat16,
+                             [1601] * 16, seed=12)),
+              ("the windowed static loop's ring decode",
+               decode_inputs(4, 8192, 8, 2, 128, torch.bfloat16,
+                             [8192] * 4, seed=13))]
     decode = [time_decode(card, what, *args) for what, args in shapes]
     times["decode_attention"] = dict(decode[0], other_shapes=decode[1:])
 
@@ -3373,7 +3508,18 @@ def phase_times(card, prefill_sizes, serve_reqs):
     serial = time_masked(card, f"a serial prefill in the paged serve's most "
                                f"frequent bucket (prompt {main_len})",
                          main_s, 0, 0, main_len)
-    times["flash_attention"] = dict(serial, by_bucket=by_bucket)
+    wide = [time_flash(card, what, inputs, **kw) for what, inputs, kw in (
+        ("the VLM's cross-attention prefill",
+         flash_inputs(1, 128, 1601, 8, 8, 128, torch.bfloat16, seed=61),
+         dict(causal=False)),
+        ("hubert's bidirectional forward",
+         flash_inputs(8, 1024, 1024, 16, 1, 80, torch.bfloat16, seed=62),
+         dict(causal=False, lengths=[1024 - 28 * i for i in range(8)])),
+        ("the windowed prefill",
+         flash_inputs(1, 10240, 10240, 8, 2, 128, torch.bfloat16, seed=63),
+         dict(window=8192)))]
+    times["flash_attention"] = dict(serial, by_bucket=by_bucket,
+                                    other_shapes=wide)
     prefix = [time_masked(card, what, *args) for what, args in (
         ("the prefix serve's suffix prefill", (64, 256, 256, 32)),
         ("the chunked serve's middle chunk", (192, 512, 384, 192)))]
@@ -3438,6 +3584,71 @@ def time_masked(card, what, S, P, pl, n):
           f"{row['tflop_s']:.2f} TFLOP/s, {row['gb_s']:.0f} GB/s; one call "
           f"end to end: kernel {k_call * 1e3:.1f} us, SDPA "
           f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us")
+    return row
+
+
+def time_flash(card, what, inputs, causal=True, window=None, lengths=None):
+    """The flash kernel's plain entry at one of slice 13's shapes (not
+    causal, with a length a request, or windowed), its plain version
+    (one call) and SDPA with the same boolean mask, beside the bound:
+    bytes q, out and the K/V rows some query reads, operations ``4·hd``
+    a valid (query, key) pair a head."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    q, k, v = inputs
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    lens = None if lengths is None else torch.tensor(
+        lengths, dtype=torch.int32, device="cuda")
+    q_ids = torch.arange(Sq, device="cuda")[:, None]
+    kv_ids = torch.arange(Skv, device="cuda")[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= q_ids >= kv_ids
+    if window is not None:
+        mask &= q_ids - kv_ids < window
+    mask = mask[None].expand(B, Sq, Skv)
+    if lens is not None:
+        mask = mask & (kv_ids[None] < lens[:, None, None])
+    pairs = int(mask.sum())
+    kv_rows = sum(min(n, Skv) for n in lengths) if lengths else B * Skv
+    nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size()
+    flops = 4 * hd * H * pairs
+    b_ms, b_by = bound(nbytes, flops)
+    kw = dict(causal=causal, window=window, lengths=lens)
+    k_ms, k_call = timed(lambda: flash_attention(q, k, v, **kw))
+    p_ms = time_ms(lambda: flash_attention_torch(q, k, v, **kw), runs=3,
+                   warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bmask = mask[:, None]
+    l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bmask, enable_gqa=True), runs=10)
+    e = close(flash_attention(q, k, v, **kw),
+              flash_attention_torch(q, k, v, **kw), f"flash at {what}")
+    del qt, kt, vt, bmask, mask
+    release()
+    row = dict(
+        ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+        call_ms=k_call, library_call_ms=l_call, max_abs_err=e,
+        tflop_s=flops / (k_ms * 1e-3) / 1e12,
+        gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+        shape=f"B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} "
+              f"{str(q.dtype).replace('torch.', '')}"
+              + ("" if causal else ", not causal")
+              + (f", window {window}" if window else "")
+              + (f", lengths {lengths[0]}..{lengths[-1]}" if lengths else "")
+              + f", {pairs} valid (query, key) pairs ({what})",
+        library_call="scaled_dot_product_attention(attn_mask=the same "
+                     "boolean mask, enable_gqa=True)")
+    print(f"[times] on {card}: flash plain entry at {row['shape']}: device "
+          f"time: kernel {k_ms * 1e3:.1f} us, SDPA with the mask "
+          f"{l_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us ({b_by}); kernel "
+          f"{row['tflop_s']:.2f} TFLOP/s, {row['gb_s']:.0f} GB/s; one call "
+          f"end to end: kernel {k_call * 1e3:.1f} us, SDPA "
+          f"{l_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us; max abs err "
+          f"{e:.3e}")
     return row
 
 
@@ -3982,16 +4193,56 @@ def step_bound(engine):
     return bound(nbytes, 0.0)[0], nbytes / 1e9, model_s * 1e3
 
 
-def family_profile(model, card, steps=10):
-    """A steady window at batch 16 on a graphs + overlap engine:
-    ``torch.profiler`` device busy by kernel kind against the host wall of
-    an unprofiled window; then the same engine's steps run eagerly for
-    three more steps under named scopes, which give the expert GEMMs' and
-    the SSM state update's share of the device time."""
+def busy_by_kind(prof, calls):
+    """Device busy ms a call by kernel kind in a ``torch.profiler`` trace
+    of ``calls`` calls (raises on a trace with no device activity)."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("profiler recorded no device activity")
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    return by_kind
+
+
+def kind_parts(by_kind):
+    """``busy_by_kind``'s kinds, largest first, each with its share."""
+    busy = sum(by_kind.values())
+    return ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
+                     for k, v in sorted(by_kind.items(),
+                                        key=lambda kv: -kv[1]))
+
+
+def profile_calls(fn, calls=1):
+    """Device busy ms a call of ``fn`` by kernel kind: ``torch.profiler``
+    over ``calls`` calls after one unprofiled warm-up, the window opened
+    by a short kernel and a sync (a trace may miss the first kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return busy_by_kind(prof, calls)
+
+
+def steady_profile(model, card, tag, steps=10):
+    """A steady window at batch 16 on a graphs + overlap engine serving
+    the family workload: ``torch.profiler`` device busy by kernel kind
+    against the host wall of an unprofiled window, and the census bound
+    of a step. Returns the engine (mid-serve) and the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ContinuousBatchingEngine
-    name = model.cfg.name
     engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
     for r in family_workload(model.cfg):
         engine.add_request(r)
@@ -4001,31 +4252,33 @@ def family_profile(model, card, steps=10):
     _, wall_ms, _ = steady_steps(engine, steps)
     prof, _, _ = steady_steps(engine, steps, lambda: profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("profiler recorded no device activity")
-    by_kind = {}
-    for e in kernels:
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / steps
+    by_kind = busy_by_kind(prof, steps)
     busy = sum(by_kind.values())
     idle = 1 - busy / wall_ms
-    parts = ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
-                      for k, v in sorted(by_kind.items(),
-                                         key=lambda kv: -kv[1]))
-    print(f"[families {name} profile] on {card}, {step_mode(engine)}: "
+    print(f"[{tag} profile] on {card}, {step_mode(engine)}: "
           f"{steps} decode steps at batch {len(engine.running)}: device busy "
           f"{busy:.3f} ms/step, host wall {wall_ms:.3f} ms/step unprofiled, "
-          f"so the device idles {idle * 100:.1f}%; by kind: {parts}")
+          f"so the device idles {idle * 100:.1f}%; by kind: "
+          f"{kind_parts(by_kind)}")
     bound_ms, census_gb, model_ms = step_bound(engine)
-    print(f"[families {name} profile] on {card}: the step's census moves "
-          f"{census_gb:.3f} GB (every weight, every expert's, the state "
-          f"read and written, the live K/V), a bound of {bound_ms:.3f} ms at "
+    print(f"[{tag} profile] on {card}: the step's census moves "
+          f"{census_gb:.3f} GB (every weight the step reads, any state read "
+          f"and written, the live K/V), a bound of {bound_ms:.3f} ms at "
           f"the card's {card_peaks().hbm_bw / 1e12:.2f} TB/s: busy is "
           f"{busy / bound_ms:.2f} x it; the perfmodel (active parameters) "
           f"prices the step at {model_ms:.3f} ms")
+    return engine, dict(busy_ms=busy, wall_ms=wall_ms, idle=idle,
+                        by_kind=by_kind, bound_ms=bound_ms)
+
+
+def family_profile(model, card, steps=10):
+    """:func:`steady_profile`; then the same engine's steps run eagerly
+    for three more steps under named scopes, which give the expert
+    GEMMs' and the SSM state update's share of the device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    name = model.cfg.name
+    engine, numbers = steady_profile(model, card, f"families {name}", steps)
     st = engine.steps
     saved = st.graphs, st.graphs_on
     st.graphs, st.graphs_on = {}, False
@@ -4055,8 +4308,7 @@ def family_profile(model, card, steps=10):
           f"{shares['ssm_state_update'] * 100:.1f}% of it")
     del engine
     release()
-    return dict(busy_ms=busy, wall_ms=wall_ms, idle=idle, by_kind=by_kind,
-                shares=shares, bound_ms=bound_ms)
+    return dict(numbers, shares=shares)
 
 
 def phase_families(card):
@@ -4103,6 +4355,310 @@ def phase_families(card):
         release()
         torch.cuda.synchronize()
     return by_path, profiles
+
+
+# ------------------------------------------------------------ slice 13 ----
+VLM = "llama-3.2-vision-90b"
+VLM_LAYERS = 10              # two periods of cross_every 5: 8 ATTN, 2 CROSS
+VLM_CHECK_LAYERS = 5         # one period, float32
+ENCODER = "hubert-xlarge"
+WINDOW_MODEL = "internlm2-1.8b"
+WINDOW = 8192                # the reference's long-context window
+WINDOW_PROMPT = 10240        # longer than the window: the ring wraps
+
+
+def slice13_model(name, dtype=None, seed=0, **changes):
+    """A registry config at full width (``changes`` applied, float32 if
+    ``dtype`` says so), random weights from ``seed`` on the card; prints
+    its size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config(name), **changes,
+                              **({"dtype": dtype} if dtype else {}))
+    t0 = time.perf_counter()
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[slice13 {name}] {cfg.arch_type}: {cfg.n_layers} layers "
+          f"({attention_layers(cfg)} self-attention, {cross_layers(cfg)} "
+          f"cross), d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"{cfg.n_kv_heads} KV heads, head dim {cfg.hd}, {cfg.dtype}, "
+          f"{n / 1e9:.3f} B parameters "
+          f"({n * model.cfg.activation_dtype.itemsize / 1e9:.2f} GB), "
+          f"random init in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def slice13_vlm(card):
+    """The VLM at full width, cut to two periods (10 layers, bf16): a
+    paged serve of 16 ShareGPT-length requests (graphs + overlap, batch
+    16) and a gather serve of the first 8, launches exact (8 paged and 2
+    contiguous a paged step, 10 contiguous a gather step, 10 flash a
+    prefill), logits finite, every block and slot home; then
+    :func:`family_graph_check` (graphs + overlap against eager sync, slots
+    reused) and a profile window, whose census bound the paged serve's
+    ITL is set against. The engine stubs the vision frontend with zero
+    image embeddings, as the reference's does."""
+    model = slice13_model(VLM, n_layers=VLM_LAYERS)
+    cfg = model.cfg
+    slot_mb = 2 * cross_layers(cfg) * cfg.n_img_tokens * cfg.n_kv_heads \
+        * cfg.hd * cfg.activation_dtype.itemsize / 1e6
+    print(f"[slice13 {VLM}] each dense-state slot holds {slot_mb:.1f} MB "
+          f"of image K/V ({cross_layers(cfg)} layers x {cfg.n_img_tokens} "
+          f"rows x K and V)")
+    by_path, outs, itl = {}, {}, {}
+    for mode, n in (("paged", 16), ("gather", 8)):
+        part = family_workload(cfg)[:n]
+        engine, m, launches = serve(model, part, mode, card,
+                                    tag=f"slice13 vlm {mode}", overlap=True)
+        slots_home(engine, f"vlm {mode}")
+        steps = engine.decode_steps
+        print(f"[slice13 vlm {mode}] on {card}: output "
+              f"{m.output_throughput:.1f} tok/s, ITL p50 "
+              f"{m.itl.p50 * 1e3:.2f} ms, {steps} steps, {engine.prefills} "
+              f"prefills; launches {launches}; {family_memory(engine)}")
+        itl[mode] = m.itl.p50 * 1e3
+        by_path[f"vlm_{mode}_serve"] = launches
+        outs[mode] = part
+        del engine
+        release()
+    print(f"[slice13 vlm] paged vs gather, the first 8 requests: "
+          f"{agreement(outs['paged'][:8], outs['gather'])}")
+    family_graph_check(model, card)
+    engine, prof = steady_profile(model, card, "slice13 vlm")
+    print(f"[slice13 vlm paged] on {card}: the paged serve's ITL p50 "
+          f"{itl['paged']:.2f} ms is {itl['paged'] / prof['bound_ms']:.2f} x "
+          f"the census bound of its batch-16 step ({prof['bound_ms']:.3f} ms)")
+    del engine, model
+    release()
+    return by_path
+
+
+def encoder_inputs(cfg, B, S):
+    """``B`` sequences of seeded embeddings (the model's dtype) and
+    lengths from ``S`` down by 28 a row."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(6)
+    emb = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                      dtype=cfg.activation_dtype)
+    lengths = torch.tensor([S - 28 * i for i in range(B)], device="cuda",
+                           dtype=torch.int32)
+    return emb, lengths
+
+
+def encoder_forward(model, emb, lengths, tag):
+    """``Model.forward`` through the kernels (one flash launch a layer,
+    counted) and through their plain versions; returns both outputs and
+    the launches."""
+    import torch
+    reset_launches()
+    out = model.forward(embeds=emb, lengths=lengths)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"paged_decode_attention": 0, "flash_prefix_attention": 0,
+            "decode_attention": 0, "flash_attention": model.cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
+    with plain_attention():
+        plain = model.forward(embeds=emb, lengths=lengths)
+    torch.cuda.synchronize()
+    if read_launches() != want:
+        raise AssertionError(f"the plain {tag} launched a kernel")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{tag}: non-finite output")
+    return out, plain, launches
+
+
+def slice13_encoder(card, B=8, S=1024):
+    """hubert at full width and depth (48 layers): ``Model.forward`` on
+    ``B`` sequences of seeded embeddings, lengths 1024 down to 828, one
+    flash launch a layer. In bfloat16: finite, its relative (Frobenius)
+    error against the plain versions' run within 3e-2 (the max abs
+    error, which 48 layers of bf16 rounding spread, printed beside it),
+    ms a call beside the operations' bound. In float32, the same forward
+    within ``MODEL_TOL`` of its plain run."""
+    import torch
+    model = slice13_model(ENCODER)
+    cfg = model.cfg
+    emb, lengths = encoder_inputs(cfg, B, S)
+    out, plain, launches = encoder_forward(model, emb, lengths,
+                                           "encoder forward, bf16")
+    diff = out.float() - plain.float()
+    err = diff.abs().max().item()
+    rel = (diff.norm() / plain.float().norm()).item()
+    if rel > TOL["bfloat16"]:
+        raise AssertionError(f"encoder forward, bf16: relative error "
+                             f"{rel:.3e} against the plain run")
+    ms = time_ms(lambda: model.forward(embeds=emb, lengths=lengths),
+                 runs=10, warmup=2)
+    by_kind = profile_calls(lambda: model.forward(embeds=emb,
+                                                  lengths=lengths))
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = d * (H + 2 * K) * hd + H * hd * d + 2 * d * f
+    tokens = B * S
+    flops = (2 * per_layer * cfg.n_layers * tokens
+             + 4 * H * hd * S * int(lengths.sum()) * cfg.n_layers
+             + 2 * d * V * tokens)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    b_ms, b_by = bound(weights + emb.numel() * emb.element_size()
+                       + out.numel() * 4, flops)
+    print(f"[slice13 encoder] {ENCODER} on {card}: forward of {B} x {S} "
+          f"embeddings (lengths {lengths.tolist()[0]}..{lengths.tolist()[-1]}"
+          f"), bf16: {ms:.3f} ms a call, {flops / 1e12:.2f} TFLOP, bound "
+          f"{b_ms:.3f} ms ({b_by}, {card_peaks().peak_flops / 1e12:.0f} "
+          f"TFLOP/s), {flops / ms / 1e9:.1f} TFLOP/s achieved; kernels vs "
+          f"plain: relative error {rel:.3e} (within {TOL['bfloat16']}), max "
+          f"abs err {err:.3e} (logits up to "
+          f"{plain.float().abs().max().item():.2f}); launches {launches}")
+    busy = sum(by_kind.values())
+    print(f"[slice13 encoder profile] on {card}: one forward, device busy "
+          f"{busy:.3f} ms of the {ms:.3f} ms a call (idle "
+          f"{(1 - busy / ms) * 100:.1f}%); by kind: {kind_parts(by_kind)}")
+    del model, out, plain, diff, emb
+    release()
+    model = slice13_model(ENCODER, dtype="float32", seed=1)
+    emb, lengths = encoder_inputs(model.cfg, B, S)
+    out, plain, _ = encoder_forward(model, emb, lengths,
+                                    "encoder forward, float32")
+    err32 = (out - plain).abs().max().item()
+    if err32 > MODEL_TOL:
+        raise AssertionError(f"encoder forward, float32: logits differ by "
+                             f"{err32:.3e} (tolerance {MODEL_TOL})")
+    print(f"[slice13 encoder check] {ENCODER} width and depth, float32: "
+          f"forward of {B} x {S}, kernels vs plain versions: logits max abs "
+          f"err {err32:.3e} (tolerance {MODEL_TOL})")
+    del model, out, plain, emb
+    release()
+    return launches
+
+
+def slice13_window(card, B=4, steps=256):
+    """internlm2-1.8b at full width and depth (24 layers, bf16) with a
+    sliding window of 8192: the static-batch loop on ``B`` prompts of
+    10240 tokens (the ring wraps at prefill: it keeps the last 8192
+    rows, row t at slot t % 8192), then ``steps`` greedy decode steps at
+    one position for the batch on the ring; one flash launch a layer a
+    prefill and one contiguous launch a layer a step."""
+    import torch
+    model = slice13_model(WINDOW_MODEL, sliding_window=WINDOW)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, WINDOW_PROMPT))).cuda()
+    torch.cuda.synchronize()
+    with finite_logits(model) as finite:
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks, cache_len=WINDOW_PROMPT + steps)
+        nxt = logits.argmax(-1)
+        out = [nxt]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(steps):
+            nxt = model.decode_step(nxt, cache, WINDOW_PROMPT + i).argmax(-1)
+            out.append(nxt)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_launches()
+        if not bool(finite):
+            raise AssertionError("window static batch: NaN or inf logits")
+    at = WINDOW_PROMPT + steps
+
+    def step():
+        nonlocal nxt, at
+        nxt = model.decode_step(nxt, cache, at).argmax(-1)
+        at += 1
+    by_kind = profile_calls(step, calls=4)
+    busy = sum(by_kind.values())
+    step_ms = (t2 - t1) * 1e3 / steps
+    out = torch.stack(out)
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError("window static batch: token out of range")
+    if tuple(cache["k"].shape) != (cfg.n_layers, B, WINDOW, cfg.n_kv_heads,
+                                   cfg.hd):
+        raise AssertionError(f"window ring shape {tuple(cache['k'].shape)}")
+    want = {"paged_decode_attention": 0, "flash_attention": cfg.n_layers,
+            "flash_prefix_attention": 0,
+            "decode_attention": steps * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"window static batch: launches {launches} != "
+                             f"{want}")
+    print(f"[slice13 window] {WINDOW_MODEL}, window {WINDOW}, on {card}: "
+          f"{B} prompts x {WINDOW_PROMPT} tokens, one prefill "
+          f"({(t1 - t0) * 1e3:.1f} ms) into a ring of {WINDOW} slots, then "
+          f"{steps} greedy decode steps at one position across the wrap "
+          f"(slots {WINDOW_PROMPT % WINDOW}..{(WINDOW_PROMPT + steps) % WINDOW}"
+          f"): {(t2 - t1) * 1e3 / steps:.3f} ms a step, "
+          f"{B * steps / (t2 - t1):.1f} output tok/s; launches {launches}")
+    print(f"[slice13 window profile] on {card}: 4 more ring decode steps, "
+          f"eager: device busy {busy:.3f} ms a step of the loop's "
+          f"{step_ms:.3f} ms (idle {(1 - busy / step_ms) * 100:.1f}%); by "
+          f"kind: {kind_parts(by_kind)}")
+    del model, cache
+    release()
+    return launches
+
+
+def slice13_window_check(errs, B=2, S=8200, steps=16):
+    """internlm2-1.8b at full width in float32, 2 layers, window 8192:
+    a prefill of ``B`` prompts of ``S`` > 8192 tokens (a ring that has
+    wrapped) and ``steps`` decode steps on it, kernels against plain
+    versions: tokens identical, logits within ``MODEL_TOL``."""
+    import torch
+    model = slice13_model(WINDOW_MODEL, dtype="float32", seed=8, n_layers=2,
+                          sliding_window=WINDOW)
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    def run():
+        logits, cache = model.prefill(toks)
+        out, nxt = [logits], logits.argmax(-1)
+        history = [nxt]
+        for i in range(steps):
+            logits = model.decode_step(nxt, cache, S + i)
+            nxt = logits.argmax(-1)
+            out.append(logits)
+            history.append(nxt)
+        torch.cuda.synchronize()
+        return out, torch.stack(history).tolist()
+
+    reset_launches()
+    kern, kern_tok = run()
+    want = {"paged_decode_attention": 0, "flash_prefix_attention": 0,
+            "flash_attention": cfg.n_layers,
+            "decode_attention": steps * cfg.n_layers}
+    if read_launches() != want:
+        raise AssertionError(f"window check: launches {read_launches()}")
+    with plain_attention():
+        plain, plain_tok = run()
+    err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    if err > MODEL_TOL or kern_tok != plain_tok:
+        raise AssertionError(f"window check: logits differ by {err:.3e} or "
+                             f"tokens differ: {kern_tok} vs {plain_tok}")
+    errs["decode"]["window_model_check"] = err
+    errs["flash"]["window_model_check"] = err
+    print(f"[slice13 window check] {WINDOW_MODEL} width, 2 layers, float32, "
+          f"window {WINDOW}: a prefill of {B} x {S} tokens (the ring "
+          f"wrapped) and {steps} decode steps, kernels vs plain versions: "
+          f"logits max abs err {err:.3e} (tolerance {MODEL_TOL}), greedy "
+          f"tokens identical ({kern_tok[-1]})")
+    del model
+    release()
+
+
+def phase_slice13(card, errs):
+    """Slice 13's paths on the card, each model built, run and released
+    before the next: the VLM's serves and its float32 check, the
+    encoder's forward, the windowed static loop and its float32 check.
+    Returns each path's launch counts."""
+    by_path = slice13_vlm(card)
+    phase_model(errs, VLM, VLM_CHECK_LAYERS, steps=16)
+    by_path["encoder_forward"] = slice13_encoder(card)
+    by_path["window_static"] = slice13_window(card)
+    slice13_window_check(errs)
+    return by_path
 
 
 def phase(name, fn, *args):
@@ -4180,6 +4736,7 @@ def main() -> int:
     release()
     family_paths, _ = phase("4, non-dense families", phase_families, card)
     by_path.update(family_paths)
+    by_path.update(phase("4, slice 13", phase_slice13, card, errs))
     times = phase("5, kernel times", phase_times, card, prefill_sizes,
                   serve_workload())
     kernels = []

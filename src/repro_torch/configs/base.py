@@ -206,28 +206,3 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 256,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
     )
 
-
-def require_slice(cfg: ArchConfig) -> None:
-    """Refuse configurations the port does not serve yet.
-
-    The port covers the dense decoder, MoE (a routed FFN in every
-    attention block, with the dense-residual branch), SSM (Mamba2) and
-    hybrid (Mamba2 with a shared attention block) families on full
-    causal attention. Left for ROADMAP.md's slice 13: the VLM family
-    (cross-attention with per-slot image K/V), the bidirectional encoder,
-    and sliding-window attention, whose ring-buffer decode the
-    reference's engine cannot run either.
-    """
-    if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type {cfg.arch_type!r} is not ported yet "
-            f"(ROADMAP.md, slice 13: VLM cross-attention and the encoder)")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            f"(ROADMAP.md, slice 13: sliding-window ring decode)")
-    if not cfg.causal:
-        # prefill masks padded keys only through causality
-        raise NotImplementedError(
-            f"{cfg.name}: bidirectional attention is not ported yet "
-            f"(ROADMAP.md, slice 13: the encoder)")

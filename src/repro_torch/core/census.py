@@ -21,7 +21,19 @@ the step's bucket, in the reference's kernel classes:
   embedding rows.
 * ``attention``: the attention kernels' K/V reads and the new rows' pool
   writes (formula below), and the dense copies a bucket fixes.
-* ``other``: norms, residual adds and the sampler (a coarse count).
+* ``other``: norms, residual adds and the sampler (a coarse count); in
+  a VLM prefill also the ``CROSS`` layers' image K/V projection and its
+  write into the request's slot (the reference's ``cross_kv`` scope,
+  which its census's class rules leave in ``other``).
+
+A ``CROSS`` layer's query projection and its attention onto the
+request's ``n_img`` image K/V rows are ``attention`` (the reference's
+``cross_attn`` scope); its output projection (the reference's
+``attn_out``) and its MLP are ``matmul``.
+They are fixed by the bucket: every padded row reads its slot's image
+K/V (``n_img`` rows a layer, FLOPs ``4·H·hd·n_img`` a row), and a decode
+step first gathers them out of the slots (each row's read from the pool
+and written once).
 
 **Bytes are the port's own formula**, the one behind the kernel bounds in
 ``PERF.md``: each weight is read once a step (once an iteration of a
@@ -57,7 +69,7 @@ import dataclasses
 from collections import defaultdict
 from typing import Dict, Optional, Tuple
 
-from repro_torch.configs.base import ATTN, SHARED_ATTN, SSM, ArchConfig
+from repro_torch.configs.base import ATTN, CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.models.moe import capacity, token_chunks
 from repro_torch.models.params import (attn_specs, block_specs, param_specs,
                                        ssm_dims)
@@ -153,16 +165,18 @@ def _mlp_weights(cfg: ArchConfig) -> int:
 
 
 def layer_counts(cfg: ArchConfig) -> Dict[str, int]:
-    """The plan's layers by what they run: ``kv`` attention layers
-    (``ATTN`` and each ``SHARED_ATTN`` occurrence), ``mlp`` dense FFNs
-    (the dense family's, the shared block's and an MoE model's dense
+    """The plan's layers by what they run: ``kv`` self-attention layers
+    (``ATTN`` and each ``SHARED_ATTN`` occurrence), ``cross`` a VLM's
+    cross-attention layers, ``mlp`` dense FFNs (the dense family's, the
+    shared block's, the ``CROSS`` blocks' and an MoE model's dense
     residual branch), ``moe`` routed FFNs and ``ssm`` Mamba2 mixers."""
     plan = cfg.block_plan()
     n_attn, n_shared = plan.count(ATTN), plan.count(SHARED_ATTN)
+    n_cross = plan.count(CROSS)
     moe = cfg.moe is not None
-    return {"kv": n_attn + n_shared,
-            "mlp": n_shared + (n_attn if not moe or cfg.moe.dense_residual
-                               else 0),
+    return {"kv": n_attn + n_shared, "cross": n_cross,
+            "mlp": n_shared + n_cross
+            + (n_attn if not moe or cfg.moe.dense_residual else 0),
             "moe": n_attn if moe else 0,
             "ssm": plan.count(SSM)}
 
@@ -238,6 +252,36 @@ def _ssm_cost(cfg: ArchConfig, variant: str, rows: int) -> ClassCost:
                      bytes=float((weights + acts) * isz + state_bytes))
 
 
+def _cross_cost(cfg: ArchConfig, variant: str,
+                rows: int) -> Tuple[ClassCost, ClassCost]:
+    """One ``CROSS`` layer over ``rows`` padded rows: ``(attention,
+    other)``. Attention: the query projection (its weights, input and
+    output), and the attention onto ``n_img`` image K/V rows a row (a
+    decode step's kernel reads each row's, after the slot gather has
+    read and written them once; a prefill's reads the request's). Other,
+    in a prefill: the image K/V projection (its weights, the image
+    embeddings, the K/V out) and the K/V's write into the slot. (The
+    output projection is ``matmul``'s, counted with the MLPs.)"""
+    isz, d, H, K, hd = itemsize(cfg), cfg.d_model, cfg.n_heads, \
+        cfg.n_kv_heads, cfg.hd
+    N = cfg.n_img_tokens
+    kv_row = 2 * K * hd * isz
+    q_w = d * H * hd + (H * hd if cfg.qkv_bias else 0)
+    attn = ClassCost(
+        flops=float(rows * (2.0 * d * H * hd + 4 * H * hd * N)),
+        bytes=float(q_w * isz + rows * (d + H * hd) * isz
+                    + 2 * rows * H * hd * isz))
+    other = ClassCost()
+    if variant in PREFILL_VARIANTS:
+        attn.bytes += N * kv_row
+        other = ClassCost(flops=float(2.0 * N * d * 2 * K * hd),
+                          bytes=float((2 * d * K * hd + N * d) * isz
+                                      + 3 * N * kv_row))
+    else:
+        attn.bytes += 3 * rows * N * kv_row
+    return attn, other
+
+
 def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
                 block_size: int) -> OpCensus:
     """The cost a step's bucket fixes: every class but attention's live
@@ -265,12 +309,15 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
         # the rotations of q and k, and the angles they share
         ew += 3 * (H + K) * hd + hd + 1
     mm.flops = n["kv"] * rows * (2.0 * attn_w + ew) \
-        + n["mlp"] * rows * (2.0 * _mlp_weights(cfg) + f * act_ops)
+        + n["mlp"] * rows * (2.0 * _mlp_weights(cfg) + f * act_ops) \
+        + n["cross"] * rows * 2.0 * H * hd * d
     norm_p = _tree_numel(specs["final_norm"])
     attn_p = _tree_numel(attn_specs(cfg))
     mm.bytes = (n["kv"] * (attn_p + rows * (2 * d + (2 * H + 2 * K) * hd))
                 + n["mlp"] * (_mlp_weights(cfg)
-                              + rows * (2 * d + up + f))) * isz
+                              + rows * (2 * d + up + f))
+                + n["cross"] * H * hd * (d + rows) + n["cross"] * rows * d
+                ) * isz
     if n["moe"]:
         E, k = cfg.moe.num_experts, cfg.moe.top_k
         ec = expert_rows(cfg, variant, rows)
@@ -298,8 +345,8 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
 
     other = c.per_class["other"]
     norm = _NORM_OPS.get(cfg.norm, 8)
-    n_norms = 2 * n["kv"] + n["ssm"] + 1
-    n_res = 2 * n["kv"] + n["ssm"]
+    n_norms = 2 * (n["kv"] + n["cross"]) + n["ssm"] + 1
+    n_res = 2 * (n["kv"] + n["cross"]) + n["ssm"]
     other.flops = n_norms * rows * d * norm + n_res * rows * d \
         + out_rows * V
     other.bytes = (n_norms * 2 * rows * d + n_res * 3 * rows * d
@@ -311,6 +358,10 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
 
     attn = c.per_class["attention"]
     attn.bytes = 2.0 * copy_tokens * n["kv"] * 2 * K * hd * isz
+    if n["cross"]:
+        x_attn, x_other = _cross_cost(cfg, variant, rows)
+        attn.add(x_attn, n["cross"])
+        other.add(x_other, n["cross"])
 
     for cls in c.per_class.values():
         cls.flops *= iters

@@ -189,6 +189,11 @@ def max_batch_for(cfg: ArchConfig, hw: Hardware, ctx: int,
     ``prefix_hit_rate`` scales each request's *effective* KV footprint by
     ``(1 - hit_rate)`` — prefix-cached blocks are stored once no matter
     how many requests share them, so the same HBM admits more requests.
+
+    Each request's dense-state slot is priced beside its KV: an SSM
+    layer's float32 state (the reference's term) and, as the port's
+    own, a ``CROSS`` layer's image K/V (``2 * n_img_tokens * K * hd``
+    elements), which the reference leaves out.
     """
     if not 0.0 <= prefix_hit_rate < 1.0:
         raise ValueError(
@@ -202,4 +207,7 @@ def max_batch_for(cfg: ArchConfig, hw: Hardware, ctx: int,
         state_bytes = nh * cfg.ssm.head_dim * cfg.ssm.d_state * 4
         n_ssm = sum(1 for k in cfg.block_plan() if k == "ssm")
         kv_per_req += n_ssm * state_bytes
+    n_cross = sum(1 for k in cfg.block_plan() if k == "cross")
+    kv_per_req += n_cross * 2 * cfg.n_img_tokens * cfg.n_kv_heads \
+        * cfg.hd * dtype_bytes
     return max(1, int(free // max(kv_per_req, 1)))

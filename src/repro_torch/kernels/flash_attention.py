@@ -253,8 +253,7 @@ def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
     if window is not None and prefix_pad:
         raise NotImplementedError(
             "a sliding window over a prefix: the gathered prefix has no "
-            "ring arithmetic (the reference refuses it too; ROADMAP.md, "
-            "slice 13: sliding-window ring decode)")
+            "ring arithmetic (the reference refuses it too)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 (or None), got {window}")
     if lengths.shape != (q.shape[0],):

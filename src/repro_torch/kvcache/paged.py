@@ -11,11 +11,14 @@ reference's).
 attention layers of the block plan. Block ``NB`` is the *trash* block:
 batch-padding rows write there, so the engine can pad the running batch
 to power-of-two buckets without touching live state. A plan with SSM
-layers also holds their decode state as dense per-request slots
-(the reference's dense-state leaves): ``{"h", "conv"}``, each
+or ``CROSS`` layers also holds per-request state in dense slots (the
+reference's dense-state leaves): SSM layers' ``{"h", "conv"}``, each
 ``[n_ssm, max_batch+1, ...]`` (``h`` float32, ``conv`` the model's
-dtype). A request takes a slot at its prefill and gives it back with its
-blocks (:meth:`PagedKVCache.release`: on finish, abort, eviction and
+dtype), and ``CROSS`` layers' image K/V ``{"xk", "xv"}``, each
+``[n_cross, max_batch+1, n_img_tokens, K, hd]``, written by the
+request's prefill and only read after it. A request takes a slot at its
+prefill and gives it back with its blocks
+(:meth:`PagedKVCache.release`: on finish, abort, eviction and
 preemption); slot ``max_batch`` is the *trash* slot of padding rows.
 Writes are **in place** (``index_copy_`` / ``index_put_``) where the
 reference rebuilds donated buffers. Decode reads the pool either
@@ -46,7 +49,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
-from repro_torch.models.params import STATE_DTYPES, cache_layers, state_shapes
+from repro_torch.models.params import (READ_ONLY_STATE, cache_layers,
+                                       state_leaves)
 
 Fields = Dict[str, np.ndarray]
 
@@ -255,8 +259,9 @@ class BlockManager:
 
 
 class PagedKVCache:
-    """Physical paged pool: attention K/V in blocks and, for SSM layers,
-    dense-state slots (``max_batch`` of them; required then)."""
+    """Physical paged pool: self-attention K/V in blocks and, for SSM and
+    ``CROSS`` layers, dense-state slots (``max_batch`` of them; required
+    then)."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
                  device: torch.device, max_batch: Optional[int] = None):
@@ -274,18 +279,20 @@ class PagedKVCache:
                                            device=self.device)
                          for name in ("k", "v")}
         self.kv_names = tuple(self.pool)
-        if layers["ssm"] and max_batch is None:
-            raise ValueError(f"{cfg.name}: a pool with SSM state needs "
-                             f"max_batch (its dense-state slots)")
+        if (layers["ssm"] or layers["cross"]) and max_batch is None:
+            raise ValueError(f"{cfg.name}: a pool with per-request state "
+                             f"needs max_batch (its dense-state slots)")
         self.max_batch = max_batch or 0
         self.trash_slot = self.max_batch       # dense slot for padding
-        if layers["ssm"]:
-            for name, shape in state_shapes(cfg, self.max_batch + 1).items():
-                self.pool[name] = torch.zeros(
-                    (len(layers["ssm"]),) + shape, device=self.device,
-                    dtype=STATE_DTYPES.get(name, cfg.activation_dtype))
+        for name, (shape, dtype) in state_leaves(
+                cfg, self.max_batch + 1).items():
+            self.pool[name] = torch.zeros(shape, dtype=dtype,
+                                          device=self.device)
         self.state_names = tuple(n for n in self.pool
                                  if n not in self.kv_names)
+        # the state a decode step writes back (the image K/V it only reads)
+        self.written_state = tuple(n for n in self.state_names
+                                   if n not in READ_ONLY_STATE)
         self._reset_slots()
         # one physical block's bytes summed over every paged leaf, and the
         # dense-state slots' bytes (the reference's accounting, each
@@ -487,8 +494,9 @@ class PagedKVCache:
         """A dense copy ``{"k", "v"}``, each ``[n_kv, B, nb * BS, K,
         hd]``, of the blocks named by the device tables ``[B, nb]``: the
         prefix of a prefill (B = 1) or the gather step's caches; with
-        ``slots [B]``, also the state ``{"h", "conv"}`` ``[n_ssm, B,
-        ...]`` at those dense-state slots. Issues no upload."""
+        ``slots [B]``, also every state leaf (``{"h", "conv"}``
+        ``[n_ssm, B, ...]``, ``{"xk", "xv"}`` ``[n_cross, B, ...]``) at
+        those dense-state slots. Issues no upload."""
         B, nb = tables.shape
         idx = tables.long()
         out = {name: self.pool[name][:, idx].reshape(
@@ -506,8 +514,9 @@ class PagedKVCache:
         """Write a prefill's rows (``[n_kv, 1, S, K, hd]`` leaves) in place
         at the staged device addresses ``(blocks[i], slots[i])`` (the
         reference's ``scatter_chunk_jit``), and its final state
-        (``[n_ssm, 1, ...]``) at the staged dense-state slot
-        ``state_slot [1]``. Issues no upload."""
+        (``[n_ssm, 1, ...]``) and image K/V (``[n_cross, 1, ...]``) at
+        the staged dense-state slot ``state_slot [1]``. Issues no
+        upload."""
         phys, sib = blocks.long(), slots.long()
         for name in self.kv_names:
             leaf = self.pool[name]
@@ -524,7 +533,9 @@ class PagedKVCache:
         at ``positions[b]`` (every layer) to its physical (block, slot),
         the address computed on the device from the step's ``tables``
         (:meth:`scatter_new_token` computes it on the host), and each
-        row's state to its dense-state slot ``slots[b]``."""
+        row's state to its dense-state slot ``slots[b]`` (not the image
+        K/V, which a decode step does not change: the reference writes
+        the same values back)."""
         rows = torch.arange(tables.shape[0], device=tables.device)
         pos = positions.long()
         phys = tables.long()[rows, pos // self.block_size]
@@ -532,7 +543,7 @@ class PagedKVCache:
         for name in self.kv_names:
             leaf = self.pool[name]
             leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
-        for name in self.state_names:
+        for name in self.written_state:
             leaf = self.pool[name]
             leaf.index_copy_(1, slots.long(), cache[name].to(leaf.dtype))
 
@@ -616,8 +627,8 @@ class PagedKVCache:
                           positions: Sequence[int],
                           cache: Dict[str, torch.Tensor]):
         """Write each request's row at ``positions[i]`` of the dense
-        ``cache`` (every layer) back to its physical (block, slot), in
-        place."""
+        ``cache`` (every layer) back to its physical (block, slot), and
+        its state (not its image K/V) to its slot, in place."""
         addr = np.zeros((3, len(req_ids)), np.int64)   # block, slot, pos
         for i, (rid, pos) in enumerate(zip(req_ids, positions)):
             addr[:, i] = (self.manager.tables[rid][pos // self.block_size],
@@ -629,7 +640,7 @@ class PagedKVCache:
             leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
         slots = torch.tensor([self._slot(r) for r in req_ids],
                              device=self.device)
-        for name in self.state_names:
+        for name in self.written_state:
             self.pool[name].index_copy_(1, slots,
                                         cache[name].to(self.pool[name].dtype))
 

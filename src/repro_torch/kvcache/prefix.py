@@ -35,20 +35,21 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ATTN, SHARED_ATTN, ArchConfig
 from repro_torch.kvcache.paged import BlockManager
 
 
 def prefix_cache_supported(cfg: ArchConfig) -> Tuple[bool, Optional[str]]:
     """(ok, reason-if-not): can prompts of this config share KV blocks?
-    The reference's gate, with its block-plan test read from the family
-    (SSM, hybrid and VLM plans hold non-attention blocks). Its reasons
-    also turn chunked prefill and speculation off. The port serves the
-    MoE, SSM and hybrid families with all three off; the VLM family
-    (cross-attention, per-slot image K/V), the bidirectional encoder and
-    sliding-window configs, which this gate also refuses, wait for
-    ROADMAP.md's slice 13."""
-    if cfg.arch_type in ("ssm", "hybrid", "vlm"):
+    The reference's gate: every block of the plan must be a
+    self-attention block (SSM state and a VLM's per-slot image K/V are
+    not per-token addressable), causal, without a sliding window, without
+    capacity routing, over token ids. Its reasons also turn chunked
+    prefill and speculation off: the engine serves the MoE, SSM, hybrid
+    and VLM families with all three off, and refuses the encoder and
+    sliding-window configs outright (no decode step of the reference's
+    engine runs them)."""
+    if any(k not in (ATTN, SHARED_ATTN) for k in cfg.block_plan()):
         return False, ("non-attention state (SSM/cross-attn) is not "
                        "per-token addressable")
     if not cfg.causal:

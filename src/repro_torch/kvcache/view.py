@@ -84,7 +84,8 @@ def prefill_fields(buf: Buffer, S: int, nb_pad: int) -> Dict[str, Buffer]:
     ``table [nb_pad]``, the prefix's blocks then the trash block; and
     ``blocks [S]``, ``slots [S]``, the (block, slot) each row's K/V is
     written to, padding rows' in the trash block; ``state_slot [1]``,
-    the dense-state slot the prompt's final SSM state is written to."""
+    the dense-state slot the prompt's final SSM state and its image K/V
+    are written to."""
     out: Dict[str, Buffer] = {"tokens": buf[:S].reshape(1, S),
                               "n": buf[S:S + 1],
                               "prefix_len": buf[S + 1:S + 2].reshape(())}
@@ -103,11 +104,13 @@ class PagedCacheView:
     model for a decode step instead of a gathered ``[B, S_pad, ...]`` copy.
 
     pool       ``{"k", "v"}``, each ``[n_kv, NB+1, BS, K, hd]`` physical
-               blocks (block ``NB`` is the trash block), and for SSM
-               layers ``{"h", "conv"}``, each ``[n_ssm, max_batch+1,
-               ...]`` dense-state slots (slot ``max_batch`` is the trash
-               slot). The model writes the new token's rows and the new
-               state into it in place.
+               blocks (block ``NB`` is the trash block), and the
+               dense-state slots (slot ``max_batch`` is the trash slot):
+               for SSM layers ``{"h", "conv"}``, each ``[n_ssm,
+               max_batch+1, ...]``, for ``CROSS`` layers the image K/V
+               ``{"xk", "xv"}``, each ``[n_cross, max_batch+1, n_img, K,
+               hd]``. The model writes the new token's rows and the new
+               SSM state into it in place; the image K/V it only reads.
     tables     ``[B, nb]`` int32 — physical block id per logical block;
                entries past a request's allocation name the trash block.
     lengths    ``[B]`` int32 — valid tokens per request *including* the
@@ -116,8 +119,8 @@ class PagedCacheView:
                (0 for padding rows, whose table row is all trash).
     block_size tokens per physical block.
     slots      ``[B]`` int32 — dense-state slot per request (the trash
-               slot for padding rows); None where the pool holds no
-               state.
+               slot for padding rows), staged for an SSM, hybrid or VLM
+               plan alike; None where the pool holds no state.
     """
     pool: Dict[str, torch.Tensor]
     tables: torch.Tensor

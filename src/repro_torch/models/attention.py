@@ -1,14 +1,15 @@
-"""Self-attention for the dense decoder: projections, full-sequence
-prefill attention, decode against a dense cache and the zero-copy paged
-decode.
+"""Attention: projections, full-sequence self-attention (causal,
+bidirectional or sliding-window), decode against a dense cache (a ring
+of ``window`` slots under a sliding window), the zero-copy paged decode,
+and cross-attention onto a request's image K/V.
 
 Counterparts of ``repro.models.attention`` ``qkv_project``,
-``out_project``, ``self_attn_seq``, ``self_attn_decode`` and
-``paged_self_attn_decode``, with
-the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv [d,k,hd]``,
-``wo [h,hd,d]``). Attention itself goes through ``kernels.ops``: the
-hand-written CUDA kernels for CUDA tensors, their plain versions on the
-CPU.
+``out_project``, ``self_attn_seq``, ``self_attn_decode``,
+``paged_self_attn_decode``, ``cross_attn_kv`` and ``cross_attn_apply``,
+with the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv
+[d,k,hd]``, ``wo [h,hd,d]``). Attention itself goes through
+``kernels.ops``: the hand-written CUDA kernels for CUDA tensors, their
+plain versions on the CPU.
 """
 from __future__ import annotations
 
@@ -72,6 +73,13 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     reference's (``_mask_builder``) row for row.
     """
     B, S, _ = x.shape
+    if prefix_k is not None and not causal:
+        # the reference's model refuses it (a bidirectional suffix would
+        # change the prefix's K/V after it was written)
+        raise NotImplementedError(
+            "prefix/chunked prefill requires causal attention: a "
+            "bidirectional suffix would retroactively change the "
+            "already-written prefix KV")
     q, k, v = qkv_project(p, x, cfg, positions)
     q = q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous()
     if prefix_k is None:
@@ -79,10 +87,6 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                                   causal=causal, window=window,
                                   lengths=lengths)
     else:
-        if not causal:
-            raise NotImplementedError(
-                "bidirectional prefill over a prefix (ROADMAP.md, slice "
-                "13: the encoder)")
         pad = prefix_k.shape[1]
         k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
         v_all = torch.cat([prefix_v.to(v.dtype), v], dim=1)
@@ -114,14 +118,21 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     ``min(pos + 1, lengths)`` slots (scalar ``pos``: the reference's
     causal mask ``slot <= pos`` and its length mask together). Returns
     ``[B,1,D]``.
+
+    With a ``window`` the cache is a ring of ``Smax <= window`` slots
+    (scalar ``pos`` only, as in the reference): the row goes to slot
+    ``pos % Smax``, and attention runs over the first ``min(pos + 1,
+    Smax)`` slots, the slots the reference's token-id mask (``kv_id = pos
+    - (pos - slot) mod Smax``, kept where ``>= 0`` and within the window)
+    keeps, in another order, which attention does not see. With
+    ``lengths`` too, its valid slots are a prefix only until the ring
+    wraps: past that the call is refused.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window ring decode is not ported yet (ROADMAP.md, "
-            "slice 13: sliding-window ring decode)")
     B = x.shape[0]
     pos = on_device(pos, x.device)
     ragged = pos.dim() == 1
+    if window is not None:
+        _check_ring(cache_k.shape[1], window, ragged, pos, lengths)
     q, k_new, v_new = qkv_project(p, x, cfg,
                                   pos[:, None] if ragged else pos.reshape(1))
     if ragged:
@@ -131,15 +142,40 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         eff = lengths if lengths is not None else pos + 1
     else:
         slot = pos.long().reshape(1)
+        if window is not None:
+            slot = slot % cache_k.shape[1]
         cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
         cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
         eff = (pos + 1).expand(B)
+        if window is not None:
+            eff = eff.clamp(max=cache_k.shape[1])
         if lengths is not None:
             eff = torch.minimum(eff, lengths)
     o = ops.decode_attention(
         q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), cache_k, cache_v,
         eff.to(torch.int32).contiguous())
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
+
+
+def _check_ring(smax: int, window: int, ragged: bool, pos: torch.Tensor,
+                lengths: Optional[torch.Tensor]):
+    """Refuse what the ring decode does not reproduce: ragged positions
+    (the reference asserts against them), a cache longer than the window
+    (its valid slots would not be a prefix), and lengths once the ring
+    has wrapped (neither would they)."""
+    if ragged:
+        raise NotImplementedError(
+            "ragged decode does not support windows (the reference "
+            "asserts it): a sliding-window ring takes one position for "
+            "the batch")
+    if smax > window:
+        raise ValueError(f"a ring cache holds at most window={window} "
+                         f"slots, got {smax}")
+    if lengths is not None and int(pos) >= smax:
+        raise NotImplementedError(
+            f"lengths over a ring that has wrapped (pos {int(pos)} >= "
+            f"{smax} slots): the valid slots are no longer a prefix of "
+            f"the ring")
 
 
 def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
@@ -170,3 +206,42 @@ def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
         q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), k_pool, v_pool,
         tables, lengths)
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
+
+
+def cross_attn_kv(p: Params, img_embeds: torch.Tensor,
+                  cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A ``CROSS`` layer's image K/V from (stubbed) image embeddings
+    ``[B, n_img, D]``: ``k, v [B, n_img, K, hd]``, no bias and no RoPE
+    (the reference's ``cross_attn_kv``)."""
+    B, N, D = img_embeds.shape
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    img = img_embeds.to(p["wk"].dtype)
+    k = (img @ p["wk"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
+    v = (img @ p["wv"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
+    return k, v
+
+
+def cross_attn_apply(p: Params, x: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, cfg: ArchConfig, *,
+                     decode: bool) -> torch.Tensor:
+    """Cross-attention of the text rows ``x [B,S,D]`` onto fixed image
+    K/V ``k/v [B, n_img, K, hd]``, unmasked (the reference's
+    ``cross_attn_apply``): ``q`` with ``bq`` under ``qkv_bias`` and no
+    RoPE. A prefill (``decode=False``) runs the flash kernel's plain
+    entry, not causal; a decode step (``S = 1``) the contiguous decode
+    kernel with every length ``n_img``. Returns ``[B,S,D]``."""
+    B, S, D = x.shape
+    h, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k, v = k.to(x.dtype), v.to(x.dtype)
+    if decode:
+        lens = torch.full((B,), k.shape[1], dtype=torch.int32,
+                          device=x.device)
+        o = ops.decode_attention(q.reshape(B, h, hd).contiguous(),
+                                 k.contiguous(), v.contiguous(), lens)
+    else:
+        o = ops.prefill_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=False)
+    return out_project(p, o.reshape(B, S, -1).to(x.dtype), cfg)

@@ -7,7 +7,7 @@ Plain functions on tensors, one per reference function
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +72,37 @@ def embed_apply(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
     if cfg.pos == "learned":
         x = x + p["pos"][positions].to(x.dtype)
     return x
+
+
+def embed_inputs(p: Params, cfg: ArchConfig, positions: torch.Tensor,
+                 tokens: Optional[torch.Tensor] = None,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A sequence's input rows (the reference's ``_embed_inputs``): a
+    config with ``embedding_inputs`` takes ``embeds [B,S,D]`` (a
+    modality frontend's output) plus its learned positions, any other
+    its ``tokens [B,S]`` through :func:`embed_apply`."""
+    if cfg.embedding_inputs:
+        if embeds is None:
+            raise ValueError(f"{cfg.name} takes embeddings, not token ids")
+        x = embeds.to(cfg.activation_dtype)
+        if cfg.pos == "learned":
+            x = x + p["pos"][positions].to(x.dtype)
+        return x
+    if tokens is None:
+        raise ValueError(f"{cfg.name} takes token ids")
+    return embed_apply(p, tokens.long(), positions, cfg)
+
+
+def decode_embed(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
+                 positions: torch.Tensor,
+                 embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One decode row a sequence, ``[B,1,D]`` (the reference's
+    ``_decode_embed``): ``embeds [B,1,D]`` as given (no position added,
+    as in the reference), else ``tokens [B]`` at ``positions`` (``[B,
+    1]``, or ``[1]`` for one position shared by the batch)."""
+    if embeds is not None:
+        return embeds.to(cfg.activation_dtype)
+    return embed_apply(p, tokens.long()[:, None], positions, cfg)
 
 
 def unembed_apply(p: Params, x: torch.Tensor,

@@ -1,28 +1,38 @@
-"""The decoder families as an ``nn.Module`` (counterpart of
-``repro.models.model``): dense, MoE, SSM (Mamba2) and hybrid (Mamba2
-with one shared attention block every ``attn_every`` layers).
+"""Every family of the registry as an ``nn.Module`` (counterpart of
+``repro.models.model``): dense (causal, optionally with a sliding
+window), the bidirectional encoder, the VLM (a cross-attention block
+every ``cross_every`` layers over a request's image K/V), MoE, SSM
+(Mamba2) and hybrid (Mamba2 with one shared attention block every
+``attn_every`` layers).
 
 Public entry points:
+  forward      — full-sequence logits (token ids, or embeddings for a
+                 config with ``embedding_inputs``; the encoder's entry)
   prefill      — process a (padded) prompt batch, or the suffix of one
                  over its cached prefix, return last-position logits
                  and every layer's cache entry
   decode_step  — one token for every request, either against a
                  :class:`~repro_torch.kvcache.view.PagedCacheView` (the
                  zero-copy paged path: block-table attention on the
-                 physical pool, SSM state read and written at the view's
-                 slots) or against a dense cache (the static-batch loop
-                 and the engine's gather fallback: contiguous decode
-                 attention); new K/V rows and new state are written in
-                 place either way
+                 physical pool, SSM state and image K/V read at the
+                 view's slots) or against a dense cache (the static-batch
+                 loop and the engine's gather fallback: contiguous decode
+                 attention, a ring under a sliding window); new K/V rows
+                 and new state are written in place either way
   init_cache   — a zeroed dense cache
 
 Every cache is one flat dict (:func:`~repro_torch.models.params.
 cache_layers`): ``k``/``v`` ``[n_kv_layers, B, S, K, hd]`` for the
-attention layers (``ATTN`` and each ``SHARED_ATTN`` occurrence, each with
-K/V of its own), ``h`` ``[n_ssm_layers, B, H, P, N]`` (float32) and
-``conv`` ``[n_ssm_layers, B, W-1, conv_ch]`` for the SSM layers, each
-kind in plan order. The paged pool has the same keys with the block
-(``k``/``v``) or slot (``h``/``conv``) axis in place of ``B``.
+self-attention layers (``ATTN`` and each ``SHARED_ATTN`` occurrence,
+each with K/V of its own), ``h`` ``[n_ssm_layers, B, H, P, N]``
+(float32) and ``conv`` ``[n_ssm_layers, B, W-1, conv_ch]`` for the SSM
+layers, ``xk``/``xv`` ``[n_cross_layers, B, n_img_tokens, K, hd]`` for
+the ``CROSS`` layers, each kind in plan order. The paged pool has the
+same keys with the block (``k``/``v``) or slot (the state leaves) axis
+in place of ``B``. Under a sliding window ``W`` the dense K/V is a ring
+of ``min(length, W)`` slots: a prefill longer than ``W`` keeps its
+bucket's last ``W`` rows, row ``t`` at slot ``t % W`` (the reference's
+``_finalize_prefill_cache``, padding rows included, as there).
 
 The reference stacks each period's layers under one ``lax.scan`` and
 flattens the pool to ``[L*N, ...]`` with ``layer * N`` added to the
@@ -40,17 +50,15 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from repro_torch.configs.base import (SHARED_ATTN, SSM, ArchConfig,
-                                      require_slice)
+from repro_torch.configs.base import CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
-from repro_torch.models.layers import (embed_apply, mlp_apply, norm_apply,
-                                       unembed_apply)
+from repro_torch.models.layers import (decode_embed, embed_inputs,
+                                       mlp_apply, norm_apply, unembed_apply)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import (STATE_DTYPES, cache_layers,
-                                       init_params, layer_sources,
-                                       state_shapes)
+from repro_torch.models.params import (cache_layers, init_params,
+                                       layer_sources, state_leaves)
 from repro_torch.models.ssm import ssm_decode, ssm_seq
 
 Tree = Dict[str, object]
@@ -99,14 +107,15 @@ class Block(nn.Module):
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor],
             prefix: Optional[Tuple[torch.Tensor, torch.Tensor]],
-            prefix_len: Union[int, torch.Tensor]
+            prefix_len: Union[int, torch.Tensor],
+            img_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Cache]:
         pk, pv = prefix if prefix is not None else (None, None)
         h, (k, v) = attention.self_attn_seq(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
             self.cfg, positions=positions, causal=self.cfg.causal,
-            lengths=lengths, prefix_k=pk, prefix_v=pv,
-            prefix_len=prefix_len)
+            window=self.cfg.sliding_window, lengths=lengths, prefix_k=pk,
+            prefix_v=pv, prefix_len=prefix_len)
         cf = self.cfg.moe.capacity_factor if self.moe else 1.0
         return self._ffn(x + h, cf), {"k": k, "v": v}
 
@@ -114,7 +123,8 @@ class Block(nn.Module):
                lengths: Optional[torch.Tensor]) -> torch.Tensor:
         h = attention.self_attn_decode(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
-            entry["k"], entry["v"], self.cfg, pos=pos, lengths=lengths)
+            entry["k"], entry["v"], self.cfg, pos=pos,
+            window=self.cfg.sliding_window, lengths=lengths)
         return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
     def decode_paged(self, x: torch.Tensor, entry: Cache,
@@ -127,6 +137,50 @@ class Block(nn.Module):
         return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
 
+class CrossBlock(Block):
+    """One pre-norm cross-attention block (a VLM's ``CROSS`` layer): ``x
+    + cross_attn(ln1(x))`` onto the request's image K/V, then ``x +
+    mlp(ln2(x))``. A prefill projects the image embeddings to its K/V
+    and returns them as the layer's entry ``{"xk", "xv"}``; a decode step
+    reads them from the dense cache or, paged, from the pool's slots."""
+
+    def seq(self, x: torch.Tensor, positions: torch.Tensor,
+            lengths: Optional[torch.Tensor], prefix, prefix_len,
+            img_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Cache]:
+        if prefix is not None:
+            raise NotImplementedError("prefix KV reuse over cross-attention")
+        if img_embeds is None:
+            raise ValueError(f"{self.cfg.name}: a cross-attention layer "
+                             f"needs img_embeds")
+        p = self.attn.tree()
+        k, v = attention.cross_attn_kv(p, img_embeds, self.cfg)
+        h = attention.cross_attn_apply(
+            p, norm_apply(self.ln1.tree(), x, self.cfg), k, v, self.cfg,
+            decode=False)
+        return self._ffn(x + h, 1.0), {"xk": k, "xv": v}
+
+    def _attend(self, x: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        h = attention.cross_attn_apply(
+            self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg), k,
+            v, self.cfg, decode=True)
+        return self._ffn(x + h, self.cfg.serve_capacity_factor)
+
+    def decode(self, x: torch.Tensor, entry: Cache, pos=None,
+               lengths=None) -> torch.Tensor:
+        return self._attend(x, entry["xk"], entry["xv"])
+
+    def decode_paged(self, x: torch.Tensor, entry: Cache,
+                     view: PagedCacheView) -> torch.Tensor:
+        """Each row's image K/V gathered from its slot ``view.slots``
+        (padding rows read the trash slot), as the reference's
+        ``jnp.take`` gathers them."""
+        slots = view.slots.long()
+        return self._attend(x, entry["xk"].index_select(0, slots),
+                            entry["xv"].index_select(0, slots))
+
+
 class SSMBlock(nn.Module):
     """One pre-norm Mamba2 block: ``x + ssm(ln1(x))``."""
 
@@ -137,8 +191,8 @@ class SSMBlock(nn.Module):
         self.ssm = Leaves(leaves["ssm"])
 
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
-            lengths: Optional[torch.Tensor], prefix, prefix_len
-            ) -> Tuple[torch.Tensor, Cache]:
+            lengths: Optional[torch.Tensor], prefix, prefix_len,
+            img_embeds=None) -> Tuple[torch.Tensor, Cache]:
         if prefix is not None:
             raise NotImplementedError("prefix KV reuse over SSM state")
         h, state = ssm_seq(self.ssm.tree(),
@@ -171,7 +225,7 @@ class SSMBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """A decoder of a ported family on one device.
+    """A model of any family of the registry on one device.
 
     ``params`` is a tree in the reference's layout (from
     :func:`~repro_torch.models.params.init_params` or
@@ -184,7 +238,6 @@ class Model(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        require_slice(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
@@ -207,15 +260,21 @@ class Model(nn.Module):
                 layers.append(self.shared)
                 continue
             leaves = to_dev(params[where][i], rep)
-            layers.append(SSMBlock(cfg, leaves) if kind == SSM else
-                          Block(cfg, leaves, moe=cfg.moe is not None))
+            if kind == SSM:
+                layers.append(SSMBlock(cfg, leaves))
+            elif kind == CROSS:
+                layers.append(CrossBlock(cfg, leaves))
+            else:
+                layers.append(Block(cfg, leaves, moe=cfg.moe is not None))
         self.layers = nn.ModuleList(layers)
         self.final_norm = Leaves(to_dev(params["final_norm"]))
         # each layer's cache keys and its index along their leading dim
         self._entries: List[Tuple[Tuple[str, ...], int]] = []
-        at = {i: ("k", "v") for i in cache_layers(cfg)["kv"]}
-        at.update({i: ("h", "conv") for i in cache_layers(cfg)["ssm"]})
-        seen = {"k": 0, "h": 0}
+        keys_of = {"kv": ("k", "v"), "ssm": ("h", "conv"),
+                   "cross": ("xk", "xv")}
+        at = {i: keys_of[kind] for kind, ls in cache_layers(cfg).items()
+              for i in ls}
+        seen = {"k": 0, "h": 0, "xk": 0}
         for l in range(cfg.n_layers):
             keys = at[l]
             self._entries.append((keys, seen[keys[0]]))
@@ -231,20 +290,86 @@ class Model(nn.Module):
         return unembed_apply(self.embed.tree(), x,
                              self.cfg)[:, 0, :self.cfg.vocab_size]
 
+    def _embed_seq(self, tokens: Optional[torch.Tensor],
+                   embeds: Optional[torch.Tensor],
+                   prefix_len: Union[int, torch.Tensor] = 0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A sequence's input rows ``[B,S,D]`` and their positions (from
+        ``prefix_len``): token ids, or embeddings for a config with
+        ``embedding_inputs``."""
+        dev = self.device
+        some = tokens if tokens is not None else embeds
+        if some is None:
+            raise ValueError("a sequence needs tokens or embeds")
+        positions = prefix_len + torch.arange(some.shape[1], device=dev)
+        x = embed_inputs(self.embed.tree(), self.cfg, positions,
+                         tokens=None if tokens is None else
+                         on_device(tokens, dev),
+                         embeds=None if embeds is None else
+                         on_device(embeds, dev))
+        return x, positions
+
+    def _stack_seq(self, x: torch.Tensor, positions: torch.Tensor,
+                   lengths: Optional[torch.Tensor], prefix: Optional[Cache],
+                   prefix_len: Union[int, torch.Tensor],
+                   img_embeds: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Cache]:
+        """Every layer over a whole sequence: the last hidden rows (before
+        the final norm) and each layer's cache entry, stacked by key."""
+        if img_embeds is not None:
+            img_embeds = on_device(img_embeds, self.device)
+        parts: Dict[str, List[torch.Tensor]] = {}
+        for l, blk in enumerate(self.layers):
+            # an SSM layer's prefix is () (the prefix holds no state): it
+            # refuses it, as the reference does
+            keys, i = self._entries[l]
+            pkv = None if prefix is None else tuple(
+                prefix[n][i] for n in keys if n in prefix)
+            x, entry = blk.seq(x, positions, lengths, pkv, prefix_len,
+                               img_embeds=img_embeds)
+            for name, t in entry.items():
+                parts.setdefault(name, []).append(t)
+        return x, {name: torch.stack(ts) for name, ts in parts.items()}
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor,
+    def forward(self, tokens: Optional[torch.Tensor] = None,
+                embeds: Optional[torch.Tensor] = None,
+                lengths: Optional[torch.Tensor] = None,
+                img_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence logits (the reference's ``forward``): ``tokens
+        [B,S]``, or ``embeds [B,S,D]`` for a config with
+        ``embedding_inputs`` (the encoder), with its learned positions;
+        ``lengths [B]`` masks each row's keys at or past its length (the
+        encoder attends both ways within it); ``img_embeds [B, n_img, D]``
+        feed a VLM's cross-attention. Returns float32 ``[B, S, vocab]``."""
+        x, positions = self._embed_seq(tokens, embeds)
+        if lengths is not None:
+            lengths = on_device(lengths, self.device).to(torch.int32)
+        x, _ = self._stack_seq(x, positions, lengths, None, 0, img_embeds)
+        x = norm_apply(self.final_norm.tree(), x, self.cfg)
+        return unembed_apply(self.embed.tree(), x,
+                             self.cfg)[..., :self.cfg.vocab_size]
+
+    @torch.no_grad()
+    def prefill(self, tokens: Optional[torch.Tensor],
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
                 prefix: Optional[Cache] = None,
-                prefix_len: Union[int, torch.Tensor] = 0
+                prefix_len: Union[int, torch.Tensor] = 0, *,
+                embeds: Optional[torch.Tensor] = None,
+                img_embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
-        lengths ``lengths [B]``). Returns ``(logits [B, vocab], cache)``:
-        float32 logits at each request's last valid position, and the
-        cache (module docstring) with K/V ``[n_kv, B, max(S, cache_len),
-        K, hd]`` (rows past ``S`` zero) and each SSM layer's state after
-        all ``S`` rows, padding rows included (the reference's state
-        ignores the lengths too).
+        lengths ``lengths [B]``; ``embeds [B,S,D]`` instead for a config
+        with ``embedding_inputs``; a VLM also takes ``img_embeds [B,
+        n_img, D]``). Returns ``(logits [B, vocab], cache)``: float32
+        logits at each request's last valid position, and the cache
+        (module docstring) with K/V ``[n_kv, B, max(S, cache_len), K,
+        hd]`` (rows past ``S`` zero; under a sliding window ``W`` a ring of
+        ``W`` slots when ``S > W``, else ``min(max(S, cache_len), W)``
+        slots), each SSM layer's state after all ``S`` rows, padding rows
+        included (the reference's state ignores the lengths too), and
+        each ``CROSS`` layer's image K/V.
 
         Suffix-only prefill (the prefix cache, and each chunk of a
         chunked prefill; attention-only plans): ``prefix`` is ``{"k",
@@ -257,64 +382,68 @@ class Model(nn.Module):
         prefix_len=)``). ``prefix_len`` may be a 0-dim int32 tensor on
         the device (a captured step's staged length): nothing here reads a
         tensor back to the host."""
-        cfg, dev = self.cfg, self.device
-        tokens = on_device(tokens, dev)
-        B, S = tokens.shape
+        dev = self.device
+        x, positions = self._embed_seq(tokens, embeds, prefix_len)
+        B, S = x.shape[:2]
         attn_lengths = None
         if lengths is not None:
             lengths = on_device(lengths, dev)
             attn_lengths = (lengths + prefix_len).to(torch.int32)
         elif prefix is not None:
             raise ValueError("suffix prefill requires lengths")
-        positions = prefix_len + torch.arange(S, device=dev)
-        x = embed_apply(self.embed.tree(), tokens.long(), positions, cfg)
-        parts: Dict[str, List[torch.Tensor]] = {}
-        for l, blk in enumerate(self.layers):
-            # an SSM layer's prefix is () (the prefix holds no state): it
-            # refuses it, as the reference does
-            keys, i = self._entries[l]
-            pkv = None if prefix is None else tuple(
-                prefix[n][i] for n in keys if n in prefix)
-            x, entry = blk.seq(x, positions, attn_lengths, pkv, prefix_len)
-            for name, t in entry.items():
-                parts.setdefault(name, []).append(t)
+        x, cache = self._stack_seq(x, positions, attn_lengths, prefix,
+                                   prefix_len, img_embeds)
         if lengths is not None:
             last = lengths.long() - 1
             x = x[torch.arange(B, device=dev), last][:, None]
         else:
             x = x[:, -1:]
-        cache = {name: torch.stack(ts) for name, ts in parts.items()}
-        if cache_len is not None and cache_len > S:
-            pad = (0, 0, 0, 0, 0, cache_len - S)
-            for name in ("k", "v"):
-                if name in cache:
-                    cache[name] = torch.nn.functional.pad(cache[name], pad)
+        for name in ("k", "v"):
+            if name in cache:
+                cache[name] = self._finalize(cache[name], S, cache_len)
         return self._logits(x), cache
+
+    def _finalize(self, a: torch.Tensor, S: int,
+                  cache_len: Optional[int]) -> torch.Tensor:
+        """A prefill's K/V ``[n_kv, B, S, K, hd]`` in its decode layout
+        (the reference's ``_finalize_prefill_cache``): under a window
+        ``W < S`` the ring of the last ``W`` rows, row ``t`` at slot ``t %
+        W``; else padded with zero rows to ``min(cache_len, W)``."""
+        W = self.cfg.sliding_window
+        if W is not None and S > W:
+            return torch.roll(a[:, :, S - W:], shifts=(S - W) % W, dims=2)
+        target = cache_len or S
+        if W is not None:
+            target = min(target, W)
+        if target > S:
+            a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, target - S))
+        return a
 
     def init_cache(self, batch: int, kv_len: int) -> Cache:
         """A zeroed dense cache (module docstring) for ``batch`` rows of
-        ``kv_len`` K/V slots, on the model's device."""
+        ``kv_len`` K/V slots (``min(kv_len, W)`` under a sliding window
+        ``W``), on the model's device."""
         cfg, dev = self.cfg, self.device
-        n = cache_layers(cfg)
+        if cfg.sliding_window:
+            kv_len = min(kv_len, cfg.sliding_window)
         out = {}
-        if n["kv"]:
-            shape = (len(n["kv"]), batch, kv_len, cfg.n_kv_heads, cfg.hd)
+        n_kv = len(cache_layers(cfg)["kv"])
+        if n_kv:
+            shape = (n_kv, batch, kv_len, cfg.n_kv_heads, cfg.hd)
             out = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
                                      device=dev) for name in ("k", "v")}
-        if n["ssm"]:
-            for name, shape in state_shapes(cfg, batch).items():
-                out[name] = torch.zeros(
-                    (len(n["ssm"]),) + shape, device=dev,
-                    dtype=STATE_DTYPES.get(name, cfg.activation_dtype))
+        for name, (shape, dtype) in state_leaves(cfg, batch).items():
+            out[name] = torch.zeros(shape, dtype=dtype, device=dev)
         return out
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor,
+    def decode_step(self, tokens: Optional[torch.Tensor],
                     cache: Union[PagedCacheView, Cache],
                     pos: Optional[Union[int, torch.Tensor]] = None,
-                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One token for every row (``tokens [B]``); returns float32
-        logits ``[B, vocab]``.
+                    lengths: Optional[torch.Tensor] = None, *,
+                    embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One token for every row (``tokens [B]``, or ``embeds [B,1,D]``
+        taken as they are); returns float32 logits ``[B, vocab]``.
 
         With a :class:`PagedCacheView` the positions, lengths and state
         slots come from the view, and each layer's new K/V rows and new
@@ -327,9 +456,8 @@ class Model(nn.Module):
         one.
         """
         if isinstance(cache, PagedCacheView):
-            pos_t = cache.positions.long()[:, None]
-            x = embed_apply(self.embed.tree(), tokens.long()[:, None], pos_t,
-                            self.cfg)
+            x = decode_embed(self.embed.tree(), self.cfg, tokens,
+                             cache.positions.long()[:, None], embeds)
             for l, blk in enumerate(self.layers):
                 x = blk.decode_paged(x, self._entry(cache.pool, l), cache)
             return self._logits(x)
@@ -337,8 +465,7 @@ class Model(nn.Module):
             raise ValueError("decode_step on a dense cache needs pos")
         pos = on_device(pos, self.device)
         emb_pos = pos.long()[:, None] if pos.dim() else pos.long().reshape(1)
-        x = embed_apply(self.embed.tree(), tokens.long()[:, None], emb_pos,
-                        self.cfg)
+        x = decode_embed(self.embed.tree(), self.cfg, tokens, emb_pos, embeds)
         for l, blk in enumerate(self.layers):
             x = blk.decode(x, self._entry(cache, l), pos, lengths)
         return self._logits(x)

@@ -11,7 +11,8 @@ leading ``n_rep`` dimension, ``rem`` one unstacked dict a remainder
 block, and ``shared`` the one attention block a hybrid's
 ``SHARED_ATTN`` occurrences all use (their own ``stack`` slot is empty).
 A block is ``{"ln1", "attn", "ln2", "ffn"}`` (``ffn`` the MoE leaves in
-an MoE config's attention blocks) or, for ``SSM``, ``{"ln1", "ssm"}``.
+an MoE config's ``ATTN`` blocks; a VLM's ``CROSS`` blocks have the same
+tree with a dense MLP) or, for ``SSM``, ``{"ln1", "ssm"}``.
 
 ``init_params`` fills that tree from a ``torch.Generator`` on the target
 device; ``params_from_numpy`` carries a reference parameter tree (as
@@ -27,8 +28,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (ATTN, SHARED_ATTN, SSM, ArchConfig,
-                                      require_slice)
+from repro_torch.configs.base import (ATTN, CROSS, SHARED_ATTN, SSM,
+                                      ArchConfig)
 
 Tree = Dict[str, Any]
 
@@ -50,9 +51,12 @@ def _spec(shape, init="normal", fan_in=0, dtype=None) -> ParamSpec:
 
 def plan_structure(cfg: ArchConfig) -> Tuple[Tuple[str, ...], int, int]:
     """``(slots of one period, n_rep, n_remainder)`` of the block plan
-    (the reference's ``plan_structure``)."""
+    (the reference's ``plan_structure``): a hybrid's period is
+    ``attn_every`` blocks, a VLM's ``cross_every``, every other plan's
+    one block."""
     plan = cfg.block_plan()
-    p = cfg.attn_every if cfg.arch_type == "hybrid" else 1
+    p = {"hybrid": cfg.attn_every, "vlm": cfg.cross_every}.get(
+        cfg.arch_type, 1)
     n_rep = cfg.n_layers // p
     return plan[:p], n_rep, cfg.n_layers - n_rep * p
 
@@ -147,7 +151,6 @@ def _stacked(tree: Tree, n: int) -> Tree:
 
 
 def param_specs(cfg: ArchConfig) -> Tree:
-    require_slice(cfg)
     cfg.validate()
     vp, d = cfg.padded_vocab, cfg.d_model
     embed = {"tok": _spec((vp, d), fan_in=d)}
@@ -250,26 +253,55 @@ def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
 
 def cache_layers(cfg: ArchConfig) -> Dict[str, List[int]]:
     """The layers that hold attention K/V (``"kv"``: ``ATTN`` and
-    ``SHARED_ATTN`` blocks) and those that hold SSM state (``"ssm"``),
-    each in plan order: the port's caches and pool stack each kind's
-    entries along its own leading dimension."""
+    ``SHARED_ATTN`` blocks), those that hold SSM state (``"ssm"``) and
+    those that hold a request's image K/V (``"cross"``: ``CROSS``
+    blocks), each in plan order: the port's caches and pool stack each
+    kind's entries along its own leading dimension."""
     plan = cfg.block_plan()
-    return {"kv": [i for i, k in enumerate(plan) if k != SSM],
-            "ssm": [i for i, k in enumerate(plan) if k == SSM]}
+    return {"kv": [i for i, k in enumerate(plan) if k in (ATTN, SHARED_ATTN)],
+            "ssm": [i for i, k in enumerate(plan) if k == SSM],
+            "cross": [i for i, k in enumerate(plan) if k == CROSS]}
+
+
+# each per-request state leaf (a dense-state slot of the pool, not paged)
+# by the layer kind of cache_layers that holds it
+STATE_KINDS = {"h": "ssm", "conv": "ssm", "xk": "cross", "xv": "cross"}
+STATE_DTYPES = {"h": torch.float32}    # the others: the model's dtype
+# state a decode step reads and never writes (a CROSS layer's image K/V,
+# written once by its request's prefill)
+READ_ONLY_STATE = ("xk", "xv")
+# a CROSS entry's leaves under the reference's names
+CROSS_NAMES = {"k": "xk", "v": "xv"}
 
 
 def state_shapes(cfg: ArchConfig, batch: int) -> Dict[str, Tuple[int, ...]]:
-    """One SSM layer's decode state for ``batch`` rows (the reference's
-    ``_cache_entry_abstract``): ``h [batch, heads, head_dim, d_state]``
-    (float32) and ``conv [batch, conv_width - 1, conv channels]`` (the
-    model's dtype)."""
-    _, nh, conv_ch = ssm_dims(cfg)
-    s = cfg.ssm
-    return {"h": (batch, nh, s.head_dim, s.d_state),
-            "conv": (batch, s.conv_width - 1, conv_ch)}
+    """One layer's per-request state for ``batch`` rows, each leaf the
+    plan holds (the reference's ``_cache_entry_abstract``): for SSM
+    layers ``h [batch, heads, head_dim, d_state]`` (float32) and ``conv
+    [batch, conv_width - 1, conv channels]``; for ``CROSS`` layers the
+    image K/V ``xk``/``xv [batch, n_img_tokens, K, hd]`` (the model's
+    dtype). :data:`STATE_KINDS` names the layers that hold each."""
+    layers = cache_layers(cfg)
+    out: Dict[str, Tuple[int, ...]] = {}
+    if layers["ssm"]:
+        _, nh, conv_ch = ssm_dims(cfg)
+        s = cfg.ssm
+        out["h"] = (batch, nh, s.head_dim, s.d_state)
+        out["conv"] = (batch, s.conv_width - 1, conv_ch)
+    if layers["cross"]:
+        for name in ("xk", "xv"):
+            out[name] = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.hd)
+    return out
 
 
-STATE_DTYPES = {"h": torch.float32}    # "conv": the model's dtype
+def state_leaves(cfg: ArchConfig, batch: int
+                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Every state leaf of the plan with its layers stacked in front:
+    ``{name: ((n_layers,) + state_shapes[name], dtype)}``."""
+    layers = cache_layers(cfg)
+    return {name: ((len(layers[STATE_KINDS[name]]),) + shape,
+                   STATE_DTYPES.get(name, cfg.activation_dtype))
+            for name, shape in state_shapes(cfg, batch).items()}
 
 
 def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,
@@ -278,10 +310,10 @@ def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,
     """Carry a reference decode cache (``{"stack": [...], "rem": [...]}``
     with numpy leaves, as ``prefill`` and ``init_cache`` return it) into
     the port's flat cache: ``k``/``v`` ``[n_kv_layers, B, S, K, hd]`` in
-    plan order where the plan has attention, ``h``/``conv``
-    ``[n_ssm_layers, B, ...]`` where it has SSM blocks; checking the
-    layout."""
-    require_slice(cfg)
+    plan order where the plan has self-attention, ``h``/``conv``
+    ``[n_ssm_layers, B, ...]`` where it has SSM blocks and ``xk``/``xv``
+    ``[n_cross_layers, B, n_img_tokens, K, hd]`` where it has ``CROSS``
+    blocks (their entries' ``k``/``v``); checking the layout."""
     slots, n_rep, rem = plan_structure(cfg)
     if len(cache["stack"]) != len(slots) or len(cache["rem"]) != rem:
         raise ValueError(f"a {cfg.arch_type} cache has {len(slots)} "
@@ -291,6 +323,8 @@ def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,
     for kind, (where, i, r) in zip(plan, layer_sources(cfg)):
         entry = cache["stack"][i] if where == "stack" else cache["rem"][i]
         for name, leaf in entry.items():
+            if kind == CROSS:
+                name = CROSS_NAMES[name]
             t = _to_tensor(leaf)
             per.setdefault(name, []).append(t[r] if r is not None else t)
     out = {}

@@ -63,6 +63,12 @@ applies admission control (``max_waiting``, ``shed_kv_fraction``,
 ``shed_queue_delay_s``, and a deadline the estimated queue delay already
 blows), finishing a rejected request as ``shed`` instead of queueing it.
 
+A VLM's requests each hold a dense-state slot of image K/V, written
+by their prefill from the reference's zero image stub (the vision
+frontend is not modelled) and read by every decode step. The encoder
+and sliding-window configs, which no decode step of the reference's
+engine runs, are refused at construction (:func:`refuse_undecodable`).
+
 On a CUDA device each engine queues all its device work on a CUDA
 stream of its own (:attr:`ContinuousBatchingEngine.stream`), so engines
 co-located on one card and stepped on their own threads
@@ -111,6 +117,28 @@ from repro_torch.serving.steps import (StepFunctions, bucket, pow2_bucket,
                                        split_verify)
 from repro_torch.serving.workload import (FINISH_ABORT, FINISH_FAILED,
                                           FINISH_LENGTH, FINISH_STOP, Request)
+
+
+def refuse_undecodable(cfg: ArchConfig):
+    """Refuse, at construction, a config no decode step of the
+    reference's engine runs, with the reference's own reason: an encoder
+    (prompts are embeddings, so its first prefill fails there on a
+    ``KeyError: 'embeds'``), and a sliding window (the reference falls
+    back to its gather mode, whose ragged decode asserts ``ragged decode
+    does not support windows`` at the first step; its paged pool holds no
+    ring). The static-batch loop (``Model.prefill`` and
+    ``Model.decode_step`` at one position) runs both families' paths."""
+    if cfg.embedding_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder has no decode step: its inputs are "
+            f"embeddings, not token ids (the reference engine fails at its "
+            f"first prefill, KeyError: 'embeds'); use Model.forward")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding window {cfg.sliding_window}: ragged "
+            f"decode does not support windows and the paged pool holds no "
+            f"ring (the reference engine falls back to gather mode and "
+            f"fails at its first decode); use the static-batch loop")
 
 
 class RequestTooLarge(RuntimeError):
@@ -252,6 +280,7 @@ class ContinuousBatchingEngine:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {self.device}")
+        refuse_undecodable(model.cfg)
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg

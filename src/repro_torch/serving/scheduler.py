@@ -193,7 +193,8 @@ class Scheduler:
         uncached suffix needs free blocks; cache-only blocks are evicted
         (LRU) when that closes the gap. Serial mode prefills each
         admission at once; chunked mode reserves its first chunk. A
-        config with SSM state also needs a free dense-state slot: under
+        config with per-request state (SSM state, a VLM's image K/V)
+        also needs a free dense-state slot: under
         overlap a request at its length budget gives its seat up before
         its last token commits, but keeps its slot until then: the slot is
         released with its blocks, when it finishes."""

@@ -102,6 +102,7 @@ from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
                                       prefill_size, step_fields, step_size,
                                       verify_fields, verify_size)
 from repro_torch.models.model import Model
+from repro_torch.models.params import cache_layers
 from repro_torch.models.sampler import fold_keys, sample_tokens_device
 from repro_torch.serving.spec.verify import (spec_verify_body, stack_drafts,
                                              verify_keys)
@@ -313,6 +314,14 @@ class StepFunctions:
             self.device)
         # every step's logits finite so far
         self.finite = torch.ones((), dtype=torch.bool, device=self.device)
+        # a VLM prefill's image embeddings: the reference engine's stub of
+        # the vision frontend, zeros (its cross K/V then zero too)
+        self._img_stub = None
+        if model is not None and cache_layers(model.cfg)["cross"]:
+            cfg = model.cfg
+            self._img_stub = torch.zeros(
+                (1, cfg.n_img_tokens, cfg.d_model),
+                dtype=cfg.activation_dtype, device=self.device)
         self.graphs: Dict[Tuple, CapturedStep] = {}
         self.capture_s = 0.0         # seconds spent capturing graphs
         self.replays = 0
@@ -526,7 +535,8 @@ class StepFunctions:
                       over_prefix: bool) -> Outputs:
         """A prefill at batch 1: over a prefix (gathered through the
         staged table, attended with the prefix length read from the
-        device) or without one; the rows written at the staged addresses;
+        device) or without one; the rows written at the staged addresses
+        (a VLM's image K/V, from the zero stub, at the request's slot);
         finiteness folded. Reads and writes device tensors only."""
         prefix, prefix_len = None, 0
         if over_prefix:
@@ -534,7 +544,8 @@ class StepFunctions:
             prefix_len = dev["prefix_len"]
         logits, cache = self.model.prefill(dev["tokens"], dev["n"],
                                            prefix=prefix,
-                                           prefix_len=prefix_len)
+                                           prefix_len=prefix_len,
+                                           img_embeds=self._img_stub)
         self.pool.write_rows(cache, dev["blocks"], dev["slots"],
                              dev["state_slot"])
         self.finite.logical_and_(torch.isfinite(logits).all())

@@ -121,25 +121,51 @@ def _compared(text):
     return [line for line in text.splitlines() if line.startswith(COMPARED)]
 
 
-@pytest.fixture(scope="module")
-def reference_weights():
-    cfg = j_reduced(j_get_config("opt-1.3b"))
-    return jax.tree.map(np.asarray, j_init_params(cfg, jax.random.PRNGKey(0)))
+_WEIGHTS = {}
 
 
-@pytest.mark.parametrize("flags", [
-    ["--bca", "--no-speculate"], ["--replicas", "auto", "--stream"]],
-    ids=["bca", "replicas-auto-stream"])
-def test_launcher_prints_the_reference_lines(flags, reference_weights,
-                                             monkeypatch, capsys):
+def _reference_weights(arch):
+    """The reference's reduced weights of ``arch`` (numpy), once a
+    module."""
+    if arch not in _WEIGHTS:
+        cfg = j_reduced(j_get_config(arch))
+        _WEIGHTS[arch] = jax.tree.map(
+            np.asarray, j_init_params(cfg, jax.random.PRNGKey(0)))
+    return _WEIGHTS[arch]
+
+
+def _plan_for_the_card(monkeypatch):
+    """The reference plans a model other than the paper's for a TPU v5e,
+    the port for the card it runs on (the H100 SXM5 entry on the CPU):
+    the reference is given the port's entry."""
+    fields = {f.name for f in dataclasses.fields(j_hardware.Hardware)}
+    monkeypatch.setattr("repro.core.TPU_V5E", j_hardware.Hardware(**{
+        k: v for k, v in dataclasses.asdict(H100_SXM5_80GB).items()
+        if k in fields}))
+
+
+@pytest.mark.parametrize("arch,flags", [
+    ("opt-1.3b", ["--bca", "--no-speculate"]),
+    ("opt-1.3b", ["--replicas", "auto", "--stream"]),
+    ("llama-3.2-vision-90b", ["--bca", "--replicas", "auto"])],
+    ids=["bca", "replicas-auto-stream", "vlm-bca-replicas-auto"])
+def test_launcher_prints_the_reference_lines(arch, flags, monkeypatch,
+                                             capsys):
     """The same advisor, replication plan, simulator sweep, speculation,
     streamed events and finish lines as the reference's launcher, with
     its weights (the replicated run is capped at 8 replicas, 4 of them
     serving one request each, with speculation on; the BCA run leaves it
-    off, which spares the reference a verify step's compiles)."""
-    argv = ["--arch", "opt-1.3b", "--reduced", "--requests", "4"] + flags
+    off, which spares the reference a verify step's compiles). The VLM
+    (``llama-3.2-vision-90b``, its full config's analytics: one replica
+    of 175 GB, the speculation advisor, which the engine then turns off
+    for cross-attention) serves its reduced model through the engine's
+    zero image stub."""
+    argv = ["--arch", arch, "--reduced", "--requests", "4"] + flags
+    weights = _reference_weights(arch)
+    if arch != "opt-1.3b":
+        _plan_for_the_card(monkeypatch)
     monkeypatch.setattr(tserve, "make_model", lambda cfg, device: Model(
-        cfg, params_from_numpy(cfg, reference_weights, device=device),
+        cfg, params_from_numpy(cfg, weights, device=device),
         device=device))
     tserve.main(argv + ["--device", "cpu"])
     port = _compared(capsys.readouterr().out)
@@ -150,6 +176,8 @@ def test_launcher_prints_the_reference_lines(flags, reference_weights,
     heads = {line.split()[0] for line in ref}
     want = ({"[BCA]", "[engine]"} if "--bca" in flags else
             {"[replication]", "[sim]", "[spec]", "[stream]", "finish:"})
+    if arch != "opt-1.3b":
+        want |= {"[replication]", "[sim]", "[spec]"}
     assert want <= heads
 
 
@@ -164,12 +192,8 @@ def test_launcher_prints_the_reference_lines_on_olmoe(monkeypatch, capsys):
     simulator's.)"""
     argv = ["--arch", "olmoe-1b-7b", "--reduced", "--requests", "2",
             "--bca", "--no-speculate"]
-    fields = {f.name for f in dataclasses.fields(j_hardware.Hardware)}
-    monkeypatch.setattr("repro.core.TPU_V5E", j_hardware.Hardware(**{
-        k: v for k, v in dataclasses.asdict(H100_SXM5_80GB).items()
-        if k in fields}))
-    jweights = jax.tree.map(np.asarray, j_init_params(
-        j_reduced(j_get_config("olmoe-1b-7b")), jax.random.PRNGKey(0)))
+    _plan_for_the_card(monkeypatch)
+    jweights = _reference_weights("olmoe-1b-7b")
     monkeypatch.setattr(tserve, "make_model", lambda cfg, device: Model(
         cfg, params_from_numpy(cfg, jweights, device=device),
         device=device))

@@ -298,11 +298,23 @@ def test_self_attn_decode_dense_cache(ragged, rules):
 
 
 def test_self_attn_decode_refuses_windows():
+    """The ring decode refuses what it does not reproduce: a cache longer
+    than the window (this call's), ragged positions (the reference
+    asserts against them) and lengths once the ring has wrapped. The
+    windows it runs are held against the reference in
+    ``tests/test_torch_window.py``."""
     _, tcfg, _, pt = _attn_inputs("opt-1.3b", False)
     c = torch.zeros(1, 8, tcfg.n_kv_heads, tcfg.hd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.self_attn_decode(pt, torch.zeros(1, 1, 256), c, c, tcfg, pos=3,
-                            window=4)
+    x = torch.zeros(1, 1, 256)
+    with pytest.raises(ValueError, match="at most window=4"):
+        TA.self_attn_decode(pt, x, c, c, tcfg, pos=3, window=4)
+    with pytest.raises(NotImplementedError,
+                       match="ragged decode does not support windows"):
+        TA.self_attn_decode(pt, x, c, c, tcfg, pos=torch.tensor([3]),
+                            window=8)
+    with pytest.raises(NotImplementedError, match="wrapped"):
+        TA.self_attn_decode(pt, x, c, c, tcfg, pos=9, window=8,
+                            lengths=torch.tensor([10], dtype=torch.int32))
 
 
 # --------------------------------------------------------------- model ----
@@ -474,13 +486,32 @@ def test_init_cache_and_cache_from_numpy_layouts(rules):
 
 
 def test_model_rejects_out_of_slice_configs():
-    for name in ("llama-3.2-vision-90b", "hubert-xlarge"):
-        with pytest.raises(NotImplementedError, match="slice 13"):
-            Model(t_reduced(t_get_config(name)), device=CPU)
+    """Every config of the registry builds a ``Model`` now (the VLM, the
+    encoder, a sliding window, a bidirectional decoder); what the
+    reference's engine cannot decode, the port's engine refuses at
+    construction, with the reference's reason: an encoder (its first
+    prefill fails there, ``KeyError: 'embeds'``) and a sliding window
+    (its ragged decode asserts against windows)."""
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
     base = t_reduced(t_get_config("opt-1.3b"))
-    for changed in (dict(sliding_window=16), dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="slice 13"):
-            Model(dataclasses.replace(base, **changed), device=CPU)
+    ecfg = EngineConfig(max_batch=2, block_size=8, kv_pool_tokens=256,
+                        max_model_len=64, prefill_bucket=16)
+    for cfg in (t_reduced(t_get_config("llama-3.2-vision-90b")),
+                t_reduced(t_get_config("hubert-xlarge")),
+                dataclasses.replace(base, sliding_window=16),
+                dataclasses.replace(base, causal=False)):
+        model = Model(cfg, device=CPU)
+        assert len(model.layers) == cfg.n_layers
+        if cfg.embedding_inputs:
+            with pytest.raises(NotImplementedError, match="'embeds'"):
+                ContinuousBatchingEngine(model, ecfg, device=CPU)
+        elif cfg.sliding_window:
+            with pytest.raises(NotImplementedError,
+                               match="ragged decode does not support "
+                                     "windows"):
+                ContinuousBatchingEngine(model, ecfg, device=CPU)
+        else:
+            ContinuousBatchingEngine(model, ecfg, device=CPU)
 
 
 def test_model_default_device_needs_cuda():
