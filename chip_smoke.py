@@ -70,10 +70,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    32) with the prefix cache on and off, the long/short serve (16 short
    prompts of 24, 8 long of 768) chunked by 192 and serial, the paged
    serve's 32 requests sampled (temperature 0.8, top-k 50, top-p 0.95);
-   the greedy and the sampled serve again with every step eager and with
-   CUDA graphs and overlap, the prefix and the chunked serve again eager
-   (tokens equal to the graphs' in every way); the gather-fallback serve
-   of the first 16 with graphs, eager and overlapped (and, for token
+   the greedy and the sampled serve again with CUDA graphs and overlap
+   (tokens equal to the graphs' serves) and with every step eager, the
+   eager serves cut to 48 new tokens a request and held token for token
+   to a graphs serve of the same cut requests; the prefix and the
+   chunked serve again eager (tokens equal to the graphs'); the gather-fallback serve
+   of the first 16 with graphs, eager (cut as above) and overlapped (and, for token
    agreement, the paged serve of the same 16, in bfloat16 and again in
    float32); a static batch of 32 prompts with 64 decode steps on a
    dense cache; the speculative serve (16 repetitive requests, prompt
@@ -165,7 +167,26 @@ It imports nothing of JAX or of the JAX package. Phases:
    10240 tokens (the ring wraps at prefill) and 256 greedy steps (one
    flash launch a layer a prefill, one contiguous a layer a step), and
    in float32 at 2 layers, kernels against plain across the wrap, tokens
-   identical;
+   identical. Then training (``[train ...]``): ``FlashAttentionFn`` (the
+   flash kernel inside an autograd Function) at OPT-1.3B's training shape
+   (B=8, S=1024, H=K=32, hd 64, causal), bf16 and float32, its output
+   equal to the kernel's bit for bit and its dq/dk/dv within ``TOL`` of
+   autograd of the plain version, its backward's device time beside the
+   kernel's forward, the plain version and SDPA; OPT-1.3B and olmoe-1b-7b
+   at full width in float32, 2 layers: the first batch's loss and
+   gradients, then three AdamW steps, through the kernels and through
+   their plain versions (losses within 1e-5, every gradient leaf within
+   1e-4 of its largest magnitude, parameters within ``MODEL_TOL``, the
+   flash kernel launched twice an attention layer a pass, the attention
+   weights' gradients non-zero); microbatches 2 against 1 (loss within
+   1e-4); a bf16 checkpoint saved and loaded, equal bit for bit; and the
+   main path, ``repro_torch.launch.train`` in process at OPT-1.3B's full
+   width and depth (bf16 weights, float32 moments, synthetic batches of 8
+   x 1024, 10 steps, lr 3e-4, warmup 2): each step's loss, grad norm,
+   device ms, tokens/s, MFU and peak memory, the loss falling, the flash
+   kernel launched exactly 2 x 24 a step (the forward and each block's
+   recompute); then one step profiled (busy by kernel kind against the
+   host wall);
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -2136,41 +2157,89 @@ def first_difference(a_reqs, b_reqs):
     return None
 
 
+EAGER_CAP = 48    # new tokens a request in phase_graph_modes' eager serves
+
+
+def cut_workload(reqs):
+    """``reqs`` afresh, each cut to ``EAGER_CAP`` new tokens (its sampling
+    kept)."""
+    from repro_torch.serving.workload import Request
+    return [Request(r.req_id, r.prompt, sampling=dataclasses.replace(
+        r.sampling, max_new_tokens=min(r.sampling.max_new_tokens,
+                                       EAGER_CAP)))
+        for r in reqs]
+
+
+def cut_eager_serve(model, card, reqs, mode, tag):
+    """``reqs`` cut to ``EAGER_CAP`` new tokens, served with CUDA graphs,
+    sync, then with every step eager; the eager serve's tokens must equal
+    the graphs serve's. Returns the eager serve's requests and metrics."""
+    want = cut_workload(reqs)
+    engine, _, _ = serve(model, want, mode, card, tag=f"{tag}, graphs, cut")
+    del engine
+    release()
+    got = cut_workload(reqs)
+    engine, m, _ = serve(model, got, mode, card, tag=f"{tag}, eager, sync",
+                         **WAYS["eager, sync"])
+    del engine
+    release()
+    diff = first_difference(want, got)
+    if diff:
+        raise AssertionError(f"{tag}, eager: tokens differ from a graphs "
+                             f"serve of the same requests at {diff}")
+    print(f"[graphs] {tag}, eager, sync: tokens equal to a graphs-sync "
+          f"serve of the {len(want)} requests cut to {EAGER_CAP} new tokens "
+          f"on all {sum(r.generated for r in got)} tokens")
+    return got, m
+
+
 def phase_graph_modes(model, card, runs):
     """The paged serve and the sampled serve three ways, each served
     afresh here: eager decode steps, CUDA graphs, CUDA graphs with
-    overlap. Every way's tokens must equal those of ``runs[kind]`` (the
-    graphs-sync serves of the earlier phases); each way's serve metrics
-    and profile window are printed, then a table of them. Returns each
-    ``(kind, way)``'s requests, metrics and profile."""
+    overlap. The graphs ways' tokens must equal those of ``runs[kind]``
+    (the graphs-sync serves of the earlier phases). The eager way, whose
+    steps are host-bound, serves the same 32 requests cut to
+    ``EAGER_CAP`` new tokens (at batch 16, so the last 16 take the blocks
+    of finished ones), and its tokens must equal a graphs-sync serve of
+    that cut workload. Each way's serve metrics and profile window (16
+    uncut requests at batch 16) are printed, then a table of them.
+    Returns each ``(kind, way)``'s requests, metrics and profile."""
     from repro_torch.serving.workload import SamplingParams
     table = []
     served = {}
     for kind, sampling in (("greedy", None), ("sampled", SAMPLED)):
         sp = SamplingParams(**sampling) if sampling else None
         for way, kw in WAYS.items():
-            reqs = serve_workload(sp)
-            engine, m, _ = serve(model, reqs, "paged", card,
-                                 tag=f"{kind}, {way}", **kw)
-            del engine
-            release()
-            diff = first_difference(runs[kind], reqs)
-            if diff:
-                raise AssertionError(f"{kind} serve, {way}: tokens differ "
-                                     f"from the graphs-sync serve at {diff}")
+            cut = way == "eager, sync"
+            if cut:
+                reqs, m = cut_eager_serve(model, card, serve_workload(sp),
+                                          "paged", kind)
+            else:
+                reqs = serve_workload(sp)
+                engine, m, _ = serve(model, reqs, "paged", card,
+                                     tag=f"{kind}, {way}", **kw)
+                del engine
+                release()
+                diff = first_difference(runs[kind], reqs)
+                if diff:
+                    raise AssertionError(f"{kind} serve, {way}: tokens differ"
+                                         f" from the graphs-sync serve at "
+                                         f"{diff}")
             prof = profile_decode(model, "paged", card, sampling=sp,
                                   tag=f"paged, {kind}, {way}", **kw)
             served[kind, way] = dict(reqs=reqs, metrics=m, prof=prof)
-            table.append(f"{kind}, {way}: output "
+            table.append(f"{kind}, {way}" + (f" (cut to {EAGER_CAP})"
+                                              if cut else "") + ": output "
                          f"{m.output_throughput:.1f} tok/s, ITL p50 "
                          f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} "
                          f"ms, TTFT p50 {m.ttft.p50 * 1e3:.1f} p95 "
                          f"{m.ttft.p95 * 1e3:.1f} ms; steady step busy "
                          f"{prof['busy']:.3f} ms, wall {prof['wall']:.3f} "
                          f"ms, idle {prof['idle'] * 100:.1f}%")
-        print(f"[graphs] {kind} paged serve: eager, graphs and graphs with "
+        print(f"[graphs] {kind} paged serve: graphs and graphs with "
               f"overlap equal to the earlier graphs serve on all "
-              f"{sum(r.generated for r in runs[kind])} tokens")
+              f"{sum(r.generated for r in runs[kind])} tokens, eager equal "
+              f"to graphs on the cut serve")
     for row in table:
         print(f"[graphs] on {card}: {row}")
     return served
@@ -3213,36 +3282,45 @@ def phase_api(model, card, modes):
 
 def phase_gather_serve(model, card, paged_all):
     """The gather-fallback serve of the first 16 requests three ways (CUDA
-    graphs, sync, whose launch counts it returns; every step eager; CUDA
-    graphs with overlap), equal on every token, each followed by its
-    decode profile and then a table of them; the paged serve of the same
+    graphs, sync, whose launch counts it returns; every step eager, the
+    requests cut to ``EAGER_CAP`` new tokens and held to a graphs serve
+    of the same cut requests; CUDA graphs with overlap), equal on every
+    token, each followed by its decode profile (16 uncut requests) and
+    then a table of them; the paged serve of the same
     16 for token agreement (beside, as a control, the same 16 in the
     32-request paged serve, where other batches surround them), and the
     same agreement with the model in float32."""
     table, runs = [], {}
     for way in ("graphs, sync", "eager, sync", "graphs, overlap"):
         kw = WAYS[way]
-        reqs = serve_workload()[:16]
-        engine, m, launches = serve(model, reqs, "gather", card,
-                                    tag=f"gather, {way}", **kw)
-        del engine
-        release()
-        runs[way] = (reqs, launches)
-        diff = first_difference(runs["graphs, sync"][0], reqs)
-        if diff:
-            raise AssertionError(f"gather serve, {way}: tokens differ from "
-                                 f"the graphs-sync serve at {diff}")
+        if way == "eager, sync":
+            _, m = cut_eager_serve(model, card, serve_workload()[:16],
+                                   "gather", "gather")
+        else:
+            reqs = serve_workload()[:16]
+            engine, m, launches = serve(model, reqs, "gather", card,
+                                        tag=f"gather, {way}", **kw)
+            del engine
+            release()
+            runs[way] = (reqs, launches)
+            diff = first_difference(runs["graphs, sync"][0], reqs)
+            if diff:
+                raise AssertionError(f"gather serve, {way}: tokens differ "
+                                     f"from the graphs-sync serve at {diff}")
         prof = profile_decode(model, "gather", card, tag=f"gather, {way}",
                               **kw)
-        table.append(f"gather, {way}: output {m.output_throughput:.1f} "
+        table.append(f"gather, {way}"
+                     + (f" (cut to {EAGER_CAP})" if way == "eager, sync"
+                        else "") + f": output {m.output_throughput:.1f} "
                      f"tok/s, ITL p50 {m.itl.p50 * 1e3:.2f} p95 "
                      f"{m.itl.p95 * 1e3:.2f} ms, TTFT p50 "
                      f"{m.ttft.p50 * 1e3:.1f} p95 {m.ttft.p95 * 1e3:.1f} ms; "
                      f"steady step busy {prof['busy']:.3f} ms, wall "
                      f"{prof['wall']:.3f} ms, idle {prof['idle'] * 100:.1f}%")
     reqs, launches = runs["graphs, sync"]
-    print(f"[serve gather] eager and overlapped equal to graphs, sync on all "
-          f"{sum(r.generated for r in reqs)} tokens")
+    print(f"[serve gather] overlapped equal to graphs, sync on all "
+          f"{sum(r.generated for r in reqs)} tokens, eager equal to graphs "
+          f"on the cut serve")
     for row in table:
         print(f"[graphs] on {card}: {row}")
     paged_reqs = serve_workload()[:16]
@@ -4661,6 +4739,304 @@ def phase_slice13(card, errs):
     return by_path
 
 
+TRAIN_ARGV = ["--arch", MODEL, "--batch", "8", "--seq", "1024", "--steps",
+              "10", "--lr", "3e-4", "--log-every", "1"]   # warmup 2
+TRAIN_CHECK_LAYERS = {MODEL: 2, "olmoe-1b-7b": 2}   # float32, full width
+TRAIN_CHECK = dict(batch=2, seq=256, steps=3)
+
+
+def train_fn_check(card, errs):
+    """``FlashAttentionFn`` at the training shape (OPT-1.3B's: B=8, S=1024,
+    H=K=32, hd 64, causal), bf16 and float32: its output equal to the
+    kernel called directly, bit for bit, its node the output's
+    ``grad_fn``, and dq/dk/dv within ``TOL`` of autograd of the plain
+    version. Then, in bf16, the device time of its backward (the dense
+    float32 recompute and its gradient) beside the kernel's forward, the
+    plain version and SDPA (:func:`time_flash`). Returns the times."""
+    import torch
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention,
+                                                     flash_attention_torch)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (t.requires_grad_() for t in flash_inputs(
+            8, 1024, 1024, 32, 1, 64, dtype, seed=11))
+        out = FlashAttentionFn.apply(q, k, v, True, None, None, 128, 128)
+        if not torch.equal(out, flash_attention(q.detach(), k.detach(),
+                                                v.detach(), causal=True)):
+            raise AssertionError(f"FlashAttentionFn ({name}): output differs "
+                                 f"from the kernel's")
+        if not isinstance(out.grad_fn, FlashAttentionFn._backward_cls):
+            raise AssertionError(f"FlashAttentionFn ({name}): grad_fn is "
+                                 f"{type(out.grad_fn).__name__}")
+        w = torch.randn(out.shape, generator=torch.Generator(
+            "cuda").manual_seed(12), device="cuda").to(dtype)
+        got = torch.autograd.grad(out, (q, k, v), w, retain_graph=True)
+        want = torch.autograd.grad(
+            flash_attention_torch(q, k, v, causal=True), (q, k, v), w)
+        errs["flash"][f"train_fn_out_{name}"] = 0.0
+        for n, a, b in zip("qkv", got, want):
+            errs["flash_train"][f"d{n}_{name}"] = close(
+                a, b, f"FlashAttentionFn d{n} ({name})")
+        del got, want
+        if dtype == torch.bfloat16:
+            bwd_ms = time_ms(lambda: torch.autograd.grad(
+                out, (q, k, v), w, retain_graph=True), runs=5, warmup=1)
+            inputs = [t.detach() for t in (q, k, v)]
+        del out, q, k, v, w
+        release()
+    print(f"[train] on {card}: FlashAttentionFn at B=8 S=1024 H=K=32 hd 64, "
+          f"causal: output = the kernel's bit for bit, grad_fn its node "
+          f"(bf16 and float32); gradients against autograd of the plain "
+          f"version: max abs err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs["flash_train"].items()))
+    row = time_flash(card, "the training shape", inputs)
+    print(f"[train] on {card}: FlashAttentionFn backward (dense float32 "
+          f"recompute, autograd's gradient) {bwd_ms:.3f} ms a call in bf16, "
+          f"against the kernel's forward {row['ms']:.3f} ms")
+    return dict(row, backward_ms=bwd_ms)
+
+
+def train_run(name, n_layers, batches, plain):
+    """A float32 model at full width cut to ``n_layers`` (seed 1): the
+    gradients of the first batch, then a train step on each batch (AdamW,
+    lr 3e-4, warmup 2), through the kernels or (``plain``) their plain
+    versions. Returns the gradients and parameters by path, the losses
+    and the launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import (AdamWConfig, TrainState, adamw_init,
+                                      make_train_step)
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers,
+                              dtype="float32")
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(1))
+    state = TrainState(model=model, opt_state=adamw_init(model.params))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                            total_steps=len(batches)))
+    with plain_attention() if plain else contextlib.nullcontext():
+        reset_launches()
+        model.requires_grad_(True)
+        leaves = tree_leaves(model.params)
+        loss = model.loss(batches[0])
+        grads = torch.autograd.grad(loss, [t for _, t in leaves],
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(t) if g is None else g
+                 for (k, t), g in zip(leaves, grads)}
+        losses = [float(loss.detach())] + [float(step(state, b)["loss"])
+                                  for b in batches]
+        launches = read_launches()
+    params = {k: t.detach() for k, t in tree_leaves(model.params)}
+    return grads, params, losses, launches
+
+
+def train_check(errs, name, n_layers, card):
+    """The train path with the kernels against their plain versions, in
+    float32 at full width cut to ``n_layers``: the first batch's loss and
+    every gradient leaf (within 1e-4 of the leaf's largest magnitude),
+    then three AdamW steps (each step's loss within 1e-5, the parameters
+    within ``MODEL_TOL``); the kernel run launches the flash kernel twice
+    an attention layer a pass (the forward and the block's recompute),
+    the plain run none; the attention weights' gradients non-zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import synthetic_batches
+    cfg = dataclasses.replace(get_config(name), n_layers=n_layers)
+    data = synthetic_batches(cfg, batch=TRAIN_CHECK["batch"],
+                             seq=TRAIN_CHECK["seq"], seed=0)
+    batches = [next(data) for _ in range(TRAIN_CHECK["steps"])]
+    kg, kp, kl, kn = train_run(name, n_layers, batches, plain=False)
+    release()
+    pg, pp, pl, pn = train_run(name, n_layers, batches, plain=True)
+    release()
+    passes = 1 + len(batches)
+    want = {"paged_decode_attention": 0, "decode_attention": 0,
+            "flash_prefix_attention": 0,
+            "flash_attention": 2 * attention_layers(cfg) * passes}
+    if kn != want or any(pn.values()):
+        raise AssertionError(f"train check {name}: launches {kn} (kernels, "
+                             f"want {want}) and {pn} (plain, want none)")
+    loss_err = max(abs(a - b) for a, b in zip(kl, pl))
+    grad_err = max((kg[k] - pg[k]).abs().max().item()
+                   / max(pg[k].abs().max().item(), 1e-30) for k in kg)
+    param_err = max((kp[k] - pp[k]).abs().max().item() for k in kp)
+    dead = [k for k in kg if k.endswith(("/wq", "/wk", "/wv"))
+            and not bool(kg[k].abs().max() > 0)]
+    if loss_err > 1e-5 or grad_err > 1e-4 or param_err > MODEL_TOL or dead:
+        raise AssertionError(
+            f"train check {name}: losses {kl} vs {pl} ({loss_err:.3e}), "
+            f"gradients {grad_err:.3e} of a leaf's largest, parameters "
+            f"{param_err:.3e}; attention weights without a gradient: "
+            f"{dead}")
+    errs["flash_train"].update({f"{name}_loss": loss_err,
+                                f"{name}_grad_rel": grad_err,
+                                f"{name}_params": param_err})
+    print(f"[train] {name} full width, {n_layers} layers, float32, "
+          f"batch {TRAIN_CHECK['batch']} x {TRAIN_CHECK['seq']}: kernels "
+          f"against plain versions: losses {', '.join(f'{x:.6f}' for x in kl)}"
+          f" (max diff {loss_err:.3e}, tolerance 1e-5), gradients within "
+          f"{grad_err:.3e} of each leaf's largest (1e-4), parameters after "
+          f"{len(batches)} AdamW steps within {param_err:.3e} ({MODEL_TOL}); "
+          f"launches {kn} (plain run none); wq/wk/wv gradients non-zero")
+    del kg, kp, pg, pp
+    release()
+
+
+def train_microbatch_check(card):
+    """``microbatches=2`` against 1 on two equal float32 states (OPT at
+    full width, 2 layers, batch 4 x 256): the loss within 1e-4 (the
+    reference's bound)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training import (AdamWConfig, TrainState, adamw_init,
+                                      make_train_step, synthetic_batches)
+    cfg = dataclasses.replace(get_config(MODEL), n_layers=2,
+                              dtype="float32")
+    batch = next(synthetic_batches(cfg, batch=4, seq=256, seed=0))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    losses = []
+    for mb in (1, 2):
+        model = Model(cfg, generator=torch.Generator("cuda").manual_seed(1))
+        state = TrainState(model=model, opt_state=adamw_init(model.params))
+        losses.append(float(make_train_step(cfg, opt, mb)(state,
+                                                          batch)["loss"]))
+        del model, state
+        release()
+    if abs(losses[0] - losses[1]) > 1e-4:
+        raise AssertionError(f"microbatches 2 against 1: losses {losses}")
+    print(f"[train] on {card}: microbatches 2 against 1 (float32, 2 layers, "
+          f"batch 4 x 256): loss {losses[1]:.6f} against {losses[0]:.6f} "
+          f"(within 1e-4)")
+
+
+def train_checkpoint_check(card):
+    """A bf16 state (OPT's family at ``reduced`` size: the format, not the
+    bytes, is checked; after one step) saved and loaded on the card:
+    every parameter (bf16 as 2-byte words) and optimizer leaf equal bit
+    for bit, the step kept."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.training import (AdamWConfig, TrainState,
+                                      load_checkpoint, make_train_step,
+                                      save_checkpoint, synthetic_batches)
+    cfg = dataclasses.replace(reduced(get_config(MODEL)), dtype="bfloat16")
+    state = TrainState.create(cfg, seed=2)
+    make_train_step(cfg, AdamWConfig())(state, next(synthetic_batches(
+        cfg, batch=2, seq=256, seed=0)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.npz")
+        t0 = time.perf_counter()
+        save_checkpoint(path, state.params, state.opt_state, step=1)
+        p, o, step = load_checkpoint(path, state.params, state.opt_state)
+        secs = time.perf_counter() - t0
+    pairs = list(zip(tree_leaves((state.params, state.opt_state)),
+                     tree_leaves((p, o))))
+    bad = [k for (k, a), (_, b) in pairs
+           if a.dtype != b.dtype or a.device != b.device
+           or not torch.equal(a, b)]
+    if bad or step != 1 or state.params["embed"]["tok"].dtype != \
+            torch.bfloat16:
+        raise AssertionError(f"checkpoint round trip: {bad}, step {step}")
+    nbytes = sum(t.numel() * t.element_size() for _, t in tree_leaves((p, o)))
+    print(f"[train] on {card}: checkpoint of a bf16 state ({cfg.name} "
+          f"reduced, "
+          f"{len(pairs)} leaves, {nbytes / 1e9:.2f} GB) saved and loaded "
+          f"in {secs:.1f} s: every leaf equal bit for bit, on the card")
+    del state, p, o
+    release()
+
+
+def train_full(card):
+    """The main path: ``repro_torch.launch.train.main`` in process at
+    OPT-1.3B's full width and depth (bf16 weights, float32 moments,
+    ``synthetic_batches`` batch 8 x 1024 from seed 0, 10 steps, lr 3e-4,
+    warmup 2), its launch counts read around it: the flash kernel
+    exactly 2 x 24 a step (each block's forward and its recompute), no
+    other kernel; every loss finite and the last below the first. Then a
+    step of a fresh state of the same run, profiled: device busy by
+    kernel kind against the host wall of an unprofiled step. Returns the
+    launch counts and the numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import (AdamWConfig, TrainState, adamw_init,
+                                      make_train_step, synthetic_batches)
+    cfg = get_config(MODEL)
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+    release()
+    reset_launches()
+    t0 = time.perf_counter()
+    records = launch_train.main(TRAIN_ARGV)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"paged_decode_attention": 0, "decode_attention": 0,
+            "flash_prefix_attention": 0,
+            "flash_attention": 2 * cfg.n_layers * steps}
+    losses = [r["loss"] for r in records]
+    if launches != want:
+        raise AssertionError(f"train: launches {launches} != {want}")
+    if len(records) != steps or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} not finite or not "
+                             f"falling")
+    release()
+    # a fresh state of the same run for the profile (the launcher's is gone)
+    model = launch_train.make_model(cfg, torch.device("cuda"))
+    state = TrainState(model=model, opt_state=adamw_init(model.params))
+    step = make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                            total_steps=steps))
+    data = synthetic_batches(cfg, batch=8, seq=1024, seed=0)
+    batch = next(data)
+    step(state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    step_wall = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    by_kind = profile_calls(lambda: step(state, batch))   # warm + profiled
+    two = read_launches()["flash_attention"]
+    if two != 2 * 2 * cfg.n_layers:
+        raise AssertionError(f"train: {two} flash launches in two steps")
+    busy = sum(by_kind.values())
+    last = records[-1]
+    print(f"[train] on {card}: {MODEL} full width and depth, bf16, batch 8 x "
+          f"1024, {steps} steps through the launcher in {wall:.1f} s: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches} "
+          f"({2 * cfg.n_layers} flash a step); last step device "
+          f"{last['device_ms']:.2f} ms, {last['tokens_per_s']:.0f} tok/s, "
+          f"MFU {last['mfu'] * 100:.1f}%, peak {last['peak_gb']:.2f} GB")
+    print(f"[train profile] on {card}: one step: device busy {busy:.3f} ms, "
+          f"host wall {step_wall:.3f} ms unprofiled, so the device idles "
+          f"{(1 - busy / step_wall) * 100:.1f}%; by kind: "
+          f"{kind_parts(by_kind)}")
+    del model, state, step
+    release()
+    return launches, dict(records=records, busy_ms=busy, wall_ms=step_wall,
+                          by_kind=by_kind)
+
+
+def phase_train(card, errs):
+    """Training on the card: the Function alone, the float32 train checks,
+    microbatching, a checkpoint, then the full-width launcher run.
+    Returns the launcher run's launch counts and the numbers."""
+    fn_times = train_fn_check(card, errs)
+    for name, n_layers in TRAIN_CHECK_LAYERS.items():
+        train_check(errs, name, n_layers, card)
+    train_microbatch_check(card)
+    train_checkpoint_check(card)
+    launches, numbers = train_full(card)
+    share = fn_times["backward_ms"] * LAYERS / \
+        numbers["records"][-1]["device_ms"]
+    print(f"[train] on {card}: the Function's backward, "
+          f"{fn_times['backward_ms']:.3f} ms a layer x {LAYERS} layers, is "
+          f"{share * 100:.1f}% of the last step's device time")
+    return launches, dict(numbers, fn=fn_times, backward_share=share)
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -4694,7 +5070,7 @@ def main() -> int:
 
     errs = {"paged": {"sweep": 0.0}, "decode": {},
             "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
-            "flash_prefix": {}}
+            "flash_prefix": {}, "flash_train": {}}
     phase("2, kernels", phase_kernels, errs)
     for name, n_layers in MODEL_CHECK_LAYERS.items():
         phase(f"3, model {name}", phase_model, errs, name, n_layers)
@@ -4737,6 +5113,7 @@ def main() -> int:
     family_paths, _ = phase("4, non-dense families", phase_families, card)
     by_path.update(family_paths)
     by_path.update(phase("4, slice 13", phase_slice13, card, errs))
+    by_path["train"], _ = phase("4, train", phase_train, card, errs)
     times = phase("5, kernel times", phase_times, card, prefill_sizes,
                   serve_workload())
     kernels = []
@@ -4771,6 +5148,8 @@ def main() -> int:
             "shape": t["shape"], "max_abs_err_by_phase": errs[key],
             "launches_path": path,
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            **({"train_errors": errs["flash_train"]}
+               if name == "flash_attention" else {}),
             **{key: t[key] for key in (
                 "ms_l2_warm", "library_ms_l2_warm", "gb_s", "n_split",
                 "by_bucket", "other_shapes") if key in t}})

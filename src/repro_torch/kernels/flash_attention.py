@@ -234,6 +234,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The function :func:`flash_attention` computes, as one masked
+    softmax over every key in the inputs' dtype: the masks of
+    ``kernels.ref.flash_attention_ref`` plus ``lengths``. Differentiable;
+    :class:`FlashAttentionFn` takes its gradient in float32. Its scores
+    are one ``[B, K, G * Sq, Skv]`` tensor (a KV head's ``G`` query heads
+    stacked on its rows), the batched matmul's own layout, so no pass
+    over them permutes it."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    G = H // K
+    dev = q.device
+    qh = (q * hd ** -0.5).reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4) \
+        .reshape(B, K, G * Sq, hd)
+    s = qh @ k.permute(0, 2, 3, 1)                       # [B, K, G*Sq, Skv]
+    q_ids = torch.arange(Sq, device=dev)[:, None]
+    kv_ids = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones((1, Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask & (q_ids >= kv_ids)
+    if window is not None:
+        mask = mask & (q_ids - kv_ids < window)
+    if lengths is not None:
+        mask = mask & (kv_ids < lengths.to(dev)[:, None, None])
+    s.view(B, K, G, Sq, Skv).masked_fill_(~mask[:, None, None], NEG_INF)
+    o = torch.softmax(s, dim=-1) @ v.transpose(1, 2)     # [B, K, G*Sq, hd]
+    return o.reshape(B, K, G, Sq, hd).permute(0, 3, 1, 2, 4).reshape(
+        B, Sq, H, hd)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient. The forward is that
+    function (the kernel for CUDA tensors, or a raise; the plain version
+    for CPU tensors): the same launch and the same bits, also under
+    ``no_grad`` and inside a CUDA-graph capture, where nothing is saved.
+    The backward recomputes attention from the saved ``q, k, v`` with
+    :func:`dense_attention` in float32 and takes autograd's gradient of
+    it, each cast to its input's dtype: recompute, then differentiate, as
+    the reference's ``jax.checkpoint`` around its attention core does.
+    The float32 scores of one call, ``B * H * Sq * Skv`` values, live only
+    inside its backward.
+
+    ``apply(q, k, v, causal, window, lengths, block_q, block_s)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, lengths, block_q, block_s):
+        ctx.causal, ctx.window = causal, window
+        ctx.save_for_backward(q, k, v, lengths)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               lengths=lengths, block_q=block_q,
+                               block_s=block_s)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths = ctx.saved_tensors
+        with torch.enable_grad():
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            o = dense_attention(qf, kf, vf, causal=ctx.causal,
+                                window=ctx.window, lengths=lengths)
+            dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), do.float())
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
+
+
 def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
     if isinstance(prefix_len, torch.Tensor):
         # its value is the caller's to keep in [0, prefix_pad]: reading it
@@ -277,7 +344,13 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
     when it runs), whose value the caller keeps in ``[0, prefix_pad]``.
     With ``prefix_pad = 0`` this is :func:`flash_attention` (causal, the
     same lengths), bit for bit on the card; the model takes that entry for
-    a prefill without a prefix."""
+    a prefill without a prefix. It has no gradient (no training path
+    reaches it): inputs that require one raise."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_all, v_all)):
+        raise NotImplementedError(
+            "flash_prefix_attention has no backward: a prefix is a serving "
+            "path (train through flash_attention's FlashAttentionFn)")
     _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window)
     if q.device.type == "cpu":
         return flash_prefix_attention_torch(

@@ -8,7 +8,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 
 from repro_torch.kernels.decode_attention import gqa_decode_attention
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_prefix_attention)
 from repro_torch.kernels.paged_decode_attention import \
     paged_gqa_decode_attention
@@ -35,10 +35,11 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       lengths: Optional[torch.Tensor] = None,
                       block_q: int = 128, block_s: int = 128) -> torch.Tensor:
     """Tiled prefill attention. q:[B,Sq,H,hd], k/v:[B,Skv,K,hd],
-    lengths:[B] (optional: keys at or past it masked)."""
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           lengths=lengths, block_q=block_q,
-                           block_s=block_s)
+    lengths:[B] (optional: keys at or past it masked). Goes through
+    :class:`FlashAttentionFn` on both devices: the kernel's (or plain
+    version's) forward, differentiable."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, lengths, block_q,
+                                  block_s)
 
 
 def prefill_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,

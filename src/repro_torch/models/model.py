@@ -8,6 +8,10 @@ every ``cross_every`` layers over a request's image K/V), MoE, SSM
 Public entry points:
   forward      — full-sequence logits (token ids, or embeddings for a
                  config with ``embedding_inputs``; the encoder's entry)
+  train_forward, loss
+               — the reference's ``forward`` and ``loss``, differentiable
+                 (each period of the stack rematerialised); the gradients
+                 land on ``params``, the reference-layout tree
   prefill      — process a (padded) prompt batch, or the suffix of one
                  over its cached prefix, return last-position logits
                  and every layer's cache entry
@@ -37,7 +41,10 @@ bucket's last ``W`` rows, row ``t`` at slot ``t % W`` (the reference's
 The reference stacks each period's layers under one ``lax.scan`` and
 flattens the pool to ``[L*N, ...]`` with ``layer * N`` added to the
 tables and slots; eager PyTorch needs neither, so each layer is a module
-of its own and receives its contiguous pool layer.
+of its own and receives its contiguous pool layer. Its weights are views
+of the stacked leaves of ``Model.params`` (the reference's layout, and
+the model's registered parameters), so an optimizer step on those
+leaves, made in place, is what every entry point reads next.
 
 An MoE block routes at the config's ``moe.capacity_factor`` in a
 prefill and at ``serve_capacity_factor`` in a decode step, over every
@@ -49,6 +56,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.device import on_device, resolve_device
@@ -58,24 +66,37 @@ from repro_torch.models.layers import (decode_embed, embed_inputs,
                                        mlp_apply, norm_apply, unembed_apply)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (cache_layers, init_params,
-                                       layer_sources, state_leaves)
+                                       layer_sources, map_tree,
+                                       parameter_tree, plan_structure,
+                                       state_leaves, tree_leaves)
 from repro_torch.models.ssm import ssm_decode, ssm_seq
 
 Tree = Dict[str, object]
 Cache = Dict[str, torch.Tensor]
 
 
-class Leaves(nn.Module):
-    """One parameter group (e.g. ``attn``): named tensors registered as
-    frozen parameters, handed to the layer functions as a dict."""
+class Leaves:
+    """One parameter group of a layer (e.g. ``attn``), handed to the layer
+    functions as a dict: views of the model's reference-layout leaves,
+    ``leaf[rep]`` for a stacked layer, the leaf itself otherwise. With
+    gradients on, each call takes the views afresh, so autograd carries
+    a layer's gradient to the stacked leaf (and a hybrid's shared block,
+    read by several layers, sums its gradients there); without, it hands
+    out views taken once, which see every in-place update of the
+    leaves."""
 
-    def __init__(self, leaves: Dict[str, torch.Tensor]):
-        super().__init__()
-        for name, t in leaves.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+    def __init__(self, leaves: Dict[str, torch.Tensor],
+                 rep: Optional[int] = None):
+        self._leaves, self._rep = leaves, rep
+        with torch.no_grad():
+            self._views = self._take()
+
+    def _take(self) -> Dict[str, torch.Tensor]:
+        r = self._rep
+        return {n: t if r is None else t[r] for n, t in self._leaves.items()}
 
     def tree(self) -> Dict[str, torch.Tensor]:
-        return dict(self._parameters)
+        return self._take() if torch.is_grad_enabled() else dict(self._views)
 
 
 class Block(nn.Module):
@@ -83,32 +104,42 @@ class Block(nn.Module):
     ffn(ln2(x))``, the FFN dense or (``moe``) routed."""
 
     def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict],
-                 moe: bool = False):
+                 rep: Optional[int] = None, moe: bool = False):
         super().__init__()
         self.cfg = cfg
         self.moe = moe
-        self.ln1 = Leaves(leaves["ln1"])
-        self.attn = Leaves(leaves["attn"])
-        self.ln2 = Leaves(leaves["ln2"])
+        self.ln1 = Leaves(leaves["ln1"], rep)
+        self.attn = Leaves(leaves["attn"], rep)
+        self.ln2 = Leaves(leaves["ln2"], rep)
         ffn = dict(leaves["ffn"])
         dense = ffn.pop("dense", None)
-        self.ffn = Leaves(ffn)
-        self.dense = Leaves(dense) if dense is not None else None
+        self.ffn = Leaves(ffn, rep)
+        self.dense = Leaves(dense, rep) if dense is not None else None
 
-    def _ffn(self, x: torch.Tensor, capacity_factor: float) -> torch.Tensor:
+    def _ffn(self, x: torch.Tensor, capacity_factor: float,
+             aux: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """``x + ffn(ln2(x))``; an MoE block given an ``aux`` list
+        appends its load-balance loss to it."""
         h = norm_apply(self.ln2.tree(), x, self.cfg)
         if not self.moe:
             return x + mlp_apply(self.ffn.tree(), h, self.cfg)
         p = self.ffn.tree()
         if self.dense is not None:
             p["dense"] = self.dense.tree()
-        return x + moe_ffn(p, h, self.cfg, capacity_factor=capacity_factor)
+        if aux is None:
+            return x + moe_ffn(p, h, self.cfg,
+                               capacity_factor=capacity_factor)
+        out, a = moe_ffn(p, h, self.cfg, capacity_factor=capacity_factor,
+                         with_aux=True)
+        aux.append(a)
+        return x + out
 
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor],
             prefix: Optional[Tuple[torch.Tensor, torch.Tensor]],
             prefix_len: Union[int, torch.Tensor],
-            img_embeds: Optional[torch.Tensor] = None
+            img_embeds: Optional[torch.Tensor] = None,
+            aux: Optional[List[torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Cache]:
         pk, pv = prefix if prefix is not None else (None, None)
         h, (k, v) = attention.self_attn_seq(
@@ -117,7 +148,7 @@ class Block(nn.Module):
             window=self.cfg.sliding_window, lengths=lengths, prefix_k=pk,
             prefix_v=pv, prefix_len=prefix_len)
         cf = self.cfg.moe.capacity_factor if self.moe else 1.0
-        return self._ffn(x + h, cf), {"k": k, "v": v}
+        return self._ffn(x + h, cf, aux), {"k": k, "v": v}
 
     def decode(self, x: torch.Tensor, entry: Cache, pos: torch.Tensor,
                lengths: Optional[torch.Tensor]) -> torch.Tensor:
@@ -146,7 +177,7 @@ class CrossBlock(Block):
 
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor], prefix, prefix_len,
-            img_embeds: Optional[torch.Tensor] = None
+            img_embeds: Optional[torch.Tensor] = None, aux=None
             ) -> Tuple[torch.Tensor, Cache]:
         if prefix is not None:
             raise NotImplementedError("prefix KV reuse over cross-attention")
@@ -184,15 +215,16 @@ class CrossBlock(Block):
 class SSMBlock(nn.Module):
     """One pre-norm Mamba2 block: ``x + ssm(ln1(x))``."""
 
-    def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict]):
+    def __init__(self, cfg: ArchConfig, leaves: Dict[str, Dict],
+                 rep: Optional[int] = None):
         super().__init__()
         self.cfg = cfg
-        self.ln1 = Leaves(leaves["ln1"])
-        self.ssm = Leaves(leaves["ssm"])
+        self.ln1 = Leaves(leaves["ln1"], rep)
+        self.ssm = Leaves(leaves["ssm"], rep)
 
     def seq(self, x: torch.Tensor, positions: torch.Tensor,
             lengths: Optional[torch.Tensor], prefix, prefix_len,
-            img_embeds=None) -> Tuple[torch.Tensor, Cache]:
+            img_embeds=None, aux=None) -> Tuple[torch.Tensor, Cache]:
         if prefix is not None:
             raise NotImplementedError("prefix KV reuse over SSM state")
         h, state = ssm_seq(self.ssm.tree(),
@@ -245,13 +277,15 @@ class Model(nn.Module):
                 generator = torch.Generator(self.device).manual_seed(0)
             params = init_params(cfg, generator, device=self.device)
 
-        def to_dev(tree, rep=None):
-            if isinstance(tree, dict):
-                return {n: to_dev(t, rep) for n, t in tree.items()}
-            return (tree if rep is None else tree[rep]).to(self.device)
-
-        self.embed = Leaves(to_dev(params["embed"]))
-        self.shared = Block(cfg, to_dev(params["shared"])) \
+        # the reference-layout tree, each leaf a parameter registered under
+        # its flat checkpoint key; the layers read views of it
+        self.params = parameter_tree(
+            map_tree(lambda t: t.to(self.device), params))
+        for key, leaf in tree_leaves(self.params):
+            self.register_parameter(key, leaf)
+        params = self.params
+        self.embed = Leaves(params["embed"])
+        self.shared = Block(cfg, params["shared"]) \
             if "shared" in params else None
         layers: List[nn.Module] = []
         for kind, (where, i, rep) in zip(cfg.block_plan(),
@@ -259,15 +293,23 @@ class Model(nn.Module):
             if kind == SHARED_ATTN:
                 layers.append(self.shared)
                 continue
-            leaves = to_dev(params[where][i], rep)
+            leaves = params[where][i]
             if kind == SSM:
-                layers.append(SSMBlock(cfg, leaves))
+                layers.append(SSMBlock(cfg, leaves, rep))
             elif kind == CROSS:
-                layers.append(CrossBlock(cfg, leaves))
+                layers.append(CrossBlock(cfg, leaves, rep))
             else:
-                layers.append(Block(cfg, leaves, moe=cfg.moe is not None))
+                layers.append(Block(cfg, leaves, rep,
+                                    moe=cfg.moe is not None))
         self.layers = nn.ModuleList(layers)
-        self.final_norm = Leaves(to_dev(params["final_norm"]))
+        self.final_norm = Leaves(params["final_norm"])
+        # the training forward's units, in plan order: each period of the
+        # stack (rematerialised as one), then each remainder block
+        slots, n_rep, rem = plan_structure(cfg)
+        p = len(slots)
+        self._periods = [(True, tuple(range(r * p, (r + 1) * p)))
+                         for r in range(n_rep)] + \
+            [(False, (n_rep * p + i,)) for i in range(rem)]
         # each layer's cache keys and its index along their leading dim
         self._entries: List[Tuple[Tuple[str, ...], int]] = []
         keys_of = {"kv": ("k", "v"), "ssm": ("h", "conv"),
@@ -349,6 +391,69 @@ class Model(nn.Module):
         x = norm_apply(self.final_norm.tree(), x, self.cfg)
         return unembed_apply(self.embed.tree(), x,
                              self.cfg)[..., :self.cfg.vocab_size]
+
+    def _train_layers(self, x: torch.Tensor, layers: Tuple[int, ...],
+                      positions: torch.Tensor,
+                      lengths: Optional[torch.Tensor],
+                      img_embeds: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layers ``layers`` over a whole sequence: the hidden rows and the
+        sum of their MoE load-balance losses (float32)."""
+        aux: List[torch.Tensor] = []
+        for l in layers:
+            x, _ = self.layers[l].seq(x, positions, lengths, None, 0,
+                                      img_embeds=img_embeds, aux=aux)
+        total = torch.stack(aux).sum() if aux else torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+        return x, total
+
+    def train_forward(self, batch: Dict[str, object]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The reference's ``forward``, differentiable: ``(logits [B, S,
+        vocab] float32, aux)``, ``aux`` the MoE blocks' load-balance loss
+        (0 without MoE). ``batch`` holds ``tokens [B,S]`` (or ``embeds
+        [B,S,D]`` for a config with ``embedding_inputs``), optionally
+        ``lengths [B]``, and a VLM's ``img_embeds [B, n_img, D]``; numpy
+        arrays or tensors. Each period of the stack runs under
+        ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
+        around its scan body): its input is kept and its insides are
+        recomputed in the backward. MoE blocks route at
+        ``moe.capacity_factor``, the training capacity."""
+        dev = self.device
+        x, positions = self._embed_seq(batch.get("tokens"),
+                                       batch.get("embeds"))
+        lengths = batch.get("lengths")
+        if lengths is not None:
+            lengths = on_device(lengths, dev).to(torch.int32)
+        img = batch.get("img_embeds")
+        if img is not None:
+            img = on_device(img, dev)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        for stacked, layers in self._periods:
+            if stacked:
+                x, a = checkpoint(self._train_layers, x, layers, positions,
+                                  lengths, img, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = self._train_layers(x, layers, positions, lengths, img)
+            aux = aux + a
+        x = norm_apply(self.final_norm.tree(), x, self.cfg)
+        logits = unembed_apply(self.embed.tree(), x, self.cfg)
+        return logits[..., :self.cfg.vocab_size], aux
+
+    def loss(self, batch: Dict[str, object]) -> torch.Tensor:
+        """The reference's ``loss``, differentiable: next-token (or frame)
+        cross-entropy, logsumexp minus the label's logit, averaged over
+        the labels ``>= 0`` (at least 1), plus the load-balance loss.
+        ``batch["labels"] [B, S]`` beside :meth:`train_forward`'s
+        inputs."""
+        logits, aux = self.train_forward(batch)
+        labels = on_device(batch["labels"], self.device).long()
+        valid = labels >= 0
+        picked = logits.gather(-1, torch.where(valid, labels, 0)[..., None])
+        ce = torch.where(valid, torch.logsumexp(logits, dim=-1)
+                         - picked[..., 0], 0.0)
+        return ce.sum() / valid.sum().clamp_min(1) + aux
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor],

@@ -20,12 +20,16 @@ weights whatever the routing, as the reference's einsum does.
 Ties in the top-k are broken towards the lower expert index, as
 ``lax.top_k`` breaks them: a stable descending sort.
 
-The load-balance auxiliary loss belongs to training, which is not ported.
+With ``with_aux`` the block also returns the load-balance auxiliary loss
+of training (GShard/Switch): ``E * sum_e f_e * p_e`` a chunk, ``f_e`` the
+share of the chunk's rows whose first choice is expert ``e`` and ``p_e``
+its mean router probability, averaged over the chunks and scaled by
+``moe.aux_loss_weight``.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -93,11 +97,12 @@ def _expert_ffn(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return torch.bmm(u, w2)
 
 
-def _one_chunk(p: Params, xt: torch.Tensor, cfg: ArchConfig,
-               C: int) -> torch.Tensor:
+def _one_chunk(p: Params, xt: torch.Tensor, cfg: ArchConfig, C: int,
+               with_aux: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One chunk's output and, ``with_aux``, its load-balance loss."""
     T, d = xt.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
-    _, wts, idx = _route(xt, p["router"], k)
+    probs, wts, idx = _route(xt, p["router"], k)
     slot, keep = _dispatch_indices(idx, E, C)
     # kept assignments have slots of their own; dropped ones go to a spare
     # last row, which nothing reads (the reference adds x * 0 to slot 0)
@@ -108,23 +113,33 @@ def _one_chunk(p: Params, xt: torch.Tensor, cfg: ArchConfig,
                     p.get("w3"), cfg.act).reshape(E * C, d)
     picked = y.index_select(0, slot.reshape(-1)).view(T, k, d)
     picked = picked * (wts * keep.to(wts.dtype))[..., None]
-    return picked.float().sum(1).to(xt.dtype)
+    out = picked.float().sum(1).to(xt.dtype)
+    if not with_aux:
+        return out, None
+    f_e = F.one_hot(idx[:, 0], E).float().mean(0)
+    return out, E * (f_e * probs.mean(0)).sum()
 
 
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
-            capacity_factor: float) -> torch.Tensor:
+            capacity_factor: float, with_aux: bool = False
+            ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """``x [B, S, d]`` -> ``[B, S, d]``: the routed experts over the
     ``B * S`` rows (in :func:`token_chunks` chunks), plus the dense
-    residual branch when the config has one (``p["dense"]``)."""
+    residual branch when the config has one (``p["dense"]``). With
+    ``with_aux``, ``(out, aux)``: the float32 load-balance loss, already
+    scaled by ``moe.aux_loss_weight``."""
     B, S, d = x.shape
     moe = cfg.moe
     T = B * S
     n = token_chunks(T)
     C = capacity(capacity_factor, moe.top_k, T // n, moe.num_experts)
-    xs = x.reshape(T, d)
-    out = torch.cat([_one_chunk(p, c, cfg, C) for c in xs.chunk(n)]) \
-        if n > 1 else _one_chunk(p, xs, cfg, C)
+    parts = [_one_chunk(p, c, cfg, C, with_aux)
+             for c in x.reshape(T, d).chunk(n)]
+    out = torch.cat([o for o, _ in parts]) if n > 1 else parts[0][0]
     out = out.reshape(B, S, d)
     if moe.dense_residual:
         out = out + mlp_apply(p["dense"], x, cfg)
-    return out
+    if not with_aux:
+        return out
+    aux = torch.stack([a for _, a in parts]).mean()
+    return out, aux * moe.aux_loss_weight

@@ -17,7 +17,13 @@ tree with a dense MLP) or, for ``SSM``, ``{"ln1", "ssm"}``.
 ``init_params`` fills that tree from a ``torch.Generator`` on the target
 device; ``params_from_numpy`` carries a reference parameter tree (as
 numpy) across unchanged, so both packages can run on the same weights,
-and ``cache_from_numpy`` does the same for a reference decode cache.
+``params_to_numpy`` carries one back, and ``cache_from_numpy`` does the
+same for a reference decode cache. numpy has no bfloat16: a bfloat16
+leaf crosses as 2-byte words (``|V2``, as ``np.load`` reads the
+reference's bfloat16 arrays back). ``parameter_tree`` makes the tree's
+leaves the model's parameters (what training differentiates, the
+optimizer updates and a checkpoint saves), and ``tree_leaves`` lists
+them under the reference's flat checkpoint keys.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import (ATTN, CROSS, SHARED_ATTN, SSM,
                                       ArchConfig)
@@ -147,7 +154,7 @@ def block_specs(cfg: ArchConfig, kind: str) -> Tree:
 
 
 def _stacked(tree: Tree, n: int) -> Tree:
-    return _map(lambda s: dataclasses.replace(s, shape=(n,) + s.shape), tree)
+    return map_tree(lambda s: dataclasses.replace(s, shape=(n,) + s.shape), tree)
 
 
 def param_specs(cfg: ArchConfig) -> Tree:
@@ -170,12 +177,43 @@ def param_specs(cfg: ArchConfig) -> Tree:
     return tree
 
 
-def _map(fn, tree):
+def map_tree(fn, tree):
+    """``tree`` (nested dicts, lists and tuples) with ``fn`` applied to
+    every leaf."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v) for v in tree)
     return fn(tree)
+
+
+def _path(prefix: str, k) -> str:
+    return f"{prefix}/{k}" if prefix else str(k)
+
+
+def tree_leaves(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """Every leaf with its path, in the order and spelling of the
+    reference's flat checkpoint keys (``jax.tree_util``'s: dict keys
+    sorted, list and tuple indices, ``/`` between the parts)."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [kv for k, v in items for kv in tree_leaves(v, _path(prefix, k))]
+
+
+def map_tree_with_path(fn, tree, prefix: str = ""):
+    """``tree`` with ``fn(path, leaf)`` applied to every leaf, ``path`` as
+    :func:`tree_leaves` spells it."""
+    if isinstance(tree, dict):
+        return {k: map_tree_with_path(fn, v, _path(prefix, k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree_with_path(fn, v, _path(prefix, i))
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def _map2(fn, a, b):
@@ -225,14 +263,26 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                         dtype=torch.float32)
         return w.mul_(1.0 / math.sqrt(max(spec.fan_in, 1))).to(dtype)
 
-    return _map(make, param_specs(cfg))
+    return map_tree(make, param_specs(cfg))
 
 
-def _to_tensor(a) -> torch.Tensor:
+def to_tensor(a) -> torch.Tensor:
     a = np.array(a, order="C")         # a writable copy
-    if a.dtype.name == "bfloat16":       # numpy has no native bfloat16
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    # numpy has no native bfloat16: the reference's arrays carry
+    # ml_dtypes' (named "bfloat16"), and np.load reads them as |V2
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16 as its 2-byte words
+    (``|V2``), which :func:`params_from_numpy` reads back."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
@@ -242,13 +292,36 @@ def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
     float32 router stays float32 in a bfloat16 model), checking every
     shape."""
     def conv(spec: ParamSpec, leaf) -> torch.Tensor:
-        t = _to_tensor(leaf)
+        t = to_tensor(leaf)
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"parameter shape {tuple(t.shape)} != "
                              f"expected {spec.shape}")
         return t.to(device=device or "cpu", dtype=spec_dtype(cfg, spec))
 
     return _map2(conv, param_specs(cfg), tree)
+
+
+def params_to_numpy(cfg: ArchConfig, tree: Tree) -> Tree:
+    """The inverse of :func:`params_from_numpy`: the tree (the
+    reference's nesting and stacked shapes, checked) as host numpy
+    arrays, each in its own dtype, bfloat16 as 2-byte words."""
+    def conv(spec: ParamSpec, leaf: torch.Tensor) -> np.ndarray:
+        if tuple(leaf.shape) != spec.shape:
+            raise ValueError(f"parameter shape {tuple(leaf.shape)} != "
+                             f"expected {spec.shape}")
+        return to_numpy(leaf)
+
+    return _map2(conv, param_specs(cfg), tree)
+
+
+def parameter_tree(tree: Tree) -> Tree:
+    """The tree with every leaf an ``nn.Parameter`` on that leaf's
+    storage (no copy). Its leaves are the model's parameters: a layer
+    reads views of them (``leaf[rep]`` for a stacked one), so a
+    gradient lands on the stacked leaf, and the optimizer and the
+    checkpoint see the reference's layout. They require no gradient
+    until training turns it on."""
+    return map_tree(lambda t: nn.Parameter(t, requires_grad=False), tree)
 
 
 def cache_layers(cfg: ArchConfig) -> Dict[str, List[int]]:
@@ -325,7 +398,7 @@ def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,
         for name, leaf in entry.items():
             if kind == CROSS:
                 name = CROSS_NAMES[name]
-            t = _to_tensor(leaf)
+            t = to_tensor(leaf)
             per.setdefault(name, []).append(t[r] if r is not None else t)
     out = {}
     for name, parts in per.items():

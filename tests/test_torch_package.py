@@ -87,6 +87,33 @@ def test_api_modules_are_checked():
     assert set(API_MODULES) <= checked
 
 
+TRAIN_MODULES = ["training/__init__.py", "training/optimizer.py",
+                 "training/data.py", "training/checkpoint.py",
+                 "training/train.py", "launch/train.py"]
+
+
+def test_training_modules_are_checked():
+    """Every module of the training slice is among the files the import
+    check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(TRAIN_MODULES) <= checked
+
+
+def test_training_exports_every_name_of_the_reference():
+    """``repro_torch.training`` exports every name ``repro.training``
+    does (read from the reference's source)."""
+    import repro_torch.training as port
+    names = set()
+    tree = ast.parse((ROOT / "src" / "repro" / "training" /
+                      "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+    assert len(names) == 8
+    assert sorted(n for n in names if not hasattr(port, n)) == []
+
+
 def test_serving_exports_every_name_of_the_reference():
     """``repro_torch.serving`` exports every name ``repro.serving`` does
     (read from the reference's source, so nothing of JAX is imported)."""
@@ -111,7 +138,8 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.serving.cluster, repro_torch.serving.faults, "
             "repro_torch.core.replication, repro_torch.core.bca, "
             "repro_torch.serving.api, repro_torch.launch.serve, "
-            "repro_torch.core.simulator, repro_torch.core.intensity; "
+            "repro_torch.core.simulator, repro_torch.core.intensity, "
+            "repro_torch.training, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
