@@ -35,8 +35,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    hubert's 8 x 1024 with lengths at hd 80, windowed at S=10240 under a
    window of 8192; the contiguous kernel at the VLM's cross decode, B=16
    over 1601 rows at G 8, and the ring decode, B=4 over 8192 slots);
-   the sampler's threefry bits on the card against the CPU's over a
-   (seed, position) sweep;
+   the contiguous kernel at the dry-run's four dense long_500k shapes
+   (B=1 over a full 8192-slot ring: G 1 hd 96, G 2, G 7 and G 8 at hd
+   128), each row within 1e-2 of its largest plain output, and three
+   planted faults (a 256-row split dropped, a head's row mixed up,
+   zeros) each failing that tolerance; the sampler's threefry bits on
+   the card against the CPU's over a (seed, position) sweep;
 3. a model check at OPT-1.3B's full width in float32, cut to 2 layers:
    one prefill per prompt, then 4 paged and 4 gather-mode decode steps,
    each through the kernels and then through the plain versions; logits
@@ -186,7 +190,24 @@ It imports nothing of JAX or of the JAX package. Phases:
    device ms, tokens/s, MFU and peak memory, the loss falling, the flash
    kernel launched exactly 2 x 24 a step (the forward and each block's
    recompute); then one step profiled (busy by kernel kind against the
-   host wall);
+   host wall); the dry-run's predicted peak for that step (OPT-1.3B, 8 x
+   1024, a 1 x 1 mesh) beside the measured one. Then the dry-run
+   (``[dryrun ...]``): every arch x shape on the pod16x16, pod2x16x16 and
+   1 x 1 meshes built on meta tensors and priced on the H100 (one line a
+   case; no error, only hubert's decode shapes skipped), then each
+   one-device decode case it says fits the card (phi3-mini-3.8b,
+   internlm2-1.8b, deepseek-coder-33b and qwen2.5-3b at long_500k,
+   mamba2-1.3b at long_500k and decode_32k) at full width and depth in
+   bf16: its arguments materialized from a seed (the bytes held within
+   0.1% of the predicted arguments), 4 greedy decode steps through the
+   kernels (each attention call held to its plain version row by row,
+   contiguous launches exactly attention layers x 4, the peak within 10%
+   of the predicted peak) and through their plain versions (tokens equal
+   but at a tie of 4 bf16 ulps, logits within ``DEEP_TOL`` of the
+   largest), and the same steps through two other correct attentions
+   (the plain one in 256-row tiles, SDPA: within ``DEEP_TOL``) and two
+   planted faults (past it), and the step's device ms beside the
+   dry-run's ``max(compute, memory)``;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -199,7 +220,8 @@ It imports nothing of JAX or of the JAX package. Phases:
    (K 32, hd 112) serving shapes; contiguous decode at the gather shape, at
    one 8192-token request, at the static batch's shape, at the VLM's
    cross decode and at the ring decode; the flash kernel's plain entry
-   at slice 13's three shapes beside SDPA with the same mask); the decode
+   at slice 13's three shapes beside SDPA with the same mask; contiguous
+   decode at the dry-run's four long_500k shapes); the decode
    kernels and their library calls twice, L2-cold (back-to-back calls on
    24 copies of their inputs in turn, as a step's 24 layers) and L2-warm
    (one copy); one paged and one gather step at batch 16, each replayed
@@ -260,6 +282,27 @@ def close(a, b, what, atol=None):
         raise AssertionError(f"{what}: max abs err {err.max().item():.3e} "
                              f"past atol + {RTOL} x |reference|")
     return err.max().item()
+
+
+def row_close(a, ref, what):
+    """``close`` with each row's atol ``ROW_ATOL`` of that row's largest
+    |ref| (a row: one query head's output, the last dim), where the
+    dtype's atol would be as large as the outputs themselves; returns the
+    max abs err and the largest |ref|."""
+    rf = ref.float().abs()
+    return (close(a, ref, what, ROW_ATOL * rf.amax(-1, keepdim=True)),
+            rf.max().item())
+
+
+def planted_decode_faults(q, k, v, lengths):
+    """Wrong outputs a contiguous decode kernel could give on these
+    inputs, each of which the row tolerance must reject: the kernel with
+    a split dropped (:func:`fault_split_dropped`) or a head's row mixed
+    up (:func:`fault_head_mixed`), and zeros."""
+    import torch
+    return {"a split dropped": fault_split_dropped(q, k, v, lengths),
+            "a head's row mixed up": fault_head_mixed(q, k, v, lengths),
+            "zeros": torch.zeros_like(q)}
 
 
 def time_ms(fn, runs=30, warmup=5):
@@ -562,7 +605,54 @@ def phase_kernels(errs):
     phase_decode_kernel(errs)
     phase_family_kernels(errs)
     phase_slice13_kernels(errs)
+    phase_long_decode_kernels(errs)
     phase_threefry()
+
+
+# the dry-run's long_500k decode cases that fit one card: (model, K, G,
+# hd, attention layers); B=1 over an 8192-slot ring, bf16
+LONG_DECODE = (("phi3-mini-3.8b", 32, 1, 96, 32),
+               ("internlm2-1.8b", 8, 2, 128, 24),
+               ("deepseek-coder-33b", 8, 7, 128, 62),
+               ("qwen2.5-3b", 2, 8, 128, 36))
+LONG_SLOTS = 8192
+
+
+def phase_long_decode_kernels(errs):
+    """The contiguous decode kernel at the four dense long_500k shapes
+    (B=1, a full 8192-slot ring; G 1 hd 96, G 2, G 7 and G 8 at hd 128),
+    bf16, against its plain version within :func:`row_close`'s row
+    tolerance; each of :func:`planted_decode_faults` must fail it."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch, split_plan)
+    for n, (name, K, G, hd, _) in enumerate(LONG_DECODE):
+        args = decode_inputs(1, LONG_SLOTS, K, G, hd, torch.bfloat16,
+                             [LONG_SLOTS], seed=70 + n)
+        out, ref = gqa_decode_attention(*args), gqa_decode_attention_torch(
+            *args)
+        what = f"contiguous decode at {name}'s long_500k shape"
+        e, top = row_close(out, ref, what)
+        errs["decode"][f"long_500k_{name}"] = e
+        caught = []
+        for fault, wrong in planted_decode_faults(*args).items():
+            try:
+                row_close(wrong, ref, f"{what}, {fault}")
+            except AssertionError:
+                err = (wrong.float() - ref.float()).abs().max().item()
+                caught.append(f"{fault} {err:.2e}")
+                continue
+            raise AssertionError(f"{what}: the row tolerance passes a "
+                                 f"planted fault, {fault}")
+        plan = split_plan(1, LONG_SLOTS, K, G, hd)
+        print(f"[kernels] long_500k: contiguous decode at {name}'s shape "
+              f"(B=1, S={LONG_SLOTS}, K {K}, G {G}, hd {hd}, bf16; "
+              f"{plan.n_split} splits of {plan.rows_per_split}), kernel vs "
+              f"plain: max abs err {e:.3e}, largest |plain| {top:.3e} "
+              f"(atol {ROW_ATOL} x each row's largest |plain|, rtol "
+              f"{RTOL}); planted faults rejected, max abs err: "
+              f"{', '.join(caught)}")
+    torch.cuda.synchronize()
 
 
 def phase_slice13_kernels(errs):
@@ -3544,7 +3634,11 @@ def phase_times(card, prefill_sizes, serve_reqs):
                              [1601] * 16, seed=12)),
               ("the windowed static loop's ring decode",
                decode_inputs(4, 8192, 8, 2, 128, torch.bfloat16,
-                             [8192] * 4, seed=13))]
+                             [8192] * 4, seed=13)),
+              *((f"{name}'s long_500k decode (the dry-run's case)",
+                 decode_inputs(1, LONG_SLOTS, K, G, hd, torch.bfloat16,
+                               [LONG_SLOTS], seed=80 + G))
+                for name, K, G, hd, _ in LONG_DECODE)]
     decode = [time_decode(card, what, *args) for what, args in shapes]
     times["decode_attention"] = dict(decode[0], other_shapes=decode[1:])
 
@@ -5034,7 +5128,374 @@ def phase_train(card, errs):
     print(f"[train] on {card}: the Function's backward, "
           f"{fn_times['backward_ms']:.3f} ms a layer x {LAYERS} layers, is "
           f"{share * 100:.1f}% of the last step's device time")
-    return launches, dict(numbers, fn=fn_times, backward_share=share)
+    predicted = train_prediction(card, numbers["records"])
+    return launches, dict(numbers, fn=fn_times, backward_share=share,
+                          dryrun=predicted)
+
+
+def train_prediction(card, records):
+    """The dry-run's case for the launcher's run (OPT-1.3B, a train step
+    of 8 x 1024 on a 1 x 1 mesh): its predicted peak memory and step
+    terms beside what the launcher measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.census import dryrun_census
+    from repro_torch.core.roofline import roofline_report
+    from repro_torch.launch.dryrun import case_memory, case_step
+    from repro_torch.launch.input_specs import ShapeSpec, case_for
+    from repro_torch.launch.mesh import make_mesh
+    case = case_for(get_config(MODEL), ShapeSpec("train_8x1024", "train",
+                                                 1024, 8),
+                    make_mesh((1, 1), ("data", "model")))
+    mem = case_memory(case)
+    rep = roofline_report(dryrun_census(case.cfg, case_step(case)),
+                          card_peaks())
+    peak = max(r["peak_gb"] for r in records)
+    step_ms = records[-1]["device_ms"]
+    print(f"[train dryrun] on {card}: {MODEL}, 8 x 1024, 1 x 1 mesh, "
+          f"{case.microbatches} microbatch: predicted peak "
+          f"{mem['peak_bytes'] / 1e9:.2f} GB (arguments "
+          f"{mem['argument_bytes'] / 1e9:.2f}, working set "
+          f"{mem['temp_bytes'] / 1e9:.2f}) against {peak:.2f} GB measured "
+          f"({peak / (mem['peak_bytes'] / 1e9):.3f} x); predicted step "
+          f"max(compute {rep.compute_s * 1e3:.1f}, memory "
+          f"{rep.memory_s * 1e3:.1f}) ms against {step_ms:.1f} ms measured")
+    return dict(peak_gb=mem["peak_bytes"] / 1e9, measured_peak_gb=peak,
+                compute_ms=rep.compute_s * 1e3, memory_ms=rep.memory_s * 1e3)
+
+
+# the one-device cases the dry-run says fit the card (its 1 x 1 records;
+# the phase fails if the dry-run finds another set)
+DRYRUN_FIT = (("phi3-mini-3.8b", "long_500k"),
+              ("internlm2-1.8b", "long_500k"),
+              ("deepseek-coder-33b", "long_500k"),
+              ("qwen2.5-3b", "long_500k"),
+              ("mamba2-1.3b", "long_500k"),
+              ("mamba2-1.3b", "decode_32k"))
+DRYRUN_STEPS = 4
+ARG_TOL = 1e-3               # allocated arguments against the prediction
+PEAK_TOL = 0.10              # measured peak against the predicted peak
+# kernels vs plain at the logits after DRYRUN_STEPS full-depth bf16 steps,
+# of the largest logit: above the spread of two other correct versions of
+# the contiguous attention (the plain one in 256-row tiles, SDPA; up to
+# 7.0e-2 on the card) and below each planted fault (from 0.67), all read
+# in every run (PERF.md §6)
+DEEP_TOL = 1e-1
+# a greedy token may differ from the plain run's only where the plain
+# run's token is within this many bf16 ulps of the kernel run's top logit
+TIE_ULPS = 4
+
+
+def dryrun_meta(card):
+    """(a) The dry-run of every arch x shape x {pod16x16, pod2x16x16,
+    1x1}, meta tensors only, priced on the H100: one line a case, no
+    error, and exactly hubert's decode shapes skipped. Writes every
+    record to ``chiprun_out/dryrun.json``; returns the 1 x 1 records."""
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.launch.dryrun import MESHES, run_case
+    from repro_torch.launch.input_specs import SHAPES
+    t0 = time.perf_counter()
+    recs = [run_case(arch, shape, mesh, None, verbose=False)
+            for arch in ASSIGNED for shape in SHAPES for mesh in MESHES]
+    seconds = time.perf_counter() - t0
+    for r in recs:
+        if r["status"] != "ok":
+            print(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: "
+                  f"{r['status']} ({r.get('reason') or r.get('error')})")
+            continue
+        print(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: C "
+              f"{r['compute_s'] * 1e3:.3f} M {r['memory_s'] * 1e3:.3f} X "
+              f"{r['collective_s'] * 1e3:.3f} ms -> {r['dominant']}, "
+              f"{r['memory']['peak_bytes'] / 1e9:.2f} GB a device "
+              f"(arguments {r['memory']['argument_bytes'] / 1e9:.2f}), "
+              f"fits: {r['fits_hbm']}")
+    errors = [r for r in recs if r["status"] == "error"]
+    skips = {(r["arch"], r["shape"], r["mesh"]) for r in recs
+             if r["status"] == "skip"}
+    want = {("hubert-xlarge", s, m) for s in ("decode_32k", "long_500k")
+            for m in MESHES}
+    print(f"[dryrun] on {card}: {len(recs)} cases priced in {seconds:.2f} s "
+          f"(no device touched): {len(recs) - len(skips) - len(errors)} ok, "
+          f"{len(skips)} skipped, {len(errors)} errors")
+    if errors or skips != want:
+        bad = [(r["arch"], r["shape"], r["mesh"], r["error"])
+               for r in errors]
+        raise AssertionError(f"dry-run: errors {bad}, skips "
+                             f"{sorted(skips)} (want {sorted(want)})")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "dryrun.json").write_text(json.dumps(recs, default=float))
+    one = {(r["arch"], r["shape"]): r for r in recs
+           if r["mesh"] == "1x1" and r["status"] == "ok"}
+    fit = sorted(k for k, r in one.items()
+                 if r["fits_hbm"] and SHAPES[k[1]].kind == "decode")
+    if fit != sorted(DRYRUN_FIT):
+        raise AssertionError(f"dry-run: the one-device decode cases that "
+                             f"fit are {fit}, not {sorted(DRYRUN_FIT)}")
+    return one
+
+
+def dryrun_steps(model, cache, tokens, pos, steps, feed=None):
+    """``steps`` greedy decode steps from ``tokens`` at ``pos``; each next
+    input is ``feed[i]`` where given (the kernel run's tokens), else the
+    step's own argmax. Returns (logits, tokens), stacked."""
+    import torch
+    logits, toks = [], []
+    tok = tokens
+    for i in range(steps):
+        out = model.decode_step(tok, cache, pos + i)
+        logits.append(out)
+        toks.append(out.argmax(-1).to(torch.int32))
+        tok = toks[-1] if feed is None else feed[i]
+    return torch.stack(logits), torch.stack(toks)
+
+
+def one_tile_plain(q, k, v, lengths):
+    """The contiguous kernel's plain version in one tile of the whole
+    cache: the same function for rows of length > 0 (every row of the
+    dry-run's cases), in a 32nd of the launches of 256-row tiles."""
+    from repro_torch.kernels.decode_attention import \
+        gqa_decode_attention_torch
+    return gqa_decode_attention_torch(q, k, v, lengths, block_s=k.shape[1])
+
+
+def sdpa_decode(q, k, v, lengths):
+    """The contiguous decode attention through SDPA with a length mask:
+    a library's version, a witness of the noise floor."""
+    import torch
+    import torch.nn.functional as F
+    S = k.shape[1]
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    return F.scaled_dot_product_attention(
+        q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)[:, :, 0, :]
+
+
+def fault_split_dropped(q, k, v, lengths):
+    """The kernel with its first 256-row split dropped: a planted fault."""
+    from repro_torch.kernels.decode_attention import gqa_decode_attention
+    return gqa_decode_attention(q, k[:, 256:].contiguous(),
+                                v[:, 256:].contiguous(), lengths - 256)
+
+
+def fault_head_mixed(q, k, v, lengths):
+    """The kernel with the last query head's row taken from its
+    neighbour: a planted fault."""
+    from repro_torch.kernels.decode_attention import gqa_decode_attention
+    out = gqa_decode_attention(q, k, v, lengths)
+    out[:, -1] = out[:, -2]
+    return out
+
+
+# the witnesses of the logits check, each run from the same cache and fed
+# the kernel run's tokens: (name, the model's contiguous attention, noise
+# or fault)
+DEEP_WITNESSES = (("plain, 256-row tiles", None, "noise"),
+                  ("SDPA", sdpa_decode, "noise"),
+                  ("a split dropped", fault_split_dropped, "fault"),
+                  ("a head's row mixed up", fault_head_mixed, "fault"))
+
+
+@contextlib.contextmanager
+def checked_decode_attention():
+    """The model's contiguous decode attention through the kernel, each
+    call also held to the plain version on the same inputs
+    (:func:`row_close`); yields the worst error, the largest |plain| and
+    the calls."""
+    from repro_torch.kernels import ops
+    saved = ops.decode_attention
+    worst = {"err": 0.0, "top": 0.0, "calls": 0}
+
+    def call(q, k, v, lengths, **kw):
+        out = saved(q, k, v, lengths, **kw)
+        e, top = row_close(out, one_tile_plain(q, k, v, lengths),
+                           "contiguous decode in the model")
+        worst["err"] = max(worst["err"], e)
+        worst["top"] = max(worst["top"], top)
+        worst["calls"] += 1
+        return out
+    ops.decode_attention = call
+    try:
+        yield worst
+    finally:
+        ops.decode_attention = saved
+
+
+def deep_gap(logits, ref):
+    """Max abs difference of two runs' logits, of ``ref``'s largest."""
+    return ((logits - ref).abs().max() / ref.abs().max()).item()
+
+
+def untied(k_logits, k_toks, toks):
+    """Steps and rows where ``toks`` differ from the kernel run's greedy
+    tokens by more than a tie: ``toks``' logit in the kernel run more
+    than ``TIE_ULPS`` bf16 ulps under the kernel run's top logit.
+    Returns (differing, past a tie, the largest gap in ulps)."""
+    import torch
+    differ = k_toks != toks
+    top = k_logits.max(-1).values
+    ulp = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(1e-30)))
+                     - 7)
+    gap = (top - k_logits.gather(-1, toks.long()[..., None])[..., 0]) / ulp
+    gap = gap[differ]
+    return (int(differ.sum()), int((gap > TIE_ULPS).sum()),
+            gap.max().item() if gap.numel() else 0.0)
+
+
+def dryrun_case(card, arch, shape, rec):
+    """(b) One case the dry-run says fits, at full width and depth:
+    materialized on the card (arguments held within ``ARG_TOL`` of the
+    predicted ``argument_bytes``, the model on those leaves without a
+    copy); ``DRYRUN_STEPS`` greedy decode steps through the kernels, each
+    attention call also held to its plain version on the same inputs
+    (contiguous launches exactly attention layers x steps); the same
+    steps through the plain versions (the contiguous one in one tile,
+    :func:`one_tile_plain`) from the same cache, fed the kernel run's
+    tokens (no launch; the same greedy tokens but at a tie of
+    ``TIE_ULPS``, logits within ``DEEP_TOL`` of the largest); with
+    attention layers, each of ``DEEP_WITNESSES`` the same way, the noise
+    within ``DEEP_TOL`` and each fault past it; then the step alone: its
+    device ms (eager, CUDA events, median) against the dry-run's
+    ``max(compute_s, memory_s)``, its peak memory within ``PEAK_TOL`` of
+    the predicted ``peak_bytes``, and a profile of its device time by
+    kernel kind."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.input_specs import build_case, materialize
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import Model
+    release()
+    mesh = make_test_mesh()
+    case = build_case(arch, shape, mesh)
+    cfg = case.cfg
+    base = torch.cuda.memory_allocated()
+    params, cache, tokens, pos = materialize(
+        case, mesh, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    want = rec["memory"]["argument_bytes"]
+    if abs(held - want) > ARG_TOL * want:
+        raise AssertionError(f"{arch} {shape}: {held} bytes held, "
+                             f"{want:.0f} predicted")
+    model = Model(cfg, params, device=mesh.devices.flat[0])
+    if torch.cuda.memory_allocated() - base != held:
+        raise AssertionError(f"{arch} {shape}: the model copied its weights")
+    snapshot = {n: t.clone() for n, t in cache.items()}
+    n_attn = attention_layers(cfg)
+    reset_launches()
+    with checked_decode_attention() as in_situ:
+        k_logits, k_toks = dryrun_steps(model, cache, tokens, pos,
+                                        DRYRUN_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want_launches = {"paged_decode_attention": 0, "flash_attention": 0,
+                     "flash_prefix_attention": 0,
+                     "decode_attention": n_attn * DRYRUN_STEPS}
+    if launches != want_launches or in_situ["calls"] != n_attn * DRYRUN_STEPS:
+        raise AssertionError(f"{arch} {shape}: launches {launches} != "
+                             f"{want_launches}")
+
+    def fed_run(attention):
+        for name in cache:
+            cache[name].copy_(snapshot[name])
+        with plain_attention():
+            if attention is not None:
+                ops.decode_attention = attention
+            logits, toks = dryrun_steps(model, cache, tokens, pos,
+                                        DRYRUN_STEPS, feed=k_toks)
+        torch.cuda.synchronize()
+        return logits, toks
+
+    reset_launches()
+    p_logits, p_toks = fed_run(one_tile_plain)
+    if any(read_launches().values()):
+        raise AssertionError(f"{arch} {shape}: the plain run launched "
+                             f"{read_launches()}")
+    if not bool(torch.isfinite(k_logits).all() and
+                torch.isfinite(p_logits).all()):
+        raise AssertionError(f"{arch} {shape}: non-finite logits")
+    rel = deep_gap(k_logits, p_logits)
+    ties, past, worst_ulps = untied(k_logits, k_toks, p_toks)
+    witnesses = {}
+    for name, attention, role in (DEEP_WITNESSES if n_attn else ()):
+        w_logits, w_toks = fed_run(attention)
+        witnesses[name] = (role, deep_gap(w_logits, p_logits),
+                           untied(k_logits, k_toks, w_toks)[0])
+        del w_logits
+    del snapshot
+    wit = "; ".join(f"{n} ({r}) {g:.2e}, {d} tokens differ"
+                    for n, (r, g, d) in witnesses.items())
+    print(f"[dryrun deep] {arch} x {shape}: logits against the plain run "
+          f"(one tile), of the largest ({p_logits.abs().max().item():.3f})"
+          f": kernels {rel:.2e}, {ties} of {k_toks.numel()} tokens differ "
+          f"(largest gap {worst_ulps:.1f} bf16 ulps of the top logit)"
+          f"{'; ' + wit if wit else ''}; DEEP_TOL {DEEP_TOL}")
+    if rel > DEEP_TOL:
+        raise AssertionError(f"{arch} {shape}: logits differ by {rel:.3e} "
+                             f"of the largest")
+    if past:
+        raise AssertionError(f"{arch} {shape}: {past} greedy tokens differ "
+                             f"past a tie of {TIE_ULPS} ulps: kernels "
+                             f"{k_toks.flatten().tolist()[:16]} vs plain "
+                             f"{p_toks.flatten().tolist()[:16]}")
+    for name, (role, gap, _) in witnesses.items():
+        if (gap > DEEP_TOL) != (role == "fault"):
+            raise AssertionError(f"{arch} {shape}: DEEP_TOL {DEEP_TOL} does "
+                                 f"not part noise from faults: {name} "
+                                 f"({role}) at {gap:.3e}")
+    step = lambda: model.decode_step(tokens, cache, pos)  # noqa: E731
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(step, runs=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    pred_peak = rec["memory"]["peak_bytes"]
+    if abs(peak - pred_peak) > PEAK_TOL * pred_peak:
+        raise AssertionError(f"{arch} {shape}: peak {peak / 1e9:.3f} GB, "
+                             f"{pred_peak / 1e9:.3f} GB predicted")
+    by_kind = profile_calls(step)
+    busy = sum(by_kind.values())
+    bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+    print(f"[dryrun run] {arch} x {shape} on {card}: B={case.shape.batch}, "
+          f"{cfg.n_layers} layers, position {int(pos)} "
+          f"({case.kv_len} cache slots), {cfg.dtype}: arguments "
+          f"{held / 1e9:.3f} GB held, {want / 1e9:.3f} predicted "
+          f"({held / want - 1:+.2e}); {DRYRUN_STEPS} steps: each "
+          f"attention call against its plain version max abs err "
+          f"{in_situ['err']:.2e}, largest |plain| {in_situ['top']:.2e} "
+          f"({in_situ['calls']} calls), contiguous "
+          f"launches {launches['decode_attention']} = {n_attn} x "
+          f"{DRYRUN_STEPS}; kernels vs plain at the logits: max abs err "
+          f"{rel:.2e} of the largest, {DRYRUN_STEPS * case.shape.batch - ties}"
+          f" of {DRYRUN_STEPS * case.shape.batch} greedy tokens equal"
+          f"{f' ({ties} at a tie)' if ties else ''}; a step {step_ms:.3f} ms "
+          f"(eager, CUDA events, median of 10), peak {peak / 1e9:.3f} GB "
+          f"({pred_peak / 1e9:.3f} predicted, {peak / pred_peak - 1:+.3f}), "
+          f"against the dry-run's max(compute, memory) {bound_ms:.3f} ms "
+          f"({step_ms / bound_ms:.2f} x); device busy {busy:.3f} ms "
+          f"(idle {(1 - busy / step_ms) * 100:.1f}%): {kind_parts(by_kind)}")
+    del model, params, cache, tokens, k_logits, p_logits
+    release()
+    return dict(launches=launches, step_ms=step_ms, bound_ms=bound_ms,
+                busy_ms=busy, by_kind=by_kind, held=held,
+                argument_bytes=want, peak=peak, peak_bytes=pred_peak,
+                rel_err=rel, in_situ_err=in_situ["err"], ties=ties,
+                witnesses=witnesses)
+
+
+def phase_dryrun(card, errs):
+    """The dry-run (a) and its one-device cases on the card (b). Returns
+    the cases' launches, summed, and each case's numbers."""
+    one = dryrun_meta(card)
+    runs = {f"{a} x {s}": dryrun_case(card, a, s, one[(a, s)])
+            for a, s in DRYRUN_FIT}
+    errs["decode"]["dryrun_model_calls"] = max(
+        r["in_situ_err"] for r in runs.values())
+    launches = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, runs
 
 
 def phase(name, fn, *args):
@@ -5114,6 +5575,8 @@ def main() -> int:
     by_path.update(family_paths)
     by_path.update(phase("4, slice 13", phase_slice13, card, errs))
     by_path["train"], _ = phase("4, train", phase_train, card, errs)
+    by_path["dryrun_decode"], _ = phase("4, dry-run", phase_dryrun, card,
+                                        errs)
     times = phase("5, kernel times", phase_times, card, prefill_sizes,
                   serve_workload())
     kernels = []

@@ -3,12 +3,13 @@ bottleneck analysis (an analytic per-step census and the roofline), the
 Batching Configuration Advisor (Eq. 2), and the replication planner and
 co-location simulator (the port of ``repro.core``).
 
-Three departures from ``repro.core``: :mod:`~repro_torch.core.census`
+Two departures from ``repro.core``: :mod:`~repro_torch.core.census`
 computes the step census from the config, in place of the HLO census
-(``HloCensus``, ``census_from_compiled``, ``memory_from_compiled``);
-:func:`slice_devices` splits a list of devices where ``slice_mesh``
-split a mesh; and the hardware table holds the card the port runs on and
-the paper's H100, no TPU.
+(``HloCensus``, ``census_from_compiled``), and the dry-run's per-device
+census and working set (the dry-run's ``case_memory`` stands for
+``memory_from_compiled``); and the hardware table holds the card the
+port runs on and the paper's H100, no TPU. :func:`slice_mesh` splits a
+mesh as the reference's does, :func:`slice_devices` a list of devices.
 """
 from repro_torch.core.hardware import (HARDWARE, H100_PAPER,  # noqa
                                        H100_SXM5_80GB, Hardware,
@@ -26,7 +27,8 @@ from repro_torch.core.bca import (BatchingConfigurationAdvisor,  # noqa
                                   slo_from_reference, speculation_advisor,
                                   with_prefix_reuse)
 from repro_torch.core.replication import (ReplicationPlan,  # noqa
-                                          ReplicationPlanner, slice_devices)
+                                          ReplicationPlanner, slice_devices,
+                                          slice_mesh)
 from repro_torch.core.simulator import (SimResult,  # noqa
                                         replication_sweep, simulate_decode)
 from repro_torch.core.intensity import (intensity_sweep,  # noqa

@@ -6,19 +6,22 @@ replica, so each process holds its own copy of the weights: the planner
 counts ``model_bytes`` once a replica, as the reference does. The port's
 co-located replicas (``ReplicatedCluster.colocated``) run in one process
 and share one set of weights, so on the card they hold the weights once
-and the plan overstates their memory by ``(R - 1) x model_bytes``. The
-reference's ``slice_mesh`` has its counterpart in :func:`slice_devices`,
-which splits a list of devices.
+and the plan overstates their memory by ``(R - 1) x model_bytes``.
+:func:`slice_mesh` splits a mesh's devices along its leading axis, as
+the reference's does; :func:`slice_devices` splits a list of devices.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hardware import Hardware
+from repro_torch.launch.mesh import Mesh
 
 
 @dataclasses.dataclass
@@ -74,3 +77,18 @@ def slice_devices(devices: Sequence[Union[str, torch.device]],
                          f"{n_replicas}")
     per = len(devs) // n_replicas
     return [devs[i * per:(i + 1) * per] for i in range(n_replicas)]
+
+
+def slice_mesh(mesh: Mesh, n_replicas: int) -> List[Mesh]:
+    """Split a mesh over real devices into ``n_replicas`` disjoint
+    sub-meshes along its leading (data) axis, each with the mesh's axis
+    names; raises if that axis does not divide."""
+    if mesh.devices is None:
+        raise ValueError("an abstract mesh has no devices to slice")
+    if n_replicas < 1:
+        raise ValueError(f"need >= 1 replica, got {n_replicas}")
+    size = mesh.shape[mesh.axis_names[0]]
+    if size % n_replicas:
+        raise ValueError(f"data axis {size} not divisible by {n_replicas}")
+    return [Mesh(OrderedDict(zip(mesh.axis_names, c.shape)), c)
+            for c in np.split(mesh.devices, n_replicas, axis=0)]

@@ -85,11 +85,13 @@ def roofline_report(census: OpCensus, hw: Hardware, *, arch: str = "",
 
 
 def model_flops_for(cfg, shape_kind: str, batch: int, seq: int,
-                    train: bool) -> float:
+                    train: bool, n_params: int = 0) -> float:
     """6*N*D (dense) / 6*N_active*D (MoE: the top-k experts of each MoE
     layer, as the reference counts them); decode processes batch
-    tokens."""
-    n = param_count(cfg, active=True)
+    tokens. ``N`` is ``n_params`` where given (the dry-run passes the
+    config's analytic ``active_params``, as the reference's dry-run
+    does), else the parameter tree's active count."""
+    n = n_params or param_count(cfg, active=True)
     tokens = batch * seq if shape_kind != "decode" else batch
     mult = 6.0 if train else 2.0
     return mult * n * tokens

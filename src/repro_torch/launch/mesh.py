@@ -1,0 +1,85 @@
+"""Device meshes (counterpart of ``repro.launch.mesh`` and of
+``repro.compat.make_mesh``).
+
+A :class:`Mesh` is what the sharding rules read: ``shape``, an ordered
+axis -> size map, and ``axis_names``. ``devices`` is ``None`` for an
+abstract mesh (the dry-run's production meshes, which no machine here
+holds) or an array of ``torch.device`` shaped as the mesh, for a real
+one. Building a mesh touches no device state.
+
+The rest of ``repro.compat`` has no counterpart: ``use_mesh``, the
+Pallas compiler-params alias and ``shard_map`` are shims over JAX
+versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import OrderedDict
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+# where running a mesh of more than one card stands (what a multi-device
+# slice or case refuses with)
+MULTI_CARD_ITEM = ("ROADMAP.md queue 1, running a mesh of more than one "
+                   "card")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    shape: "OrderedDict[str, int]"
+    devices: Optional[np.ndarray] = None
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
+def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
+              devices: Optional[Sequence[Union[str, torch.device]]] = None
+              ) -> Mesh:
+    """A mesh of ``axis_shapes`` named ``axis_names``: abstract without
+    ``devices``, else over those devices in order (their count must be the
+    mesh's size)."""
+    if len(axis_shapes) != len(axis_names) or \
+            len(set(axis_names)) != len(axis_names):
+        raise ValueError(f"axis shapes {tuple(axis_shapes)} and names "
+                         f"{tuple(axis_names)} do not pair up")
+    shape = OrderedDict((str(n), int(s)) for n, s in zip(axis_names,
+                                                         axis_shapes))
+    if devices is None:
+        return Mesh(shape)
+    devs = [torch.device(d) for d in devices]
+    if len(devs) != math.prod(shape.values()):
+        raise ValueError(f"{len(devs)} devices for a mesh of "
+                         f"{math.prod(shape.values())}")
+    arr = np.empty(len(devs), dtype=object)
+    arr[:] = devs
+    return Mesh(shape, arr.reshape(tuple(shape.values())))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes, abstract: ``data x model`` of
+    16 x 16, or ``pod x data x model`` of 2 x 16 x 16."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
+
+
+def make_test_mesh(device: Optional[Union[str, torch.device]] = None
+                   ) -> Mesh:
+    """A 1 x 1 mesh with the production axis names over one device: the
+    card unless the caller asks for the CPU."""
+    return make_mesh((1, 1), ("data", "model"), [resolve_device(device)])
+
+
+def mesh_chips(mesh: Mesh) -> int:
+    return mesh.size

@@ -37,6 +37,9 @@ from torch import nn
 
 from repro_torch.configs.base import (ATTN, CROSS, SHARED_ATTN, SSM,
                                       ArchConfig)
+from repro_torch.sharding import (BATCH, CONV_CH, D_FF, D_MODEL, EXPERTS,
+                                  HEAD_DIM, HEADS, KV_HEADS, KV_SEQ, LAYERS,
+                                  SSM_HEADS, STATE, VOCAB, W_IN)
 
 Tree = Dict[str, Any]
 
@@ -44,14 +47,18 @@ Tree = Dict[str, Any]
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # a logical axis a dim (sharding)
     init: str = "normal"          # normal | zeros | ones | a_log | dt_bias
     fan_in: int = 0               # scale of the normal init: 1/sqrt(fan_in)
     dtype: Optional[str] = None   # None: the config's dtype
 
 
-def _spec(shape, init="normal", fan_in=0, dtype=None) -> ParamSpec:
+def _spec(shape, logical, init="normal", fan_in=0, dtype=None) -> ParamSpec:
+    if len(shape) != len(logical):
+        raise ValueError(f"shape {tuple(shape)} and logical axes "
+                         f"{tuple(logical)} differ in rank")
     # the reference's default fan-in: the second-to-last dim
-    return ParamSpec(tuple(int(s) for s in shape), init,
+    return ParamSpec(tuple(int(s) for s in shape), tuple(logical), init,
                      fan_in or (shape[-2] if len(shape) >= 2 else shape[-1]),
                      dtype)
 
@@ -87,40 +94,52 @@ def ssm_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
 
 
 def _norm_specs(cfg: ArchConfig) -> Tree:
-    p = {"scale": _spec((cfg.d_model,), "ones")}
+    p = {"scale": _spec((cfg.d_model,), (D_MODEL,), "ones")}
     if cfg.norm == "layernorm":
-        p["bias"] = _spec((cfg.d_model,), "zeros")
+        p["bias"] = _spec((cfg.d_model,), (D_MODEL,), "zeros")
     return p
 
 
 def attn_specs(cfg: ArchConfig) -> Tree:
+    """Column-parallel QKV (heads on the model axis where they divide it,
+    else head_dim), a row-parallel output projection; with
+    ``attn_row_parallel`` the d_model (input) dim is sharded instead."""
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    attn = {"wq": _spec((d, h, hd), fan_in=d),
-            "wk": _spec((d, k, hd), fan_in=d),
-            "wv": _spec((d, k, hd), fan_in=d),
-            "wo": _spec((h, hd, d), fan_in=h * hd)}
+    if cfg.attn_row_parallel:
+        din, hdim, dout = D_MODEL, None, D_MODEL
+    else:
+        din, hdim, dout = W_IN, HEAD_DIM, W_IN
+    attn = {"wq": _spec((d, h, hd), (din, HEADS, hdim), fan_in=d),
+            "wk": _spec((d, k, hd), (din, KV_HEADS, hdim), fan_in=d),
+            "wv": _spec((d, k, hd), (din, KV_HEADS, hdim), fan_in=d),
+            "wo": _spec((h, hd, d), (HEADS, hdim, dout), fan_in=h * hd)}
     if cfg.qkv_bias:
-        attn["bq"] = _spec((h, hd), "zeros")
-        attn["bk"] = _spec((k, hd), "zeros")
-        attn["bv"] = _spec((k, hd), "zeros")
+        attn["bq"] = _spec((h, hd), (HEADS, None), "zeros")
+        attn["bk"] = _spec((k, hd), (KV_HEADS, None), "zeros")
+        attn["bv"] = _spec((k, hd), (KV_HEADS, None), "zeros")
     return attn
 
 
 def _mlp_specs(cfg: ArchConfig) -> Tree:
+    """Megatron column -> row parallel: w1/w3 shard d_ff, w2 contracts
+    over it."""
     d, f = cfg.d_model, cfg.d_ff
-    ffn = {"w1": _spec((d, f)), "w2": _spec((f, d), fan_in=f)}
+    ffn = {"w1": _spec((d, f), (W_IN, D_FF)),
+           "w2": _spec((f, d), (D_FF, W_IN), fan_in=f)}
     if cfg.act == "swiglu":
-        ffn["w3"] = _spec((d, f))
+        ffn["w3"] = _spec((d, f), (W_IN, D_FF))
     return ffn
 
 
 def _moe_specs(cfg: ArchConfig) -> Tree:
+    """Experts over the batch axes (expert parallel), d_ff over the model
+    axis, d_model replicated."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
-    p = {"router": _spec((d, e), dtype="float32"),
-         "w1": _spec((e, d, f), fan_in=d),
-         "w2": _spec((e, f, d), fan_in=f)}
+    p = {"router": _spec((d, e), (None, None), dtype="float32"),
+         "w1": _spec((e, d, f), (EXPERTS, None, D_FF), fan_in=d),
+         "w2": _spec((e, f, d), (EXPERTS, D_FF, None), fan_in=f)}
     if cfg.act == "swiglu":
-        p["w3"] = _spec((e, d, f), fan_in=d)
+        p["w3"] = _spec((e, d, f), (EXPERTS, None, D_FF), fan_in=d)
     if cfg.moe.dense_residual:
         p["dense"] = _mlp_specs(cfg)
     return p
@@ -130,14 +149,17 @@ def _ssm_specs(cfg: ArchConfig) -> Tree:
     s, d = cfg.ssm, cfg.d_model
     d_in, nh, conv_ch = ssm_dims(cfg)
     total = 2 * d_in + 2 * s.ngroups * s.d_state + nh
-    return {"in_proj": _spec((d, total), fan_in=d),
-            "conv_w": _spec((s.conv_width, conv_ch), fan_in=s.conv_width),
-            "conv_b": _spec((conv_ch,), "zeros"),
-            "a_log": _spec((nh,), "a_log", dtype="float32"),
-            "d_skip": _spec((nh,), "ones", dtype="float32"),
-            "dt_bias": _spec((nh,), "dt_bias", dtype="float32"),
-            "norm": _spec((d_in,), "ones"),
-            "out_proj": _spec((d_in, d), fan_in=d_in)}
+    return {"in_proj": _spec((d, total), (D_MODEL, W_IN), fan_in=d),
+            "conv_w": _spec((s.conv_width, conv_ch), (None, CONV_CH),
+                            fan_in=s.conv_width),
+            "conv_b": _spec((conv_ch,), (CONV_CH,), "zeros"),
+            "a_log": _spec((nh,), (SSM_HEADS,), "a_log", dtype="float32"),
+            "d_skip": _spec((nh,), (SSM_HEADS,), "ones", dtype="float32"),
+            "dt_bias": _spec((nh,), (SSM_HEADS,), "dt_bias",
+                             dtype="float32"),
+            "norm": _spec((d_in,), (D_MODEL,), "ones"),
+            # row-parallel: contracts over the head-sharded d_in
+            "out_proj": _spec((d_in, d), (D_FF, W_IN), fan_in=d_in)}
 
 
 def block_specs(cfg: ArchConfig, kind: str) -> Tree:
@@ -154,17 +176,20 @@ def block_specs(cfg: ArchConfig, kind: str) -> Tree:
 
 
 def _stacked(tree: Tree, n: int) -> Tree:
-    return map_tree(lambda s: dataclasses.replace(s, shape=(n,) + s.shape), tree)
+    return map_tree(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape, logical=(LAYERS,) + s.logical), tree)
 
 
 def param_specs(cfg: ArchConfig) -> Tree:
     cfg.validate()
     vp, d = cfg.padded_vocab, cfg.d_model
-    embed = {"tok": _spec((vp, d), fan_in=d)}
+    embed = {"tok": _spec((vp, d), (VOCAB, D_MODEL), fan_in=d)}
     if cfg.pos == "learned":
-        embed["pos"] = _spec((cfg.max_position, d), fan_in=d)
+        embed["pos"] = _spec((cfg.max_position, d), (None, D_MODEL),
+                             fan_in=d)
     if not cfg.tie_embeddings:
-        embed["unemb"] = _spec((d, vp))
+        # vocab (output) sharded: logits never replicate over V
+        embed["unemb"] = _spec((d, vp), (W_IN, VOCAB))
     slots, n_rep, _ = plan_structure(cfg)
     plan = cfg.block_plan()
     tree = {"embed": embed,
@@ -233,37 +258,83 @@ def spec_dtype(cfg: ArchConfig, spec: ParamSpec) -> torch.dtype:
     return getattr(torch, spec.dtype) if spec.dtype else cfg.activation_dtype
 
 
-def init_params(cfg: ArchConfig, generator: torch.Generator, *,
-                device: Optional[torch.device] = None) -> Tree:
-    """Random weights drawn on ``device`` (the generator's device by
-    default), each leaf in its own dtype, as in the reference's
-    ``materialize``: normal leaves are ``N(0, 1) / sqrt(fan_in)`` drawn
-    in float32; ``a_log`` is ``log U[1, 16)``; ``dt_bias`` is the inverse
-    softplus of ``exp U[log 1e-3, log 1e-1)``."""
-    device = torch.device(device or generator.device)
+# the dry-run's materialized cases draw a normal leaf whose float32 draw is
+# larger than this in slices of its flat view, each written into the leaf
+# in its own dtype: a full-width leaf (deepseek-coder-33b's stacked w1,
+# 34 GB in float32) never has a float32 copy beside it
+DRAW_SLICE_BYTES = 1 << 28
 
+
+def draw_leaf(spec: ParamSpec, dtype: torch.dtype,
+              generator: torch.Generator, device: torch.device,
+              slice_bytes: Optional[int] = None) -> torch.Tensor:
+    """One leaf drawn as the reference's ``materialize`` draws it: normal
+    leaves ``N(0, 1) / sqrt(fan_in)`` in float32 (with ``slice_bytes``,
+    in slices of at most that many float32 bytes; else in one draw, the
+    stream every seeded model of the port has drawn), ``a_log`` ``log
+    U[1, 16)``, ``dt_bias`` the inverse softplus of ``exp U[log 1e-3,
+    log 1e-1)``."""
     def uniform(shape, lo, hi):
         u = torch.rand(shape, generator=generator, device=device,
                        dtype=torch.float32)
         return u.mul_(hi - lo).add_(lo)
 
-    def make(spec: ParamSpec) -> torch.Tensor:
-        dtype = spec_dtype(cfg, spec)
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=dtype, device=device)
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=dtype, device=device)
-        if spec.init == "a_log":
-            return torch.log(uniform(spec.shape, 1.0, 16.0)).to(dtype)
-        if spec.init == "dt_bias":
-            dt = torch.exp(uniform(spec.shape, math.log(1e-3),
-                                   math.log(1e-1)))
-            return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
-        w = torch.randn(spec.shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return w.mul_(1.0 / math.sqrt(max(spec.fan_in, 1))).to(dtype)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "a_log":
+        return torch.log(uniform(spec.shape, 1.0, 16.0)).to(dtype)
+    if spec.init == "dt_bias":
+        dt = torch.exp(uniform(spec.shape, math.log(1e-3), math.log(1e-1)))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    scale = 1.0 / math.sqrt(max(spec.fan_in, 1))
 
-    return map_tree(make, param_specs(cfg))
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(scale)
+
+    numel = math.prod(spec.shape)
+    if slice_bytes is None or numel * 4 <= slice_bytes:
+        return normal(spec.shape).to(dtype)
+    out = torch.empty(spec.shape, dtype=dtype, device=device)
+    flat, step = out.view(-1), slice_bytes // 4
+    for i in range(0, numel, step):
+        part = flat[i:i + step]
+        part.copy_(normal(part.shape))
+    return out
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator, *,
+                device: Optional[torch.device] = None) -> Tree:
+    """Random weights drawn on ``device`` (the generator's device by
+    default), each leaf in its own dtype (:func:`draw_leaf`)."""
+    device = torch.device(device or generator.device)
+    return map_tree(lambda spec: draw_leaf(spec, spec_dtype(cfg, spec),
+                                           generator, device),
+                    param_specs(cfg))
+
+
+# ------------------------------------------------- shardings and meta ----
+def tree_specs(tree: Tree, rules) -> Tree:
+    """Each :class:`ParamSpec` leaf's ``PartitionSpec`` under ``rules``
+    (the reference's ``tree_shardings``)."""
+    return map_tree(lambda s: rules.spec(s.logical, s.shape), tree)
+
+
+def tree_meta(cfg: ArchConfig, tree: Tree) -> Tree:
+    """Each :class:`ParamSpec` leaf as a tensor on the meta device: shape
+    and dtype, nothing allocated (the reference's ``tree_sds``)."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=spec_dtype(cfg, s),
+                                          device="meta"), tree)
+
+
+def param_shardings(cfg: ArchConfig, rules) -> Tree:
+    return tree_specs(param_specs(cfg), rules)
+
+
+def param_sds(cfg: ArchConfig) -> Tree:
+    return tree_meta(cfg, param_specs(cfg))
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -375,6 +446,46 @@ def state_leaves(cfg: ArchConfig, batch: int
     return {name: ((len(layers[STATE_KINDS[name]]),) + shape,
                    STATE_DTYPES.get(name, cfg.activation_dtype))
             for name, shape in state_shapes(cfg, batch).items()}
+
+
+# each cache leaf's logical axes, its layers stacked in front (the
+# reference's ``_cache_entry_abstract`` with ``LAYERS`` prepended)
+CACHE_LOGICAL = {
+    "k": (LAYERS, BATCH, KV_SEQ, KV_HEADS, HEAD_DIM),
+    "v": (LAYERS, BATCH, KV_SEQ, KV_HEADS, HEAD_DIM),
+    "h": (LAYERS, BATCH, SSM_HEADS, None, STATE),
+    "conv": (LAYERS, BATCH, None, CONV_CH),
+    "xk": (LAYERS, BATCH, None, KV_HEADS, HEAD_DIM),
+    "xv": (LAYERS, BATCH, None, KV_HEADS, HEAD_DIM),
+}
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, kv_len: int) -> Tree:
+    """The dense decode cache (``Model.init_cache``'s flat layout) as
+    :class:`ParamSpec` leaves with the reference's logical axes; under a
+    sliding window ``W`` the K/V has ``min(kv_len, W)`` slots. Drawn
+    (``init`` normal, fan-in 1), it is a seeded random cache."""
+    if cfg.sliding_window:
+        kv_len = min(kv_len, cfg.sliding_window)
+    leaves: Dict[str, Tuple[Tuple[int, ...], Optional[str]]] = {}
+    n_kv = len(cache_layers(cfg)["kv"])
+    if n_kv:
+        for name in ("k", "v"):
+            leaves[name] = ((n_kv, batch, kv_len, cfg.n_kv_heads, cfg.hd),
+                            None)
+    for name, (shape, dtype) in state_leaves(cfg, batch).items():
+        leaves[name] = (shape, "float32" if name in STATE_DTYPES else None)
+    return {name: ParamSpec(shape, CACHE_LOGICAL[name], "normal", 1, dtype)
+            for name, (shape, dtype) in leaves.items()}
+
+
+def cache_shardings(cfg: ArchConfig, rules, batch: int,
+                    kv_len: int) -> Tree:
+    return tree_specs(abstract_cache(cfg, batch, kv_len), rules)
+
+
+def cache_sds(cfg: ArchConfig, batch: int, kv_len: int) -> Tree:
+    return tree_meta(cfg, abstract_cache(cfg, batch, kv_len))
 
 
 def cache_from_numpy(cfg: ArchConfig, cache: Tree, *,

@@ -18,10 +18,11 @@ Two replica placements:
   reference shares its compiled bundle) and its stream, so the kernels of
   two replicas stepped on two host threads run on the card at once.
 * :meth:`ReplicatedCluster.sliced` — the counterpart of the reference's
-  ``slice_mesh``: a list of devices split R ways, one replica a slice with
-  its own copy of the weights. A replica runs on one device (the port has
-  no SPMD layer yet), so each slice must hold exactly one; on a one-card
-  machine that is R=1.
+  sliced mesh: a :class:`~repro_torch.launch.mesh.Mesh` split along its
+  data axis (``slice_mesh``) or a list of devices split R ways, one
+  replica a slice with its own copy of the weights. A replica runs on one
+  device (the rules do not run across cards yet), so each slice must
+  hold exactly one; on a one-card machine that is R=1.
 
 Two stepping modes:
 
@@ -91,7 +92,8 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core.replication import slice_devices
+from repro_torch.core.replication import slice_devices, slice_mesh
+from repro_torch.launch.mesh import MULTI_CARD_ITEM, Mesh
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster.metrics import (ClusterMetrics, ReplicaStats,
                                                  aggregate)
@@ -228,20 +230,26 @@ class ReplicatedCluster:
 
     @classmethod
     def sliced(cls, cfg, params, ecfg: EngineConfig,
-               devices: Sequence[Union[str, torch.device]], n_replicas: int,
-               **kw) -> "ReplicatedCluster":
-        """One replica per disjoint slice of ``devices`` (split R ways in
-        order, as ``slice_mesh`` splits the data axis), each with its own
-        copy of the weights ``params`` (a tree in the reference's layout;
-        None draws each copy from seed 0 on its device)."""
-        slices = slice_devices(devices, n_replicas)
+               devices: Union[Mesh, Sequence[Union[str, torch.device]]],
+               n_replicas: int, **kw) -> "ReplicatedCluster":
+        """One replica per disjoint slice of ``devices``, a :class:`Mesh`
+        split along its data axis (``slice_mesh``) or a list split R ways
+        in order, each with its own copy of the weights ``params`` (a tree
+        in the reference's layout; None draws each copy from seed 0 on its
+        device). A slice of more than one device raises: a replica runs
+        on one card until the rules run across cards."""
+        if isinstance(devices, Mesh):
+            slices = [list(m.devices.flat)
+                      for m in slice_mesh(devices, n_replicas)]
+        else:
+            slices = slice_devices(devices, n_replicas)
         engines = []
         for sub in slices:
             if len(sub) != 1:
                 raise NotImplementedError(
-                    f"a replica over {len(sub)} devices needs the SPMD "
-                    f"layer, which is not ported yet (ROADMAP.md, training "
-                    f"and SPMD); give one device a replica")
+                    f"a replica over {len(sub)} devices needs the sharding "
+                    f"rules executed across cards ({MULTI_CARD_ITEM}); "
+                    f"give one device a replica")
             model = Model(cfg, params, device=sub[0])
             engines.append(ContinuousBatchingEngine(model, ecfg,
                                                     device=sub[0]))

@@ -19,7 +19,9 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.models.params import map_tree_with_path, tree_leaves
+from repro_torch.models.params import (map_tree, map_tree_with_path,
+                                       param_shardings, param_specs,
+                                       tree_leaves)
 from repro_torch.training.optimizer import (AdamWConfig, OptState,
                                             adamw_init, adamw_update)
 
@@ -97,3 +99,22 @@ def make_train_step(cfg: ArchConfig, opt: AdamWConfig,
         return {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+def opt_state_shardings(cfg: ArchConfig, rules):
+    """The optimizer state's specs: each moment as its parameter, the step
+    replicated."""
+    ps = param_shardings(cfg, rules)
+    return (ps, ps, ())
+
+
+def opt_state_sds(cfg: ArchConfig, moment_dtype: str = "float32"):
+    """The optimizer state ``(m, v, step)`` on the meta device, the
+    moments in ``moment_dtype`` (float32, as :func:`adamw_init` makes
+    them; the dry-run takes bf16 for arctic-480b, as the reference's)."""
+    dt = getattr(torch, moment_dtype)
+    moments = map_tree(lambda s: torch.empty(s.shape, dtype=dt,
+                                             device="meta"),
+                       param_specs(cfg))
+    return (moments, map_tree(torch.empty_like, moments),
+            torch.empty((), dtype=torch.int32, device="meta"))

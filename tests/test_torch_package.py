@@ -100,6 +100,18 @@ def test_training_modules_are_checked():
     assert set(TRAIN_MODULES) <= checked
 
 
+SPMD_MODULES = ["sharding.py", "launch/mesh.py", "launch/input_specs.py",
+                "launch/dryrun.py", "core/census.py", "core/replication.py"]
+
+
+def test_spmd_modules_are_checked():
+    """Every module of the SPMD and dry-run slice is among the files the
+    import check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(SPMD_MODULES) <= checked
+
+
 def test_training_exports_every_name_of_the_reference():
     """``repro_torch.training`` exports every name ``repro.training``
     does (read from the reference's source)."""
@@ -139,7 +151,9 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.core.replication, repro_torch.core.bca, "
             "repro_torch.serving.api, repro_torch.launch.serve, "
             "repro_torch.core.simulator, repro_torch.core.intensity, "
-            "repro_torch.training, repro_torch.launch.train; "
+            "repro_torch.training, repro_torch.launch.train, "
+            "repro_torch.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.input_specs, repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}

@@ -247,5 +247,5 @@ def test_sliced_cluster_one_device_a_replica():
         [[torch.device("cpu")]] * 2
     with pytest.raises(ValueError, match="not divisible"):
         ReplicatedCluster.sliced(cfg, None, ecfg, ["cpu"] * 3, 2)
-    with pytest.raises(NotImplementedError, match="SPMD"):
+    with pytest.raises(NotImplementedError, match="more than one card"):
         ReplicatedCluster.sliced(cfg, None, ecfg, ["cpu", "cpu"], 1)
