@@ -207,7 +207,17 @@ It imports nothing of JAX or of the JAX package. Phases:
    largest), and the same steps through two other correct attentions
    (the plain one in 256-row tiles, SDPA: within ``DEEP_TOL``) and two
    planted faults (past it), and the step's device ms beside the
-   dry-run's ``max(compute, memory)``;
+   dry-run's ``max(compute, memory)``; each case's step censused on the
+   card and on its meta arguments, equal class by class, its
+   temporaries against the allocator's peak less the arguments, and
+   mamba2's state passes (``[census dryrun]``). The dispatch census
+   (``[census]``, after phase 5's compares, on the loaded OPT-1.3B): the
+   paged greedy step at batch 16 and 3151 context tokens censused at its
+   first use by an observed engine and on the steps' meta twin (equal
+   class by class: FLOPs, bytes, launches, temporaries), 3 eager steps
+   under ``torch.profiler`` filed by the model scopes around each
+   kernel's launching operation, each class's GB/s against the card's
+   memory rate, the census's launches against the trace's kernels;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -242,6 +252,7 @@ It imports nothing of JAX or of the JAX package. Phases:
 """
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import re
@@ -338,13 +349,22 @@ def device_ms(fn, runs=20, warmup=5):
     issue_ms = 2 * runs * (time.perf_counter() - t0) * 1e3 + 1.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(issue_ms * 2e6))   # >= issue_ms at clocks <= 2 GHz
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    end.record()
-    queued_ms = (time.perf_counter() - t0) * 1e3
+    # no collection while the calls are issued: a pause of the
+    # collector's would outlast the sleep (the process holds many objects
+    # by phase 5)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda._sleep(int(issue_ms * 2e6))  # >= issue_ms at <= 2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if collecting:
+            gc.enable()
     end.synchronize()
     if queued_ms >= issue_ms:
         raise AssertionError(f"issuing {runs} calls took {queued_ms:.1f} ms, "
@@ -365,7 +385,7 @@ def busy_ms(fn, runs=5):
             fn()
         torch.cuda.synchronize()
     ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+           if is_device_work(e)]
     if not ops:
         raise AssertionError("profiler recorded no device activity")
     return sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 / runs
@@ -526,7 +546,6 @@ def release():
     """Free what the last engine held: an engine sits in a reference
     cycle (engine, scheduler, executor), so its CUDA graphs and their
     memory pools go only with a collection."""
-    import gc
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -1863,7 +1882,7 @@ def prefill_symbol(model, card, prompt=128):
         model.prefill(toks, lens, cache_len=prompt)
         torch.cuda.synchronize()
     names = sorted({e.name for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    if is_device_work(e)
                     and "flash" in e.name})
     want = ("flash_wgmma_kernel" if cfg.dtype == "bfloat16"
             else "flash_kernel<float")
@@ -2036,7 +2055,7 @@ def serve_profile(engine, make):
         torch.cuda.synchronize()
     by_kind = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if is_device_work(e):
             kind = kernel_kind(e.name)
             by_kind[kind] = by_kind.get(kind, 0.0) + (
                 e.time_range.end - e.time_range.start) / 1e6
@@ -2186,7 +2205,7 @@ def phase_prefill_steps(model, card, runs=20):
                     call()
                 torch.cuda.synchronize()
             ops = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if is_device_work(e)]
             busy = sum(e.time_range.end - e.time_range.start
                        for e in ops) / 1e3 / 5
             after = read_launches()
@@ -2468,7 +2487,7 @@ def spec_profile(engine, sp, card, kind, steps=10):
                                    read_launches()["paged_decode_attention"]),
                                   c0))
         kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if is_device_work(e)]
         if not kernels:
             raise AssertionError("profiler recorded no device activity")
         traced = sum("paged_decode_split_kernel" in e.name for e in kernels)
@@ -2882,7 +2901,7 @@ def stream_intervals(prof, path):
     the events do not carry it, from the Chrome trace's ``tid``."""
     import torch
     ks = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+          if is_device_work(e)]
     out = [(getattr(e, "device_resource_id", None), e.time_range.start,
             e.time_range.end, e.name) for e in ks]
     if len({s for s, _, _, n in out if "paged_decode_split" in n}) > 1:
@@ -3565,7 +3584,7 @@ def profile_decode(model, decode_mode, card, steps=10, sampling=None,
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         counted = launched[counter]
         kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if is_device_work(e)]
         traced = sum(is_split(e.name) for e in kernels)
         # a trace can drop kernel records: a short one is taken again
         if not exact or traced >= want:
@@ -4248,6 +4267,174 @@ def phase_verify_compare(model, card, K=8):
 # ------------------------------------------------- non-dense families ----
 
 
+# run B's steady window (PERF.md section 5): the first 16 requests of the
+# serve workload this many positions past their prompts (3151 tokens)
+CENSUS_POSITION = 41
+CENSUS_STEPS = 3             # eager steps in the census's profile window
+
+
+def classes_of(d):
+    """A dispatch census by class: (FLOPs, bytes, launches)."""
+    return {k: (v.flops, v.bytes, d.launches.per_class.get(k, 0))
+            for k, v in sorted(d.census.per_class.items())}
+
+
+def scoped_kernels(prof):
+    """Each kernel of a trace with the model scopes it ran under, as
+    ``(scope path, ms)``: the path joins, outermost first, the
+    device-side spans of the ``record_function`` ranges (the scopes)
+    whose span holds the kernel, so a kernel launched through ``ctypes``
+    (no PyTorch operation) is filed too. Returns (those pairs, kernels
+    under no scope)."""
+    import torch
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and getattr(e, "is_user_annotation", False))
+    pairs, bare = [], 0
+    for e in events:
+        if not is_device_work(e):
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        names = [n for s0, s1, n in spans if s0 <= t0 and t1 <= s1]
+        bare += not names
+        pairs.append(("/".join(names), (t1 - t0) / 1e3))
+    return pairs, bare
+
+
+def busy_by_class(prof, steps):
+    """Device busy ms a step by kernel class in an eager window's trace
+    (:func:`scoped_kernels` filed by ``classify``; a kernel under no
+    scope is ``other``). Returns (ms by class, kernels by class a step,
+    the kernels in the trace, those under no scope)."""
+    from repro_torch.core.analysis import classify
+    pairs, bare = scoped_kernels(prof)
+    if not pairs:
+        raise AssertionError("profiler recorded no device activity")
+    ms, n = {}, {}
+    for path, t in pairs:
+        cls = classify(path)
+        ms[cls] = ms.get(cls, 0.0) + t / steps
+        n[cls] = n.get(cls, 0) + 1 / steps
+    return ms, n, len(pairs), bare
+
+
+def phase_census(model, card):
+    """(a) The dispatch census of OPT-1.3B's paged greedy step at full
+    width, bf16, at run B's shape (B=16, 3151 context tokens): taken by
+    an observed engine at the bucket's first use (the eager warm-up
+    before its capture); the same step's census on the steps' meta twin,
+    which must equal it exactly (FLOPs, bytes and launches by class, the
+    temporaries); busy by class from ``CENSUS_STEPS`` eager steps under
+    ``torch.profiler`` (each kernel under the model scopes whose device
+    spans hold it); each class's achieved GB/s and share of the card's
+    memory rate (attention from the live terms); the census's launches
+    beside the trace's kernels, and the share of kernels under no scope.
+    Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import census as C
+    from repro_torch.core.analysis import census_of
+    from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.serving.obs.observer import Observability
+    from repro_torch.serving.scheduler import StepPlan
+    cfg = model.cfg
+    engine = ContinuousBatchingEngine(model, serve_config())
+    obs = Observability()
+    obs.attach(engine)
+    reqs = serve_workload()[:16]
+    rids = [r.req_id for r in reqs]
+    positions = [r.prompt_len + CENSUS_POSITION for r in reqs]
+    gen = torch.Generator("cuda").manual_seed(3)
+    for leaf in engine.pool.pool.values():
+        leaf.normal_(generator=gen)
+    for r, pos in zip(reqs, positions):
+        engine.pool.manager.allocate(r.req_id, pos + 1)
+        engine._tokens[r.req_id] = r.req_id + 1
+        engine._pos[r.req_id] = pos
+    plan = StepPlan(reqs=reqs, rids=rids, positions=positions, n_prefill=0,
+                    t0=0.0)
+    t0 = time.perf_counter()
+    engine._decode_paged(plan)       # the bucket's first use, censused
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    bucket = engine.steps.paged_bucket(rids)
+    sc = obs.census._cache[("decode", bucket)]
+    d = sc.dispatched
+    if d is None:
+        raise AssertionError("census: the first use took no census")
+    key = bucket + (False,)
+    t0 = time.perf_counter()
+    twin = engine.steps.meta_twin()
+    m = census_of(twin.body(key))
+    meta_s = time.perf_counter() - t0
+    if classes_of(m) != classes_of(d) or m.temp_bytes != d.temp_bytes:
+        raise AssertionError(f"census: meta {classes_of(m)}, "
+                             f"{m.temp_bytes} B of temporaries; card "
+                             f"{classes_of(d)}, {d.temp_bytes} B")
+    body = engine.steps.body(key)
+    body()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(CENSUS_STEPS):
+            body()
+        torch.cuda.synchronize()
+    ms, kernels, n_dev, bare = busy_by_class(prof, CENSUS_STEPS)
+    busy = sum(ms.values())
+    live = C.LiveWork(rows=16, context=sum(positions) + 16, entries=sum(
+        len(engine.pool.manager.tables[r]) for r in rids))
+    attn = C.attention_cost(cfg, "decode", bucket, live,
+                            engine.ecfg.block_size)
+    by_bytes = {k: v.bytes for k, v in d.census.per_class.items()}
+    by_bytes["attention"] = attn.bytes
+    hw = card_peaks()
+    parts = []
+    for cls in sorted(set(ms) | set(by_bytes), key=lambda c: -ms.get(c, 0)):
+        t = ms.get(cls, 0.0)
+        gbs = by_bytes.get(cls, 0.0) / (t * 1e-3) / 1e9 if t else 0.0
+        parts.append(f"{cls} {by_bytes.get(cls, 0.0) / 1e9:.4f} GB, "
+                     f"{d.launches.per_class.get(cls, 0)} launches, "
+                     f"busy {t:.3f} ms ({kernels.get(cls, 0):.0f} kernels):"
+                     f" {gbs:.1f} GB/s, {gbs * 1e9 / hw.hbm_bw * 100:.1f}%"
+                     f" of {hw.hbm_bw / 1e12:.2f} TB/s")
+    total = sum(by_bytes.values())
+    shown = "; ".join(f"{k} {f:.4g} FLOPs, {b:.4g} B, {n}"
+                      for k, (f, b, n) in classes_of(d).items())
+    print(f"[census] on {card}: {cfg.name} {cfg.dtype}, {cfg.n_layers} "
+          f"layers, the paged greedy step at batch 16, "
+          f"{sum(positions)} context tokens, bucket {bucket}: dispatched "
+          f"by class (FLOPs, bytes, launches) {shown}, "
+          f"{d.launches.total} launches "
+          f"({dict(d.launches.kernels)} of the kernels), temporaries "
+          f"{d.temp_bytes / 1e6:.1f} MB; the first use with the census "
+          f"{first_s:.2f} s")
+    print(f"[census] on {card}: the same step on meta tensors equals it "
+          f"class by class (FLOPs, bytes, launches, temporaries), "
+          f"{meta_s:.2f} s on the host")
+    print(f"[census] on {card}: {CENSUS_STEPS} eager steps under "
+          f"torch.profiler, busy {busy:.3f} ms a step by class (bytes "
+          f"dispatched, attention the live terms' "
+          f"{attn.bytes / 1e9:.4f} GB): {'; '.join(parts)}")
+    print(f"[census] on {card}: {total / 1e9:.4f} GB a step (the "
+          f"analytic census {(sc.census.bytes + attn.bytes) / 1e9:.4f} GB),"
+          f" {total / hw.hbm_bw * 1e3:.3f} ms at the memory rate against "
+          f"{busy:.3f} ms busy; census launches {d.launches.total} against "
+          f"{sum(kernels.values()):.0f} kernels a step in the trace; "
+          f"{bare} of {n_dev} kernels ({bare / n_dev * 100:.2f}%, filed as "
+          f"other) ran under no scope")
+    if bare == n_dev:
+        raise AssertionError("census: no kernel of the trace ran under a "
+                             "scope")
+    del engine, twin, body
+    release()
+    return dict(ms=ms, kernels=kernels, bytes=by_bytes,
+                launches=d.launches.total, busy=busy, bare=bare / n_dev)
+
+
 def family_workload(cfg, n=16):
     """16 ShareGPT-length requests in the model's vocabulary."""
     from repro_torch.serving.workload import sharegpt_like
@@ -4318,29 +4505,6 @@ def family_memory(engine):
             f"{gb(engine.graph_pool_bytes)}")
 
 
-@contextlib.contextmanager
-def scopes():
-    """Open a ``torch.profiler.record_function`` range around the expert
-    GEMMs (``moe._expert_ffn``) and the SSM state update
-    (``ssm._state_update``), the reference's ``expert_ffn`` and
-    ``ssm_state_update`` scopes, for an eager profile window."""
-    import torch
-    from repro_torch.models import moe, ssm
-    saved = (moe._expert_ffn, ssm._state_update)
-
-    def scoped(name, fn):
-        def call(*a, **kw):
-            with torch.profiler.record_function(name):
-                return fn(*a, **kw)
-        return call
-    moe._expert_ffn = scoped("expert_ffn", saved[0])
-    ssm._state_update = scoped("ssm_state_update", saved[1])
-    try:
-        yield
-    finally:
-        moe._expert_ffn, ssm._state_update = saved
-
-
 def step_bound(engine):
     """The least time of the engine's next decode step: the bytes its
     census counts (``step_census`` at its bucket plus the live attention
@@ -4365,12 +4529,21 @@ def step_bound(engine):
     return bound(nbytes, 0.0)[0], nbytes / 1e9, model_s * 1e3
 
 
+def is_device_work(e):
+    """A trace event that is device work (a kernel, a copy or a fill):
+    not the device-side mirror of a ``record_function`` range, which the
+    models' scopes open while a profiler runs."""
+    import torch
+    return e.device_type == torch.autograd.DeviceType.CUDA and \
+        not getattr(e, "is_user_annotation", False)
+
+
 def busy_by_kind(prof, calls):
     """Device busy ms a call by kernel kind in a ``torch.profiler`` trace
     of ``calls`` calls (raises on a trace with no device activity)."""
     import torch
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if is_device_work(e)]
     if not kernels:
         raise AssertionError("profiler recorded no device activity")
     by_kind = {}
@@ -4455,23 +4628,21 @@ def family_profile(model, card, steps=10):
     saved = st.graphs, st.graphs_on
     st.graphs, st.graphs_on = {}, False
     try:
-        with scopes(), profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA]) as ep:
+        # the model's own scopes label the expert GEMMs and the state
+        # update (repro_torch.core.analysis.scope)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as ep:
             for _ in range(3):
                 engine.step(0.0)
             torch.cuda.synchronize()
     finally:
         st.graphs, st.graphs_on = saved
-    rows = {e.key: e for e in ep.key_averages()}
-
-    def dev_us(key):
-        e = rows.get(key)
-        return 0.0 if e is None else getattr(
-            e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
     eager_busy = sum((e.time_range.end - e.time_range.start)
                      for e in ep.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-    shares = {k: dev_us(k) / max(eager_busy, 1e-9)
+                     if is_device_work(e))
+    pairs, _ = scoped_kernels(ep)
+    shares = {k: sum(t for path, t in pairs if k in path.split("/"))
+              * 1e3 / max(eager_busy, 1e-9)
               for k in ("expert_ffn", "ssm_state_update")}
     print(f"[families {name} profile] on {card}: 3 eager steps under named "
           f"scopes: device {eager_busy / 3e3:.3f} ms/step, the expert "
@@ -5194,7 +5365,10 @@ def dryrun_meta(card):
     from repro_torch.launch.dryrun import MESHES, run_case
     from repro_torch.launch.input_specs import SHAPES
     t0 = time.perf_counter()
-    recs = [run_case(arch, shape, mesh, None, verbose=False)
+    # the one-device cases' dispatch census is taken where they run
+    # (dryrun_case): a train case's takes tens of seconds on the host
+    recs = [run_case(arch, shape, mesh, None, verbose=False,
+                     dispatched=False)
             for arch in ASSIGNED for shape in SHAPES for mesh in MESHES]
     seconds = time.perf_counter() - t0
     for r in recs:
@@ -5342,6 +5516,78 @@ def untied(k_logits, k_toks, toks):
             gap.max().item() if gap.numel() else 0.0)
 
 
+TEMP_TOL = 0.02              # dispatched temporaries against the measured
+
+
+def dryrun_census_check(card, case, args, measured_temp, resident):
+    """(b, c) The census of a one-device case's step: taken on the card
+    with the materialized arguments and on the case's meta arguments,
+    equal class by class (FLOPs, bytes, launches) and in temporaries;
+    the meta census's temporaries against the allocator's measured peak
+    less the arguments (``TEMP_TOL`` printed as met or not), the gap
+    split into what the allocator holds between steps (``resident``),
+    the census run's own allocator peak and its allocations at operation
+    boundaries; an SSM model's ``ssm`` bytes in passes over its layers'
+    float32 state. Returns the numbers."""
+    import torch
+    from repro_torch.core.analysis import DispatchCensus, census_of
+    from repro_torch.launch.dryrun import dispatched_record
+    from repro_torch.models.params import ssm_dims
+
+    class Watched(DispatchCensus):
+        """The census, reading the allocator after each operation."""
+        def __init__(self):
+            super().__init__()
+            self.base = torch.cuda.memory_allocated()
+            self.seen = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            self.seen = max(self.seen,
+                            torch.cuda.memory_allocated() - self.base)
+            return out
+
+    cfg = case.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Watched() as cen:
+        case.fn(*args)
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated() - cen.base
+    on_card = dispatched_record(cen.result())
+    t0 = time.perf_counter()
+    meta = dispatched_record(census_of(case.fn, *case.args))
+    meta_s = time.perf_counter() - t0
+    if on_card != meta:
+        raise AssertionError(f"census of {case.arch} x {case.shape.name}: "
+                             f"card {on_card} != meta {meta}")
+    gap = meta["temp_bytes"] / measured_temp - 1
+    per = "; ".join(f"{k} {v['bytes'] / 1e9:.4f} GB, {v['launches']}"
+                    for k, v in sorted(meta["per_class"].items()))
+    passes = None
+    if cfg.ssm is not None:
+        _, nh, _ = ssm_dims(cfg)
+        state = case.shape.batch * nh * cfg.ssm.head_dim \
+            * cfg.ssm.d_state * 4
+        layers = cfg.block_plan().count("ssm")
+        passes = meta["per_class"]["ssm"]["bytes"] / (layers * state)
+    print(f"[census dryrun] {case.arch} x {case.shape.name} on {card}: the "
+          f"step's census on the card equals its census on meta tensors "
+          f"({meta_s:.2f} s on the host): {meta['bytes'] / 1e9:.4f} GB, "
+          f"{meta['launches']} launches ({meta['kernel_launches']} of the "
+          f"kernels); by class (GB, launches): {per}; temporaries "
+          f"{meta['temp_bytes']:.0f} B against the measured peak less the "
+          f"arguments {measured_temp} B ({gap:+.2%}, within "
+          f"{TEMP_TOL:.0%}: {'yes' if abs(gap) <= TEMP_TOL else 'no'}): "
+          f"held between steps {resident} B, the census run's allocator "
+          f"peak {run_peak} B, at operation boundaries {cen.seen} B"
+          + ("" if passes is None else
+             f"; the ssm class moves {passes:.2f} x its {layers} layers' "
+             f"float32 state ({state / 1e6:.1f} MB a layer)"))
+    return dict(census=meta, temp_gap=gap, ssm_passes=passes,
+                resident=resident, run_peak=run_peak, boundary=cen.seen)
+
+
 def dryrun_case(card, arch, shape, rec):
     """(b) One case the dry-run says fits, at full width and depth:
     materialized on the card (arguments held within ``ARG_TOL`` of the
@@ -5443,6 +5689,9 @@ def dryrun_case(card, arch, shape, rec):
             raise AssertionError(f"{arch} {shape}: DEEP_TOL {DEEP_TOL} does "
                                  f"not part noise from faults: {name} "
                                  f"({role}) at {gap:.3e}")
+    # the runs' logits go before the step's peak is read: it is the
+    # step's working set, not the checks' (4 steps x B x vocab in f32)
+    del k_logits, p_logits
     step = lambda: model.decode_step(tokens, cache, pos)  # noqa: E731
     step()
     torch.cuda.synchronize()
@@ -5456,6 +5705,11 @@ def dryrun_case(card, arch, shape, rec):
     by_kind = profile_calls(step)
     busy = sum(by_kind.values())
     bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+    # what the allocator holds between steps beyond the arguments, part
+    # of the peak but of no step's temporaries
+    resident = torch.cuda.memory_allocated() - base - held
+    census = dryrun_census_check(card, case, (params, cache, tokens, pos),
+                                 peak - held, resident)
     print(f"[dryrun run] {arch} x {shape} on {card}: B={case.shape.batch}, "
           f"{cfg.n_layers} layers, position {int(pos)} "
           f"({case.kv_len} cache slots), {cfg.dtype}: arguments "
@@ -5474,13 +5728,13 @@ def dryrun_case(card, arch, shape, rec):
           f"against the dry-run's max(compute, memory) {bound_ms:.3f} ms "
           f"({step_ms / bound_ms:.2f} x); device busy {busy:.3f} ms "
           f"(idle {(1 - busy / step_ms) * 100:.1f}%): {kind_parts(by_kind)}")
-    del model, params, cache, tokens, k_logits, p_logits
+    del model, params, cache, tokens
     release()
     return dict(launches=launches, step_ms=step_ms, bound_ms=bound_ms,
                 busy_ms=busy, by_kind=by_kind, held=held,
                 argument_bytes=want, peak=peak, peak_bytes=pred_peak,
                 rel_err=rel, in_situ_err=in_situ["err"], ties=ties,
-                witnesses=witnesses)
+                witnesses=witnesses, census=census)
 
 
 def phase_dryrun(card, errs):
@@ -5569,6 +5823,7 @@ def main() -> int:
     phase("5, step compare", phase_step_compare, model, card)
     phase("5, prefill compare", phase_prefill_compare, model, card)
     phase("5, verify compare", phase_verify_compare, model, card)
+    phase("4, census", phase_census, model, card)
     del model
     release()
     family_paths, _ = phase("4, non-dense families", phase_families, card)

@@ -1,11 +1,18 @@
-"""Analytic per-step cost census: the port's counterpart of the
-reference's HLO census (``repro.core.analysis``; ``ClassCost`` and
-``OpCensus`` are copies).
+"""Analytic per-step cost census, beside the measured one.
 
 The reference compiles each step ahead of time and reads its FLOPs and
-HBM bytes off the optimized XLA program. A CUDA graph has no such
-program, so the port computes each step's cost from the model config and
-the step's bucket, in the reference's kernel classes:
+HBM bytes off the optimized XLA program (``repro.core.analysis``). The
+port measures the same figures from the operations a step dispatches
+(:mod:`repro_torch.core.analysis`, whose ``ClassCost`` and ``OpCensus``
+this module fills): a bucket's eager first use runs under that census,
+which the live roofline keeps beside this one, and the dry-run's
+one-device cases run their step under it on meta tensors. This module
+computes each step's cost from the model config and the step's bucket,
+with no step run: the figure every roofline sample reads (its live
+attention terms come from the step's data, which the measured census
+does not read from the device), and the dry-run's per-device census on
+a mesh, collectives included, which no single card can run. In the
+reference's kernel classes:
 
 * ``matmul``: the QKV, output-projection and MLP GEMMs, ``2·M·N·K`` over
   the bucket's padded rows (as XLA counts them), plus the MLP
@@ -13,18 +20,19 @@ the step's bucket, in the reference's kernel classes:
   the same scope); bytes: the weights, and each GEMM's input and output.
 * ``head``: the unembed GEMM over the rows whose logits the step returns
   (every row of a decode step, the last row of a prefill). In a prefill
-  program also the embedding lookup's elementwise work (the clamped
-  gathers' selects and index checks and the positional add), which the
-  reference's census files under ``head`` in its prefill programs and
-  under ``other`` in its decode programs, where XLA fuses the lookup
-  elsewhere; bytes: the unembed weight, the logits, the gathered
-  embedding rows.
+  program also the embedding lookup (its gathered rows, and its
+  elementwise work: the clamped gathers' selects and index checks and
+  the positional add), which the reference runs under its ``embed``
+  scope in a prefill and under none in a decode step
+  (``_decode_embed``), where its census files it under ``other``;
+  bytes: the unembed weight, the logits.
 * ``attention``: the attention kernels' K/V reads and the new rows' pool
   writes (formula below), and the dense copies a bucket fixes.
-* ``other``: norms, residual adds and the sampler (a coarse count); in
-  a VLM prefill also the ``CROSS`` layers' image K/V projection and its
-  write into the request's slot (the reference's ``cross_kv`` scope,
-  which its census's class rules leave in ``other``).
+* ``other``: norms, residual adds and the sampler (a coarse count), a
+  decode step's embedding lookup; in a VLM prefill also the ``CROSS``
+  layers' image K/V projection and its write into the request's slot
+  (the reference's ``cross_kv`` scope, which its census's class rules
+  leave in ``other``).
 
 A ``CROSS`` layer's query projection and its attention onto the
 request's ``n_img`` image K/V rows are ``attention`` (the reference's
@@ -66,42 +74,17 @@ it appends, at most ``K_pad·(K_pad+1)/2`` a request, are not counted).
 from __future__ import annotations
 
 import dataclasses
-from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 from repro_torch.configs.base import ATTN, CROSS, SHARED_ATTN, SSM, ArchConfig
+from repro_torch.core.analysis import ClassCost, OpCensus
 from repro_torch.kernels.decode_attention import split_plan
-from repro_torch.models.moe import capacity, token_chunks
+# the module, not its names: the models import this package (for
+# ``analysis.scope``) while they load
+from repro_torch.models import moe as moe_layer
 from repro_torch.models.params import (abstract_cache, param_specs,
                                        plan_structure, ssm_dims, tree_leaves)
 from repro_torch.sharding import BATCH, LAYERS, axes_of
-
-
-@dataclasses.dataclass
-class ClassCost:
-    flops: float = 0.0
-    bytes: float = 0.0
-    coll_bytes: float = 0.0
-
-    def add(self, other: "ClassCost", mult: float = 1.0):
-        self.flops += other.flops * mult
-        self.bytes += other.bytes * mult
-        self.coll_bytes += other.coll_bytes * mult
-
-
-@dataclasses.dataclass
-class OpCensus:
-    flops: float = 0.0
-    bytes: float = 0.0
-    coll_bytes: float = 0.0
-    per_class: Dict[str, ClassCost] = dataclasses.field(
-        default_factory=lambda: defaultdict(ClassCost))
-    per_collective: Dict[str, float] = dataclasses.field(
-        default_factory=lambda: defaultdict(float))
-
-    def arithmetic_intensity(self, cls: Optional[str] = None) -> float:
-        c = self.per_class[cls] if cls else self
-        return c.flops / max(c.bytes, 1.0)
 
 
 # the reference's step variants (its StepCensusCache keys)
@@ -214,12 +197,12 @@ def expert_rows(cfg: ArchConfig, variant: str, rows: int) -> int:
     padded rows: ``E * C`` a token chunk, ``C`` at the prefill capacity
     factor in a prefill and at the serve factor in a decode step (the
     dispatch buffer every expert reads, whatever the routing)."""
-    moe = cfg.moe
-    cf = moe.capacity_factor if variant in PREFILL_VARIANTS \
+    spec = cfg.moe
+    cf = spec.capacity_factor if variant in PREFILL_VARIANTS \
         else cfg.serve_capacity_factor
-    n = token_chunks(rows)
-    return n * moe.num_experts * capacity(cf, moe.top_k, rows // n,
-                                          moe.num_experts)
+    n = moe_layer.token_chunks(rows)
+    return n * spec.num_experts * moe_layer.capacity(
+        cf, spec.top_k, rows // n, spec.num_experts)
 
 
 def _ssm_state_bytes(cfg: ArchConfig) -> int:
@@ -440,7 +423,8 @@ def _model_terms(cen: _Census, rows: int, out_rows: int, seq: int,
                    out_isz=LOGIT_BYTES)
     learned = "pos" in embed
     lookups = 2 if learned else 1
-    cen.add("head", 0.0, lookups * rows * d * isz * passes / b)
+    cen.add("head" if prefill else "other", 0.0,
+            lookups * rows * d * isz * passes / b)
     # the clamped gathers' selects and index checks, the positional add
     embed_ops = rows * (lookups * d + (d if learned else 0)
                         + (7 if learned else 6))

@@ -12,7 +12,7 @@ comes from :mod:`repro_torch.core.census` (one card, no collectives).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.core.census import OpCensus, param_count
 from repro_torch.core.hardware import Hardware
@@ -32,6 +32,11 @@ class RooflineReport:
     per_class_ai: Dict[str, float]
     per_class_terms: Dict[str, Dict[str, float]]
     memory_gb_per_chip: float = 0.0
+    # a live report's bucket census as dispatched
+    # (repro_torch.core.analysis.Dispatched; None where not measured),
+    # beside the terms and not one of them
+    dispatched: Optional[object] = dataclasses.field(default=None,
+                                                     compare=False)
 
     @property
     def dominant(self) -> str:

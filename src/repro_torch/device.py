@@ -9,7 +9,9 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
     """``None`` means the card. Without a CUDA device, only an explicit
-    CPU request is honoured: nothing falls back to the CPU quietly."""
+    CPU request is honoured: nothing falls back to the CPU quietly. An
+    explicit ``"meta"`` gives shapes without data (a dispatch census at
+    no cost)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -17,7 +19,7 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
                 "no CUDA device: pass device='cpu' to run on the CPU")
         if dev.index is None:        # "cuda" and "cuda:<current>" agree
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

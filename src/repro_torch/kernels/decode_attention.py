@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.launches import count_launch
+from repro_torch.kernels.launches import (KernelCost, count_launch,
+                                          counted_kernel)
 
 NAME = "decode_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -239,23 +240,46 @@ def _check_args(q, k, v, lengths):
                          f"{k.stride()} and {v.stride()}")
 
 
+def decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                lengths: torch.Tensor, *, block_s: int = 256) -> KernelCost:
+    """One launch at these shapes, lengths unread: the padded cache's
+    ``B * S`` K/V rows read once, ``4 H hd`` FLOPs a row; q, the output
+    and the lengths once; the split scratch."""
+    B, H, hd = q.shape
+    _, S, K, _ = k.shape
+    scratch = 0
+    if B and S:
+        n = 1
+        for d in split_plan(B, S, K, H // K, hd).scratch_shape:
+            n *= d
+        scratch = 4 * n
+    return KernelCost(
+        flops=4.0 * B * S * H * hd,
+        bytes=float(2 * B * S * K * hd * k.element_size()
+                    + 2 * q.numel() * q.element_size()
+                    + 4 * lengths.numel()),
+        scratch=float(scratch))
+
+
+@counted_kernel("decode_attention", decode_cost)
 def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *,
                          block_s: int = 256) -> torch.Tensor:
     """Contiguous-cache decode attention: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors, an output with no work
+    for meta tensors."""
     if block_s < 1:
         raise ValueError(f"block_s must be >= 1, got {block_s}")
     if q.device.type == "cpu":
         return gqa_decode_attention_torch(q, k, v, lengths, block_s=block_s)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k, v, lengths)
     B, H, hd = q.shape
     _, S, K, _ = k.shape
     bs = min(block_s, S)
     out = torch.empty_like(q)
-    if B == 0:
+    if B == 0 or q.device.type == "meta":
         return out
     plan = split_plan(B, S, K, H // K, hd)
     part = torch.empty(plan.scratch_shape, dtype=torch.float32,

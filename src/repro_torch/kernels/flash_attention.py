@@ -36,10 +36,12 @@ import ctypes
 import functools
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.launches import count_launch
+from repro_torch.kernels.launches import (KernelCost, count_launch,
+                                          counted_kernel)
 
 NAME = "flash_attention"
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
@@ -191,6 +193,37 @@ def _check_args(q, k, v):
         raise ValueError("q, k and v must be contiguous")
 
 
+def attended_pairs(sq: int, skv: int, causal: bool, window: Optional[int],
+                   offset: int = 0) -> int:
+    """(query, key) pairs the masks keep at these shapes, lengths unread:
+    query ``i`` at id ``offset + i`` over key ids ``0 .. skv - 1``,
+    causal (``q_id >= kv_id``) and within ``window``."""
+    ids = np.arange(offset, offset + sq, dtype=np.int64)
+    hi = np.minimum(ids + 1, skv) if causal else np.full_like(ids, skv)
+    lo = np.zeros_like(ids) if window is None else \
+        np.maximum(ids - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _flash_bytes(q, k, v, lengths) -> float:
+    return float(sum(t.numel() * t.element_size() for t in (q, k, v))
+                 + q.numel() * q.element_size()
+                 + (0 if lengths is None else 4 * lengths.numel()))
+
+
+def flash_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, window: Optional[int] = None,
+               lengths: Optional[torch.Tensor] = None, **_) -> KernelCost:
+    """One launch at these shapes, lengths unread: q, k, v and the output
+    once each; ``4 hd`` FLOPs a head and a pair the masks keep."""
+    B, Sq, H, hd = q.shape
+    return KernelCost(
+        flops=4.0 * B * H * hd * attended_pairs(Sq, k.shape[1], causal,
+                                                window),
+        bytes=_flash_bytes(q, k, v, lengths))
+
+
+@counted_kernel("flash_attention", flash_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     lengths: Optional[torch.Tensor] = None,
@@ -209,6 +242,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_torch(q, k, v, causal=causal, window=window,
                                      lengths=lengths, block_q=block_q,
                                      block_s=block_s)
+    if q.device.type == "meta":
+        _check_args(q, k, v)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k, v)
@@ -328,12 +364,28 @@ def _check_prefix_args(q, k_all, prefix_pad, prefix_len, lengths, window):
                          f"{tuple(lengths.shape)}")
 
 
+def flash_prefix_cost(q: torch.Tensor, k_all: torch.Tensor,
+                      v_all: torch.Tensor, *, prefix_pad: int, prefix_len,
+                      lengths: torch.Tensor,
+                      window: Optional[int] = None) -> KernelCost:
+    """One launch at these shapes, the prefix length and lengths unread
+    (every prefix slot taken as valid): q, k, v and the output once each;
+    ``4 hd`` FLOPs a head and a causal pair."""
+    B, Sq, H, hd = q.shape
+    return KernelCost(
+        flops=4.0 * B * H * hd * attended_pairs(
+            Sq, k_all.shape[1], True, window, offset=prefix_pad),
+        bytes=_flash_bytes(q, k_all, v_all, lengths))
+
+
+@counted_kernel("flash_prefix_attention", flash_prefix_cost)
 def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
                            v_all: torch.Tensor, *, prefix_pad: int,
                            prefix_len: PrefixLen, lengths: torch.Tensor,
                            window: Optional[int] = None) -> torch.Tensor:
     """Causal prefill attention of a suffix over ``[prefix || suffix]``
-    keys: the kernel for CUDA tensors, the plain version for CPU tensors.
+    keys: the kernel for CUDA tensors, the plain version for CPU tensors,
+    an output with no work for meta tensors.
 
     ``q [B,S,H,hd]`` holds the suffix's queries (ids ``prefix_len + i``);
     ``k_all/v_all [B, prefix_pad + S', K, hd]`` the prefix's
@@ -356,6 +408,9 @@ def flash_prefix_attention(q: torch.Tensor, k_all: torch.Tensor,
         return flash_prefix_attention_torch(
             q, k_all, v_all, prefix_pad=prefix_pad, prefix_len=prefix_len,
             lengths=lengths, window=window)
+    if q.device.type == "meta":
+        _check_args(q, k_all, v_all)
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k_all, v_all)

@@ -29,7 +29,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.launches import count_launch
+from repro_torch.kernels.launches import (KernelCost, count_launch,
+                                          counted_kernel)
 from repro_torch.kernels.decode_attention import (
     KERNEL_HEAD_DIMS, MAX_GROUP, SplitPlan, merge_live_splits_torch,
     split_partial_torch, split_plan)
@@ -188,23 +189,54 @@ def _check_args(q, k_pool, v_pool, block_table, lengths):
         raise ValueError("q, k_pool and v_pool must be 16-byte aligned")
 
 
+def paged_cost(q: torch.Tensor, k_pool: torch.Tensor,
+               v_pool: torch.Tensor, block_table: torch.Tensor,
+               lengths: torch.Tensor) -> KernelCost:
+    """One launch at these shapes, lengths unread: every K/V row the table
+    can address (``B * nb * BS``) read once, ``4 H hd`` FLOPs a row; q,
+    the output, the table and the lengths once; the split scratch."""
+    B, H, hd = q.shape
+    _, BS, K, _ = k_pool.shape
+    nb = block_table.shape[1]
+    rows = B * nb * BS
+    scratch = 0
+    if B:
+        plan = paged_split_plan(B, nb, BS, K, H // K, hd)
+        scratch = 4 * _numel(plan.scratch_shape)
+    return KernelCost(
+        flops=4.0 * rows * H * hd,
+        bytes=float(2 * rows * K * hd * k_pool.element_size()
+                    + 2 * q.numel() * q.element_size()
+                    + 4 * (block_table.numel() + lengths.numel())),
+        scratch=float(scratch))
+
+
+def _numel(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
+
+
+@counted_kernel("paged_decode_attention", paged_cost)
 def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                block_table: torch.Tensor,
                                lengths: torch.Tensor) -> torch.Tensor:
     """Block-table decode attention: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors, an output with no work for meta
+    tensors."""
     if q.device.type == "cpu":
         return paged_gqa_decode_attention_torch(q, k_pool, v_pool,
                                                 block_table, lengths)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k_pool, v_pool, block_table, lengths)
     B, H, hd = q.shape
     _, BS, K, _ = k_pool.shape
     nb = block_table.shape[1]
     out = torch.empty_like(q)
-    if B == 0:
+    if B == 0 or q.device.type == "meta":
         return out
     plan = paged_split_plan(B, nb, BS, K, H // K, hd)
     part = torch.empty(plan.scratch_shape, dtype=torch.float32,

@@ -15,6 +15,15 @@ seconds to build the case and ``compile_s`` to build and price it. The
 reference's two CPU-artifact keys (``cpu_upcast_artifact_bytes``,
 ``peak_bytes_tpu_adjusted``) have no counterpart.
 
+A case on the one-device mesh also records ``dispatched``: its step run
+on the meta arguments under a dispatch census
+(:func:`~repro_torch.core.analysis.census_of`), the FLOPs, bytes and
+launches by class of the operations it dispatches and the peak of its
+temporaries, the measured counterparts of the census and of
+``temp_bytes`` (the reference reads both off its compiled program). On
+a mesh of more than one device it is ``"not measured"``: a per-device
+program needs the sharded model (``dispatched_needs``).
+
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2.5-3b \\
         --shape decode_32k [--multi-pod] [--out experiments/dryrun_torch]
@@ -32,14 +41,15 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.configs import ASSIGNED
+from repro_torch.core.analysis import Dispatched, census_of
 from repro_torch.core.census import (StepShape, dryrun_census,
                                      dryrun_temp_bytes)
 from repro_torch.core.hardware import H100_SXM5_80GB, Hardware
 from repro_torch.core.roofline import roofline_report
 from repro_torch.launch.input_specs import (SHAPES, DryRunCase, SkipCase,
                                             build_case)
-from repro_torch.launch.mesh import (Mesh, make_mesh, make_production_mesh,
-                                     mesh_chips)
+from repro_torch.launch.mesh import (MULTI_CARD_ITEM, Mesh, make_mesh,
+                                     make_production_mesh, mesh_chips)
 from repro_torch.sharding import shard_shape
 
 MESHES = ("pod16x16", "pod2x16x16", "1x1")
@@ -98,9 +108,27 @@ def case_memory(case: DryRunCase) -> Dict[str, float]:
             "temp_bytes": float(temp), "peak_bytes": arg + float(temp)}
 
 
+def dispatched_record(d: Dispatched) -> dict:
+    """A dispatch census as a record: totals, and FLOPs, bytes and
+    launches by class; the hand-written kernels' launches; the peak of the
+    temporaries."""
+    per_class = {cls: {"flops": c.flops, "bytes": c.bytes,
+                       "launches": d.launches.per_class.get(cls, 0)}
+                 for cls, c in d.census.per_class.items()}
+    return {"flops": d.census.flops, "bytes": d.census.bytes,
+            "coll_bytes": d.census.coll_bytes, "per_class": per_class,
+            "launches": d.launches.total,
+            "kernel_launches": dict(d.launches.kernels),
+            "temp_bytes": float(d.temp_bytes)}
+
+
 def run_case(arch: str, shape: str, mesh_name: str, out_dir: Optional[str],
              verbose: bool = True, variant: Optional[str] = None,
-             hw: Hardware = H100_SXM5_80GB) -> dict:
+             hw: Hardware = H100_SXM5_80GB, dispatched: bool = True) -> dict:
+    """Build and price one case into a record; on the one-device mesh
+    with ``dispatched`` also run its step on the meta arguments under a
+    dispatch census (a train case dispatches ~10^5 operations, tens of
+    seconds on the host)."""
     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "status": "?",
            "variant": variant or "baseline"}
     t0 = time.time()
@@ -119,6 +147,12 @@ def run_case(arch: str, shape: str, mesh_name: str, out_dir: Optional[str],
             chips=mesh_chips(mesh), model_flops=case.model_flops,
             memory_bytes_per_chip=mem["peak_bytes"])
         t2 = time.time()
+        if mesh.size > 1:
+            rec.update(dispatched="not measured",
+                       dispatched_needs=MULTI_CARD_ITEM)
+        elif dispatched:
+            rec["dispatched"] = dispatched_record(
+                census_of(case.fn, *case.args))
         fits = mem["peak_bytes"] <= hw.hbm_bytes
         rec.update(
             status="ok", lower_s=round(t1 - t0, 3),

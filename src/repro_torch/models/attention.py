@@ -9,7 +9,10 @@ Counterparts of ``repro.models.attention`` ``qkv_project``,
 with the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv
 [d,k,hd]``, ``wo [h,hd,d]``). Attention itself goes through
 ``kernels.ops``: the hand-written CUDA kernels for CUDA tensors, their
-plain versions on the CPU.
+plain versions on the CPU. Each part runs under the reference's scope
+(:func:`~repro_torch.core.analysis.scope`: ``qkv_proj``, ``kv_update``,
+``attn_core``, ``attn_out``, ``cross_kv``, ``cross_attn``) at the
+reference's site.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.analysis import scope
 from repro_torch.device import on_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
@@ -30,23 +34,25 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
     """x: [B,S,D] -> q [B,S,K,G,hd], k,v [B,S,K,hd] (rope applied)."""
     B, S, D = x.shape
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
-    kk = (x @ p["wk"].reshape(D, k * hd)).reshape(B, S, k, hd)
-    vv = (x @ p["wv"].reshape(D, k * hd)).reshape(B, S, k, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        kk = kk + p["bk"]
-        vv = vv + p["bv"]
-    if cfg.pos == "rope" and positions is not None:
-        q = rope(q, positions, cfg.rope_theta)
-        kk = rope(kk, positions, cfg.rope_theta)
+    with scope("qkv_proj"):
+        q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
+        kk = (x @ p["wk"].reshape(D, k * hd)).reshape(B, S, k, hd)
+        vv = (x @ p["wv"].reshape(D, k * hd)).reshape(B, S, k, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+            kk = kk + p["bk"]
+            vv = vv + p["bv"]
+        if cfg.pos == "rope" and positions is not None:
+            q = rope(q, positions, cfg.rope_theta)
+            kk = rope(kk, positions, cfg.rope_theta)
     return q.reshape(B, S, k, h // k, hd), kk, vv
 
 
 def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """o: [B,S,H*hd] -> [B,S,D]."""
     hhd = cfg.n_heads * cfg.hd
-    return o.reshape(*o.shape[:2], hhd) @ p["wo"].reshape(hhd, -1)
+    with scope("attn_out"):
+        return o.reshape(*o.shape[:2], hhd) @ p["wo"].reshape(hhd, -1)
 
 
 def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -83,9 +89,10 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     q, k, v = qkv_project(p, x, cfg, positions)
     q = q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous()
     if prefix_k is None:
-        o = ops.prefill_attention(q, k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window,
-                                  lengths=lengths)
+        with scope("attn_core"):
+            o = ops.prefill_attention(q, k.contiguous(), v.contiguous(),
+                                      causal=causal, window=window,
+                                      lengths=lengths)
     else:
         pad = prefix_k.shape[1]
         k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
@@ -95,9 +102,10 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             lengths = (total.reshape(1).expand(B)
                        if isinstance(total, torch.Tensor) else
                        torch.full((B,), total, device=x.device))
-        o = ops.prefill_prefix_attention(
-            q, k_all.contiguous(), v_all.contiguous(), prefix_pad=pad,
-            prefix_len=prefix_len, lengths=lengths, window=window)
+        with scope("attn_core"):
+            o = ops.prefill_prefix_attention(
+                q, k_all.contiguous(), v_all.contiguous(), prefix_pad=pad,
+                prefix_len=prefix_len, lengths=lengths, window=window)
     return out_project(p, o.reshape(B, S, -1), cfg), (k, v)
 
 
@@ -135,25 +143,31 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
         _check_ring(cache_k.shape[1], window, ragged, pos, lengths)
     q, k_new, v_new = qkv_project(p, x, cfg,
                                   pos[:, None] if ragged else pos.reshape(1))
+    with scope("kv_update"):
+        if ragged:
+            rows = torch.arange(B, device=x.device)
+            cache_k.index_put_((rows, pos.long()),
+                               k_new[:, 0].to(cache_k.dtype))
+            cache_v.index_put_((rows, pos.long()),
+                               v_new[:, 0].to(cache_v.dtype))
+        else:
+            slot = pos.long().reshape(1)
+            if window is not None:
+                slot = slot % cache_k.shape[1]
+            cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+            cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
     if ragged:
-        rows = torch.arange(B, device=x.device)
-        cache_k.index_put_((rows, pos.long()), k_new[:, 0].to(cache_k.dtype))
-        cache_v.index_put_((rows, pos.long()), v_new[:, 0].to(cache_v.dtype))
         eff = lengths if lengths is not None else pos + 1
     else:
-        slot = pos.long().reshape(1)
-        if window is not None:
-            slot = slot % cache_k.shape[1]
-        cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
-        cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
         eff = (pos + 1).expand(B)
         if window is not None:
             eff = eff.clamp(max=cache_k.shape[1])
         if lengths is not None:
             eff = torch.minimum(eff, lengths)
-    o = ops.decode_attention(
-        q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), cache_k, cache_v,
-        eff.to(torch.int32).contiguous())
+    with scope("attn_core"):
+        o = ops.decode_attention(
+            q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), cache_k, cache_v,
+            eff.to(torch.int32).contiguous())
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
 
@@ -200,11 +214,13 @@ def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
     pos = positions.long()
     phys = tables[torch.arange(B, device=x.device), pos // block_size].long()
     sib = pos % block_size
-    k_pool.index_put_((phys, sib), k_new[:, 0].to(k_pool.dtype))
-    v_pool.index_put_((phys, sib), v_new[:, 0].to(v_pool.dtype))
-    o = ops.paged_decode_attention(
-        q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), k_pool, v_pool,
-        tables, lengths)
+    with scope("kv_update"):
+        k_pool.index_put_((phys, sib), k_new[:, 0].to(k_pool.dtype))
+        v_pool.index_put_((phys, sib), v_new[:, 0].to(v_pool.dtype))
+    with scope("attn_core"):
+        o = ops.paged_decode_attention(
+            q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), k_pool, v_pool,
+            tables, lengths)
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
 
@@ -215,9 +231,10 @@ def cross_attn_kv(p: Params, img_embeds: torch.Tensor,
     (the reference's ``cross_attn_kv``)."""
     B, N, D = img_embeds.shape
     kh, hd = cfg.n_kv_heads, cfg.hd
-    img = img_embeds.to(p["wk"].dtype)
-    k = (img @ p["wk"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
-    v = (img @ p["wv"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
+    with scope("cross_kv"):
+        img = img_embeds.to(p["wk"].dtype)
+        k = (img @ p["wk"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
+        v = (img @ p["wv"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
     return k, v
 
 
@@ -232,16 +249,18 @@ def cross_attn_apply(p: Params, x: torch.Tensor, k: torch.Tensor,
     kernel with every length ``n_img``. Returns ``[B,S,D]``."""
     B, S, D = x.shape
     h, hd = cfg.n_heads, cfg.hd
-    q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"]
+    with scope("cross_attn"):
+        q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"]
     k, v = k.to(x.dtype), v.to(x.dtype)
-    if decode:
-        lens = torch.full((B,), k.shape[1], dtype=torch.int32,
-                          device=x.device)
-        o = ops.decode_attention(q.reshape(B, h, hd).contiguous(),
-                                 k.contiguous(), v.contiguous(), lens)
-    else:
-        o = ops.prefill_attention(q.contiguous(), k.contiguous(),
-                                  v.contiguous(), causal=False)
+    with scope("attn_core"):
+        if decode:
+            lens = torch.full((B,), k.shape[1], dtype=torch.int32,
+                              device=x.device)
+            o = ops.decode_attention(q.reshape(B, h, hd).contiguous(),
+                                     k.contiguous(), v.contiguous(), lens)
+        else:
+            o = ops.prefill_attention(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), causal=False)
     return out_project(p, o.reshape(B, S, -1).to(x.dtype), cfg)

@@ -3,7 +3,10 @@
 Plain functions on tensors, one per reference function
 (``repro.models.layers``), taking the same parameter dicts and layouts:
 ``w1/w3 [d,f]``, ``w2 [f,d]``, ``tok [Vp,d]``, ``pos [max_position,d]``,
-``unemb [d,Vp]``.
+``unemb [d,Vp]``. The MLP, the embedding of a sequence's tokens and
+the unembedding run under the reference's scopes (``mlp``, ``embed``,
+``logits``); a decode row's embedding runs under none, as the
+reference's ``_decode_embed`` does.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.analysis import scope
 
 Params = Dict[str, torch.Tensor]
 
@@ -55,23 +59,30 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    h = x @ p["w1"]
-    if cfg.act == "swiglu":
-        h = F.silu(h.float()).to(x.dtype) * (x @ p["w3"])
-    elif cfg.act == "gelu":
-        # the reference's jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    else:
-        h = torch.clamp_min(h, 0)
-    return h @ p["w2"]
+    with scope("mlp"):
+        h = x @ p["w1"]
+        if cfg.act == "swiglu":
+            h = F.silu(h.float()).to(x.dtype) * (x @ p["w3"])
+        elif cfg.act == "gelu":
+            # the reference's jax.nn.gelu defaults to the tanh approximation
+            h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+        else:
+            h = torch.clamp_min(h, 0)
+        return h @ p["w2"]
 
 
-def embed_apply(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
-                cfg: ArchConfig) -> torch.Tensor:
+def _lookup(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
+            cfg: ArchConfig) -> torch.Tensor:
     x = p["tok"][tokens].to(cfg.activation_dtype)
     if cfg.pos == "learned":
         x = x + p["pos"][positions].to(x.dtype)
     return x
+
+
+def embed_apply(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
+                cfg: ArchConfig) -> torch.Tensor:
+    with scope("embed"):
+        return _lookup(p, tokens, positions, cfg)
 
 
 def embed_inputs(p: Params, cfg: ArchConfig, positions: torch.Tensor,
@@ -102,14 +113,15 @@ def decode_embed(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
     1]``, or ``[1]`` for one position shared by the batch)."""
     if embeds is not None:
         return embeds.to(cfg.activation_dtype)
-    return embed_apply(p, tokens.long()[:, None], positions, cfg)
+    return _lookup(p, tokens.long()[:, None], positions, cfg)
 
 
 def unembed_apply(p: Params, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
     """Float32 logits over the padded vocab; padded columns are -1e30."""
-    w = p["tok"].T if cfg.tie_embeddings else p["unemb"]
-    logits = (x @ w.to(x.dtype)).float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
-    return logits
+    with scope("logits"):
+        w = p["tok"].T if cfg.tie_embeddings else p["unemb"]
+        logits = (x @ w.to(x.dtype)).float()
+        if cfg.padded_vocab != cfg.vocab_size:
+            logits[..., cfg.vocab_size:].fill_(-1e30)
+        return logits

@@ -59,6 +59,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import CROSS, SHARED_ATTN, SSM, ArchConfig
+from repro_torch.core.analysis import scope
 from repro_torch.device import on_device, resolve_device
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
@@ -450,10 +451,12 @@ class Model(nn.Module):
         logits, aux = self.train_forward(batch)
         labels = on_device(batch["labels"], self.device).long()
         valid = labels >= 0
-        picked = logits.gather(-1, torch.where(valid, labels, 0)[..., None])
-        ce = torch.where(valid, torch.logsumexp(logits, dim=-1)
-                         - picked[..., 0], 0.0)
-        return ce.sum() / valid.sum().clamp_min(1) + aux
+        labs = torch.where(valid, labels, 0)
+        with scope("loss"):
+            picked = logits.gather(-1, labs[..., None])
+            ce = torch.where(valid, torch.logsumexp(logits, dim=-1)
+                             - picked[..., 0], 0.0)
+            return ce.sum() / valid.sum().clamp_min(1) + aux
 
     @torch.no_grad()
     def prefill(self, tokens: Optional[torch.Tensor],

@@ -25,6 +25,10 @@ of training (GShard/Switch): ``E * sum_e f_e * p_e`` a chunk, ``f_e`` the
 share of the chunk's rows whose first choice is expert ``e`` and ``p_e``
 its mean router probability, averaged over the chunks and scaled by
 ``moe.aux_loss_weight``.
+
+The router, the dispatch write, the experts and the combine run under
+the reference's scopes (``router``, ``moe_dispatch``, ``expert_ffn``,
+``moe_gather``).
 """
 from __future__ import annotations
 
@@ -35,7 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import mlp_apply
+from repro_torch.core.analysis import scope
+# the module, not its names: importing the core package (for ``scope``)
+# imports this module's helpers back through the census
+from repro_torch.models import layers
 
 Params = Dict[str, torch.Tensor]
 
@@ -61,10 +68,11 @@ def _route(x: torch.Tensor, router: torch.Tensor, top_k: int
     """``x [T, d]`` -> ``(probs [T, E] float32, weights [T, k] in x's
     dtype, expert ids [T, k])``: a float32 softmax over the router's
     logits, its top ``k`` (ties to the lower id) renormalised."""
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
-    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, idx = w[:, :top_k], idx[:, :top_k]
-    w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
+    with scope("router"):
+        probs = torch.softmax(x.float() @ router.float(), dim=-1)
+        w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        w, idx = w[:, :top_k], idx[:, :top_k]
+        w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-9)
     return probs, w.to(x.dtype), idx
 
 
@@ -87,14 +95,15 @@ def _expert_ffn(h: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                 w3, act: str) -> torch.Tensor:
     """``h [E, C, d]`` through each expert's FFN (``w1/w3 [E, d, f]``,
     ``w2 [E, f, d]``): one batched GEMM an expert weight."""
-    u = torch.bmm(h, w1)
-    if act == "swiglu":
-        u = F.silu(u.float()).to(h.dtype) * torch.bmm(h, w3)
-    elif act == "gelu":
-        u = F.gelu(u.float(), approximate="tanh").to(h.dtype)
-    else:
-        u = torch.clamp_min(u, 0)
-    return torch.bmm(u, w2)
+    with scope("expert_ffn"):
+        u = torch.bmm(h, w1)
+        if act == "swiglu":
+            u = F.silu(u.float()).to(h.dtype) * torch.bmm(h, w3)
+        elif act == "gelu":
+            u = F.gelu(u.float(), approximate="tanh").to(h.dtype)
+        else:
+            u = torch.clamp_min(u, 0)
+        return torch.bmm(u, w2)
 
 
 def _one_chunk(p: Params, xt: torch.Tensor, cfg: ArchConfig, C: int,
@@ -108,12 +117,14 @@ def _one_chunk(p: Params, xt: torch.Tensor, cfg: ArchConfig, C: int,
     # last row, which nothing reads (the reference adds x * 0 to slot 0)
     dest = torch.where(keep, slot, torch.full_like(slot, E * C)).reshape(-1)
     buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
-    buf.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
+    with scope("moe_dispatch"):
+        buf.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
     y = _expert_ffn(buf[:E * C].view(E, C, d), p["w1"], p["w2"],
                     p.get("w3"), cfg.act).reshape(E * C, d)
-    picked = y.index_select(0, slot.reshape(-1)).view(T, k, d)
-    picked = picked * (wts * keep.to(wts.dtype))[..., None]
-    out = picked.float().sum(1).to(xt.dtype)
+    with scope("moe_gather"):
+        picked = y.index_select(0, slot.reshape(-1)).view(T, k, d)
+        picked = picked * (wts * keep.to(wts.dtype))[..., None]
+        out = picked.float().sum(1).to(xt.dtype)
     if not with_aux:
         return out, None
     f_e = F.one_hot(idx[:, 0], E).float().mean(0)
@@ -138,7 +149,7 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     out = torch.cat([o for o, _ in parts]) if n > 1 else parts[0][0]
     out = out.reshape(B, S, d)
     if moe.dense_residual:
-        out = out + mlp_apply(p["dense"], x, cfg)
+        out = out + layers.mlp_apply(p["dense"], x, cfg)
     if not with_aux:
         return out
     aux = torch.stack([a for _, a in parts]).mean()

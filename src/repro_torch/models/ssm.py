@@ -17,7 +17,9 @@ conv, then ``dt``), ``conv_w [W, conv_ch]``, ``conv_b``, ``a_log``,
 * :func:`ssm_decode` is one token against the state ``{"h", "conv"}``.
 
 The SSD einsums, the conv and the state update run as PyTorch operations
-(the reference computes them outside any Pallas kernel).
+(the reference computes them outside any Pallas kernel), under the
+reference's scopes (``ssm_in_proj``, ``ssd_intra``, ``ssd_state``,
+``ssm_state_update``, ``ssm_out_proj``).
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.analysis import scope
 from repro_torch.models.layers import gated_rmsnorm_apply
 from repro_torch.models.params import ssm_dims
 
@@ -94,17 +97,19 @@ def ssd_chunked(xs: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         x_c, d_c, B_c, C_c = xs_f[:, c], dt_c[:, c], Bc[:, c], Cc[:, c]
         dA = d_c * A                                            # [B,Q,H]
         cs = torch.cumsum(dA, dim=1)
-        seg = cs[:, :, None, :] - cs[:, None, :, :]             # [B,Qi,Qj,H]
-        L = torch.where(tri, torch.exp(seg), 0.0)
-        CB = torch.einsum("bign,bjgn->bijg", C_c, B_c)
-        M = _expand(CB, rep, -1) * L * d_c[:, None, :, :]
-        y_intra = torch.einsum("bijh,bjhp->bihp", M, x_c)
-        w_last = torch.exp(cs[:, -1:, :] - cs) * d_c            # [B,Q,H]
-        chunk_state = torch.einsum("bqh,bqhn,bqhp->bhpn", w_last,
-                                   _expand(B_c, rep, -2), x_c)
-        y_inter = torch.einsum("bqhn,bhpn->bqhp", _expand(C_c, rep, -2),
-                               h) * torch.exp(cs)[..., None]
-        h = h * torch.exp(dA.sum(1))[:, :, None, None] + chunk_state
+        with scope("ssd_intra"):
+            seg = cs[:, :, None, :] - cs[:, None, :, :]         # [B,Qi,Qj,H]
+            L = torch.where(tri, torch.exp(seg), 0.0)
+            CB = torch.einsum("bign,bjgn->bijg", C_c, B_c)
+            M = _expand(CB, rep, -1) * L * d_c[:, None, :, :]
+            y_intra = torch.einsum("bijh,bjhp->bihp", M, x_c)
+        with scope("ssd_state"):
+            w_last = torch.exp(cs[:, -1:, :] - cs) * d_c        # [B,Q,H]
+            chunk_state = torch.einsum("bqh,bqhn,bqhp->bhpn", w_last,
+                                       _expand(B_c, rep, -2), x_c)
+            y_inter = torch.einsum("bqhn,bhpn->bqhp", _expand(C_c, rep, -2),
+                                   h) * torch.exp(cs)[..., None]
+            h = h * torch.exp(dA.sum(1))[:, :, None, None] + chunk_state
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(Bn, NC * Q, H, P)[:, :S]
     return y.to(xs.dtype), h
@@ -117,9 +122,11 @@ def _state_update(h: torch.Tensor, dt1: torch.Tensor, A: torch.Tensor,
     ``ssm_state_update`` scope): ``h [B, H, P, N]`` decays by
     ``exp(dt * A)`` and takes ``dt * x B^T``; ``y = h C``. Returns ``(h,
     y [B, H, P])``."""
-    h = h.float() * torch.exp(dt1 * A)[:, :, None, None] \
-        + dt1[:, :, None, None] * xs.float()[..., None] * Bh[:, :, None, :]
-    return h, torch.einsum("bhpn,bhn->bhp", h, Ch)
+    with scope("ssm_state_update"):
+        h = h.float() * torch.exp(dt1 * A)[:, :, None, None] \
+            + dt1[:, :, None, None] * xs.float()[..., None] \
+            * Bh[:, :, None, :]
+        return h, torch.einsum("bhpn,bhn->bhp", h, Ch)
 
 
 def _project(xbc_conv: torch.Tensor, cfg: ArchConfig):
@@ -146,7 +153,9 @@ def ssm_seq(p: Params, x: torch.Tensor, cfg: ArchConfig,
     W = cfg.ssm.conv_width
     d_in = ssm_dims(cfg)[0]
     B, S, _ = x.shape
-    z, xbc, dt = _split(x @ p["in_proj"], cfg)
+    with scope("ssm_in_proj"):
+        zxbcdt = x @ p["in_proj"]
+    z, xbc, dt = _split(zxbcdt, cfg)
     if conv0 is not None:
         ext = torch.cat([conv0.to(xbc.dtype), xbc], dim=1)
         xbc_conv = _conv_full(ext, p["conv_w"], p["conv_b"])[
@@ -161,7 +170,9 @@ def ssm_seq(p: Params, x: torch.Tensor, cfg: ArchConfig,
     y = gated_rmsnorm_apply(p["norm"], y.reshape(B, S, d_in), z)
     tail = xbc[:, -(W - 1):] if S >= W - 1 else \
         F.pad(xbc, (0, 0, W - 1 - S, 0))
-    return y @ p["out_proj"], {"h": h_final, "conv": tail}
+    with scope("ssm_out_proj"):
+        out = y @ p["out_proj"]
+    return out, {"h": h_final, "conv": tail}
 
 
 def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -173,7 +184,9 @@ def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     s = cfg.ssm
     d_in, nh, _ = ssm_dims(cfg)
     B = x.shape[0]
-    z, xbc, dt = _split(x @ p["in_proj"], cfg)
+    with scope("ssm_in_proj"):
+        zxbcdt = x @ p["in_proj"]
+    z, xbc, dt = _split(zxbcdt, cfg)
     xbc_conv, conv_new = _conv_step(state["conv"].to(xbc.dtype), xbc,
                                     p["conv_w"], p["conv_b"])
     xs, B_, C_ = _project(xbc_conv[:, 0], cfg)         # [B,H,P], [B,G,N]
@@ -184,4 +197,6 @@ def ssm_decode(p: Params, x: torch.Tensor, state: Dict[str, torch.Tensor],
     h, y = _state_update(state["h"], dt1, A, xs, Bh, Ch)
     y = (y + xs.float() * p["d_skip"][None, :, None]).to(x.dtype)
     y = gated_rmsnorm_apply(p["norm"], y.reshape(B, 1, d_in), z)
-    return y @ p["out_proj"], {"h": h, "conv": conv_new}
+    with scope("ssm_out_proj"):
+        out = y @ p["out_proj"]
+    return out, {"h": h, "conv": conv_new}

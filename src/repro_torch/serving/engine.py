@@ -632,6 +632,7 @@ class ContinuousBatchingEngine:
         S = self.steps.prefill_key(n, start, nb_pad)[1]
         sc = obs.census.get(variant, (S, nb_pad) if start else (S,),
                             cfg=self.cfg, block_size=self.ecfg.block_size)
+        self.steps.census_for = sc
         t0 = time.perf_counter()
         logits = call()
         t1 = time.perf_counter()
@@ -756,7 +757,9 @@ class ContinuousBatchingEngine:
         live attention work (:class:`~repro_torch.core.census.LiveWork`:
         its rows, their summed lengths, their live table entries), read
         on the host at staging; stashes the bucket facts for the
-        memory-gap auditor. Returns ``(census, live)``."""
+        memory-gap auditor and hands the census to the step
+        (:attr:`~repro_torch.serving.steps.StepFunctions.census_for`).
+        Returns ``(census, live)``."""
         rids, positions = plan.rids, plan.positions
         if variant == "decode_gather":
             width = self.steps.gather_bucket(positions)
@@ -772,8 +775,12 @@ class ContinuousBatchingEngine:
         self._last_buckets = (bucket[0], width, entries)
         live = LiveWork(rows=len(rids), context=sum(positions) + len(rids),
                         entries=entries)
-        return self.obs.census.get(variant, bucket, cfg=self.cfg,
-                                   block_size=self.ecfg.block_size), live
+        sc = self.obs.census.get(variant, bucket, cfg=self.cfg,
+                                 block_size=self.ecfg.block_size)
+        # the step's eager body (a first use), if it runs one, fills the
+        # bucket's dispatched census
+        self.steps.census_for = sc
+        return sc, live
 
     def _observed_sync(self, variant: str, plan: StepPlan, dispatch,
                        fetch) -> np.ndarray:

@@ -7,7 +7,12 @@
   config and the bucket (:func:`repro_torch.core.census.step_census`;
   the reference compiles the step ahead of time and reads its XLA
   program, which a CUDA graph does not have). The cache is keyed by
-  ``(variant, bucket)``, so a steady step pays one dict lookup.
+  ``(variant, bucket)``, so a steady step pays one dict lookup. The
+  bucket's eager first use (the warm-up before its capture; without
+  graphs, its first step) then runs under a dispatch census
+  (:mod:`repro_torch.core.analysis`), kept as the census's
+  ``dispatched``: FLOPs, bytes and launches by class of the operations
+  the graph replays. Samples keep reading the analytic census.
 * **Per step** (:class:`LiveRoofline`): every executed step is tagged
   with its bucket's census, its live attention work (the engine's
   :class:`~repro_torch.core.census.LiveWork`: the same bucket at a
@@ -23,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from repro_torch.core.analysis import Dispatched
 from repro_torch.core.census import (ClassCost, LiveWork, OpCensus,
                                      attention_cost, step_census,
                                      with_attention)
@@ -32,16 +38,20 @@ from repro_torch.serving.obs.series import (DEFAULT_SERIES_MAXLEN,
                                             BoundedSeries)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class StepCensus:
     """One step variant's census in one bucket: the part the bucket
     fixes (weights, padded-row FLOPs, activations, the bucket's dense
-    copies). A sample adds its live attention terms (:meth:`live`)."""
+    copies). A sample adds its live attention terms (:meth:`live`).
+    ``dispatched`` is the dispatch census of the bucket's eager body,
+    once a step has run it (None before)."""
     variant: str                 # "decode" / "chunk_prefill" / ...
     key: Tuple                   # the shape bucket
     census: OpCensus             # per-kernel-class FLOPs / bytes
     cfg: object = dataclasses.field(compare=False, repr=False, default=None)
     block_size: int = 0
+    dispatched: Optional[Dispatched] = dataclasses.field(
+        compare=False, default=None)
 
     @property
     def flops(self) -> float:
@@ -211,9 +221,12 @@ class LiveRoofline:
                arch: str = "", mesh: str = "live") -> Optional[RooflineReport]:
         """The newest census of ``variant`` (its live terms included)
         folded through the offline roofline formula
-        (:func:`repro_torch.core.roofline.roofline_report`)."""
+        (:func:`repro_torch.core.roofline.roofline_report`), its bucket's
+        dispatched census beside it (``dispatched``)."""
         sc = self.latest.get(variant)
         if sc is None:
             return None
-        return roofline_report(sc.census, self.hw, arch=arch,
-                               shape=variant, mesh=mesh)
+        rep = roofline_report(sc.census, self.hw, arch=arch,
+                              shape=variant, mesh=mesh)
+        rep.dispatched = sc.dispatched
+        return rep

@@ -77,6 +77,14 @@ first token's sample stays outside the graph, as the reference's separate
   engine's stream, kept as :attr:`StepFunctions.last`
   (:class:`StepTiming`); nothing is recorded inside a capture, and a
   bucket's first use is marked as such. Off, no event is created.
+* A step given a bucket census without a dispatched one
+  (:attr:`StepFunctions.census_for`, which the engine sets while an
+  observer is attached) runs its eager body under a
+  :class:`~repro_torch.core.analysis.DispatchCensus` (a first use's
+  warm-up; without graphs, the eager step itself) and fills the
+  census's ``dispatched``: the operations the graph then replays. A
+  replay takes none. :meth:`StepFunctions.meta_twin` runs the same
+  bodies on meta tensors (:meth:`StepFunctions.body`).
 
 The graphs capture the pool's addresses, so the pool is written in
 place (as it always is in the port) and every write to it goes on the
@@ -95,6 +103,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.analysis import DispatchCensus
 from repro_torch.kernels.launches import add_counts, tally_launches
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kvcache.paged import PagedKVCache
@@ -102,7 +111,7 @@ from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
                                       prefill_size, step_fields, step_size,
                                       verify_fields, verify_size)
 from repro_torch.models.model import Model
-from repro_torch.models.params import cache_layers
+from repro_torch.models.params import cache_layers, map_tree
 from repro_torch.models.sampler import fold_keys, sample_tokens_device
 from repro_torch.serving.spec.verify import (spec_verify_body, stack_drafts,
                                              verify_keys)
@@ -329,6 +338,9 @@ class StepFunctions:
         # the newest step's StepTiming; off, no event is created
         self.timing = False
         self.last: Optional[StepTiming] = None
+        # the bucket census (a serving.obs StepCensus) whose dispatched
+        # census the next step's eager body fills, if it has none yet
+        self.census_for = None
         if self.graphs_on:
             self._decode_pool = torch.cuda.graph_pool_handle()
             self._prefill_pool = torch.cuda.graph_pool_handle()
@@ -416,6 +428,51 @@ class StepFunctions:
         dev["tokens"].copy_(torch.where(
             dev["use_prev"] != 0, prev.index_select(0, dev["prev_rows"]),
             dev["tokens"]))
+
+    # ------------------------------------------------------------ bodies --
+    def body(self, key: Tuple) -> Callable[[], Outputs]:
+        """Bucket ``key``'s body over the static buffers' current fields:
+        what its graph replays (the steps build the same body from their
+        staged fields)."""
+        if key[0] == "gather":
+            _, B, pad, sampled = key
+            dev = step_fields(self._staging.device_buf[:step_size(B, pad)],
+                              B, pad)
+            return lambda: self._gather_body(dev, sampled)
+        if key[0] == "verify":
+            _, bp, nb, K_pad, sampled = key
+            dev = verify_fields(
+                self._staging.device_buf[:verify_size(bp, nb, K_pad)], bp,
+                nb, K_pad)
+            return lambda: self._verify_body(dev, K_pad, sampled)
+        if key[0] in ("prefill", "suffix"):
+            S, nb = key[1], (key[2] if key[0] == "suffix" else 0)
+            dev = prefill_fields(
+                self._prefill_staging.device_buf[:prefill_size(S, nb)], S,
+                nb)
+            return lambda: self._prefill_body(dev, key[0] == "suffix")
+        bp, nb, sampled = key
+        dev = step_fields(self._staging.device_buf[:step_size(bp, nb)], bp,
+                          nb)
+        return lambda: self._paged_body(dev, sampled)
+
+    def meta_twin(self) -> "StepFunctions":
+        """These steps on the meta device: the model's weights, the pool
+        and the static buffers as meta tensors of the same shapes and
+        dtypes, no graphs. Its :meth:`body` dispatches a bucket's
+        operations at no cost, so a census of it equals the card's."""
+        cfg, pool = self.model.cfg, self.pool
+        meta = lambda t: torch.empty(t.shape, dtype=t.dtype,  # noqa: E731
+                                     device="meta")
+        model = Model(cfg, map_tree(meta, self.model.params), device="meta")
+        twin_pool = PagedKVCache(cfg, num_blocks=pool.num_blocks,
+                                 block_size=pool.block_size, device="meta",
+                                 max_batch=pool.max_batch or None)
+        max_batch, max_model_len, prefill_bucket, _, spec_k = self.sizing
+        return StepFunctions(model, twin_pool, max_batch=max_batch,
+                             max_model_len=max_model_len,
+                             prefill_bucket=prefill_bucket,
+                             cuda_graphs=False, spec_k=spec_k)
 
     # ------------------------------------------------------------ paged --
     def _paged_body(self, dev: Dict[str, torch.Tensor],
@@ -579,10 +636,14 @@ class StepFunctions:
     def _run(self, key: Tuple, body: Callable[[], Outputs],
              pool: str) -> Outputs:
         """Replay ``key``'s graph; or, with none yet, run ``body``
-        eagerly (without graphs) or as the bucket's first use. With
-        :attr:`timing` on, the replay (or eager body) is bracketed by
-        device-time marks, kept in :attr:`last`; a first use is marked as
-        such instead (nothing is recorded inside a capture)."""
+        eagerly (without graphs) or as the bucket's first use, under a
+        dispatch census where :attr:`census_for` asks for one. With :attr:`timing` on, the replay (or eager body) is
+        bracketed by device-time marks, kept in :attr:`last`; a first use
+        is marked as such instead (nothing is recorded inside a
+        capture)."""
+        census, self.census_for = self.census_for, None
+        if census is not None and census.dispatched is not None:
+            census = None
         step = self.graphs.get(key)
         if step is not None:
             self.replays += 1
@@ -593,26 +654,27 @@ class StepFunctions:
             return step.tokens, step.logits
         if not self.graphs_on:
             start = _mark(self.device) if self.timing else None
-            out = body()
+            out = _censused(body, census)
             if self.timing:
                 self.last = StepTiming(start, _mark(self.device))
             return out
         t0 = time.perf_counter()
-        out = self._first_use(key, body, pool)
+        out = self._first_use(key, body, pool, census)
         if self.timing:
             self.last = StepTiming(None, None, first_use=(
                 t0, time.perf_counter()))
         return out
 
     def _first_use(self, key: Tuple, body: Callable[[], Outputs],
-                   pool: str) -> Outputs:
+                   pool: str, census=None) -> Outputs:
         """Run a new bucket's step eagerly on the side stream (the
-        warm-up), then capture its graph into the ``pool`` graphs'
-        memory pool (``"decode"`` or ``"prefill"``)."""
+        warm-up; under a dispatch census for ``census``, if given), then
+        capture its graph into the ``pool`` graphs' memory pool
+        (``"decode"`` or ``"prefill"``)."""
         cur = torch.cuda.current_stream(self.device)
         self._side.wait_stream(cur)
         with torch.cuda.stream(self._side):
-            out = body()
+            out = _censused(body, census)
         cur.wait_stream(self._side)
         graph = torch.cuda.CUDAGraph()
         with _CAPTURE_LOCK:
@@ -641,3 +703,14 @@ class StepFunctions:
             name: tally.get(fn, 0)
             for name, fn in launch_counters().items()})
         return out
+
+
+def _censused(body: Callable[[], Outputs], census) -> Outputs:
+    """Run ``body``; with a bucket ``census``, under a dispatch census
+    that becomes its ``dispatched``."""
+    if census is None:
+        return body()
+    with DispatchCensus() as cen:
+        out = body()
+    census.dispatched = cen.result()
+    return out

@@ -42,7 +42,8 @@ from repro_torch.core.census import (StepShape,  # noqa: E402
 from repro_torch.core.hardware import Hardware  # noqa: E402
 from repro_torch.launch import dryrun as TD  # noqa: E402
 from repro_torch.launch import input_specs as TI  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import (MULTI_CARD_ITEM, make_mesh,  # noqa: E402
+                                     make_test_mesh)
 from repro_torch.models.params import (cache_from_numpy,  # noqa: E402
                                        params_to_numpy)
 from repro_torch.sharding import rules_for  # noqa: E402
@@ -140,7 +141,8 @@ def test_one_device_fitting_decode_cases():
     jm = AbstractMesh((1, 1), ("data", "model"))
     for arch in J_ASSIGNED:
         for shape in ("decode_32k", "long_500k"):
-            rec = TD.run_case(arch, shape, "1x1", None, verbose=False)
+            rec = TD.run_case(arch, shape, "1x1", None, verbose=False,
+                              dispatched=False)
             if rec["status"] != "ok":
                 continue
             jc = JI.build_case(arch, shape, jm)
@@ -217,8 +219,12 @@ def test_dryrun_all_prices_every_case(tmp_path, capsys):
         if rec["status"] == "skip":
             assert rec["arch"] == "hubert-xlarge"
             continue
-        assert set(rec) - {"microbatches"} == want - {"reason", "error",
-                                                      "traceback"}
+        assert set(rec) - {"microbatches", "dispatched",
+                           "dispatched_needs"} == want - {
+                               "reason", "error", "traceback"}
+        # no per-device program without the sharded model
+        assert rec["dispatched"] == "not measured"
+        assert rec["dispatched_needs"] == MULTI_CARD_ITEM
         assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                       "temp_bytes", "peak_bytes"}
         m = rec["memory"]
