@@ -111,9 +111,10 @@ It imports nothing of JAX or of the JAX package. Phases:
    replicas stepping on their own threads (per-stream busy time must
    exceed the device's busy union; the paged kernel's counter, the
    trace and steps x layers must agree); the R=2 serve in sync mode
-   (token agreement with the threaded one); the R=2 cluster with
-   replica 1 killed mid-serve, observed, respawned and not (every
-   request finished, redrives, the trace's events); and the BCA loop:
+   (token agreement with the threaded one); the R=2 cluster serving the
+   first 16 requests with replica 1 killed mid-serve, observed,
+   respawned and not (every request finished, redrives, the trace's
+   events); and the BCA loop:
    ``measure_curves`` at batch 4, 8, 16 and 32 on short serves,
    ``decide`` on the card's peaks with at most 4 replicas, and the
    decided cluster served; then the serving API and the launcher
@@ -135,21 +136,23 @@ It imports nothing of JAX or of the JAX package. Phases:
    launches (bfloat16 and float32) is printed from a profile. Then a
    profile of the whole prefix and chunked serves on warm engines (busy
    against wall, graphs and eager); the prefix cache off and on in
-   turns, three warm serves a side (TTFT); and one prefill at each serve
-   shape through the engine's step, replayed and eager (host wall,
-   device busy, idle, flash launches against the trace). Each serve
+   turns, three serves a side on one warm engine a side (TTFT); and one
+   prefill at each serve shape through the engine's step, replayed and
+   eager (host wall, device busy, idle, flash launches against the
+   trace). Each serve
    prints the device memory its engine holds (KV pool, graph pools).
    Last, the non-dense families at full width and depth in bfloat16
    (``[families ...]``), each built, served and released before the
    next: olmoe-1b-7b (64 experts, top 8, capacity-routed), mamba2-1.3b
    and zamba2-7b (Mamba2 state in per-slot pool leaves, a shared
    attention block at head dim 112), each a paged serve of 16
-   ShareGPT-length requests (graphs + overlap, batch 16) and a gather
-   serve of the first 8, launches exact (the decode kernel once an
-   attention layer a step: 16, 0 and 13; the flash kernel once an
-   attention layer a prefill), every block and state slot home; output
-   tok/s, ITL p50, the memory held (weights, K/V pool, dense state,
-   graph pools), paged-vs-gather token agreement; and a profile window
+   ShareGPT-length requests cut to 128 new tokens (graphs + overlap,
+   batch 16) and a gather serve of the first 8, launches exact (the
+   decode kernel once an attention layer a step: 16, 0 and 13; the
+   flash kernel once an attention layer a prefill), every block and
+   state slot home; output tok/s, ITL p50, the memory held (weights,
+   K/V pool, dense state, graph pools), paged-vs-gather token
+   agreement; and a profile window
    of 10 steady steps at batch 16 (busy, host wall, idle share, busy by
    kernel kind), then 3 eager steps under named scopes for the expert
    GEMMs' and the SSM state update's share of the device time. Then
@@ -217,7 +220,21 @@ It imports nothing of JAX or of the JAX package. Phases:
    class by class: FLOPs, bytes, launches, temporaries), 3 eager steps
    under ``torch.profiler`` filed by the model scopes around each
    kernel's launching operation, each class's GB/s against the card's
-   memory rate, the census's launches against the trace's kernels;
+   memory rate, the census's launches against the trace's kernels. The
+   port's examples (``[examples ...]``, after the census, on the loaded
+   OPT-1.3B where an example serves it): each of the seven
+   ``repro_torch.examples`` modules' ``run`` at full width, every
+   launch counted from 0 around it and exact (each engine it builds
+   once a layer a step; the quickstart's forward and prefill 2 x 36
+   flash launches and 6 x 36 contiguous ones on qwen2.5-3b in bf16, its
+   logits within ``DEEP_TOL`` of the plain versions' run;
+   ``train_tiny``'s 50 steps 2 x 8 flash launches a step, the loss
+   falling, the checkpoint written), each example's own assertions
+   (speculation on and off bit-identical, the stream's finish reasons,
+   the cluster's completions on R=2 co-located replicas), and each
+   kernel against its plain version at a shape only an example gives it
+   (the paged kernel at block size 8, the contiguous one at K 2, G 8,
+   hd 128, the flash kernel at G 3 in float32);
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -334,11 +351,13 @@ def time_ms(fn, runs=30, warmup=5):
     return statistics.median(times)
 
 
-def device_ms(fn, runs=20, warmup=5):
+def device_ms(fn, runs=20, warmup=5, attempts=3):
     """Mean device time of one call of ``fn``, the host's share left out:
     the calls are queued behind a device-side sleep that outlasts the
     host's time to issue them, so they run back to back between two CUDA
-    events. Raises if the device caught up with the host."""
+    events. A window whose issue outlasted its sleep (the device may have
+    caught up: a host stall) is measured again behind a sleep twice as
+    long; raises if ``attempts`` windows in a row did."""
     import torch
     for _ in range(warmup):
         fn()
@@ -349,27 +368,32 @@ def device_ms(fn, runs=20, warmup=5):
     issue_ms = 2 * runs * (time.perf_counter() - t0) * 1e3 + 1.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # no collection while the calls are issued: a pause of the
-    # collector's would outlast the sleep (the process holds many objects
-    # by phase 5)
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        torch.cuda._sleep(int(issue_ms * 2e6))  # >= issue_ms at <= 2 GHz
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        end.record()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        if collecting:
-            gc.enable()
-    end.synchronize()
-    if queued_ms >= issue_ms:
-        raise AssertionError(f"issuing {runs} calls took {queued_ms:.1f} ms, "
-                             f"past the {issue_ms:.1f} ms sleep")
-    return start.elapsed_time(end) / runs
+    for _ in range(attempts):
+        # no collection while the calls are issued: a pause of the
+        # collector's would outlast the sleep (the process holds many
+        # objects by phase 5)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            torch.cuda._sleep(int(issue_ms * 2e6))  # >= issue_ms at <= 2 GHz
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(runs):
+                fn()
+            end.record()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            if collecting:
+                gc.enable()
+        end.synchronize()
+        if queued_ms < issue_ms:
+            return start.elapsed_time(end) / runs
+        print(f"[times] issuing {runs} calls took {queued_ms:.1f} ms, past "
+              f"the {issue_ms:.1f} ms sleep: measured again")
+        issue_ms *= 2
+    raise AssertionError(f"issuing {runs} calls outlasted the sleep "
+                         f"{attempts} times in a row (last {queued_ms:.1f} "
+                         f"ms)")
 
 
 def busy_ms(fn, runs=5):
@@ -786,6 +810,9 @@ def phase_family_kernels(errs):
               f"{e_flash:.3e}; within tolerance")
 
 
+SPLIT_ROWS = 7               # rows a paged multi-split case
+
+
 def phase_paged_splits(errs):
     """The paged kernel over wide tables that its plan cuts into several
     splits, every (G, hd) at both dtypes and both block sizes: rows of
@@ -822,21 +849,24 @@ def phase_paged_splits(errs):
             max=TOL[str(dtype).replace("torch.", "")])
         return plan, close(out, ref, what, atol.view(-1, 1, 1))
 
+    # the rows of each (G, hd, BS, dtype) in one batch of SPLIT_ROWS: rows
+    # are independent in the kernel and the plain version, and the plain
+    # version's loop over the table, not the batch, sets the time
     e_split, n, K = 0.0, 0, 2
     for i, (G, hd, BS, dtype) in enumerate(itertools.product(
             (1, 2, 4, 7, 8), (64, 80, 96, 112, 128), (16, 32),
             (torch.float32, torch.bfloat16))):
-        nb = (256, 512)[i // 4 % 2]
+        nb = (128, 256)[i // 4 % 2]
         S = nb * BS
-        rows = paged_split_plan(2, nb, BS, K, G, hd).rows_per_split
-        for lengths in ([0, S], [1, rows + BS // 2 + 1], [rows, 2 * rows],
-                        [S + 7]):
-            plan, e = check(len(lengths), K, G, hd, BS, nb, dtype, lengths,
-                            1000 + n, "paged split")
-            if plan.n_split < 2:
-                raise AssertionError(f"paged nb={nb} BS={BS}: one split")
-            e_split = max(e_split, e)
-            n += 1
+        rows = paged_split_plan(SPLIT_ROWS, nb, BS, K, G,
+                                hd).rows_per_split
+        lengths = [0, S, 1, rows + BS // 2 + 1, rows, 2 * rows, S + 7]
+        plan, e = check(SPLIT_ROWS, K, G, hd, BS, nb, dtype, lengths,
+                        1000 + n, "paged split")
+        if plan.n_split < 2 or plan.rows_per_split != rows:
+            raise AssertionError(f"paged nb={nb} BS={BS}: one split")
+        e_split = max(e_split, e)
+        n += 1
     # B*K >= 528: one split of the whole table; a warp's share of a long
     # row is a quarter of it, past 32 blocks
     B, K, BS, nb, n_win = 32, 32, 16, 512, 0
@@ -853,11 +883,11 @@ def phase_paged_splits(errs):
         e_split = max(e_split, e)
         n_win += 1
     errs["paged"]["multi_split"] = e_split
-    print(f"[kernels] paged decode: {n} multi-split cases (B 1/2, K 2, G "
-          f"1/2/4/7/8 x hd 64/80/96/112/128 x BS 16/32 x f32/bf16, table "
-          f"width "
-          f"256/512; lengths 0, 1, mid-block, a split boundary, the full "
-          f"table and past it) and {n_win} window cases (B {B}, K {K}, G 1, "
+    print(f"[kernels] paged decode: {n} multi-split cases (B "
+          f"{SPLIT_ROWS}, K 2, G 1/2/4/7/8 x hd 64/80/96/112/128 x BS 16/32 "
+          f"x f32/bf16, table width 128/256; rows of length 0, 1, "
+          f"mid-block, a split boundary and twice it, the full table and "
+          f"past it) and {n_win} window cases (B {B}, K {K}, G 1, "
           f"hd 64/128, f32/bf16, BS {BS}, table width {nb}, one split, "
           f"rows up to {S} tokens: a warp's table window moves) within "
           f"tolerance, each request's atol min(dtype's, {ROW_ATOL} x its "
@@ -1856,14 +1886,15 @@ def prefill_launches(engine):
 def phase_serve(model, card):
     """The paged serve of all 32 requests (CUDA graphs, sync), then the
     flash kernel its prefills launch (its decode profiles are
-    :func:`phase_graph_modes`')."""
+    :func:`phase_graph_modes`'). Returns the launch counts, the prefill
+    buckets and the serve (its requests and metrics)."""
     reqs = serve_workload()
-    engine, _, launches = serve(model, reqs, "paged", card)
+    engine, m, launches = serve(model, reqs, "paged", card)
     prefill_sizes = sorted({-(-r.prompt_len // 64) * 64 for r in reqs})
     del engine
     release()
     prefill_symbol(model, card)
-    return launches, prefill_sizes, reqs
+    return launches, prefill_sizes, dict(reqs=reqs, metrics=m)
 
 
 def prefill_symbol(model, card, prompt=128):
@@ -2066,17 +2097,19 @@ def serve_profile(engine, make):
 
 def phase_serve_profiles(model, card):
     """The prefix serve (cache on) and the chunked serve (chunks of
-    192), with CUDA graphs and every step eager, each on a warm engine
-    (:func:`warm_engine`): first every serve timed, then the prefix cache
-    off and on in turns (off, on, on, off, off, on), each on its own warm
-    engine with graphs (TTFT, the stall, prefill tokens, the means of
-    each side), and only then the first serves with graphs again under
-    ``torch.profiler``: device busy time by kernel kind against the
+    192), with CUDA graphs on a warm engine (:func:`warm_engine`) and
+    with every step eager on a fresh one: first every serve timed, then the prefix cache
+    off and on in turns (off, on, on, off, off, on) on one warm engine
+    with graphs a side, its prefix cache emptied and its counters reset
+    before each serve (:func:`rewarm`; TTFT, the stall, prefill tokens,
+    the means of each side), and only then the first serves with graphs
+    again under ``torch.profiler``: device busy time by kernel kind against the
     unprofiled serve's host wall, and the idle share (an eager serve's
     trace, some 150k kernels, takes tens of seconds to read: its device
     work is the same, and its idle share is that of the steps'
     profiles)."""
     import torch
+    from repro_torch.serving import ContinuousBatchingEngine
     serves = {}
     for what, make, kw in (
             ("prefix serve, cache on", prefix_workload,
@@ -2084,12 +2117,17 @@ def phase_serve_profiles(model, card):
             ("chunked serve, chunks of 192", chunked_workload,
              dict(max_batch=4, prefill_chunk_tokens=192))):
         for way, extra in (("graphs", {}), ("eager", dict(cuda_graphs=False))):
-            engine = warm_engine(model, make, **kw, **extra)
+            # an eager engine captures nothing: a warm-up serve would
+            # only repeat the serve
+            engine = warm_engine(model, make, **kw) if way == "graphs" \
+                else ContinuousBatchingEngine(model,
+                                              serve_config(**kw, **extra))
             m = engine.run(make(model))
             torch.cuda.synchronize()
             serves[f"{what}, {way}"] = (engine, make, m)
-            print(f"[profile {what}, {way}] on {card}, {step_mode(engine)}, "
-                  f"warm: serve wall {m.wall_s * 1e3:.1f} ms; "
+            print(f"[profile {what}, {way}] on {card}, {step_mode(engine)}"
+                  f"{', warm' if way == 'graphs' else ''}: serve wall "
+                  f"{m.wall_s * 1e3:.1f} ms; "
                   f"{engine.prefills} prefills and {engine.chunks} chunks "
                   f"({engine.suffix_prefills} over a prefix), "
                   f"{engine.decode_steps} decode steps; TTFT p50 "
@@ -2099,9 +2137,11 @@ def phase_serve_profiles(model, card):
                   f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} ms; "
                   f"output {m.output_throughput:.1f} tok/s")
     ttft = {False: [], True: []}
+    warm = {on: warm_engine(model, prefix_workload, max_batch=8,
+                            prefix_cache=on) for on in (False, True)}
     for on in (False, True, True, False, False, True):
-        engine = warm_engine(model, prefix_workload, max_batch=8,
-                             prefix_cache=on)
+        engine = warm[on]
+        rewarm(engine)
         m = engine.run(prefix_workload(model))
         torch.cuda.synchronize()
         ttft[on].append((m.ttft.p50, m.ttft.p95, m.stall.p95))
@@ -2111,8 +2151,8 @@ def phase_serve_profiles(model, card):
               f"{m.stall.p95 * 1e3:.2f} ms; {engine.prefill_tokens_computed} "
               f"prefill tokens computed; wall {m.wall_s * 1e3:.1f} ms; output "
               f"{m.output_throughput:.1f} tok/s")
-        del engine
-        release()
+    del warm, engine
+    release()
     mean = {on: [statistics.mean(x[i] for x in ttft[on]) * 1e3
                  for i in range(3)] for on in ttft}
     print(f"[prefix ttft] on {card}: means of 3 serves a side, cache off / "
@@ -2239,15 +2279,15 @@ def phase_sampled_serve(model, card, greedy):
     top-p 0.95, seed = request id) with CUDA graphs, sync, and their
     agreement with ``greedy`` (the same requests served greedily); the
     serves of :func:`phase_graph_modes` must give the same tokens.
-    Returns the requests and the launch counts."""
+    Returns the serve (its requests and metrics) and the launch counts."""
     from repro_torch.serving.workload import SamplingParams
     reqs = serve_workload(SamplingParams(**SAMPLED))
-    engine, _, launches = serve(model, reqs, "paged", card, tag="sampled")
+    engine, m, launches = serve(model, reqs, "paged", card, tag="sampled")
     del engine
     release()
     print(f"[serve sampled] sampled vs the greedy paged serve: "
           f"{agreement(reqs, greedy)}")
-    return reqs, launches
+    return dict(reqs=reqs, metrics=m), launches
 
 
 WAYS = {"eager, sync": dict(cuda_graphs=False),
@@ -2303,10 +2343,11 @@ def cut_eager_serve(model, card, reqs, mode, tag):
 
 
 def phase_graph_modes(model, card, runs):
-    """The paged serve and the sampled serve three ways, each served
-    afresh here: eager decode steps, CUDA graphs, CUDA graphs with
-    overlap. The graphs ways' tokens must equal those of ``runs[kind]``
-    (the graphs-sync serves of the earlier phases). The eager way, whose
+    """The paged serve and the sampled serve three ways: eager decode
+    steps, CUDA graphs, CUDA graphs with overlap. The graphs way is
+    ``runs[kind]``, the earlier phases' graphs-sync serve (its requests
+    and metrics), not served again; the others are served afresh here,
+    and the overlapped serve's tokens must equal its. The eager way, whose
     steps are host-bound, serves the same 32 requests cut to
     ``EAGER_CAP`` new tokens (at batch 16, so the last 16 take the blocks
     of finished ones), and its tokens must equal a graphs-sync serve of
@@ -2323,13 +2364,15 @@ def phase_graph_modes(model, card, runs):
             if cut:
                 reqs, m = cut_eager_serve(model, card, serve_workload(sp),
                                           "paged", kind)
+            elif way == "graphs, sync":
+                reqs, m = runs[kind]["reqs"], runs[kind]["metrics"]
             else:
                 reqs = serve_workload(sp)
                 engine, m, _ = serve(model, reqs, "paged", card,
                                      tag=f"{kind}, {way}", **kw)
                 del engine
                 release()
-                diff = first_difference(runs[kind], reqs)
+                diff = first_difference(runs[kind]["reqs"], reqs)
                 if diff:
                     raise AssertionError(f"{kind} serve, {way}: tokens differ"
                                          f" from the graphs-sync serve at "
@@ -2345,10 +2388,10 @@ def phase_graph_modes(model, card, runs):
                          f"{m.ttft.p95 * 1e3:.1f} ms; steady step busy "
                          f"{prof['busy']:.3f} ms, wall {prof['wall']:.3f} "
                          f"ms, idle {prof['idle'] * 100:.1f}%")
-        print(f"[graphs] {kind} paged serve: graphs and graphs with "
-              f"overlap equal to the earlier graphs serve on all "
-              f"{sum(r.generated for r in runs[kind])} tokens, eager equal "
-              f"to graphs on the cut serve")
+        print(f"[graphs] {kind} paged serve: graphs with overlap equal to "
+              f"the earlier graphs serve on all "
+              f"{sum(r.generated for r in runs[kind]['reqs'])} tokens, eager "
+              f"equal to graphs on the cut serve")
     for row in table:
         print(f"[graphs] on {card}: {row}")
     return served
@@ -2791,6 +2834,7 @@ def phase_obs(model, card, modes):
 
 CLUSTER_BUDGET = 32768       # KV tokens split across a cluster's replicas
 KILL_AFTER = 150             # a fault run kills replica 1 this many steps in
+FAULT_REQUESTS = 16          # a fault run serves the workload's first 16
 CLUSTER_WAYS = (("MAX", 1, 32), ("R=2", 2, 16), ("R=4", 4, 8))
 
 
@@ -3015,12 +3059,14 @@ def cluster_window(cluster, card, steps=10):
 
 def cluster_faults(cluster, card, two):
     """The R=2 cluster (threaded, overlapped, warm) with replica 1 killed
-    mid-serve, observed: every request must finish by length, requests
+    mid-serve, observed, serving the workload's first ``FAULT_REQUESTS``
+    requests: every request must finish by length, requests
     must be redriven, the trace must hold the quarantine and the
     redrives; first with ``respawn=True`` (replica 1 must serve again over
     its own pool and graphs), then without. Each run's tokens are held
-    against the fault-free threaded serve ``two`` (agreement printed: the
-    survivor's batches differ from the fault-free run's)."""
+    against the same requests of the fault-free threaded serve ``two``
+    (agreement printed: the survivor's batches differ from the fault-free
+    run's)."""
     from repro_torch.serving import FaultInjector, FaultSpec
     from repro_torch.serving.obs.observer import Observability
     for respawn in (True, False):
@@ -3033,7 +3079,7 @@ def cluster_faults(cluster, card, two):
         cluster.reset_stats()
         obs = Observability()
         obs.attach_cluster(cluster)
-        reqs = cluster_workload()
+        reqs = cluster_workload()[:FAULT_REQUESTS]
         tag = f"[cluster faults{', respawn' if respawn else ''}]"
         # a replica's fault count survives reset_stats, as its health does
         m, _ = serve_cluster(cluster, reqs, tag, faults=1 + sum(
@@ -3058,7 +3104,7 @@ def cluster_faults(cluster, card, two):
                  f"replica 1 down, availability "
                  f"{m.per_replica[1].availability * 100:.1f}%; ")
               + f"output {m.output_throughput:.1f} tok/s; against the "
-              f"fault-free serve: {agreement(two, reqs)}")
+              f"fault-free serve: {agreement(two[:len(reqs)], reqs)}")
 
 
 def phase_cluster(model, card):
@@ -3290,17 +3336,10 @@ LAUNCHER_RUNS = (
 )
 
 
-def launcher_run(card, tag, flags):
-    """``repro_torch.launch.serve.main`` in this process at full width,
-    its output printed under ``[tag]``, with the launch counters set to 0
-    just before and read just after: every engine it built must keep its
-    logits finite and launch each kernel once a layer of each step of its
-    kind, and every request finish by length or stop. Returns the launch
-    counts."""
-    import contextlib
-    import io
-    import torch
-    from repro_torch.launch import serve as launcher
+@contextlib.contextmanager
+def recorded_engines():
+    """Every ``ContinuousBatchingEngine`` built inside, in the list it
+    yields (an entry point that builds its own engines)."""
     from repro_torch.serving import ContinuousBatchingEngine
     made = []
     init = ContinuousBatchingEngine.__init__
@@ -3308,20 +3347,36 @@ def launcher_run(card, tag, flags):
     def recorded(self, *a, **kw):
         init(self, *a, **kw)
         made.append(self)
+    ContinuousBatchingEngine.__init__ = recorded
+    try:
+        yield made
+    finally:
+        ContinuousBatchingEngine.__init__ = init
+
+
+def launcher_run(card, tag, flags):
+    """``repro_torch.launch.serve.main`` in this process at full width,
+    its output printed under ``[tag]``, with the launch counters set to 0
+    just before and read just after: every engine it built must keep its
+    logits finite and launch each kernel once a layer of each step of its
+    kind, and every request finish by length or stop. Returns the launch
+    counts."""
+    import io
+    import torch
+    from repro_torch.launch import serve as launcher
     argv = ["--arch", MODEL] + [f.format(out=ROOT / "chiprun_out")
                                 for f in flags]
     release()
     t0 = time.perf_counter()
     out = io.StringIO()
-    ContinuousBatchingEngine.__init__ = recorded
     try:
-        reset_launches()
-        with contextlib.redirect_stdout(out):
-            metrics = launcher.main(argv)
-        torch.cuda.synchronize()
-        launches = read_launches()
+        with recorded_engines() as made:
+            reset_launches()
+            with contextlib.redirect_stdout(out):
+                metrics = launcher.main(argv)
+            torch.cuda.synchronize()
+            launches = read_launches()
     finally:
-        ContinuousBatchingEngine.__init__ = init
         for line in out.getvalue().splitlines():
             print(f"[{tag}] {line}")
     wall = time.perf_counter() - t0
@@ -4435,11 +4490,19 @@ def phase_census(model, card):
                 launches=d.launches.total, busy=busy, bare=bare / n_dev)
 
 
-def family_workload(cfg, n=16):
-    """16 ShareGPT-length requests in the model's vocabulary."""
-    from repro_torch.serving.workload import sharegpt_like
-    return sharegpt_like(n, cfg.vocab_size, seed=0, mean_in=161,
+FAMILY_CAP = 128   # new tokens a request in a family's paged and gather serve
+
+
+def family_workload(cfg, n=16, cap=None):
+    """16 ShareGPT-length requests in the model's vocabulary, each cut to
+    ``cap`` new tokens if given."""
+    from repro_torch.serving.workload import Request, sharegpt_like
+    reqs = sharegpt_like(n, cfg.vocab_size, seed=0, mean_in=161,
                          mean_out=338, max_len=1024)
+    if cap is None:
+        return reqs
+    return [Request(r.req_id, r.prompt, min(r.max_new_tokens, cap))
+            for r in reqs]
 
 
 def family_model(name):
@@ -4462,19 +4525,17 @@ def slots_home(engine, tag):
                              f"of {engine.ecfg.max_batch} after the serve")
 
 
-def family_graph_check(model, card, n=24, cap=40):
+def family_graph_check(model, card, n=24, cap=24):
     """The state staged through ``slots`` and read and written inside
     captured graphs under overlap, held to eager steps: ``n`` requests of
     the family workload, each cut to ``cap`` new tokens, at batch 16 (so
     the last eight take the slots and blocks of finished ones), served
     with CUDA graphs and overlap, then with eager synchronous steps;
     every output token must be equal."""
-    from repro_torch.serving.workload import Request
     name = model.cfg.name
     served = {}
     for way in ("graphs, overlap", "eager, sync"):
-        reqs = [Request(r.req_id, r.prompt, min(r.max_new_tokens, cap))
-                for r in family_workload(model.cfg, n)]
+        reqs = family_workload(model.cfg, n, cap)
         tag = f"families {name} {way}"
         engine, _, _ = serve(model, reqs, "paged", card, tag=tag,
                              **WAYS[way])
@@ -4580,15 +4641,20 @@ def profile_calls(fn, calls=1):
     return busy_by_kind(prof, calls)
 
 
-def steady_profile(model, card, tag, steps=10):
+def steady_profile(model, card, tag, steps=10, engine=None):
     """A steady window at batch 16 on a graphs + overlap engine serving
-    the family workload: ``torch.profiler`` device busy by kernel kind
-    against the host wall of an unprofiled window, and the census bound
-    of a step. Returns the engine (mid-serve) and the numbers."""
+    the family workload (``engine``, a served one whose buckets are
+    captured, emptied first; else a new one): ``torch.profiler`` device
+    busy by kernel kind against the host wall of an unprofiled window,
+    and the census bound of a step. Returns the engine (mid-serve) and
+    the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import ContinuousBatchingEngine
-    engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
+    if engine is None:
+        engine = ContinuousBatchingEngine(model, serve_config(overlap=True))
+    else:
+        rewarm(engine)
     for r in family_workload(model.cfg):
         engine.add_request(r)
     for _ in range(21):                  # admits all 16, then warm steps
@@ -4616,14 +4682,16 @@ def steady_profile(model, card, tag, steps=10):
                         by_kind=by_kind, bound_ms=bound_ms)
 
 
-def family_profile(model, card, steps=10):
-    """:func:`steady_profile`; then the same engine's steps run eagerly
-    for three more steps under named scopes, which give the expert
-    GEMMs' and the SSM state update's share of the device time."""
+def family_profile(model, card, engine, steps=10):
+    """:func:`steady_profile` on ``engine`` (the family's paged serve's);
+    then the same engine's steps run eagerly for three more steps under
+    named scopes, which give the expert GEMMs' and the SSM state update's
+    share of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     name = model.cfg.name
-    engine, numbers = steady_profile(model, card, f"families {name}", steps)
+    engine, numbers = steady_profile(model, card, f"families {name}", steps,
+                                     engine)
     st = engine.steps
     saved = st.graphs, st.graphs_on
     st.graphs, st.graphs_on = {}, False
@@ -4657,14 +4725,15 @@ def family_profile(model, card, steps=10):
 def phase_families(card):
     """Each non-dense family at full width and depth in bfloat16, random
     weights from seed 0, built, served and released before the next: a
-    paged serve of 16 ShareGPT-length requests (CUDA graphs, overlapped,
-    batch 16) and a gather serve of the first 8, each with exact launch
-    counts (the paged or contiguous decode kernel once an attention layer
-    a step: 16 for olmoe, none for mamba2, 13 for zamba2; the flash
-    kernel once an attention layer a prefill), finite logits and every
-    block and state slot home; then :func:`family_graph_check` and a
-    profile window. Returns each serve's launch counts by path and the
-    profile numbers."""
+    paged serve of 16 ShareGPT-length requests cut to ``FAMILY_CAP`` new
+    tokens (CUDA graphs, overlapped, batch 16) and a gather serve of the
+    first 8, each with exact launch counts (the paged or contiguous
+    decode kernel once an attention layer a step: 16 for olmoe, none for
+    mamba2, 13 for zamba2; the flash kernel once an attention layer a
+    prefill), finite logits and every block and state slot home; then
+    :func:`family_graph_check` and a profile window on the paged serve's
+    engine. Returns each serve's launch counts by path and the profile
+    numbers."""
     import torch
     by_path, profiles = {}, {}
     for name in FAMILIES:
@@ -4676,9 +4745,9 @@ def phase_families(card):
               f"{cfg.d_model}, head dim {cfg.hd}, {cfg.dtype}, "
               f"{n_params / 1e9:.3f} B parameters, random init in "
               f"{init_s:.1f} s")
-        outs = {}
+        outs, kept = {}, {}
         for mode, n in (("paged", 16), ("gather", 8)):
-            part = family_workload(cfg)[:n]
+            part = family_workload(cfg, cap=FAMILY_CAP)[:n]
             engine, m, launches = serve(model, part, mode, card,
                                         tag=f"families {name} {mode}",
                                         overlap=True)
@@ -4688,12 +4757,14 @@ def phase_families(card):
                   f"{m.itl.p50 * 1e3:.2f} ms; {family_memory(engine)}")
             by_path[f"{name} {mode}_serve"] = launches
             outs[mode] = part
+            if mode == "paged":      # its captured buckets serve the profile
+                kept["paged"] = engine
             del engine
             release()
         print(f"[families {name}] paged vs gather, the first 8 requests: "
               f"{agreement(outs['paged'][:8], outs['gather'])}")
         family_graph_check(model, card)
-        profiles[name] = family_profile(model, card)
+        profiles[name] = family_profile(model, card, kept.pop("paged"))
         del model
         release()
         torch.cuda.synchronize()
@@ -5752,6 +5823,202 @@ def phase_dryrun(card, errs):
     return launches, runs
 
 
+# ------------------------------------------------------------ examples ----
+EXAMPLE_ARCH = "qwen2.5-3b"  # quickstart's default architecture
+EXAMPLE_TRAIN = dict(steps=50, batch=8, seq=128)   # train_tiny on the card
+
+
+def example_run(card, name, fn, want=None, need=()):
+    """Run one example (``fn``, its ``run``) with every launch counter set
+    to 0 just before and read just after, recording the engines it
+    builds: each kernel must have launched exactly once a layer of each
+    of their steps of its kind, plus ``want`` (an example's work outside
+    an engine), every kernel of ``need`` at least once, and every engine
+    kept its logits finite. Returns the example's result and the launch
+    counts."""
+    import torch
+    release()
+    print(f"[examples {name}] on {card}: "
+          f"python -m repro_torch.examples.{name}'s run, full width")
+    t0 = time.perf_counter()
+    with recorded_engines() as made:
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = read_launches()
+    wall = time.perf_counter() - t0
+    expected = expected_launches(made)
+    for k, v in (want or {}).items():
+        expected[k] += v
+    if launches != expected:
+        raise AssertionError(f"[examples {name}] launch counts {launches} "
+                             f"!= {expected}")
+    if not all(bool(e.steps.finite) for e in made):
+        raise AssertionError(f"[examples {name}] NaN or inf logits")
+    missing = [k for k in need if not launches[k]]
+    if missing:
+        raise AssertionError(f"[examples {name}] {missing} never launched: "
+                             f"{launches}")
+    print(f"[examples {name}] on {card}: {wall:.1f} s, {len(made)} "
+          f"engine(s); launches " + ", ".join(
+              f"{k} {v}" for k, v in launches.items() if v) +
+          (" (= each engine's steps x layers"
+           + (" + the work outside an engine" if want else "") + ")"
+           if any(launches.values()) else "none"))
+    made.clear()
+    return out, launches
+
+
+def example_kernels(errs):
+    """Each kernel against its plain version at a shape an example gives
+    it that phase 2 does not reach: the paged kernel at block size 8
+    (``speculative_decode``), the contiguous one at qwen2.5-3b's K 2, G 8,
+    hd 128 over ``quickstart``'s 24-slot cache, the flash kernel in
+    float32 at ``train_tiny``'s G 3 (B=8, S=128, 12 heads, hd 64)."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        gqa_decode_attention, gqa_decode_attention_torch)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_gqa_decode_attention, paged_gqa_decode_attention_torch)
+    args = paged_inputs(4, 32, 1, 64, 8, 32, torch.bfloat16,
+                        [96, 65, 1, 256], seed=27)
+    errs["paged"]["examples"] = close(
+        paged_gqa_decode_attention(*args),
+        paged_gqa_decode_attention_torch(*args), "paged BS=8")
+    args = decode_inputs(2, 24, 2, 8, 128, torch.bfloat16, [17, 22],
+                         seed=28)
+    errs["decode"]["examples"] = close(gqa_decode_attention(*args),
+                                       gqa_decode_attention_torch(*args),
+                                       "contiguous K=2 G=8 hd=128")
+    q, k, v = flash_inputs(8, 128, 128, 4, 3, 64, torch.float32, seed=29)
+    errs["flash"]["examples"] = close(flash_attention(q, k, v),
+                                      flash_attention_torch(q, k, v),
+                                      "flash f32 G=3")
+    print(f"[examples] kernels at the examples' shapes against their plain "
+          f"versions: paged at block size 8 (B=4, K=32, hd 64, bf16) max "
+          f"abs err {errs['paged']['examples']:.3e}; contiguous at K 2, "
+          f"G 8, hd 128 (B=2, S=24, bf16) {errs['decode']['examples']:.3e}; "
+          f"flash at G 3 (B=8, S=128, K=4, hd 64, float32) "
+          f"{errs['flash']['examples']:.3e}; within tolerance")
+
+
+def phase_examples(model, card, errs):
+    """The port's seven examples (``repro_torch.examples``), each ``run``
+    at full width on the card: the analytic BCA loop; the quickstart at
+    ``EXAMPLE_ARCH`` in bf16 (the forward and prefill through the flash
+    kernel, six dense-cache decode steps through the contiguous kernel;
+    the forward's logits held within ``DEEP_TOL`` of the plain versions'
+    run); ``serve_engine``, ``stream_generate``, ``speculative_decode``
+    and ``serve_cluster`` (R=2 co-located on this card) on the loaded
+    OPT-1.3B; ``train_tiny``'s configuration for ``EXAMPLE_TRAIN`` steps
+    (the flash kernel twice a layer a step), the loss falling and the
+    checkpoint written. Every example's own assertions hold; each
+    kernel is held against its plain version at the examples' shapes
+    phase 2 does not reach (:func:`example_kernels`). Returns each
+    example's launch counts."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.examples import (bca_replication, card_hardware,
+                                      quickstart, serve_cluster,
+                                      serve_engine, speculative_decode,
+                                      stream_generate, train_tiny)
+    from repro_torch.models.model import Model
+    example_kernels(errs)
+    hw, label = card_hardware(torch.device("cuda"))
+    paths = {}
+    paged = ("paged_decode_attention", "flash_attention")
+
+    _, paths["examples_bca_replication"] = example_run(
+        card, "bca_replication", bca_replication.run)
+
+    full = get_config(EXAMPLE_ARCH)
+    qs = Model(full)
+    tokens = quickstart.prompt(full)
+    n = attention_layers(full)
+    got, paths["examples_quickstart"] = example_run(
+        card, "quickstart",
+        lambda: quickstart.run(qs, full, tokens, hw, label),
+        want={"flash_attention": 2 * n,
+              "decode_attention": quickstart.DECODE_STEPS * n},
+        need=("flash_attention", "decode_attention"))
+    logits = got["logits"]
+    if tuple(logits.shape) != (quickstart.B, quickstart.S, full.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[examples quickstart] logits "
+                             f"{tuple(logits.shape)}, or not finite")
+    with plain_attention():
+        plain = quickstart.run(qs, full, tokens, hw, label, echo=False)
+    gap = ((logits - plain["logits"]).abs().max()
+           / plain["logits"].abs().max()).item()
+    if gap > DEEP_TOL:
+        raise AssertionError(f"[examples quickstart] the forward's logits "
+                             f"{gap:.3e} of the largest from the plain "
+                             f"versions' run")
+    same = sum(a == b for a, b in zip(got["tokens"], plain["tokens"]))
+    print(f"[examples quickstart] on {card}: the forward's logits within "
+          f"{gap:.3e} of the largest of the plain versions' run "
+          f"(DEEP_TOL {DEEP_TOL}); decoded tokens {same}/"
+          f"{len(got['tokens'])} equal to it")
+    del qs, got, plain
+    release()
+
+    vocab = model.cfg.vocab_size
+    got, paths["examples_serve_engine"] = example_run(
+        card, "serve_engine", lambda: serve_engine.run(model), need=paged)
+    want = [r.max_new_tokens for r in serve_engine.workload(vocab)]
+    for mb, outs in got["outputs"].items():
+        if [len(o) for o in outs] != want or \
+                not all(0 <= t < vocab for o in outs for t in o):
+            raise AssertionError(f"[examples serve_engine] max_batch {mb}: "
+                                 f"lengths or tokens out of range")
+
+    _, paths["examples_stream_generate"] = example_run(
+        card, "stream_generate", lambda: stream_generate.run(model),
+        need=paged)
+
+    _, paths["examples_speculative_decode"] = example_run(
+        card, "speculative_decode",
+        lambda: speculative_decode.run(model, model.cfg), need=paged)
+
+    got, paths["examples_serve_cluster"] = example_run(
+        card, "serve_cluster", lambda: serve_cluster.run(
+            model.cfg, model.params,
+            serve_cluster.devices_for(torch.device("cuda")), hw),
+        need=paged)
+    if got["branch"] != ("colocated" if torch.cuda.device_count() < 2
+                         else "sliced"):
+        raise AssertionError(f"[examples serve_cluster] {got['branch']}")
+    del got
+
+    tiny = Model(train_tiny.tiny_config())
+    steps = EXAMPLE_TRAIN["steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "tiny_ckpt.npz")
+        got, paths["examples_train_tiny"] = example_run(
+            card, "train_tiny",
+            lambda: train_tiny.run(tiny, checkpoint=ckpt, **EXAMPLE_TRAIN),
+            want={"flash_attention": steps * 2 * tiny.cfg.n_layers},
+            need=("flash_attention",))
+        saved = int(np.load(ckpt)["__step__"])
+    losses = got["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+            saved != steps:
+        raise AssertionError(f"[examples train_tiny] losses {losses[0]} -> "
+                             f"{losses[-1]}, checkpoint step {saved}")
+    ms = [r["device_ms"] for r in got["records"]]
+    print(f"[examples train_tiny] on {card}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {steps} steps; device ms a printed step "
+          f"{', '.join(f'{m:.2f}' for m in ms)} (the first includes the "
+          f"kernels' first calls); checkpoint of step {saved} written")
+    del tiny, got
+    release()
+    return paths
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -5797,16 +6064,17 @@ def main() -> int:
                "static_batch": None, "prefix_serve": None,
                "chunked_serve": None, "sampled_serve": None,
                "spec_serve": None, "cluster_serve": None}
-    by_path["paged_serve"], prefill_sizes, paged_all = phase(
+    by_path["paged_serve"], prefill_sizes, paged = phase(
         "4, paged serve", phase_serve, model, card)
     by_path["prefix_serve"] = phase("4, prefix serve", phase_prefix_serve,
                                     model, card)
     by_path["chunked_serve"] = phase("4, chunked serve", phase_chunked_serve,
                                      model, card)
-    sampled_all, by_path["sampled_serve"] = phase(
+    paged_all = paged["reqs"]
+    sampled, by_path["sampled_serve"] = phase(
         "4, sampled serve", phase_sampled_serve, model, card, paged_all)
     modes = phase("4, graph modes", phase_graph_modes, model, card,
-                  {"greedy": paged_all, "sampled": sampled_all})
+                  {"greedy": paged, "sampled": sampled})
     by_path["gather_serve"] = phase("4, gather serve", phase_gather_serve,
                                     model, card, paged_all)
     by_path["static_batch"] = phase("4, static batch", phase_static, model,
@@ -5824,6 +6092,7 @@ def main() -> int:
     phase("5, prefill compare", phase_prefill_compare, model, card)
     phase("5, verify compare", phase_verify_compare, model, card)
     phase("4, census", phase_census, model, card)
+    by_path.update(phase("4, examples", phase_examples, model, card, errs))
     del model
     release()
     family_paths, _ = phase("4, non-dense families", phase_families, card)

@@ -101,6 +101,10 @@ class ArchConfig:
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    @property
+    def is_decoder(self) -> bool:
+        return self.arch_type != "encoder"
+
     def block_plan(self) -> Tuple[str, ...]:
         """The sequence of block kinds, length == n_layers."""
         if self.arch_type == "ssm":

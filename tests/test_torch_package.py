@@ -112,6 +112,20 @@ def test_spmd_modules_are_checked():
     assert set(SPMD_MODULES) <= checked
 
 
+EXAMPLE_MODULES = ["examples/__init__.py"] + [
+    f"examples/{p.name}" for p in (ROOT / "examples").glob("*.py")]
+
+
+def test_example_modules_are_checked():
+    """Every example of the reference has its counterpart under
+    ``repro_torch/examples``, and each is among the files the import check
+    above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert len(EXAMPLE_MODULES) == 8
+    assert set(EXAMPLE_MODULES) <= checked
+
+
 def test_training_exports_every_name_of_the_reference():
     """``repro_torch.training`` exports every name ``repro.training``
     does (read from the reference's source)."""
