@@ -235,6 +235,29 @@ It imports nothing of JAX or of the JAX package. Phases:
    kernel against its plain version at a shape only an example gives it
    (the paged kernel at block size 8, the contiguous one at K 2, G 8,
    hd 128, the flash kernel at G 3 in float32);
+   Then tensor parallelism (``[mesh ...]``, after the examples, on the
+   loaded OPT-1.3B): the sharded engine at a world of one on cuda:0, over
+   a real NCCL group of one rank whose collectives the step graphs
+   capture, against the plain engine on the paged serve's first 16
+   requests (tokens and every step's logits bit for bit, the collectives
+   counted: the embedding's all-reduce, two a layer and the logits'
+   all-gather a call). With one card it then says that nothing ran
+   across cards. With several (``tools/mesh_smoke.py`` runs this phase
+   alone), one process a card over ``cuda:0..M-1``
+   (``repro_torch.distributed.spawn``), one spawn a mesh size: OPT-1.3B
+   at M = 2 and 4 and deepseek-coder-33b at M = 4 in float32 at 2 layers
+   and full width, 16 requests each, tokens equal to one card's;
+   OPT-1.3B bf16 at full depth at M = 2 and 4 on the paged serve's 32
+   requests, tok/s and ITL beside one card's (a finding);
+   deepseek-coder-33b bf16 at full width and depth at M = 4 (128
+   ShareGPT-length requests, batch 128, a 131,072-token pool, graphs
+   on): every request finished, the launches exact on every rank, each
+   rank's bytes, ITL, tok/s and a steady step's idle share, and the first
+   8 prompts' prefill and first decode logits within ``DEEP_TOL`` of
+   deepseek on one card (run first, on cuda:0, with an 8,192-token
+   pool); and the dry-run's deepseek long_500k decode case over 1 x 4
+   (the contiguous kernel at K 2, G 7 a rank), its step beside the
+   dry-run census's per-device terms;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -3562,6 +3585,8 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
 
 
 def kernel_kind(name):
+    if "nccl" in name.lower():
+        return "NCCL collectives"
     # the paged kernels' symbols (paged_decode_split_kernel,
     # paged_decode_merge_kernel) hold the contiguous ones' names: test first
     if "paged_decode_" in name:
@@ -6019,6 +6044,627 @@ def phase_examples(model, card, errs):
     return paths
 
 
+# ---------------------------------------------------------------- mesh ----
+MESH_FIRST = 16              # the world-of-one check: the paged serve's first
+# float32 at 2 layers, full width: each model's mesh sizes (tokens against
+# the same model on one card)
+MESH_F32 = {MODEL: (2, 4), "deepseek-coder-33b": (4,)}
+MESH_F32_CAP = 32            # new tokens a request of the float32 serves
+MESH_DEEP = "deepseek-coder-33b"
+MESH_DEEP_CARDS = 4
+MESH_DEEP_REQUESTS = 128
+MESH_DEEP_ENGINE = dict(max_batch=128, block_size=16, kv_pool_tokens=131072,
+                        max_model_len=2048, prefill_bucket=64)
+MESH_DEEP_ONE_POOL = 8192    # the one-card comparison's pool, in tokens
+MESH_DEEP_CHECK = 8          # prompts whose logits are held to one card's
+MESH_OPT_CARDS = (2, 4)      # OPT-1.3B bf16 at full depth: a finding
+MESH_DRYRUN_STEPS = 4
+MESH_PROFILE_AT = 200        # the deepseek serve's profiled decode steps
+MESH_PROFILE_STEPS = 10
+# the collectives a served step issues, timed alone (op, shape, dtype):
+# deepseek's residual all-reduce at B=128, OPT's at B=16, deepseek's
+# logits gathered at B=128
+MESH_COLLECTIVES = (("all-reduce", (128, 7168), "bfloat16"),
+                    ("all-reduce", (16, 2048), "bfloat16"),
+                    ("all-gather", (128, 8064), "float32"))
+# deepseek-coder-33b long_500k on one card, PR 25's final run (PERF.md §6)
+DRYRUN_ONE_CARD_MS = 106.5
+
+
+def mesh_checksums(engine):
+    """Record each step's logits on the engine's stream as two int64
+    sums of their raw bits (plain and position-weighted; no sync): two
+    serves' lists are equal where their logits were equal bit for bit."""
+    import torch
+    sums = []
+    run = engine.steps._run
+
+    def recorded(key, body, pool):
+        out = run(key, body, pool)
+        bits = out[1].detach().contiguous().view(torch.int32).to(
+            torch.int64).reshape(-1)
+        w = torch.arange(1, bits.numel() + 1, device=bits.device)
+        sums.append(torch.stack([bits.sum(), (bits * w).sum()]))
+        return out
+    engine.steps._run = recorded
+    return sums
+
+
+def mesh_world_of_one(model, card):
+    """The sharded engine at a world of one on cuda:0, over a real NCCL
+    group of one rank (its collectives issued and captured into the
+    graphs), against the plain engine: the paged serve's first
+    ``MESH_FIRST`` requests, tokens and every step's logits bit for bit.
+    Returns the sharded serve's launches."""
+    import torch
+    from repro_torch.distributed import MeshGroup, free_port
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    mesh = make_model_mesh(["cuda:0"])
+    group = MeshGroup.init(mesh, 0, f"tcp://127.0.0.1:{free_port()}")
+    runs = {}
+    try:
+        sharded = Model(model.cfg, model.params, mesh=mesh)
+        if any(a.data_ptr() != b.data_ptr() for a, b in
+               zip(model.parameters(), sharded.parameters())):
+            raise AssertionError("a world of one copied the weights")
+        for tag, m in (("plain", model), ("mesh", sharded)):
+            reqs = serve_workload()[:MESH_FIRST]
+            release()
+            engine = ContinuousBatchingEngine(m, serve_config())
+            sums = mesh_checksums(engine)
+            if tag == "mesh":
+                group.record = []
+            _, launches = run_served(engine, reqs, card,
+                                     f"[mesh world-of-one {tag}]")
+            # the bodies Python ran: each step not replayed, and each
+            # capture (a replay issues its collectives in the graph)
+            calls = engine.decode_steps + engine.prefills \
+                - engine.steps.replays + len(engine.steps.graphs)
+            runs[tag] = ([r.output_tokens for r in reqs],
+                         torch.stack(sums).cpu(), launches, calls,
+                         sorted(map(str, engine.steps.graphs)))
+            del engine
+            release()
+        record, group.record = group.record, None
+    finally:
+        group.close()
+    (pt, ps, pl, pc, pg), (mt, ms, ml, mc, mg) = runs["plain"], runs["mesh"]
+    if mt != pt or not torch.equal(ms, ps) or ml != pl or mg != pg:
+        raise AssertionError("[mesh world-of-one] the sharded engine "
+                             "differs from the plain one")
+    # the embedding's all-reduce, 2 a layer, the logits' all-gather a body
+    want = mc * (2 + 2 * model.cfg.n_layers)
+    if len(record) != want:
+        raise AssertionError(f"[mesh world-of-one] {len(record)} "
+                             f"collectives issued, {want} expected")
+    print(f"[mesh world-of-one] on {card}: a 1-rank NCCL group on cuda:0, "
+          f"{len(mt)} requests, {len(ms)} steps ({len(mg)} graphs "
+          f"captured with their collectives): tokens and every step's "
+          f"logits equal to the plain engine's bit for bit; {len(record)} "
+          f"collectives issued by Python (warm-ups and captures; the "
+          f"replays issue theirs in the graphs) = {mc} bodies x (2 + 2 x "
+          f"{model.cfg.n_layers}); launches {ml}")
+    return ml
+
+
+def mesh_workload(vocab, n, cap=None, seed=0):
+    """``n`` ShareGPT-length requests (mean 161 in, 338 out, capped at
+    1024), each cut to ``cap`` new tokens if given."""
+    from repro_torch.serving.workload import Request, sharegpt_like
+    reqs = sharegpt_like(n, vocab, seed=seed, mean_in=161, mean_out=338,
+                         max_len=1024)
+    if cap is None:
+        return reqs
+    return [Request(r.req_id, r.prompt, sampling=dataclasses.replace(
+        r.sampling, max_new_tokens=min(r.max_new_tokens, cap)))
+        for r in reqs]
+
+
+def mesh_f32_config(name):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), n_layers=2,
+                               dtype="float32")
+
+
+def mesh_serve_rank(group, cfg, ecfg, reqs, slice_bytes=None,
+                    check=None, steady=False):
+    """A rank's serve over the mesh (``TP.serve_mesh``'s engine): the
+    rank's shard drawn from seed 0 as one card draws it, every logit
+    finite, the launches counted from 0 around the serve. With ``check``
+    (requests) first :func:`deep_logits` of them; with ``steady``, rank 0
+    keeps each step's device-time marks (:func:`steady_idle`). Returns
+    the rank's bytes held, launches and, on rank 0, the tokens and
+    metrics."""
+    import torch
+    from repro_torch.launch.tensor_parallel import rank_model
+    from repro_torch.serving import ContinuousBatchingEngine
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = rank_model(group, cfg, seed=0, slice_bytes=slice_bytes)
+    torch.cuda.synchronize()
+    out = {"rank": group.rank, "init_s": time.perf_counter() - t0,
+           "weights": torch.cuda.memory_allocated(),
+           "heads": (model.n_heads, model.n_kv_heads)}
+    if check is not None:
+        out["logits"] = deep_logits(model, check)
+        release()
+    engine = ContinuousBatchingEngine(model, ecfg)
+    marks, window = [], {}
+    if steady and group.rank == 0:
+        engine.steps.timing = True
+        run = engine.steps._run
+
+        decodes = [0]
+
+        def marked(key, body, pool):
+            decode = not isinstance(key[0], str)
+            decodes[0] += decode
+            n = decodes[0]
+            if decode and n == MESH_PROFILE_AT:
+                torch.cuda.synchronize()
+                ctx = [engine._pos[r.req_id] for r in engine.running]
+                window.update(batch=len(ctx), context=sum(ctx) / len(ctx))
+                window["prof"] = torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA])
+                window["prof"].start()
+            res = run(key, body, pool)
+            marks.append((key, engine.steps.last))
+            if decode and n == MESH_PROFILE_AT + MESH_PROFILE_STEPS - 1:
+                torch.cuda.synchronize()
+                window["prof"].stop()
+                window["by_kind"] = busy_by_kind(window.pop("prof"),
+                                                 MESH_PROFILE_STEPS)
+            return res
+        engine.steps._run = marked
+    with finite_logits(model) as finite:
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = engine.serve_mesh(reqs)
+        torch.cuda.synchronize()
+        out["serve_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        if not bool(finite) or not bool(engine.steps.finite):
+            raise AssertionError(f"rank {group.rank}: NaN or inf logits")
+    out.update(pool=engine.pool.pool_bytes, peak=torch.cuda.max_memory_allocated(),
+               held=torch.cuda.memory_allocated(),
+               graphs=len(engine.steps.graphs))
+    if metrics is not None:
+        out.update(
+            tokens=[list(r.output_tokens) for r in reqs],
+            finish=[r.finish_reason for r in reqs],
+            decode_steps=engine.decode_steps, prefills=engine.prefills,
+            output_tokens=metrics.output_tokens,
+            tok_s=metrics.output_throughput, itl=(metrics.itl.p50,
+                                                  metrics.itl.p95),
+            wall_s=metrics.wall_s, preemptions=metrics.preemptions)
+        if marks:
+            out["steady"] = steady_idle(marks)
+            out["window"] = window
+    del engine, model
+    release()
+    return out
+
+
+def steady_idle(marks):
+    """The longest run of consecutive replays of one decode bucket (no
+    prefill between), its first step dropped: device ms a step (CUDA
+    events around each replay) and the device's idle share between the
+    first mark and the last."""
+    runs, cur = [], []
+    for key, t in marks:
+        if cur and (key != cur[-1][0] or t.first_use is not None):
+            runs.append(cur)
+            cur = []
+        if t.first_use is None and not isinstance(key[0], str):
+            cur.append((key, t))
+    runs.append(cur)
+    best = max(runs, key=len)[1:]
+    if len(best) < 4:
+        return None
+    busy = sum(t.device_s for _, t in best)
+    a, b = best[0][1].start, best[-1][1].end
+    span = b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+    return {"bucket": best[0][0], "steps": len(best),
+            "ms": busy / len(best) * 1e3, "idle": 1 - busy / span}
+
+
+def deep_logits(model, reqs):
+    """Every rank alike: a prefill of each request's prompt (batch 1),
+    its K/V written into a paged pool of ``MESH_DEEP_ONE_POOL`` tokens,
+    then one paged decode step of them all, each fed its prompt's first
+    token (the inputs are fixed, not the model's picks). Returns the
+    float32 prefill and decode logits on the host."""
+    import torch
+    from repro_torch.kvcache.paged import PagedKVCache
+    from repro_torch.serving.steps import pow2_bucket
+    dev = model.device
+    pool = PagedKVCache(model.cfg, num_blocks=MESH_DEEP_ONE_POOL // 16,
+                        block_size=16, device=dev,
+                        kv_heads=model.n_kv_heads)
+    pre = []
+    for i, r in enumerate(reqs):
+        lt, cache = model.prefill(
+            torch.as_tensor(r.prompt[None], device=dev),
+            torch.tensor([r.prompt_len], device=dev))
+        pool.manager.allocate(i, r.prompt_len + 1)
+        pool.write_prefill(i, cache)
+        pre.append(lt)
+    nb = pow2_bucket(max(len(t) for t in pool.manager.tables.values()),
+                     lo=4)
+    view = pool.view(list(range(len(reqs))), [r.prompt_len for r in reqs],
+                     nb_pad=nb, batch_pad=len(reqs))
+    feed = torch.tensor([int(r.prompt[0]) for r in reqs], device=dev)
+    dec = model.decode_step(feed, view)
+    torch.cuda.synchronize()
+    return torch.cat(pre).cpu(), dec.cpu()
+
+
+def mesh_dryrun_rank(group):
+    """The dry-run's deepseek-coder-33b long_500k decode case over the
+    mesh under the act_replicated rules: its arguments materialized from
+    seed 0 as the rank's blocks, a warm-up step, then
+    ``MESH_DRYRUN_STEPS`` timed steps (CUDA events), the contiguous kernel
+    launched once a layer a step at the rank's K and G; rank 0 also
+    returns the dry-run census's per-device terms."""
+    import torch
+    from repro_torch.core.census import dryrun_census
+    from repro_torch.core.hardware import H100_SXM5_80GB
+    from repro_torch.core.roofline import roofline_report
+    from repro_torch.launch.dryrun import case_step
+    from repro_torch.launch.input_specs import (SHAPES, adjusted_cfg,
+                                                case_for, materialize)
+    from repro_torch.models.model import Model
+    shape = SHAPES["long_500k"]
+    cfg = adjusted_cfg(MESH_DEEP, shape, 1)
+    case = case_for(cfg, shape, group.mesh, arch=MESH_DEEP,
+                    act_replicated=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, cache, tokens, pos = materialize(
+        case, group.mesh, torch.Generator(group.device).manual_seed(0))
+    model = Model(cfg, params, mesh=group.mesh, rules=case.rules)
+    model.decode_step(tokens, cache, pos)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(MESH_DRYRUN_STEPS):
+        logits = model.decode_step(tokens, cache, pos + 1 + i)
+    end.record()
+    torch.cuda.synchronize()
+    out = {"rank": group.rank, "ms": start.elapsed_time(end)
+           / MESH_DRYRUN_STEPS, "launches": read_launches(),
+           "heads": (model.n_heads, model.n_kv_heads),
+           "finite": bool(torch.isfinite(logits).all()),
+           "peak": torch.cuda.max_memory_allocated()}
+    if group.rank == 0:
+        rep = roofline_report(dryrun_census(case.cfg, case_step(case),
+                                            case.rules), H100_SXM5_80GB)
+        out.update(compute_ms=rep.compute_s * 1e3,
+                   memory_ms=rep.memory_s * 1e3,
+                   collective_ms=rep.collective_s * 1e3)
+    del model, params, cache
+    release()
+    return out
+
+
+def mesh_collective_rank(group, reps=20, replays=5):
+    """Each of ``MESH_COLLECTIVES`` alone on the mesh: ``reps`` of it
+    captured in a CUDA graph (as the steps capture them), replayed
+    ``replays`` times between CUDA events. Returns µs a collective."""
+    import torch
+    out = {}
+    for op, shape, dtype in MESH_COLLECTIVES:
+        x = torch.zeros(shape, dtype=getattr(torch, dtype), device="cuda")
+        call = (lambda: group.all_reduce(x)) if op == "all-reduce" else \
+            (lambda: group.all_gather(x))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            for _ in range(reps):
+                call()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[(op, shape, dtype)] = start.elapsed_time(end) * 1e3 \
+            / (reps * replays)
+        del graph
+    release()
+    return out
+
+
+def mesh_collective_report(ranks, j, m, card):
+    """The collectives' µs (the slowest rank) beside their bus rate and
+    the dry-run census's link rate."""
+    import torch
+    from repro_torch.core.hardware import H100_SXM5_80GB
+    peer = all(torch.cuda.can_device_access_peer(a, b) for a in range(m)
+               for b in range(m) if a != b)
+    parts = []
+    for (op, shape, dtype), _ in ranks[0][j].items():
+        us = max(r[j][(op, shape, dtype)] for r in ranks)
+        nbytes = np.prod(shape) * (2 if dtype == "bfloat16" else 4)
+        if op == "all-gather":
+            nbytes *= m
+        # a ring's bus bytes: 2 (M-1)/M of the tensor for an all-reduce,
+        # (M-1)/M of the output for an all-gather
+        bus = nbytes * (2 if op == "all-reduce" else 1) * (m - 1) / m
+        parts.append(f"{op} {shape} {dtype} {us:.1f} µs ({bus / us / 1e3:.1f}"
+                     f" GB/s bus)")
+    print(f"[mesh collectives x{m}] on {card}, peer access "
+          f"{'on' if peer else 'off'} between every pair, captured in a "
+          f"graph: {'; '.join(parts)}; the dry-run census's link rate "
+          f"{H100_SXM5_80GB.link_bw / 1e9:.0f} GB/s")
+
+
+def mesh_rank_jobs(group, jobs):
+    """Each ``(fn, args)`` of ``jobs`` on this rank, in order."""
+    return [fn(group, *args) for fn, args in jobs]
+
+
+def mesh_one_card_serve(cfg, reqs):
+    """The tokens of ``reqs`` served by ``cfg`` on one card (cuda:0),
+    drawn from seed 0."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serving import ContinuousBatchingEngine
+    model = Model(cfg, generator=torch.Generator("cuda").manual_seed(0))
+    engine = ContinuousBatchingEngine(model, serve_config())
+    engine.run(reqs)
+    tokens = [list(r.output_tokens) for r in reqs]
+    del engine, model
+    release()
+    return tokens
+
+
+def mesh_deep_one_card(card, check):
+    """deepseek-coder-33b on one card (cuda:0), bf16, drawn from seed 0 in
+    the dry-run's slices: :func:`deep_logits` of the check prompts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import DRAW_SLICE_BYTES, init_params
+    cfg = get_config(MESH_DEEP)
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(
+        cfg, torch.Generator("cuda").manual_seed(0),
+        slice_bytes=DRAW_SLICE_BYTES))
+    out = deep_logits(model, check)
+    print(f"[mesh deep one-card] {MESH_DEEP} bf16 on cuda:0 ({card}): "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB held with an "
+          f"{MESH_DEEP_ONE_POOL}-token pool, {len(check)} prefills and a "
+          f"paged decode step in {time.perf_counter() - t0:.1f} s")
+    del model
+    release()
+    return out
+
+
+def deep_gap_of(got, want):
+    """The largest |difference| over the largest |logit| of ``want``."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def mesh_across(card, n, paged):
+    """Everything that runs across ``n`` cards (module docstring)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import devices_mesh, spawn
+    from repro_torch.models.params import DRAW_SLICE_BYTES
+    from repro_torch.serving import EngineConfig
+    f32_reqs = {name: mesh_workload(get_config(name).vocab_size, 16,
+                                    MESH_F32_CAP, seed=2)
+                for name in MESH_F32}
+    one = {name: mesh_one_card_serve(mesh_f32_config(name),
+                                     mesh_workload(get_config(name)
+                                                   .vocab_size, 16,
+                                                   MESH_F32_CAP, seed=2))
+           for name in MESH_F32}
+    deep = n >= MESH_DEEP_CARDS
+    deep_cfg = get_config(MESH_DEEP)
+    deep_reqs = mesh_workload(deep_cfg.vocab_size, MESH_DEEP_REQUESTS)
+    check = deep_reqs[:MESH_DEEP_CHECK]
+    deep_one = mesh_deep_one_card(card, check) if deep else None
+    opt_cfg = get_config(MODEL)
+    for m in sorted({m for ms in MESH_F32.values() for m in ms}
+                    | set(MESH_OPT_CARDS)):
+        if m > n:
+            print(f"[mesh] a mesh of {m} cards does not fit {n} cards")
+            continue
+        jobs = [(mesh_serve_rank, (mesh_f32_config(name), serve_config(),
+                                   f32_reqs[name]))
+                for name, ms in MESH_F32.items() if m in ms]
+        f32_names = [name for name, ms in MESH_F32.items() if m in ms]
+        jobs.append((mesh_collective_rank, ()))
+        if m in MESH_OPT_CARDS:
+            jobs.append((mesh_serve_rank, (opt_cfg, serve_config(),
+                                           serve_workload())))
+        if deep and m == MESH_DEEP_CARDS:
+            jobs.append((mesh_serve_rank, (
+                deep_cfg, EngineConfig(**MESH_DEEP_ENGINE), deep_reqs,
+                DRAW_SLICE_BYTES, check, True)))
+            jobs.append((mesh_dryrun_rank, ()))
+        t0 = time.perf_counter()
+        ranks = spawn(mesh_rank_jobs, devices_mesh(m), jobs)
+        print(f"[mesh {m} cards] {len(jobs)} jobs over cuda:0..{m - 1} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for j, name in enumerate(f32_names):
+            r0 = ranks[0][j]
+            if r0["tokens"] != one[name]:
+                raise AssertionError(f"[mesh f32 {name} x{m}] tokens differ "
+                                     f"from one card's")
+            mesh_launch_check(ranks, j, mesh_f32_config(name), f"f32 {name}")
+            print(f"[mesh f32 {name} x{m}] 2 layers, full width, float32: "
+                  f"16 requests ({r0['output_tokens']} output tokens) token "
+                  f"for token equal to one card's; each rank holds H "
+                  f"{r0['heads'][0]}, K {r0['heads'][1]}; launches "
+                  f"{r0['launches']} on every rank")
+        j = len(f32_names)
+        mesh_collective_report(ranks, j, m, card)
+        j += 1
+        if m in MESH_OPT_CARDS:
+            mesh_opt_finding(ranks, j, m, card, paged)
+            j += 1
+        if deep and m == MESH_DEEP_CARDS:
+            mesh_deep_report(ranks, j, m, card, deep_one)
+            mesh_dryrun_report(ranks, j + 1, m, card)
+
+
+def mesh_launch_check(ranks, j, cfg, tag):
+    """Every rank's launches of job ``j``: the paged kernel once a layer
+    a decode step, the flash kernel once a layer a prefill, nothing
+    else (rank 0's engine counted the steps)."""
+    r0 = ranks[0][j]
+    want = dict.fromkeys(r0["launches"], 0)
+    want["paged_decode_attention"] = r0["decode_steps"] * cfg.n_layers
+    want["flash_attention"] = r0["prefills"] * cfg.n_layers
+    for r in ranks:
+        if r[j]["launches"] != want:
+            raise AssertionError(f"[mesh {tag}] rank {r[j]['rank']} "
+                                 f"launched {r[j]['launches']}, not {want}")
+
+
+def mesh_opt_finding(ranks, j, m, card, paged):
+    """OPT-1.3B bf16 at full depth over ``m`` cards: tok/s and ITL beside
+    the phase-4 paged serve's on one card (a finding)."""
+    from repro_torch.configs import get_config
+    r0 = ranks[0][j]
+    mesh_launch_check(ranks, j, get_config(MODEL), f"{MODEL} x{m}")
+    one = paged["metrics"]
+    same = sum(a == list(b.output_tokens) for a, b in zip(r0["tokens"],
+                                                          paged["reqs"]))
+    print(f"[mesh {MODEL} x{m}] bf16, {get_config(MODEL).n_layers} "
+          f"layers, the paged serve's "
+          f"{len(r0['tokens'])} requests on {card}: output "
+          f"{r0['tok_s']:.1f} tok/s, ITL p50 {r0['itl'][0] * 1e3:.2f} ms "
+          f"p95 {r0['itl'][1] * 1e3:.2f} ms, wall {r0['wall_s']:.2f} s; one "
+          f"card (phase 4's serve): {one.output_throughput:.1f} tok/s, ITL "
+          f"p50 {one.itl.p50 * 1e3:.2f} ms p95 {one.itl.p95 * 1e3:.2f} ms; "
+          f"{same}/{len(r0['tokens'])} requests' tokens equal to one "
+          f"card's (bf16 sums in another order)")
+
+
+def mesh_deep_report(ranks, j, m, card, deep_one):
+    """deepseek-coder-33b bf16 at full width and depth over ``m`` cards:
+    every request finished, launches exact on every rank, each rank's
+    bytes, ITL, tok/s and the steady step's idle share, and the check
+    prompts' logits within ``DEEP_TOL`` of one card's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_DEEP)
+    r0 = ranks[0][j]
+    if r0["finish"] != ["length"] * MESH_DEEP_REQUESTS:
+        raise AssertionError(f"[mesh deep] finish reasons {r0['finish']}")
+    mesh_launch_check(ranks, j, cfg, "deep")
+    if r0["heads"] != (cfg.n_heads // m, cfg.n_kv_heads // m):
+        raise AssertionError(f"[mesh deep] heads {r0['heads']}")
+    gaps = [deep_gap_of(got, want) for got, want in
+            zip(r0["logits"], deep_one)]
+    for r in ranks[1:]:
+        if any(not (a == b).all() for a, b in zip(r[j]["logits"],
+                                                  r0["logits"])):
+            raise AssertionError("[mesh deep] ranks' logits differ")
+    if max(gaps) > DEEP_TOL:
+        raise AssertionError(f"[mesh deep] logits {gaps} of the largest "
+                             f"from one card's, above {DEEP_TOL}")
+    for r in ranks:
+        x = r[j]
+        print(f"[mesh deep rank {x['rank']}] weights {gb(x['weights'])} "
+              f"(drawn in {x['init_s']:.1f} s), K/V pool {gb(x['pool'])}, "
+              f"held after the serve {gb(x['held'])}, peak "
+              f"{gb(x['peak'])}, {x['graphs']} graphs")
+    win = r0.get("window", {})
+    if "by_kind" in win:
+        from repro_torch.core.census import StepShape, dryrun_census
+        from repro_torch.core.hardware import H100_SXM5_80GB
+        from repro_torch.core.roofline import roofline_report
+        from repro_torch.launch.mesh import make_model_mesh
+        from repro_torch.sharding import rules_for
+        ctx = int(win["context"])
+        rules = rules_for(make_model_mesh([f"cuda:{i}" for i in range(m)]),
+                          act_replicated=True)
+        c = dryrun_census(cfg, StepShape("decode", win["batch"], ctx + 1,
+                                         kv_len=ctx + 1), rules)
+        rep = roofline_report(c, H100_SXM5_80GB)
+        print(f"[mesh deep profile] rank 0, decode steps "
+              f"{MESH_PROFILE_AT}-{MESH_PROFILE_AT + MESH_PROFILE_STEPS - 1}"
+              f" (batch {win['batch']}, mean context {win['context']:.0f}),"
+              f" busy a step by kind: {kind_parts(win['by_kind'])}; the "
+              f"dry-run census of that step a device: compute "
+              f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f}"
+              f" ms, collective {rep.collective_s * 1e3:.3f} ms "
+              f"({c.coll_bytes / 1e6:.1f} MB at "
+              f"{H100_SXM5_80GB.link_bw / 1e9:.0f} GB/s)")
+    st = r0.get("steady")
+    steady = (f"steady step {st['ms']:.2f} ms of device time at bucket "
+              f"{st['bucket']} over {st['steps']} steps, idle share "
+              f"{st['idle'] * 100:.1f}%" if st else "no steady window")
+    print(f"[mesh deep] {MESH_DEEP} bf16, {cfg.n_layers} layers, full "
+          f"width, over {m} cards ({card}): {MESH_DEEP_REQUESTS} of "
+          f"{MESH_DEEP_REQUESTS} requests finished, {r0['output_tokens']} "
+          f"output tokens, {r0['decode_steps']} decode steps, "
+          f"{r0['prefills']} prefills, {r0['preemptions']} preemptions; "
+          f"output {r0['tok_s']:.1f} tok/s, ITL p50 "
+          f"{r0['itl'][0] * 1e3:.2f} ms p95 {r0['itl'][1] * 1e3:.2f} ms, "
+          f"wall {r0['wall_s']:.1f} s (serve {r0['serve_s']:.1f} s); "
+          f"{steady}; launches {r0['launches']} on every rank = "
+          f"steps x {cfg.n_layers}; the first {MESH_DEEP_CHECK} prompts' "
+          f"prefill and decode logits within {gaps[0]:.2e} and "
+          f"{gaps[1]:.2e} of the largest of one card's (DEEP_TOL "
+          f"{DEEP_TOL})")
+
+
+def mesh_dryrun_report(ranks, j, m, card):
+    """The dry-run decode case over ``m`` cards beside its census."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_DEEP)
+    r0 = ranks[0][j]
+    want = MESH_DRYRUN_STEPS * cfg.n_layers
+    for r in ranks:
+        x = r[j]
+        if x["launches"]["decode_attention"] != want or \
+                sum(x["launches"].values()) != want or not x["finite"]:
+            raise AssertionError(f"[mesh dryrun] rank {x['rank']}: "
+                                 f"{x['launches']}, finite {x['finite']}")
+    h, k = r0["heads"]
+    print(f"[mesh dryrun] {MESH_DEEP} long_500k (a ring of 8192 slots, "
+          f"B=1) over 1 x {m} ({card}): the contiguous kernel at K {k}, G "
+          f"{h // k} a rank, {want} launches a rank; step "
+          f"{max(r[j]['ms'] for r in ranks):.2f} ms (slowest rank; rank 0 "
+          f"{r0['ms']:.2f} ms), peak {gb(r0['peak'])} a rank; the dry-run "
+          f"census a device: compute {r0['compute_ms']:.3f} ms, memory "
+          f"{r0['memory_ms']:.3f} ms, collective {r0['collective_ms']:.3f}"
+          f" ms; one card, PR 25: {DRYRUN_ONE_CARD_MS} ms")
+
+
+def phase_mesh(model, card, paged):
+    """Tensor parallelism over a mesh's model axis (module docstring):
+    the world of one on cuda:0, then, with several cards, everything
+    across them; with one card it says so. Returns the world of one's
+    launches."""
+    import torch
+    launches = mesh_world_of_one(model, card)
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[mesh] nothing ran across cards: this machine has {n} "
+              f"card")
+        return launches
+    mesh_across(card, n, paged)
+    return launches
+
+
 def phase(name, fn, *args):
     """Run one phase and print its seconds."""
     t0 = time.perf_counter()
@@ -6093,6 +6739,7 @@ def main() -> int:
     phase("5, verify compare", phase_verify_compare, model, card)
     phase("4, census", phase_census, model, card)
     by_path.update(phase("4, examples", phase_examples, model, card, errs))
+    by_path["mesh_serve"] = phase("4, mesh", phase_mesh, model, card, paged)
     del model
     release()
     family_paths, _ = phase("4, non-dense families", phase_families, card)

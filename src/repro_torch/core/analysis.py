@@ -58,8 +58,10 @@ while alive, as an allocator's peak counts them). The reference's
 makes of bfloat16 operands; PyTorch makes none, so it has no counterpart.
 
 **Collectives:** on one device nothing is collective and ``coll_bytes``
-is 0. Counting the collectives a sharded step dispatches waits for the
-rules executed across cards (ROADMAP.md queue 1, item 3).
+is 0. A rank of a tensor-parallel model (:mod:`repro_torch.distributed`)
+counts each all-reduce and all-gather it issues under class
+``collective``: its bytes in ``coll_bytes`` (an all-reduce twice the
+tensor's, an all-gather its output's) and one launch.
 """
 from __future__ import annotations
 
@@ -398,6 +400,17 @@ class DispatchCensus(TorchDispatchMode):
             cls = _CLASSES[path] = classify(path)
         self._count(cls, rule.name, flops, nbytes)
         return out
+
+    def collective(self, kind: str, nbytes: float):
+        """One collective (``"all-reduce"``, ``"all-gather"``) moving
+        ``nbytes`` (:mod:`repro_torch.distributed`'s count), class
+        ``collective``."""
+        c = self.census
+        c.coll_bytes += nbytes
+        c.per_collective[kind] += nbytes
+        c.per_class["collective"].coll_bytes += nbytes
+        self.launches.per_class["collective"] += 1
+        self.ops[("collective", kind)] += 1
 
     def kernel(self, name: str, cost: KernelCost, out):
         """One launch of hand-written kernel ``name`` (class

@@ -42,7 +42,7 @@ that a CUDA graph can capture the step.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -261,10 +261,16 @@ class BlockManager:
 class PagedKVCache:
     """Physical paged pool: self-attention K/V in blocks and, for SSM and
     ``CROSS`` layers, dense-state slots (``max_batch`` of them; required
-    then)."""
+    then). On a rank of a tensor-parallel model the pool holds the rank's
+    ``kv_heads``: ``block_bytes``, ``pool_bytes`` and ``token_bytes`` are
+    one card's, and the block tables, in tokens, are every card's. A
+    device copy the pool makes outside a step (a copy-on-write fork) is
+    also handed to ``mirror``, if set, with ``("copy", old, new)``: the
+    engine's leading rank sends it to the others."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
-                 device: torch.device, max_batch: Optional[int] = None):
+                 device: torch.device, max_batch: Optional[int] = None,
+                 kv_heads: Optional[int] = None):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.device = torch.device(device)
@@ -273,12 +279,15 @@ class PagedKVCache:
         layers = cache_layers(cfg)
         self.pool: Dict[str, torch.Tensor] = {}
         if layers["kv"]:
+            # a rank of a tensor-parallel model holds its KV heads
+            # (``kv_heads``); the tables, a token count, are every rank's
             shape = (len(layers["kv"]), num_blocks + 1, block_size,
-                     cfg.n_kv_heads, cfg.hd)
+                     kv_heads or cfg.n_kv_heads, cfg.hd)
             self.pool = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
                                            device=self.device)
                          for name in ("k", "v")}
         self.kv_names = tuple(self.pool)
+        self.mirror: Optional[Callable[[Tuple], None]] = None
         if (layers["ssm"] or layers["cross"]) and max_batch is None:
             raise ValueError(f"{cfg.name}: a pool with per-request state "
                              f"needs max_batch (its dense-state slots)")
@@ -555,6 +564,12 @@ class PagedKVCache:
         if not self.manager.needs_cow(req_id, pos):
             return
         old, new = self.manager.copy_on_write(req_id, pos // self.block_size)
+        if self.mirror is not None:
+            self.mirror(("copy", old, new))
+        self.copy_block(old, new)
+
+    def copy_block(self, old: int, new: int):
+        """Physical block ``old``'s K/V copied into block ``new``."""
         for name in self.kv_names:
             self.pool[name][:, new] = self.pool[name][:, old]
 

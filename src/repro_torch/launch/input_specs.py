@@ -23,8 +23,11 @@ weights exceed half a device's memory under pure tensor parallelism. The
 device is a :class:`~repro_torch.core.hardware.Hardware` (the H100 by
 default; the reference's is a TPU).
 
-:func:`materialize` allocates a case's arguments on a real one-device
-mesh, seeded, for the cases that fit one card.
+:func:`materialize` allocates a case's arguments on a real mesh, seeded:
+on one device, for the cases that fit one card; on a ``1 x M`` mesh of
+devices, in each rank's process (:mod:`repro_torch.distributed`), the
+rank's blocks, drawn as the one-device case draws them, and the case's
+step then runs the model's rank over the mesh.
 """
 from __future__ import annotations
 
@@ -37,13 +40,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.hardware import H100_SXM5_80GB, Hardware
 from repro_torch.core.roofline import model_flops_for
-from repro_torch.launch.mesh import MULTI_CARD_ITEM, Mesh
+from repro_torch.launch.mesh import Mesh, multi_card_item
 from repro_torch.models.params import (DRAW_SLICE_BYTES, abstract_cache,
                                        cache_shardings, cache_sds, draw_leaf,
                                        map_tree, param_shardings, param_sds,
                                        param_specs, spec_dtype)
 from repro_torch.sharding import (BATCH, VOCAB, PartitionSpec, ShardingRules,
-                                  rules_for)
+                                  check_executable, rules_for, shard_leaf)
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train import (TrainState, make_train_step,
                                         opt_state_sds, opt_state_shardings)
@@ -182,8 +185,13 @@ def _batch_meta(cfg: ArchConfig, rules: ShardingRules, batch: int,
     return meta, spec
 
 
-def _model(cfg: ArchConfig, params):
+def _model(cfg: ArchConfig, params, rules: ShardingRules):
+    """The case's model over ``params``: on their device, or, on a mesh
+    of several real devices, this process's rank of it."""
     from repro_torch.models.model import Model
+    mesh = rules.mesh
+    if mesh.devices is not None and mesh.size > 1:
+        return Model(cfg, params, mesh=mesh, rules=rules)
     leaf = params["final_norm"]["scale"]
     return Model(cfg, params, device=leaf.device)
 
@@ -230,7 +238,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         step_fn = make_train_step(cfg, AdamWConfig(), microbatches=micro)
 
         def fn(params, opt_state, batch):
-            state = TrainState(_model(cfg, params), opt_state)
+            state = TrainState(_model(cfg, params, rules), opt_state)
             metrics = step_fn(state, batch)
             return state.params, state.opt_state, metrics
         batch, batch_sp = _batch_meta(cfg, rules, B, shape.seq, True)
@@ -249,7 +257,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         batch, batch_sp = _batch_meta(cfg, rules, B, shape.seq, False)
         if cfg.arch_type == "encoder":
             def fn(params, batch):
-                return _model(cfg, params).forward(
+                return _model(cfg, params, rules).forward(
                     tokens=batch.get("tokens"), embeds=batch.get("embeds"))
             logits = torch.empty((B, shape.seq, V), dtype=torch.float32,
                                  device="meta")
@@ -261,7 +269,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         kv_len = min(shape.seq, cfg.sliding_window or shape.seq)
 
         def fn(params, batch):
-            return _model(cfg, params).prefill(
+            return _model(cfg, params, rules).prefill(
                 batch.get("tokens"), cache_len=kv_len,
                 embeds=batch.get("embeds"),
                 img_embeds=batch.get("img_embeds"))
@@ -276,7 +284,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
     kv_len = min(shape.seq, cfg.sliding_window or shape.seq)
 
     def fn(params, cache, tokens, pos):
-        logits = _model(cfg, params).decode_step(tokens, cache, pos)
+        logits = _model(cfg, params, rules).decode_step(tokens, cache, pos)
         return logits, cache
     cache, cache_sp = cache_sds(cfg, B, kv_len), \
         cache_shardings(cfg, rules, B, kv_len)
@@ -307,26 +315,47 @@ def build_case(arch: str, shape_name: str, mesh: Mesh, *,
 
 
 def materialize(case: DryRunCase, mesh: Mesh,
-                generator: torch.Generator) -> Tuple:
-    """The case's arguments allocated on ``mesh``'s one device, seeded
-    from ``generator`` (on that device): the weights as
+                generator: torch.Generator,
+                rank: Optional[int] = None) -> Tuple:
+    """The case's arguments allocated on ``mesh``, seeded from
+    ``generator`` (on the device): the weights as
     :func:`~repro_torch.models.params.init_params` draws them (each large
     leaf in slices, no float32 copy beside it), a random cache (normal
     K/V and state), random token ids, a decode step's position ``seq -
-    1`` (a ring's slot wraps), zero optimizer moments and step. A mesh of
-    more than one device raises ``NotImplementedError``."""
+    1`` (a ring's slot wraps), zero optimizer moments and step.
+
+    On a mesh of several devices, device ``rank``'s blocks (by default
+    this process's rank of the mesh, :mod:`repro_torch.distributed`):
+    every weight and cache leaf is drawn whole, in the one-device order,
+    and cut by the case's specs, so each rank holds its block of the
+    one-device case's arguments. What the mesh does not run raises
+    (:func:`~repro_torch.sharding.check_executable`; a training case)."""
     if mesh.devices is None:
         raise ValueError("materialize needs a mesh over real devices")
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a case over {mesh.size} devices needs the rules executed "
-            f"across cards, not ported yet ({MULTI_CARD_ITEM})")
-    device = torch.device(mesh.devices.flat[0])
-    cfg = case.cfg
+    cfg, rules = case.cfg, case.rules
+    if mesh.size > 1:
+        if case.kind == "train":
+            raise NotImplementedError(
+                f"a training case over {mesh.size} devices "
+                f"({multi_card_item('train')})")
+        check_executable(cfg, rules)
+        if rank is None:
+            from repro_torch.distributed import current
+            group = current()
+            if group is None or group.mesh.shape != mesh.shape:
+                raise ValueError(
+                    f"a case over {mesh.size} devices needs a rank: run it "
+                    f"in a process of the mesh (distributed.spawn)")
+            rank = group.rank
+    device = torch.device(mesh.devices.flat[rank or 0])
 
     def draw(spec):
-        return draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
-                         slice_bytes=DRAW_SLICE_BYTES)
+        whole = draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
+                          slice_bytes=DRAW_SLICE_BYTES)
+        if mesh.size == 1:
+            return whole
+        return shard_leaf(whole, rules.spec(spec.logical, spec.shape), mesh,
+                          rank)
 
     def batch(meta: Dict[str, torch.Tensor]):
         out = {}

@@ -23,10 +23,28 @@ import torch
 
 from repro_torch.device import resolve_device
 
-# where running a mesh of more than one card stands (what a multi-device
-# slice or case refuses with)
-MULTI_CARD_ITEM = ("ROADMAP.md queue 1, running a mesh of more than one "
-                   "card")
+# what is left of running a model across more than one card: ROADMAP.md
+# queue 1, item 3's list, each entry what a multi-device path refuses with
+MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 3, running a model across "
+                   "more than one card")
+MULTI_CARD_LEFT = {
+    "replica": "a replica of several cards in a cluster's slices",
+    "modes": "the overlapped executor, chunked prefill, the prefix cache, "
+             "speculation and gather under a mesh",
+    "rules": "the default rules' d_model-sharded residual and the "
+             "head-dim fallback",
+    "data": "data > 1 inside one engine, and FSDP",
+    "families": "MoE expert parallelism with its all-to-all; SSM, hybrid "
+                "and VLM across cards",
+    "train": "training across cards",
+}
+
+
+def multi_card_item(what: str) -> str:
+    """The ROADMAP entry a path that is not executed across cards names:
+    ``what`` is a key of :data:`MULTI_CARD_LEFT`."""
+    n = list(MULTI_CARD_LEFT).index(what) + 1
+    return f"{MULTI_CARD_ITEM}, left {n}: {MULTI_CARD_LEFT[what]}"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -64,6 +82,12 @@ def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
     arr = np.empty(len(devs), dtype=object)
     arr[:] = devs
     return Mesh(shape, arr.reshape(tuple(shape.values())))
+
+
+def make_model_mesh(devices: Sequence[Union[str, torch.device]]) -> Mesh:
+    """A ``1 x M`` mesh (``data`` 1, ``model`` M) over ``devices`` in
+    order: tensor parallelism over M devices, e.g. ``cuda:0..M-1``."""
+    return make_mesh((1, len(devices)), ("data", "model"), devices)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -9,7 +9,9 @@ Counterparts of ``repro.models.attention`` ``qkv_project``,
 with the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv
 [d,k,hd]``, ``wo [h,hd,d]``). Attention itself goes through
 ``kernels.ops``: the hand-written CUDA kernels for CUDA tensors, their
-plain versions on the CPU. Each part runs under the reference's scope
+plain versions on the CPU. Head counts are read from the weights, so
+the same functions run a rank's heads under tensor parallelism
+(:mod:`repro_torch.distributed`). Each part runs under the reference's scope
 (:func:`~repro_torch.core.analysis.scope`: ``qkv_proj``, ``kv_update``,
 ``attn_core``, ``attn_out``, ``cross_kv``, ``cross_attn``) at the
 reference's site.
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.analysis import scope
 from repro_torch.device import on_device
+from repro_torch.distributed import reduce_partial
 from repro_torch.kernels import ops
 from repro_torch.models.layers import rope
 
@@ -33,7 +36,9 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 positions: Optional[torch.Tensor]):
     """x: [B,S,D] -> q [B,S,K,G,hd], k,v [B,S,K,hd] (rope applied)."""
     B, S, D = x.shape
-    h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    # the heads this device holds (a rank's block under tensor
+    # parallelism, all of them on one device)
+    h, k, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.hd
     with scope("qkv_proj"):
         q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
         kk = (x @ p["wk"].reshape(D, k * hd)).reshape(B, S, k, hd)
@@ -49,10 +54,12 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
 
 
 def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """o: [B,S,H*hd] -> [B,S,D]."""
-    hhd = cfg.n_heads * cfg.hd
+    """o: [B,S,H*hd] -> [B,S,D]. Under tensor parallelism ``wo`` is the
+    rank's rows (its heads) and the partial sums are all-reduced."""
+    hhd = p["wo"].shape[0] * cfg.hd
     with scope("attn_out"):
-        return o.reshape(*o.shape[:2], hhd) @ p["wo"].reshape(hhd, -1)
+        out = o.reshape(*o.shape[:2], hhd) @ p["wo"].reshape(hhd, -1)
+    return reduce_partial(out)
 
 
 def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -87,7 +94,7 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             "bidirectional suffix would retroactively change the "
             "already-written prefix KV")
     q, k, v = qkv_project(p, x, cfg, positions)
-    q = q.reshape(B, S, cfg.n_heads, cfg.hd).contiguous()
+    q = q.reshape(B, S, -1, cfg.hd).contiguous()
     if prefix_k is None:
         with scope("attn_core"):
             o = ops.prefill_attention(q, k.contiguous(), v.contiguous(),
@@ -166,7 +173,7 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
             eff = torch.minimum(eff, lengths)
     with scope("attn_core"):
         o = ops.decode_attention(
-            q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), cache_k, cache_v,
+            q.reshape(B, -1, cfg.hd).contiguous(), cache_k, cache_v,
             eff.to(torch.int32).contiguous())
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
@@ -219,7 +226,7 @@ def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
         v_pool.index_put_((phys, sib), v_new[:, 0].to(v_pool.dtype))
     with scope("attn_core"):
         o = ops.paged_decode_attention(
-            q.reshape(B, cfg.n_heads, cfg.hd).contiguous(), k_pool, v_pool,
+            q.reshape(B, -1, cfg.hd).contiguous(), k_pool, v_pool,
             tables, lengths)
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
@@ -230,7 +237,7 @@ def cross_attn_kv(p: Params, img_embeds: torch.Tensor,
     ``[B, n_img, D]``: ``k, v [B, n_img, K, hd]``, no bias and no RoPE
     (the reference's ``cross_attn_kv``)."""
     B, N, D = img_embeds.shape
-    kh, hd = cfg.n_kv_heads, cfg.hd
+    kh, hd = p["wk"].shape[1], cfg.hd
     with scope("cross_kv"):
         img = img_embeds.to(p["wk"].dtype)
         k = (img @ p["wk"].reshape(D, kh * hd)).reshape(B, N, kh, hd)
@@ -248,7 +255,7 @@ def cross_attn_apply(p: Params, x: torch.Tensor, k: torch.Tensor,
     entry, not causal; a decode step (``S = 1``) the contiguous decode
     kernel with every length ``n_img``. Returns ``[B,S,D]``."""
     B, S, D = x.shape
-    h, hd = cfg.n_heads, cfg.hd
+    h, hd = p["wq"].shape[1], cfg.hd
     with scope("cross_attn"):
         q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
         if cfg.qkv_bias:

@@ -3,10 +3,15 @@
 Plain functions on tensors, one per reference function
 (``repro.models.layers``), taking the same parameter dicts and layouts:
 ``w1/w3 [d,f]``, ``w2 [f,d]``, ``tok [Vp,d]``, ``pos [max_position,d]``,
-``unemb [d,Vp]``. The MLP, the embedding of a sequence's tokens and
-the unembedding run under the reference's scopes (``mlp``, ``embed``,
-``logits``); a decode row's embedding runs under none, as the
-reference's ``_decode_embed`` does.
+``unemb [d,Vp]``. Under tensor parallelism
+(:mod:`repro_torch.distributed`, the reference's ``act_replicated``
+layout) ``w1/w3`` hold a rank's columns and ``w2`` its rows, all-reduced
+after ``w2``; ``tok``/``unemb`` hold its block of the vocab: a lookup
+masks the rows outside it and all-reduces, the logits are all-gathered.
+The MLP, the embedding of a sequence's tokens and the unembedding run
+under the reference's scopes (``mlp``, ``embed``, ``logits``); a decode
+row's embedding runs under none, as the reference's ``_decode_embed``
+does.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.analysis import scope
+from repro_torch.distributed import gather_last, reduce_partial, vocab_block
 
 Params = Dict[str, torch.Tensor]
 
@@ -68,12 +74,23 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
             h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
         else:
             h = torch.clamp_min(h, 0)
-        return h @ p["w2"]
+        out = h @ p["w2"]
+    return reduce_partial(out)
 
 
 def _lookup(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
-    x = p["tok"][tokens].to(cfg.activation_dtype)
+    block = vocab_block(p["tok"].shape[0])
+    if block is None:
+        x = p["tok"][tokens].to(cfg.activation_dtype)
+    else:
+        # vocab-parallel: the rows this rank holds, zeros elsewhere, summed
+        # over the ranks (one nonzero term a token: exact)
+        local = tokens - block[0]
+        held = (local >= 0) & (local < block[1])
+        x = p["tok"][torch.where(held, local, 0)]
+        x = reduce_partial(torch.where(held[..., None], x, 0).to(
+            cfg.activation_dtype))
     if cfg.pos == "learned":
         x = x + p["pos"][positions].to(x.dtype)
     return x
@@ -118,10 +135,11 @@ def decode_embed(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
 
 def unembed_apply(p: Params, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
-    """Float32 logits over the padded vocab; padded columns are -1e30."""
+    """Float32 logits over the padded vocab; padded columns are -1e30.
+    Under tensor parallelism each rank's block of columns, gathered."""
     with scope("logits"):
         w = p["tok"].T if cfg.tie_embeddings else p["unemb"]
-        logits = (x @ w.to(x.dtype)).float()
+        logits = gather_last((x @ w.to(x.dtype)).float())
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:].fill_(-1e30)
         return logits

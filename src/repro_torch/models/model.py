@@ -49,9 +49,17 @@ leaves, made in place, is what every entry point reads next.
 An MoE block routes at the config's ``moe.capacity_factor`` in a
 prefill and at ``serve_capacity_factor`` in a decode step, over every
 row it is given, batch padding included, as the reference does.
+
+Over a mesh (``Model(cfg, params, mesh=..., rules=...)``, in a process
+that joined it: :mod:`repro_torch.distributed`) the model holds one
+rank's block of every weight under the ``act_replicated`` rules, and
+``forward``, ``prefill`` and ``decode_step`` run with the mesh's group
+active, so the layers' collectives keep the residual stream and the
+logits replicated on every rank; each rank holds its KV heads' cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -61,19 +69,34 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.core.analysis import scope
 from repro_torch.device import on_device, resolve_device
+from repro_torch.distributed import current
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
 from repro_torch.models.layers import (decode_embed, embed_inputs,
                                        mlp_apply, norm_apply, unembed_apply)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (cache_layers, init_params,
-                                       layer_sources, map_tree,
-                                       parameter_tree, plan_structure,
-                                       state_leaves, tree_leaves)
+                                       init_shard, layer_sources, map_tree,
+                                       param_specs, parameter_tree,
+                                       plan_structure, state_leaves,
+                                       tree_leaves)
 from repro_torch.models.ssm import ssm_decode, ssm_seq
+from repro_torch.sharding import check_executable, rules_for, shard_tree
 
 Tree = Dict[str, object]
 Cache = Dict[str, torch.Tensor]
+
+
+def _on_mesh(fn):
+    """Run a model entry point with the model's mesh group active (its
+    layers' collectives then run); a model on one device runs as is."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        if self.group is None:
+            return fn(self, *args, **kwargs)
+        with self.group.active():
+            return fn(self, *args, **kwargs)
+    return call
 
 
 class Leaves:
@@ -258,25 +281,61 @@ class SSMBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """A model of any family of the registry on one device.
+    """A model of any family of the registry on one device, or one rank's
+    shard of a dense decoder over a mesh.
 
     ``params`` is a tree in the reference's layout (from
     :func:`~repro_torch.models.params.init_params` or
     :func:`~repro_torch.models.params.params_from_numpy`); without it the
     weights are drawn from ``generator`` (seed 0 by default) on the
     device. ``device=None`` means the card, and raises without one.
+
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` this process
+    joined, :meth:`repro_torch.distributed.MeshGroup.init`) the model is
+    the process's rank of it, on the rank's device, under ``rules``
+    (``rules_for(mesh, act_replicated=True)`` by default): ``params``,
+    whole or already the rank's blocks, are cut to its blocks; drawn, each
+    leaf is drawn whole as the one-device model draws it and cut
+    (:func:`~repro_torch.models.params.init_shard`), so the weights
+    are the one-device model's, seed for seed. What the mesh does not run
+    raises (:func:`~repro_torch.sharding.check_executable`).
     """
 
     def __init__(self, cfg: ArchConfig, params: Optional[Tree] = None, *,
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None, rules=None):
         super().__init__()
         self.cfg = cfg
+        self.group = None
+        self.rules = None
+        if mesh is not None:
+            rules = rules or rules_for(mesh, act_replicated=True)
+            check_executable(cfg, rules)
+            group = current()
+            if group is None or group.mesh.shape != mesh.shape or \
+                    list(group.mesh.devices.flat) != list(mesh.devices.flat):
+                raise RuntimeError("this process has not joined the mesh: "
+                                   "MeshGroup.init (or distributed.spawn) "
+                                   "first")
+            if device is not None and \
+                    resolve_device(device) != group.device:
+                raise ValueError(f"rank {group.rank} runs on "
+                                 f"{group.device}, not {device}")
+            device = group.device
+            self.group, self.rules = group, rules
         self.device = resolve_device(device)
         if params is None:
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
-            params = init_params(cfg, generator, device=self.device)
+            if self.group is not None:
+                params = init_shard(cfg, generator, self.rules,
+                                    self.group.rank, device=self.device)
+            else:
+                params = init_params(cfg, generator, device=self.device)
+        elif self.group is not None:
+            params = shard_tree(param_specs(cfg), params, self.rules,
+                                self.group.rank)
 
         # the reference-layout tree, each leaf a parameter registered under
         # its flat checkpoint key; the layers read views of it
@@ -304,6 +363,11 @@ class Model(nn.Module):
                                     moe=cfg.moe is not None))
         self.layers = nn.ModuleList(layers)
         self.final_norm = Leaves(params["final_norm"])
+        # the attention heads this device holds (all of them on one device)
+        attn = next((blk.attn.tree() for blk in layers
+                     if isinstance(blk, Block)), None)
+        self.n_heads = attn["wq"].shape[1] if attn else cfg.n_heads
+        self.n_kv_heads = attn["wk"].shape[1] if attn else cfg.n_kv_heads
         # the training forward's units, in plan order: each period of the
         # stack (rematerialised as one), then each remainder block
         slots, n_rep, rem = plan_structure(cfg)
@@ -375,6 +439,7 @@ class Model(nn.Module):
         return x, {name: torch.stack(ts) for name, ts in parts.items()}
 
     @torch.no_grad()
+    @_on_mesh
     def forward(self, tokens: Optional[torch.Tensor] = None,
                 embeds: Optional[torch.Tensor] = None,
                 lengths: Optional[torch.Tensor] = None,
@@ -419,7 +484,13 @@ class Model(nn.Module):
         ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``
         around its scan body): its input is kept and its insides are
         recomputed in the backward. MoE blocks route at
-        ``moe.capacity_factor``, the training capacity."""
+        ``moe.capacity_factor``, the training capacity. A model over a
+        mesh of more than one device raises."""
+        if self.group is not None and self.group.size > 1:
+            from repro_torch.launch.mesh import multi_card_item
+            raise NotImplementedError(
+                f"training over {self.group.size} devices "
+                f"({multi_card_item('train')})")
         dev = self.device
         x, positions = self._embed_seq(batch.get("tokens"),
                                        batch.get("embeds"))
@@ -459,6 +530,7 @@ class Model(nn.Module):
             return ce.sum() / valid.sum().clamp_min(1) + aux
 
     @torch.no_grad()
+    @_on_mesh
     def prefill(self, tokens: Optional[torch.Tensor],
                 lengths: Optional[torch.Tensor] = None,
                 cache_len: Optional[int] = None,
@@ -537,7 +609,7 @@ class Model(nn.Module):
         out = {}
         n_kv = len(cache_layers(cfg)["kv"])
         if n_kv:
-            shape = (n_kv, batch, kv_len, cfg.n_kv_heads, cfg.hd)
+            shape = (n_kv, batch, kv_len, self.n_kv_heads, cfg.hd)
             out = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
                                      device=dev) for name in ("k", "v")}
         for name, (shape, dtype) in state_leaves(cfg, batch).items():
@@ -545,6 +617,7 @@ class Model(nn.Module):
         return out
 
     @torch.no_grad()
+    @_on_mesh
     def decode_step(self, tokens: Optional[torch.Tensor],
                     cache: Union[PagedCacheView, Cache],
                     pos: Optional[Union[int, torch.Tensor]] = None,

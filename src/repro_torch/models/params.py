@@ -39,7 +39,7 @@ from repro_torch.configs.base import (ATTN, CROSS, SHARED_ATTN, SSM,
                                       ArchConfig)
 from repro_torch.sharding import (BATCH, CONV_CH, D_FF, D_MODEL, EXPERTS,
                                   HEAD_DIM, HEADS, KV_HEADS, KV_SEQ, LAYERS,
-                                  SSM_HEADS, STATE, VOCAB, W_IN)
+                                  SSM_HEADS, STATE, VOCAB, W_IN, shard_leaf)
 
 Tree = Dict[str, Any]
 
@@ -306,13 +306,33 @@ def draw_leaf(spec: ParamSpec, dtype: torch.dtype,
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator, *,
-                device: Optional[torch.device] = None) -> Tree:
+                device: Optional[torch.device] = None,
+                slice_bytes: Optional[int] = None) -> Tree:
     """Random weights drawn on ``device`` (the generator's device by
-    default), each leaf in its own dtype (:func:`draw_leaf`)."""
+    default), each leaf in its own dtype (:func:`draw_leaf`, in slices of
+    ``slice_bytes`` if given)."""
     device = torch.device(device or generator.device)
     return map_tree(lambda spec: draw_leaf(spec, spec_dtype(cfg, spec),
-                                           generator, device),
+                                           generator, device, slice_bytes),
                     param_specs(cfg))
+
+
+def init_shard(cfg: ArchConfig, generator: torch.Generator, rules,
+               rank: int, *, device: Optional[torch.device] = None,
+               slice_bytes: Optional[int] = None) -> Tree:
+    """Device ``rank``'s block of :func:`init_params` under ``rules``:
+    every leaf drawn whole, in order, exactly as :func:`init_params`
+    draws it (so the blocks are the one-device weights', seed for seed),
+    then cut, one leaf at a time (no float32 copy of a whole leaf is
+    kept: with ``slice_bytes`` none is made)."""
+    device = torch.device(device or generator.device)
+
+    def draw(spec: ParamSpec) -> torch.Tensor:
+        whole = draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
+                          slice_bytes)
+        return shard_leaf(whole, rules.spec(spec.logical, spec.shape),
+                          rules.mesh, rank)
+    return map_tree(draw, param_specs(cfg))
 
 
 # ------------------------------------------------- shardings and meta ----
@@ -357,16 +377,21 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
-                      device: Optional[torch.device] = None) -> Tree:
+                      device: Optional[torch.device] = None,
+                      rules=None, rank: int = 0) -> Tree:
     """Carry a reference parameter tree (numpy leaves, same nesting) into
     torch tensors in the same layouts, each leaf in its own dtype (a
     float32 router stays float32 in a bfloat16 model), checking every
-    shape."""
+    shape; with ``rules``, only device ``rank``'s block of each leaf
+    (cut on the host)."""
     def conv(spec: ParamSpec, leaf) -> torch.Tensor:
         t = to_tensor(leaf)
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"parameter shape {tuple(t.shape)} != "
                              f"expected {spec.shape}")
+        if rules is not None:
+            t = shard_leaf(t, rules.spec(spec.logical, spec.shape),
+                           rules.mesh, rank)
         return t.to(device=device or "cpu", dtype=spec_dtype(cfg, spec))
 
     return _map2(conv, param_specs(cfg), tree)

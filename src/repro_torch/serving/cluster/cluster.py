@@ -93,7 +93,7 @@ from typing import Callable, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.core.replication import slice_devices, slice_mesh
-from repro_torch.launch.mesh import MULTI_CARD_ITEM, Mesh
+from repro_torch.launch.mesh import Mesh, multi_card_item
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster.metrics import (ClusterMetrics, ReplicaStats,
                                                  aggregate)
@@ -247,9 +247,10 @@ class ReplicatedCluster:
         for sub in slices:
             if len(sub) != 1:
                 raise NotImplementedError(
-                    f"a replica over {len(sub)} devices needs the sharding "
-                    f"rules executed across cards ({MULTI_CARD_ITEM}); "
-                    f"give one device a replica")
+                    f"a replica over {len(sub)} devices inside a cluster "
+                    f"({multi_card_item('replica')}); give one device a "
+                    f"replica, or serve one tensor-parallel model a "
+                    f"process a card (distributed.spawn)")
             model = Model(cfg, params, device=sub[0])
             engines.append(ContinuousBatchingEngine(model, ecfg,
                                                     device=sub[0]))

@@ -77,6 +77,17 @@ A cluster's fault injector (``engine.faults``,
 :mod:`repro_torch.serving.faults`) is consulted at the top of each step,
 before anything is dispatched, and at admission.
 
+Over a mesh (a ``Model`` that is one rank of a tensor-parallel model,
+:mod:`repro_torch.distributed`) every rank builds the same engine over
+its shard and its KV heads' pool. Rank 0 runs the scheduler and sends
+each step it runs (its key and staged words) and each pool copy to the
+other ranks before running it; they :meth:`~ContinuousBatchingEngine.
+follow`, so every rank issues the same collectives in the same order
+whatever rank 0's clock decided (:meth:`ContinuousBatchingEngine.
+serve_mesh` does both). Over more than one device the sync loop's
+serial prefill and paged decode run; the overlapped executor, chunked
+prefill, the prefix cache, speculation and the gather mode raise.
+
 An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
 receives every lifecycle event, every prefill and decode step's bucket
 census, live attention work and device time (CUDA events around the
@@ -99,6 +110,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.census import LiveWork
 from repro_torch.device import on_stream, resolve_device
+from repro_torch.distributed import StepChannel
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
                                         prefix_cache_supported)
@@ -139,6 +151,22 @@ def refuse_undecodable(cfg: ArchConfig):
             f"decode does not support windows and the paged pool holds no "
             f"ring (the reference engine falls back to gather mode and "
             f"fails at its first decode); use the static-batch loop")
+
+
+def refuse_mesh_modes(ecfg: "EngineConfig", size: int):
+    """Refuse the engine modes not run over a model axis of ``size`` > 1
+    devices (ROADMAP.md, queue 1 item 3)."""
+    from repro_torch.launch.mesh import multi_card_item
+    modes = [name for name, on in (
+        ("overlap", ecfg.overlap),
+        ("prefill_chunk_tokens", ecfg.prefill_chunk_tokens is not None),
+        ("prefix_cache", ecfg.prefix_cache),
+        ("speculate", ecfg.speculate),
+        ("decode_mode='gather'", ecfg.decode_mode == "gather")) if on]
+    if modes:
+        raise NotImplementedError(
+            f"{', '.join(modes)} over {size} devices "
+            f"({multi_card_item('modes')})")
 
 
 class RequestTooLarge(RuntimeError):
@@ -281,6 +309,8 @@ class ContinuousBatchingEngine:
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {self.device}")
         refuse_undecodable(model.cfg)
+        if model.group is not None and model.group.size > 1:
+            refuse_mesh_modes(ecfg, model.group.size)
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg
@@ -317,7 +347,7 @@ class ContinuousBatchingEngine:
                     self.cfg,
                     num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
                     block_size=ecfg.block_size, device=self.device,
-                    max_batch=ecfg.max_batch)
+                    max_batch=ecfg.max_batch, kv_heads=model.n_kv_heads)
                 steps = StepFunctions(
                     model, self.pool, max_batch=ecfg.max_batch,
                     max_model_len=ecfg.max_model_len,
@@ -336,6 +366,10 @@ class ContinuousBatchingEngine:
             steps.timing, steps.last = False, None
             self.pool = steps.pool
         self.steps = steps
+        if model.group is not None:
+            steps.channel = StepChannel(model.group)
+            if steps.channel.leads:
+                self.pool.mirror = steps.channel.send
         self.sched = Scheduler(self)
         self._executor = Executor(self)
         self.step_count = 0          # step() calls, counted from 1
@@ -357,6 +391,29 @@ class ContinuousBatchingEngine:
         # serving-timeline clock (seconds since start); run() installs one
         self.clock: Optional[Callable[[], float]] = None
         self.reset_stats()
+
+    def follow(self):
+        """A rank other than 0 over a mesh: run the steps and pool copies
+        rank 0's engine sends, on this engine's stream, until it stops."""
+        with on_stream(self.stream):
+            self.steps.follow()
+
+    def serve_mesh(self, requests: List[Request]
+                   ) -> Optional[ServingMetrics]:
+        """Every rank of a mesh calls this with the same engine
+        configuration: rank 0 serves ``requests`` (:meth:`run`) and then
+        releases the others, which follow it meanwhile. Returns rank 0's
+        metrics, None on the other ranks."""
+        if self.model.group is None:
+            raise ValueError("serve_mesh needs a model over a mesh")
+        if not self.steps.channel.leads:
+            self.follow()
+            return None
+        try:
+            return self.run(requests)
+        finally:
+            with on_stream(self.stream):
+                self.steps.channel.stop()
 
     @property
     def stream(self) -> Optional[torch.cuda.Stream]:

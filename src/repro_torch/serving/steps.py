@@ -86,6 +86,14 @@ first token's sample stays outside the graph, as the reference's separate
   replay takes none. :meth:`StepFunctions.meta_twin` runs the same
   bodies on meta tensors (:meth:`StepFunctions.body`).
 
+On a rank of a tensor-parallel model the step bodies hold the layers'
+collectives (:mod:`repro_torch.distributed`), captured into the graphs
+with the rest. Rank 0's steps send each step's key and staged words to
+the other ranks over :attr:`StepFunctions.channel` before running it;
+the other ranks :meth:`StepFunctions.follow` the channel, staging the
+same words and running the same key, so every rank warms up, captures
+and replays the same buckets in the same order.
+
 The graphs capture the pool's addresses, so the pool is written in
 place (as it always is in the port) and every write to it goes on the
 stream of the replays: a discarded overlapped step's KV writes are then
@@ -104,6 +112,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.analysis import DispatchCensus
+from repro_torch.distributed import STOP
 from repro_torch.kernels.launches import add_counts, tally_launches
 from repro_torch.kernels.ops import launch_counters
 from repro_torch.kvcache.paged import PagedKVCache
@@ -341,6 +350,9 @@ class StepFunctions:
         # the bucket census (a serving.obs StepCensus) whose dispatched
         # census the next step's eager body fills, if it has none yet
         self.census_for = None
+        # a tensor-parallel rank's step commands (rank 0 sends, the
+        # others follow); None on one device
+        self.channel = None
         if self.graphs_on:
             self._decode_pool = torch.cuda.graph_pool_handle()
             self._prefill_pool = torch.cuda.graph_pool_handle()
@@ -467,7 +479,8 @@ class StepFunctions:
         model = Model(cfg, map_tree(meta, self.model.params), device="meta")
         twin_pool = PagedKVCache(cfg, num_blocks=pool.num_blocks,
                                  block_size=pool.block_size, device="meta",
-                                 max_batch=pool.max_batch or None)
+                                 max_batch=pool.max_batch or None,
+                                 kv_heads=self.model.n_kv_heads)
         max_batch, max_model_len, prefill_bucket, _, spec_k = self.sizing
         return StepFunctions(model, twin_pool, max_batch=max_batch,
                              max_model_len=max_model_len,
@@ -632,6 +645,40 @@ class StepFunctions:
         return self._run(key, lambda: self._prefill_body(dev, bool(start)),
                          "prefill")[1]
 
+    # ------------------------------------------------------------ mesh --
+    def _staged(self, key: Tuple) -> Tuple[_Staging, int]:
+        """The staging ring a bucket reads and its words."""
+        if key[0] in ("prefill", "suffix"):
+            nb = key[2] if key[0] == "suffix" else 0
+            return self._prefill_staging, prefill_size(key[1], nb)
+        if key[0] == "gather":
+            return self._staging, step_size(key[1], key[2])
+        if key[0] == "verify":
+            return self._staging, verify_size(*key[1:4])
+        return self._staging, step_size(key[0], key[1])
+
+    def follow(self):
+        """A rank other than 0: run the steps rank 0 sends over
+        :attr:`channel` (each staged as rank 0 staged it, then run as its
+        key) and the pool copies, until rank 0 stops."""
+        def into(key: Tuple, n: int) -> torch.Tensor:
+            staging, _ = self._staged(key)
+            staging.host()
+            return staging.bufs[staging.slot][:n]
+
+        while True:
+            key, words = self.channel.recv(into)
+            if key[0] == STOP:
+                return
+            if key[0] == "copy":
+                self.pool.copy_block(key[1], key[2])
+                continue
+            staging, n = self._staged(key)
+            staging.upload(n)
+            self._run(key, self.body(key),
+                      "prefill" if key[0] in ("prefill", "suffix")
+                      else "decode")
+
     # ----------------------------------------------------------- graphs --
     def _run(self, key: Tuple, body: Callable[[], Outputs],
              pool: str) -> Outputs:
@@ -641,6 +688,9 @@ class StepFunctions:
         bracketed by device-time marks, kept in :attr:`last`; a first use
         is marked as such instead (nothing is recorded inside a
         capture)."""
+        if self.channel is not None and self.channel.leads:
+            staging, n = self._staged(key)
+            self.channel.send(key, staging.bufs[staging.slot][:n])
         census, self.census_for = self.census_for, None
         if census is not None and census.dispatched is not None:
             census = None

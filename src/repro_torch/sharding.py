@@ -13,9 +13,17 @@ instead (``shard_kv_seq``).
 :meth:`ShardingRules.spec` returns the port's ``PartitionSpec``: a plain
 tuple with one entry a dimension, ``None`` (replicated), a mesh axis
 name, or a tuple of names. :func:`shard_shape` is one device's block of a
-tensor under a spec. The reference's ``constrain`` (an activation's
-sharding inside a jitted program) has no counterpart while the model
-runs on one device.
+tensor under a spec, :func:`shard_leaf` and :func:`shard_tree` a rank's
+block of the tensors themselves (JAX's ``NamedSharding`` convention:
+device ``i`` along an axis holds block ``i``).
+
+What runs across cards (:mod:`repro_torch.distributed`) is the
+reference's ``act_replicated=True`` layout, the Megatron one: norms,
+learned positions and the residual stream replicated, ``wq/wk/wv``,
+``w1/w3`` and the vocab of ``tok``/``unemb`` column-sharded, ``wo`` and
+``w2`` row-sharded; :func:`check_executable` refuses the rest. The
+reference's ``constrain`` has no counterpart: the collectives that keep
+the residual stream replicated are written into the layers.
 """
 from __future__ import annotations
 
@@ -23,7 +31,10 @@ import dataclasses
 import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
-from repro_torch.launch.mesh import Mesh
+import numpy as np
+import torch
+
+from repro_torch.launch.mesh import Mesh, multi_card_item
 
 AxisAssignment = Union[str, Tuple[str, ...], None]
 PartitionSpec = Tuple[AxisAssignment, ...]
@@ -155,3 +166,92 @@ def rules_for(mesh: Mesh, *, shard_kv_seq: bool = False,
     return ShardingRules(mesh=mesh, batch_axes=batch_axes or (names[0],),
                          shard_kv_seq=shard_kv_seq, fsdp=fsdp,
                          act_replicated=act_replicated)
+
+
+def mesh_coords(mesh: Mesh, rank: int) -> Dict[str, int]:
+    """Device ``rank``'s (row-major in ``mesh.devices``) index along
+    each mesh axis."""
+    idx = np.unravel_index(rank, tuple(mesh.shape.values()))
+    return {a: int(i) for a, i in zip(mesh.axis_names, idx)}
+
+
+def shard_leaf(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
+               rank: int) -> torch.Tensor:
+    """Device ``rank``'s contiguous block of ``t`` under ``spec``, a copy
+    of its own (the whole tensor can then be freed)."""
+    coords = mesh_coords(mesh, rank)
+    block = shard_shape(spec, t.shape, mesh)
+    out = t
+    for dim, assignment in enumerate(spec):
+        axes = axes_of(assignment)
+        if not axes:
+            continue
+        i = 0
+        for a in axes:                 # the axes' combined index, major first
+            i = i * mesh.shape[a] + coords[a]
+        out = out.narrow(dim, i * block[dim], block[dim])
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(specs, tree, rules: ShardingRules, rank: int):
+    """``tree`` (leaves matching ``specs``, a tree of
+    :class:`~repro_torch.models.params.ParamSpec`) with every leaf cut to
+    device ``rank``'s block; a leaf already at its block's shape is kept
+    as it is (no copy), any other shape raises."""
+    if isinstance(specs, dict):
+        if set(specs) != set(tree):
+            raise ValueError(f"tree keys differ: {sorted(specs)} vs "
+                             f"{sorted(tree)}")
+        return {k: shard_tree(specs[k], tree[k], rules, rank) for k in specs}
+    if isinstance(specs, (list, tuple)):
+        if len(specs) != len(tree):
+            raise ValueError("tree lists differ in length")
+        return type(specs)(shard_tree(s, t, rules, rank)
+                           for s, t in zip(specs, tree))
+    spec = rules.spec(specs.logical, specs.shape)
+    shape = tuple(tree.shape)
+    block = shard_shape(spec, specs.shape, rules.mesh)
+    if shape == block:          # already the block (every leaf on 1 x 1)
+        return tree
+    if shape == specs.shape:
+        return shard_leaf(tree, spec, rules.mesh, rank)
+    raise ValueError(f"leaf of shape {shape} is neither {specs.shape} nor "
+                     f"its block under {spec}")
+
+
+def check_executable(cfg, rules: ShardingRules):
+    """Refuse what is not executed across cards (each refusal names its
+    ROADMAP item): a data axis of more than one device, and on a model
+    axis of more than one a family other than the dense decoder (with or
+    without a sliding window), the default rules' d_model-sharded
+    residual, and any head, KV-head, d_ff or vocab count the model axis
+    does not divide (the reference's head-dim and replication
+    fallbacks)."""
+    data = math.prod(rules.mesh.shape[a] for a in rules.batch_axes
+                     if a in rules.mesh.shape)
+    if data > 1:
+        raise NotImplementedError(
+            f"a mesh of {data} devices along its batch axes inside one "
+            f"model ({multi_card_item('data')})")
+    m = rules.mesh.shape[rules.model_axis]
+    if m == 1:
+        return
+    if cfg.arch_type not in ("dense",) or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.arch_type}{', MoE' if cfg.moe else ''}) "
+            f"over a model axis of {m} ({multi_card_item('families')})")
+    if rules.fsdp:
+        raise NotImplementedError(
+            f"FSDP over a model axis of {m} ({multi_card_item('data')})")
+    if not rules.act_replicated or rules.shard_kv_seq:
+        raise NotImplementedError(
+            f"only the act_replicated rules (a replicated residual, no "
+            f"KV-sequence sharding) run over a model axis of {m} "
+            f"({multi_card_item('rules')})")
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads",
+                                               cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab)):
+        if n % m:
+            raise NotImplementedError(
+                f"{cfg.name}: {name} {n} does not divide over a model axis "
+                f"of {m} ({multi_card_item('rules')})")

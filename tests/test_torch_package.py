@@ -112,6 +112,19 @@ def test_spmd_modules_are_checked():
     assert set(SPMD_MODULES) <= checked
 
 
+MESH_MODULES = ["distributed.py", "sharding.py", "launch/mesh.py",
+                "launch/input_specs.py", "models/model.py",
+                "serving/steps.py"]
+
+
+def test_mesh_modules_are_checked():
+    """Every module of the tensor-parallel slice is among the files the
+    import check above parses."""
+    checked = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in PORT_FILES if "repro_torch" in p.parts}
+    assert set(MESH_MODULES) <= checked
+
+
 EXAMPLE_MODULES = ["examples/__init__.py"] + [
     f"examples/{p.name}" for p in (ROOT / "examples").glob("*.py")]
 
@@ -167,7 +180,8 @@ def test_importing_the_engine_loads_no_jax():
             "repro_torch.core.simulator, repro_torch.core.intensity, "
             "repro_torch.training, repro_torch.launch.train, "
             "repro_torch.sharding, repro_torch.launch.mesh, "
-            "repro_torch.launch.input_specs, repro_torch.launch.dryrun; "
+            "repro_torch.launch.input_specs, repro_torch.launch.dryrun, "
+            "repro_torch.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); assert not bad")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
