@@ -6105,7 +6105,7 @@ def mesh_world_of_one(model, card):
     group = MeshGroup.init(mesh, 0, f"tcp://127.0.0.1:{free_port()}")
     runs = {}
     try:
-        sharded = Model(model.cfg, model.params, mesh=mesh)
+        sharded = Model(model.cfg, model.params, mesh=mesh, group=group)
         if any(a.data_ptr() != b.data_ptr() for a, b in
                zip(model.parameters(), sharded.parameters())):
             raise AssertionError("a world of one copied the weights")
@@ -6146,7 +6146,99 @@ def mesh_world_of_one(model, card):
           f"collectives issued by Python (warm-ups and captures; the "
           f"replays issue theirs in the graphs) = {mc} bodies x (2 + 2 x "
           f"{model.cfg.n_layers}); launches {ml}")
-    return ml
+    return ml, runs["plain"]
+
+
+def mesh_mode_serves(model):
+    """The world of one's engine modes, each served by the plain engine
+    and by the sharded one: ``(make, engine settings)`` by name, ``make()``
+    the serve's requests afresh."""
+    vocab = model.cfg.vocab_size
+    return {
+        "overlap + chunked prefill + prefix cache": (
+            lambda: prefix_workload(model)[:MESH_FIRST],
+            dict(max_batch=8, overlap=True, prefill_chunk_tokens=128,
+                 prefix_cache=True)),
+        "speculation": (lambda: spec_workload(vocab, n=8, max_new_tokens=64),
+                        dict(SPEC_SERVE)),
+        "gather": (lambda: cut_workload(serve_workload()[:8]),
+                   dict(decode_mode="gather")),
+    }
+
+
+def mesh_world_of_one_modes(model, card, plain):
+    """Every engine mode at a world of one on cuda:0 (a 1-rank NCCL
+    group, its collectives captured into the graphs): each of
+    :func:`mesh_mode_serves` by the sharded engine against the plain
+    engine, tokens and every step's logits bit for bit; then an R=1
+    cluster whose replica is a world of one (a ``ParallelReplica`` on a
+    group of its own, weights drawn from seed 0) against ``plain``, the
+    plain engine's serve of the paged serve's first ``MESH_FIRST``
+    requests. Returns each mesh serve's launches, by mode."""
+    import torch
+    from repro_torch.distributed import MeshGroup, free_port
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.launch.tensor_parallel import ParallelReplica
+    from repro_torch.models.model import Model
+    from repro_torch.serving import (ContinuousBatchingEngine,
+                                     ReplicatedCluster)
+    mesh = make_model_mesh(["cuda:0"])
+    group = MeshGroup.init(mesh, 0, f"tcp://127.0.0.1:{free_port()}")
+    out = {}
+    try:
+        sharded = Model(model.cfg, model.params, mesh=mesh, group=group)
+        for name, (make, kw) in mesh_mode_serves(model).items():
+            runs = {}
+            for tag, m in (("plain", model), ("mesh", sharded)):
+                reqs = make()
+                release()
+                engine = ContinuousBatchingEngine(m, serve_config(**kw))
+                sums = mesh_checksums(engine)
+                _, launches = run_served(
+                    engine, reqs, card, f"[mesh world-of-one {name}, {tag}]")
+                runs[tag] = ([r.output_tokens for r in reqs],
+                             torch.stack(sums).cpu(), launches,
+                             sorted(map(str, engine.steps.graphs)))
+                del engine
+                release()
+            (pt, ps, pl, pg), (mt, ms, ml, mg) = runs["plain"], runs["mesh"]
+            if mt != pt or not torch.equal(ms, ps) or ml != pl or mg != pg:
+                raise AssertionError(f"[mesh world-of-one {name}] the "
+                                     f"sharded engine differs from the plain"
+                                     f" one")
+            print(f"[mesh world-of-one {name}] on {card}: {len(mt)} "
+                  f"requests, {len(ms)} steps, {len(mg)} graphs: tokens and "
+                  f"every step's logits equal to the plain engine's bit for "
+                  f"bit; launches {ml}")
+            out[name] = ml
+    finally:
+        group.close()
+    reqs = serve_workload()[:MESH_FIRST]
+    lead = ParallelReplica(model.cfg, serve_config(), mesh, seed=0)
+    engine = lead.lead()
+    cluster = ReplicatedCluster([engine], slices=[["cuda:0"]],
+                                parallel=[lead], mode="sync")
+    sums = mesh_checksums(engine)
+    reset_launches()
+    cluster.run(reqs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = expected_launches([engine])
+    tokens, psums = plain[0], plain[1]
+    if [r.output_tokens for r in reqs] != tokens or \
+            not torch.equal(torch.stack(sums).cpu(), psums) or \
+            launches != want or engine.model.group is None:
+        raise AssertionError("[mesh cluster world-of-one] the R=1 "
+                             "cluster differs from the plain engine")
+    print(f"[mesh cluster world-of-one] on {card}: an R=1 ReplicatedCluster "
+          f"over 1 x 1 (cuda:0), its replica a world of one on a group of "
+          f"its own (ParallelReplica): {len(reqs)} requests, tokens and "
+          f"every step's logits equal to the plain engine's bit for bit; "
+          f"launches {launches}")
+    out["cluster"] = launches
+    del cluster, engine, lead
+    release()
+    return out
 
 
 def mesh_workload(vocab, n, cap=None, seed=0):
@@ -6238,6 +6330,7 @@ def mesh_serve_rank(group, cfg, ecfg, reqs, slice_bytes=None,
             output_tokens=metrics.output_tokens,
             tok_s=metrics.output_throughput, itl=(metrics.itl.p50,
                                                   metrics.itl.p95),
+            ttft=(metrics.ttft.p50, metrics.ttft.p95),
             wall_s=metrics.wall_s, preemptions=metrics.preemptions)
         if marks:
             out["steady"] = steady_idle(marks)
@@ -6248,16 +6341,16 @@ def mesh_serve_rank(group, cfg, ecfg, reqs, slice_bytes=None,
 
 
 def steady_idle(marks):
-    """The longest run of consecutive replays of one decode bucket (no
-    prefill between), its first step dropped: device ms a step (CUDA
-    events around each replay) and the device's idle share between the
-    first mark and the last."""
+    """The longest run of consecutive replays of one decode, gather or
+    verify bucket (no prefill between), its first step dropped: device ms
+    a step (CUDA events around each replay) and the device's idle share
+    between the first mark and the last."""
     runs, cur = [], []
     for key, t in marks:
         if cur and (key != cur[-1][0] or t.first_use is not None):
             runs.append(cur)
             cur = []
-        if t.first_use is None and not isinstance(key[0], str):
+        if t.first_use is None and key[0] not in ("prefill", "suffix"):
             cur.append((key, t))
     runs.append(cur)
     best = max(runs, key=len)[1:]
@@ -6270,33 +6363,57 @@ def steady_idle(marks):
             "ms": busy / len(best) * 1e3, "idle": 1 - busy / span}
 
 
-def deep_logits(model, reqs):
+def deep_logits(model, reqs, path="paged"):
     """Every rank alike: a prefill of each request's prompt (batch 1),
-    its K/V written into a paged pool of ``MESH_DEEP_ONE_POOL`` tokens,
-    then one paged decode step of them all, each fed its prompt's first
-    token (the inputs are fixed, not the model's picks). Returns the
-    float32 prefill and decode logits on the host."""
+    whole or, on the ``"chunked"`` path, in two chunks, the second over
+    the first's K/V gathered from the pool (the flash kernel's prefix
+    entry, as a chunk or a prefix-cache hit runs it); the K/V written into
+    a paged pool of ``MESH_DEEP_ONE_POOL`` tokens; then one decode step of
+    them all, each fed its prompt's first token (the inputs are fixed,
+    not the model's picks): paged, or on the ``"gather"`` path through a
+    dense copy of the pool (the contiguous kernel). Returns the float32
+    prefill and decode logits on the host."""
     import torch
     from repro_torch.kvcache.paged import PagedKVCache
-    from repro_torch.serving.steps import pow2_bucket
+    from repro_torch.serving.steps import bucket, pow2_bucket
     dev = model.device
     pool = PagedKVCache(model.cfg, num_blocks=MESH_DEEP_ONE_POOL // 16,
                         block_size=16, device=dev,
                         kv_heads=model.n_kv_heads)
     pre = []
     for i, r in enumerate(reqs):
-        lt, cache = model.prefill(
-            torch.as_tensor(r.prompt[None], device=dev),
-            torch.tensor([r.prompt_len], device=dev))
-        pool.manager.allocate(i, r.prompt_len + 1)
-        pool.write_prefill(i, cache)
+        n = r.prompt_len
+        toks = torch.as_tensor(r.prompt[None], device=dev)
+        pool.manager.allocate(i, n + 1)
+        if path == "chunked":
+            h = n // 2
+            _, first = model.prefill(toks[:, :h],
+                                     torch.tensor([h], device=dev))
+            pool.write_prefill(i, first, 0, h)
+            nb = -(-h // 16)
+            prefix = pool.gather_prefix(pool.manager.tables[i][:nb],
+                                        pow2_bucket(nb))
+            lt, rest = model.prefill(toks[:, h:],
+                                     torch.tensor([n - h], device=dev),
+                                     prefix=prefix, prefix_len=h)
+            pool.write_prefill(i, rest, h, n - h)
+        else:
+            lt, cache = model.prefill(toks, torch.tensor([n], device=dev))
+            pool.write_prefill(i, cache)
         pre.append(lt)
-    nb = pow2_bucket(max(len(t) for t in pool.manager.tables.values()),
-                     lo=4)
-    view = pool.view(list(range(len(reqs))), [r.prompt_len for r in reqs],
-                     nb_pad=nb, batch_pad=len(reqs))
+    rids = list(range(len(reqs)))
+    positions = [r.prompt_len for r in reqs]
     feed = torch.tensor([int(r.prompt[0]) for r in reqs], device=dev)
-    dec = model.decode_step(feed, view)
+    if path == "gather":
+        pad = pool.manager.blocks_needed(bucket(max(positions) + 1, 64))
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        dec = model.decode_step(feed, pool.gather(rids, pad), pos,
+                                lengths=pos + 1)
+    else:
+        nb = pow2_bucket(max(len(t) for t in pool.manager.tables.values()),
+                         lo=4)
+        view = pool.view(rids, positions, nb_pad=nb, batch_pad=len(reqs))
+        dec = model.decode_step(feed, view)
     torch.cuda.synchronize()
     return torch.cat(pre).cpu(), dec.cpu()
 
@@ -6319,11 +6436,13 @@ def mesh_dryrun_rank(group):
     shape = SHAPES["long_500k"]
     cfg = adjusted_cfg(MESH_DEEP, shape, 1)
     case = case_for(cfg, shape, group.mesh, arch=MESH_DEEP,
-                    act_replicated=True)
+                    act_replicated=True, group=group)
     torch.cuda.reset_peak_memory_stats()
     params, cache, tokens, pos = materialize(
-        case, group.mesh, torch.Generator(group.device).manual_seed(0))
-    model = Model(cfg, params, mesh=group.mesh, rules=case.rules)
+        case, group.mesh, torch.Generator(group.device).manual_seed(0),
+        rank=group.rank)
+    model = Model(cfg, params, mesh=group.mesh, rules=case.rules,
+                  group=group)
     model.decode_step(tokens, cache, pos)
     torch.cuda.synchronize()
     reset_launches()
@@ -6649,20 +6768,354 @@ def mesh_dryrun_report(ranks, j, m, card):
           f" ms; one card, PR 25: {DRYRUN_ONE_CARD_MS} ms")
 
 
+# ------------------------------------------------ mesh modes, 4 cards ----
+# deepseek-coder-33b over 1 x 4 in every engine mode, then R=2 replicas of
+# 1 x 2 at the same KV a card (tools/mesh_smoke.py on four cards)
+MESH_CHUNK = 512             # chunked prefill's token budget a step
+MESH_DEEP_PATHS = ("paged", "chunked", "gather")   # the check's paths
+MESH_CLUSTER_ENGINE = dict(max_batch=64, kv_pool_tokens=65536)
+MESH_GATHER_S = 1024         # the gather step's padded context, timed
+MESH_MODE_NAMES = ("paged", "overlap + chunked", "prefix cache",
+                   "speculation", "gather")
+
+
+def mesh_deep_cfg(n_layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(MESH_DEEP)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def mesh_deep_serves(vocab, n):
+    """The deepseek serves over 1 x 4, by mode, each ``(requests, engine
+    settings)`` made afresh: the paged sync serve (the MAX engine),
+    overlap with chunked prefill, the prefix cache (4 tenants x n/4,
+    prefix 256), speculation (8 repetitive requests, batch 4) and
+    gather; ``n`` ShareGPT-length requests at t=0."""
+    from repro_torch.serving.workload import shared_prefix_workload
+    return {
+        "paged": (mesh_workload(vocab, n), {}),
+        "overlap + chunked": (mesh_workload(vocab, n), dict(
+            overlap=True, prefill_chunk_tokens=MESH_CHUNK)),
+        "prefix cache": (shared_prefix_workload(
+            4, n // 4, vocab, prefix_len=256, suffix_len=32,
+            max_new_tokens=64, seed=0), dict(prefix_cache=True)),
+        "speculation": (spec_workload(vocab, n=8), dict(
+            max_batch=4, speculate=True, spec_k=8)),
+        "gather": (mesh_workload(vocab, n), dict(decode_mode="gather")),
+    }
+
+
+def counted_launches(counters, n_layers):
+    """The launches an engine's counters (``tensor_parallel.
+    engine_counters``) say it made: :func:`expected_launches` read off a
+    record, for a paged-mode engine."""
+    want = dict.fromkeys(launch_counters(), 0)
+    want["paged_decode_attention"] = (counters["decode_steps"]
+                                      + counters["verify_iterations"]) \
+        * n_layers
+    want["flash_attention"] = (counters["prefills"] + counters["chunks"]
+                               - counters["suffix_prefills"]) * n_layers
+    want["flash_prefix_attention"] = counters["suffix_prefills"] * n_layers
+    return want
+
+
+def mesh_modes_rank(group, n_layers, n, check):
+    """A rank's deepseek-coder-33b (drawn from seed 0 in slices, as one
+    card draws it), :func:`deep_logits` of ``check`` on each of
+    ``MESH_DEEP_PATHS``, then each of :func:`mesh_deep_serves` in turn
+    (``serve_mesh``; every logit finite, the launches counted from 0).
+    Rank 0 also returns each serve's metrics, the launches its engine
+    counted (:func:`expected_launches`) and its steady step."""
+    import torch
+    from repro_torch.launch.tensor_parallel import (engine_counters,
+                                                    rank_model)
+    from repro_torch.models.params import DRAW_SLICE_BYTES
+    from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
+    cfg = mesh_deep_cfg(n_layers)
+    t0 = time.perf_counter()
+    model = rank_model(group, cfg, seed=0, slice_bytes=DRAW_SLICE_BYTES)
+    torch.cuda.synchronize()
+    out = {"rank": group.rank, "heads": (model.n_heads, model.n_kv_heads),
+           "init_s": time.perf_counter() - t0,
+           "weights": torch.cuda.memory_allocated()}
+    t0 = time.perf_counter()
+    out["logits"] = {p: deep_logits(model, check, p)
+                     for p in MESH_DEEP_PATHS}
+    out["check_s"] = time.perf_counter() - t0
+    release()
+    for name in MESH_MODE_NAMES:
+        reqs, kw = mesh_deep_serves(cfg.vocab_size, n)[name]
+        engine = ContinuousBatchingEngine(
+            model, EngineConfig(**{**MESH_DEEP_ENGINE, **kw}))
+        marks = []
+        if group.rank == 0:
+            engine.steps.timing = True
+            run = engine.steps._run
+
+            def marked(key, body, pool, run=run, engine=engine):
+                res = run(key, body, pool)
+                marks.append((key, engine.steps.last))
+                return res
+            engine.steps._run = marked
+        torch.cuda.reset_peak_memory_stats()
+        with finite_logits(model) as finite:
+            reset_launches()
+            t0 = time.perf_counter()
+            metrics = engine.serve_mesh(reqs)
+            torch.cuda.synchronize()
+            served = time.perf_counter() - t0
+            res = {"serve_s": served, "launches": read_launches(),
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "graphs": len(engine.steps.graphs)}
+            if not bool(finite) or not bool(engine.steps.finite):
+                raise AssertionError(f"rank {group.rank}, {name}: NaN or "
+                                     f"inf logits")
+        if metrics is not None:
+            res.update(
+                want=expected_launches([engine]),
+                finish=[r.finish_reason for r in reqs],
+                counters=engine_counters(engine),
+                output_tokens=metrics.output_tokens,
+                tok_s=metrics.output_throughput,
+                itl=(metrics.itl.p50, metrics.itl.p95),
+                ttft=(metrics.ttft.p50, metrics.ttft.p95),
+                wall_s=metrics.wall_s, preemptions=metrics.preemptions,
+                steady=steady_idle(marks),
+                spec=metrics.spec_row() if engine.speculator else None,
+                prefix=(engine.prefix.stats.hit_tokens,
+                        engine.prefill_tokens_computed)
+                if engine.prefix else None)
+        out[name] = res
+        del engine, marks
+        release()
+    del model
+    release()
+    return out
+
+
+def mesh_gather_time(card, n):
+    """The contiguous kernel at the gather serve's step a rank over 1 x 4
+    (K 2, G 7, hd 128: deepseek's 8 KV heads and 56 heads over four
+    cards), ``n`` rows at the workload's prompt lengths plus half their
+    outputs in a cache padded to ``MESH_GATHER_S``, against SDPA."""
+    import torch
+    cfg = mesh_deep_cfg()
+    lengths = [min(r.prompt_len + r.max_new_tokens // 2, MESH_GATHER_S)
+               for r in mesh_workload(cfg.vocab_size, n)]
+    K = cfg.n_kv_heads // MESH_DEEP_CARDS
+    G = cfg.n_heads // cfg.n_kv_heads
+    q, k, v, lens = decode_inputs(n, MESH_GATHER_S, K, G, cfg.hd,
+                                  torch.bfloat16, lengths, seed=9)
+    row = time_decode(card, f"{MESH_DEEP}'s gather step a rank over 1 x "
+                            f"{MESH_DEEP_CARDS}, K {K} G {G}", q, k, v, lens)
+    del q, k, v, lens
+    release()
+    return row
+
+
+def mesh_deep_one_card_paths(card, check, n_layers):
+    """:func:`deep_logits` of the check prompts on one card (cuda:0) on
+    each of ``MESH_DEEP_PATHS``, deepseek-coder-33b bf16 drawn from seed 0
+    in the dry-run's slices."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import DRAW_SLICE_BYTES, init_params
+    cfg = mesh_deep_cfg(n_layers)
+    model = Model(cfg, init_params(
+        cfg, torch.Generator("cuda").manual_seed(0),
+        slice_bytes=DRAW_SLICE_BYTES))
+    out = {p: deep_logits(model, check, p) for p in MESH_DEEP_PATHS}
+    del model
+    release()
+    return out
+
+
+def mesh_modes_report(ranks, one, card, n_layers):
+    """(a) and (c): each serve finished, launches exact on every rank,
+    its numbers; each path's check logits within ``DEEP_TOL`` of one
+    card's and equal on every rank."""
+    import torch
+    r0 = ranks[0]
+    L = mesh_deep_cfg(n_layers).n_layers
+    for r in ranks:
+        print(f"[mesh modes rank {r['rank']}] weights {gb(r['weights'])} "
+              f"drawn in {r['init_s']:.1f} s, the check's three paths in "
+              f"{r['check_s']:.1f} s; serves "
+              + ", ".join(f"{name} {r[name]['serve_s']:.1f} s"
+                          for name in MESH_MODE_NAMES))
+    for path in MESH_DEEP_PATHS:
+        for r in ranks[1:]:
+            if any(not torch.equal(a, b) for a, b in zip(r["logits"][path],
+                                                         r0["logits"][path])):
+                raise AssertionError(f"[mesh modes] ranks' {path} logits "
+                                     f"differ")
+        gaps = [deep_gap_of(got, want) for got, want in
+                zip(r0["logits"][path], one[path])]
+        if max(gaps) > DEEP_TOL:
+            raise AssertionError(f"[mesh modes check {path}] {gaps} of the "
+                                 f"largest from one card's, above "
+                                 f"{DEEP_TOL}")
+        print(f"[mesh modes check {path}] {MESH_DEEP}, {L} layers, bf16 "
+              f"over 1 x {len(ranks)} ({card}): the first {MESH_DEEP_CHECK}"
+              f" prompts' prefill and decode logits within {gaps[0]:.2e} "
+              f"and {gaps[1]:.2e} of the largest of one card's (DEEP_TOL "
+              f"{DEEP_TOL}); equal on every rank")
+    for name in MESH_MODE_NAMES:
+        x0 = r0[name]
+        if set(x0["finish"]) != {"length"}:
+            raise AssertionError(f"[mesh modes {name}] finish reasons "
+                                 f"{x0['finish']}")
+        for r in ranks:
+            if r[name]["launches"] != x0["want"]:
+                raise AssertionError(f"[mesh modes {name}] rank {r['rank']}"
+                                     f" launched {r[name]['launches']}, not "
+                                     f"{x0['want']}")
+        st = x0["steady"]
+        steady = (f"steady step {st['ms']:.2f} ms at bucket {st['bucket']} "
+                  f"over {st['steps']} steps, idle share "
+                  f"{st['idle'] * 100:.1f}%" if st else "no steady window")
+        extra = ""
+        if x0["spec"]:
+            extra = f"; {x0['spec']}"
+        if x0["prefix"]:
+            extra = (f"; {x0['prefix'][0]} prompt tokens from the prefix "
+                     f"cache, {x0['prefix'][1]} computed")
+        c = x0["counters"]
+        print(f"[mesh modes {name}] {MESH_DEEP} bf16, {L} layers, over 1 x "
+              f"{len(ranks)} ({card}): {len(x0['finish'])} requests, "
+              f"{x0['output_tokens']} output tokens, {c['decode_steps']} "
+              f"decode steps, {c['spec_steps']} verify steps, "
+              f"{c['prefills']} prefills, {c['chunks']} chunks "
+              f"({c['suffix_prefills']} over a prefix), "
+              f"{x0['preemptions']} preemptions; output {x0['tok_s']:.1f} "
+              f"tok/s, ITL p50 {x0['itl'][0] * 1e3:.2f} ms p95 "
+              f"{x0['itl'][1] * 1e3:.2f} ms, TTFT p50 "
+              f"{x0['ttft'][0] * 1e3:.1f} ms p95 {x0['ttft'][1] * 1e3:.1f} "
+              f"ms, wall {x0['wall_s']:.1f} s; {steady}; peak "
+              f"{gb(x0['peak'])} a rank, {x0['graphs']} graphs{extra}; "
+              f"launches {x0['launches']} on every rank")
+
+
+def mesh_cluster_report(out, card, n_layers):
+    """(b): the R=2 cluster of 1 x 2 replicas: every request finished,
+    none lost, each replica's launches exact on both its ranks, its
+    numbers."""
+    L = mesh_deep_cfg(n_layers).n_layers
+    if set(out["finish"]) != {"length"} or out["lost"]:
+        raise AssertionError(f"[mesh cluster] finish {out['finish']}, lost "
+                             f"{out['lost']}")
+    total = dict.fromkeys(launch_counters(), 0)
+    for idx, counters in enumerate(out["engines"]):
+        want = counted_launches(counters, L)
+        for k, v in want.items():
+            total[k] += v
+        if out["followers"][idx][1]["launches"] != want:
+            raise AssertionError(f"[mesh cluster] replica {idx}'s rank 1 "
+                                 f"launched {out['followers'][idx][1]}, not "
+                                 f"{want}")
+    if out["launches"] != total:
+        raise AssertionError(f"[mesh cluster] the leading process launched "
+                             f"{out['launches']}, not {total}")
+    m = out["metrics"]
+    print(f"[mesh cluster] {MESH_DEEP} bf16, {L} layers: R=2 replicas of 1 "
+          f"x 2 (cuda:0-1, cuda:2-3; {MESH_CLUSTER_ENGINE}, "
+          f"{MESH_CLUSTER_ENGINE['kv_pool_tokens']} tokens of KV a replica) "
+          f"on {card}, threaded: {len(out['finish'])} requests routed "
+          f"{[len(r) for r in out['routed']]}, {m['output_tokens']} output "
+          f"tokens; output {m['output_throughput']:.1f} tok/s, ITL p50 "
+          f"{m['itl'][0] * 1e3:.2f} ms p95 {m['itl'][1] * 1e3:.2f} ms, TTFT "
+          f"p50 {m['ttft'][0] * 1e3:.1f} ms p95 {m['ttft'][1] * 1e3:.1f} ms,"
+          f" wall {m['wall_s']:.1f} s; launches {out['launches']} (both "
+          f"replicas' rank 0) = each rank 1's")
+
+
+def mesh_cluster_against(out, max_serve, card):
+    """The R=2 cluster beside the same run's paged engine over 1 x 4
+    (MAX) at the same 8.32 GB of K/V a card."""
+    m = out["metrics"]
+    print(f"[mesh cluster vs MAX] on {card}: R=2 x (1 x 2) "
+          f"{m['output_throughput']:.1f} tok/s, ITL p50 "
+          f"{m['itl'][0] * 1e3:.2f} ms, TTFT p50 {m['ttft'][0] * 1e3:.1f} ms;"
+          f" MAX 1 x 4 (paged, sync, this run) {max_serve['tok_s']:.1f} "
+          f"tok/s, ITL p50 {max_serve['itl'][0] * 1e3:.2f} ms, TTFT p50 "
+          f"{max_serve['ttft'][0] * 1e3:.1f} ms; ratio "
+          f"{m['output_throughput'] / max_serve['tok_s']:.3f}")
+
+
+def mesh_cluster_across(card, n_layers, n):
+    """(b): R=2 replicas of 1 x 2 (``tensor_parallel.cluster_rank`` in a
+    process of its own, threaded) serving the ShareGPT-length requests."""
+    from repro_torch.distributed import run_child
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.tensor_parallel import cluster_rank
+    from repro_torch.models.params import DRAW_SLICE_BYTES
+    from repro_torch.serving import EngineConfig
+    cfg = mesh_deep_cfg(n_layers)
+    t0 = time.perf_counter()
+    mesh = make_mesh((2, 2), ("data", "model"),
+                     [f"cuda:{i}" for i in range(4)])
+    out = run_child(cluster_rank, cfg,
+                    EngineConfig(**{**MESH_DEEP_ENGINE,
+                                    **MESH_CLUSTER_ENGINE}),
+                    mesh, 2, mesh_workload(cfg.vocab_size, n), seed=0,
+                    slice_bytes=DRAW_SLICE_BYTES, mode="thread")
+    print(f"[mesh cluster] built, served and closed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh_cluster_report(out, card, n_layers)
+    return out
+
+
+def phase_mesh_modes(card, n_layers=None, n=MESH_DEEP_REQUESTS):
+    """Every engine mode and the sliced cluster across four cards
+    (``tools/mesh_smoke.py``): the gather step's contiguous kernel timed
+    against SDPA on cuda:0, the check prompts on one card,
+    deepseek-coder-33b over 1 x 4 in each mode (:func:`mesh_modes_rank`),
+    then R=2 replicas of 1 x 2 (:func:`mesh_cluster_across`) against this
+    run's paged serve over 1 x 4 (MAX). ``n_layers`` and ``n`` cut depth
+    and requests for a short first call."""
+    import torch
+    from repro_torch.distributed import devices_mesh, spawn
+    if torch.cuda.device_count() < MESH_DEEP_CARDS:
+        print(f"[mesh modes] needs {MESH_DEEP_CARDS} cards, this machine "
+              f"has {torch.cuda.device_count()}")
+        return None
+    cfg = mesh_deep_cfg(n_layers)
+    gather = mesh_gather_time(card, n)
+    check = mesh_workload(cfg.vocab_size, n)[:MESH_DEEP_CHECK]
+    t0 = time.perf_counter()
+    one = mesh_deep_one_card_paths(card, check, n_layers)
+    print(f"[mesh modes one-card] {MESH_DEEP} on cuda:0: the check on "
+          f"{len(MESH_DEEP_PATHS)} paths in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_modes_rank, devices_mesh(MESH_DEEP_CARDS), n_layers,
+                  n, check)
+    print(f"[mesh modes] {len(MESH_MODE_NAMES)} serves over 1 x "
+          f"{MESH_DEEP_CARDS} in {time.perf_counter() - t0:.1f} s")
+    mesh_modes_report(ranks, one, card, n_layers)
+    cluster = mesh_cluster_across(card, n_layers, n)
+    mesh_cluster_against(cluster, ranks[0]["paged"], card)
+    return {"gather": gather, "modes": ranks[0], "cluster": cluster}
+
+
 def phase_mesh(model, card, paged):
     """Tensor parallelism over a mesh's model axis (module docstring):
-    the world of one on cuda:0, then, with several cards, everything
-    across them; with one card it says so. Returns the world of one's
-    launches."""
+    the world of one on cuda:0, in every engine mode and as a sliced
+    cluster's replica, then, with several cards, everything across them;
+    with one card it says so. Returns the world of one's launches by
+    path."""
     import torch
-    launches = mesh_world_of_one(model, card)
+    launches, plain = mesh_world_of_one(model, card)
+    modes = mesh_world_of_one_modes(model, card, plain)
+    paths = {"mesh_serve": launches,
+             **{f"mesh {name}": got for name, got in modes.items()}}
     n = torch.cuda.device_count()
     if n < 2:
         print(f"[mesh] nothing ran across cards: this machine has {n} "
               f"card")
-        return launches
+        return paths
     mesh_across(card, n, paged)
-    return launches
+    return paths
 
 
 def phase(name, fn, *args):
@@ -6739,7 +7192,7 @@ def main() -> int:
     phase("5, verify compare", phase_verify_compare, model, card)
     phase("4, census", phase_census, model, card)
     by_path.update(phase("4, examples", phase_examples, model, card, errs))
-    by_path["mesh_serve"] = phase("4, mesh", phase_mesh, model, card, paged)
+    by_path.update(phase("4, mesh", phase_mesh, model, card, paged))
     del model
     release()
     family_paths, _ = phase("4, non-dense families", phase_families, card)

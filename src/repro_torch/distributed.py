@@ -1,12 +1,14 @@
 """Tensor parallelism across devices: the counterpart of what ``jit`` over
 a mesh does in the reference.
 
-A :class:`MeshGroup` is this process's place on a ``1 x M`` mesh
+A :class:`MeshGroup` is a process's place on a ``1 x M`` mesh
 (:func:`~repro_torch.launch.mesh.make_model_mesh`): rank ``r`` runs on
 ``mesh.devices.flat[r]`` (``cuda:r``, or the CPU when the caller asks)
 and holds that device's block of every weight under the reference's
 ``act_replicated`` rules (:func:`~repro_torch.sharding.check_executable`).
-Its process groups:
+Its process groups are its own, built on a rendezvous store that rank 0
+hosts (never the process's default group), so one process may lead
+several meshes, as a cluster's process leads its replicas:
 
 * the ``model`` axis: NCCL for CUDA devices, gloo for CPU ones, chosen
   by the device and never as a fallback (a CUDA mesh whose NCCL group
@@ -25,12 +27,16 @@ output's, the dry-run census's convention).
 
 :func:`spawn` runs ``fn(group, *args)`` in one process a device (spawn
 start method) over a free port found at run time, and returns each
-rank's result. A mesh with ``data`` > 1 raises.
+rank's result; :class:`RankProcesses` starts some ranks of a mesh (a
+cluster replica's followers, whose rank 0 is the calling process), and
+:func:`run_child` runs a function in a process of its own. A mesh with
+``data`` > 1 raises.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import gc
 import os
 import queue
 import socket
@@ -40,30 +46,34 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._C._distributed_c10d import (AllgatherOptions, AllreduceOptions,
+                                        BroadcastOptions)
 
 from repro_torch.kernels.launches import active_census
 from repro_torch.launch.mesh import Mesh, multi_card_item
 
 _local = threading.local()
-_CURRENT: Optional["MeshGroup"] = None
 
 # how long a rank waits on another in a collective or a control message
 TIMEOUT = datetime.timedelta(minutes=10)
 
 
 class MeshGroup:
-    """This process's rank on ``mesh`` and its process groups; see the
-    module docstring. :meth:`init` makes one; :func:`current` returns it.
-    With ``record`` set to a list, every collective appends ``(op, shape,
-    dtype)`` to it (the lock-step check)."""
+    """A process's rank on ``mesh`` and its process groups; see the
+    module docstring. :meth:`init` makes one, which the caller hands to
+    its model (``Model(..., group=)``). With ``record`` set to a list,
+    every collective appends ``(op, shape, dtype)`` to it (the lock-step
+    check)."""
 
-    def __init__(self, mesh: Mesh, rank: int, group, host):
+    def __init__(self, mesh: Mesh, rank: int, group, host, store=None):
         self.mesh = mesh
         self.rank = rank
         self.size = mesh.shape["model"]
         self.device = torch.device(mesh.devices.flat[rank])
         self.group = group
         self.host = host
+        # the rendezvous (rank 0 serves it while the group lives)
+        self.store = store
         self.record: Optional[List[Tuple[str, Tuple[int, ...], str]]] = None
 
     @staticmethod
@@ -83,18 +93,19 @@ class MeshGroup:
                 f"({multi_card_item('data')})")
 
     @classmethod
-    def init(cls, mesh: Mesh, rank: int, address: str) -> "MeshGroup":
-        """Join the mesh's process groups as ``rank`` at ``address``
-        (``tcp://127.0.0.1:<port>``) and make the group :func:`current`."""
-        global _CURRENT
+    def init(cls, mesh: Mesh, rank: int, address: str, *,
+             store=None) -> "MeshGroup":
+        """Join the mesh's process groups as ``rank``, meeting the other
+        ranks at ``address`` (``tcp://127.0.0.1:<port>``, served by rank
+        0, or the store rank 0 already serves there, ``store``). The
+        process's current device is left as it is: one process may lead
+        several meshes."""
         cls.check_mesh(mesh)
-        if _CURRENT is not None:
-            raise RuntimeError("this process already belongs to a mesh")
         device = torch.device(mesh.devices.flat[rank])
         kinds = {torch.device(d).type for d in mesh.devices.flat}
         if len(kinds) != 1:
             raise ValueError(f"a mesh mixes device types {sorted(kinds)}")
-        world = mesh.size
+        size = mesh.size
         if device.type == "cuda":
             if not torch.cuda.is_available() or \
                     torch.cuda.device_count() <= (device.index or 0):
@@ -103,31 +114,37 @@ class MeshGroup:
             if not dist.is_nccl_available():
                 raise RuntimeError("this PyTorch has no NCCL: a mesh of "
                                    "CUDA devices cannot be made")
-            torch.cuda.set_device(device)
-            kw = {}
-            if "device_id" in dist.init_process_group.__code__.co_varnames:
-                kw["device_id"] = device
-            dist.init_process_group("nccl", init_method=address,
-                                    world_size=world, rank=rank,
-                                    timeout=TIMEOUT, **kw)
-        elif device.type == "cpu":
-            dist.init_process_group("gloo", init_method=address,
-                                    world_size=world, rank=rank,
-                                    timeout=TIMEOUT)
-        else:
+        elif device.type != "cpu":
             raise ValueError(f"no process group for device {device}")
-        host = dist.new_group(backend="gloo", timeout=TIMEOUT)
-        _CURRENT = cls(mesh, rank, dist.group.WORLD, host)
-        return _CURRENT
+        if store is None:
+            store = rendezvous(address, rank, size)
+        if device.type == "cuda":
+            opts = dist.ProcessGroupNCCL.Options()
+            opts._timeout = TIMEOUT
+            with torch.cuda.device(device):
+                model = dist.ProcessGroupNCCL(
+                    dist.PrefixStore("model", store), rank, size, opts)
+                # the communicator now, on every rank at once: never
+                # inside a graph capture
+                model.eager_connect_single_device(device)
+        else:
+            model = dist.ProcessGroupGloo(dist.PrefixStore("model", store),
+                                          rank, size, TIMEOUT)
+        host = dist.ProcessGroupGloo(dist.PrefixStore("host", store), rank,
+                                     size, TIMEOUT)
+        return cls(mesh, rank, model, host, store)
 
     def close(self):
         """Leave the process groups (the process may join another mesh
         afterwards)."""
-        global _CURRENT
-        if _CURRENT is self:
-            _CURRENT = None
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        if self.device.type == "cuda":
+            # abort, not shutdown: NCCL's shutdown waits for every rank's,
+            # and a cluster's rank 0 closes before it collects its followers
+            stop = getattr(self.group, "abort", None) or \
+                getattr(self.group, "shutdown", None)
+            if stop is not None:
+                stop()
+        self.group = self.host = self.store = None
 
     @contextlib.contextmanager
     def active(self):
@@ -147,8 +164,10 @@ class MeshGroup:
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """Sum ``x`` over the model axis, in place."""
         self._note("all_reduce", x)
+        opts = AllreduceOptions()
+        opts.asyncOp = False
         _collective("all-reduce", 2 * _nbytes(x),
-                    lambda: dist.all_reduce(x, group=self.group))
+                    lambda: _wait(self.group.allreduce([x], opts)))
         return x
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,11 +177,36 @@ class MeshGroup:
         x = x.contiguous()
         out = torch.empty((self.size * x.shape[0], *x.shape[1:]),
                           dtype=x.dtype, device=x.device)
-        gather = getattr(dist, "all_gather_single", None) or \
-            dist.all_gather_into_tensor
+        opts = AllgatherOptions()
+        opts.asyncOp = False
         _collective("all-gather", _nbytes(out),
-                    lambda: gather(out, x, group=self.group))
+                    lambda: _wait(self.group._allgather_base(out, x, opts)))
         return out.reshape(self.size, *x.shape)
+
+    def broadcast_host(self, t: torch.Tensor):
+        """Rank 0's CPU tensor ``t`` into every rank's ``t``, over the
+        host group."""
+        opts = BroadcastOptions()
+        opts.rootRank = 0
+        _wait(self.host.broadcast([t], opts))
+
+
+def _wait(work):
+    """Wait for a collective's work, as ``torch.distributed``'s own calls
+    do: a synchronous NCCL collective on the current stream returns
+    none."""
+    if work is not None:
+        work.wait()
+
+
+def rendezvous(address: str, rank: int, size: int):
+    """The store ``size`` ranks meet at ``address`` (``tcp://host:port``):
+    rank 0 serves it (port 0 picks a free one, ``store.port``), the others
+    connect, retrying until rank 0 is up."""
+    host, port = address.removeprefix("tcp://").rsplit(":", 1)
+    return dist.TCPStore(host, int(port), size, rank == 0, TIMEOUT,
+                         wait_for_workers=False)
+
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
@@ -183,11 +227,6 @@ def _collective(kind: str, nbytes: int, run: Callable[[], Any]):
         with _disable_current_modes():
             run()
         census.collective(kind, nbytes)
-
-
-def current() -> Optional[MeshGroup]:
-    """This process's mesh group, if it joined one."""
-    return _CURRENT
 
 
 def active() -> Optional[MeshGroup]:
@@ -251,9 +290,9 @@ class StepChannel:
         tensor)."""
         n = 0 if words is None else words.numel()
         h = self._header(key, n)
-        dist.broadcast(h, 0, group=self.group.host)
+        self.group.broadcast_host(h)
         if n:
-            dist.broadcast(words, 0, group=self.group.host)
+            self.group.broadcast_host(words)
 
     def stop(self):
         """Rank 0: release the other ranks from following."""
@@ -264,7 +303,7 @@ class StepChannel:
         """Another rank: the next key and its words, received into the
         int32 CPU tensor ``into(key, n)`` returns."""
         h = torch.zeros((_HEADER,), dtype=torch.int64)
-        dist.broadcast(h, 0, group=self.group.host)
+        self.group.broadcast_host(h)
         kind = _KEY_KINDS[int(h[0])]
         ints = tuple(int(i) for i in h[2:2 + int(h[-1])])
         if kind == "paged":             # (batch_pad, nb_pad, sampled)
@@ -277,7 +316,7 @@ class StepChannel:
         if not n:
             return key, None
         buf = into(key, n)
-        dist.broadcast(buf, 0, group=self.group.host)
+        self.group.broadcast_host(buf)
         return key, buf
 
 
@@ -290,18 +329,119 @@ def free_port() -> int:
 
 
 def _rank_main(fn, mesh: Mesh, rank: int, address: str, args, out):
-    if torch.device(mesh.devices.flat[rank]).type == "cpu":
+    device = torch.device(mesh.devices.flat[rank])
+    if device.type == "cpu":
         torch.set_num_threads(1)
     group = None
     try:
+        if device.type == "cuda":
+            # the rank's card is the process's own
+            torch.cuda.set_device(device)
         group = MeshGroup.init(mesh, rank, address)
         result = fn(group, *args)
         out.put((rank, True, result))
     except BaseException:                          # noqa: BLE001
+        # on stderr too: a rank whose peers wait on it in a collective
+        # is read back only once they give up
+        traceback.print_exc()
         out.put((rank, False, traceback.format_exc()))
     finally:
         if group is not None:
+            # the rank's engine sits in a reference cycle: collect it, so
+            # that no CUDA graph holding the NCCL communicator outlives
+            # it (aborting a communicator a graph holds hangs)
+            gc.collect()
             group.close()
+
+
+def _child_main(fn, args, kwargs, out):
+    try:
+        out.put((0, True, fn(*args, **kwargs)))
+    except BaseException:                          # noqa: BLE001
+        out.put((0, False, traceback.format_exc()))
+
+
+class Processes:
+    """Child processes (spawn start method), each putting ``(key, ok,
+    value)`` on one queue: :meth:`collect` returns each key's value, and
+    raises for one that failed, died or outlasted its time; :meth:`stop`
+    ends whatever still runs. A CPU mesh's processes run one thread."""
+
+    def __init__(self, targets: List[Tuple[Callable, tuple]], *,
+                 one_thread: bool = False, daemon: bool = True):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.out = ctx.Queue()
+        self.procs = [ctx.Process(target=t, args=(*a, self.out),
+                                  daemon=daemon) for t, a in targets]
+        env = os.environ.get("OMP_NUM_THREADS")
+        try:
+            if one_thread:
+                os.environ["OMP_NUM_THREADS"] = "1"
+            for p in self.procs:
+                p.start()
+        except BaseException:
+            self.stop()
+            raise
+        finally:
+            if env is None:
+                os.environ.pop("OMP_NUM_THREADS", None)
+            else:
+                os.environ["OMP_NUM_THREADS"] = env
+
+    def collect(self, timeout_s: float = 1800.0) -> dict:
+        """Every process's value by key, once each has put one."""
+        import time
+        results: dict = {}
+        deadline = time.monotonic() + timeout_s
+        while len(results) < len(self.procs):
+            try:
+                key, ok, value = self.out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p for p in self.procs if p.exitcode not in (None, 0)]
+                if dead:
+                    raise RuntimeError(
+                        f"process {self.procs.index(dead[0])} died with "
+                        f"exit code {dead[0].exitcode}") from None
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"processes still running after "
+                                       f"{timeout_s} s") from None
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {key} failed:\n{value}")
+            results[key] = value
+        for p in self.procs:
+            p.join(timeout=60)
+        return results
+
+    def exited(self) -> Optional[int]:
+        """The index of a process that has already exited (its value, or
+        its error, is on the queue), if any: a follower that ends before
+        it is stopped has failed."""
+        return next((i for i, p in enumerate(self.procs)
+                     if p.exitcode is not None), None)
+
+    def stop(self):
+        """End every process still running."""
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+class RankProcesses(Processes):
+    """Ranks ``ranks`` of ``mesh``, one process each, running ``fn(group,
+    *args)`` once they joined the mesh at ``address`` (rank 0's, which
+    may be the calling process's)."""
+
+    def __init__(self, fn: Callable[..., Any], mesh: Mesh, address: str,
+                 args: tuple, ranks):
+        cpu = torch.device(mesh.devices.flat[0]).type == "cpu"
+        super().__init__([(_rank_main, (fn, mesh, r, address, args))
+                          for r in ranks], one_thread=cpu)
 
 
 def spawn(fn: Callable[..., Any], mesh: Mesh, *args,
@@ -311,56 +451,27 @@ def spawn(fn: Callable[..., Any], mesh: Mesh, *args,
     port, and return each rank's result in rank order. A rank that
     raises, dies or outlasts ``timeout_s`` raises here, and every process
     is stopped before this returns."""
-    import multiprocessing as mp
-    import time
     MeshGroup.check_mesh(mesh)
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    address = f"tcp://127.0.0.1:{free_port()}"
-    env = os.environ.get("OMP_NUM_THREADS")
-    procs = [ctx.Process(target=_rank_main,
-                         args=(fn, mesh, r, address, args, out),
-                         daemon=True)
-             for r in range(mesh.size)]
-    results: dict = {}
+    ranks = RankProcesses(fn, mesh, f"tcp://127.0.0.1:{free_port()}", args,
+                          range(mesh.size))
     try:
-        if mesh.devices.flat[0] is not None and \
-                torch.device(mesh.devices.flat[0]).type == "cpu":
-            os.environ["OMP_NUM_THREADS"] = "1"
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + timeout_s
-        while len(results) < len(procs):
-            try:
-                rank, ok, value = out.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p for p in procs if p.exitcode not in (None, 0)]
-                if dead:
-                    raise RuntimeError(
-                        f"rank process {procs.index(dead[0])} died with "
-                        f"exit code {dead[0].exitcode}") from None
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"ranks still running after "
-                                       f"{timeout_s} s") from None
-                continue
-            if not ok:
-                raise RuntimeError(f"rank {rank} failed:\n{value}")
-            results[rank] = value
-        for p in procs:
-            p.join(timeout=60)
+        results = ranks.collect(timeout_s)
     finally:
-        if env is None:
-            os.environ.pop("OMP_NUM_THREADS", None)
-        else:
-            os.environ["OMP_NUM_THREADS"] = env
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=10)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return [results[r] for r in range(len(procs))]
+        ranks.stop()
+    return [results[r] for r in range(mesh.size)]
+
+
+def run_child(fn: Callable[..., Any], *args, timeout_s: float = 1800.0,
+              **kwargs) -> Any:
+    """``fn(*args, **kwargs)`` in a process of its own (spawn start method, not
+    daemonic, so it may start rank processes of its own: a cluster whose
+    replicas span several devices), its result returned; it raises as
+    :func:`spawn` does."""
+    child = Processes([(_child_main, (fn, args, kwargs))], daemon=False)
+    try:
+        return child.collect(timeout_s)[0]
+    finally:
+        child.stop()
 
 
 def devices_mesh(n: int, device: str = "cuda") -> Mesh:

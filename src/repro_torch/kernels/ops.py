@@ -66,3 +66,8 @@ def launch_counters() -> Dict[str, Callable]:
             "flash_attention": fl.flash_attention,
             "flash_prefix_attention": fl.flash_prefix_attention,
             "decode_attention": dec.gqa_decode_attention}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel wrapper's launch count, by kernel name."""
+    return {name: fn.launches for name, fn in launch_counters().items()}

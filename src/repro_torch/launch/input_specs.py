@@ -185,13 +185,13 @@ def _batch_meta(cfg: ArchConfig, rules: ShardingRules, batch: int,
     return meta, spec
 
 
-def _model(cfg: ArchConfig, params, rules: ShardingRules):
+def _model(cfg: ArchConfig, params, rules: ShardingRules, group=None):
     """The case's model over ``params``: on their device, or, on a mesh
-    of several real devices, this process's rank of it."""
+    of several real devices, ``group``'s rank of it."""
     from repro_torch.models.model import Model
     mesh = rules.mesh
     if mesh.devices is not None and mesh.size > 1:
-        return Model(cfg, params, mesh=mesh, rules=rules)
+        return Model(cfg, params, mesh=mesh, rules=rules, group=group)
     leaf = params["final_norm"]["scale"]
     return Model(cfg, params, device=leaf.device)
 
@@ -213,10 +213,11 @@ def _train_microbatches(cfg: ArchConfig, shape: ShapeSpec, data_shards: int,
 def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
              arch: Optional[str] = None, moment_dtype: str = "float32",
              act_replicated: bool = False,
-             hw: Hardware = H100_SXM5_80GB) -> DryRunCase:
+             hw: Hardware = H100_SXM5_80GB, group=None) -> DryRunCase:
     """The case of an already adjusted ``cfg`` at ``shape`` on ``mesh``
     (:func:`build_case` without the registry lookup, for reduced
-    configs)."""
+    configs); on a mesh of several real devices its ``fn`` runs as
+    ``group``'s rank (:class:`~repro_torch.distributed.MeshGroup`)."""
     model_size = mesh.shape["model"]
     data_shards = mesh.size // model_size
     fsdp = shape.kind == "train" or _needs_fsdp_serve(cfg, model_size, hw)
@@ -238,7 +239,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         step_fn = make_train_step(cfg, AdamWConfig(), microbatches=micro)
 
         def fn(params, opt_state, batch):
-            state = TrainState(_model(cfg, params, rules), opt_state)
+            state = TrainState(_model(cfg, params, rules, group), opt_state)
             metrics = step_fn(state, batch)
             return state.params, state.opt_state, metrics
         batch, batch_sp = _batch_meta(cfg, rules, B, shape.seq, True)
@@ -257,7 +258,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         batch, batch_sp = _batch_meta(cfg, rules, B, shape.seq, False)
         if cfg.arch_type == "encoder":
             def fn(params, batch):
-                return _model(cfg, params, rules).forward(
+                return _model(cfg, params, rules, group).forward(
                     tokens=batch.get("tokens"), embeds=batch.get("embeds"))
             logits = torch.empty((B, shape.seq, V), dtype=torch.float32,
                                  device="meta")
@@ -269,7 +270,7 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
         kv_len = min(shape.seq, cfg.sliding_window or shape.seq)
 
         def fn(params, batch):
-            return _model(cfg, params, rules).prefill(
+            return _model(cfg, params, rules, group).prefill(
                 batch.get("tokens"), cache_len=kv_len,
                 embeds=batch.get("embeds"),
                 img_embeds=batch.get("img_embeds"))
@@ -284,7 +285,8 @@ def case_for(cfg: ArchConfig, shape: ShapeSpec, mesh: Mesh, *,
     kv_len = min(shape.seq, cfg.sliding_window or shape.seq)
 
     def fn(params, cache, tokens, pos):
-        logits = _model(cfg, params, rules).decode_step(tokens, cache, pos)
+        logits = _model(cfg, params, rules, group).decode_step(tokens, cache,
+                                                               pos)
         return logits, cache
     cache, cache_sp = cache_sds(cfg, B, kv_len), \
         cache_shardings(cfg, rules, B, kv_len)
@@ -324,8 +326,8 @@ def materialize(case: DryRunCase, mesh: Mesh,
     K/V and state), random token ids, a decode step's position ``seq -
     1`` (a ring's slot wraps), zero optimizer moments and step.
 
-    On a mesh of several devices, device ``rank``'s blocks (by default
-    this process's rank of the mesh, :mod:`repro_torch.distributed`):
+    On a mesh of several devices, device ``rank``'s blocks (a rank of
+    the mesh, :mod:`repro_torch.distributed`):
     every weight and cache leaf is drawn whole, in the one-device order,
     and cut by the case's specs, so each rank holds its block of the
     one-device case's arguments. What the mesh does not run raises
@@ -340,13 +342,9 @@ def materialize(case: DryRunCase, mesh: Mesh,
                 f"({multi_card_item('train')})")
         check_executable(cfg, rules)
         if rank is None:
-            from repro_torch.distributed import current
-            group = current()
-            if group is None or group.mesh.shape != mesh.shape:
-                raise ValueError(
-                    f"a case over {mesh.size} devices needs a rank: run it "
-                    f"in a process of the mesh (distributed.spawn)")
-            rank = group.rank
+            raise ValueError(
+                f"a case over {mesh.size} devices needs a rank: run it in "
+                f"a process of the mesh (distributed.spawn) as its rank")
     device = torch.device(mesh.devices.flat[rank or 0])
 
     def draw(spec):

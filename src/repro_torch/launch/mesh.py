@@ -28,15 +28,14 @@ from repro_torch.device import resolve_device
 MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 3, running a model across "
                    "more than one card")
 MULTI_CARD_LEFT = {
-    "replica": "a replica of several cards in a cluster's slices",
-    "modes": "the overlapped executor, chunked prefill, the prefix cache, "
-             "speculation and gather under a mesh",
     "rules": "the default rules' d_model-sharded residual and the "
              "head-dim fallback",
     "data": "data > 1 inside one engine, and FSDP",
     "families": "MoE expert parallelism with its all-to-all; SSM, hybrid "
                 "and VLM across cards",
     "train": "training across cards",
+    "colocated": "co-located replicas of a model over several cards (each "
+                 "replica's collectives on a group of its own)",
 }
 
 

@@ -11,19 +11,32 @@ their own accounting. E.g., on two cards::
     out = spawn(serve_rank, devices_mesh(2), cfg, ecfg, requests)
 
 serves ``requests`` over ``cuda:0`` and ``cuda:1`` (``devices_mesh(2,
-"cpu")``: two gloo ranks on the CPU).
+"cpu")``: two gloo ranks on the CPU), in any engine mode ``ecfg`` asks
+for. A :class:`ParallelReplica` is a tensor-parallel replica this
+process leads as its rank 0 while its other ranks run
+:func:`follow_rank` in processes it starts (what
+:meth:`~repro_torch.serving.cluster.ReplicatedCluster.sliced` builds of
+a slice of several devices), and :func:`cluster_rank` a whole cluster of
+such replicas, run in a process of its own
+(:func:`~repro_torch.distributed.run_child`)::
+
+    out = run_child(cluster_rank, cfg, ecfg,
+                    make_mesh((2, 2), ("data", "model"), devices), 2,
+                    requests)
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import MeshGroup, RankProcesses, rendezvous
+from repro_torch.kernels.ops import launch_counts
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.models.model import Model
 from repro_torch.models.params import init_shard, params_from_numpy
-from repro_torch.serving.steps import launch_counts
 from repro_torch.sharding import rules_for
 
 
@@ -41,7 +54,7 @@ def rank_model(group, cfg, params=None, *, seed: int = 0,
     else:
         params = params_from_numpy(cfg, params, device=group.device,
                                    rules=rules, rank=group.rank)
-    return Model(cfg, params, mesh=group.mesh, rules=rules)
+    return Model(cfg, params, mesh=group.mesh, rules=rules, group=group)
 
 
 def run_jobs(group, jobs: Sequence) -> List[object]:
@@ -96,22 +109,13 @@ def paged_logits(model: Model, tokens: np.ndarray, lengths: np.ndarray,
     return {"prefill": lt.cpu().numpy(), "decode": np.stack(decode)}
 
 
-def serve_rank(group, cfg, ecfg, requests: Sequence, params=None, *,
-               seed: int = 0, slice_bytes: Optional[int] = None,
-               record: bool = False) -> Dict[str, object]:
-    """Serve ``requests`` over the mesh (:meth:`~repro_torch.serving.
-    engine.ContinuousBatchingEngine.serve_mesh`). Every rank returns its
-    kernel launches and, with ``record``, its collectives in order
-    (``(op, shape, dtype)``); rank 0 also each request's output tokens
-    and finish reason, and the engine's decode steps and prefills."""
-    from repro_torch.serving.engine import ContinuousBatchingEngine
-    model = rank_model(group, cfg, params, seed=seed,
-                       slice_bytes=slice_bytes)
-    engine = ContinuousBatchingEngine(model, ecfg, device=group.device)
+def _served(group, engine, serve, record: bool) -> Dict[str, object]:
+    """Run ``serve()`` on this rank's ``engine``; its kernel launches,
+    graphs and, with ``record``, its collectives."""
     if record:
         group.record = []
     before = launch_counts()
-    engine.serve_mesh(list(requests))
+    serve()
     if engine.device.type == "cuda":
         torch.cuda.synchronize(engine.device)
     out: Dict[str, object] = {
@@ -119,12 +123,187 @@ def serve_rank(group, cfg, ecfg, requests: Sequence, params=None, *,
         "launches": {k: v - before[k] for k, v in launch_counts().items()},
         "record": group.record, "graphs": list(engine.steps.graphs)}
     group.record = None
+    return out
+
+
+def serve_rank(group, cfg, ecfg, requests: Sequence, params=None, *,
+               seed: int = 0, slice_bytes: Optional[int] = None,
+               record: bool = False) -> Dict[str, object]:
+    """Serve ``requests`` over the mesh (:meth:`~repro_torch.serving.
+    engine.ContinuousBatchingEngine.serve_mesh`) in the mode ``ecfg``
+    asks for. Every rank returns its kernel launches and, with
+    ``record``, its collectives in order (``(op, shape, dtype)``); rank 0
+    also each request's output tokens and finish reason, and the engine's
+    counters (:func:`engine_counters`)."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    model = rank_model(group, cfg, params, seed=seed,
+                       slice_bytes=slice_bytes)
+    engine = ContinuousBatchingEngine(model, ecfg, device=group.device)
+    requests = list(requests)
+    out = _served(group, engine, lambda: engine.serve_mesh(requests),
+                  record)
     if group.rank == 0:
         out.update(tokens=[list(r.state.output_tokens) for r in requests],
                    finish=[r.state.finish_reason for r in requests],
-                   decode_steps=engine.decode_steps,
-                   prefills=engine.prefills)
+                   **engine_counters(engine))
     return out
+
+
+def engine_counters(engine) -> Dict[str, int]:
+    """An engine's step, prefill, speculation and prefix-cache counters."""
+    out = {name: getattr(engine, name) for name in (
+        "decode_steps", "prefills", "chunks", "suffix_prefills",
+        "spec_steps", "spec_drafted", "spec_accepted", "verify_iterations",
+        "preemptions")}
+    if engine.prefix is not None:
+        out["prefix_hit_tokens"] = engine.prefix.stats.hit_tokens
+    return out
+
+
+def follow_rank(group, cfg, ecfg, params=None, seed: int = 0,
+                slice_bytes: Optional[int] = None,
+                record: bool = False) -> Dict[str, object]:
+    """A cluster replica's rank other than 0: its shard (as
+    :func:`rank_model` draws or cuts it) in an engine of ``ecfg`` that
+    follows rank 0's, until the cluster stops it. Returns what
+    :func:`serve_rank` returns of a rank other than 0."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    model = rank_model(group, cfg, params, seed=seed,
+                       slice_bytes=slice_bytes)
+    engine = ContinuousBatchingEngine(model, ecfg, device=group.device)
+    return _served(group, engine, engine.follow, record)
+
+
+class ParallelReplica:
+    """A tensor-parallel replica of ``cfg`` over the ``1 x M`` ``mesh``
+    (weights ``params``, a whole numpy tree, or drawn from ``seed`` in
+    slices of ``slice_bytes``) that this process leads as rank 0, on
+    process groups of the replica's own (so one process may lead several
+    replicas without their collectives meeting).
+
+    Built, it has started its ranks other than 0, each a process of its
+    own that joins the mesh and follows rank 0's steps
+    (:func:`follow_rank`); :meth:`lead` joins as rank 0 and returns its
+    engine (start several replicas before leading any, so their
+    followers load at once); :meth:`check` raises once a follower has
+    exited (its next collective would wait on it forever); :meth:`close`
+    stops the followers and leaves the groups. ``record`` keeps every
+    rank's collectives (the lock-step check)."""
+
+    def __init__(self, cfg, ecfg, mesh, params=None, *, seed: int = 0,
+                 slice_bytes: Optional[int] = None, record: bool = False):
+        MeshGroup.check_mesh(mesh)
+        self.cfg, self.ecfg, self.mesh, self.params = cfg, ecfg, mesh, params
+        self.seed, self.slice_bytes, self.record = seed, slice_bytes, record
+        # rank 0's rendezvous, served here (port 0 picks a free one)
+        self.store = rendezvous("tcp://127.0.0.1:0", 0, mesh.size)
+        self.address = f"tcp://127.0.0.1:{self.store.port}"
+        self.followers = RankProcesses(
+            follow_rank, mesh, self.address,
+            (cfg, ecfg, params, seed, slice_bytes, record),
+            range(1, mesh.size)) if mesh.size > 1 else None
+        self.engine = None
+
+    def lead(self):
+        """Join the mesh as rank 0: its shard (:func:`rank_model`) in an
+        engine of ``ecfg`` whose steps the followers run."""
+        from repro_torch.serving.engine import ContinuousBatchingEngine
+        dev = torch.device(self.mesh.devices.flat[0])
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            group = MeshGroup.init(self.mesh, 0, self.address,
+                                   store=self.store)
+            group.record = [] if self.record else None
+            model = rank_model(group, self.cfg, self.params, seed=self.seed,
+                               slice_bytes=self.slice_bytes)
+            self.engine = ContinuousBatchingEngine(model, self.ecfg,
+                                                   device=dev)
+        return self.engine
+
+    def check(self):
+        """Raise if a rank other than 0 has exited."""
+        if self.followers is not None and self.followers.exited() is not None:
+            raise RuntimeError("a rank other than 0 exited while the "
+                               "replica serves")
+
+    def close(self) -> Dict[int, Dict[str, object]]:
+        """Send the followers rank 0's stop, drop the engine's CUDA graphs,
+        leave the groups (an NCCL group aborts: its shutdown would wait
+        for the followers'), and return each follower's
+        :func:`follow_rank` result by rank; every follower process has
+        ended when this returns. Once closed, or never led, it only stops
+        the followers."""
+        group = self.engine.model.group if self.engine is not None else None
+        results: Dict[int, Dict[str, object]] = {}
+        try:
+            if group is not None and group.host is not None:
+                if self.followers is None or self.followers.exited() is None:
+                    self.engine.steps.channel.stop()
+                if group.device.type == "cuda":
+                    torch.cuda.synchronize(group.device)
+                # a graph that captured the group's collectives holds its
+                # NCCL communicator: aborting it first hangs, on this rank
+                # and on its peers (seen on four H100s)
+                self.engine.steps.graphs.clear()
+                group.close()
+                if self.followers is not None:
+                    results = self.followers.collect(600.0)
+        finally:
+            if self.followers is not None:
+                self.followers.stop()
+                self.followers = None
+            if group is not None and group.host is not None:
+                group.close()
+            self.store = None
+        return results
+
+
+def cluster_rank(cfg, ecfg, mesh, n_replicas: int, requests: Sequence,
+                 params=None, *, seed: int = 0,
+                 slice_bytes: Optional[int] = None, record: bool = False,
+                 faults: Optional[str] = None,
+                 **kw) -> Dict[str, object]:
+    """A cluster of ``n_replicas`` replicas, one a slice of ``mesh``
+    (:meth:`~repro_torch.serving.cluster.ReplicatedCluster.sliced`, with
+    ``kw``; ``faults`` a :meth:`~repro_torch.serving.faults.FaultInjector.
+    parse` spec), serving ``requests``: what a process of its own runs
+    (:func:`~repro_torch.distributed.run_child`), leading every replica
+    as its rank 0 while the replicas' other ranks follow in processes it
+    starts. Returns each request's tokens and finish reason, the cluster
+    metrics' counters, each replica's engine counters, the process's
+    launches (every replica's rank 0 together) and, with ``record``, each
+    replica's collectives; ``followers`` holds each replica's other
+    ranks' :func:`follow_rank` results."""
+    from repro_torch.serving.cluster import ReplicatedCluster
+    from repro_torch.serving.faults import FaultInjector
+    if torch.device(mesh.devices.flat[0]).type == "cpu":
+        torch.set_num_threads(1)
+    cluster = ReplicatedCluster.sliced(
+        cfg, params, ecfg, mesh, n_replicas, seed=seed,
+        slice_bytes=slice_bytes, record=record,
+        faults=FaultInjector.parse(faults) if faults else None, **kw)
+    requests = list(requests)
+    before = launch_counts()
+    metrics = cluster.run(requests)
+    return {
+        "tokens": [list(r.state.output_tokens) for r in requests],
+        "finish": [r.state.finish_reason for r in requests],
+        "redriven": metrics.redriven, "lost": metrics.lost,
+        "healthy": [rep.healthy for rep in cluster.replicas],
+        "replica_faults": [rep.faults for rep in cluster.replicas],
+        "routed": [[r.req_id for r in rep.requests]
+                   for rep in cluster.replicas],
+        "engines": [engine_counters(rep.engine) for rep in cluster.replicas],
+        "launches": {k: v - before[k] for k, v in launch_counts().items()},
+        "records": [rep.engine.model.group.record
+                    if rep.engine.model.group is not None else None
+                    for rep in cluster.replicas],
+        "followers": cluster.follower_results,
+        "metrics": {"output_throughput": metrics.output_throughput,
+                    "wall_s": metrics.wall_s,
+                    "ttft": (metrics.ttft.p50, metrics.ttft.p95),
+                    "itl": (metrics.itl.p50, metrics.itl.p95),
+                    "output_tokens": metrics.output_tokens}}
 
 
 def case_rank(group, case_args: Dict, seed: int = 0,
@@ -134,9 +313,11 @@ def case_rank(group, case_args: Dict, seed: int = 0,
     as the rank's blocks, then ``steps`` greedy decode steps from its
     random tokens; returns each step's logits."""
     from repro_torch.launch.input_specs import case_for, materialize
-    case = case_for(mesh=group.mesh, act_replicated=True, **case_args)
+    case = case_for(mesh=group.mesh, act_replicated=True, group=group,
+                    **case_args)
     gen = torch.Generator(group.device).manual_seed(seed)
-    params, cache, tokens, pos = materialize(case, group.mesh, gen)
+    params, cache, tokens, pos = materialize(case, group.mesh, gen,
+                                             rank=group.rank)
     out = []
     for _ in range(steps):
         logits, cache = case.fn(params, cache, tokens, pos)

@@ -69,7 +69,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.core.analysis import scope
 from repro_torch.device import on_device, resolve_device
-from repro_torch.distributed import current
 from repro_torch.kvcache.view import PagedCacheView
 from repro_torch.models import attention
 from repro_torch.models.layers import (decode_embed, embed_inputs,
@@ -290,9 +289,10 @@ class Model(nn.Module):
     weights are drawn from ``generator`` (seed 0 by default) on the
     device. ``device=None`` means the card, and raises without one.
 
-    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh` this process
-    joined, :meth:`repro_torch.distributed.MeshGroup.init`) the model is
-    the process's rank of it, on the rank's device, under ``rules``
+    With ``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`) and
+    ``group`` (this process's place on it,
+    :meth:`repro_torch.distributed.MeshGroup.init`) the model is the
+    group's rank of it, on the rank's device, under ``rules``
     (``rules_for(mesh, act_replicated=True)`` by default): ``params``,
     whole or already the rank's blocks, are cut to its blocks; drawn, each
     leaf is drawn whole as the one-device model draws it and cut
@@ -304,7 +304,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, params: Optional[Tree] = None, *,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None,
-                 mesh=None, rules=None):
+                 mesh=None, rules=None, group=None):
         super().__init__()
         self.cfg = cfg
         self.group = None
@@ -312,12 +312,11 @@ class Model(nn.Module):
         if mesh is not None:
             rules = rules or rules_for(mesh, act_replicated=True)
             check_executable(cfg, rules)
-            group = current()
             if group is None or group.mesh.shape != mesh.shape or \
                     list(group.mesh.devices.flat) != list(mesh.devices.flat):
                 raise RuntimeError("this process has not joined the mesh: "
-                                   "MeshGroup.init (or distributed.spawn) "
-                                   "first")
+                                   "pass the group MeshGroup.init (or "
+                                   "distributed.spawn) gave it")
             if device is not None and \
                     resolve_device(device) != group.device:
                 raise ValueError(f"rank {group.rank} runs on "

@@ -19,10 +19,18 @@ Two replica placements:
   two replicas stepped on two host threads run on the card at once.
 * :meth:`ReplicatedCluster.sliced` — the counterpart of the reference's
   sliced mesh: a :class:`~repro_torch.launch.mesh.Mesh` split along its
-  data axis (``slice_mesh``) or a list of devices split R ways, one
-  replica a slice with its own copy of the weights. A replica runs on one
-  device (the rules do not run across cards yet), so each slice must
-  hold exactly one; on a one-card machine that is R=1.
+  data axis (``slice_mesh``: an ``(R, M)`` mesh gives R ``(1, M)``
+  sub-meshes) or a list of devices split R ways (each slice a ``1 x M``
+  model mesh), one replica a slice with its own copy of the weights. A
+  slice of one device is a plain replica on it. A slice of several is one
+  tensor-parallel model over the slice's ``model`` axis, built by the
+  launch layer (:class:`~repro_torch.launch.tensor_parallel.
+  ParallelReplica`): this process is its rank 0, whose engine the
+  cluster steps as any replica's, and its other ranks follow rank 0's
+  steps in processes of their own until :meth:`ReplicatedCluster.close`
+  stops them; :meth:`ReplicatedCluster.run` closes the cluster at its
+  end, so such a cluster serves one run. A slice with a data axis of
+  more than one device raises.
 
 Two stepping modes:
 
@@ -93,7 +101,9 @@ from typing import Callable, List, Optional, Sequence, Union
 import torch
 
 from repro_torch.core.replication import slice_devices, slice_mesh
-from repro_torch.launch.mesh import Mesh, multi_card_item
+from repro_torch.distributed import MeshGroup
+from repro_torch.launch.mesh import Mesh, make_model_mesh, multi_card_item
+from repro_torch.launch.tensor_parallel import ParallelReplica
 from repro_torch.models.model import Model
 from repro_torch.serving.cluster.metrics import (ClusterMetrics, ReplicaStats,
                                                  aggregate)
@@ -113,6 +123,9 @@ class Replica:
     # its slice of devices when sliced (one device: the engine's)
     devices: Optional[List[torch.device]] = None
     requests: List[Request] = dataclasses.field(default_factory=list)
+    # a tensor-parallel replica's leader (None: one device): its check()
+    # before each step, its close() when the cluster closes
+    parallel: Optional[ParallelReplica] = None
 
     # --- fault-tolerance state (cluster-owned) ---
     healthy: bool = True                   # quarantined replicas are skipped
@@ -156,6 +169,8 @@ class ReplicatedCluster:
 
     def __init__(self, engines: Sequence[ContinuousBatchingEngine], *,
                  slices: Optional[Sequence[Sequence]] = None,
+                 parallel: Optional[Sequence[Optional[ParallelReplica]]]
+                 = None,
                  policy: Union[str, RouterPolicy] = "round-robin",
                  mode: str = "thread",
                  faults: Optional[FaultInjector] = None,
@@ -175,8 +190,12 @@ class ReplicatedCluster:
             raise ValueError(f"max_redrives must be >= 0, got {max_redrives}")
         if watchdog_s is not None and watchdog_s <= 0:
             raise ValueError(f"watchdog_s must be > 0, got {watchdog_s}")
+        if parallel is not None and len(parallel) != len(engines):
+            raise ValueError(f"{len(parallel)} replica leaders for "
+                             f"{len(engines)} engines")
         self.replicas = [
-            Replica(i, eng, list(slices[i]) if slices is not None else None)
+            Replica(i, eng, list(slices[i]) if slices is not None else None,
+                    parallel=parallel[i] if parallel is not None else None)
             for i, eng in enumerate(engines)]
         self.router = Router(policy, len(engines))
         self.mode = mode
@@ -192,6 +211,9 @@ class ReplicatedCluster:
         # observability session (serving.obs.Observability): installed by
         # Observability.attach_cluster — None keeps every hook site free
         self.obs = None
+        # each tensor-parallel replica's followers' results once closed
+        # (replica idx -> {rank: follow_rank's result})
+        self.follower_results: dict = {}
         self.queue_samples: List[List[int]] = []
         self._feeding_done = False
         self._errors: List[BaseException] = []
@@ -223,7 +245,15 @@ class ReplicatedCluster:
     def colocated(cls, model: Model, ecfg: EngineConfig, n_replicas: int,
                   **kw) -> "ReplicatedCluster":
         """R replicas on ``model``'s device sharing its weights; each owns
-        its KV pool, allocator, step graphs and CUDA stream."""
+        its KV pool, allocator, step graphs and CUDA stream. A model over a
+        mesh raises: its replicas would share its groups, and their
+        collectives would interleave."""
+        if model.group is not None:
+            raise NotImplementedError(
+                f"co-located replicas of a model over a mesh of "
+                f"{model.group.size} device(s) "
+                f"({multi_card_item('colocated')}); slice the devices "
+                f"instead (ReplicatedCluster.sliced)")
         engines = [ContinuousBatchingEngine(model, ecfg, device=model.device)
                    for _ in range(n_replicas)]
         return cls(engines, **kw)
@@ -231,30 +261,53 @@ class ReplicatedCluster:
     @classmethod
     def sliced(cls, cfg, params, ecfg: EngineConfig,
                devices: Union[Mesh, Sequence[Union[str, torch.device]]],
-               n_replicas: int, **kw) -> "ReplicatedCluster":
+               n_replicas: int, *, seed: int = 0,
+               slice_bytes: Optional[int] = None, record: bool = False,
+               **kw) -> "ReplicatedCluster":
         """One replica per disjoint slice of ``devices``, a :class:`Mesh`
         split along its data axis (``slice_mesh``) or a list split R ways
         in order, each with its own copy of the weights ``params`` (a tree
-        in the reference's layout; None draws each copy from seed 0 on its
-        device). A slice of more than one device raises: a replica runs
-        on one card until the rules run across cards."""
+        in the reference's layout; None draws each copy from ``seed`` on
+        its devices, in slices of ``slice_bytes`` if given). A slice of
+        several devices is a tensor-parallel replica (module docstring;
+        ``record`` keeps its ranks' collectives, the lock-step check). A
+        slice with data > 1 raises before anything starts."""
         if isinstance(devices, Mesh):
-            slices = [list(m.devices.flat)
-                      for m in slice_mesh(devices, n_replicas)]
+            subs = slice_mesh(devices, n_replicas)
         else:
-            slices = slice_devices(devices, n_replicas)
-        engines = []
-        for sub in slices:
-            if len(sub) != 1:
-                raise NotImplementedError(
-                    f"a replica over {len(sub)} devices inside a cluster "
-                    f"({multi_card_item('replica')}); give one device a "
-                    f"replica, or serve one tensor-parallel model a "
-                    f"process a card (distributed.spawn)")
-            model = Model(cfg, params, device=sub[0])
-            engines.append(ContinuousBatchingEngine(model, ecfg,
-                                                    device=sub[0]))
-        return cls(engines, slices=slices, **kw)
+            subs = [make_model_mesh(sub)
+                    for sub in slice_devices(devices, n_replicas)]
+        for sub in subs:
+            MeshGroup.check_mesh(sub)
+        # every replica's followers start first (they load at once), then
+        # this process leads each replica as its rank 0
+        leads: List[Optional[ParallelReplica]] = []
+        try:
+            for sub in subs:
+                leads.append(ParallelReplica(
+                    cfg, ecfg, sub, params, seed=seed,
+                    slice_bytes=slice_bytes, record=record)
+                    if sub.size > 1 else None)
+            engines = []
+            for sub, lead in zip(subs, leads):
+                dev = torch.device(sub.devices.flat[0])
+                if lead is not None:
+                    engines.append(lead.lead())
+                    continue
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    model = Model(cfg, params, device=dev,
+                                  generator=torch.Generator(
+                                      dev).manual_seed(seed))
+                    engines.append(ContinuousBatchingEngine(model, ecfg,
+                                                            device=dev))
+        except BaseException:
+            for lead in leads:
+                if lead is not None:
+                    lead.close()
+            raise
+        return cls(engines, slices=[list(sub.devices.flat) for sub in subs],
+                   parallel=leads, **kw)
 
     # ------------------------------------------------------------- admin --
     @property
@@ -463,6 +516,8 @@ class ReplicatedCluster:
         stamped at step *start* so the threaded feeder can detect a
         replica stuck inside a step."""
         rep.last_step_at = time.monotonic()
+        if rep.parallel is not None:
+            rep.parallel.check()
         busy = rep.engine.step(now)
         if self.watchdog_s is not None:
             if time.monotonic() - rep.last_step_at > self.watchdog_s:
@@ -511,9 +566,31 @@ class ReplicatedCluster:
     def run(self, requests: Sequence[Request]) -> ClusterMetrics:
         """Batch-offline wrapper over the streaming facade
         (:class:`repro_torch.serving.api.ServingAPI`); online callers
-        submit, stream and abort through the facade instead."""
+        submit, stream and abort through the facade instead. Closes the
+        cluster at its end (:meth:`close`)."""
         from repro_torch.serving.api import ServingAPI
-        return ServingAPI(self).run(requests)
+        try:
+            return ServingAPI(self).run(requests)
+        finally:
+            self.close()
+
+    def close(self):
+        """Close every tensor-parallel replica
+        (:meth:`~repro_torch.launch.tensor_parallel.ParallelReplica.
+        close`), keeping its followers' results in
+        :attr:`follower_results`. A no-op for replicas of one device, and
+        once closed."""
+        errors = []
+        for rep in self.replicas:
+            if rep.parallel is None:
+                continue
+            try:
+                self.follower_results[rep.idx] = rep.parallel.close()
+            except Exception as e:          # noqa: BLE001
+                errors.append(e)
+            rep.parallel = None
+        if errors:
+            raise errors[0]
 
     def _run_impl(self, requests: Sequence[Request]) -> ClusterMetrics:
         """Serve ``requests`` to completion and return aggregate metrics.

@@ -84,9 +84,12 @@ each step it runs (its key and staged words) and each pool copy to the
 other ranks before running it; they :meth:`~ContinuousBatchingEngine.
 follow`, so every rank issues the same collectives in the same order
 whatever rank 0's clock decided (:meth:`ContinuousBatchingEngine.
-serve_mesh` does both). Over more than one device the sync loop's
-serial prefill and paged decode run; the overlapped executor, chunked
-prefill, the prefix cache, speculation and the gather mode raise.
+serve_mesh` does both). Every mode runs over a mesh: the overlapped
+executor, chunked prefill, the prefix cache, speculation and the gather
+mode decide on rank 0's host (its scheduler, prefix index, drafter,
+chain map and verify keys), and what they decide reaches the other
+ranks only as staged words and pool copies. Preemption, rollback and
+aborts stay on rank 0's host.
 
 An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
 receives every lifecycle event, every prefill and decode step's bucket
@@ -151,22 +154,6 @@ def refuse_undecodable(cfg: ArchConfig):
             f"decode does not support windows and the paged pool holds no "
             f"ring (the reference engine falls back to gather mode and "
             f"fails at its first decode); use the static-batch loop")
-
-
-def refuse_mesh_modes(ecfg: "EngineConfig", size: int):
-    """Refuse the engine modes not run over a model axis of ``size`` > 1
-    devices (ROADMAP.md, queue 1 item 3)."""
-    from repro_torch.launch.mesh import multi_card_item
-    modes = [name for name, on in (
-        ("overlap", ecfg.overlap),
-        ("prefill_chunk_tokens", ecfg.prefill_chunk_tokens is not None),
-        ("prefix_cache", ecfg.prefix_cache),
-        ("speculate", ecfg.speculate),
-        ("decode_mode='gather'", ecfg.decode_mode == "gather")) if on]
-    if modes:
-        raise NotImplementedError(
-            f"{', '.join(modes)} over {size} devices "
-            f"({multi_card_item('modes')})")
 
 
 class RequestTooLarge(RuntimeError):
@@ -309,8 +296,6 @@ class ContinuousBatchingEngine:
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {self.device}")
         refuse_undecodable(model.cfg)
-        if model.group is not None and model.group.size > 1:
-            refuse_mesh_modes(ecfg, model.group.size)
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg

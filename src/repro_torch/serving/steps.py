@@ -91,8 +91,10 @@ collectives (:mod:`repro_torch.distributed`), captured into the graphs
 with the rest. Rank 0's steps send each step's key and staged words to
 the other ranks over :attr:`StepFunctions.channel` before running it;
 the other ranks :meth:`StepFunctions.follow` the channel, staging the
-same words and running the same key, so every rank warms up, captures
-and replays the same buckets in the same order.
+same words (a step's chain map among them: an overlapped step's chained
+rows gather their input from the rank's own previous output) and
+running the same key, so every rank warms up, captures and replays the
+same buckets in the same order.
 
 The graphs capture the pool's addresses, so the pool is written in
 place (as it always is in the port) and every write to it goes on the
@@ -115,6 +117,8 @@ from repro_torch.core.analysis import DispatchCensus
 from repro_torch.distributed import STOP
 from repro_torch.kernels.launches import add_counts, tally_launches
 from repro_torch.kernels.ops import launch_counters
+# re-exported: callers of the steps read the launch counts from here
+from repro_torch.kernels.ops import launch_counts  # noqa: F401
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.view import (PagedCacheView, prefill_fields,
                                       prefill_size, step_fields, step_size,
@@ -165,11 +169,6 @@ def split_verify(out: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     the boolean acceptance mask, each ``[B, K_pad + 1]``."""
     n = out.shape[1] // 2
     return out[:, :n], out[:, n:].astype(bool)
-
-
-def launch_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launch count, by kernel name."""
-    return {name: fn.launches for name, fn in launch_counters().items()}
 
 
 def take_launches(before: Dict[str, int]) -> Dict[str, int]:
@@ -446,27 +445,15 @@ class StepFunctions:
         """Bucket ``key``'s body over the static buffers' current fields:
         what its graph replays (the steps build the same body from their
         staged fields)."""
+        staging, n = self._staged(key)
+        dev = self._fields(key, staging.device_buf[:n])
         if key[0] == "gather":
-            _, B, pad, sampled = key
-            dev = step_fields(self._staging.device_buf[:step_size(B, pad)],
-                              B, pad)
-            return lambda: self._gather_body(dev, sampled)
+            return lambda: self._gather_body(dev, key[3])
         if key[0] == "verify":
-            _, bp, nb, K_pad, sampled = key
-            dev = verify_fields(
-                self._staging.device_buf[:verify_size(bp, nb, K_pad)], bp,
-                nb, K_pad)
-            return lambda: self._verify_body(dev, K_pad, sampled)
+            return lambda: self._verify_body(dev, key[3], key[4])
         if key[0] in ("prefill", "suffix"):
-            S, nb = key[1], (key[2] if key[0] == "suffix" else 0)
-            dev = prefill_fields(
-                self._prefill_staging.device_buf[:prefill_size(S, nb)], S,
-                nb)
             return lambda: self._prefill_body(dev, key[0] == "suffix")
-        bp, nb, sampled = key
-        dev = step_fields(self._staging.device_buf[:step_size(bp, nb)], bp,
-                          nb)
-        return lambda: self._paged_body(dev, sampled)
+        return lambda: self._paged_body(dev, key[2])
 
     def meta_twin(self) -> "StepFunctions":
         """These steps on the meta device: the model's weights, the pool
@@ -657,15 +644,34 @@ class StepFunctions:
             return self._staging, verify_size(*key[1:4])
         return self._staging, step_size(key[0], key[1])
 
+    @staticmethod
+    def _fields(key: Tuple, buf) -> Dict:
+        """Bucket ``key``'s fields in its packed words ``buf`` (on the
+        host or the device)."""
+        if key[0] in ("prefill", "suffix"):
+            return prefill_fields(buf, key[1],
+                                  key[2] if key[0] == "suffix" else 0)
+        if key[0] == "gather":
+            return step_fields(buf, key[1], key[2])
+        if key[0] == "verify":
+            return verify_fields(buf, *key[1:4])
+        return step_fields(buf, key[0], key[1])
+
     def follow(self):
         """A rank other than 0: run the steps rank 0 sends over
         :attr:`channel` (each staged as rank 0 staged it, then run as its
-        key) and the pool copies, until rank 0 stops."""
+        key) and the pool copies, until rank 0 stops. A decode step's
+        chained rows (``use_prev`` in its words: rank 0 dispatched it
+        with the previous step in flight) take their input from this
+        rank's own output of the previous decode step, which equals rank
+        0's: the logits are gathered whole on every rank and sampled
+        alike."""
         def into(key: Tuple, n: int) -> torch.Tensor:
             staging, _ = self._staged(key)
             staging.host()
             return staging.bufs[staging.slot][:n]
 
+        prev = None
         while True:
             key, words = self.channel.recv(into)
             if key[0] == STOP:
@@ -674,10 +680,15 @@ class StepFunctions:
                 self.pool.copy_block(key[1], key[2])
                 continue
             staging, n = self._staged(key)
-            staging.upload(n)
-            self._run(key, self.body(key),
-                      "prefill" if key[0] in ("prefill", "suffix")
-                      else "decode")
+            dev = self._fields(key, staging.upload(n))
+            prefill = key[0] in ("prefill", "suffix")
+            if not prefill and self._fields(key, words.numpy())[
+                    "use_prev"].any():
+                self._chain(dev, prev)
+            out = self._run(key, self.body(key),
+                            "prefill" if prefill else "decode")
+            if not prefill:
+                prev = out[0]
 
     # ----------------------------------------------------------- graphs --
     def _run(self, key: Tuple, body: Callable[[], Outputs],

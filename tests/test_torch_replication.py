@@ -232,8 +232,10 @@ def test_slice_devices_divides_like_slice_mesh():
 
 def test_sliced_cluster_one_device_a_replica():
     """``sliced``: one replica a device, each with its own copy of the
-    weights; a count that does not divide raises, and a slice of more
-    than one device (a replica over several cards) is refused."""
+    weights; a count that does not divide raises, and a slice with a
+    data axis of more than one device is refused (a slice of several
+    devices along the model axis is a tensor-parallel replica:
+    tests/test_torch_mesh_cluster.py)."""
     cfg = reduced(get_config("opt-1.3b"))
     ecfg = EngineConfig(max_batch=2, block_size=8, kv_pool_tokens=512,
                         max_model_len=64, prefill_bucket=16)
@@ -247,5 +249,7 @@ def test_sliced_cluster_one_device_a_replica():
         [[torch.device("cpu")]] * 2
     with pytest.raises(ValueError, match="not divisible"):
         ReplicatedCluster.sliced(cfg, None, ecfg, ["cpu"] * 3, 2)
+    from repro_torch.launch.mesh import make_mesh
     with pytest.raises(NotImplementedError, match="more than one card"):
-        ReplicatedCluster.sliced(cfg, None, ecfg, ["cpu", "cpu"], 1)
+        ReplicatedCluster.sliced(cfg, None, ecfg, make_mesh(
+            (2, 1), ("data", "model"), ["cpu", "cpu"]), 1)

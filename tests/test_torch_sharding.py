@@ -265,7 +265,8 @@ def test_slice_mesh_splits_the_leading_axis():
 
 def test_sliced_cluster_takes_a_mesh():
     """``ReplicatedCluster.sliced`` takes a mesh, one replica a device
-    slice; a slice of two devices names the multi-card item."""
+    slice; a slice of two devices along its data axis names the
+    multi-card item."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config("opt-1.3b"))
     ecfg = EngineConfig(max_batch=2, kv_pool_tokens=256, max_model_len=64)

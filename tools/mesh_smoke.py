@@ -1,13 +1,21 @@
 #!/usr/bin/env python3
-"""Run ``chip_smoke.py``'s tensor-parallel phase alone, on a machine with
-one or more CUDA cards: build the kernels, load OPT-1.3B, serve the
+"""Run ``chip_smoke.py``'s tensor-parallel phases alone, on a machine
+with one or more CUDA cards: build the kernels, load OPT-1.3B, serve the
 paged serve's 32 requests on one card (the baseline the mesh phase
-compares with), then ``phase_mesh``. From the repository root::
+compares with), then ``phase_mesh`` (the world of one in every engine
+mode and as a sliced cluster's replica; with several cards, the float32,
+OPT-1.3B and deepseek-coder-33b meshes), then, with four cards,
+``phase_mesh_modes``: deepseek-coder-33b over 1 x 4 in every engine mode,
+then R=2 replicas of 1 x 2 against the paged engine over 1 x 4 measured
+in the same run. From the repository root::
 
-    python3 tools/mesh_smoke.py
+    python3 tools/mesh_smoke.py            # everything
+    python3 tools/mesh_smoke.py --modes    # phase_mesh_modes alone
+    python3 tools/mesh_smoke.py --modes --layers 4 --requests 32
+                                           # a short first call
 
-With one card it runs the world-of-one check only; with four, every
-mesh of the phase. Exits non-zero if a check fails."""
+Exits non-zero if a check fails."""
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -17,10 +25,21 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import subprocess
     import torch
     import chip_smoke as cs
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--modes", action="store_true",
+                    help="only the engine modes and the cluster across "
+                         "four cards (phase_mesh_modes)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut deepseek-coder-33b to this many layers")
+    ap.add_argument("--requests", type=int, default=cs.MESH_DEEP_REQUESTS,
+                    help="ShareGPT-length requests a serve")
+    args = ap.parse_args(argv)
+    # each line as it is printed: a run cut at its limit keeps its log
+    sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
         print("mesh_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -29,19 +48,29 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+        check=True).stdout.strip().splitlines()
+    for i, line in enumerate(card):
+        print(f"[device {i}] {line}")
+    card = card[0]
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = cs.full_model()
-    reqs = cs.serve_workload()
-    _, metrics, _ = cs.serve(model, reqs, "paged", card)
-    cs.release()
-    cs.phase("4, mesh", cs.phase_mesh, model, card,
-             dict(reqs=reqs, metrics=metrics))
-    print(f"[done] the mesh phase passed in {time.perf_counter() - t0:.1f} s"
-          f" on {card}")
+    if not args.modes:
+        model = cs.full_model()
+        reqs = cs.serve_workload()
+        _, metrics, _ = cs.serve(model, reqs, "paged", card)
+        cs.release()
+        cs.phase("4, mesh", cs.phase_mesh, model, card,
+                 dict(reqs=reqs, metrics=metrics))
+        del model
+        cs.release()
+    out = cs.phase("4, mesh modes", cs.phase_mesh_modes, card, args.layers,
+                   args.requests)
+    if out is None and torch.cuda.device_count() >= cs.MESH_DEEP_CARDS:
+        return 1
+    print(f"[done] the mesh phases passed in "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
     return 0
 
 
