@@ -17,7 +17,11 @@ It imports nothing of JAX or of the JAX package. Phases:
    entries past each allocation, length-0 rows, full tables) and wide
    tables cut into several splits (lengths 0, 1, mid-block, on a split
    boundary, full and past the table; entries past each row's bound out
-   of the pool, so that a read of one faults); the flash
+   of the pool, so that a read of one faults); the paged kernel's
+   partials entry and combine (a decode over a KV sequence sharded
+   across cards) over f32/bf16, hd 64/112/128, G 1/7/8 and 2 or 4
+   pieces of every block's rows, each against its plain version, and
+   the combined pieces against the whole kernel; the flash
    kernel's single-tile case on its own line, the reference's flash
    cases, a bf16 grid over head dims, head groups, masks and sequence
    shapes and a grid with a length a request (the model's prefill
@@ -241,7 +245,10 @@ It imports nothing of JAX or of the JAX package. Phases:
    capture, against the plain engine on the paged serve's first 16
    requests (tokens and every step's logits bit for bit, the collectives
    counted: the embedding's all-reduce, two a layer and the logits'
-   all-gather a call). With one card it then says that nothing ran
+   all-gather a call), and again under the reference's default rules
+   and under ``shard_kv_seq`` (bit for bit: its decode through the paged
+   kernel's partials entry and the combine, once a layer a step each).
+   With one card it then says that nothing ran
    across cards. With several (``tools/mesh_smoke.py`` runs this phase
    alone), one process a card over ``cuda:0..M-1``
    (``repro_torch.distributed.spawn``), one spawn a mesh size: OPT-1.3B
@@ -257,7 +264,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    deepseek on one card (run first, on cuda:0, with an 8,192-token
    pool); and the dry-run's deepseek long_500k decode case over 1 x 4
    (the contiguous kernel at K 2, G 7 a rank), its step beside the
-   dry-run census's per-device terms;
+   dry-run census's per-device terms. ``tools/mesh_smoke.py --rules``
+   runs ``phase_mesh_rules`` alone on four cards: deepseek-coder-33b
+   under the default rules beside ``act_replicated``, qwen2.5-3b under
+   the default rules and ``shard_kv_seq`` (logits within ``DEEP_TOL`` of
+   one card's), and the dry-run's qwen2.5-3b decode_32k case over 1 x 4,
+   its bytes, step and NCCL beside the dry-run's;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -269,7 +281,9 @@ It imports nothing of JAX or of the JAX package. Phases:
    through a 512-block table and at olmoe's (K 16, hd 128) and zamba2's
    (K 32, hd 112) serving shapes; contiguous decode at the gather shape, at
    one 8192-token request, at the static batch's shape, at the VLM's
-   cross decode and at the ring decode; the flash kernel's plain entry
+   cross decode and at the ring decode; the paged kernel's partials
+   entry and combine at a rank's shape of the dry-run's qwen2.5-3b
+   decode_32k case over 1 x 4; the flash kernel's plain entry
    at slice 13's three shapes beside SDPA with the same mask; contiguous
    decode at the dry-run's four long_500k shapes); the decode
    kernels and their library calls twice, L2-cold (back-to-back calls on
@@ -546,12 +560,20 @@ def launch_counters():
     from repro_torch.kernels.decode_attention import gqa_decode_attention
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_prefix_attention)
-    from repro_torch.kernels.paged_decode_attention import \
-        paged_gqa_decode_attention
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_combine, paged_decode_partials,
+        paged_gqa_decode_attention)
     return {"paged_decode_attention": paged_gqa_decode_attention,
             "flash_attention": flash_attention,
             "flash_prefix_attention": flash_prefix_attention,
-            "decode_attention": gqa_decode_attention}
+            "decode_attention": gqa_decode_attention,
+            "paged_decode_partials": paged_decode_partials,
+            "paged_decode_combine": paged_decode_combine}
+
+
+# the partials entry and the combine, which a path with no KV sequence
+# sharded across ranks never launches
+NO_SEQ_LAUNCHES = {"paged_decode_partials": 0, "paged_decode_combine": 0}
 
 
 def reset_launches():
@@ -906,6 +928,7 @@ def phase_paged_splits(errs):
         e_split = max(e_split, e)
         n_win += 1
     errs["paged"]["multi_split"] = e_split
+    paged_partials_grid(errs)
     print(f"[kernels] paged decode: {n} multi-split cases (B "
           f"{SPLIT_ROWS}, K 2, G 1/2/4/7/8 x hd 64/80/96/112/128 x BS 16/32 "
           f"x f32/bf16, table width 128/256; rows of length 0, 1, "
@@ -916,6 +939,88 @@ def phase_paged_splits(errs):
           f"tolerance, each request's atol min(dtype's, {ROW_ATOL} x its "
           f"largest output); entries past each bound out of the pool, "
           f"length-0 rows exactly 0; max abs err {e_split:.3e}")
+
+
+PARTIALS_ROWS = [0, 1, 17, 9, 100, 128]   # a partials case's lengths
+
+
+def paged_partials_grid(errs):
+    """The paged kernel's partials entry and the combine, which carry a
+    decode over a KV sequence sharded on the model axis: for f32 and
+    bf16, hd 64/112/128, G 1/7/8 and M 2/4 pieces, each piece's rows
+    (piece ``r`` holds rows ``[r BS/M, (r+1) BS/M)`` of every block, at
+    its local lengths) through the partials entry against its plain
+    version, the combine against its plain version on the same partials,
+    and the combine of the M pieces against the whole paged kernel on the
+    same pool within 1e-5 (f32) / 3e-2 (bf16) of the largest output;
+    lengths 0, 1 (pieces without a row of it), mid-block and the full
+    table; a length-0 row's output exactly 0."""
+    import itertools
+    import torch
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_combine, paged_decode_combine_torch,
+        paged_decode_partials, paged_decode_partials_torch,
+        paged_gqa_decode_attention)
+    from repro_torch.models.attention import local_lengths
+    K, BS, nb, B = 2, 16, 8, len(PARTIALS_ROWS)
+    e_part = e_comb = e_whole = 0.0
+    n = 0
+    for dtype, hd, G, m in itertools.product(
+            (torch.float32, torch.bfloat16), (64, 112, 128), (1, 7, 8),
+            (2, 4)):
+        what = f"paged partials {dtype} hd={hd} G={G} M={m}"
+        q, kp, vp, table, lens = paged_inputs(B, K, G, hd, BS, nb, dtype,
+                                              PARTIALS_ROWS, seed=3000 + n)
+        rows = BS // m
+        parts = []
+        for r in range(m):
+            piece = slice(r * rows, (r + 1) * rows)
+            kr, vr = kp[:, piece].contiguous(), vp[:, piece].contiguous()
+            local = local_lengths(lens, BS, rows, r)
+            got = paged_decode_partials(q, kr, vr, table, local)
+            want = paged_decode_partials_torch(q, kr, vr, table, local)
+            torch.cuda.synchronize()
+            live = want[..., -1] > 0
+            if not torch.equal(live, got[..., -1] > 0) or not bool(
+                    torch.isneginf(got[..., -2][~live]).all()) or bool(
+                    (got[..., :-2][~live] != 0).any()):
+                raise AssertionError(f"{what} piece {r}: rows without a "
+                                     f"live row are not (0, -inf, 0)")
+            scale = want[live].abs().amax().clamp_min(1.0) if bool(
+                live.any()) else torch.tensor(1.0, device="cuda")
+            e_part = max(e_part, close(
+                torch.where(live[..., None], got, 0) / scale,
+                torch.where(live[..., None], want, 0) / scale, what,
+                1e-4))
+            parts.append(got)
+        parts = torch.stack(parts)
+        out = paged_decode_combine(parts, dtype)
+        e_comb = max(e_comb, close(out, paged_decode_combine_torch(
+            parts, dtype), f"{what} combine"))
+        whole = paged_gqa_decode_attention(q, kp, vp, table, lens)
+        torch.cuda.synchronize()
+        if not bool((out[0] == 0).all()):
+            raise AssertionError(f"{what}: a length-0 row is not zero")
+        tol = (1e-5 if dtype == torch.float32 else 3e-2) * float(
+            whole.float().abs().max())
+        err = float((out.float() - whole.float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{what}: the combined pieces are {err:.3e}"
+                                 f" from the whole kernel, past {tol:.3e}")
+        e_whole = max(e_whole, err)
+        n += 1
+    errs["partials"]["grid"] = e_part
+    errs["combine"]["grid"] = e_comb
+    errs["combine"]["whole_kernel"] = e_whole
+    print(f"[kernels] paged partials and combine: {n} cases (B {B}, K {K}, "
+          f"G 1/7/8 x hd 64/112/128 x f32/bf16 x M 2/4 pieces of BS {BS}, "
+          f"table width {nb}, lengths {PARTIALS_ROWS}): each piece's "
+          f"partials against the plain version (rows without a live row "
+          f"exactly (0, -inf, 0); max err {e_part:.3e} of the largest), the "
+          f"combine against its plain version (max abs err {e_comb:.3e}), "
+          f"the combined M pieces against the whole paged kernel within "
+          f"1e-5 (f32) / 3e-2 (bf16) of the largest output (max abs err "
+          f"{e_whole:.3e}); length-0 rows exactly 0")
 
 
 def phase_flash_kernel(errs):
@@ -1313,7 +1418,8 @@ def phase_model(errs, name, n_layers, seed=1, steps=4):
                          ("gather", "decode_attention")):
         reset_launches()
         kern, kern_tok = run_model(model, prompts, steps, mode, img)
-        want = {"paged_decode_attention": 0, "decode_attention": 0,
+        want = {**NO_SEQ_LAUNCHES,
+                "paged_decode_attention": 0, "decode_attention": 0,
                 "flash_attention": 2 * (n_attn + n_cross),
                 "flash_prefix_attention": 0}
         want[kernel] += steps * n_attn
@@ -1491,7 +1597,8 @@ def phase_model_speculative(errs):
                 tag = (f"2-layer float32 {kind}, {way}, speculation "
                        f"{'on' if spec else 'off'}")
                 steps = (engine.decode_steps + engine.verify_iterations) * 2
-                want = {"paged_decode_attention": steps,
+                want = {**NO_SEQ_LAUNCHES,
+                        "paged_decode_attention": steps,
                         "decode_attention": 0, **prefill_launches(engine)}
                 if plain:
                     want = dict.fromkeys(want, 0)
@@ -1877,7 +1984,8 @@ def cross_layers(cfg):
 def expected_launches(engines):
     """The launches ``engines`` must have made since the counters were set
     to 0: each kernel once a layer of each step of its kind, summed (the
-    decode kernel of the engine's mode a decode step, the paged kernel
+    decode kernel of the engine's mode a decode step, or over a sharded
+    KV sequence the partials entry and the combine, the paged kernel
     ``K_pad + 1`` times a verify step, the contiguous kernel once a
     cross layer a decode step, the flash entries as
     :func:`prefill_launches`)."""
@@ -1885,8 +1993,12 @@ def expected_launches(engines):
     for e in engines:
         decode = ("paged_decode_attention" if e.decode_mode == "paged"
                   else "decode_attention")
+        # over a sharded KV sequence: the partials entry and the combine
+        decode = (("paged_decode_partials", "paged_decode_combine")
+                  if e.model.seq_shard is not None else (decode,))
         steps = e.decode_steps + e.verify_iterations
-        want[decode] += steps * attention_layers(e.model.cfg)
+        for name in decode:
+            want[name] += steps * attention_layers(e.model.cfg)
         want["decode_attention"] += steps * cross_layers(e.model.cfg)
         for k, v in prefill_launches(e).items():
             want[k] += v
@@ -3566,7 +3678,8 @@ def phase_static(model, card, batch=32, prompt=128, steps=64):
     out = torch.stack(out)
     if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError("static batch: token out of range")
-    want = {"paged_decode_attention": 0, "flash_attention": cfg.n_layers,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "flash_attention": cfg.n_layers,
             "flash_prefix_attention": 0,
             "decode_attention": steps * cfg.n_layers}
     if launches != want:
@@ -3740,6 +3853,8 @@ def phase_times(card, prefill_sizes, serve_reqs):
                 for name, K, G, hd, _ in LONG_DECODE)]
     decode = [time_decode(card, what, *args) for what, args in shapes]
     times["decode_attention"] = dict(decode[0], other_shapes=decode[1:])
+    times["paged_decode_partials"], times["paged_decode_combine"] = \
+        time_seq_partials(card)
 
     counts = {}
     for r in serve_reqs:
@@ -3984,6 +4099,87 @@ def time_paged(card, what, q, kp, vp, table, lens):
           f"{k_call * 1e3:.1f} us, SDPA {l_call * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us")
     return row
+
+
+# the dry-run's qwen2.5-3b decode_32k case on one rank of 1 x 4 under its
+# rules (shard_kv_seq): B 128, H 16, K 2, hd 128, a quarter of 32,768
+# slots a request, as the dense decode hands the kernel its rows
+SEQ_RANK = dict(B=128, H=16, K=2, hd=128, rows=8192, BS=16, M=4)
+
+
+def time_seq_partials(card):
+    """The partials entry and the combine at the decode_32k rank shape
+    (``SEQ_RANK``; every row live, bf16): device time L2-cold beside the
+    plain version's and the bytes bound (no library call computes either
+    function). Each partials call reads 1.07 GB of K/V, 21x the L2, so
+    two pools in turn are L2-cold; the combine's 4.3 MB of partials go
+    through 24 copies in turn. Prints one line each and returns their
+    rows."""
+    import torch
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_combine, paged_decode_combine_torch,
+        paged_decode_partials, paged_decode_partials_torch)
+    c = SEQ_RANK
+    B, H, K, hd, BS = c["B"], c["H"], c["K"], c["hd"], c["BS"]
+    nb = c["rows"] // BS
+    gen = torch.Generator("cuda").manual_seed(21)
+    q = torch.randn((B, H, hd), generator=gen, device="cuda").bfloat16()
+    kp, vp = (torch.randn((B * nb, BS, K, hd), generator=gen, device="cuda",
+                          dtype=torch.bfloat16) for _ in range(2))
+    table = torch.arange(B * nb, dtype=torch.int32,
+                         device="cuda").reshape(B, nb)
+    lens = torch.full((B,), c["rows"], dtype=torch.int32, device="cuda")
+    tokens = B * c["rows"]
+    nbytes = (2 * tokens * K * hd * 2 + q.numel() * 2 + B * H * (hd + 2) * 4
+              + table.numel() * 4 + lens.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
+    k_warm, k_call = timed(lambda: paged_decode_partials(q, kp, vp, table,
+                                                         lens))
+    pools = [(kp, vp), (kp.clone(), vp.clone())]
+    k_ms = l2_cold_ms(lambda a, b: paged_decode_partials(q, a, b, table,
+                                                         lens), pools)
+    del pools
+    # the plain version is ~0.4 s a call: one, end to end
+    p_ms = time_ms(lambda: paged_decode_partials_torch(q, kp, vp, table,
+                                                       lens), runs=1,
+                   warmup=0)
+    shape = (f"B={B} H={H} K={K} hd={hd} bf16, {c['rows']} rows a request "
+             f"on the rank (blocks of {BS}, table width {nb}): the "
+             f"decode_32k case on one of {c['M']} ranks")
+    partials = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                    bound_by=b_by, call_ms=k_call, library_call_ms=None,
+                    ms_l2_warm=k_warm, gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+                    shape=shape, library_call=None)
+    print(f"[times] on {card}: paged partials at {shape}: device time, "
+          f"L2-cold (two pools in turn): kernel {k_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.1f} us ({b_by}), {partials['gb_s']:.0f} GB/s "
+          f"achieved; one call end to end: kernel {k_call * 1e3:.1f} us, "
+          f"plain {p_ms * 1e3:.1f} us; no library call computes the "
+          f"function")
+    parts = torch.stack([paged_decode_partials(q, kp, vp, table, lens)
+                         for _ in range(c["M"])])
+    del kp, vp
+    release()
+    nbytes = 4 * parts.numel() + B * H * hd * 2
+    b_ms, b_by = bound(nbytes, 4.0 * parts.numel())
+    k_warm, k_call = timed(lambda: paged_decode_combine(parts,
+                                                        torch.bfloat16))
+    k_ms = l2_cold_ms(lambda p: paged_decode_combine(p, torch.bfloat16),
+                      copies((parts,)))
+    p_ms = time_ms(lambda: paged_decode_combine_torch(parts,
+                                                      torch.bfloat16))
+    shape = (f"M={c['M']} pieces of [B={B}, H={H}, hd+2={hd + 2}] f32 "
+             f"partials -> bf16 (the decode_32k case a layer)")
+    combine = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+                   bound_by=b_by, call_ms=k_call, library_call_ms=None,
+                   ms_l2_warm=k_warm, gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+                   shape=shape, library_call=None)
+    print(f"[times] on {card}: paged combine at {shape}: device time, "
+          f"L2-cold ({LAYERS} copies in turn): kernel {k_ms * 1e3:.1f} us, "
+          f"bound {b_ms * 1e3:.2f} us ({b_by}); L2-warm {k_warm * 1e3:.1f} "
+          f"us; one call end to end: kernel {k_call * 1e3:.1f} us, plain "
+          f"{p_ms * 1e3:.1f} us; no library call computes the function")
+    return partials, combine
 
 
 def time_decode(card, what, q, k, v, lens):
@@ -4895,7 +5091,8 @@ def encoder_forward(model, emb, lengths, tag):
     out = model.forward(embeds=emb, lengths=lengths)
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"paged_decode_attention": 0, "flash_prefix_attention": 0,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "flash_prefix_attention": 0,
             "decode_attention": 0, "flash_attention": model.cfg.n_layers}
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches} != {want}")
@@ -5017,7 +5214,8 @@ def slice13_window(card, B=4, steps=256):
     if tuple(cache["k"].shape) != (cfg.n_layers, B, WINDOW, cfg.n_kv_heads,
                                    cfg.hd):
         raise AssertionError(f"window ring shape {tuple(cache['k'].shape)}")
-    want = {"paged_decode_attention": 0, "flash_attention": cfg.n_layers,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "flash_attention": cfg.n_layers,
             "flash_prefix_attention": 0,
             "decode_attention": steps * cfg.n_layers}
     if launches != want:
@@ -5065,7 +5263,8 @@ def slice13_window_check(errs, B=2, S=8200, steps=16):
 
     reset_launches()
     kern, kern_tok = run()
-    want = {"paged_decode_attention": 0, "flash_prefix_attention": 0,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "flash_prefix_attention": 0,
             "flash_attention": cfg.n_layers,
             "decode_attention": steps * cfg.n_layers}
     if read_launches() != want:
@@ -5211,7 +5410,8 @@ def train_check(errs, name, n_layers, card):
     pg, pp, pl, pn = train_run(name, n_layers, batches, plain=True)
     release()
     passes = 1 + len(batches)
-    want = {"paged_decode_attention": 0, "decode_attention": 0,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "decode_attention": 0,
             "flash_prefix_attention": 0,
             "flash_attention": 2 * attention_layers(cfg) * passes}
     if kn != want or any(pn.values()):
@@ -5333,7 +5533,8 @@ def train_full(card):
     records = launch_train.main(TRAIN_ARGV)
     wall = time.perf_counter() - t0
     launches = read_launches()
-    want = {"paged_decode_attention": 0, "decode_attention": 0,
+    want = {**NO_SEQ_LAUNCHES,
+            "paged_decode_attention": 0, "decode_attention": 0,
             "flash_prefix_attention": 0,
             "flash_attention": 2 * cfg.n_layers * steps}
     losses = [r["loss"] for r in records]
@@ -5730,7 +5931,8 @@ def dryrun_case(card, arch, shape, rec):
                                         DRYRUN_STEPS)
     torch.cuda.synchronize()
     launches = read_launches()
-    want_launches = {"paged_decode_attention": 0, "flash_attention": 0,
+    want_launches = {**NO_SEQ_LAUNCHES,
+                     "paged_decode_attention": 0, "flash_attention": 0,
                      "flash_prefix_attention": 0,
                      "decode_attention": n_attn * DRYRUN_STEPS}
     if launches != want_launches or in_situ["calls"] != n_attn * DRYRUN_STEPS:
@@ -6090,31 +6292,47 @@ def mesh_checksums(engine):
     return sums
 
 
+# the world of one's rule sets beside the act_replicated one: rules_for's
+# flags by tag
+MESH_ONE_RULES = {"mesh default": {}, "mesh kv_seq": {"shard_kv_seq": True}}
+
+
 def mesh_world_of_one(model, card):
     """The sharded engine at a world of one on cuda:0, over a real NCCL
     group of one rank (its collectives issued and captured into the
     graphs), against the plain engine: the paged serve's first
-    ``MESH_FIRST`` requests, tokens and every step's logits bit for bit.
-    Returns the sharded serve's launches."""
+    ``MESH_FIRST`` requests, tokens and every step's logits bit for bit,
+    under the act_replicated rules, the default rules and shard_kv_seq
+    (whose decode runs the paged kernel's partials entry and the combine
+    over a KV sequence of one piece). Returns the launches by tag and the
+    plain serve."""
     import torch
     from repro_torch.distributed import MeshGroup, free_port
     from repro_torch.launch.mesh import make_model_mesh
     from repro_torch.models.model import Model
     from repro_torch.serving import ContinuousBatchingEngine
+    from repro_torch.sharding import rules_for
     mesh = make_model_mesh(["cuda:0"])
     group = MeshGroup.init(mesh, 0, f"tcp://127.0.0.1:{free_port()}")
-    runs = {}
+    runs, records = {}, {}
     try:
-        sharded = Model(model.cfg, model.params, mesh=mesh, group=group)
-        if any(a.data_ptr() != b.data_ptr() for a, b in
-               zip(model.parameters(), sharded.parameters())):
-            raise AssertionError("a world of one copied the weights")
-        for tag, m in (("plain", model), ("mesh", sharded)):
+        for tag in ("plain", "mesh", *MESH_ONE_RULES):
+            if tag == "plain":
+                m = model
+            else:
+                rules = rules_for(mesh, **MESH_ONE_RULES[tag]) \
+                    if tag in MESH_ONE_RULES else None
+                m = Model(model.cfg, model.params, mesh=mesh, rules=rules,
+                          group=group)
+                if any(a.data_ptr() != b.data_ptr() for a, b in
+                       zip(model.parameters(), m.parameters())):
+                    raise AssertionError(f"a world of one ({tag}) copied "
+                                         f"the weights")
             reqs = serve_workload()[:MESH_FIRST]
             release()
             engine = ContinuousBatchingEngine(m, serve_config())
             sums = mesh_checksums(engine)
-            if tag == "mesh":
+            if tag != "plain":
                 group.record = []
             _, launches = run_served(engine, reqs, card,
                                      f"[mesh world-of-one {tag}]")
@@ -6125,28 +6343,48 @@ def mesh_world_of_one(model, card):
             runs[tag] = ([r.output_tokens for r in reqs],
                          torch.stack(sums).cpu(), launches, calls,
                          sorted(map(str, engine.steps.graphs)))
-            del engine
+            records[tag], group.record = group.record, None
+            del engine, m
             release()
-        record, group.record = group.record, None
     finally:
         group.close()
-    (pt, ps, pl, pc, pg), (mt, ms, ml, mc, mg) = runs["plain"], runs["mesh"]
-    if mt != pt or not torch.equal(ms, ps) or ml != pl or mg != pg:
-        raise AssertionError("[mesh world-of-one] the sharded engine "
-                             "differs from the plain one")
+    pt, ps, pl, _, pg = runs["plain"]
+    for tag, (mt, ms, ml, mc, mg) in runs.items():
+        if mt != pt or not torch.equal(ms, ps) or mg != pg:
+            raise AssertionError(f"[mesh world-of-one {tag}] the sharded "
+                                 f"engine differs from the plain one")
+    _, ms, ml, mc, mg = runs["mesh"]
+    if ml != pl:
+        raise AssertionError("[mesh world-of-one] launches differ")
     # the embedding's all-reduce, 2 a layer, the logits' all-gather a body
     want = mc * (2 + 2 * model.cfg.n_layers)
-    if len(record) != want:
-        raise AssertionError(f"[mesh world-of-one] {len(record)} "
+    if len(records["mesh"]) != want:
+        raise AssertionError(f"[mesh world-of-one] {len(records['mesh'])} "
                              f"collectives issued, {want} expected")
+    if runs["mesh default"][2] != pl:
+        raise AssertionError("[mesh world-of-one default] launches differ")
+    kv = runs["mesh kv_seq"][2]
+    paged = pl["paged_decode_attention"]
+    if kv["paged_decode_attention"] != 0 or paged == 0 or \
+            kv["paged_decode_partials"] != paged or \
+            kv["paged_decode_combine"] != paged or any(
+                kv[k] != pl[k] for k in pl if not k.startswith("paged")):
+        raise AssertionError(f"[mesh world-of-one kv_seq] launches {kv}, "
+                             f"the plain serve's {pl}")
     print(f"[mesh world-of-one] on {card}: a 1-rank NCCL group on cuda:0, "
-          f"{len(mt)} requests, {len(ms)} steps ({len(mg)} graphs "
+          f"{len(pt)} requests, {len(ms)} steps ({len(mg)} graphs "
           f"captured with their collectives): tokens and every step's "
-          f"logits equal to the plain engine's bit for bit; {len(record)} "
-          f"collectives issued by Python (warm-ups and captures; the "
-          f"replays issue theirs in the graphs) = {mc} bodies x (2 + 2 x "
-          f"{model.cfg.n_layers}); launches {ml}")
-    return ml, runs["plain"]
+          f"logits equal to the plain engine's bit for bit under the "
+          f"act_replicated rules, the default rules and shard_kv_seq (its "
+          f"{paged} decode attentions each through the partials entry and "
+          f"the combine, none through the paged kernel's own merge); "
+          f"{len(records['mesh'])} collectives issued by Python under "
+          f"act_replicated (warm-ups and captures; the replays issue "
+          f"theirs in the graphs) = {mc} bodies x (2 + 2 x "
+          f"{model.cfg.n_layers}), {len(records['mesh kv_seq'])} under "
+          f"shard_kv_seq; launches {ml}")
+    return {tag: runs[tag][2] for tag in runs if tag != "plain"}, \
+        runs["plain"]
 
 
 def mesh_mode_serves(model):
@@ -6261,20 +6499,25 @@ def mesh_f32_config(name):
 
 
 def mesh_serve_rank(group, cfg, ecfg, reqs, slice_bytes=None,
-                    check=None, steady=False):
-    """A rank's serve over the mesh (``TP.serve_mesh``'s engine): the
-    rank's shard drawn from seed 0 as one card draws it, every logit
-    finite, the launches counted from 0 around the serve. With ``check``
-    (requests) first :func:`deep_logits` of them; with ``steady``, rank 0
-    keeps each step's device-time marks (:func:`steady_idle`). Returns
-    the rank's bytes held, launches and, on rank 0, the tokens and
-    metrics."""
+                    check=None, steady=False, rules=None):
+    """A rank's serve over the mesh (``TP.serve_mesh``'s engine) under
+    the flags ``rules`` (``tensor_parallel.mesh_rules``; the
+    act_replicated rules by default): the rank's shard drawn from seed 0
+    as one card draws it, every logit finite, the launches counted from 0
+    around the serve. With ``check`` (requests) first :func:`deep_logits`
+    of them; with ``steady``, rank 0 keeps each step's device-time marks
+    (:func:`steady_idle`). Returns the rank's bytes held, launches and,
+    on rank 0, the tokens and metrics."""
     import torch
     from repro_torch.launch.tensor_parallel import rank_model
     from repro_torch.serving import ContinuousBatchingEngine
+    # an earlier job's engine on this rank (rank 0's steady hook keeps it
+    # in a reference cycle past its return) goes before anything is held
+    release()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = rank_model(group, cfg, seed=0, slice_bytes=slice_bytes)
+    model = rank_model(group, cfg, seed=0, slice_bytes=slice_bytes,
+                       rules=rules)
     torch.cuda.synchronize()
     out = {"rank": group.rank, "init_s": time.perf_counter() - t0,
            "weights": torch.cuda.memory_allocated(),
@@ -6379,7 +6622,7 @@ def deep_logits(model, reqs, path="paged"):
     dev = model.device
     pool = PagedKVCache(model.cfg, num_blocks=MESH_DEEP_ONE_POOL // 16,
                         block_size=16, device=dev,
-                        kv_heads=model.n_kv_heads)
+                        kv_heads=model.n_kv_heads, seq_shard=model.seq_shard)
     pre = []
     for i, r in enumerate(reqs):
         n = r.prompt_len
@@ -6398,7 +6641,8 @@ def deep_logits(model, reqs, path="paged"):
                                      prefix=prefix, prefix_len=h)
             pool.write_prefill(i, rest, h, n - h)
         else:
-            lt, cache = model.prefill(toks, torch.tensor([n], device=dev))
+            lt, cache = model.prefill(toks, torch.tensor([n], device=dev),
+                                      own_rows=False)
             pool.write_prefill(i, cache)
         pre.append(lt)
     rids = list(range(len(reqs)))
@@ -7098,6 +7342,341 @@ def phase_mesh_modes(card, n_layers=None, n=MESH_DEEP_REQUESTS):
     return {"gather": gather, "modes": ranks[0], "cluster": cluster}
 
 
+# ---------------------------------- the reference's own rules, 4 cards ----
+# deepseek-coder-33b under the default rules beside act_replicated, and
+# qwen2.5-3b (K 2) under the default rules (the KV-head fallback) and
+# shard_kv_seq, each over 1 x 4 at full width and depth, then the
+# dry-run's qwen2.5-3b decode_32k case (tools/mesh_smoke.py --rules)
+MESH_QWEN = "qwen2.5-3b"
+MESH_RULES = {"default": {}, "act_replicated": {"act_replicated": True},
+              "kv_seq": {"shard_kv_seq": True}}
+# (config, rule set, check its logits) a serve, in the order they run
+MESH_RULE_SERVES = ((MESH_DEEP, "act_replicated", False),
+                    (MESH_DEEP, "default", True),
+                    (MESH_QWEN, "default", True),
+                    (MESH_QWEN, "kv_seq", True))
+MESH_SEQ_STEPS = 4           # the decode_32k case's timed steps
+MESH_SEQ_PROFILED = 2        # and its profiled ones, after a barrier
+
+
+def busy_after_barrier(prof, calls):
+    """:func:`busy_by_kind` of a trace whose first NCCL kernel is a
+    barrier (dropped: it holds the wait for the other ranks)."""
+    events = sorted((e for e in prof.events() if is_device_work(e)),
+                    key=lambda e: e.time_range.start)
+    first = next(i for i, e in enumerate(events)
+                 if kernel_kind(e.name) == "NCCL collectives")
+    by_kind = {}
+    for e in events[:first] + events[first + 1:]:
+        kind = kernel_kind(e.name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / calls
+    return by_kind
+
+
+def mesh_profiler_warmup(group):
+    """A short profile on the rank, so that the serves' profile windows
+    do not pay the profiler's first start (seconds, on every rank's
+    collectives: a rank that starts it waits, the others wait on it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device=group.device).add_(1)
+        torch.cuda.synchronize()
+    return group.rank
+
+
+def mesh_rules_cfg(name, n_layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+def mesh_one_card_logits(card, cfg, check):
+    """:func:`deep_logits` of the check prompts on one card (cuda:0),
+    ``cfg`` bf16 drawn from seed 0 in the dry-run's slices (as each rank
+    draws its blocks)."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import DRAW_SLICE_BYTES, init_params
+    t0 = time.perf_counter()
+    model = Model(cfg, init_params(
+        cfg, torch.Generator("cuda").manual_seed(0),
+        slice_bytes=DRAW_SLICE_BYTES))
+    out = deep_logits(model, check)
+    print(f"[mesh rules one-card] {cfg.name} bf16, {cfg.n_layers} layers "
+          f"on cuda:0 ({card}): {len(check)} prefills and a paged decode "
+          f"step in {time.perf_counter() - t0:.1f} s")
+    del model
+    release()
+    return out
+
+
+def mesh_seq_rank(group):
+    """The dry-run's qwen2.5-3b decode_32k case over the mesh under its
+    own rules (the default rules with shard_kv_seq: K 2 does not divide
+    over 4): its arguments materialized from seed 0 as the rank's blocks
+    (the K/V drawn slice by slice: no card holds the whole cache), the
+    bytes held, a warm-up step, ``MESH_SEQ_STEPS`` timed steps (CUDA
+    events) and one profiled step (NCCL's share); rank 0 also returns
+    the dry-run's per-device argument bytes and census terms."""
+    import torch
+    from repro_torch.core.census import dryrun_census
+    from repro_torch.core.hardware import H100_SXM5_80GB
+    from repro_torch.core.roofline import roofline_report
+    from repro_torch.launch.dryrun import case_memory, case_step
+    from repro_torch.launch.input_specs import (SHAPES, adjusted_cfg,
+                                                case_for, materialize)
+    from repro_torch.models.model import Model
+    from torch.profiler import ProfilerActivity, profile
+    shape = SHAPES["decode_32k"]
+    cfg = adjusted_cfg(MESH_QWEN, shape, 1)
+    case = case_for(cfg, shape, group.mesh, arch=MESH_QWEN, group=group)
+    if not case.rules.shard_kv_seq or case.rules.act_replicated:
+        raise AssertionError(f"[mesh seq] the case's rules {case.rules}")
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params, cache, tokens, pos = materialize(
+        case, group.mesh, torch.Generator(group.device).manual_seed(0),
+        rank=group.rank)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    kv = sum(t.numel() * t.element_size() for t in cache.values())
+    draw_s = time.perf_counter() - t0
+    model = Model(cfg, params, mesh=group.mesh, rules=case.rules,
+                  group=group)
+    model.decode_step(tokens, cache, pos)
+    torch.cuda.synchronize()
+    reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(MESH_SEQ_STEPS):
+        logits = model.decode_step(tokens, cache, pos)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # the ranks start their profilers at different times: a barrier
+        # (one all-reduce, dropped from the trace) absorbs the wait
+        group.all_reduce(torch.ones(1, device=group.device))
+        torch.cuda.synchronize()
+        for _ in range(MESH_SEQ_PROFILED):
+            model.decode_step(tokens, cache, pos)
+        torch.cuda.synchronize()
+    out = {"rank": group.rank, "held": held, "kv": kv, "draw_s": draw_s,
+           "ms": start.elapsed_time(end) / MESH_SEQ_STEPS,
+           "launches": launches,
+           "by_kind": busy_after_barrier(prof, MESH_SEQ_PROFILED),
+           "heads": (model.n_heads, model.n_kv_heads),
+           "finite": bool(torch.isfinite(logits).all()),
+           "peak": torch.cuda.max_memory_allocated()}
+    if group.rank == 0:
+        c = dryrun_census(case.cfg, case_step(case), case.rules)
+        rep = roofline_report(c, H100_SXM5_80GB)
+        out.update(argument_bytes=case_memory(case)["argument_bytes"],
+                   compute_ms=rep.compute_s * 1e3,
+                   memory_ms=rep.memory_s * 1e3,
+                   collective_ms=rep.collective_s * 1e3,
+                   coll=dict(c.per_collective),
+                   whole_kv=2 * shape.batch * shape.seq * cfg.n_layers
+                   * cfg.n_kv_heads * cfg.hd * 2)
+    del model, params, cache
+    release()
+    return out
+
+
+def mesh_rules_launch_check(ranks, j, cfg, rules, tag):
+    """Every rank's launches of serve ``j``: a decode step launches the
+    paged kernel once a layer, or under shard_kv_seq the partials entry
+    and the combine once a layer each; a prefill the flash kernel once a
+    layer; nothing else."""
+    if rules != "kv_seq":
+        return mesh_launch_check(ranks, j, cfg, tag)
+    r0 = ranks[0][j]
+    want = dict.fromkeys(r0["launches"], 0)
+    for name in ("paged_decode_partials", "paged_decode_combine"):
+        want[name] = r0["decode_steps"] * cfg.n_layers
+    want["flash_attention"] = r0["prefills"] * cfg.n_layers
+    for r in ranks:
+        if r[j]["launches"] != want:
+            raise AssertionError(f"[mesh {tag}] rank {r[j]['rank']} "
+                                 f"launched {r[j]['launches']}, not {want}")
+
+
+def mesh_rules_report(ranks, j, card, cfg, rules, one):
+    """One serve over 1 x 4 under ``rules``: every request finished,
+    launches exact on every rank, its bytes a rank, tok/s, ITL, the steady
+    step's device ms, idle and NCCL shares, and (``one``) the check
+    prompts' logits within ``DEEP_TOL`` of one card's. Returns rank 0's
+    numbers."""
+    r0 = ranks[0][j]
+    tag = f"{cfg.name} {rules}"
+    if r0["finish"] != ["length"] * len(r0["finish"]):
+        raise AssertionError(f"[mesh rules {tag}] finish reasons "
+                             f"{r0['finish']}")
+    mesh_rules_launch_check(ranks, j, cfg, rules, tag)
+    gaps = None
+    if one is not None:
+        for r in ranks[1:]:
+            if any(not (a == b).all() for a, b in zip(r[j]["logits"],
+                                                      r0["logits"])):
+                raise AssertionError(f"[mesh rules {tag}] ranks' logits "
+                                     f"differ")
+        gaps = [deep_gap_of(got, want) for got, want in
+                zip(r0["logits"], one)]
+        if max(gaps) > DEEP_TOL:
+            raise AssertionError(f"[mesh rules {tag}] logits {gaps} of the "
+                                 f"largest from one card's, above "
+                                 f"{DEEP_TOL}")
+    for r in ranks:
+        x = r[j]
+        print(f"[mesh rules {tag} rank {x['rank']}] heads {x['heads']}, "
+              f"weights {gb(x['weights'])} (drawn in {x['init_s']:.1f} s), "
+              f"K/V pool {gb(x['pool'])}, held after the serve "
+              f"{gb(x['held'])}, peak {gb(x['peak'])}")
+    win = r0.get("window", {})
+    nccl = None
+    if "by_kind" in win:
+        busy = sum(win["by_kind"].values())
+        nccl = win["by_kind"].get("NCCL collectives", 0.0) / busy
+        print(f"[mesh rules {tag} profile] rank 0, decode steps "
+              f"{MESH_PROFILE_AT}-{MESH_PROFILE_AT + MESH_PROFILE_STEPS - 1} "
+              f"(batch {win['batch']}, mean context {win['context']:.0f}), "
+              f"busy a step by kind: {kind_parts(win['by_kind'])}")
+    st = r0.get("steady")
+    steady = (f"steady step {st['ms']:.3f} ms of device time at bucket "
+              f"{st['bucket']} over {st['steps']} steps, idle share "
+              f"{st['idle'] * 100:.1f}%" if st else "no steady window")
+    print(f"[mesh rules {tag}] bf16, {cfg.n_layers} layers, full width, "
+          f"over 1 x 4 ({card}): {len(r0['finish'])} requests finished, "
+          f"{r0['output_tokens']} output tokens, {r0['decode_steps']} decode "
+          f"steps, {r0['preemptions']} preemptions; output "
+          f"{r0['tok_s']:.1f} tok/s, ITL p50 {r0['itl'][0] * 1e3:.2f} ms p95 "
+          f"{r0['itl'][1] * 1e3:.2f} ms, TTFT p50 {r0['ttft'][0]:.2f} s p95 "
+          f"{r0['ttft'][1]:.2f} s, wall {r0['wall_s']:.1f} s (serve "
+          f"{r0['serve_s']:.1f} s); {steady}; NCCL "
+          f"{'not measured' if nccl is None else f'{nccl * 100:.1f}%'} of "
+          f"the profiled steps' busy time; launches {r0['launches']} on "
+          f"every rank"
+          + ("" if gaps is None else
+             f"; the first {MESH_DEEP_CHECK} prompts' prefill and decode "
+             f"logits within {gaps[0]:.2e} and {gaps[1]:.2e} of the largest"
+             f" of one card's (DEEP_TOL {DEEP_TOL})"))
+    return dict(tok_s=r0["tok_s"], itl=r0["itl"], ttft=r0["ttft"],
+                steady=st, nccl=nccl,
+                gaps=gaps, weights=[r[j]["weights"] for r in ranks],
+                pool=[r[j]["pool"] for r in ranks])
+
+
+def mesh_seq_report(ranks, j, card):
+    """The decode_32k case over 1 x 4 beside the dry-run's prediction:
+    the bytes each rank holds against its argument bytes, the step
+    against max(compute, memory), NCCL against the census's collective
+    term; the partials entry and the combine launched once a layer a
+    step on every rank, nothing else."""
+    r0 = ranks[0][j]
+    cfg = mesh_rules_cfg(MESH_QWEN)
+    want = MESH_SEQ_STEPS * cfg.n_layers
+    for r in ranks:
+        x = r[j]
+        got = {k: v for k, v in x["launches"].items() if v}
+        if got != {"paged_decode_partials": want,
+                   "paged_decode_combine": want} or not x["finite"]:
+            raise AssertionError(f"[mesh seq] rank {x['rank']}: "
+                                 f"{x['launches']}, finite {x['finite']}")
+    step = max(r[j]["ms"] for r in ranks)
+    nccl = max(r[j]["by_kind"].get("NCCL collectives", 0.0) for r in ranks)
+    busy = max(sum(r[j]["by_kind"].values()) for r in ranks)
+    # the device work besides NCCL, whose kernels also hold each wait for
+    # the slowest rank's host
+    work = max(sum(v for k, v in r[j]["by_kind"].items()
+                   if k != "NCCL collectives") for r in ranks)
+    bound = max(r0["compute_ms"], r0["memory_ms"])
+    for r in ranks:
+        x = r[j]
+        print(f"[mesh seq rank {x['rank']}] {gb(x['held'])} allocated by "
+              f"materialize (K/V {gb(x['kv'])}, drawn in {x['draw_s']:.1f} "
+              f"s), peak {gb(x['peak'])}; step {x['ms']:.3f} ms; busy a "
+              f"step by kind: {kind_parts(x['by_kind'])}")
+    print(f"[mesh seq] {MESH_QWEN} decode_32k (B=128 over 32768 tokens, "
+          f"{gb(r0['whole_kv'])} of K/V, more than one card holds) over 1 x "
+          f"4 under its rules (the default rules with shard_kv_seq) on "
+          f"{card}: each rank holds {gb(max(r[j]['held'] for r in ranks))}"
+          f" of arguments (the most of any rank) against the dry-run's "
+          f"{gb(r0['argument_bytes'])} a device; step {step:.3f} ms "
+          f"(slowest rank, eager) with {busy:.3f} ms of device busy, "
+          f"against the census's max(compute {r0['compute_ms']:.3f}, memory "
+          f"{r0['memory_ms']:.3f}) = {bound:.3f} ms ({step / bound:.2f} x; "
+          f"the device work besides NCCL {work:.3f} ms, {work / bound:.2f} "
+          f"x); NCCL kernels {nccl:.3f} ms a step"
+          f" (slowest rank) against the census's collective term "
+          f"{r0['collective_ms']:.3f} ms ({r0['coll']}); {want} partials "
+          f"and combine launches a rank")
+    return dict(step_ms=step, busy_ms=busy, work_ms=work, nccl_ms=nccl,
+                held=max(r[j]["held"] for r in ranks),
+                argument_bytes=r0["argument_bytes"], bound_ms=bound)
+
+
+def phase_mesh_rules(card, n_layers=None, n=MESH_DEEP_REQUESTS):
+    """The reference's own rules across four cards
+    (``tools/mesh_smoke.py --rules``): the check prompts of
+    deepseek-coder-33b and qwen2.5-3b on one card, then over 1 x 4 the
+    serves of ``MESH_RULE_SERVES`` (each ``n`` ShareGPT-length requests
+    at batch 128 and a 131,072-token pool, ``MESH_DEEP_ENGINE``) and the
+    dry-run's qwen2.5-3b decode_32k case. ``n_layers`` and ``n`` cut depth
+    and requests for a short first call."""
+    import torch
+    from repro_torch.distributed import devices_mesh, spawn
+    from repro_torch.models.params import DRAW_SLICE_BYTES
+    from repro_torch.serving import EngineConfig
+    if torch.cuda.device_count() < MESH_DEEP_CARDS:
+        print(f"[mesh rules] needs {MESH_DEEP_CARDS} cards, this machine "
+              f"has {torch.cuda.device_count()}")
+        return None
+    cfgs = {name: mesh_rules_cfg(name, n_layers)
+            for name in (MESH_DEEP, MESH_QWEN)}
+    reqs = {name: mesh_workload(cfg.vocab_size, n)
+            for name, cfg in cfgs.items()}
+    one = {name: mesh_one_card_logits(card, cfg,
+                                      reqs[name][:MESH_DEEP_CHECK])
+           for name, cfg in cfgs.items()}
+    jobs = [(mesh_profiler_warmup, ())] + [
+        (mesh_serve_rank, (cfgs[name], EngineConfig(**MESH_DEEP_ENGINE),
+                           reqs[name], DRAW_SLICE_BYTES,
+                           reqs[name][:MESH_DEEP_CHECK] if check else None,
+                           True, MESH_RULES[rules]))
+        for name, rules, check in MESH_RULE_SERVES]
+    jobs.append((mesh_seq_rank, ()))
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank_jobs, devices_mesh(MESH_DEEP_CARDS), jobs)
+    ranks = [r[1:] for r in ranks]
+    print(f"[mesh rules] {len(jobs)} jobs over 1 x {MESH_DEEP_CARDS} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for j, (name, rules, check) in enumerate(MESH_RULE_SERVES):
+        out[(name, rules)] = mesh_rules_report(
+            ranks, j, card, cfgs[name], rules, one[name] if check else None)
+    d, a = out[(MESH_DEEP, "default")], out[(MESH_DEEP, "act_replicated")]
+
+    def share(x):
+        return "not measured" if x is None else f"{x * 100:.1f}%"
+    if d["steady"] and a["steady"]:
+        print(f"[mesh rules] {MESH_DEEP} over 1 x 4 on {card}: the default "
+              f"rules' reduce-scatter/all-gather layout against the "
+              f"act_replicated all-reduce layout in the same call: steady "
+              f"step {d['steady']['ms']:.3f} against {a['steady']['ms']:.3f}"
+              f" ms, NCCL {share(d['nccl'])} against {share(a['nccl'])} of "
+              f"the profiled busy time, output "
+              f"{d['tok_s']:.1f} against {a['tok_s']:.1f} tok/s, ITL p50 "
+              f"{d['itl'][0] * 1e3:.2f} against {a['itl'][0] * 1e3:.2f} ms, "
+              f"TTFT p50 {d['ttft'][0]:.2f} against {a['ttft'][0]:.2f} s")
+    out["seq"] = mesh_seq_report(ranks, len(MESH_RULE_SERVES), card)
+    return out
+
+
 def phase_mesh(model, card, paged):
     """Tensor parallelism over a mesh's model axis (module docstring):
     the world of one on cuda:0, in every engine mode and as a sliced
@@ -7107,7 +7686,8 @@ def phase_mesh(model, card, paged):
     import torch
     launches, plain = mesh_world_of_one(model, card)
     modes = mesh_world_of_one_modes(model, card, plain)
-    paths = {"mesh_serve": launches,
+    paths = {"mesh_serve": launches["mesh"],
+             **{tag: launches[tag] for tag in MESH_ONE_RULES},
              **{f"mesh {name}": got for name, got in modes.items()}}
     n = torch.cuda.device_count()
     if n < 2:
@@ -7149,7 +7729,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    errs = {"paged": {"sweep": 0.0}, "decode": {},
+    errs = {"paged": {"sweep": 0.0}, "decode": {}, "partials": {},
+            "combine": {},
             "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
             "flash_prefix": {}, "flash_train": {}}
     phase("2, kernels", phase_kernels, errs)
@@ -7217,11 +7798,21 @@ def main() -> int:
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:67", "gather_serve"),
+        # the paged kernel's entries over a sharded KV sequence: the world
+        # of one under shard_kv_seq launches them
+        "paged_decode_partials": (
+            "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_decode_attention.py:78", "mesh kv_seq"),
+        "paged_decode_combine": (
+            "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+            "src/repro/kernels/paged_decode_attention.py:78", "mesh kv_seq"),
     }
     for name, key in (("paged_decode_attention", "paged"),
                       ("flash_attention", "flash"),
                       ("flash_prefix_attention", "flash_prefix"),
-                      ("decode_attention", "decode")):
+                      ("decode_attention", "decode"),
+                      ("paged_decode_partials", "partials"),
+                      ("paged_decode_combine", "combine")):
         t = times[name]
         source, replaces, path = meta[name]
         kernels.append({

@@ -489,6 +489,76 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
     return c
 
 
+def mesh_collectives(cfg: ArchConfig, layout, variant: str, rows: int,
+                     out_rows: int) -> Dict[str, float]:
+    """The collective bytes one step of a dense decoder issues on a rank
+    of a mesh under its plan ``layout``
+    (:class:`~repro_torch.sharding.Layout`), by kind, in the census's
+    convention (an all-reduce twice its payload, an all-gather its
+    output, a reduce-scatter its input): ``rows`` rows through the stack
+    (a decode step's batch, a prefill's ``B x S``), ``out_rows`` of them
+    through the final norm and the unembedding. What
+    :mod:`repro_torch.distributed` records for the layers' calls, term
+    by term: the lookup's partial rows; a norm's float32 row sums over a
+    d_model-sharded residual; the gathered input of the projections (not
+    a row-parallel ``wq``) and of the MLP; a row-parallel ``q/k/v``'s
+    all-reduce or a head-dim-sharded one's all-gather; the query heads
+    gathered where attention runs over more than the rank's (every head,
+    a decode over a sharded KV sequence); that decode's ``[B, H, hd +
+    2]`` float32 partials; ``wo``'s and ``w2``'s partial sums
+    (reduce-scattered over a sharded residual, else all-reduced); the
+    logits."""
+    isz, d, hd, m = itemsize(cfg), cfg.d_model, cfg.hd, layout.size
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    stats = 8 if cfg.norm == "layernorm" else 4
+    seq_decode = layout.kv_seq and variant in DECODE_VARIANTS
+    want = (0, h) if seq_decode else layout.attn_heads
+    step: Dict[str, float] = dict.fromkeys(
+        ("all-reduce", "all-gather", "reduce-scatter"), 0.0)
+    layer = dict(step)
+
+    def add(into: Dict[str, float], kind: str, nbytes: float):
+        into[kind] += 2 * nbytes if kind == "all-reduce" else nbytes
+
+    def partial(into: Dict[str, float], nbytes: float):
+        add(into, "reduce-scatter" if layout.residual else "all-reduce",
+            nbytes)
+
+    if layout.tok == "vocab":
+        partial(step, rows * d * isz)
+    if layout.residual:
+        add(layer, "all-reduce", 2 * rows * stats)         # ln1, ln2
+        add(layer, "all-gather", rows * d * isz)           # the MLP's input
+        if layout.wq != "rows":
+            add(layer, "all-gather", rows * d * isz)       # the projections'
+    for kind, n in ((layout.wq, h), (layout.wkv, k), (layout.wkv, k)):
+        if kind == "rows":
+            add(layer, "all-reduce", rows * n * hd * isz)
+        elif kind == "head_dim":
+            add(layer, "all-gather", rows * n * hd * isz)
+    if want != layout.heads:
+        add(layer, "all-gather",
+            rows * m * (layout.heads[1] - layout.heads[0]) * hd * isz)
+    if seq_decode:
+        add(layer, "all-gather", m * rows * h * (hd + 2) * 4)
+    if layout.wo in ("heads", "head_dim"):
+        partial(layer, rows * d * isz)
+    if layout.ffn:
+        partial(layer, rows * d * isz)
+    n = layer_counts(cfg)["kv"]
+    for kind, nbytes in layer.items():
+        step[kind] += n * nbytes
+    if layout.residual:
+        add(step, "all-reduce", out_rows * stats)          # the final norm
+        if layout.logits != "d_model":
+            add(step, "all-gather", out_rows * d * isz)
+    if layout.logits == "vocab":
+        add(step, "all-gather", out_rows * cfg.padded_vocab * LOGIT_BYTES)
+    elif layout.logits == "d_model":
+        add(step, "all-reduce", out_rows * cfg.padded_vocab * LOGIT_BYTES)
+    return step
+
+
 def attention_cost(cfg: ArchConfig, variant: str, bucket: Tuple,
                    live: LiveWork, block_size: int) -> ClassCost:
     """A step's live attention terms (the module docstring's formula)

@@ -4,8 +4,8 @@ a mesh does in the reference.
 A :class:`MeshGroup` is a process's place on a ``1 x M`` mesh
 (:func:`~repro_torch.launch.mesh.make_model_mesh`): rank ``r`` runs on
 ``mesh.devices.flat[r]`` (``cuda:r``, or the CPU when the caller asks)
-and holds that device's block of every weight under the reference's
-``act_replicated`` rules (:func:`~repro_torch.sharding.check_executable`).
+and holds that device's block of every weight under the rules its model
+was given (:func:`~repro_torch.sharding.layout_for`).
 Its process groups are its own, built on a rendezvous store that rank 0
 hosts (never the process's default group), so one process may lead
 several meshes, as a cluster's process leads its replicas:
@@ -17,13 +17,20 @@ several meshes, as a cluster's process leads its replicas:
   commands, :class:`StepChannel`).
 
 The layers call :func:`reduce_partial` (an all-reduce of a row-parallel
-product's partial sums: ``wo``, ``w2``, the vocab-parallel embedding)
-and :func:`gather_last` (an all-gather of the vocab-sharded logits);
-each is a no-op unless a model's entry point has made its group
-:func:`active` on the calling thread, and each runs under
-``scope("collective")``, counted by an active dispatch census as
+product's partial sums: ``wo``, ``w2``, the vocab-parallel embedding),
+:func:`scatter_last` (its reduce-scatter to the rank's block of the last
+dim, where the residual is d_model-sharded), :func:`gather_last` (an
+all-gather of a last dim: the vocab-sharded logits, a sharded residual,
+a head-dim-sharded ``q/k/v``), :func:`reduce_stats` (an all-reduce of a
+norm's float32 row sums over the d_model shards) and :func:`gather_parts`
+(an all-gather of each rank's attention partials over a sharded KV
+sequence); each is a no-op unless a model's entry point has made its
+group :func:`active` on the calling thread, with its
+:class:`~repro_torch.sharding.Layout` (:func:`layout`), and each runs
+under ``scope("collective")``, counted by an active dispatch census as
 collective bytes (an all-reduce twice its bytes, an all-gather its
-output's, the dry-run census's convention).
+output's, a reduce-scatter its input's, the dry-run census's
+convention).
 
 :func:`spawn` runs ``fn(group, *args)`` in one process a device (spawn
 start method) over a free port found at run time, and returns each
@@ -47,7 +54,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 from torch._C._distributed_c10d import (AllgatherOptions, AllreduceOptions,
-                                        BroadcastOptions)
+                                        BroadcastOptions, ReduceOp,
+                                        ReduceScatterOptions)
 
 from repro_torch.kernels.launches import active_census
 from repro_torch.launch.mesh import Mesh, multi_card_item
@@ -147,15 +155,17 @@ class MeshGroup:
         self.group = self.host = self.store = None
 
     @contextlib.contextmanager
-    def active(self):
-        """Make this group the one the layers' collectives run on, on the
-        calling thread, for the ``with`` block."""
-        outer = getattr(_local, "group", None)
-        _local.group = self
+    def active(self, layout=None):
+        """Make this group the one the layers' collectives run on, and
+        ``layout`` (a :class:`~repro_torch.sharding.Layout`) the plan they
+        read, on the calling thread, for the ``with`` block."""
+        outer = getattr(_local, "group", None), getattr(_local, "layout",
+                                                        None)
+        _local.group, _local.layout = self, layout
         try:
             yield self
         finally:
-            _local.group = outer
+            _local.group, _local.layout = outer
 
     def _note(self, op: str, t: torch.Tensor):
         if self.record is not None:
@@ -182,6 +192,21 @@ class MeshGroup:
         _collective("all-gather", _nbytes(out),
                     lambda: _wait(self.group._allgather_base(out, x, opts)))
         return out.reshape(self.size, *x.shape)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axis of ``x [M * n, ...]``, each rank
+        keeping its ``[n, ...]`` block of the leading dim."""
+        self._note("reduce_scatter", x)
+        x = x.contiguous()
+        out = torch.empty((x.shape[0] // self.size, *x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        opts = ReduceScatterOptions()
+        opts.reduceOp = ReduceOp.SUM
+        opts.asyncOp = False
+        _collective("reduce-scatter", _nbytes(x),
+                    lambda: _wait(self.group._reduce_scatter_base(out, x,
+                                                                  opts)))
+        return out
 
     def broadcast_host(self, t: torch.Tensor):
         """Rank 0's CPU tensor ``t`` into every rank's ``t``, over the
@@ -239,6 +264,41 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     group (``x`` itself without one)."""
     g = active()
     return x if g is None else g.all_reduce(x)
+
+
+def layout():
+    """The plan (:class:`~repro_torch.sharding.Layout`) the calling
+    thread's layers run under; None on one device."""
+    return getattr(_local, "layout", None)
+
+
+def scatter_last(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sums ``x [..., M * n]``, summed
+    over the active group, each rank keeping its block ``[..., n]`` of the
+    last dim (a reduce-scatter)."""
+    g = active()
+    if g is None:
+        return x
+    n = x.shape[-1] // g.size
+    parts = x.reshape(-1, g.size, n).transpose(0, 1)     # [M, rows, n]
+    return g.reduce_scatter(parts.reshape(-1, n)).reshape(
+        *x.shape[:-1], n)
+
+
+def reduce_stats(x: torch.Tensor) -> torch.Tensor:
+    """Float32 row statistics (a norm's partial sums over the rank's
+    d_model block), summed over the active group in place."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"row statistics are float32, got {x.dtype}")
+    return reduce_partial(x)
+
+
+def gather_parts(x: torch.Tensor) -> torch.Tensor:
+    """Each rank's ``x`` stacked along a new leading dim ``[M,
+    *x.shape]`` in rank order (an all-gather); ``x[None]`` without a
+    group."""
+    g = active()
+    return x[None] if g is None else g.all_gather(x)
 
 
 def gather_last(x: torch.Tensor) -> torch.Tensor:

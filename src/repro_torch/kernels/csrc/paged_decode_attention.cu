@@ -42,6 +42,17 @@
 //   when a share spans more than 32 blocks. Entries past the row's bound
 //   are never read.
 //
+// Two more entries carry a decode whose KV sequence is sharded over several
+// cards (each card holds some rows of every block): `paged_decode_partials`
+// runs the same split kernel, and its merge writes each (request, head)'s
+// unnormalised (acc, m, l) over the card's rows, f32 [B, H, hd + 2] (m =
+// -inf, l = 0 and acc = 0 where the card holds no live row), instead of the
+// normalised output; `paged_decode_combine` takes M such partials
+// [M, B, H, hd + 2] to the output [B, H, hd]: acc e^{m - M*} and l e^{m - M*}
+// summed over the pieces that hold rows (M* their largest m), the one over
+// the other; exact zeros where no piece holds a row. Both are a few KB a
+// head, read once: the KV read stays the split kernel's.
+//
 // Layouts (all contiguous): q/out [B, H, hd]; k_pool/v_pool [NB, BS, K, hd]
 // (one layer of the pool), 16-byte aligned; table [B, nb] int32; lengths [B]
 // int32; scratch [B, K, n_split, G, hd + 2] f32, allocated by the caller.
@@ -191,6 +202,74 @@ paged_decode_merge_kernel(const float* __restrict__ part,
   }
 }
 
+// The rank's partials: each (request, head)'s live splits merged but not
+// normalised, [B, K, G, hd + 2] = [B, H, hd + 2] f32 (acc, then m, then l);
+// no live split gives acc = 0, m = -inf, l = 0.
+__global__ void __launch_bounds__(kThreads)
+paged_decode_partials_kernel(const float* __restrict__ part,
+                             const int* __restrict__ lengths,
+                             float* __restrict__ out, int K, int G, int hd,
+                             int BS, int nb, int n_split,
+                             int rows_per_split) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int n_tok = min(max(lengths[b], 0), nb * BS);
+  const int n_live = (n_tok + rows_per_split - 1) / rows_per_split;
+  const int w = hd + 2;
+  const float* pb = part + ((size_t)b * K + kh) * n_split * G * w;
+  const size_t split_stride = (size_t)G * w;
+  float* ob = out + ((size_t)b * K + kh) * G * w;
+  for (int i = threadIdx.x; i < G * w; i += kThreads) {
+    const int g = i / w, d = i - g * w;
+    if (n_live == 0) {
+      ob[i] = d == hd ? -INFINITY : 0.f;
+      continue;
+    }
+    const float* p = pb + g * w;
+    float mx = kNegInf;
+    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, p[s * split_stride + hd]);
+    if (d == hd) {
+      ob[i] = mx;
+      continue;
+    }
+    float a = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float* ps = p + s * split_stride;
+      a = fmaf(expf(ps[hd] - mx), ps[d], a);
+    }
+    ob[i] = a;
+  }
+}
+
+// M pieces' partials [M, BH, hd + 2] -> out [BH, hd]: one block a
+// (request, head), a thread an element.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_combine_kernel(const float* __restrict__ parts,
+                            T* __restrict__ out, int M, int BH, int hd) {
+  const int bh = blockIdx.x;
+  const int w = hd + 2;
+  const size_t piece = (size_t)BH * w;
+  const float* pb = parts + (size_t)bh * w;
+  float mx = -INFINITY;
+  for (int i = 0; i < M; ++i) {
+    const float* p = pb + i * piece;
+    if (p[hd + 1] > 0.f) mx = fmaxf(mx, p[hd]);
+  }
+  for (int d = threadIdx.x; d < hd; d += kThreads) {
+    float a = 0.f, lsum = 0.f;
+    for (int i = 0; i < M; ++i) {
+      const float* p = pb + i * piece;
+      const float l = p[hd + 1];
+      if (l > 0.f) {
+        const float wt = expf(p[hd] - mx);
+        a = fmaf(wt, p[d], a);
+        lsum = fmaf(wt, l, lsum);
+      }
+    }
+    out[(size_t)bh * hd + d] = from_f32<T>(a / fmaxf(lsum, 1e-30f));
+  }
+}
+
 template <typename T, int HD, int GM>
 cudaError_t launch_split(const void* q, const void* k_pool,
                          const void* v_pool, const void* table,
@@ -225,11 +304,13 @@ cudaError_t dispatch_g(const void* q, const void* k_pool, const void* v_pool,
                                 K, G, BS, nb, n_split, rows_per_split, s);
 }
 
+// partials: write the f32 partials [B, H, hd + 2] to out, not the output
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* table, const void* lengths, void* out,
                    float* part, int B, int K, int G, int hd, int BS, int nb,
-                   int n_split, int rows_per_split, cudaStream_t s) {
+                   int n_split, int rows_per_split, bool partials,
+                   cudaStream_t s) {
   cudaError_t err;
   switch (hd) {
     case 64:
@@ -256,6 +337,12 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
+  if (partials) {
+    paged_decode_partials_kernel<<<dim3(B, K), kThreads, 0, s>>>(
+        part, static_cast<const int*>(lengths), static_cast<float*>(out), K,
+        G, hd, BS, nb, n_split, rows_per_split);
+    return cudaGetLastError();
+  }
   paged_decode_merge_kernel<T><<<dim3(B, K), kThreads, 0, s>>>(
       part, static_cast<const int*>(lengths), static_cast<T*>(out), K, G, hd,
       BS, nb, n_split, rows_per_split);
@@ -266,15 +353,10 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. part is the f32 scratch
-// [B, K, n_split, G, hd + 2]; rows_per_split must be a multiple of BS and
-// n_split * rows_per_split must cover nb * BS. Returns a cudaError_t
-// (0 = success).
-int paged_decode_attention(const void* q, const void* k_pool,
-                           const void* v_pool, const void* table,
-                           const void* lengths, void* out, void* part, int B,
-                           int K, int G, int hd, int BS, int nb, int n_split,
-                           int rows_per_split, int dtype, void* stream) {
+static int run(const void* q, const void* k_pool, const void* v_pool,
+               const void* table, const void* lengths, void* out, void* part,
+               int B, int K, int G, int hd, int BS, int nb, int n_split,
+               int rows_per_split, int dtype, bool partials, void* stream) {
   if (B <= 0 || K <= 0) return cudaSuccess;
   if (G < 1 || G > kMaxG || hd <= 0 || hd > kMaxHd || BS <= 0 || nb <= 0 ||
       n_split < 1 || n_split > 65535 || rows_per_split < BS ||
@@ -286,14 +368,61 @@ int paged_decode_attention(const void* q, const void* k_pool,
   switch (dtype) {
     case 0:
       return launch<float>(q, k_pool, v_pool, table, lengths, out, p, B, K, G,
-                           hd, BS, nb, n_split, rows_per_split, s);
+                           hd, BS, nb, n_split, rows_per_split, partials, s);
     case 1:
       return launch<__nv_bfloat16>(q, k_pool, v_pool, table, lengths, out, p,
                                    B, K, G, hd, BS, nb, n_split,
-                                   rows_per_split, s);
+                                   rows_per_split, partials, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// dtype: 0 = float32, 1 = bfloat16. part is the f32 scratch
+// [B, K, n_split, G, hd + 2]; rows_per_split must be a multiple of BS and
+// n_split * rows_per_split must cover nb * BS. Returns a cudaError_t
+// (0 = success).
+int paged_decode_attention(const void* q, const void* k_pool,
+                           const void* v_pool, const void* table,
+                           const void* lengths, void* out, void* part, int B,
+                           int K, int G, int hd, int BS, int nb, int n_split,
+                           int rows_per_split, int dtype, void* stream) {
+  return run(q, k_pool, v_pool, table, lengths, out, part, B, K, G, hd, BS,
+             nb, n_split, rows_per_split, dtype, false, stream);
+}
+
+// As paged_decode_attention, but out is the f32 partials [B, H, hd + 2].
+int paged_decode_partials(const void* q, const void* k_pool,
+                          const void* v_pool, const void* table,
+                          const void* lengths, void* out, void* part, int B,
+                          int K, int G, int hd, int BS, int nb, int n_split,
+                          int rows_per_split, int dtype, void* stream) {
+  return run(q, k_pool, v_pool, table, lengths, out, part, B, K, G, hd, BS,
+             nb, n_split, rows_per_split, dtype, true, stream);
+}
+
+// parts: f32 [M, BH, hd + 2]; out: [BH, hd] of dtype (0 = float32,
+// 1 = bfloat16).
+int paged_decode_combine(const void* parts, void* out, int M, int BH, int hd,
+                         int dtype, void* stream) {
+  if (BH <= 0) return cudaSuccess;
+  if (M < 1 || hd <= 0 || hd > kMaxHd || BH > (1 << 30))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(parts);
+  switch (dtype) {
+    case 0:
+      paged_decode_combine_kernel<float><<<BH, kThreads, 0, s>>>(
+          p, static_cast<float*>(out), M, BH, hd);
+      break;
+    case 1:
+      paged_decode_combine_kernel<__nv_bfloat16><<<BH, kThreads, 0, s>>>(
+          p, static_cast<__nv_bfloat16*>(out), M, BH, hd);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 const char* paged_decode_attention_error_string(int code) {

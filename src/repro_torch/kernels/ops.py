@@ -10,8 +10,8 @@ import torch
 from repro_torch.kernels.decode_attention import gqa_decode_attention
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_prefix_attention)
-from repro_torch.kernels.paged_decode_attention import \
-    paged_gqa_decode_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_combine, paged_decode_partials, paged_gqa_decode_attention)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,6 +63,8 @@ def launch_counters() -> Dict[str, Callable]:
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import paged_decode_attention as pg
     return {"paged_decode_attention": pg.paged_gqa_decode_attention,
+            "paged_decode_partials": pg.paged_decode_partials,
+            "paged_decode_combine": pg.paged_decode_combine,
             "flash_attention": fl.flash_attention,
             "flash_prefix_attention": fl.flash_prefix_attention,
             "decode_attention": dec.gqa_decode_attention}

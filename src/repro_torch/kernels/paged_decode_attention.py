@@ -20,10 +20,22 @@ each live split writes its unnormalised ``(acc, m, l)`` to an f32
 scratch, and a second kernel merges them.
 :func:`paged_split_partials_torch` and :func:`paged_merge_partials_torch`
 are that arithmetic in plain PyTorch, for the CPU tests.
+
+Two more entries carry a decode over a KV sequence sharded on the model
+axis (each rank holds some rows of every block):
+:func:`paged_decode_partials` runs the split kernel over the rank's rows
+and writes each row's and head's unnormalised ``(acc, m, l)`` as ``[B,
+H, hd + 2]`` float32 (``m = -inf``, ``l = 0``, ``acc = 0`` where the rank
+holds no live row), and :func:`paged_decode_combine` takes ``M`` such
+partials ``[M, B, H, hd + 2]`` to the output ``[B, H, hd]``, exact zeros
+where no piece holds a row. :func:`paged_decode_partials_torch` and
+:func:`paged_decode_combine_torch` are their plain versions, run on CPU
+tensors only.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -47,6 +59,42 @@ def paged_gqa_decode_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
     """The plain version: a loop over logical blocks, each gathering one
     ``[B, BS, K, hd]`` tile through the table, with an f32 online softmax
     (counterpart of ``paged_gqa_decode_attention_jax``)."""
+    acc, _, l = _online_state(q, k_pool, v_pool, block_table, lengths)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def paged_decode_partials_torch(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor,
+                                block_table: torch.Tensor,
+                                lengths: torch.Tensor) -> torch.Tensor:
+    """The partials entry's plain version: the online softmax's
+    unnormalised ``(acc, m, l)`` over each row's first ``lengths`` rows,
+    ``[B, H, hd + 2]`` float32 (``m = -inf``, ``l = 0``, ``acc = 0`` for
+    a length-0 row)."""
+    B, H, hd = q.shape
+    acc, m, l = _online_state(q, k_pool, v_pool, block_table, lengths)
+    m = torch.where(l > 0, m, float("-inf"))
+    return torch.cat([acc.reshape(B, H, hd), m.reshape(B, H, 1),
+                      l.reshape(B, H, 1)], -1)
+
+
+def paged_decode_combine_torch(parts: torch.Tensor,
+                               dtype: torch.dtype) -> torch.Tensor:
+    """The combine's plain version: ``parts [M, B, H, hd + 2]`` to ``[B,
+    H, hd]`` in ``dtype``, each piece that holds rows (``l > 0``) weighed
+    by ``e^(m - max m)``; exact zeros where none does."""
+    acc, m, l = parts[..., :-2], parts[..., -2], parts[..., -1]
+    live = l > 0
+    mx = torch.where(live, m, float("-inf")).amax(0)
+    w = torch.where(live, torch.exp(m - mx), 0.0)
+    a = (w[..., None] * acc).sum(0)
+    return (a / (w * l).sum(0).clamp_min(1e-30)[..., None]).to(dtype)
+
+
+def _online_state(q, k_pool, v_pool, block_table, lengths):
+    """The plain version's f32 online softmax over the table's blocks:
+    ``(acc [B,K,G,hd], m [B,K,G], l [B,K,G])``, unnormalised."""
     B, H, hd = q.shape
     NB, BS, K, _ = k_pool.shape
     nb = block_table.shape[1]
@@ -72,8 +120,7 @@ def paged_gqa_decode_attention_torch(q: torch.Tensor, k_pool: torch.Tensor,
         l = alpha * l + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgs,bskh->bkgh", p, vb)
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, hd).to(q.dtype)
+    return acc, m, l
 
 
 @functools.cache
@@ -144,10 +191,15 @@ def paged_merge_partials_torch(part: torch.Tensor, lengths: torch.Tensor,
 
 
 @functools.cache
-def _entry():
+def _entry(symbol: str = NAME):
     lib = _build.library(NAME)
-    fn = getattr(lib, NAME)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn = getattr(lib, symbol)
+    if symbol == "paged_decode_combine":
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+    else:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + \
+            [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -229,30 +281,112 @@ def paged_gqa_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_gqa_decode_attention_torch(q, k_pool, v_pool,
                                                 block_table, lengths)
+    out = torch.empty_like(q)
+    if _launch(NAME, q, k_pool, v_pool, block_table, lengths, out):
+        count_launch(paged_gqa_decode_attention)
+    return out
+
+
+def _launch(symbol: str, q, k_pool, v_pool, block_table, lengths,
+            out) -> bool:
+    """Launch the split kernel and the merge of ``symbol`` (the output or
+    the partials into ``out``) on a CUDA tensor; False where there is no
+    work (a meta tensor, an empty batch)."""
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k_pool, v_pool, block_table, lengths)
     B, H, hd = q.shape
     _, BS, K, _ = k_pool.shape
     nb = block_table.shape[1]
-    out = torch.empty_like(q)
     if B == 0 or q.device.type == "meta":
-        return out
+        return False
     plan = paged_split_plan(B, nb, BS, K, H // K, hd)
     part = torch.empty(plan.scratch_shape, dtype=torch.float32,
                        device=q.device)
     with torch.cuda.device(q.device):
-        rc = _entry()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                      block_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), part.data_ptr(), B, K, H // K, hd, BS,
-                      nb, plan.n_split, plan.rows_per_split,
-                      _DTYPES[q.dtype],
-                      torch.cuda.current_stream().cuda_stream)
+        rc = _entry(symbol)(q.data_ptr(), k_pool.data_ptr(),
+                            v_pool.data_ptr(), block_table.data_ptr(),
+                            lengths.data_ptr(), out.data_ptr(),
+                            part.data_ptr(), B, K, H // K, hd, BS, nb,
+                            plan.n_split, plan.rows_per_split,
+                            _DTYPES[q.dtype],
+                            torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    count_launch(paged_gqa_decode_attention)
+    return True
+
+
+def partials_cost(q: torch.Tensor, k_pool: torch.Tensor,
+                  v_pool: torch.Tensor, block_table: torch.Tensor,
+                  lengths: torch.Tensor) -> KernelCost:
+    """:func:`paged_cost` with the float32 partials ``[B, H, hd + 2]``
+    written in place of the output."""
+    c = paged_cost(q, k_pool, v_pool, block_table, lengths)
+    B, H, hd = q.shape
+    return dataclasses.replace(
+        c, bytes=c.bytes - q.numel() * q.element_size()
+        + 4 * B * H * (hd + 2))
+
+
+@counted_kernel("paged_decode_partials", partials_cost)
+def paged_decode_partials(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, block_table: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """The partials entry: each row's and head's unnormalised ``(acc, m,
+    l)`` over its first ``lengths`` rows, ``[B, H, hd + 2]`` float32 (the
+    split kernel and a merge that does not normalise, for CUDA tensors;
+    the plain version for CPU tensors)."""
+    if q.device.type == "cpu":
+        return paged_decode_partials_torch(q, k_pool, v_pool, block_table,
+                                           lengths)
+    B, H, hd = q.shape
+    out = torch.empty((B, H, hd + 2), dtype=torch.float32, device=q.device)
+    if _launch("paged_decode_partials", q, k_pool, v_pool, block_table,
+               lengths, out):
+        count_launch(paged_decode_partials)
+    return out
+
+
+def combine_cost(parts: torch.Tensor, dtype: torch.dtype) -> KernelCost:
+    """One combine: the partials read once (each piece's ``m`` and ``l``
+    twice), the output written once; ``4 M`` operations an element."""
+    M, B, H, hd2 = parts.shape
+    isz = torch.empty((), dtype=dtype).element_size()
+    return KernelCost(flops=4.0 * M * B * H * (hd2 - 2),
+                      bytes=float(4 * parts.numel() + 8 * M * B * H
+                                  + B * H * (hd2 - 2) * isz))
+
+
+@counted_kernel("paged_decode_combine", combine_cost)
+def paged_decode_combine(parts: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """``M`` pieces' partials ``[M, B, H, hd + 2]`` float32 to the output
+    ``[B, H, hd]`` in ``dtype``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors, an output with no work for meta
+    tensors."""
+    if parts.device.type == "cpu":
+        return paged_decode_combine_torch(parts, dtype)
+    if parts.device.type not in ("cuda", "meta"):
+        raise ValueError(f"unsupported device {parts.device}")
+    if parts.dim() != 4 or parts.dtype != torch.float32 or \
+            not parts.is_contiguous() or dtype not in _DTYPES:
+        raise ValueError(f"parts must be contiguous float32 [M,B,H,hd+2] "
+                         f"and dtype float32/bfloat16, got "
+                         f"{tuple(parts.shape)} {parts.dtype}, {dtype}")
+    M, B, H, hd2 = parts.shape
+    out = torch.empty((B, H, hd2 - 2), dtype=dtype, device=parts.device)
+    if B * H == 0 or parts.device.type == "meta":
+        return out
+    with torch.cuda.device(parts.device):
+        rc = _entry("paged_decode_combine")(
+            parts.data_ptr(), out.data_ptr(), M, B * H, hd2 - 2,
+            _DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
+    _build.check(NAME, rc)
+    count_launch(paged_decode_combine)
     return out
 
 
 # kernel launches since the last reset (counted only where the kernel runs;
 # one a call, the split kernel and its merge together)
 paged_gqa_decode_attention.launches = 0
+paged_decode_partials.launches = 0
+paged_decode_combine.launches = 0

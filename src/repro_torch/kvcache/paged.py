@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
+from repro_torch.launch.mesh import multi_card_item
 from repro_torch.models.params import (READ_ONLY_STATE, cache_layers,
                                        state_leaves)
 
@@ -266,12 +267,32 @@ class PagedKVCache:
     one card's, and the block tables, in tokens, are every card's. A
     device copy the pool makes outside a step (a copy-on-write fork) is
     also handed to ``mirror``, if set, with ``("copy", old, new)``: the
-    engine's leading rank sends it to the others."""
+    engine's leading rank sends it to the others.
+
+    With ``seq_shard=(rank, M)`` the KV sequence is sharded on the model
+    axis (the reference's pool spec ``(BATCH, KV_SEQ, KV_HEADS,
+    HEAD_DIM)`` under ``shard_kv_seq``): the pool holds every KV head
+    (``kv_heads``) for rows ``[rank * BS/M, (rank + 1) * BS/M)`` of every
+    block, ``[n_kv, NB+1, BS/M, K, hd]``, under the one block table and
+    allocator every rank keeps. A row is written on the rank that holds
+    it (the trash block elsewhere), the staged addresses staying every
+    rank's; a decode step computes the rank's valid rows from the staged
+    lengths (:func:`~repro_torch.models.attention.local_lengths`)."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
                  device: torch.device, max_batch: Optional[int] = None,
-                 kv_heads: Optional[int] = None):
+                 kv_heads: Optional[int] = None,
+                 seq_shard: Optional[Tuple[int, int]] = None):
         self.block_size = block_size
+        self.seq_shard = seq_shard
+        rows = block_size
+        if seq_shard is not None:
+            if block_size % seq_shard[1]:
+                raise ValueError(f"blocks of {block_size} rows do not divide "
+                                 f"over a model axis of {seq_shard[1]}")
+            rows = block_size // seq_shard[1]
+        # the rows of each block this pool holds
+        self.rows = rows
         self.num_blocks = num_blocks
         self.device = torch.device(device)
         self.manager = BlockManager(num_blocks, block_size)
@@ -281,7 +302,7 @@ class PagedKVCache:
         if layers["kv"]:
             # a rank of a tensor-parallel model holds its KV heads
             # (``kv_heads``); the tables, a token count, are every rank's
-            shape = (len(layers["kv"]), num_blocks + 1, block_size,
+            shape = (len(layers["kv"]), num_blocks + 1, rows,
                      kv_heads or cfg.n_kv_heads, cfg.hd)
             self.pool = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
                                            device=self.device)
@@ -355,6 +376,23 @@ class PagedKVCache:
         """KV bytes one written token occupies (block_bytes/block_size)."""
         return self.block_bytes / self.block_size
 
+    def _own(self, phys: torch.Tensor, sib: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Rows' (block, slot) addresses as this pool holds them: over a
+        sharded KV sequence a row another rank holds goes to the trash
+        block, and a slot counts within the rank's rows."""
+        if self.seq_shard is None:
+            return phys, sib
+        own = sib // self.rows == self.seq_shard[0]
+        return torch.where(own, phys, self.trash_block), sib % self.rows
+
+    def _no_seq(self, what: str):
+        """Refuse what a pool of a sharded KV sequence does not do."""
+        if self.seq_shard is not None:
+            raise NotImplementedError(
+                f"{what} over a KV sequence sharded on the model axis "
+                f"({multi_card_item('kv_seq')})")
+
     def write_prefill(self, req_id: int, cache_one: Dict[str, torch.Tensor],
                       start_pos: int = 0, n_tokens: Optional[int] = None):
         """Store one request's prefill K/V (``[L, 1, S, K, hd]`` leaves)
@@ -394,6 +432,9 @@ class PagedKVCache:
                 v = torch.nn.functional.pad(
                     v, (0, 0, 0, 0, 0, S_cap - v.shape[1]))
             v = v.reshape(v.shape[0], nb, self.block_size, *v.shape[2:])
+            if self.seq_shard is not None:
+                r0 = self.seq_shard[0] * self.rows
+                v = v[:, :, r0:r0 + self.rows]
             leaf.index_copy_(1, phys, v.to(leaf.dtype))
 
     def _write_token_range(self, req_id: int,
@@ -423,7 +464,7 @@ class PagedKVCache:
         addr[0, :n_tokens] = np.asarray(table, np.int64)[
             pos[:n_tokens] // self.block_size]
         addr[1] = pos % self.block_size
-        phys, sib = torch.from_numpy(addr).to(self.device)
+        phys, sib = self._own(*torch.from_numpy(addr).to(self.device))
         for name in self.kv_names:
             leaf = self.pool[name]
             leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
@@ -444,6 +485,7 @@ class PagedKVCache:
         past them; the attention masks rows past the valid prefix length
         (``prefix_len``)."""
         self._no_state("prefix gather")
+        self._no_seq("a prefix gather")
         table = np.full((nb_pad,), self.trash_block, np.int64)
         blocks = list(blocks)[:nb_pad]
         table[:len(blocks)] = blocks
@@ -506,6 +548,7 @@ class PagedKVCache:
         ``slots [B]``, also every state leaf (``{"h", "conv"}``
         ``[n_ssm, B, ...]``, ``{"xk", "xv"}`` ``[n_cross, B, ...]``) at
         those dense-state slots. Issues no upload."""
+        self._no_seq("a dense copy of the blocks")
         B, nb = tables.shape
         idx = tables.long()
         out = {name: self.pool[name][:, idx].reshape(
@@ -525,8 +568,9 @@ class PagedKVCache:
         reference's ``scatter_chunk_jit``), and its final state
         (``[n_ssm, 1, ...]``) and image K/V (``[n_cross, 1, ...]``) at
         the staged dense-state slot ``state_slot [1]``. Issues no
-        upload."""
-        phys, sib = blocks.long(), slots.long()
+        upload. Over a sharded KV sequence each row lands on the rank
+        that holds it."""
+        phys, sib = self._own(blocks.long(), slots.long())
         for name in self.kv_names:
             leaf = self.pool[name]
             leaf[:, phys, sib] = cache_one[name][:, 0].to(leaf.dtype)
@@ -545,6 +589,7 @@ class PagedKVCache:
         row's state to its dense-state slot ``slots[b]`` (not the image
         K/V, which a decode step does not change: the reference writes
         the same values back)."""
+        self._no_seq("the gather step's write back")
         rows = torch.arange(tables.shape[0], device=tables.device)
         pos = positions.long()
         phys = tables.long()[rows, pos // self.block_size]
@@ -644,6 +689,7 @@ class PagedKVCache:
         """Write each request's row at ``positions[i]`` of the dense
         ``cache`` (every layer) back to its physical (block, slot), and
         its state (not its image K/V) to its slot, in place."""
+        self._no_seq("a dense copy's write back")
         addr = np.zeros((3, len(req_ids)), np.int64)   # block, slot, pos
         for i, (rid, pos) in enumerate(zip(req_ids, positions)):
             addr[:, i] = (self.manager.tables[rid][pos // self.block_size],

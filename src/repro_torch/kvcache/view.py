@@ -121,6 +121,10 @@ class PagedCacheView:
     slots      ``[B]`` int32 — dense-state slot per request (the trash
                slot for padding rows), staged for an SSM, hybrid or VLM
                plan alike; None where the pool holds no state.
+    seq_lengths ``[B]`` int32 — over a KV sequence sharded on the model
+               axis, the rows of each request this rank holds (the
+               model computes them from ``lengths`` once a step); None
+               otherwise.
     """
     pool: Dict[str, torch.Tensor]
     tables: torch.Tensor
@@ -128,3 +132,4 @@ class PagedCacheView:
     positions: torch.Tensor
     block_size: int
     slots: Optional[torch.Tensor] = None
+    seq_lengths: Optional[torch.Tensor] = None

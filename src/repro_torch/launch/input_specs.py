@@ -42,11 +42,12 @@ from repro_torch.core.hardware import H100_SXM5_80GB, Hardware
 from repro_torch.core.roofline import model_flops_for
 from repro_torch.launch.mesh import Mesh, multi_card_item
 from repro_torch.models.params import (DRAW_SLICE_BYTES, abstract_cache,
-                                       cache_shardings, cache_sds, draw_leaf,
-                                       map_tree, param_shardings, param_sds,
-                                       param_specs, spec_dtype)
+                                       cache_shardings, cache_sds, draw_block,
+                                       draw_leaf, map_tree, param_shardings,
+                                       param_sds, param_specs, rank_ranges,
+                                       spec_dtype)
 from repro_torch.sharding import (BATCH, VOCAB, PartitionSpec, ShardingRules,
-                                  check_executable, rules_for, shard_leaf)
+                                  check_executable, rules_for)
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train import (TrainState, make_train_step,
                                         opt_state_sds, opt_state_shardings)
@@ -327,10 +328,14 @@ def materialize(case: DryRunCase, mesh: Mesh,
     1`` (a ring's slot wraps), zero optimizer moments and step.
 
     On a mesh of several devices, device ``rank``'s blocks (a rank of
-    the mesh, :mod:`repro_torch.distributed`):
-    every weight and cache leaf is drawn whole, in the one-device order,
-    and cut by the case's specs, so each rank holds its block of the
-    one-device case's arguments. What the mesh does not run raises
+    the mesh, :mod:`repro_torch.distributed`) under the case's own rules
+    (:func:`~repro_torch.models.params.rank_ranges`: the specs' blocks,
+    or the KV heads a rank holds where they fall back): every weight and
+    cache leaf is drawn in the one-device order, in slices, and only the
+    rank's block of each slice kept
+    (:func:`~repro_torch.models.params.draw_block`: a cache no one card
+    holds is never whole), so each rank holds its block of the one-device
+    case's arguments. What the mesh does not run raises
     (:func:`~repro_torch.sharding.check_executable`; a training case)."""
     if mesh.devices is None:
         raise ValueError("materialize needs a mesh over real devices")
@@ -346,14 +351,14 @@ def materialize(case: DryRunCase, mesh: Mesh,
                 f"a case over {mesh.size} devices needs a rank: run it in "
                 f"a process of the mesh (distributed.spawn) as its rank")
     device = torch.device(mesh.devices.flat[rank or 0])
+    ranges = rank_ranges(cfg, rules, rank) if mesh.size > 1 else None
 
     def draw(spec):
-        whole = draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
-                          slice_bytes=DRAW_SLICE_BYTES)
-        if mesh.size == 1:
-            return whole
-        return shard_leaf(whole, rules.spec(spec.logical, spec.shape), mesh,
-                          rank)
+        if ranges is None:
+            return draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
+                             slice_bytes=DRAW_SLICE_BYTES)
+        return draw_block(spec, spec_dtype(cfg, spec), generator, device,
+                          ranges(spec), slice_bytes=DRAW_SLICE_BYTES)
 
     def batch(meta: Dict[str, torch.Tensor]):
         out = {}

@@ -28,8 +28,9 @@ from repro_torch.device import resolve_device
 MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 3, running a model across "
                    "more than one card")
 MULTI_CARD_LEFT = {
-    "rules": "the default rules' d_model-sharded residual and the "
-             "head-dim fallback",
+    "kv_seq": "chunked prefill, the prefix cache, speculation, the gather "
+              "mode and the overlapped executor over a KV sequence sharded "
+              "on the model axis (shard_kv_seq)",
     "data": "data > 1 inside one engine, and FSDP",
     "families": "MoE expert parallelism with its all-to-all; SSM, hybrid "
                 "and VLM across cards",

@@ -12,7 +12,8 @@ their own accounting. E.g., on two cards::
 
 serves ``requests`` over ``cuda:0`` and ``cuda:1`` (``devices_mesh(2,
 "cpu")``: two gloo ranks on the CPU), in any engine mode ``ecfg`` asks
-for. A :class:`ParallelReplica` is a tensor-parallel replica this
+for, under the ``act_replicated`` rules unless ``rules`` (the
+reference's flags, :func:`mesh_rules`) asks for others. A :class:`ParallelReplica` is a tensor-parallel replica this
 process leads as its rank 0 while its other ranks run
 :func:`follow_rank` in processes it starts (what
 :meth:`~repro_torch.serving.cluster.ReplicatedCluster.sliced` builds of
@@ -40,13 +41,27 @@ from repro_torch.models.params import init_shard, params_from_numpy
 from repro_torch.sharding import rules_for
 
 
+# the rules a rank runs under unless it is given others: the reference's
+# act_replicated (Megatron) layout
+DEFAULT_RULES = {"act_replicated": True}
+
+
+def mesh_rules(mesh, rules: Optional[Dict[str, bool]] = None):
+    """The :func:`~repro_torch.sharding.rules_for` rules over ``mesh``
+    with the reference's flags ``rules`` (``act_replicated``,
+    ``shard_kv_seq``; :data:`DEFAULT_RULES` if None): a plain dict, so it
+    crosses to the ranks' processes."""
+    return rules_for(mesh, **(DEFAULT_RULES if rules is None else rules))
+
+
 def rank_model(group, cfg, params=None, *, seed: int = 0,
-               slice_bytes: Optional[int] = None) -> Model:
-    """The rank's model: its blocks of ``params`` (a whole tree of numpy
-    leaves, in the reference's layout) or, without them, of the weights
-    the one-device model draws from ``seed`` (in slices of
-    ``slice_bytes`` if given)."""
-    rules = rules_for(group.mesh, act_replicated=True)
+               slice_bytes: Optional[int] = None,
+               rules: Optional[Dict[str, bool]] = None) -> Model:
+    """The rank's model under the flags ``rules`` (:func:`mesh_rules`):
+    its blocks of ``params`` (a whole tree of numpy leaves, in the
+    reference's layout) or, without them, of the weights the one-device
+    model draws from ``seed`` (in slices of ``slice_bytes`` if given)."""
+    rules = mesh_rules(group.mesh, rules)
     if params is None:
         gen = torch.Generator(group.device).manual_seed(seed)
         params = init_shard(cfg, gen, rules, group.rank,
@@ -66,17 +81,24 @@ def run_jobs(group, jobs: Sequence) -> List[object]:
 
 def logits_rank(group, cfg, params, tokens: np.ndarray,
                 lengths: np.ndarray, feed: np.ndarray,
-                block_size: int = 8, nb_pad: int = 4) -> Dict[str, object]:
+                block_size: int = 8, nb_pad: int = 4,
+                rules: Optional[Dict[str, bool]] = None,
+                record: bool = False) -> Dict[str, object]:
     """``prefill`` of the padded batch ``tokens [B, S]`` (valid
     ``lengths``), its K/V written into a paged pool of ``block_size``
     blocks, then one paged ``decode_step`` a row of ``feed [steps, B]``
     (the input tokens, at the next positions; tables ``nb_pad`` wide).
     Returns the float32 logits of each call as numpy (``prefill`` ``[B,
-    vocab]``, ``decode`` ``[steps, B, vocab]``) and the rank's heads."""
-    model = rank_model(group, cfg, params)
-    return dict(paged_logits(model, tokens, lengths, feed, block_size,
-                             nb_pad), kv_heads=model.n_kv_heads,
-                heads=model.n_heads)
+    vocab]``, ``decode`` ``[steps, B, vocab]``) and the rank's heads,
+    under the flags ``rules`` (:func:`mesh_rules`); with ``record``, its
+    collectives in order (``(op, shape, dtype)``)."""
+    model = rank_model(group, cfg, params, rules=rules)
+    group.record = [] if record else None
+    out = dict(paged_logits(model, tokens, lengths, feed, block_size,
+                            nb_pad), kv_heads=model.n_kv_heads,
+               heads=model.n_heads, record=group.record)
+    group.record = None
+    return out
 
 
 def paged_logits(model: Model, tokens: np.ndarray, lengths: np.ndarray,
@@ -88,11 +110,11 @@ def paged_logits(model: Model, tokens: np.ndarray, lengths: np.ndarray,
     B, S = tokens.shape
     lt, cache = model.prefill(torch.as_tensor(tokens, device=dev),
                               torch.as_tensor(lengths, device=dev),
-                              cache_len=S)
+                              cache_len=S, own_rows=False)
     need = -(-(int(lengths.max()) + len(feed)) // block_size)
     pool = PagedKVCache(model.cfg, num_blocks=B * need,
                         block_size=block_size, device=dev,
-                        kv_heads=model.n_kv_heads)
+                        kv_heads=model.n_kv_heads, seq_shard=model.seq_shard)
     for b, n in enumerate(lengths):
         pool.manager.allocate(b, int(n) + 1)
         pool.write_prefill(b, {k: v[:, b:b + 1] for k, v in cache.items()})
@@ -128,16 +150,18 @@ def _served(group, engine, serve, record: bool) -> Dict[str, object]:
 
 def serve_rank(group, cfg, ecfg, requests: Sequence, params=None, *,
                seed: int = 0, slice_bytes: Optional[int] = None,
-               record: bool = False) -> Dict[str, object]:
+               record: bool = False,
+               rules: Optional[Dict[str, bool]] = None) -> Dict[str, object]:
     """Serve ``requests`` over the mesh (:meth:`~repro_torch.serving.
     engine.ContinuousBatchingEngine.serve_mesh`) in the mode ``ecfg``
     asks for. Every rank returns its kernel launches and, with
     ``record``, its collectives in order (``(op, shape, dtype)``); rank 0
     also each request's output tokens and finish reason, and the engine's
-    counters (:func:`engine_counters`)."""
+    counters (:func:`engine_counters`). ``rules``: the flags of
+    :func:`mesh_rules`."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
     model = rank_model(group, cfg, params, seed=seed,
-                       slice_bytes=slice_bytes)
+                       slice_bytes=slice_bytes, rules=rules)
     engine = ContinuousBatchingEngine(model, ecfg, device=group.device)
     requests = list(requests)
     out = _served(group, engine, lambda: engine.serve_mesh(requests),
@@ -162,14 +186,15 @@ def engine_counters(engine) -> Dict[str, int]:
 
 def follow_rank(group, cfg, ecfg, params=None, seed: int = 0,
                 slice_bytes: Optional[int] = None,
-                record: bool = False) -> Dict[str, object]:
+                record: bool = False,
+                rules: Optional[Dict[str, bool]] = None) -> Dict[str, object]:
     """A cluster replica's rank other than 0: its shard (as
-    :func:`rank_model` draws or cuts it) in an engine of ``ecfg`` that
-    follows rank 0's, until the cluster stops it. Returns what
-    :func:`serve_rank` returns of a rank other than 0."""
+    :func:`rank_model` draws or cuts it, under the flags ``rules``) in an
+    engine of ``ecfg`` that follows rank 0's, until the cluster stops it.
+    Returns what :func:`serve_rank` returns of a rank other than 0."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
     model = rank_model(group, cfg, params, seed=seed,
-                       slice_bytes=slice_bytes)
+                       slice_bytes=slice_bytes, rules=rules)
     engine = ContinuousBatchingEngine(model, ecfg, device=group.device)
     return _served(group, engine, engine.follow, record)
 
@@ -188,19 +213,22 @@ class ParallelReplica:
     followers load at once); :meth:`check` raises once a follower has
     exited (its next collective would wait on it forever); :meth:`close`
     stops the followers and leaves the groups. ``record`` keeps every
-    rank's collectives (the lock-step check)."""
+    rank's collectives (the lock-step check); ``rules`` are the flags of
+    :func:`mesh_rules`."""
 
     def __init__(self, cfg, ecfg, mesh, params=None, *, seed: int = 0,
-                 slice_bytes: Optional[int] = None, record: bool = False):
+                 slice_bytes: Optional[int] = None, record: bool = False,
+                 rules: Optional[Dict[str, bool]] = None):
         MeshGroup.check_mesh(mesh)
         self.cfg, self.ecfg, self.mesh, self.params = cfg, ecfg, mesh, params
         self.seed, self.slice_bytes, self.record = seed, slice_bytes, record
+        self.rules = rules
         # rank 0's rendezvous, served here (port 0 picks a free one)
         self.store = rendezvous("tcp://127.0.0.1:0", 0, mesh.size)
         self.address = f"tcp://127.0.0.1:{self.store.port}"
         self.followers = RankProcesses(
             follow_rank, mesh, self.address,
-            (cfg, ecfg, params, seed, slice_bytes, record),
+            (cfg, ecfg, params, seed, slice_bytes, record, rules),
             range(1, mesh.size)) if mesh.size > 1 else None
         self.engine = None
 
@@ -215,7 +243,8 @@ class ParallelReplica:
                                    store=self.store)
             group.record = [] if self.record else None
             model = rank_model(group, self.cfg, self.params, seed=self.seed,
-                               slice_bytes=self.slice_bytes)
+                               slice_bytes=self.slice_bytes,
+                               rules=self.rules)
             self.engine = ContinuousBatchingEngine(model, self.ecfg,
                                                    device=dev)
         return self.engine
@@ -309,12 +338,13 @@ def cluster_rank(cfg, ecfg, mesh, n_replicas: int, requests: Sequence,
 def case_rank(group, case_args: Dict, seed: int = 0,
               steps: int = 1) -> List[np.ndarray]:
     """A dry-run decode case (``case_for(**case_args)`` over the group's
-    mesh under the ``act_replicated`` rules) materialized from ``seed``
-    as the rank's blocks, then ``steps`` greedy decode steps from its
-    random tokens; returns each step's logits."""
+    mesh, under the ``act_replicated`` rules unless ``case_args`` names
+    ``act_replicated``) materialized from ``seed`` as the rank's blocks,
+    then ``steps`` greedy decode steps from its random tokens; returns
+    each step's logits."""
     from repro_torch.launch.input_specs import case_for, materialize
-    case = case_for(mesh=group.mesh, act_replicated=True, group=group,
-                    **case_args)
+    case = case_for(mesh=group.mesh, group=group,
+                    **{"act_replicated": True, **case_args})
     gen = torch.Generator(group.device).manual_seed(seed)
     params, cache, tokens, pos = materialize(case, group.mesh, gen,
                                              rank=group.rank)

@@ -9,15 +9,24 @@ Counterparts of ``repro.models.attention`` ``qkv_project``,
 with the reference's weight layouts (``wq [d,h,hd]``, ``wk/wv
 [d,k,hd]``, ``wo [h,hd,d]``). Attention itself goes through
 ``kernels.ops``: the hand-written CUDA kernels for CUDA tensors, their
-plain versions on the CPU. Head counts are read from the weights, so
-the same functions run a rank's heads under tensor parallelism
-(:mod:`repro_torch.distributed`). Each part runs under the reference's scope
+plain versions on the CPU. Under tensor parallelism
+(:mod:`repro_torch.distributed`) each function reads the rank's plan
+(:class:`~repro_torch.sharding.Layout`): the projections yield the
+rank's query heads and the KV heads it holds (a head-dim-sharded
+``q/k/v`` all-gathered first, a row-parallel one all-reduced), attention
+runs over the rank's heads, or over all of them where they fall back,
+and ``wo``'s output goes back into the residual's layout. Over a KV
+sequence sharded on the model axis a decode step runs the paged
+kernel's partials entry over the rows the rank holds, all-gathers every
+rank's ``[B, H, hd + 2]`` float32 partials and combines them
+(:func:`seq_sharded_attention`). Each part runs under the reference's scope
 (:func:`~repro_torch.core.analysis.scope`: ``qkv_proj``, ``kv_update``,
 ``attn_core``, ``attn_out``, ``cross_kv``, ``cross_attn``) at the
 reference's site.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -25,41 +34,142 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.analysis import scope
 from repro_torch.device import on_device
-from repro_torch.distributed import reduce_partial
+from repro_torch.distributed import (gather_last, gather_parts, layout,
+                                     reduce_partial)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rope
+from repro_torch.launch.mesh import multi_card_item
+from repro_torch.models.layers import residual_in, residual_out, rope
 
 Params = Dict[str, torch.Tensor]
 
 
-def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                positions: Optional[torch.Tensor]):
-    """x: [B,S,D] -> q [B,S,K,G,hd], k,v [B,S,K,hd] (rope applied)."""
+def _project(x: torch.Tensor, w: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x [B,S,D_in] @ w [D_in, n, hd_w]`` -> ``[B,S,n,hd]``: a
+    row-parallel product's partial sums all-reduced, a head-dim-sharded
+    one's blocks all-gathered."""
     B, S, D = x.shape
-    # the heads this device holds (a rank's block under tensor
-    # parallelism, all of them on one device)
-    h, k, hd = p["wq"].shape[1], p["wk"].shape[1], cfg.hd
+    n = w.shape[1]
+    y = x @ w.reshape(D, -1)
+    if kind == "rows":
+        y = reduce_partial(y)
+    elif kind == "head_dim":
+        y = gather_last(y.reshape(B, S, n, -1))
+    return y.reshape(B, S, n, -1)
+
+
+def _heads(t: torch.Tensor, have: Tuple[int, int], want: Tuple[int, int],
+           dim: int = 2) -> torch.Tensor:
+    """The heads ``want`` of ``t``, which holds heads ``have`` along
+    ``dim`` (``[first, end)`` each)."""
+    if have == want:
+        return t
+    return t.narrow(dim, want[0] - have[0], want[1] - want[0])
+
+
+def _gather_heads(q: torch.Tensor) -> torch.Tensor:
+    """Every rank's block of heads ``q [..., n, hd]`` all-gathered to
+    ``[..., M * n, hd]``."""
+    *lead, n, hd = q.shape
+    return gather_last(q.reshape(*lead, n * hd)).reshape(*lead, -1, hd)
+
+
+def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
+                positions: Optional[torch.Tensor], *,
+                all_heads: bool = False):
+    """x: [B,S,D] -> q [B,S,K,G,hd], k,v [B,S,K,hd] (rope applied).
+
+    On one device every head. Under a rank's plan ``x`` is in the
+    residual's layout; ``q`` holds the heads attention runs over
+    (``attn_heads``, or every head with ``all_heads``: a decode over a
+    sharded KV sequence) and ``k/v`` the KV heads the rank holds."""
+    lay = layout()
+    B, S, _ = x.shape
+    hd = cfg.hd
+    if lay is None:
+        h, k = p["wq"].shape[1], p["wk"].shape[1]
+        with scope("qkv_proj"):
+            q = (x @ p["wq"].reshape(-1, h * hd)).reshape(B, S, h, hd)
+            kk = (x @ p["wk"].reshape(-1, k * hd)).reshape(B, S, k, hd)
+            vv = (x @ p["wv"].reshape(-1, k * hd)).reshape(B, S, k, hd)
+            if cfg.qkv_bias:
+                q = q + p["bq"]
+                kk = kk + p["bk"]
+                vv = vv + p["bv"]
+            if cfg.pos == "rope" and positions is not None:
+                q = rope(q, positions, cfg.rope_theta)
+                kk = rope(kk, positions, cfg.rope_theta)
+        return q.reshape(B, S, k, h // k, hd), kk, vv
+    if lay.wq != "rows":
+        x = residual_in(x)
+    every = (0, cfg.n_heads)
+    everykv = (0, cfg.n_kv_heads)
     with scope("qkv_proj"):
-        q = (x @ p["wq"].reshape(D, h * hd)).reshape(B, S, h, hd)
-        kk = (x @ p["wk"].reshape(D, k * hd)).reshape(B, S, k, hd)
-        vv = (x @ p["wv"].reshape(D, k * hd)).reshape(B, S, k, hd)
+        q = _project(x, p["wq"], lay.wq)
+        q = _heads(q, every if lay.wq == "rows" else
+                   (lay.heads if lay.wq == "heads" else every), lay.heads)
+        wk, wv = p["wk"], p["wv"]
+        if lay.wkv == "full":
+            wk = _heads(wk, everykv, lay.kv_heads, 1)
+            wv = _heads(wv, everykv, lay.kv_heads, 1)
+        kk = _project(x, wk, lay.wkv)
+        vv = _project(x, wv, lay.wkv)
+        if lay.wkv in ("rows", "head_dim"):
+            kk = _heads(kk, everykv, lay.kv_heads)
+            vv = _heads(vv, everykv, lay.kv_heads)
         if cfg.qkv_bias:
             q = q + p["bq"]
-            kk = kk + p["bk"]
-            vv = vv + p["bv"]
+            nk = lay.kv_heads[1] - lay.kv_heads[0]
+            kk = kk + (p["bk"] if p["bk"].shape[0] == nk else
+                       _heads(p["bk"], everykv, lay.kv_heads, 0))
+            vv = vv + (p["bv"] if p["bv"].shape[0] == nk else
+                       _heads(p["bv"], everykv, lay.kv_heads, 0))
         if cfg.pos == "rope" and positions is not None:
             q = rope(q, positions, cfg.rope_theta)
             kk = rope(kk, positions, cfg.rope_theta)
-    return q.reshape(B, S, k, h // k, hd), kk, vv
+        want = every if all_heads else lay.attn_heads
+        if want != lay.heads:
+            q = _heads(_gather_heads(q), every, want)
+    # the KV heads the query heads read
+    k_read = kk.shape[2] if all_heads else lay.attn_kv[1] - lay.attn_kv[0]
+    return q.reshape(B, S, k_read, q.shape[2] // k_read, hd), kk, vv
 
 
-def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """o: [B,S,H*hd] -> [B,S,D]. Under tensor parallelism ``wo`` is the
-    rank's rows (its heads) and the partial sums are all-reduced."""
-    hhd = p["wo"].shape[0] * cfg.hd
+def attn_kv(lay, k: torch.Tensor) -> torch.Tensor:
+    """The held KV heads ``k [..., K_held, hd]`` the rank's attention
+    heads read (all of them on one device)."""
+    if lay is None:
+        return k
+    return _heads(k, lay.kv_heads, lay.attn_kv, k.dim() - 2)
+
+
+def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig, *,
+                heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """o: [B,S,n*hd] -> [B,S,D] (in the residual's layout). Under a
+    rank's plan ``o`` holds heads ``heads`` (``attn_heads`` by default);
+    ``wo`` is the rank's heads (partial sums, all-reduced or
+    reduce-scattered), its head-dim block, its d_model block of the
+    output, or all of it."""
+    lay = layout()
+    B, S = o.shape[:2]
+    if lay is None:
+        hhd = p["wo"].shape[0] * cfg.hd
+        with scope("attn_out"):
+            out = o.reshape(B, S, hhd) @ p["wo"].reshape(hhd, -1)
+        return reduce_partial(out)
+    o = o.reshape(B, S, -1, cfg.hd)
+    have = heads or lay.attn_heads
+    if lay.wo == "heads":
+        o = _heads(o, have, lay.heads)
+    else:
+        o = _heads(o, have, (0, cfg.n_heads))
+        if lay.wo == "head_dim":
+            a, b = lay.block(cfg.hd)
+            o = o[..., a:b]
+    w = p["wo"]
     with scope("attn_out"):
-        out = o.reshape(*o.shape[:2], hhd) @ p["wo"].reshape(hhd, -1)
-    return reduce_partial(out)
+        out = o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
+    return residual_out(out, {"heads": "partial", "head_dim": "partial",
+                              "d_model": "block", "full": "full"}[lay.wo])
 
 
 def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
@@ -93,17 +203,23 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             "prefix/chunked prefill requires causal attention: a "
             "bidirectional suffix would retroactively change the "
             "already-written prefix KV")
+    lay = layout()
     q, k, v = qkv_project(p, x, cfg, positions)
     q = q.reshape(B, S, -1, cfg.hd).contiguous()
+    ka, va = attn_kv(lay, k), attn_kv(lay, v)
     if prefix_k is None:
         with scope("attn_core"):
-            o = ops.prefill_attention(q, k.contiguous(), v.contiguous(),
+            o = ops.prefill_attention(q, ka.contiguous(), va.contiguous(),
                                       causal=causal, window=window,
                                       lengths=lengths)
     else:
+        if lay is not None and lay.kv_seq:
+            raise NotImplementedError(
+                f"a prefill over a prefix when the KV sequence is sharded "
+                f"({multi_card_item('kv_seq')})")
         pad = prefix_k.shape[1]
-        k_all = torch.cat([prefix_k.to(k.dtype), k], dim=1)
-        v_all = torch.cat([prefix_v.to(v.dtype), v], dim=1)
+        k_all = torch.cat([prefix_k.to(k.dtype), ka], dim=1)
+        v_all = torch.cat([prefix_v.to(v.dtype), va], dim=1)
         if lengths is None:
             total = prefix_len + S
             lengths = (total.reshape(1).expand(B)
@@ -144,14 +260,22 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     wraps: past that the call is refused.
     """
     B = x.shape[0]
+    lay = layout()
+    seq = lay is not None and lay.kv_seq
     pos = on_device(pos, x.device)
     ragged = pos.dim() == 1
+    # the cache's slots, every rank's (a rank holds a contiguous share)
+    smax = cache_k.shape[1] * (lay.size if seq else 1)
     if window is not None:
-        _check_ring(cache_k.shape[1], window, ragged, pos, lengths)
+        _check_ring(smax, window, ragged, pos, lengths)
     q, k_new, v_new = qkv_project(p, x, cfg,
-                                  pos[:, None] if ragged else pos.reshape(1))
+                                  pos[:, None] if ragged else pos.reshape(1),
+                                  all_heads=seq)
     with scope("kv_update"):
-        if ragged:
+        if seq:
+            _write_own_rows(cache_k, cache_v, k_new, v_new, pos, ragged,
+                            window, lay)
+        elif ragged:
             rows = torch.arange(B, device=x.device)
             cache_k.index_put_((rows, pos.long()),
                                k_new[:, 0].to(cache_k.dtype))
@@ -168,14 +292,81 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         eff = (pos + 1).expand(B)
         if window is not None:
-            eff = eff.clamp(max=cache_k.shape[1])
+            eff = eff.clamp(max=smax)
         if lengths is not None:
             eff = torch.minimum(eff, lengths)
+    q = q.reshape(B, -1, cfg.hd).contiguous()
+    if seq:
+        # the cache's rows as a pool of blocks, one table row a request
+        rows = cache_k.shape[1]
+        bs = math.gcd(rows, 16)
+        nb = rows // bs
+        table = torch.arange(B * nb, dtype=torch.int32,
+                             device=x.device).reshape(B, nb)
+        first = lay.rank * rows
+        local = (eff.long() - first).clamp(0, rows).to(torch.int32)
+        o = seq_sharded_attention(
+            q, cache_k.reshape(B * nb, bs, *cache_k.shape[2:]),
+            cache_v.reshape(B * nb, bs, *cache_v.shape[2:]), table, local)
+        return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg,
+                           heads=(0, cfg.n_heads))
     with scope("attn_core"):
-        o = ops.decode_attention(
-            q.reshape(B, -1, cfg.hd).contiguous(), cache_k, cache_v,
-            eff.to(torch.int32).contiguous())
+        o = ops.decode_attention(q, cache_k, cache_v,
+                                 eff.to(torch.int32).contiguous())
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
+
+
+def _write_own_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    pos: torch.Tensor, ragged: bool, window: Optional[int],
+                    lay):
+    """The new rows into a dense cache whose slots are sharded on the
+    model axis (rank ``r`` holds the ``r``-th contiguous share): a row
+    lands on the rank that holds its slot; elsewhere its slot's own value
+    is written back (no host decision, so a graph can replay it)."""
+    B, rows = cache_k.shape[0], cache_k.shape[1]
+    slot = pos.long() if ragged else pos.long().reshape(1).expand(B)
+    if window is not None:
+        slot = slot % (rows * lay.size)
+    first = lay.rank * rows
+    own = ((slot >= first) & (slot < first + rows))[:, None, None]
+    loc = (slot - first).clamp(0, rows - 1)
+    b = torch.arange(B, device=cache_k.device)
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache[b, loc] = torch.where(own, new[:, 0].to(cache.dtype),
+                                    cache[b, loc])
+
+
+def local_lengths(lengths: torch.Tensor, block_size: int, rows: int,
+                  rank: int) -> torch.Tensor:
+    """Each request's valid rows on rank ``rank`` when every ``block_size``
+    block's rows are sharded ``rows`` a rank (rank ``r`` holds rows ``[r
+    rows, (r + 1) rows)`` of each block): a prefix of its own rows,
+    ``full_blocks * rows + clamp(tail - r * rows, 0, rows)``. int32."""
+    n = lengths.long()
+    tail = (n % block_size - rank * rows).clamp(0, rows)
+    return (n // block_size * rows + tail).to(torch.int32)
+
+
+def seq_sharded_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over a KV sequence sharded on the model axis:
+    ``q [B,H,hd]`` (every head) against the rows this rank holds (its
+    pool ``[NB,rows,K,hd]``, its ``lengths``), the paged kernel's
+    unnormalised ``(acc, m, l)`` partials ``[B,H,hd+2]`` float32,
+    all-gathered from every rank and combined. All-gathering the partials
+    (one collective, every rank combining the same pieces in the same
+    order) rather than all-reducing them (a max, then a sum of the
+    rescaled partials: two) keeps the ranks' outputs bit-identical and
+    issues one collective a layer. Returns ``[B,H,hd]`` in ``q``'s
+    dtype."""
+    with scope("attn_core"):
+        part = ops.paged_decode_partials(q, k_pool, v_pool, tables,
+                                         lengths)
+    parts = gather_parts(part)
+    with scope("attn_core"):
+        return ops.paged_decode_combine(parts, q.dtype)
 
 
 def _check_ring(smax: int, window: int, ragged: bool, pos: torch.Tensor,
@@ -202,8 +393,9 @@ def _check_ring(smax: int, window: int, ragged: bool, pos: torch.Tensor,
 def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, cfg: ArchConfig, *,
                            tables: torch.Tensor, lengths: torch.Tensor,
-                           positions: torch.Tensor,
-                           block_size: int) -> torch.Tensor:
+                           positions: torch.Tensor, block_size: int,
+                           seq_lengths: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Single-token decode straight against one layer of the physical pool.
 
     ``k_pool/v_pool [NB+1, BS, K, hd]`` (contiguous); ``tables [B, nb]``,
@@ -215,19 +407,43 @@ def paged_self_attn_decode(p: Params, x: torch.Tensor, k_pool: torch.Tensor,
     block_size`` must index inside ``tables``: the engine gives padding
     rows position 0 and length 0, and a table row of trash blocks.
     Returns ``[B,1,D]``.
+
+    Over a KV sequence sharded on the model axis the pool holds the
+    rank's ``BS / M`` rows of each block (``[NB+1, BS/M, K, hd]``): the
+    new row is written on the rank that holds it (the trash block, the
+    pool's last, on the others), and attention combines every rank's
+    partials (:func:`seq_sharded_attention`) over ``seq_lengths``, the
+    rank's valid rows (:func:`local_lengths`; computed here if not
+    given).
     """
     B = x.shape[0]
-    q, k_new, v_new = qkv_project(p, x, cfg, positions[:, None])
+    lay = layout()
+    seq = lay is not None and lay.kv_seq
+    q, k_new, v_new = qkv_project(p, x, cfg, positions[:, None],
+                                  all_heads=seq)
     pos = positions.long()
     phys = tables[torch.arange(B, device=x.device), pos // block_size].long()
     sib = pos % block_size
+    if seq:
+        # each block's rows are sharded: a row lands on the rank that
+        # holds its slot, the trash block (the pool's last) elsewhere
+        rows = k_pool.shape[1]
+        phys = torch.where(sib // rows == lay.rank, phys,
+                           k_pool.shape[0] - 1)
+        sib = sib % rows
     with scope("kv_update"):
         k_pool.index_put_((phys, sib), k_new[:, 0].to(k_pool.dtype))
         v_pool.index_put_((phys, sib), v_new[:, 0].to(v_pool.dtype))
+    q = q.reshape(B, -1, cfg.hd).contiguous()
+    if seq:
+        if seq_lengths is None:
+            seq_lengths = local_lengths(lengths, block_size, k_pool.shape[1],
+                                        lay.rank)
+        o = seq_sharded_attention(q, k_pool, v_pool, tables, seq_lengths)
+        return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg,
+                           heads=(0, cfg.n_heads))
     with scope("attn_core"):
-        o = ops.paged_decode_attention(
-            q.reshape(B, -1, cfg.hd).contiguous(), k_pool, v_pool,
-            tables, lengths)
+        o = ops.paged_decode_attention(q, k_pool, v_pool, tables, lengths)
     return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg)
 
 

@@ -3,11 +3,17 @@
 Plain functions on tensors, one per reference function
 (``repro.models.layers``), taking the same parameter dicts and layouts:
 ``w1/w3 [d,f]``, ``w2 [f,d]``, ``tok [Vp,d]``, ``pos [max_position,d]``,
-``unemb [d,Vp]``. Under tensor parallelism
-(:mod:`repro_torch.distributed`, the reference's ``act_replicated``
-layout) ``w1/w3`` hold a rank's columns and ``w2`` its rows, all-reduced
-after ``w2``; ``tok``/``unemb`` hold its block of the vocab: a lookup
-masks the rows outside it and all-reduces, the logits are all-gathered.
+``unemb [d,Vp]``. Under tensor parallelism (:mod:`repro_torch.
+distributed`) each function reads the rank's plan
+(:class:`~repro_torch.sharding.Layout`): the residual stream is
+replicated (``act_replicated``) or the rank's block of d_model (the
+default rules: a norm all-reduces its float32 row sums, the MLP and the
+unembedding all-gather their input, and a row-parallel product's
+partial sums are reduce-scattered where they would be all-reduced);
+``w1/w3`` hold a rank's columns and ``w2`` its rows where d_ff divides
+over the model axis (else the MLP is replicated); ``tok``/``unemb`` hold
+its block of the vocab (a lookup masks the rows outside it and sums over
+the ranks; the logits are all-gathered), or of d_model, or all of it.
 The MLP, the embedding of a sequence's tokens and the unembedding run
 under the reference's scopes (``mlp``, ``embed``, ``logits``); a decode
 row's embedding runs under none, as the reference's ``_decode_embed``
@@ -22,14 +28,60 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.analysis import scope
-from repro_torch.distributed import gather_last, reduce_partial, vocab_block
+from repro_torch.distributed import (gather_last, layout, reduce_partial,
+                                     reduce_stats, scatter_last,
+                                     vocab_block)
 
 Params = Dict[str, torch.Tensor]
 
 
+def _sharded() -> bool:
+    """Is the residual stream the rank's block of d_model?"""
+    lay = layout()
+    return lay is not None and lay.residual
+
+
+def residual_in(x: torch.Tensor) -> torch.Tensor:
+    """A residual-layout activation at full width (all-gathered where the
+    residual is d_model-sharded)."""
+    return gather_last(x) if _sharded() else x
+
+
+def residual_out(y: torch.Tensor, kind: str) -> torch.Tensor:
+    """A block's output ``y`` into the residual's layout: ``kind``
+    ``"partial"`` (a row-parallel product's partial sums: reduce-scattered
+    to the rank's block, or all-reduced), ``"full"`` (the whole row,
+    replicated: the rank's block taken) or ``"block"`` (already the
+    rank's block of d_model)."""
+    if kind == "block":
+        return y
+    if not _sharded():
+        return reduce_partial(y) if kind == "partial" else y
+    if kind == "partial":
+        return scatter_last(y)
+    a, b = layout().block(y.shape[-1])
+    return y[..., a:b]
+
+
 def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6), computed in float32."""
+    """LayerNorm (eps 1e-5) or RMSNorm (eps 1e-6), computed in float32.
+    Over a d_model-sharded residual ``x`` is the rank's block: the row
+    sums (``x`` and ``x**2`` for LayerNorm, ``x**2`` for RMSNorm) are
+    all-reduced in float32 and the moments taken from them."""
     xf = x.float()
+    if _sharded():
+        d = x.shape[-1] * layout().size
+        if cfg.norm == "layernorm":
+            s = reduce_stats(torch.stack([xf.sum(-1), xf.square().sum(-1)],
+                                         -1)) / d
+            mu, ms = s[..., :1], s[..., 1:]
+            y = (xf - mu) * torch.rsqrt((ms - mu.square()).clamp_min(0)
+                                        + 1e-5)
+            y = y * p["scale"].float() + p["bias"].float()
+        else:
+            ms = reduce_stats(xf.square().sum(-1, keepdim=True)) / d
+            y = xf * torch.rsqrt(ms + 1e-6) * p["scale"].float()
+        return y.to(x.dtype)
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
         var = (xf - mu).square().mean(-1, keepdim=True)
@@ -65,6 +117,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MLP of ``x`` (in the residual's layout), returned in it."""
+    lay = layout()
+    x = residual_in(x)
     with scope("mlp"):
         h = x @ p["w1"]
         if cfg.act == "swiglu":
@@ -75,22 +130,28 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         else:
             h = torch.clamp_min(h, 0)
         out = h @ p["w2"]
-    return reduce_partial(out)
+    return residual_out(out, "partial" if lay is None or lay.ffn else "full")
 
 
 def _lookup(p: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cfg: ArchConfig) -> torch.Tensor:
-    block = vocab_block(p["tok"].shape[0])
+    """Token rows (and learned positions) in the residual's layout."""
+    lay = layout()
+    block = vocab_block(p["tok"].shape[0]) \
+        if lay is None or lay.tok == "vocab" else None
     if block is None:
-        x = p["tok"][tokens].to(cfg.activation_dtype)
+        # every row, or the rank's block of d_model of every row
+        x = residual_out(p["tok"][tokens].to(cfg.activation_dtype),
+                         "block" if lay is not None and lay.tok == "d_model"
+                         else "full")
     else:
         # vocab-parallel: the rows this rank holds, zeros elsewhere, summed
         # over the ranks (one nonzero term a token: exact)
         local = tokens - block[0]
         held = (local >= 0) & (local < block[1])
         x = p["tok"][torch.where(held, local, 0)]
-        x = reduce_partial(torch.where(held[..., None], x, 0).to(
-            cfg.activation_dtype))
+        x = residual_out(torch.where(held[..., None], x, 0).to(
+            cfg.activation_dtype), "partial")
     if cfg.pos == "learned":
         x = x + p["pos"][positions].to(x.dtype)
     return x
@@ -112,7 +173,7 @@ def embed_inputs(p: Params, cfg: ArchConfig, positions: torch.Tensor,
     if cfg.embedding_inputs:
         if embeds is None:
             raise ValueError(f"{cfg.name} takes embeddings, not token ids")
-        x = embeds.to(cfg.activation_dtype)
+        x = residual_out(embeds.to(cfg.activation_dtype), "full")
         if cfg.pos == "learned":
             x = x + p["pos"][positions].to(x.dtype)
         return x
@@ -129,17 +190,28 @@ def decode_embed(p: Params, cfg: ArchConfig, tokens: torch.Tensor,
     as in the reference), else ``tokens [B]`` at ``positions`` (``[B,
     1]``, or ``[1]`` for one position shared by the batch)."""
     if embeds is not None:
-        return embeds.to(cfg.activation_dtype)
+        return residual_out(embeds.to(cfg.activation_dtype), "full")
     return _lookup(p, tokens.long()[:, None], positions, cfg)
 
 
 def unembed_apply(p: Params, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
     """Float32 logits over the padded vocab; padded columns are -1e30.
-    Under tensor parallelism each rank's block of columns, gathered."""
+    Under tensor parallelism the final norm's output ``x`` (in the
+    residual's layout) meets the rank's block of the weight: its vocab
+    columns (``x`` all-gathered, the logits all-gathered), its d_model
+    rows (partial logits, all-reduced) or all of it."""
+    lay = layout()
+    kind = "vocab" if lay is None else lay.logits
+    if kind != "d_model":
+        x = residual_in(x)
     with scope("logits"):
         w = p["tok"].T if cfg.tie_embeddings else p["unemb"]
-        logits = gather_last((x @ w.to(x.dtype)).float())
+        logits = (x @ w.to(x.dtype)).float()
+        if kind == "vocab":
+            logits = gather_last(logits)
+        elif kind == "d_model":
+            logits = reduce_partial(logits)
         if cfg.padded_vocab != cfg.vocab_size:
             logits[..., cfg.vocab_size:].fill_(-1e30)
         return logits

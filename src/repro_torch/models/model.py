@@ -52,13 +52,18 @@ row it is given, batch padding included, as the reference does.
 
 Over a mesh (``Model(cfg, params, mesh=..., rules=...)``, in a process
 that joined it: :mod:`repro_torch.distributed`) the model holds one
-rank's block of every weight under the ``act_replicated`` rules, and
-``forward``, ``prefill`` and ``decode_step`` run with the mesh's group
-active, so the layers' collectives keep the residual stream and the
-logits replicated on every rank; each rank holds its KV heads' cache.
+rank's block of every weight under the rules (the ``act_replicated``
+ones by default), and ``forward``, ``prefill`` and ``decode_step`` run
+with the mesh's group and the rank's plan
+(:func:`~repro_torch.sharding.layout_for`) active, so the layers'
+collectives keep the residual stream in its layout (replicated, or the
+rank's block of d_model) and the logits replicated on every rank; each
+rank holds the cache of its KV heads, or, over a sharded KV sequence,
+its share of every block's rows.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -77,8 +82,8 @@ from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (cache_layers, init_params,
                                        init_shard, layer_sources, map_tree,
                                        param_specs, parameter_tree,
-                                       plan_structure, state_leaves,
-                                       tree_leaves)
+                                       plan_structure, rank_layout,
+                                       state_leaves, tree_leaves)
 from repro_torch.models.ssm import ssm_decode, ssm_seq
 from repro_torch.sharding import check_executable, rules_for, shard_tree
 
@@ -93,7 +98,7 @@ def _on_mesh(fn):
     def call(self, *args, **kwargs):
         if self.group is None:
             return fn(self, *args, **kwargs)
-        with self.group.active():
+        with self.group.active(self.layout):
             return fn(self, *args, **kwargs)
     return call
 
@@ -187,7 +192,7 @@ class Block(nn.Module):
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
             entry["k"], entry["v"], self.cfg, tables=view.tables,
             lengths=view.lengths, positions=view.positions,
-            block_size=view.block_size)
+            block_size=view.block_size, seq_lengths=view.seq_lengths)
         return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
 
@@ -293,11 +298,13 @@ class Model(nn.Module):
     ``group`` (this process's place on it,
     :meth:`repro_torch.distributed.MeshGroup.init`) the model is the
     group's rank of it, on the rank's device, under ``rules``
-    (``rules_for(mesh, act_replicated=True)`` by default): ``params``,
-    whole or already the rank's blocks, are cut to its blocks; drawn, each
+    (``rules_for(mesh, act_replicated=True)`` by default; any rules
+    ``rules_for`` gives without FSDP run): ``params``, whole or already
+    the rank's blocks, are cut to its blocks (``layout.cut``); drawn, each
     leaf is drawn whole as the one-device model draws it and cut
-    (:func:`~repro_torch.models.params.init_shard`), so the weights
-    are the one-device model's, seed for seed. What the mesh does not run
+    (:func:`~repro_torch.models.params.init_shard`), so the weights are
+    the one-device model's, seed for seed. ``layout`` is the rank's plan
+    (:class:`~repro_torch.sharding.Layout`). What the mesh does not run
     raises (:func:`~repro_torch.sharding.check_executable`).
     """
 
@@ -309,6 +316,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.group = None
         self.rules = None
+        self.layout = None
         if mesh is not None:
             rules = rules or rules_for(mesh, act_replicated=True)
             check_executable(cfg, rules)
@@ -323,6 +331,7 @@ class Model(nn.Module):
                                  f"{group.device}, not {device}")
             device = group.device
             self.group, self.rules = group, rules
+            self.layout = rank_layout(cfg, rules, group.rank)
         self.device = resolve_device(device)
         if params is None:
             if generator is None:
@@ -334,7 +343,7 @@ class Model(nn.Module):
                 params = init_params(cfg, generator, device=self.device)
         elif self.group is not None:
             params = shard_tree(param_specs(cfg), params, self.rules,
-                                self.group.rank)
+                                self.group.rank, self.layout)
 
         # the reference-layout tree, each leaf a parameter registered under
         # its flat checkpoint key; the layers read views of it
@@ -362,11 +371,13 @@ class Model(nn.Module):
                                     moe=cfg.moe is not None))
         self.layers = nn.ModuleList(layers)
         self.final_norm = Leaves(params["final_norm"])
-        # the attention heads this device holds (all of them on one device)
-        attn = next((blk.attn.tree() for blk in layers
-                     if isinstance(blk, Block)), None)
-        self.n_heads = attn["wq"].shape[1] if attn else cfg.n_heads
-        self.n_kv_heads = attn["wk"].shape[1] if attn else cfg.n_kv_heads
+        # the query heads this device's projection yields and the KV heads
+        # it holds (all of them on one device)
+        lay = self.layout
+        self.n_heads = cfg.n_heads if lay is None else \
+            lay.heads[1] - lay.heads[0]
+        self.n_kv_heads = cfg.n_kv_heads if lay is None else \
+            lay.kv_heads[1] - lay.kv_heads[0]
         # the training forward's units, in plan order: each period of the
         # stack (rematerialised as one), then each remainder block
         slots, n_rep, rem = plan_structure(cfg)
@@ -385,6 +396,14 @@ class Model(nn.Module):
             keys = at[l]
             self._entries.append((keys, seen[keys[0]]))
             seen[keys[0]] += 1
+
+    @property
+    def seq_shard(self) -> Optional[Tuple[int, int]]:
+        """``(rank, M)`` where the KV sequence is sharded on the model
+        axis (the pool's ``seq_shard``), else None."""
+        lay = self.layout
+        return (lay.rank, lay.size) if lay is not None and lay.kv_seq \
+            else None
 
     def _entry(self, cache: Cache, l: int) -> Cache:
         keys, i = self._entries[l]
@@ -536,8 +555,8 @@ class Model(nn.Module):
                 prefix: Optional[Cache] = None,
                 prefix_len: Union[int, torch.Tensor] = 0, *,
                 embeds: Optional[torch.Tensor] = None,
-                img_embeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Cache]:
+                img_embeds: Optional[torch.Tensor] = None,
+                own_rows: bool = True) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
         lengths ``lengths [B]``; ``embeds [B,S,D]`` instead for a config
         with ``embedding_inputs``; a VLM also takes ``img_embeds [B,
@@ -560,7 +579,12 @@ class Model(nn.Module):
         covers the suffix alone (the reference's ``prefill(prefix=,
         prefix_len=)``). ``prefix_len`` may be a 0-dim int32 tensor on
         the device (a captured step's staged length): nothing here reads a
-        tensor back to the host."""
+        tensor back to the host.
+
+        Over a KV sequence sharded on the model axis the dense cache holds
+        the rank's contiguous share of its slots (the reference's cache
+        spec); ``own_rows=False`` returns every row instead (a paged pool
+        then writes each to the rank that holds it)."""
         dev = self.device
         x, positions = self._embed_seq(tokens, embeds, prefix_len)
         B, S = x.shape[:2]
@@ -580,7 +604,19 @@ class Model(nn.Module):
         for name in ("k", "v"):
             if name in cache:
                 cache[name] = self._finalize(cache[name], S, cache_len)
+                if own_rows and self.layout is not None and \
+                        self.layout.kv_seq:
+                    a, b = self._seq_block(cache[name].shape[2])
+                    cache[name] = cache[name][:, :, a:b].contiguous()
         return self._logits(x), cache
+
+    def _seq_block(self, slots: int) -> Tuple[int, int]:
+        """``[first, end)`` of the rank's share of a dense cache's
+        ``slots`` (a KV sequence sharded on the model axis)."""
+        if slots % self.layout.size:
+            raise ValueError(f"a cache of {slots} slots does not divide over "
+                             f"{self.layout.size} ranks")
+        return self.layout.block(slots)
 
     def _finalize(self, a: torch.Tensor, S: int,
                   cache_len: Optional[int]) -> torch.Tensor:
@@ -605,6 +641,9 @@ class Model(nn.Module):
         cfg, dev = self.cfg, self.device
         if cfg.sliding_window:
             kv_len = min(kv_len, cfg.sliding_window)
+        if self.layout is not None and self.layout.kv_seq:
+            a, b = self._seq_block(kv_len)
+            kv_len = b - a
         out = {}
         n_kv = len(cache_layers(cfg)["kv"])
         if n_kv:
@@ -636,6 +675,13 @@ class Model(nn.Module):
         one.
         """
         if isinstance(cache, PagedCacheView):
+            lay = self.layout
+            if lay is not None and lay.kv_seq and cache.seq_lengths is None:
+                # the rank's valid rows, once a step for every layer
+                cache = dataclasses.replace(
+                    cache, seq_lengths=attention.local_lengths(
+                        cache.lengths, cache.block_size,
+                        cache.pool["k"].shape[2], lay.rank))
             x = decode_embed(self.embed.tree(), self.cfg, tokens,
                              cache.positions.long()[:, None], embeds)
             for l, blk in enumerate(self.layers):

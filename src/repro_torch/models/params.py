@@ -39,7 +39,8 @@ from repro_torch.configs.base import (ATTN, CROSS, SHARED_ATTN, SSM,
                                       ArchConfig)
 from repro_torch.sharding import (BATCH, CONV_CH, D_FF, D_MODEL, EXPERTS,
                                   HEAD_DIM, HEADS, KV_HEADS, KV_SEQ, LAYERS,
-                                  SSM_HEADS, STATE, VOCAB, W_IN, shard_leaf)
+                                  SSM_HEADS, STATE, VOCAB, W_IN, cut_leaf,
+                                  layout_for, spec_ranges)
 
 Tree = Dict[str, Any]
 
@@ -317,22 +318,75 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *,
                     param_specs(cfg))
 
 
+def rank_layout(cfg: ArchConfig, rules, rank: int):
+    """The plan a dense decoder runs under ``rules`` on device ``rank``
+    (:func:`~repro_torch.sharding.layout_for`); None for another family
+    (which runs only on a model axis of one device)."""
+    if cfg.arch_type != "dense" or cfg.moe is not None:
+        return None
+    return layout_for(cfg, rules, rank)
+
+
+def rank_ranges(cfg: ArchConfig, rules, rank: int):
+    """``leaf -> [first, end)`` of each dim of device ``rank``'s block
+    of a leaf: the plan's cut (:meth:`~repro_torch.sharding.Layout.cut`:
+    the spec's block, or the KV heads the rank holds where they fall
+    back), or the spec's block for another family."""
+    lay = rank_layout(cfg, rules, rank)
+    if lay is None:
+        return lambda spec: spec_ranges(spec.logical, spec.shape, rules, rank)
+    return lambda spec: lay.cut(spec.logical, spec.shape, rules)
+
+
+def draw_block(spec: ParamSpec, dtype: torch.dtype,
+               generator: torch.Generator, device: torch.device,
+               ranges, slice_bytes: Optional[int] = None) -> torch.Tensor:
+    """The block ``ranges`` (``[first, end)`` a dim) of the leaf
+    :func:`draw_leaf` draws, from the same stream: with ``slice_bytes``
+    and at most one dim cut, the leaf is drawn slice by slice and only
+    the block's part of each slice kept, so the whole leaf is never held
+    (a K/V cache larger than a card); otherwise drawn whole and cut."""
+    cut = [d for d, (a, b) in enumerate(ranges) if (a, b) != (0,
+                                                             spec.shape[d])]
+    numel = math.prod(spec.shape)
+    if spec.init != "normal" or slice_bytes is None or len(cut) != 1 or \
+            numel * 4 <= slice_bytes:
+        return cut_leaf(draw_leaf(spec, dtype, generator, device,
+                                  slice_bytes), ranges)
+    d = cut[0]
+    a, b = ranges[d]
+    inner = math.prod(spec.shape[d + 1:])
+    row = spec.shape[d] * inner            # one index of the dims before d
+    lo, hi = a * inner, b * inner          # the block within a row
+    out = torch.empty((math.prod(spec.shape[:d]), (b - a) * inner),
+                      dtype=dtype, device=device)
+    scale = 1.0 / math.sqrt(max(spec.fan_in, 1))
+    step = slice_bytes // 4
+    for i in range(0, numel, step):
+        n = min(step, numel - i)
+        part = torch.randn((n,), generator=generator, device=device,
+                           dtype=torch.float32).mul_(scale)
+        for r in range(i // row, (i + n - 1) // row + 1):
+            s0, s1 = max(r * row + lo, i), min(r * row + hi, i + n)
+            if s0 < s1:
+                out[r, s0 - r * row - lo:s1 - r * row - lo].copy_(
+                    part[s0 - i:s1 - i])
+    return out.reshape(*spec.shape[:d], b - a, *spec.shape[d + 1:])
+
+
 def init_shard(cfg: ArchConfig, generator: torch.Generator, rules,
                rank: int, *, device: Optional[torch.device] = None,
                slice_bytes: Optional[int] = None) -> Tree:
-    """Device ``rank``'s block of :func:`init_params` under ``rules``:
-    every leaf drawn whole, in order, exactly as :func:`init_params`
-    draws it (so the blocks are the one-device weights', seed for seed),
-    then cut, one leaf at a time (no float32 copy of a whole leaf is
-    kept: with ``slice_bytes`` none is made)."""
+    """Device ``rank``'s block of :func:`init_params` under ``rules``
+    (:func:`rank_ranges`): every leaf drawn, in order, exactly as
+    :func:`init_params` draws it (so the blocks are the one-device
+    weights', seed for seed), then cut, one leaf at a time (no float32
+    copy of a whole leaf is kept: with ``slice_bytes`` none is made)."""
     device = torch.device(device or generator.device)
-
-    def draw(spec: ParamSpec) -> torch.Tensor:
-        whole = draw_leaf(spec, spec_dtype(cfg, spec), generator, device,
-                          slice_bytes)
-        return shard_leaf(whole, rules.spec(spec.logical, spec.shape),
-                          rules.mesh, rank)
-    return map_tree(draw, param_specs(cfg))
+    ranges = rank_ranges(cfg, rules, rank)
+    return map_tree(lambda spec: draw_block(
+        spec, spec_dtype(cfg, spec), generator, device, ranges(spec),
+        slice_bytes), param_specs(cfg))
 
 
 # ------------------------------------------------- shardings and meta ----
@@ -383,15 +437,16 @@ def params_from_numpy(cfg: ArchConfig, tree: Tree, *,
     torch tensors in the same layouts, each leaf in its own dtype (a
     float32 router stays float32 in a bfloat16 model), checking every
     shape; with ``rules``, only device ``rank``'s block of each leaf
-    (cut on the host)."""
+    (:func:`rank_ranges`, cut on the host)."""
+    ranges = rank_ranges(cfg, rules, rank) if rules is not None else None
+
     def conv(spec: ParamSpec, leaf) -> torch.Tensor:
         t = to_tensor(leaf)
         if tuple(t.shape) != spec.shape:
             raise ValueError(f"parameter shape {tuple(t.shape)} != "
                              f"expected {spec.shape}")
-        if rules is not None:
-            t = shard_leaf(t, rules.spec(spec.logical, spec.shape),
-                           rules.mesh, rank)
+        if ranges is not None:
+            t = cut_leaf(t, ranges(spec))
         return t.to(device=device or "cpu", dtype=spec_dtype(cfg, spec))
 
     return _map2(conv, param_specs(cfg), tree)

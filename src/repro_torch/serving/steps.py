@@ -602,7 +602,8 @@ class StepFunctions:
         logits, cache = self.model.prefill(dev["tokens"], dev["n"],
                                            prefix=prefix,
                                            prefix_len=prefix_len,
-                                           img_embeds=self._img_stub)
+                                           img_embeds=self._img_stub,
+                                           own_rows=False)
         self.pool.write_rows(cache, dev["blocks"], dev["slots"],
                              dev["state_slot"])
         self.finite.logical_and_(torch.isfinite(logits).all())

@@ -13,23 +13,27 @@ instead (``shard_kv_seq``).
 :meth:`ShardingRules.spec` returns the port's ``PartitionSpec``: a plain
 tuple with one entry a dimension, ``None`` (replicated), a mesh axis
 name, or a tuple of names. :func:`shard_shape` is one device's block of a
-tensor under a spec, :func:`shard_leaf` and :func:`shard_tree` a rank's
-block of the tensors themselves (JAX's ``NamedSharding`` convention:
-device ``i`` along an axis holds block ``i``).
+tensor under a spec, :func:`spec_ranges` a rank's block of a leaf,
+:func:`cut_leaf` and :func:`shard_tree` the tensors themselves (JAX's
+``NamedSharding`` convention: device ``i`` along an axis holds block
+``i``).
 
-What runs across cards (:mod:`repro_torch.distributed`) is the
-reference's ``act_replicated=True`` layout, the Megatron one: norms,
-learned positions and the residual stream replicated, ``wq/wk/wv``,
-``w1/w3`` and the vocab of ``tok``/``unemb`` column-sharded, ``wo`` and
-``w2`` row-sharded; :func:`check_executable` refuses the rest. The
-reference's ``constrain`` has no counterpart: the collectives that keep
-the residual stream replicated are written into the layers.
+What runs across cards (:mod:`repro_torch.distributed`) is a dense
+decoder under any rules :func:`rules_for` gives with ``fsdp`` off: the
+``act_replicated`` (Megatron) layout, the default rules' d_model-sharded
+residual, ``attn_row_parallel``'s row-sharded ``wq/wk/wv``, the head-dim
+and replication fallbacks, and ``shard_kv_seq``; :func:`check_executable`
+refuses the rest. :func:`layout_for` reads off the rules' specs what a
+config runs under (:class:`Layout`), and every layer reads that plan.
+The reference's ``constrain`` has no counterpart: the collectives that
+keep each activation in its layout are written into the layers.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ from repro_torch.launch.mesh import Mesh, multi_card_item
 
 AxisAssignment = Union[str, Tuple[str, ...], None]
 PartitionSpec = Tuple[AxisAssignment, ...]
+Range = Tuple[int, int]
 
 # the logical axis vocabulary
 BATCH = "batch"
@@ -175,58 +180,69 @@ def mesh_coords(mesh: Mesh, rank: int) -> Dict[str, int]:
     return {a: int(i) for a, i in zip(mesh.axis_names, idx)}
 
 
-def shard_leaf(t: torch.Tensor, spec: PartitionSpec, mesh: Mesh,
-               rank: int) -> torch.Tensor:
-    """Device ``rank``'s contiguous block of ``t`` under ``spec``, a copy
-    of its own (the whole tensor can then be freed)."""
-    coords = mesh_coords(mesh, rank)
-    block = shard_shape(spec, t.shape, mesh)
-    out = t
-    for dim, assignment in enumerate(spec):
-        axes = axes_of(assignment)
-        if not axes:
-            continue
-        i = 0
-        for a in axes:                 # the axes' combined index, major first
-            i = i * mesh.shape[a] + coords[a]
-        out = out.narrow(dim, i * block[dim], block[dim])
-    return out.clone(memory_format=torch.contiguous_format)
+def cut_leaf(t: torch.Tensor, ranges: Sequence[Range]) -> torch.Tensor:
+    """``t`` narrowed to ``[first, end)`` in each dim, a copy of its own
+    (the whole tensor can then be freed)."""
+    for dim, (a, b) in enumerate(ranges):
+        if (a, b) != (0, t.shape[dim]):
+            t = t.narrow(dim, a, b - a)
+    return t.clone(memory_format=torch.contiguous_format)
 
 
-def shard_tree(specs, tree, rules: ShardingRules, rank: int):
+def shard_tree(specs, tree, rules: ShardingRules, rank: int,
+               layout: Optional["Layout"] = None):
     """``tree`` (leaves matching ``specs``, a tree of
     :class:`~repro_torch.models.params.ParamSpec`) with every leaf cut to
-    device ``rank``'s block; a leaf already at its block's shape is kept
+    device ``rank``'s block (``layout``'s :meth:`Layout.cut` where
+    given, else the spec's, :func:`spec_ranges`); a leaf already at its
+    block's shape is kept
     as it is (no copy), any other shape raises."""
     if isinstance(specs, dict):
         if set(specs) != set(tree):
             raise ValueError(f"tree keys differ: {sorted(specs)} vs "
                              f"{sorted(tree)}")
-        return {k: shard_tree(specs[k], tree[k], rules, rank) for k in specs}
+        return {k: shard_tree(specs[k], tree[k], rules, rank, layout)
+                for k in specs}
     if isinstance(specs, (list, tuple)):
         if len(specs) != len(tree):
             raise ValueError("tree lists differ in length")
-        return type(specs)(shard_tree(s, t, rules, rank)
+        return type(specs)(shard_tree(s, t, rules, rank, layout)
                            for s, t in zip(specs, tree))
-    spec = rules.spec(specs.logical, specs.shape)
+    ranges = layout.cut(specs.logical, specs.shape, rules) \
+        if layout is not None else \
+        spec_ranges(specs.logical, specs.shape, rules, rank)
     shape = tuple(tree.shape)
-    block = shard_shape(spec, specs.shape, rules.mesh)
+    block = tuple(b - a for a, b in ranges)
     if shape == block:          # already the block (every leaf on 1 x 1)
         return tree
     if shape == specs.shape:
-        return shard_leaf(tree, spec, rules.mesh, rank)
+        return cut_leaf(tree, ranges)
     raise ValueError(f"leaf of shape {shape} is neither {specs.shape} nor "
-                     f"its block under {spec}")
+                     f"its block {block}")
+
+
+def spec_ranges(logical: Sequence[Optional[str]], shape: Sequence[int],
+                rules: ShardingRules, rank: int) -> List[Range]:
+    """Device ``rank``'s ``[first, end)`` of each dim of a tensor with
+    these logical axes and shape: its spec's block."""
+    spec = rules.spec(logical, shape)
+    block = shard_shape(spec, shape, rules.mesh)
+    coords = mesh_coords(rules.mesh, rank)
+    out = []
+    for dim, assignment in enumerate(spec):
+        i = 0
+        for a in axes_of(assignment):
+            i = i * rules.mesh.shape[a] + coords[a]
+        out.append((i * block[dim], (i + 1) * block[dim]))
+    return out
 
 
 def check_executable(cfg, rules: ShardingRules):
     """Refuse what is not executed across cards (each refusal names its
     ROADMAP item): a data axis of more than one device, and on a model
     axis of more than one a family other than the dense decoder (with or
-    without a sliding window), the default rules' d_model-sharded
-    residual, and any head, KV-head, d_ff or vocab count the model axis
-    does not divide (the reference's head-dim and replication
-    fallbacks)."""
+    without a sliding window) and FSDP. Any other rules run, every count
+    through the reference's fallbacks (:func:`layout_for`)."""
     data = math.prod(rules.mesh.shape[a] for a in rules.batch_axes
                      if a in rules.mesh.shape)
     if data > 1:
@@ -243,15 +259,129 @@ def check_executable(cfg, rules: ShardingRules):
     if rules.fsdp:
         raise NotImplementedError(
             f"FSDP over a model axis of {m} ({multi_card_item('data')})")
-    if not rules.act_replicated or rules.shard_kv_seq:
-        raise NotImplementedError(
-            f"only the act_replicated rules (a replicated residual, no "
-            f"KV-sequence sharding) run over a model axis of {m} "
-            f"({multi_card_item('rules')})")
-    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads",
-                                               cfg.n_kv_heads),
-                    ("d_ff", cfg.d_ff), ("padded_vocab", cfg.padded_vocab)):
-        if n % m:
-            raise NotImplementedError(
-                f"{cfg.name}: {name} {n} does not divide over a model axis "
-                f"of {m} ({multi_card_item('rules')})")
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """What a dense decoder runs under given rules on one rank of the
+    model axis (:func:`layout_for`): each entry read off the rules' spec
+    of a parameter, so the plan is never written a second time.
+
+    ``residual``: the residual stream between blocks (and each norm's
+    scale and bias, the learned positions) holds the rank's block of
+    d_model (the default rules over more than one device); else it is
+    replicated. Each weight names the dim the model axis shards, or
+    ``"full"``: ``wq`` ``"rows"`` (its d_model input:
+    ``attn_row_parallel`` under the default rules, partial sums
+    all-reduced), ``"heads"`` or ``"head_dim"`` (the head-dim fallback,
+    all-gathered before the attention math); ``wkv`` likewise, or
+    ``"held"``: where the KV heads fall back while the query heads are
+    sharded, ``wk/wv`` (their biases, the K/V cache and the pool) hold
+    the KV heads the rank's query heads read, whole (a departure from
+    the reference's hd-sharded or replicated block: the hd-sharded one
+    would need an all-gather of ``k/v`` a layer); ``wo``
+    ``"heads"``, ``"head_dim"`` or ``"d_model"`` (its output: the
+    rank's block of the residual, no reduction). ``heads`` are the query
+    heads the rank's projection yields, ``attn_heads`` those a prefill's
+    attention (and a decode's, unless ``kv_seq``) runs over, ``kv_heads``
+    the KV heads the rank holds, ``[first, end)`` each. ``kv_seq``: the
+    KV cache's sequence on the model axis (``shard_kv_seq`` over more
+    than one device): each rank holds every KV head for its share of
+    each block's rows, and a decode combines the ranks' softmax
+    partials. ``ffn``: d_ff sharded (else the MLP is replicated).
+    ``tok``/``logits``: the embedding's and the unembedding weight's
+    sharded dim (``"vocab"``, ``"d_model"`` or ``"full"``)."""
+    size: int
+    rank: int
+    residual: bool
+    wq: str
+    wkv: str
+    wo: str
+    heads: Range
+    attn_heads: Range
+    attn_kv: Range
+    kv_heads: Range
+    kv_seq: bool
+    ffn: bool
+    tok: str
+    logits: str
+
+    def block(self, n: int) -> Range:
+        """``[first, end)`` of the rank's block of ``n``."""
+        c = n // self.size
+        return self.rank * c, (self.rank + 1) * c
+
+    def cut(self, logical: Sequence[Optional[str]], shape: Sequence[int],
+            rules: ShardingRules) -> List[Range]:
+        """The rank's ``[first, end)`` of each dim of a leaf: its spec's
+        block, except that a cache or pool leaf (it has ``KV_SEQ``) holds
+        the rank's KV heads whole (and its share of the sequence under
+        ``kv_seq``), and a KV-head leaf under ``"held"`` (``wk``, ``wv``,
+        ``bk``, ``bv``) the KV heads the rank holds, whole. Where the
+        spec would shard the head dim instead, these are departures."""
+        if KV_SEQ in logical or (self.wkv == "held" and KV_HEADS in logical):
+            out = [(0, n) for n in shape]
+            out[list(logical).index(KV_HEADS)] = self.kv_heads
+            if KV_SEQ in logical and self.kv_seq:
+                d = list(logical).index(KV_SEQ)
+                out[d] = self.block(shape[d])
+            return out
+        return spec_ranges(logical, shape, rules, self.rank)
+
+
+def _sharded_dim(rules: ShardingRules, leaf) -> Optional[int]:
+    """The dim of a :class:`~repro_torch.models.params.ParamSpec` leaf
+    its spec puts on the model axis (whatever the axis's size), if any."""
+    spec = rules.spec(leaf.logical, leaf.shape)
+    return next((i for i, a in enumerate(spec)
+                 if rules.model_axis in axes_of(a)), None)
+
+
+def layout_for(cfg, rules: ShardingRules, rank: int) -> Layout:
+    """The plan of what ``cfg`` runs under ``rules`` on device ``rank`` of
+    the model axis (:class:`Layout`), read off the specs of its
+    parameters. A dim over an axis of one device is kept as the
+    ``act_replicated`` layout keeps it, and the residual is sharded only
+    over more than one (so a world of one computes as the plain model,
+    bit for bit); ``shard_kv_seq`` holds at any size."""
+    from repro_torch.configs.base import ATTN
+    from repro_torch.models.params import (attn_specs, block_specs,
+                                           param_specs)
+    m = rules.mesh.shape[rules.model_axis]
+    specs = param_specs(cfg)
+    attn = attn_specs(cfg)
+    dim = functools.partial(_sharded_dim, rules)
+    wq = {0: "rows", 1: "heads", 2: "head_dim", None: "full"}[
+        dim(attn["wq"])]
+    wkv = {0: "rows", 1: "heads", 2: "head_dim", None: "full"}[
+        dim(attn["wk"])]
+    wo = {0: "heads", 1: "head_dim", 2: "d_model", None: "full"}[
+        dim(attn["wo"])]
+    h, k = cfg.n_heads, cfg.n_kv_heads
+    g = h // k
+    kv_seq = rules.shard_kv_seq
+    heads = (0, h)
+    if h % m == 0:
+        n = h // m
+        heads = (rank * n, (rank + 1) * n)
+    # attention runs over the rank's heads where they read whole KV heads
+    # or a share of one (the kernels' uniform grouping), else over all
+    n = heads[1] - heads[0]
+    attn_heads = heads if n % g == 0 or g % n == 0 else (0, h)
+    attn_kv = (attn_heads[0] // g, (attn_heads[1] - 1) // g + 1)
+    kv_heads = (0, k) if kv_seq else attn_kv
+    if wkv in ("head_dim", "full") and kv_heads != (0, k):
+        wkv = "held"
+    tok_dim = dim(specs["embed"]["tok"])
+    tok = {0: "vocab", 1: "d_model", None: "full"}[tok_dim]
+    if cfg.tie_embeddings:
+        logits = tok
+    else:
+        logits = "vocab" if dim(specs["embed"]["unemb"]) == 1 else "full"
+    return Layout(
+        size=m, rank=rank,
+        residual=m > 1 and dim(specs["final_norm"]["scale"]) == 0,
+        wq=wq, wkv=wkv, wo=wo, heads=heads, attn_heads=attn_heads,
+        attn_kv=attn_kv, kv_heads=kv_heads, kv_seq=kv_seq,
+        ffn=dim(block_specs(cfg, ATTN)["ffn"]["w1"]) == 1,
+        tok=tok, logits=logits)

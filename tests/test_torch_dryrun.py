@@ -405,8 +405,12 @@ def test_materialize_refuses_more_than_one_device():
     _, tcfg = _reference()
     two = make_mesh((1, 2), ("data", "model"), ["cpu", "cpu"])
     case = TI.case_for(tcfg, TI.ShapeSpec("long", "decode", 40, 2), two)
-    with pytest.raises(NotImplementedError, match="more than one card"):
+    # a decode case runs over two devices under its own rules, as a rank
+    with pytest.raises(ValueError, match="needs a rank"):
         TI.materialize(case, two, torch.Generator())
+    train = TI.case_for(tcfg, TI.ShapeSpec("t", "train", 16, 4), two)
+    with pytest.raises(NotImplementedError, match="more than one card"):
+        TI.materialize(train, two, torch.Generator(), rank=0)
     with pytest.raises(ValueError, match="real devices"):
         TI.materialize(case, make_mesh((1, 1), ("data", "model")),
                        torch.Generator())

@@ -42,7 +42,7 @@ from repro_torch.launch.mesh import (MULTI_CARD_ITEM, make_mesh,  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.params import (init_params, init_shard,  # noqa: E402
                                        param_specs, params_from_numpy,
-                                       tree_leaves)
+                                       rank_layout, tree_leaves)
 from repro_torch.serving import (EngineConfig, SamplingParams,  # noqa: E402
                                  sharegpt_like)
 from repro_torch.sharding import rules_for  # noqa: E402
@@ -329,9 +329,11 @@ def test_other_families_refused_across_devices(arch):
 
 
 def test_refusals_name_their_roadmap_item():
-    """A data axis of 2, the default rules, KV heads the model axis does
-    not divide, a CUDA mesh without cards, and materialize without a
-    rank each raise, naming what is left in ROADMAP.md."""
+    """A data axis of 2, FSDP, a CUDA mesh without cards, and materialize
+    without a rank each raise, naming what is left in ROADMAP.md; the
+    default rules and KV heads the model axis does not divide, refused
+    before, now pass the check (they run: tests/test_torch_mesh_rules.py)
+    and reach the group check."""
     cfg = reduced(get_config("opt-1.3b"))
     two_data = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="left 2") as e:
@@ -342,14 +344,15 @@ def test_refusals_name_their_roadmap_item():
                                                   act_replicated=True))
     _item(e)
     mesh = make_model_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 1") as e:
-        Model(cfg, mesh=mesh, rules=rules_for(mesh))
+    with pytest.raises(NotImplementedError, match="left 2") as e:
+        Model(cfg, mesh=mesh, rules=rules_for(mesh, fsdp=True))
     _item(e)
+    with pytest.raises(RuntimeError, match="has not joined the mesh"):
+        Model(cfg, mesh=mesh, rules=rules_for(mesh))
     gqa = reduced(get_config("qwen2.5-3b"), n_heads=8, n_kv_heads=2)
     four = make_model_mesh(["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="n_kv_heads 2") as e:
+    with pytest.raises(RuntimeError, match="has not joined the mesh"):
         Model(gqa, mesh=four)
-    _item(e)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             D.MeshGroup.init(make_model_mesh(["cuda:0", "cuda:1"]), 0,
@@ -368,10 +371,22 @@ def test_refusals_name_their_roadmap_item():
 
 def test_the_gqa_config_and_engine_config_are_dense():
     """The configs the spawns run are the dense decoders the mesh runs,
-    with heads and KV heads both divisible by 4."""
+    with heads and KV heads both divisible by 4: under the act_replicated
+    rules their plan on 4 ranks is the Megatron one (every projection
+    sharded by heads, the residual replicated). A K of 2 on 4, refused
+    before, now holds the KV heads its query heads read."""
+    four = make_mesh((1, 4), ("data", "model"))
     for name in CONFIGS:
         _, tcfg, _ = _weights(name)
         assert tcfg.arch_type == "dense" and tcfg.moe is None
         assert tcfg.n_heads % 4 == 0 and tcfg.n_kv_heads % 4 == 0
+        lay = rank_layout(tcfg, rules_for(four, act_replicated=True), 1)
+        assert (lay.wq, lay.wkv, lay.wo, lay.residual, lay.ffn) == \
+            ("heads", "heads", "heads", False, True)
+        assert lay.kv_heads == (tcfg.n_kv_heads // 4,
+                                2 * tcfg.n_kv_heads // 4)
+    gqa = reduced(get_config("qwen2.5-3b"), n_heads=8, n_kv_heads=2)
+    lay = rank_layout(gqa, rules_for(four, act_replicated=True), 3)
+    assert lay.wkv == "held" and lay.kv_heads == (1, 2)
     assert dataclasses.asdict(EngineConfig(**ENGINE))["decode_mode"] == \
         "paged"

@@ -7,12 +7,17 @@ mode and as a sliced cluster's replica; with several cards, the float32,
 OPT-1.3B and deepseek-coder-33b meshes), then, with four cards,
 ``phase_mesh_modes``: deepseek-coder-33b over 1 x 4 in every engine mode,
 then R=2 replicas of 1 x 2 against the paged engine over 1 x 4 measured
-in the same run. From the repository root::
+in the same run. With ``--rules``, ``phase_mesh_rules`` alone: the
+reference's own sharding rules over 1 x 4 (deepseek-coder-33b under the
+default rules beside act_replicated, qwen2.5-3b under the default rules
+and under shard_kv_seq, the dry-run's qwen2.5-3b decode_32k case). From
+the repository root::
 
     python3 tools/mesh_smoke.py            # everything
     python3 tools/mesh_smoke.py --modes    # phase_mesh_modes alone
     python3 tools/mesh_smoke.py --modes --layers 4 --requests 32
                                            # a short first call
+    python3 tools/mesh_smoke.py --rules    # phase_mesh_rules alone
 
 Exits non-zero if a check fails."""
 import argparse
@@ -33,8 +38,11 @@ def main(argv=None) -> int:
     ap.add_argument("--modes", action="store_true",
                     help="only the engine modes and the cluster across "
                          "four cards (phase_mesh_modes)")
+    ap.add_argument("--rules", action="store_true",
+                    help="only the reference's own sharding rules across "
+                         "four cards (phase_mesh_rules)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut deepseek-coder-33b to this many layers")
+                    help="cut the served models to this many layers")
     ap.add_argument("--requests", type=int, default=cs.MESH_DEEP_REQUESTS,
                     help="ShareGPT-length requests a serve")
     args = ap.parse_args(argv)
@@ -56,6 +64,14 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rules:
+        out = cs.phase("4, mesh rules", cs.phase_mesh_rules, card,
+                       args.layers, args.requests)
+        if out is None:
+            return 1
+        print(f"[done] the mesh rules phase passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        return 0
     if not args.modes:
         model = cs.full_model()
         reqs = cs.serve_workload()
