@@ -21,7 +21,11 @@ It imports nothing of JAX or of the JAX package. Phases:
    partials entry and combine (a decode over a KV sequence sharded
    across cards) over f32/bf16, hd 64/112/128, G 1/7/8 and 2 or 4
    pieces of every block's rows, each against its plain version, and
-   the combined pieces against the whole kernel; the flash
+   the combined pieces against the whole kernel; the contiguous
+   kernel's partials entry (the gather mode's decode over a sharded KV
+   sequence) over f32/bf16, hd 64-128, G 1/2/7/8 and 1, 2 or 4 pieces,
+   pieces without a row of a request exactly (0, -inf, 0), combined
+   against the whole kernel; the flash
    kernel's single-tile case on its own line, the reference's flash
    cases, a bf16 grid over head dims, head groups, masks and sequence
    shapes and a grid with a length a request (the model's prefill
@@ -86,7 +90,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    of the first 16 with graphs, eager (cut as above) and overlapped (and, for token
    agreement, the paged serve of the same 16, in bfloat16 and again in
    float32); a static batch of 32 prompts with 64 decode steps on a
-   dense cache; the speculative serve (16 repetitive requests, prompt
+   dense cache; the speculative serve (8 repetitive requests, prompt
    96, 128 new tokens, batch 4, ``spec_k`` 8), greedy and sampled,
    speculation off and on (graphs cold and warm, graphs with overlap),
    with a profile window of verify
@@ -105,7 +109,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    deadline and shedding serve (``max_waiting``, end-to-end and TTFT
    deadlines, ``try_add_request``; the counters add up, an expired
    request keeps its partial output); then replication (``[cluster]``):
-   64 ShareGPT-length requests at t=0 on one MAX engine (``max_batch``
+   32 ShareGPT-length requests at t=0 on one MAX engine (``max_batch``
    32, a 32768-token pool) and on 2 and 4 co-located replicas splitting
    that budget (batch 16 and 8), each threaded, round-robin, graphs +
    overlap, served cold (graphs captured on the replicas' threads) and
@@ -128,7 +132,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    serve), the first 16 through ``AsyncServingAPI`` on 16 concurrent
    streams with the longest aborted mid-stream, the first 16 through the
    facade over an R=2 cluster with replica 1 killed (nothing lost), and
-   ``repro_torch.launch.serve.main`` three times in process (64 requests
+   ``repro_torch.launch.serve.main`` three times in process (32 requests
    overlapped; ``--bca --replicas auto --stream`` with a trace, a
    Prometheus file and the memory audit, both validated; two replicas
    with prefix affinity and the prefix cache), each run's launches
@@ -158,7 +162,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    K/V pool, dense state, graph pools), paged-vs-gather token
    agreement; and a profile window
    of 10 steady steps at batch 16 (busy, host wall, idle share, busy by
-   kernel kind), then 3 eager steps under named scopes for the expert
+   kernel kind), then an eager step under named scopes for the expert
    GEMMs' and the SSM state update's share of the device time. Then
    slice 13 (``[slice13 ...]``): llama-3.2-vision-90b at full width cut
    to two periods (10 layers, 8 self-attention and 2 cross, bf16, 21.3
@@ -175,7 +179,7 @@ It imports nothing of JAX or of the JAX package. Phases:
    run within 3e-2, ms a call beside the operations' bound) and float32
    (within ``MODEL_TOL``); internlm2-1.8b at full width and depth with
    a sliding window of 8192, the static-batch loop on 4 prompts of
-   10240 tokens (the ring wraps at prefill) and 256 greedy steps (one
+   10240 tokens (the ring wraps at prefill) and 128 greedy steps (one
    flash launch a layer a prefill, one contiguous a layer a step), and
    in float32 at 2 layers, kernels against plain across the wrap, tokens
    identical. Then training (``[train ...]``): ``FlashAttentionFn`` (the
@@ -247,8 +251,12 @@ It imports nothing of JAX or of the JAX package. Phases:
    counted: the embedding's all-reduce, two a layer and the logits'
    all-gather a call), and again under the reference's default rules
    and under ``shard_kv_seq`` (bit for bit: its decode through the paged
-   kernel's partials entry and the combine, once a layer a step each).
-   With one card it then says that nothing ran
+   kernel's partials entry and the combine, once a layer a step each);
+   each engine mode at the world of one (overlap + chunked + prefix
+   cache, speculation, gather) under the act_replicated rules and under
+   ``shard_kv_seq`` (its prefix all-gathered, its gather mode's decode
+   through the contiguous kernel's partials entry), bit for bit against
+   the plain engine. With one card it then says that nothing ran
    across cards. With several (``tools/mesh_smoke.py`` runs this phase
    alone), one process a card over ``cuda:0..M-1``
    (``repro_torch.distributed.spawn``), one spawn a mesh size: OPT-1.3B
@@ -269,7 +277,10 @@ It imports nothing of JAX or of the JAX package. Phases:
    under the default rules beside ``act_replicated``, qwen2.5-3b under
    the default rules and ``shard_kv_seq`` (logits within ``DEEP_TOL`` of
    one card's), and the dry-run's qwen2.5-3b decode_32k case over 1 x 4,
-   its bytes, step and NCCL beside the dry-run's;
+   its bytes, step and NCCL beside the dry-run's; ``tools/mesh_smoke.py
+   --seq`` runs ``phase_mesh_seq`` alone on four cards: qwen2.5-3b under
+   ``shard_kv_seq`` over 1 x 4 in every engine mode and a long-context
+   serve of 16 prompts of 32,000 tokens;
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -283,7 +294,8 @@ It imports nothing of JAX or of the JAX package. Phases:
    one 8192-token request, at the static batch's shape, at the VLM's
    cross decode and at the ring decode; the paged kernel's partials
    entry and combine at a rank's shape of the dry-run's qwen2.5-3b
-   decode_32k case over 1 x 4; the flash kernel's plain entry
+   decode_32k case over 1 x 4; the contiguous kernel's partials entry at
+   qwen2.5-3b's gather step on a rank of 1 x 4; the flash kernel's plain entry
    at slice 13's three shapes beside SDPA with the same mask; contiguous
    decode at the dry-run's four long_500k shapes); the decode
    kernels and their library calls twice, L2-cold (back-to-back calls on
@@ -370,6 +382,11 @@ def planted_decode_faults(q, k, v, lengths):
             "zeros": torch.zeros_like(q)}
 
 
+# a plain version's timed calls (the median of a few: hundreds of
+# launches a call, a yardstick of nothing but the kernel's arithmetic)
+PLAIN_RUNS = 3
+
+
 def time_ms(fn, runs=30, warmup=5):
     """Median device time of ``fn`` over ``runs`` calls, CUDA events."""
     import torch
@@ -445,11 +462,7 @@ def busy_ms(fn, runs=5):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if is_device_work(e)]
-    if not ops:
-        raise AssertionError("profiler recorded no device activity")
-    return sum(e.time_range.end - e.time_range.start for e in ops) / 1e3 / runs
+    return sum(busy_by_kind(prof, runs).values())
 
 
 def timed(fn, runs=20):
@@ -495,6 +508,16 @@ def bound(nbytes, flops, flop_rate=None):
 
 
 # ------------------------------------------------------------- inputs ----
+def randn_on(device, seed):
+    """``mk(*shape, dtype=)``: standard normal draws made on ``device``
+    from ``seed`` (drawing on the host and copying up took a second a
+    hundred cases)."""
+    import torch
+    gen = torch.Generator(device).manual_seed(seed)
+    return lambda *s, dtype: torch.randn(*s, generator=gen,
+                                         device=device).to(dtype)
+
+
 def paged_inputs(B, K, G, hd, BS, nb, dtype, lengths, seed, device="cuda"):
     """Random q and pools with each row's blocks at permuted physical ids;
     table entries past a row's allocation name the trash block (last)."""
@@ -508,28 +531,26 @@ def paged_inputs(B, K, G, hd, BS, nb, dtype, lengths, seed, device="cuda"):
     for b, n in enumerate(need):
         table[b, :n] = perm[used:used + n]
         used += n
-    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)  # noqa: E731
-    q, kp, vp = mk(B, K * G, hd), mk(NB, BS, K, hd), mk(NB, BS, K, hd)
+    mk = randn_on(device, seed)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    return [t.to(device) for t in (q, kp, vp, table, lens)]
+    return [mk(B, K * G, hd, dtype=dtype), mk(NB, BS, K, hd, dtype=dtype),
+            mk(NB, BS, K, hd, dtype=dtype), table.to(device),
+            lens.to(device)]
 
 
 def decode_inputs(B, S, K, G, hd, dtype, lengths, seed, device="cuda"):
     """Random q and dense ``[B, S, K, hd]`` caches."""
     import torch
-    gen = torch.Generator().manual_seed(seed)
-    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)  # noqa: E731
+    mk = randn_on(device, seed)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    return [t.to(device) for t in (mk(B, K * G, hd), mk(B, S, K, hd),
-                                   mk(B, S, K, hd), lens)]
+    return [mk(B, K * G, hd, dtype=dtype), mk(B, S, K, hd, dtype=dtype),
+            mk(B, S, K, hd, dtype=dtype), lens.to(device)]
 
 
 def flash_inputs(B, Sq, Skv, K, G, hd, dtype, seed, device="cuda"):
-    import torch
-    gen = torch.Generator().manual_seed(seed)
-    mk = lambda *s: torch.randn(*s, generator=gen).to(dtype)  # noqa: E731
-    return [t.to(device) for t in (mk(B, Sq, K * G, hd), mk(B, Skv, K, hd),
-                                   mk(B, Skv, K, hd))]
+    mk = randn_on(device, seed)
+    return [mk(B, Sq, K * G, hd, dtype=dtype), mk(B, Skv, K, hd, dtype=dtype),
+            mk(B, Skv, K, hd, dtype=dtype)]
 
 
 @contextlib.contextmanager
@@ -557,7 +578,8 @@ def plain_attention():
 
 def launch_counters():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from repro_torch.kernels.decode_attention import gqa_decode_attention
+    from repro_torch.kernels.decode_attention import (decode_partials,
+                                                      gqa_decode_attention)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_prefix_attention)
     from repro_torch.kernels.paged_decode_attention import (
@@ -568,12 +590,14 @@ def launch_counters():
             "flash_prefix_attention": flash_prefix_attention,
             "decode_attention": gqa_decode_attention,
             "paged_decode_partials": paged_decode_partials,
-            "paged_decode_combine": paged_decode_combine}
+            "paged_decode_combine": paged_decode_combine,
+            "decode_partials": decode_partials}
 
 
-# the partials entry and the combine, which a path with no KV sequence
+# the partials entries and the combine, which a path with no KV sequence
 # sharded across ranks never launches
-NO_SEQ_LAUNCHES = {"paged_decode_partials": 0, "paged_decode_combine": 0}
+NO_SEQ_LAUNCHES = {"paged_decode_partials": 0, "paged_decode_combine": 0,
+                   "decode_partials": 0}
 
 
 def reset_launches():
@@ -929,6 +953,7 @@ def phase_paged_splits(errs):
         n_win += 1
     errs["paged"]["multi_split"] = e_split
     paged_partials_grid(errs)
+    decode_partials_grid(errs)
     print(f"[kernels] paged decode: {n} multi-split cases (B "
           f"{SPLIT_ROWS}, K 2, G 1/2/4/7/8 x hd 64/80/96/112/128 x BS 16/32 "
           f"x f32/bf16, table width 128/256; rows of length 0, 1, "
@@ -1021,6 +1046,82 @@ def paged_partials_grid(errs):
           f"the combined M pieces against the whole paged kernel within "
           f"1e-5 (f32) / 3e-2 (bf16) of the largest output (max abs err "
           f"{e_whole:.3e}); length-0 rows exactly 0")
+
+
+def decode_partials_grid(errs):
+    """The contiguous kernel's partials entry, which carries the gather
+    mode's decode over a KV sequence sharded on the model axis: for f32
+    and bf16, hd 64/80/96/112/128, G 1/2/7/8 and M 1/2/4 pieces, each
+    piece's rows of a dense cache (piece ``r`` holds rows ``[r BS/M,
+    (r+1) BS/M)`` of every block, at its local lengths: a gather step's
+    dense copy on rank ``r``) through the partials entry against its
+    plain version, a piece without a row of a request exactly (0, -inf,
+    0), and the combine of the M pieces against the whole contiguous
+    kernel within ``TOL`` of the largest output; lengths 0, 1 (pieces
+    without a row of it), mid-block and the full cache, a length-0
+    request combining to exactly 0 (not the whole kernel's quirk)."""
+    import itertools
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_partials, decode_partials_torch, gqa_decode_attention)
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_combine
+    from repro_torch.models.attention import local_lengths
+    K, BS, nb, B = 2, 16, 8, len(PARTIALS_ROWS)
+    e_part = e_whole = 0.0
+    n = 0
+    for dtype, hd, G, m in itertools.product(
+            (torch.float32, torch.bfloat16), (64, 80, 96, 112, 128),
+            (1, 2, 7, 8), (1, 2, 4)):
+        what = f"decode partials {dtype} hd={hd} G={G} M={m}"
+        q, k, v, lens = decode_inputs(B, nb * BS, K, G, hd, dtype,
+                                      PARTIALS_ROWS, seed=4000 + n)
+        rows = BS // m
+        parts = []
+        for r in range(m):
+            piece = slice(r * rows, (r + 1) * rows)
+            kr, vr = (t.reshape(B, nb, BS, K, hd)[:, :, piece].reshape(
+                B, nb * rows, K, hd).contiguous() for t in (k, v))
+            local = local_lengths(lens, BS, rows, r)
+            got = decode_partials(q, kr, vr, local)
+            want = decode_partials_torch(q, kr, vr, local)
+            torch.cuda.synchronize()
+            live = want[..., -1] > 0
+            if not torch.equal(live, got[..., -1] > 0) or not bool(
+                    torch.isneginf(got[..., -2][~live]).all()) or bool(
+                    (got[..., :-2][~live] != 0).any()):
+                raise AssertionError(f"{what} piece {r}: rows without a "
+                                     f"live row are not (0, -inf, 0)")
+            scale = want[live].abs().amax().clamp_min(1.0)
+            e_part = max(e_part, close(
+                torch.where(live[..., None], got, 0) / scale,
+                torch.where(live[..., None], want, 0) / scale, what,
+                1e-4))
+            parts.append(got)
+        out = paged_decode_combine(torch.stack(parts), dtype)
+        whole = gqa_decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        if not bool((out[0] == 0).all()):
+            raise AssertionError(f"{what}: a length-0 request is not zero")
+        tol = TOL[str(dtype).split(".")[-1]] * float(
+            whole[1:].float().abs().max())
+        err = float((out[1:].float() - whole[1:].float()).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"{what}: the combined pieces are {err:.3e}"
+                                 f" from the whole kernel, past {tol:.3e}")
+        e_whole = max(e_whole, err)
+        n += 1
+    errs["decode_partials"]["grid"] = e_part
+    errs["decode_partials"]["whole_kernel"] = e_whole
+    print(f"[kernels] decode partials: {n} cases (B {B}, K {K}, G 1/2/7/8 "
+          f"x hd 64/80/96/112/128 x f32/bf16 x M 1/2/4 pieces of BS {BS}, "
+          f"{nb} blocks, lengths {PARTIALS_ROWS}): each piece's partials "
+          f"against the plain version (pieces without a live row exactly "
+          f"(0, -inf, 0); max err {e_part:.3e} of the largest), the "
+          f"combined M pieces against the whole contiguous kernel within "
+          f"{TOL['float32']} (f32) / {TOL['bfloat16']} (bf16) of the "
+          f"largest output (max abs err {e_whole:.3e}); a length-0 request "
+          f"exactly 0")
 
 
 def phase_flash_kernel(errs):
@@ -1991,11 +2092,13 @@ def expected_launches(engines):
     :func:`prefill_launches`)."""
     want = dict.fromkeys(launch_counters(), 0)
     for e in engines:
-        decode = ("paged_decode_attention" if e.decode_mode == "paged"
-                  else "decode_attention")
-        # over a sharded KV sequence: the partials entry and the combine
-        decode = (("paged_decode_partials", "paged_decode_combine")
-                  if e.model.seq_shard is not None else (decode,))
+        paged = e.decode_mode == "paged"
+        decode = ("paged_decode_attention" if paged else "decode_attention",)
+        # over a sharded KV sequence: the partials entry of the mode's
+        # kernel and the combine
+        if e.model.seq_shard is not None:
+            decode = ("paged_decode_partials" if paged
+                      else "decode_partials", "paged_decode_combine")
         steps = e.decode_steps + e.verify_iterations
         for name in decode:
             want[name] += steps * attention_layers(e.model.cfg)
@@ -2047,9 +2150,8 @@ def prefill_symbol(model, card, prompt=128):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         model.prefill(toks, lens, cache_len=prompt)
         torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if is_device_work(e)
-                    and "flash" in e.name})
+    names = sorted({name for name, *_ in device_work(prof)
+                    if "flash" in name})
     want = ("flash_wgmma_kernel" if cfg.dtype == "bfloat16"
             else "flash_kernel<float")
     if not names or not all(want in n for n in names):
@@ -2219,22 +2321,15 @@ def serve_profile(engine, make):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         engine.run(make(engine.model))
         torch.cuda.synchronize()
-    by_kind = {}
-    for e in prof.events():
-        if is_device_work(e):
-            kind = kernel_kind(e.name)
-            by_kind[kind] = by_kind.get(kind, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e6
-    if not by_kind:
-        raise AssertionError("profiler recorded no device activity")
-    return by_kind
+    return {k: v / 1e3 for k, v in busy_by_kind(prof, 1).items()}
 
 
 def phase_serve_profiles(model, card):
     """The prefix serve (cache on) and the chunked serve (chunks of
-    192), with CUDA graphs on a warm engine (:func:`warm_engine`) and
-    with every step eager on a fresh one: first every serve timed, then the prefix cache
-    off and on in turns (off, on, on, off, off, on) on one warm engine
+    192), with CUDA graphs on a warm engine (:func:`warm_engine`; their
+    eager serves are :func:`phase_prefix_serve`'s and
+    :func:`phase_chunked_serve`'s): first each serve timed, then the prefix cache
+    off and on in turns (off, on, on, off) on one warm engine
     with graphs a side, its prefix cache emptied and its counters reset
     before each serve (:func:`rewarm`; TTFT, the stall, prefill tokens,
     the means of each side), and only then the first serves with graphs
@@ -2244,37 +2339,31 @@ def phase_serve_profiles(model, card):
     work is the same, and its idle share is that of the steps'
     profiles)."""
     import torch
-    from repro_torch.serving import ContinuousBatchingEngine
     serves = {}
     for what, make, kw in (
             ("prefix serve, cache on", prefix_workload,
              dict(max_batch=8, prefix_cache=True)),
             ("chunked serve, chunks of 192", chunked_workload,
              dict(max_batch=4, prefill_chunk_tokens=192))):
-        for way, extra in (("graphs", {}), ("eager", dict(cuda_graphs=False))):
-            # an eager engine captures nothing: a warm-up serve would
-            # only repeat the serve
-            engine = warm_engine(model, make, **kw) if way == "graphs" \
-                else ContinuousBatchingEngine(model,
-                                              serve_config(**kw, **extra))
-            m = engine.run(make(model))
-            torch.cuda.synchronize()
-            serves[f"{what}, {way}"] = (engine, make, m)
-            print(f"[profile {what}, {way}] on {card}, {step_mode(engine)}"
-                  f"{', warm' if way == 'graphs' else ''}: serve wall "
-                  f"{m.wall_s * 1e3:.1f} ms; "
-                  f"{engine.prefills} prefills and {engine.chunks} chunks "
-                  f"({engine.suffix_prefills} over a prefix), "
-                  f"{engine.decode_steps} decode steps; TTFT p50 "
-                  f"{m.ttft.p50 * 1e3:.2f} p95 {m.ttft.p95 * 1e3:.2f} ms; "
-                  f"stall mean {m.stall_s_mean * 1e3:.2f} p95 "
-                  f"{m.stall.p95 * 1e3:.2f} ms; ITL p50 "
-                  f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} ms; "
-                  f"output {m.output_throughput:.1f} tok/s")
+        engine = warm_engine(model, make, **kw)
+        m = engine.run(make(model))
+        torch.cuda.synchronize()
+        serves[f"{what}, graphs"] = (engine, make, m)
+        print(f"[profile {what}, graphs] on {card}, {step_mode(engine)}"
+              f", warm: serve wall "
+              f"{m.wall_s * 1e3:.1f} ms; "
+              f"{engine.prefills} prefills and {engine.chunks} chunks "
+              f"({engine.suffix_prefills} over a prefix), "
+              f"{engine.decode_steps} decode steps; TTFT p50 "
+              f"{m.ttft.p50 * 1e3:.2f} p95 {m.ttft.p95 * 1e3:.2f} ms; "
+              f"stall mean {m.stall_s_mean * 1e3:.2f} p95 "
+              f"{m.stall.p95 * 1e3:.2f} ms; ITL p50 "
+              f"{m.itl.p50 * 1e3:.2f} p95 {m.itl.p95 * 1e3:.2f} ms; "
+              f"output {m.output_throughput:.1f} tok/s")
     ttft = {False: [], True: []}
     warm = {on: warm_engine(model, prefix_workload, max_batch=8,
                             prefix_cache=on) for on in (False, True)}
-    for on in (False, True, True, False, False, True):
+    for on in (False, True, True, False):
         engine = warm[on]
         rewarm(engine)
         m = engine.run(prefix_workload(model))
@@ -2290,13 +2379,11 @@ def phase_serve_profiles(model, card):
     release()
     mean = {on: [statistics.mean(x[i] for x in ttft[on]) * 1e3
                  for i in range(3)] for on in ttft}
-    print(f"[prefix ttft] on {card}: means of 3 serves a side, cache off / "
+    print(f"[prefix ttft] on {card}: means of 2 serves a side, cache off / "
           f"on: TTFT p50 {mean[False][0]:.2f} / {mean[True][0]:.2f} ms, p95 "
           f"{mean[False][1]:.2f} / {mean[True][1]:.2f} ms; stall p95 "
           f"{mean[False][2]:.2f} / {mean[True][2]:.2f} ms")
     for tag, (engine, make, m) in serves.items():
-        if not engine.steps.graphs_on:
-            continue
         by_kind = serve_profile(engine, make)
         busy = sum(by_kind.values())
         parts = ", ".join(f"{k} {v * 1e3:.1f} ms ({v / busy * 100:.1f}%)"
@@ -2370,24 +2457,27 @@ def phase_prefill_steps(model, card, runs=20):
                 call()
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
-            before = read_launches()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                # a kernel of a few microseconds opens the window: a
-                # trace may miss the first kernel after it starts
-                torch.ones(1, device="cuda").add_(1)
-                torch.cuda.synchronize()
-                for _ in range(5):
-                    call()
-                torch.cuda.synchronize()
-            ops = [e for e in prof.events()
-                   if is_device_work(e)]
-            busy = sum(e.time_range.end - e.time_range.start
-                       for e in ops) / 1e3 / 5
-            after = read_launches()
-            counted = sum(after[k] - before[k] for k in (
-                "flash_attention", "flash_prefix_attention"))
-            traced = sum("flash" in e.name for e in ops)
             want = 5 * model.cfg.n_layers
+            for attempt in range(3):
+                before = read_launches()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    # a kernel of a few microseconds opens the window: a
+                    # trace may miss the first kernel after it starts
+                    torch.ones(1, device="cuda").add_(1)
+                    torch.cuda.synchronize()
+                    for _ in range(5):
+                        call()
+                    torch.cuda.synchronize()
+                ops = device_work(prof)
+                after = read_launches()
+                counted = sum(after[k] - before[k] for k in (
+                    "flash_attention", "flash_prefix_attention"))
+                traced = sum("flash" in name for name, *_ in ops)
+                # a trace can drop kernel records: a short one is taken
+                # again
+                if traced >= want:
+                    break
+            busy = sum(end - start for _, start, end, _ in ops) / 1e6 / 5
             if not counted == traced == want:
                 raise AssertionError(f"prefill {key}: flash launches counted "
                                      f"{counted}, traced {traced}, != {want}")
@@ -2533,13 +2623,14 @@ def phase_graph_modes(model, card, runs):
 
 
 SPEC_SERVE = dict(max_batch=4, speculate=True, spec_k=8)
+SPEC_REQUESTS = 8            # the speculative serve's: two batches of 4
 SPEC_WAYS = {"off, graphs": dict(speculate=False),
              "on, graphs": {},
              "on, graphs + overlap": dict(overlap=True)}
 
 
 def phase_spec_serve(model, card):
-    """The speculative serve: 16 repetitive requests (prompt 96, 128 new
+    """The speculative serve: 8 repetitive requests (prompt 96, 128 new
     tokens, the shape of ``benchmarks/speculative.py``), batch 4,
     ``spec_k`` 8, greedy and sampled, speculation off (graphs), on with
     graphs (cold, then warm: the same engine serves the workload at
@@ -2557,7 +2648,7 @@ def phase_spec_serve(model, card):
         sp = SamplingParams(**sampling) if sampling else None
         runs = {}
         for way, kw in SPEC_WAYS.items():
-            reqs = spec_workload(vocab, sampling=sp)
+            reqs = spec_workload(vocab, n=SPEC_REQUESTS, sampling=sp)
             tag = f"spec {kind}, {way}"
             engine, m, got = serve(model, reqs, "paged", card, tag=tag,
                                    **{**SPEC_SERVE, **kw})
@@ -2567,8 +2658,8 @@ def phase_spec_serve(model, card):
                 launches = launches or got
                 rewarm(engine)
                 wtag = f"spec {kind}, on, graphs, warm"
-                wm, _ = run_served(engine, spec_workload(vocab, seed=1,
-                                                         sampling=sp),
+                wm, _ = run_served(engine, spec_workload(
+                    vocab, n=SPEC_REQUESTS, seed=1, sampling=sp),
                                    card, f"[serve {wtag}]")
                 table.append(spec_table_row(wtag, engine, wm))
                 spec_profile(engine, sp, card, kind)
@@ -2664,11 +2755,11 @@ def spec_profile(engine, sp, card, kind, steps=10):
                                    sum(engine.decode_token_samples),
                                    read_launches()["paged_decode_attention"]),
                                   c0))
-        kernels = [e for e in prof.events()
-                   if is_device_work(e)]
+        kernels = device_work(prof)
         if not kernels:
             raise AssertionError("profiler recorded no device activity")
-        traced = sum("paged_decode_split_kernel" in e.name for e in kernels)
+        traced = sum("paged_decode_split_kernel" in name
+                     for name, *_ in kernels)
         want = (plain_steps + iters) * engine.model.cfg.n_layers
         print(f"{tag} paged_decode_attention over the profiled steps: "
               f"launch counter +{counted}, trace {traced} split kernels "
@@ -2681,8 +2772,7 @@ def spec_profile(engine, sp, card, kind, steps=10):
     else:
         raise AssertionError(f"{tag}: three traces short of {want} split "
                              f"kernels")
-    busy = sum(e.time_range.end - e.time_range.start
-               for e in kernels) / 1e3 / steps
+    busy = sum(end - start for _, start, end, _ in kernels) / 1e6 / steps
     busy_iter = busy * steps / max(plain_steps + iters, 1)
     print(f"{tag} on {card}, {step_mode(engine)}: {steps} steps at batch "
           f"{len(engine.running)}: {verify_steps} verify steps of {iters} "
@@ -2892,7 +2982,7 @@ def phase_obs(model, card, modes):
     step, the trace written under ``chiprun_out/`` and valid. Then the
     event-timed device time of 10 steady steps against phase 4's
     profiler window, the observer's cost under overlap on a warm engine
-    (off, on, on, off, off, on), and the deadline and shedding serve."""
+    (off, on, on, off), and the deadline and shedding serve."""
     import torch
     from repro_torch.serving.obs import Observability, validate_chrome_trace
     out_dir = ROOT / "chiprun_out"
@@ -2947,7 +3037,7 @@ def phase_obs(model, card, modes):
     del engines
     want = modes["greedy", "graphs, overlap"]["reqs"]
     tps = {False: [], True: []}
-    for on in (False, True, True, False, False, True):
+    for on in (False, True, True, False):
         engine.obs = ob if on else None
         engine.reset_stats()
         reqs = serve_workload()
@@ -2958,7 +3048,7 @@ def phase_obs(model, card, modes):
         tps[on].append(m.output_throughput)
     off, on = statistics.median(tps[False]), statistics.median(tps[True])
     print(f"[obs] observer cost on {card}, warm graphs + overlap, the "
-          f"32-request serve off, on, on, off, off, on: output tok/s off "
+          f"32-request serve off, on, on, off: output tok/s off "
           f"{tps[False]}, on {tps[True]}; medians {off:.1f} / {on:.1f} "
           f"({(on / off - 1) * 100:+.2f}%)")
     del engine, obs, ob
@@ -2970,10 +3060,11 @@ def phase_obs(model, card, modes):
 CLUSTER_BUDGET = 32768       # KV tokens split across a cluster's replicas
 KILL_AFTER = 150             # a fault run kills replica 1 this many steps in
 FAULT_REQUESTS = 16          # a fault run serves the workload's first 16
+CLUSTER_REQUESTS = 32        # the measured serves' requests, all at t=0
 CLUSTER_WAYS = (("MAX", 1, 32), ("R=2", 2, 16), ("R=4", 4, 8))
 
 
-def cluster_workload(seed=0, n=64):
+def cluster_workload(seed=0, n=CLUSTER_REQUESTS):
     """The ``[cluster]`` phase's requests: the paged serve's generator
     (ShareGPT lengths, mean 161 in / 338 out, capped at 1024), all at
     t=0."""
@@ -3078,11 +3169,8 @@ def stream_intervals(prof, path):
     """Each device kernel of a profile as ``(stream, start_us, end_us,
     name)``: the stream from the event's device resource id, or, where
     the events do not carry it, from the Chrome trace's ``tid``."""
-    import torch
-    ks = [e for e in prof.events()
-          if is_device_work(e)]
-    out = [(getattr(e, "device_resource_id", None), e.time_range.start,
-            e.time_range.end, e.name) for e in ks]
+    out = [(stream, start / 1e3, end / 1e3, name)
+           for name, start, end, stream in device_work(prof)]
     if len({s for s, _, _, n in out if "paged_decode_split" in n}) > 1:
         return out
     prof.export_chrome_trace(str(path))
@@ -3244,7 +3332,7 @@ def cluster_faults(cluster, card, two):
 
 def phase_cluster(model, card):
     """``[cluster]``: the paper's replication (Sec. VI-B) on its own card.
-    The 64-request workload on one MAX engine (``max_batch=32``, the
+    The ``CLUSTER_REQUESTS`` workload on one MAX engine (``max_batch=32``, the
     32768-token budget) and on 2 and 4 co-located replicas splitting the
     budget (batch 16 and 8), each threaded, round-robin, graphs +
     overlap, cold then measured (:func:`cluster_way`); the R=2 cluster's
@@ -3273,7 +3361,8 @@ def phase_cluster(model, card):
         sync_reqs = cluster_workload()
         serve_cluster(cluster, sync_reqs, "[cluster R=2 sync]")
         diff = first_difference(r2_reqs, sync_reqs)
-        print(f"[cluster R=2] sync against threaded, the same 64 requests: "
+        print(f"[cluster R=2] sync against threaded, the same "
+              f"{len(sync_reqs)} requests: "
               f"{agreement(r2_reqs, sync_reqs)}"
               f"{'' if diff is None else '; first difference: ' + diff}")
         cluster.mode = "thread"
@@ -3461,7 +3550,7 @@ def api_cluster(model, card, a_reqs):
 
 
 LAUNCHER_RUNS = (
-    ("launcher_overlap", ["--requests", "64", "--overlap"]),
+    ("launcher_overlap", ["--requests", "32", "--overlap"]),
     ("launcher_bca", ["--bca", "--replicas", "auto", "--stream",
                       "--trace", "{out}/launcher_trace.json",
                       "--metrics-out", "{out}/launcher_metrics.prom",
@@ -3704,7 +3793,8 @@ def kernel_kind(name):
     # paged_decode_merge_kernel) hold the contiguous ones' names: test first
     if "paged_decode_" in name:
         return "paged attention kernel"
-    if "decode_split_kernel" in name or "decode_merge_kernel" in name:
+    if any(k in name for k in ("decode_split_kernel", "decode_merge_kernel",
+                               "decode_partials_kernel")):
         return "contiguous decode attention kernel"
     if "flash" in name:
         return "flash kernel"
@@ -3774,21 +3864,16 @@ def profile_decode(model, decode_mode, card, steps=10, sampling=None,
     exact = engine.steps.graphs_on and not engine.ecfg.overlap
     for attempt in range(3):
         prof, wall_ms, launched = steady_steps(engine, steps, lambda: profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            activities=[ProfilerActivity.CUDA]))
         counted = launched[counter]
-        kernels = [e for e in prof.events()
-                   if is_device_work(e)]
-        traced = sum(is_split(e.name) for e in kernels)
+        kernels = device_work(prof)
+        traced = sum(is_split(name) for name, *_ in kernels)
         # a trace can drop kernel records: a short one is taken again
         if not exact or traced >= want:
             break
     if not kernels:
         raise AssertionError("profiler recorded no device activity")
-    by_kind = {}
-    for e in kernels:
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / steps
+    by_kind = busy_by_kind(prof, steps)
     busy = sum(by_kind.values())
     ctx = sum(engine._pos.values())
     parts = ", ".join(f"{k} {v:.3f} ms ({v / busy * 100:.1f}%)"
@@ -3855,6 +3940,7 @@ def phase_times(card, prefill_sizes, serve_reqs):
     times["decode_attention"] = dict(decode[0], other_shapes=decode[1:])
     times["paged_decode_partials"], times["paged_decode_combine"] = \
         time_seq_partials(card)
+    times["decode_partials"] = time_decode_partials(card)
 
     counts = {}
     for r in serve_reqs:
@@ -3868,7 +3954,8 @@ def phase_times(card, prefill_sizes, serve_reqs):
         flops = 4 * 64 * 32 * S * (S + 1) / 2     # the causal half
         b_ms, b_by = bound(nbytes, flops)
         k_ms, k_call = timed(lambda: flash_attention(q, k, v))
-        p_ms = time_ms(lambda: flash_attention_torch(q, k, v), runs=10)
+        p_ms = time_ms(lambda: flash_attention_torch(q, k, v),
+                       runs=PLAIN_RUNS, warmup=1)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
@@ -3947,7 +4034,7 @@ def time_masked(card, what, S, P, pl, n):
     nbytes = (2 * q.numel() + 2 * kv_rows * K * hd) * q.element_size() + 4
     b_ms, b_by = bound(nbytes, 4 * hd * H * pairs)
     k_ms, k_call = timed(lambda: kernel(q, k, v, **kw))
-    p_ms = time_ms(lambda: plain(q, k, v, **kw), runs=10)
+    p_ms = time_ms(lambda: plain(q, k, v, **kw), runs=PLAIN_RUNS, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask[None, None], enable_gqa=True))
@@ -4005,8 +4092,8 @@ def time_flash(card, what, inputs, causal=True, window=None, lengths=None):
     b_ms, b_by = bound(nbytes, flops)
     kw = dict(causal=causal, window=window, lengths=lens)
     k_ms, k_call = timed(lambda: flash_attention(q, k, v, **kw))
-    p_ms = time_ms(lambda: flash_attention_torch(q, k, v, **kw), runs=3,
-                   warmup=1)
+    p_ms = time_ms(lambda: flash_attention_torch(q, k, v, **kw),
+                   runs=PLAIN_RUNS, warmup=1)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     bmask = mask[:, None]
     l_ms, l_call = timed(lambda: F.scaled_dot_product_attention(
@@ -4065,7 +4152,7 @@ def time_paged(card, what, q, kp, vp, table, lens):
     # a plain version issues hundreds of launches a call, more than the
     # launch queue holds behind a sleep: one call end to end
     p_ms = time_ms(lambda: paged_gqa_decode_attention_torch(
-        q, kp, vp, table, lens), runs=10)
+        q, kp, vp, table, lens), runs=PLAIN_RUNS, warmup=1)
     S = nb * BS
     kc = kp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
     vc = vp[table.long()].reshape(B, S, K, hd).transpose(1, 2).contiguous()
@@ -4167,7 +4254,8 @@ def time_seq_partials(card):
     k_ms = l2_cold_ms(lambda p: paged_decode_combine(p, torch.bfloat16),
                       copies((parts,)))
     p_ms = time_ms(lambda: paged_decode_combine_torch(parts,
-                                                      torch.bfloat16))
+                                                      torch.bfloat16),
+                   runs=PLAIN_RUNS, warmup=1)
     shape = (f"M={c['M']} pieces of [B={B}, H={H}, hd+2={hd + 2}] f32 "
              f"partials -> bf16 (the decode_32k case a layer)")
     combine = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
@@ -4180,6 +4268,65 @@ def time_seq_partials(card):
           f"us; one call end to end: kernel {k_call * 1e3:.1f} us, plain "
           f"{p_ms * 1e3:.1f} us; no library call computes the function")
     return partials, combine
+
+
+# the gather step of qwen2.5-3b over 1 x 4 under shard_kv_seq, on rank 0
+# (the rank holding the most rows): B 128, H 16 (every head), K 2, hd
+# 128, blocks of 16 with 4 rows a rank, a cache padded to 1024 positions
+SEQ_GATHER = dict(B=128, H=16, K=2, hd=128, BS=16, M=4, S=1024)
+
+
+def time_decode_partials(card):
+    """The contiguous kernel's partials entry at the gather step's rank
+    shape (``SEQ_GATHER``; the rank's rows of 128 ShareGPT-length
+    requests at their prompt plus half their outputs, bf16): device time
+    L2-cold (24 copies in turn) and warm beside the plain version's and
+    the bytes bound of the rows the rank holds; no library call computes
+    the function. Prints one line and returns the row."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_partials, decode_partials_torch, split_plan)
+    from repro_torch.models.attention import local_lengths
+    c = SEQ_GATHER
+    B, H, K, hd, BS, M = c["B"], c["H"], c["K"], c["hd"], c["BS"], c["M"]
+    rows = BS // M
+    n = c["S"] // BS * rows
+    lengths = [min(r.prompt_len + r.max_new_tokens // 2, c["S"])
+               for r in mesh_workload(32000, B)]
+    local = local_lengths(torch.tensor(lengths, dtype=torch.int32), BS,
+                          rows, 0).tolist()
+    q, k, v, lens = decode_inputs(B, n, K, H // K, hd, torch.bfloat16,
+                                  local, seed=14)
+    tokens = int(lens.sum())
+    nbytes = (2 * tokens * K * hd * 2 + q.numel() * 2 + B * H * (hd + 2) * 4
+              + lens.numel() * 4)
+    b_ms, b_by = bound(nbytes, 4 * tokens * H * hd)
+    k_warm, k_call = timed(lambda: decode_partials(q, k, v, lens))
+    caches = copies((k, v))
+    k_ms = l2_cold_ms(lambda k_l, v_l: decode_partials(q, k_l, v_l, lens),
+                      caches)
+    del caches
+    p_ms = time_ms(lambda: decode_partials_torch(q, k, v, lens),
+                   runs=PLAIN_RUNS, warmup=1)
+    plan = split_plan(B, n, K, H // K, hd)
+    shape = (f"B={B} H={H} K={K} hd={hd} bf16, {n} rows a request on the "
+             f"rank ({rows} of each {BS}-row block of a {c['S']}-position "
+             f"gather copy), {tokens} of them live: qwen2.5-3b's gather step"
+             f" on rank 0 of {M} under shard_kv_seq")
+    row = dict(ms=k_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, call_ms=k_call, library_call_ms=None,
+               ms_l2_warm=k_warm, gb_s=nbytes / (k_ms * 1e-3) / 1e9,
+               n_split=plan.n_split, shape=shape, library_call=None)
+    print(f"[times] on {card}: decode partials at {shape}, {plan.n_split} "
+          f"splits of {plan.rows_per_split} rows: device time, L2-cold "
+          f"({LAYERS} caches in turn): kernel {k_ms * 1e3:.1f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}), {row['gb_s']:.0f} GB/s achieved; "
+          f"L2-warm {k_warm * 1e3:.1f} us; one call end to end: kernel "
+          f"{k_call * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us; no library "
+          f"call computes the function")
+    del q, k, v, lens
+    release()
+    return row
 
 
 def time_decode(card, what, q, k, v, lens):
@@ -4204,7 +4351,8 @@ def time_decode(card, what, q, k, v, lens):
     del caches
     # a plain version issues hundreds of launches a call, more than the
     # launch queue holds behind a sleep: one call end to end
-    p_ms = time_ms(lambda: gqa_decode_attention_torch(q, k, v, lens), runs=10)
+    p_ms = time_ms(lambda: gqa_decode_attention_torch(q, k, v, lens),
+                   runs=PLAIN_RUNS, warmup=1)
     # the same function in one library call, on the same cache in SDPA's
     # [B, K, S, hd] layout (the transposing copy is made before timing)
     kc, vc = (t.transpose(1, 2).contiguous() for t in (k, v))
@@ -4562,20 +4710,13 @@ def scoped_kernels(prof):
     whose span holds the kernel, so a kernel launched through ``ctypes``
     (no PyTorch operation) is filed too. Returns (those pairs, kernels
     under no scope)."""
-    import torch
-    events = prof.events()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and getattr(e, "is_user_annotation", False))
+    work, scopes = device_work(prof, spans=True)
+    spans = sorted((s0, s1, n) for n, s0, s1 in scopes)
     pairs, bare = [], 0
-    for e in events:
-        if not is_device_work(e):
-            continue
-        t0, t1 = e.time_range.start, e.time_range.end
+    for _, t0, t1, _ in work:
         names = [n for s0, s1, n in spans if s0 <= t0 and t1 <= s1]
         bare += not names
-        pairs.append(("/".join(names), (t1 - t0) / 1e3))
+        pairs.append(("/".join(names), (t1 - t0) / 1e6))
     return pairs, bare
 
 
@@ -4711,7 +4852,10 @@ def phase_census(model, card):
                 launches=d.launches.total, busy=busy, bare=bare / n_dev)
 
 
-FAMILY_CAP = 128   # new tokens a request in a family's paged and gather serve
+FAMILY_CAP = 64    # new tokens a request in a family's paged and gather serve
+# family_graph_check's requests, their new tokens and its batch: more
+# requests than the batch, so the last take finished ones' slots
+FAMILY_CHECK = dict(n=12, cap=16, batch=8)
 
 
 def family_workload(cfg, n=16, cap=None):
@@ -4746,20 +4890,21 @@ def slots_home(engine, tag):
                              f"of {engine.ecfg.max_batch} after the serve")
 
 
-def family_graph_check(model, card, n=24, cap=24):
+def family_graph_check(model, card, n=FAMILY_CHECK["n"],
+                       cap=FAMILY_CHECK["cap"], batch=FAMILY_CHECK["batch"]):
     """The state staged through ``slots`` and read and written inside
     captured graphs under overlap, held to eager steps: ``n`` requests of
-    the family workload, each cut to ``cap`` new tokens, at batch 16 (so
-    the last eight take the slots and blocks of finished ones), served
-    with CUDA graphs and overlap, then with eager synchronous steps;
-    every output token must be equal."""
+    the family workload, each cut to ``cap`` new tokens, at ``batch`` (so
+    the last ``n - batch`` take the slots and blocks of finished ones),
+    served with CUDA graphs and overlap, then with eager synchronous
+    steps; every output token must be equal."""
     name = model.cfg.name
     served = {}
     for way in ("graphs, overlap", "eager, sync"):
         reqs = family_workload(model.cfg, n, cap)
         tag = f"families {name} {way}"
         engine, _, _ = serve(model, reqs, "paged", card, tag=tag,
-                             **WAYS[way])
+                             max_batch=batch, **WAYS[way])
         slots_home(engine, tag)
         del engine
         release()
@@ -4769,7 +4914,8 @@ def family_graph_check(model, card, n=24, cap=24):
         raise AssertionError(f"{name}: the graphs + overlap serve differs "
                              f"from the eager sync serve at {diff}")
     print(f"[families {name}] graphs + overlap against eager sync, {n} "
-          f"requests cut to {cap} new tokens at batch 16 (slots reused): "
+          f"requests cut to {cap} new tokens at batch {batch} (slots "
+          f"reused): "
           f"all {sum(r.generated for r in served['eager, sync'])} output "
           f"tokens equal")
 
@@ -4811,28 +4957,38 @@ def step_bound(engine):
     return bound(nbytes, 0.0)[0], nbytes / 1e9, model_s * 1e3
 
 
-def is_device_work(e):
-    """A trace event that is device work (a kernel, a copy or a fill):
-    not the device-side mirror of a ``record_function`` range, which the
-    models' scopes open while a profiler runs."""
+def device_work(prof, spans=False):
+    """The device work of a ``torch.profiler`` trace (kernels, copies,
+    fills; not the device-side mirrors of ``record_function`` ranges,
+    which the models' scopes open while a profiler runs) as
+    ``(name, start_ns, end_ns, stream)``, read off the profiler's raw
+    results: building its function events took seconds a window of some
+    10k kernels. With ``spans``, returns ``(work, spans)``, the spans
+    being those mirrors as ``(name, start_ns, end_ns)``."""
     import torch
-    return e.device_type == torch.autograd.DeviceType.CUDA and \
-        not getattr(e, "is_user_annotation", False)
+    cuda = torch.autograd.DeviceType.CUDA
+    work, scopes = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        if e.is_user_annotation():
+            scopes.append((e.name(), e.start_ns(), e.end_ns()))
+        else:
+            work.append((e.name(), e.start_ns(), e.end_ns(),
+                         e.device_resource_id()))
+    return (work, scopes) if spans else work
 
 
 def busy_by_kind(prof, calls):
     """Device busy ms a call by kernel kind in a ``torch.profiler`` trace
     of ``calls`` calls (raises on a trace with no device activity)."""
-    import torch
-    kernels = [e for e in prof.events()
-               if is_device_work(e)]
+    kernels = device_work(prof)
     if not kernels:
         raise AssertionError("profiler recorded no device activity")
     by_kind = {}
-    for e in kernels:
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / calls
+    for name, start, end, _ in kernels:
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e6 / calls
     return by_kind
 
 
@@ -4852,8 +5008,7 @@ def profile_calls(fn, calls=1):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
         for _ in range(calls):
@@ -4905,9 +5060,9 @@ def steady_profile(model, card, tag, steps=10, engine=None):
 
 def family_profile(model, card, engine, steps=10):
     """:func:`steady_profile` on ``engine`` (the family's paged serve's);
-    then the same engine's steps run eagerly for three more steps under
-    named scopes, which give the expert GEMMs' and the SSM state update's
-    share of the device time."""
+    then the same engine's step run eagerly once more under named
+    scopes, which give the expert GEMMs' and the SSM state update's share
+    of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     name = model.cfg.name
@@ -4921,20 +5076,18 @@ def family_profile(model, card, engine, steps=10):
         # update (repro_torch.core.analysis.scope)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as ep:
-            for _ in range(3):
-                engine.step(0.0)
+            engine.step(0.0)
             torch.cuda.synchronize()
     finally:
         st.graphs, st.graphs_on = saved
-    eager_busy = sum((e.time_range.end - e.time_range.start)
-                     for e in ep.events()
-                     if is_device_work(e))
+    eager_busy = sum(end - start
+                     for _, start, end, _ in device_work(ep)) / 1e3
     pairs, _ = scoped_kernels(ep)
     shares = {k: sum(t for path, t in pairs if k in path.split("/"))
               * 1e3 / max(eager_busy, 1e-9)
               for k in ("expert_ffn", "ssm_state_update")}
-    print(f"[families {name} profile] on {card}: 3 eager steps under named "
-          f"scopes: device {eager_busy / 3e3:.3f} ms/step, the expert "
+    print(f"[families {name} profile] on {card}: an eager step under named "
+          f"scopes: device {eager_busy / 1e3:.3f} ms/step, the expert "
           f"GEMMs (expert_ffn) {shares['expert_ffn'] * 100:.1f}% and the "
           f"SSM state update (ssm_state_update) "
           f"{shares['ssm_state_update'] * 100:.1f}% of it")
@@ -5170,7 +5323,7 @@ def slice13_encoder(card, B=8, S=1024):
     return launches
 
 
-def slice13_window(card, B=4, steps=256):
+def slice13_window(card, B=4, steps=128):
     """internlm2-1.8b at full width and depth (24 layers, bf16) with a
     sliding window of 8192: the static-batch loop on ``B`` prompts of
     10240 tokens (the ring wraps at prefill: it keeps the last 8192
@@ -6328,7 +6481,7 @@ def mesh_world_of_one(model, card):
                        zip(model.parameters(), m.parameters())):
                     raise AssertionError(f"a world of one ({tag}) copied "
                                          f"the weights")
-            reqs = serve_workload()[:MESH_FIRST]
+            reqs = cut_workload(serve_workload()[:MESH_FIRST])
             release()
             engine = ContinuousBatchingEngine(m, serve_config())
             sums = mesh_checksums(engine)
@@ -6397,7 +6550,7 @@ def mesh_mode_serves(model):
             lambda: prefix_workload(model)[:MESH_FIRST],
             dict(max_batch=8, overlap=True, prefill_chunk_tokens=128,
                  prefix_cache=True)),
-        "speculation": (lambda: spec_workload(vocab, n=8, max_new_tokens=64),
+        "speculation": (lambda: spec_workload(vocab, n=4, max_new_tokens=64),
                         dict(SPEC_SERVE)),
         "gather": (lambda: cut_workload(serve_workload()[:8]),
                    dict(decode_mode="gather")),
@@ -6412,7 +6565,12 @@ def mesh_world_of_one_modes(model, card, plain):
     cluster whose replica is a world of one (a ``ParallelReplica`` on a
     group of its own, weights drawn from seed 0) against ``plain``, the
     plain engine's serve of the paged serve's first ``MESH_FIRST``
-    requests. Returns each mesh serve's launches, by mode."""
+    requests. Each mode is served again under ``shard_kv_seq`` (a prefill
+    over a prefix through the all-gather of the prefix's rows, the gather
+    mode's decode through the contiguous kernel's partials entry and the
+    combine), tokens and every step's logits bit for bit against the
+    plain engine's. Returns each mesh serve's launches, by mode (the
+    ``shard_kv_seq`` ones under ``"<mode> kv_seq"``)."""
     import torch
     from repro_torch.distributed import MeshGroup, free_port
     from repro_torch.launch.mesh import make_model_mesh
@@ -6420,14 +6578,18 @@ def mesh_world_of_one_modes(model, card, plain):
     from repro_torch.models.model import Model
     from repro_torch.serving import (ContinuousBatchingEngine,
                                      ReplicatedCluster)
+    from repro_torch.sharding import rules_for
     mesh = make_model_mesh(["cuda:0"])
     group = MeshGroup.init(mesh, 0, f"tcp://127.0.0.1:{free_port()}")
     out = {}
     try:
         sharded = Model(model.cfg, model.params, mesh=mesh, group=group)
+        seq = Model(model.cfg, model.params, mesh=mesh, group=group,
+                    rules=rules_for(mesh, shard_kv_seq=True))
         for name, (make, kw) in mesh_mode_serves(model).items():
             runs = {}
-            for tag, m in (("plain", model), ("mesh", sharded)):
+            for tag, m in (("plain", model), ("mesh", sharded),
+                           ("kv_seq", seq)):
                 reqs = make()
                 release()
                 engine = ContinuousBatchingEngine(m, serve_config(**kw))
@@ -6440,18 +6602,26 @@ def mesh_world_of_one_modes(model, card, plain):
                 del engine
                 release()
             (pt, ps, pl, pg), (mt, ms, ml, mg) = runs["plain"], runs["mesh"]
+            st, ss, sl, sg = runs["kv_seq"]
             if mt != pt or not torch.equal(ms, ps) or ml != pl or mg != pg:
                 raise AssertionError(f"[mesh world-of-one {name}] the "
                                      f"sharded engine differs from the plain"
                                      f" one")
+            if st != pt or not torch.equal(ss, ps) or sg != pg:
+                raise AssertionError(f"[mesh world-of-one {name} kv_seq] "
+                                     f"the engine under shard_kv_seq "
+                                     f"differs from the plain one")
             print(f"[mesh world-of-one {name}] on {card}: {len(mt)} "
                   f"requests, {len(ms)} steps, {len(mg)} graphs: tokens and "
                   f"every step's logits equal to the plain engine's bit for "
-                  f"bit; launches {ml}")
-            out[name] = ml
+                  f"bit, under act_replicated and under shard_kv_seq; "
+                  f"launches {ml}, under shard_kv_seq {sl}")
+            out[name], out[f"{name} kv_seq"] = ml, sl
+        del sharded, seq
+        release()
     finally:
         group.close()
-    reqs = serve_workload()[:MESH_FIRST]
+    reqs = cut_workload(serve_workload()[:MESH_FIRST])
     lead = ParallelReplica(model.cfg, serve_config(), mesh, seed=0)
     engine = lead.lead()
     cluster = ReplicatedCluster([engine], slices=[["cuda:0"]],
@@ -6614,8 +6784,11 @@ def deep_logits(model, reqs, path="paged"):
     a paged pool of ``MESH_DEEP_ONE_POOL`` tokens; then one decode step of
     them all, each fed its prompt's first token (the inputs are fixed,
     not the model's picks): paged, or on the ``"gather"`` path through a
-    dense copy of the pool (the contiguous kernel). Returns the float32
-    prefill and decode logits on the host."""
+    dense copy of the pool (the contiguous kernel). Over a sharded KV
+    sequence the pool holds the rank's rows of each block, whose prefix
+    the model all-gathers and whose dense copy it decodes through every
+    rank's partials. Returns the float32 prefill and decode logits on
+    the host."""
     import torch
     from repro_torch.kvcache.paged import PagedKVCache
     from repro_torch.serving.steps import bucket, pow2_bucket
@@ -6631,14 +6804,16 @@ def deep_logits(model, reqs, path="paged"):
         if path == "chunked":
             h = n // 2
             _, first = model.prefill(toks[:, :h],
-                                     torch.tensor([h], device=dev))
+                                     torch.tensor([h], device=dev),
+                                     own_rows=False)
             pool.write_prefill(i, first, 0, h)
             nb = -(-h // 16)
             prefix = pool.gather_prefix(pool.manager.tables[i][:nb],
                                         pow2_bucket(nb))
             lt, rest = model.prefill(toks[:, h:],
                                      torch.tensor([n - h], device=dev),
-                                     prefix=prefix, prefix_len=h)
+                                     prefix=prefix, prefix_len=h,
+                                     own_rows=False, block_size=16)
             pool.write_prefill(i, rest, h, n - h)
         else:
             lt, cache = model.prefill(toks, torch.tensor([n], device=dev),
@@ -6652,7 +6827,7 @@ def deep_logits(model, reqs, path="paged"):
         pad = pool.manager.blocks_needed(bucket(max(positions) + 1, 64))
         pos = torch.tensor(positions, dtype=torch.int32, device=dev)
         dec = model.decode_step(feed, pool.gather(rids, pad), pos,
-                                lengths=pos + 1)
+                                lengths=pos + 1, block_size=16)
     else:
         nb = pow2_bucket(max(len(t) for t in pool.manager.tables.values()),
                          lo=4)
@@ -7031,22 +7206,23 @@ def mesh_deep_cfg(n_layers=None):
 
 
 def mesh_deep_serves(vocab, n):
-    """The deepseek serves over 1 x 4, by mode, each ``(requests, engine
-    settings)`` made afresh: the paged sync serve (the MAX engine),
-    overlap with chunked prefill, the prefix cache (4 tenants x n/4,
-    prefix 256), speculation (8 repetitive requests, batch 4) and
+    """The deepseek serves over 1 x 4, by mode, as :func:`mesh_modes_rank`
+    takes them (no profile window): the paged sync serve (the MAX
+    engine), overlap with chunked prefill, the prefix cache (4 tenants x
+    n/4, prefix 256), speculation (8 repetitive requests, batch 4) and
     gather; ``n`` ShareGPT-length requests at t=0."""
     from repro_torch.serving.workload import shared_prefix_workload
     return {
-        "paged": (mesh_workload(vocab, n), {}),
-        "overlap + chunked": (mesh_workload(vocab, n), dict(
-            overlap=True, prefill_chunk_tokens=MESH_CHUNK)),
-        "prefix cache": (shared_prefix_workload(
+        "paged": (lambda: mesh_workload(vocab, n), {}, None),
+        "overlap + chunked": (lambda: mesh_workload(vocab, n), dict(
+            overlap=True, prefill_chunk_tokens=MESH_CHUNK), None),
+        "prefix cache": (lambda: shared_prefix_workload(
             4, n // 4, vocab, prefix_len=256, suffix_len=32,
-            max_new_tokens=64, seed=0), dict(prefix_cache=True)),
-        "speculation": (spec_workload(vocab, n=8), dict(
-            max_batch=4, speculate=True, spec_k=8)),
-        "gather": (mesh_workload(vocab, n), dict(decode_mode="gather")),
+            max_new_tokens=64, seed=0), dict(prefix_cache=True), None),
+        "speculation": (lambda: spec_workload(vocab, n=8), dict(
+            max_batch=4, speculate=True, spec_k=8), None),
+        "gather": (lambda: mesh_workload(vocab, n),
+                   dict(decode_mode="gather"), None),
     }
 
 
@@ -7064,21 +7240,26 @@ def counted_launches(counters, n_layers):
     return want
 
 
-def mesh_modes_rank(group, n_layers, n, check):
-    """A rank's deepseek-coder-33b (drawn from seed 0 in slices, as one
-    card draws it), :func:`deep_logits` of ``check`` on each of
-    ``MESH_DEEP_PATHS``, then each of :func:`mesh_deep_serves` in turn
-    (``serve_mesh``; every logit finite, the launches counted from 0).
-    Rank 0 also returns each serve's metrics, the launches its engine
-    counted (:func:`expected_launches`) and its steady step."""
+def mesh_modes_rank(group, cfg, rules, serves, args, check):
+    """A rank's ``cfg`` under the flags ``rules`` (drawn from seed 0 in
+    slices, as one card draws it): :func:`deep_logits` of ``check`` on
+    each of ``MESH_DEEP_PATHS``; over a sharded KV sequence one layer's
+    ``MESH_PREFIX_TOKENS``-token prefix all-gather timed alone; then each
+    serve of ``serves(vocab, *args)`` in turn (``name -> (make, engine
+    settings over MESH_DEEP_ENGINE, the decode step a profile window of
+    MESH_SEQ_WINDOW steps starts at, or None)``; ``serve_mesh``, every
+    logit finite, the launches counted from 0, the rank's bytes). Rank 0
+    also returns each serve's metrics, the launches its engine counted
+    (:func:`expected_launches`), its steady step, the profile window's
+    busy by kernel kind and each chunk bucket's device ms."""
     import torch
     from repro_torch.launch.tensor_parallel import (engine_counters,
                                                     rank_model)
     from repro_torch.models.params import DRAW_SLICE_BYTES
     from repro_torch.serving import ContinuousBatchingEngine, EngineConfig
-    cfg = mesh_deep_cfg(n_layers)
     t0 = time.perf_counter()
-    model = rank_model(group, cfg, seed=0, slice_bytes=DRAW_SLICE_BYTES)
+    model = rank_model(group, cfg, seed=0, slice_bytes=DRAW_SLICE_BYTES,
+                       rules=rules)
     torch.cuda.synchronize()
     out = {"rank": group.rank, "heads": (model.n_heads, model.n_kv_heads),
            "init_s": time.perf_counter() - t0,
@@ -7087,19 +7268,40 @@ def mesh_modes_rank(group, n_layers, n, check):
     out["logits"] = {p: deep_logits(model, check, p)
                      for p in MESH_DEEP_PATHS}
     out["check_s"] = time.perf_counter() - t0
+    if model.seq_shard is not None:
+        out["prefix_gather"] = mesh_prefix_gather_ms(group, model,
+                                                     MESH_PREFIX_TOKENS)
     release()
-    for name in MESH_MODE_NAMES:
-        reqs, kw = mesh_deep_serves(cfg.vocab_size, n)[name]
+    for name, (make, kw, at) in serves(cfg.vocab_size, *args).items():
+        reqs = make()
         engine = ContinuousBatchingEngine(
             model, EngineConfig(**{**MESH_DEEP_ENGINE, **kw}))
-        marks = []
+        marks, window = [], {}
         if group.rank == 0:
             engine.steps.timing = True
             run = engine.steps._run
+            decodes = [0]
 
-            def marked(key, body, pool, run=run, engine=engine):
+            def marked(key, body, pool, run=run, engine=engine,
+                       marks=marks, window=window, decodes=decodes, at=at):
+                decode = key[0] not in ("prefill", "suffix")
+                decodes[0] += decode
+                if decode and decodes[0] == at:
+                    torch.cuda.synchronize()
+                    ctx = [engine._pos[r.req_id] for r in engine.running]
+                    window.update(batch=len(ctx),
+                                  context=sum(ctx) / max(len(ctx), 1))
+                    window["prof"] = torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA])
+                    window["prof"].start()
                 res = run(key, body, pool)
                 marks.append((key, engine.steps.last))
+                if "prof" in window and \
+                        decodes[0] == at + MESH_SEQ_WINDOW - 1:
+                    torch.cuda.synchronize()
+                    window["prof"].stop()
+                    window["by_kind"] = busy_by_kind(window.pop("prof"),
+                                                     MESH_SEQ_WINDOW)
                 return res
             engine.steps._run = marked
         torch.cuda.reset_peak_memory_stats()
@@ -7108,14 +7310,22 @@ def mesh_modes_rank(group, n_layers, n, check):
             t0 = time.perf_counter()
             metrics = engine.serve_mesh(reqs)
             torch.cuda.synchronize()
-            served = time.perf_counter() - t0
-            res = {"serve_s": served, "launches": read_launches(),
+            res = {"serve_s": time.perf_counter() - t0,
+                   "launches": read_launches(),
                    "peak": torch.cuda.max_memory_allocated(),
+                   "pool": engine.pool.pool_bytes,
                    "graphs": len(engine.steps.graphs)}
             if not bool(finite) or not bool(engine.steps.finite):
                 raise AssertionError(f"rank {group.rank}, {name}: NaN or "
                                      f"inf logits")
+        if "prof" in window:     # a serve shorter than its window
+            window.pop("prof").stop()
         if metrics is not None:
+            # each chunk bucket over a prefix: replays and device ms each
+            suffix = {}
+            for key, t in marks:
+                if key[0] == "suffix" and t.first_use is None:
+                    suffix.setdefault(key, []).append(t.device_s * 1e3)
             res.update(
                 want=expected_launches([engine]),
                 finish=[r.finish_reason for r in reqs],
@@ -7125,7 +7335,9 @@ def mesh_modes_rank(group, n_layers, n, check):
                 itl=(metrics.itl.p50, metrics.itl.p95),
                 ttft=(metrics.ttft.p50, metrics.ttft.p95),
                 wall_s=metrics.wall_s, preemptions=metrics.preemptions,
-                steady=steady_idle(marks),
+                steady=steady_idle(marks), window=dict(window),
+                suffix_ms={k: (len(v), sum(v) / len(v))
+                           for k, v in sorted(suffix.items())},
                 spec=metrics.spec_row() if engine.speculator else None,
                 prefix=(engine.prefix.stats.hit_tokens,
                         engine.prefill_tokens_computed)
@@ -7133,6 +7345,22 @@ def mesh_modes_rank(group, n_layers, n, check):
         out[name] = res
         del engine, marks
         release()
+    del model
+    release()
+    return out
+
+
+def mesh_one_card_paths(cfg, check):
+    """:func:`deep_logits` of the check prompts on one card (cuda:0) on
+    each of ``MESH_DEEP_PATHS``, ``cfg`` bf16 drawn from seed 0 in the
+    dry-run's slices (as each rank draws its blocks)."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import DRAW_SLICE_BYTES, init_params
+    model = Model(cfg, init_params(
+        cfg, torch.Generator("cuda").manual_seed(0),
+        slice_bytes=DRAW_SLICE_BYTES))
+    out = {p: deep_logits(model, check, p) for p in MESH_DEEP_PATHS}
     del model
     release()
     return out
@@ -7156,23 +7384,6 @@ def mesh_gather_time(card, n):
     del q, k, v, lens
     release()
     return row
-
-
-def mesh_deep_one_card_paths(card, check, n_layers):
-    """:func:`deep_logits` of the check prompts on one card (cuda:0) on
-    each of ``MESH_DEEP_PATHS``, deepseek-coder-33b bf16 drawn from seed 0
-    in the dry-run's slices."""
-    import torch
-    from repro_torch.models.model import Model
-    from repro_torch.models.params import DRAW_SLICE_BYTES, init_params
-    cfg = mesh_deep_cfg(n_layers)
-    model = Model(cfg, init_params(
-        cfg, torch.Generator("cuda").manual_seed(0),
-        slice_bytes=DRAW_SLICE_BYTES))
-    out = {p: deep_logits(model, check, p) for p in MESH_DEEP_PATHS}
-    del model
-    release()
-    return out
 
 
 def mesh_modes_report(ranks, one, card, n_layers):
@@ -7328,12 +7539,12 @@ def phase_mesh_modes(card, n_layers=None, n=MESH_DEEP_REQUESTS):
     gather = mesh_gather_time(card, n)
     check = mesh_workload(cfg.vocab_size, n)[:MESH_DEEP_CHECK]
     t0 = time.perf_counter()
-    one = mesh_deep_one_card_paths(card, check, n_layers)
+    one = mesh_one_card_paths(cfg, check)
     print(f"[mesh modes one-card] {MESH_DEEP} on cuda:0: the check on "
           f"{len(MESH_DEEP_PATHS)} paths in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    ranks = spawn(mesh_modes_rank, devices_mesh(MESH_DEEP_CARDS), n_layers,
-                  n, check)
+    ranks = spawn(mesh_modes_rank, devices_mesh(MESH_DEEP_CARDS), cfg, None,
+                  mesh_deep_serves, (n,), check)
     print(f"[mesh modes] {len(MESH_MODE_NAMES)} serves over 1 x "
           f"{MESH_DEEP_CARDS} in {time.perf_counter() - t0:.1f} s")
     mesh_modes_report(ranks, one, card, n_layers)
@@ -7362,15 +7573,13 @@ MESH_SEQ_PROFILED = 2        # and its profiled ones, after a barrier
 def busy_after_barrier(prof, calls):
     """:func:`busy_by_kind` of a trace whose first NCCL kernel is a
     barrier (dropped: it holds the wait for the other ranks)."""
-    events = sorted((e for e in prof.events() if is_device_work(e)),
-                    key=lambda e: e.time_range.start)
-    first = next(i for i, e in enumerate(events)
-                 if kernel_kind(e.name) == "NCCL collectives")
+    events = sorted(device_work(prof), key=lambda e: e[1])
+    first = next(i for i, (name, *_) in enumerate(events)
+                 if kernel_kind(name) == "NCCL collectives")
     by_kind = {}
-    for e in events[:first] + events[first + 1:]:
-        kind = kernel_kind(e.name)
-        by_kind[kind] = by_kind.get(kind, 0.0) + (
-            e.time_range.end - e.time_range.start) / 1e3 / calls
+    for name, start, end, _ in events[:first] + events[first + 1:]:
+        kind = kernel_kind(name)
+        by_kind[kind] = by_kind.get(kind, 0.0) + (end - start) / 1e6 / calls
     return by_kind
 
 
@@ -7583,7 +7792,7 @@ def mesh_seq_report(ranks, j, card):
     for r in ranks:
         x = r[j]
         got = {k: v for k, v in x["launches"].items() if v}
-        if got != {"paged_decode_partials": want,
+        if got != {"decode_partials": want,
                    "paged_decode_combine": want} or not x["finite"]:
             raise AssertionError(f"[mesh seq] rank {x['rank']}: "
                                  f"{x['launches']}, finite {x['finite']}")
@@ -7677,6 +7886,220 @@ def phase_mesh_rules(card, n_layers=None, n=MESH_DEEP_REQUESTS):
     return out
 
 
+# the serves of phase_mesh_seq over 1 x 4 under shard_kv_seq
+MESH_SEQ_CHUNK = 192         # the overlapped serve's chunk budget
+MESH_SEQ_NAMES = ("overlap + chunked", "prefix cache", "speculation",
+                  "gather", "long context")
+MESH_LONG = dict(n=16, prompt=32000, new=128, chunk=2048)
+MESH_SEQ_WINDOW = 10         # profiled decode steps a serve
+MESH_PREFIX_TOKENS = 30000   # the prefix whose all-gather is timed alone
+
+
+def mesh_prefix_gather_ms(group, model, tokens, bs=16, reps=10):
+    """One layer's prefix all-gather of a ``tokens``-token prefix over a
+    sequence-sharded pool of ``bs``-row blocks (the rank's rows of K and
+    V, bf16, put back in position order: :func:`attention.whole_prefix`),
+    on every rank at once: device ms a call (CUDA events over ``reps``
+    calls after one warm-up) and the bytes it brings to each rank."""
+    import torch
+    from repro_torch.models.attention import whole_prefix
+    n = -(-tokens // bs) * (bs // group.size)
+    k = torch.randn((1, n, model.n_kv_heads, model.cfg.hd),
+                    device=group.device).to(torch.bfloat16)
+    v = k.clone()
+    with group.active(model.layout):
+        whole_prefix(k, v, bs)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            whole = whole_prefix(k, v, bs)
+        end.record()
+        torch.cuda.synchronize()
+    return {"ms": start.elapsed_time(end) / reps,
+            "bytes": 2 * whole[0].numel() * whole[0].element_size()}
+
+
+def mesh_long_workload(vocab, n, prompt, new, seed=7):
+    """``n`` prompts of ``prompt`` seeded random tokens, ``new`` greedy
+    tokens each, all arrived at t=0."""
+    from repro_torch.serving.workload import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, vocab, prompt).astype(np.int32),
+                    max_new_tokens=new) for i in range(n)]
+
+
+def mesh_seq_serves(vocab, n):
+    """Each serve of :func:`phase_mesh_seq` by name: ``(make, engine
+    settings over MESH_DEEP_ENGINE, the decode step its profile window
+    starts at)``, ``make()`` its requests afresh: ``n`` ShareGPT-length
+    requests overlapped and chunked by ``MESH_SEQ_CHUNK``, and in the
+    gather mode; the prefix serve's 4 tenants x 8 at batch 8;
+    speculation's 16 repetitive requests at batch 4; the long-context
+    serve (``MESH_LONG``: prompts, their length, new tokens, chunk
+    budget)."""
+    import types
+    model = types.SimpleNamespace(cfg=types.SimpleNamespace(
+        vocab_size=vocab))
+    long = MESH_LONG
+    pool = long["n"] * (long["prompt"] + long["new"] + 16)
+    return {
+        "overlap + chunked": (lambda: mesh_workload(vocab, n), dict(
+            overlap=True, prefill_chunk_tokens=MESH_SEQ_CHUNK),
+            MESH_PROFILE_AT),
+        "prefix cache": (lambda: prefix_workload(model), dict(
+            max_batch=8, prefix_cache=True), 20),
+        "speculation": (lambda: spec_workload(vocab), dict(SPEC_SERVE), 20),
+        "gather": (lambda: mesh_workload(vocab, n),
+                   dict(decode_mode="gather"), MESH_PROFILE_AT),
+        "long context": (lambda: mesh_long_workload(
+            vocab, long["n"], long["prompt"], long["new"]), dict(
+            max_batch=long["n"], kv_pool_tokens=-(-pool // 4096) * 4096,
+            max_model_len=-(-(long["prompt"] + long["new"]) // 1024) * 1024,
+            prefill_chunk_tokens=long["chunk"]), 40),
+    }
+
+
+def mesh_seq_modes_report(ranks, one, card, n_layers):
+    """Each serve finished, launches exact and equal on every rank, its
+    numbers (tok/s, ITL and TTFT, the steady step and its idle share, the
+    profile window's busy by kind with NCCL, each rank's bytes); each
+    path's check logits within ``DEEP_TOL`` of one card's and equal on
+    every rank. Returns rank 0's numbers by serve."""
+    import torch
+    r0 = ranks[0]
+    L = mesh_rules_cfg(MESH_QWEN, n_layers).n_layers
+    tag = f"{MESH_QWEN} shard_kv_seq"
+    for path in MESH_DEEP_PATHS:
+        for r in ranks[1:]:
+            if any(not torch.equal(a, b) for a, b in zip(r["logits"][path],
+                                                         r0["logits"][path])):
+                raise AssertionError(f"[mesh seq modes] ranks' {path} "
+                                     f"logits differ")
+        gaps = [deep_gap_of(got, want) for got, want in
+                zip(r0["logits"][path], one[path])]
+        if max(gaps) > DEEP_TOL:
+            raise AssertionError(f"[mesh seq modes check {path}] {gaps} of "
+                                 f"the largest from one card's, above "
+                                 f"{DEEP_TOL}")
+        print(f"[mesh seq modes check {path}] {tag}, {L} layers, bf16 over "
+              f"1 x {len(ranks)} ({card}): the first {MESH_DEEP_CHECK} "
+              f"prompts' prefill and decode logits within {gaps[0]:.2e} and "
+              f"{gaps[1]:.2e} of the largest of one card's (DEEP_TOL "
+              f"{DEEP_TOL}); equal on every rank")
+    gathers = [r["prefix_gather"]["ms"] for r in ranks]
+    pg = r0["prefix_gather"]
+    print(f"[mesh seq prefix gather] {tag} over 1 x {len(ranks)} ({card}): "
+          f"one layer's all-gather of a {MESH_PREFIX_TOKENS}-token prefix "
+          f"(each rank's rows of K and V, put back in position order) "
+          f"brings {pg['bytes'] / 1e6:.1f} MB to each rank in "
+          f"{max(gathers):.3f} ms (slowest rank; "
+          f"{pg['bytes'] / (max(gathers) * 1e-3) / 1e9:.1f} GB/s), "
+          f"{max(gathers) * L:.2f} ms and {pg['bytes'] * L / 1e9:.2f} GB a "
+          f"chunk over {L} layers")
+    out = {"prefix_gather_ms": max(gathers),
+           "prefix_gather_bytes": pg["bytes"]}
+    for name in MESH_SEQ_NAMES:
+        x0 = r0[name]
+        if set(x0["finish"]) != {"length"}:
+            raise AssertionError(f"[mesh seq {name}] finish reasons "
+                                 f"{x0['finish']}")
+        for r in ranks:
+            if r[name]["launches"] != x0["want"]:
+                raise AssertionError(f"[mesh seq {name}] rank {r['rank']} "
+                                     f"launched {r[name]['launches']}, not "
+                                     f"{x0['want']}")
+            print(f"[mesh seq {name} rank {r['rank']}] heads {r['heads']}, "
+                  f"weights {gb(r['weights'])}, K/V pool "
+                  f"{gb(r[name]['pool'])}, peak {gb(r[name]['peak'])}, serve "
+                  f"{r[name]['serve_s']:.1f} s, {r[name]['graphs']} graphs")
+        st = x0["steady"]
+        steady = (f"steady step {st['ms']:.2f} ms of device time at bucket "
+                  f"{st['bucket']} over {st['steps']} steps, idle share "
+                  f"{st['idle'] * 100:.1f}%" if st else "no steady window")
+        win = x0["window"]
+        prof = "no profile window"
+        if "by_kind" in win:
+            busy = sum(win["by_kind"].values())
+            nccl = win["by_kind"].get("NCCL collectives", 0.0)
+            prof = (f"{MESH_SEQ_WINDOW} profiled decode steps at batch "
+                    f"{win['batch']}, mean context {win['context']:.0f}: "
+                    f"{busy:.3f} ms busy a step, NCCL {nccl:.3f} ms "
+                    f"({nccl / busy * 100:.1f}%); by kind "
+                    f"{kind_parts(win['by_kind'])}")
+        extra = ""
+        if x0["spec"]:
+            extra = f"; {x0['spec']}"
+        if x0["prefix"]:
+            extra = (f"; {x0['prefix'][0]} prompt tokens from the prefix "
+                     f"cache, {x0['prefix'][1]} computed")
+        if x0["suffix_ms"]:
+            extra += (f"; chunks over a prefix by bucket (S, nb_pad): "
+                      + ", ".join(f"{k[1:]} {v[0]} x {v[1]:.2f} ms"
+                                  for k, v in x0["suffix_ms"].items()))
+            # the most replayed bucket whose prefix pad holds the timed
+            # prefix: its chunks' all-gathers are about the timed one's
+            wide = [k for k in x0["suffix_ms"]
+                    if k[2] * 16 >= MESH_PREFIX_TOKENS]
+            if wide:
+                top = max(wide, key=lambda k: x0["suffix_ms"][k][0])
+                ms = x0["suffix_ms"][top][1]
+                extra += (f"; at {top[1:]} a chunk's prefix all-gathers "
+                          f"take ~{max(gathers) * L:.2f} ms of its {ms:.2f} "
+                          f"ms ({max(gathers) * L / ms * 100:.0f}%: the "
+                          f"{MESH_PREFIX_TOKENS}-token gather timed alone "
+                          f"x {L} layers)")
+        c = x0["counters"]
+        print(f"[mesh seq {name}] {tag} bf16, {L} layers, over 1 x "
+              f"{len(ranks)} ({card}): {len(x0['finish'])} requests, "
+              f"{x0['output_tokens']} output tokens, {c['decode_steps']} "
+              f"decode steps, {c['spec_steps']} verify steps, "
+              f"{c['prefills']} prefills, {c['chunks']} chunks "
+              f"({c['suffix_prefills']} over a prefix), "
+              f"{x0['preemptions']} preemptions; output {x0['tok_s']:.1f} "
+              f"tok/s, ITL p50 {x0['itl'][0] * 1e3:.2f} ms p95 "
+              f"{x0['itl'][1] * 1e3:.2f} ms, TTFT p50 "
+              f"{x0['ttft'][0] * 1e3:.1f} ms p95 {x0['ttft'][1] * 1e3:.1f} "
+              f"ms, wall {x0['wall_s']:.1f} s; {steady}; {prof}{extra}; "
+              f"launches {x0['launches']} on every rank")
+        out[name] = dict(tok_s=x0["tok_s"], itl=x0["itl"], ttft=x0["ttft"],
+                         steady=st, window=win.get("by_kind"),
+                         suffix_ms=x0["suffix_ms"])
+    return out
+
+
+def phase_mesh_seq(card, n_layers=None, n=MESH_DEEP_REQUESTS):
+    """Every engine mode over a KV sequence sharded on the model axis
+    across four cards (``tools/mesh_smoke.py --seq``): qwen2.5-3b (K 2,
+    which 4 ranks do not divide) under shard_kv_seq over 1 x 4 in each
+    of :func:`mesh_seq_serves` (:func:`mesh_modes_rank`), its check
+    prompts' logits on each path against one card's. ``n_layers`` and
+    ``n`` cut depth and requests for a short first call."""
+    import torch
+    from repro_torch.distributed import devices_mesh, spawn
+    if torch.cuda.device_count() < MESH_DEEP_CARDS:
+        print(f"[mesh seq modes] needs {MESH_DEEP_CARDS} cards, this "
+              f"machine has {torch.cuda.device_count()}")
+        return None
+    cfg = mesh_rules_cfg(MESH_QWEN, n_layers)
+    check = mesh_workload(cfg.vocab_size, n)[:MESH_DEEP_CHECK]
+    t0 = time.perf_counter()
+    one = mesh_one_card_paths(cfg, check)
+    print(f"[mesh seq modes one-card] {MESH_QWEN} bf16, {cfg.n_layers} "
+          f"layers on cuda:0 ({card}): the check's three paths in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jobs = [(mesh_profiler_warmup, ()),
+            (mesh_modes_rank, (cfg, MESH_RULES["kv_seq"], mesh_seq_serves,
+                               (n,), check))]
+    ranks = [r[1] for r in spawn(mesh_rank_jobs,
+                                 devices_mesh(MESH_DEEP_CARDS), jobs)]
+    print(f"[mesh seq modes] {len(MESH_SEQ_NAMES)} serves over 1 x "
+          f"{MESH_DEEP_CARDS} in {time.perf_counter() - t0:.1f} s")
+    return mesh_seq_modes_report(ranks, one, card, n_layers)
+
+
 def phase_mesh(model, card, paged):
     """Tensor parallelism over a mesh's model axis (module docstring):
     the world of one on cuda:0, in every engine mode and as a sliced
@@ -7730,7 +8153,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     errs = {"paged": {"sweep": 0.0}, "decode": {}, "partials": {},
-            "combine": {},
+            "combine": {}, "decode_partials": {},
             "flash": {"reference_cases": 0.0, "serving_shape": 0.0},
             "flash_prefix": {}, "flash_train": {}}
     phase("2, kernels", phase_kernels, errs)
@@ -7806,13 +8229,19 @@ def main() -> int:
         "paged_decode_combine": (
             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
             "src/repro/kernels/paged_decode_attention.py:78", "mesh kv_seq"),
+        # the contiguous kernel's entry over a sharded KV sequence: the
+        # world of one's gather serve under shard_kv_seq launches it
+        "decode_partials": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:67", "mesh gather kv_seq"),
     }
     for name, key in (("paged_decode_attention", "paged"),
                       ("flash_attention", "flash"),
                       ("flash_prefix_attention", "flash_prefix"),
                       ("decode_attention", "decode"),
                       ("paged_decode_partials", "partials"),
-                      ("paged_decode_combine", "combine")):
+                      ("paged_decode_combine", "combine"),
+                      ("decode_partials", "decode_partials")):
         t = times[name]
         source, replaces, path = meta[name]
         kernels.append({

@@ -40,6 +40,17 @@
 //   head, rescaled once per batch of rows; no barrier in the loop. Groups
 //   merge by shuffles, warps through shared memory, at the end.
 //
+// A second entry, `decode_partials`, carries a decode whose KV sequence is
+// sharded over several cards (each card holds some rows of every request):
+// the same split kernel, without the length-0 quirk (a row of length 0 has
+// no live split), and a merge that writes each (request, head)'s
+// unnormalised (acc, m, l) over the card's rows, f32 [B, H, hd + 2] (acc =
+// 0, m = -inf, l = 0 where the card holds no live row), instead of the
+// normalised output. Those are the partials that `paged_decode_combine`
+// (csrc/paged_decode_attention.cu) takes from M cards to the output, so
+// an empty piece adds nothing and the combine gives the exact answer. The
+// partials are a few KB a row; the KV read stays the split kernel's.
+//
 // Head dim and dtype are template parameters (no loop tests d < hd); the
 // head group G runs in a register array sized for G rounded up to 1, 2, 4
 // or 8. The lane groups, the fold of a batch of rows and the merge of
@@ -49,7 +60,8 @@
 // Layouts: q/out [B, H, hd] contiguous; k/v [B, S, K, hd] with the last
 // dimension contiguous and equal element strides (sb, ss, sk) for both, every
 // row 16-byte aligned; lengths [B] int32; scratch [B, K, n_split, G, hd + 2]
-// f32, allocated by the caller. 128 threads a block, both kernels.
+// f32, allocated by the caller; the partials [B, H, hd + 2] f32. 128
+// threads a block, every kernel.
 
 #include <cmath>
 
@@ -68,14 +80,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ lengths,
                     float* __restrict__ part, int S, int K, int G,
                     long long sb, long long ss, long long sk, int n_split,
-                    int rows_per_split, float scale) {
+                    int rows_per_split, float scale, bool quirk) {
   using L = Lanes<T, HD, GM>;
   constexpr int E = L::kElems;
 
   const int b = blockIdx.x, kh = blockIdx.y, split = blockIdx.z;
   const int length = lengths[b];
-  const bool empty = length <= 0;            // the TPU kernel's quirk
-  const int n_tok = empty ? S : min(length, S);
+  // the TPU kernel's quirk; without it a length-0 row has no live split
+  const bool empty = quirk && length <= 0;
+  const int n_tok = empty ? S : min(max(length, 0), S);
   const int r0 = split * rows_per_split;
   if (r0 >= n_tok) return;                   // wholly past the row's length
   const int r1 = min(r0 + rows_per_split, n_tok);
@@ -183,17 +196,55 @@ decode_merge_kernel(const float* __restrict__ part,
   }
 }
 
+// The partials: each (request, head)'s live splits, ceil(min(length, S) /
+// rows_per_split) of them, merged but not normalised, [B, K, G, hd + 2] =
+// [B, H, hd + 2] f32 (acc, then m, then l); no live split (a length-0 row)
+// gives acc = 0, m = -inf, l = 0.
+__global__ void __launch_bounds__(kThreads)
+decode_partials_kernel(const float* __restrict__ part,
+                       const int* __restrict__ lengths,
+                       float* __restrict__ out, int S, int K, int G, int hd,
+                       int n_split, int rows_per_split) {
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int n_tok = min(max(lengths[b], 0), S);
+  const int n_live = (n_tok + rows_per_split - 1) / rows_per_split;
+  const int w = hd + 2;
+  const float* pb = part + ((size_t)b * K + kh) * n_split * G * w;
+  const size_t split_stride = (size_t)G * w;
+  float* ob = out + ((size_t)b * K + kh) * G * w;
+  for (int i = threadIdx.x; i < G * w; i += kThreads) {
+    const int g = i / w, d = i - g * w;
+    if (n_live == 0) {
+      ob[i] = d == hd ? -INFINITY : 0.f;
+      continue;
+    }
+    const float* p = pb + g * w;
+    float mx = kNegInf;
+    for (int s = 0; s < n_live; ++s) mx = fmaxf(mx, p[s * split_stride + hd]);
+    if (d == hd) {
+      ob[i] = mx;
+      continue;
+    }
+    float a = 0.f;
+    for (int s = 0; s < n_live; ++s) {
+      const float* ps = p + s * split_stride;
+      a = fmaf(expf(ps[hd] - mx), ps[d], a);
+    }
+    ob[i] = a;
+  }
+}
+
 template <typename T, int HD, int GM>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const void* lengths, float* part, int B, int S,
                          int K, int G, long long sb, long long ss,
                          long long sk, int n_split, int rows_per_split,
-                         cudaStream_t stream) {
+                         bool quirk, cudaStream_t stream) {
   decode_split_kernel<T, HD, GM><<<dim3(B, K, n_split), kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths), part, S, K,
       G, sb, ss, sk, n_split, rows_per_split,
-      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))));
+      static_cast<float>(1.0 / std::sqrt(static_cast<double>(HD))), quirk);
   return cudaGetLastError();
 }
 
@@ -201,52 +252,62 @@ template <typename T, int HD>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v,
                        const void* lengths, float* part, int B, int S, int K,
                        int G, long long sb, long long ss, long long sk,
-                       int n_split, int rows_per_split, cudaStream_t s) {
+                       int n_split, int rows_per_split, bool quirk,
+                       cudaStream_t s) {
   if (G <= 1)
     return launch_split<T, HD, 1>(q, k, v, lengths, part, B, S, K, G, sb, ss,
-                                  sk, n_split, rows_per_split, s);
+                                  sk, n_split, rows_per_split, quirk, s);
   if (G <= 2)
     return launch_split<T, HD, 2>(q, k, v, lengths, part, B, S, K, G, sb, ss,
-                                  sk, n_split, rows_per_split, s);
+                                  sk, n_split, rows_per_split, quirk, s);
   if (G <= 4)
     return launch_split<T, HD, 4>(q, k, v, lengths, part, B, S, K, G, sb, ss,
-                                  sk, n_split, rows_per_split, s);
+                                  sk, n_split, rows_per_split, quirk, s);
   return launch_split<T, HD, 8>(q, k, v, lengths, part, B, S, K, G, sb, ss,
-                                sk, n_split, rows_per_split, s);
+                                sk, n_split, rows_per_split, quirk, s);
 }
 
+// partials: write the f32 partials [B, H, hd + 2] to out (no length-0
+// quirk), not the output
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, float* part, int B, int S,
                    int K, int G, int hd, long long sb, long long ss,
                    long long sk, int Sp, int n_split, int rows_per_split,
-                   cudaStream_t s) {
+                   bool partials, cudaStream_t s) {
+  const bool quirk = !partials;
   cudaError_t err;
   switch (hd) {
     case 64:
       err = dispatch_g<T, 64>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
-                              n_split, rows_per_split, s);
+                              n_split, rows_per_split, quirk, s);
       break;
     case 80:
       err = dispatch_g<T, 80>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
-                              n_split, rows_per_split, s);
+                              n_split, rows_per_split, quirk, s);
       break;
     case 96:
       err = dispatch_g<T, 96>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
-                              n_split, rows_per_split, s);
+                              n_split, rows_per_split, quirk, s);
       break;
     case 112:
       err = dispatch_g<T, 112>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
-                               n_split, rows_per_split, s);
+                               n_split, rows_per_split, quirk, s);
       break;
     case 128:
       err = dispatch_g<T, 128>(q, k, v, lengths, part, B, S, K, G, sb, ss, sk,
-                               n_split, rows_per_split, s);
+                               n_split, rows_per_split, quirk, s);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
+  if (partials) {
+    decode_partials_kernel<<<dim3(B, K), kThreads, 0, s>>>(
+        part, static_cast<const int*>(lengths), static_cast<float*>(out), S,
+        K, G, hd, n_split, rows_per_split);
+    return cudaGetLastError();
+  }
   decode_merge_kernel<T><<<dim3(B, K), kThreads, 0, s>>>(
       part, static_cast<const int*>(lengths), static_cast<T*>(out), S, K, G,
       hd, n_split, rows_per_split, Sp);
@@ -256,6 +317,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 
 extern "C" {
+
+static int run(const void* q, const void* k, const void* v,
+               const void* lengths, void* out, void* part, int B, int S,
+               int K, int G, int hd, long long sb, long long ss, long long sk,
+               int Sp, int n_split, int rows_per_split, int dtype,
+               bool partials, void* stream) {
+  if (B <= 0 || K <= 0) return cudaSuccess;
+  if (S <= 0 || Sp < S || G < 1 || G > kMaxG || hd <= 0 || hd > kMaxHd ||
+      n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
+      (long long)n_split * rows_per_split < S)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(part);
+  switch (dtype) {
+    case 0:
+      return launch<float>(q, k, v, lengths, out, p, B, S, K, G, hd, sb, ss,
+                           sk, Sp, n_split, rows_per_split, partials, s);
+    case 1:
+      return launch<__nv_bfloat16>(q, k, v, lengths, out, p, B, S, K, G, hd,
+                                   sb, ss, sk, Sp, n_split, rows_per_split,
+                                   partials, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 // dtype: 0 = float32, 1 = bfloat16. sb/ss/sk are K's and V's element
 // strides over batch, sequence and KV head. Sp is the TPU kernel's padded
@@ -267,24 +353,19 @@ int decode_attention(const void* q, const void* k, const void* v,
                      int K, int G, int hd, long long sb, long long ss,
                      long long sk, int Sp, int n_split, int rows_per_split,
                      int dtype, void* stream) {
-  if (B <= 0 || K <= 0) return cudaSuccess;
-  if (S <= 0 || Sp < S || G < 1 || G > kMaxG || hd <= 0 || hd > kMaxHd ||
-      n_split < 1 || n_split > 65535 || rows_per_split < 1 ||
-      (long long)n_split * rows_per_split < S)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(part);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, lengths, out, p, B, S, K, G, hd, sb, ss,
-                           sk, Sp, n_split, rows_per_split, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, lengths, out, p, B, S, K, G, hd,
-                                   sb, ss, sk, Sp, n_split, rows_per_split,
-                                   s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return run(q, k, v, lengths, out, part, B, S, K, G, hd, sb, ss, sk, Sp,
+             n_split, rows_per_split, dtype, false, stream);
+}
+
+// As decode_attention, but out is the f32 partials [B, H, hd + 2] and a
+// length-0 row is an empty piece (Sp is not read).
+int decode_partials(const void* q, const void* k, const void* v,
+                    const void* lengths, void* out, void* part, int B, int S,
+                    int K, int G, int hd, long long sb, long long ss,
+                    long long sk, int Sp, int n_split, int rows_per_split,
+                    int dtype, void* stream) {
+  return run(q, k, v, lengths, out, part, B, S, K, G, hd, sb, ss, sk, Sp,
+             n_split, rows_per_split, dtype, true, stream);
 }
 
 const char* decode_attention_error_string(int code) {

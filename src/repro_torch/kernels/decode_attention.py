@@ -20,6 +20,18 @@ the number of splits from the shapes alone, each split writes its
 unnormalised ``(acc, m, l)`` to an f32 scratch, and a second kernel merges
 them. :func:`split_partials_torch` and :func:`merge_partials_torch` are
 that arithmetic in plain PyTorch, for the CPU tests.
+
+A second entry carries a decode over a KV sequence sharded on the model
+axis (each rank holds some rows of every request's cache):
+:func:`decode_partials` runs the split kernel over the rank's rows and
+writes each row's and head's unnormalised ``(acc, m, l)`` as ``[B, H,
+hd + 2]`` float32, the pieces that
+:func:`~repro_torch.kernels.paged_decode_attention.paged_decode_combine`
+takes from every rank to the output. A length-0 row is an empty piece
+(``acc = 0``, ``m = -inf``, ``l = 0``), not the quirk above: over a
+sharded sequence a rank holding no row of a request is common, and the
+combine then gives the exact answer. :func:`decode_partials_torch` is its
+plain version, run on CPU tensors only.
 """
 from __future__ import annotations
 
@@ -81,6 +93,16 @@ def gqa_decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
     """The plain version: the reference kernel's formula, tile for tile —
     K/V zero-padded to ``Sp``, an f32 online softmax over ``Sp/bs`` tiles
     and no tile skipped (counterpart of ``_decode_kernel``)."""
+    acc, _, l = _online_state(q, k, v, lengths, block_s, quirk=True)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
+def _online_state(q, k, v, lengths, block_s: int, quirk: bool):
+    """The plain versions' f32 online softmax over ``bs``-row tiles of
+    the zero-padded cache: ``(acc [B,K,G,hd], m [B,K,G], l [B,K,G])``,
+    unnormalised. With ``quirk`` a length-0 row weighs every padded slot
+    1 (the TPU kernel's); without, it has no live row (``l = 0``)."""
     B, H, hd = q.shape
     S, K = k.shape[1], k.shape[2]
     G = H // K
@@ -102,12 +124,28 @@ def gqa_decode_attention_torch(q: torch.Tensor, k: torch.Tensor,
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
+        if not quirk:
+            p = torch.where(valid, p, 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgs,bskh->bkgh", p, vc)
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.reshape(B, H, hd).to(q.dtype)
+    return acc, m, l
+
+
+def decode_partials_torch(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths: torch.Tensor, *,
+                          block_s: int = 256) -> torch.Tensor:
+    """The partials entry's plain version: the whole plain version's
+    online softmax, unnormalised, each row's and head's ``(acc, m, l)``
+    over its first ``min(lengths, S)`` rows, ``[B, H, hd + 2]`` float32;
+    ``acc = 0``, ``m = -inf``, ``l = 0`` for a length-0 row. One piece's
+    partials combine to :func:`gqa_decode_attention_torch`'s bits."""
+    B, H, hd = q.shape
+    acc, m, l = _online_state(q, k, v, lengths, block_s, quirk=False)
+    m = torch.where(l > 0, m, float("-inf"))
+    return torch.cat([acc.reshape(B, H, hd), m.reshape(B, H, 1),
+                      l.reshape(B, H, 1)], -1)
 
 
 def _live_rows(lengths: torch.Tensor, S: int) -> torch.Tensor:
@@ -195,9 +233,9 @@ def merge_partials_torch(part: torch.Tensor, lengths: torch.Tensor, S: int,
 
 
 @functools.cache
-def _entry():
+def _entry(symbol: str = NAME):
     lib = _build.library(NAME)
-    fn = getattr(lib, NAME)
+    fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
@@ -272,29 +310,69 @@ def gqa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"block_s must be >= 1, got {block_s}")
     if q.device.type == "cpu":
         return gqa_decode_attention_torch(q, k, v, lengths, block_s=block_s)
+    out = torch.empty_like(q)
+    S = k.shape[1] if k.dim() == 4 else 1
+    bs = min(block_s, S)
+    if _launch(NAME, q, k, v, lengths, out, -(-S // bs) * bs):
+        count_launch(gqa_decode_attention)
+    return out
+
+
+def _launch(symbol: str, q, k, v, lengths, out, Sp: int) -> bool:
+    """Launch the split kernel and the merge of ``symbol`` (the output or
+    the partials into ``out``) on a CUDA tensor; False where there is no
+    work (a meta tensor, an empty batch)."""
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     _check_args(q, k, v, lengths)
     B, H, hd = q.shape
     _, S, K, _ = k.shape
-    bs = min(block_s, S)
-    out = torch.empty_like(q)
     if B == 0 or q.device.type == "meta":
-        return out
+        return False
     plan = split_plan(B, S, K, H // K, hd)
     part = torch.empty(plan.scratch_shape, dtype=torch.float32,
                        device=q.device)
     with torch.cuda.device(q.device):
-        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
-                      B, S, K, H // K, hd, *k.stride()[:3], -(-S // bs) * bs,
-                      plan.n_split, plan.rows_per_split, _DTYPES[q.dtype],
-                      torch.cuda.current_stream().cuda_stream)
+        rc = _entry(symbol)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            lengths.data_ptr(), out.data_ptr(),
+                            part.data_ptr(), B, S, K, H // K, hd,
+                            *k.stride()[:3], Sp, plan.n_split,
+                            plan.rows_per_split, _DTYPES[q.dtype],
+                            torch.cuda.current_stream().cuda_stream)
     _build.check(NAME, rc)
-    count_launch(gqa_decode_attention)
+    return True
+
+
+def partials_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor) -> KernelCost:
+    """:func:`decode_cost` with the float32 partials ``[B, H, hd + 2]``
+    written in place of the output."""
+    c = decode_cost(q, k, v, lengths)
+    B, H, hd = q.shape
+    return dataclasses.replace(
+        c, bytes=c.bytes - q.numel() * q.element_size()
+        + 4 * B * H * (hd + 2))
+
+
+@counted_kernel("decode_partials", partials_cost)
+def decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """The partials entry: each row's and head's unnormalised ``(acc, m,
+    l)`` over its first ``lengths`` rows, ``[B, H, hd + 2]`` float32, an
+    empty piece for a length-0 row (the split kernel and a merge that does
+    not normalise, for CUDA tensors; the plain version for CPU
+    tensors)."""
+    if q.device.type == "cpu":
+        return decode_partials_torch(q, k, v, lengths)
+    B, H, hd = q.shape
+    out = torch.empty((B, H, hd + 2), dtype=torch.float32, device=q.device)
+    S = k.shape[1] if k.dim() == 4 else 1
+    if _launch("decode_partials", q, k, v, lengths, out, S):
+        count_launch(decode_partials)
     return out
 
 
 # kernel launches since the last reset (counted only where the kernel runs;
 # one a call, the split kernel and its merge together)
 gqa_decode_attention.launches = 0
+decode_partials.launches = 0

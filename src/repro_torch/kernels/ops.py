@@ -7,7 +7,8 @@ from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from repro_torch.kernels.decode_attention import gqa_decode_attention
+from repro_torch.kernels.decode_attention import (decode_partials,
+                                                  gqa_decode_attention)
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_prefix_attention)
 from repro_torch.kernels.paged_decode_attention import (
@@ -67,7 +68,8 @@ def launch_counters() -> Dict[str, Callable]:
             "paged_decode_combine": pg.paged_decode_combine,
             "flash_attention": fl.flash_attention,
             "flash_prefix_attention": fl.flash_prefix_attention,
-            "decode_attention": dec.gqa_decode_attention}
+            "decode_attention": dec.gqa_decode_attention,
+            "decode_partials": dec.decode_partials}
 
 
 def launch_counts() -> Dict[str, int]:

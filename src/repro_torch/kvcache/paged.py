@@ -49,7 +49,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.view import PagedCacheView, step_fields, step_size
-from repro_torch.launch.mesh import multi_card_item
+from repro_torch.models.attention import own_rows
 from repro_torch.models.params import (READ_ONLY_STATE, cache_layers,
                                        state_leaves)
 
@@ -277,7 +277,12 @@ class PagedKVCache:
     allocator every rank keeps. A row is written on the rank that holds
     it (the trash block elsewhere), the staged addresses staying every
     rank's; a decode step computes the rank's valid rows from the staged
-    lengths (:func:`~repro_torch.models.attention.local_lengths`)."""
+    lengths (:func:`~repro_torch.models.attention.local_lengths`). A dense
+    copy (:meth:`gather_tables`, :meth:`gather`, :meth:`gather_prefix`)
+    holds the rank's rows of each block, ``nb * BS/M`` a request, and a
+    write back takes only the rows the rank holds; a copy-on-write fork
+    and a rollback act on each rank's own rows, as on every rank's
+    tables."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
                  device: torch.device, max_batch: Optional[int] = None,
@@ -383,15 +388,19 @@ class PagedKVCache:
         block, and a slot counts within the rank's rows."""
         if self.seq_shard is None:
             return phys, sib
-        own = sib // self.rows == self.seq_shard[0]
-        return torch.where(own, phys, self.trash_block), sib % self.rows
+        own, row, _ = own_rows(sib, self.block_size, self.rows,
+                               self.seq_shard[0])
+        return torch.where(own, phys, self.trash_block), row
 
-    def _no_seq(self, what: str):
-        """Refuse what a pool of a sharded KV sequence does not do."""
-        if self.seq_shard is not None:
-            raise NotImplementedError(
-                f"{what} over a KV sequence sharded on the model axis "
-                f"({multi_card_item('kv_seq')})")
+    def _dense_rows(self, pos: torch.Tensor) -> torch.Tensor:
+        """Where position ``pos`` of a request lies in a dense copy of its
+        blocks (:meth:`gather_tables`): the position itself, or over a
+        sharded KV sequence its row among the rank's rows of each block
+        (clamped into the rank's rows where another rank holds it)."""
+        if self.seq_shard is None:
+            return pos
+        return own_rows(pos, self.block_size, self.rows,
+                        self.seq_shard[0])[2]
 
     def write_prefill(self, req_id: int, cache_one: Dict[str, torch.Tensor],
                       start_pos: int = 0, n_tokens: Optional[int] = None):
@@ -480,20 +489,16 @@ class PagedKVCache:
     def gather_prefix(self, blocks: Sequence[int],
                       nb_pad: int) -> Dict[str, torch.Tensor]:
         """Dense prefix K/V for a suffix-only or chunk prefill: ``{"k",
-        "v"}``, each ``[L, 1, nb_pad * BS, K, hd]``, holding ``blocks``
+        "v"}``, each ``[L, 1, nb_pad * BS, K, hd]`` (the rank's ``BS/M``
+        rows of each block over a sharded KV sequence), holding ``blocks``
         (the prompt's first ``len(blocks)`` blocks) and the trash block
         past them; the attention masks rows past the valid prefix length
         (``prefix_len``)."""
         self._no_state("prefix gather")
-        self._no_seq("a prefix gather")
-        table = np.full((nb_pad,), self.trash_block, np.int64)
+        table = np.full((1, nb_pad), self.trash_block, np.int64)
         blocks = list(blocks)[:nb_pad]
-        table[:len(blocks)] = blocks
-        idx = torch.from_numpy(table).to(self.device)
-        P = nb_pad * self.block_size
-        return {name: self.pool[name][:, idx].reshape(
-                    self.pool[name].shape[0], 1, P, *self.pool[name].shape[3:])
-                for name in self.kv_names}
+        table[0, :len(blocks)] = blocks
+        return self.gather_tables(torch.from_numpy(table).to(self.device))
 
     def fill_prefill(self, fields: Fields, req_id: int,
                      tokens: Sequence[int], start: int, prefix_blocks: int):
@@ -543,16 +548,17 @@ class PagedKVCache:
                       slots: Optional[torch.Tensor] = None
                       ) -> Dict[str, torch.Tensor]:
         """A dense copy ``{"k", "v"}``, each ``[n_kv, B, nb * BS, K,
-        hd]``, of the blocks named by the device tables ``[B, nb]``: the
-        prefix of a prefill (B = 1) or the gather step's caches; with
-        ``slots [B]``, also every state leaf (``{"h", "conv"}``
-        ``[n_ssm, B, ...]``, ``{"xk", "xv"}`` ``[n_cross, B, ...]``) at
-        those dense-state slots. Issues no upload."""
-        self._no_seq("a dense copy of the blocks")
+        hd]`` (``[n_kv, B, nb * BS/M, K, hd]``, the rank's rows of each
+        block, over a sharded KV sequence), of the blocks named by the
+        device tables ``[B, nb]``: the prefix of a prefill (B = 1) or the
+        gather step's caches; with ``slots [B]``, also every state leaf
+        (``{"h", "conv"}`` ``[n_ssm, B, ...]``, ``{"xk", "xv"}``
+        ``[n_cross, B, ...]``) at those dense-state slots. Issues no
+        upload."""
         B, nb = tables.shape
         idx = tables.long()
         out = {name: self.pool[name][:, idx].reshape(
-                   self.pool[name].shape[0], B, nb * self.block_size,
+                   self.pool[name].shape[0], B, nb * self.rows,
                    *self.pool[name].shape[3:])
                for name in self.kv_names}
         if slots is not None:
@@ -588,15 +594,16 @@ class PagedKVCache:
         (:meth:`scatter_new_token` computes it on the host), and each
         row's state to its dense-state slot ``slots[b]`` (not the image
         K/V, which a decode step does not change: the reference writes
-        the same values back)."""
-        self._no_seq("the gather step's write back")
+        the same values back). Over a sharded KV sequence only the rows
+        this rank holds."""
         rows = torch.arange(tables.shape[0], device=tables.device)
         pos = positions.long()
-        phys = tables.long()[rows, pos // self.block_size]
-        sib = pos % self.block_size
+        phys, sib = self._own(tables.long()[rows, pos // self.block_size],
+                              pos % self.block_size)
+        dense = self._dense_rows(pos)
         for name in self.kv_names:
             leaf = self.pool[name]
-            leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
+            leaf[:, phys, sib] = cache[name][:, rows, dense].to(leaf.dtype)
         for name in self.written_state:
             leaf = self.pool[name]
             leaf.index_copy_(1, slots.long(), cache[name].to(leaf.dtype))
@@ -614,7 +621,8 @@ class PagedKVCache:
         self.copy_block(old, new)
 
     def copy_block(self, old: int, new: int):
-        """Physical block ``old``'s K/V copied into block ``new``."""
+        """Physical block ``old``'s K/V copied into block ``new`` (the
+        rows this pool holds of each)."""
         for name in self.kv_names:
             self.pool[name][:, new] = self.pool[name][:, old]
 
@@ -670,9 +678,10 @@ class PagedKVCache:
     def gather(self, req_ids: Sequence[int],
                pad_blocks: int) -> Dict[str, torch.Tensor]:
         """A dense copy of the requests' caches (the gather fallback):
-        ``{"k", "v"}``, each ``[n_kv, B, pad_blocks * BS, K, hd]``, and
-        their state at their slots. Slots past a request's allocation
-        read the trash block; the decode step's lengths mask them."""
+        ``{"k", "v"}``, each ``[n_kv, B, pad_blocks * BS, K, hd]`` (the
+        rank's rows of each block over a sharded KV sequence), and their
+        state at their slots. Slots past a request's allocation read the
+        trash block; the decode step's lengths mask them."""
         table = np.full((len(req_ids), pad_blocks), self.trash_block,
                         np.int64)
         for i, rid in enumerate(req_ids):
@@ -688,17 +697,19 @@ class PagedKVCache:
                           cache: Dict[str, torch.Tensor]):
         """Write each request's row at ``positions[i]`` of the dense
         ``cache`` (every layer) back to its physical (block, slot), and
-        its state (not its image K/V) to its slot, in place."""
-        self._no_seq("a dense copy's write back")
+        its state (not its image K/V) to its slot, in place; over a
+        sharded KV sequence only the rows this rank holds."""
         addr = np.zeros((3, len(req_ids)), np.int64)   # block, slot, pos
         for i, (rid, pos) in enumerate(zip(req_ids, positions)):
             addr[:, i] = (self.manager.tables[rid][pos // self.block_size],
                           pos % self.block_size, pos)
         phys, sib, pos = torch.from_numpy(addr).to(self.device)
+        phys, sib = self._own(phys, sib)
         rows = torch.arange(len(req_ids), device=self.device)
+        dense = self._dense_rows(pos)
         for name in self.kv_names:
             leaf = self.pool[name]
-            leaf[:, phys, sib] = cache[name][:, rows, pos].to(leaf.dtype)
+            leaf[:, phys, sib] = cache[name][:, rows, dense].to(leaf.dtype)
         slots = torch.tensor([self._slot(r) for r in req_ids],
                              device=self.device)
         for name in self.written_state:

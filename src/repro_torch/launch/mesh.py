@@ -24,13 +24,10 @@ import torch
 from repro_torch.device import resolve_device
 
 # what is left of running a model across more than one card: ROADMAP.md
-# queue 1, item 3's list, each entry what a multi-device path refuses with
-MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 3, running a model across "
+# queue 1, item 2's list, each entry what a multi-device path refuses with
+MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 2, running a model across "
                    "more than one card")
 MULTI_CARD_LEFT = {
-    "kv_seq": "chunked prefill, the prefix cache, speculation, the gather "
-              "mode and the overlapped executor over a KV sequence sharded "
-              "on the model axis (shard_kv_seq)",
     "data": "data > 1 inside one engine, and FSDP",
     "families": "MoE expert parallelism with its all-to-all; SSM, hybrid "
                 "and VLM across cards",

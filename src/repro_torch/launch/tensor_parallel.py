@@ -83,20 +83,24 @@ def logits_rank(group, cfg, params, tokens: np.ndarray,
                 lengths: np.ndarray, feed: np.ndarray,
                 block_size: int = 8, nb_pad: int = 4,
                 rules: Optional[Dict[str, bool]] = None,
-                record: bool = False) -> Dict[str, object]:
+                record: bool = False,
+                dense_len: Optional[int] = None) -> Dict[str, object]:
     """``prefill`` of the padded batch ``tokens [B, S]`` (valid
     ``lengths``), its K/V written into a paged pool of ``block_size``
     blocks, then one paged ``decode_step`` a row of ``feed [steps, B]``
-    (the input tokens, at the next positions; tables ``nb_pad`` wide).
+    (the input tokens, at the next positions; tables ``nb_pad`` wide);
+    with ``dense_len``, :func:`dense_logits` instead (``lengths`` None).
     Returns the float32 logits of each call as numpy (``prefill`` ``[B,
     vocab]``, ``decode`` ``[steps, B, vocab]``) and the rank's heads,
     under the flags ``rules`` (:func:`mesh_rules`); with ``record``, its
     collectives in order (``(op, shape, dtype)``)."""
     model = rank_model(group, cfg, params, rules=rules)
     group.record = [] if record else None
-    out = dict(paged_logits(model, tokens, lengths, feed, block_size,
-                            nb_pad), kv_heads=model.n_kv_heads,
-               heads=model.n_heads, record=group.record)
+    logits = (paged_logits(model, tokens, lengths, feed, block_size, nb_pad)
+              if dense_len is None
+              else dense_logits(model, tokens, feed, dense_len))
+    out = dict(logits, kv_heads=model.n_kv_heads, heads=model.n_heads,
+               record=group.record)
     group.record = None
     return out
 
@@ -128,6 +132,24 @@ def paged_logits(model: Model, tokens: np.ndarray, lengths: np.ndarray,
         decode.append(model.decode_step(torch.as_tensor(row, device=dev),
                                         view).cpu().numpy())
         positions += 1
+    return {"prefill": lt.cpu().numpy(), "decode": np.stack(decode)}
+
+
+def dense_logits(model: Model, tokens: np.ndarray, feed: np.ndarray,
+                 cache_len: int) -> Dict[str, np.ndarray]:
+    """The static loop's calls on ``model``: ``prefill`` of the aligned
+    batch ``tokens [B, S]`` into a dense cache of ``cache_len`` slots (a
+    ring under a sliding window; over a sharded KV sequence the rank's
+    share of them), then one dense ``decode_step`` a row of ``feed
+    [steps, B]`` at positions ``S, S + 1, ...``. Returns what
+    :func:`paged_logits` does."""
+    dev = model.device
+    S = tokens.shape[1]
+    lt, cache = model.prefill(torch.as_tensor(tokens, device=dev),
+                              cache_len=cache_len)
+    decode = [model.decode_step(torch.as_tensor(row, device=dev), cache,
+                                pos=S + i).cpu().numpy()
+              for i, row in enumerate(feed)]
     return {"prefill": lt.cpu().numpy(), "decode": np.stack(decode)}
 
 

@@ -19,14 +19,16 @@ and ``wo``'s output goes back into the residual's layout. Over a KV
 sequence sharded on the model axis a decode step runs the paged
 kernel's partials entry over the rows the rank holds, all-gathers every
 rank's ``[B, H, hd + 2]`` float32 partials and combines them
-(:func:`seq_sharded_attention`). Each part runs under the reference's scope
+(:func:`seq_sharded_attention`); a decode over a dense cache does the same
+with the contiguous kernel's partials entry (:func:`seq_sharded_decode`),
+and a prefill over a prefix first all-gathers every rank's rows of it
+(:func:`whole_prefix`). Each part runs under the reference's scope
 (:func:`~repro_torch.core.analysis.scope`: ``qkv_proj``, ``kv_update``,
 ``attn_core``, ``attn_out``, ``cross_kv``, ``cross_attn``) at the
 reference's site.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -37,7 +39,6 @@ from repro_torch.device import on_device
 from repro_torch.distributed import (gather_last, gather_parts, layout,
                                      reduce_partial)
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import multi_card_item
 from repro_torch.models.layers import residual_in, residual_out, rope
 
 Params = Dict[str, torch.Tensor]
@@ -193,7 +194,8 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     ``prefix_len`` prefix rows are valid (it may land mid-block; an int,
     or a 0-dim int32 tensor on the device, which the kernel reads when it
     runs); that is the kernel's prefix-masked entry, whose masks are the
-    reference's (``_mask_builder``) row for row.
+    reference's (``_mask_builder``) row for row. The prefix is every
+    rank's (:func:`whole_prefix` where the KV sequence is sharded).
     """
     B, S, _ = x.shape
     if prefix_k is not None and not causal:
@@ -213,13 +215,11 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                                       causal=causal, window=window,
                                       lengths=lengths)
     else:
-        if lay is not None and lay.kv_seq:
-            raise NotImplementedError(
-                f"a prefill over a prefix when the KV sequence is sharded "
-                f"({multi_card_item('kv_seq')})")
         pad = prefix_k.shape[1]
-        k_all = torch.cat([prefix_k.to(k.dtype), ka], dim=1)
-        v_all = torch.cat([prefix_v.to(v.dtype), va], dim=1)
+        # a pool holding every KV head (a sharded KV sequence) gives them
+        # all: the ones the rank's heads read
+        k_all = torch.cat([attn_kv(lay, prefix_k).to(k.dtype), ka], dim=1)
+        v_all = torch.cat([attn_kv(lay, prefix_v).to(v.dtype), va], dim=1)
         if lengths is None:
             total = prefix_len + S
             lengths = (total.reshape(1).expand(B)
@@ -232,11 +232,29 @@ def self_attn_seq(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     return out_project(p, o.reshape(B, S, -1), cfg), (k, v)
 
 
+def whole_prefix(k: torch.Tensor, v: torch.Tensor, block_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A prefix over a KV sequence sharded on the model axis made whole:
+    each rank's ``k/v [B, nb * rows, K, hd]``, its ``rows = block_size /
+    M`` rows of each block, all-gathered (one collective for both) and put
+    back in position order, ``[B, nb * block_size, K, hd]``: block ``i``'s
+    rows from rank 0, then rank 1's, ... So positions, the causal mask and
+    the prefix pad are the unsharded ones."""
+    parts = gather_parts(torch.stack([k, v]))      # [M, 2, B, nb*rows, ...]
+    M, _, B, n = parts.shape[:4]
+    rows = block_size // M
+    parts = parts.reshape(M, 2, B, n // rows, rows, *k.shape[2:])
+    whole = parts.permute(1, 2, 3, 0, 4, 5, 6).reshape(
+        2, B, n * M, *k.shape[2:])
+    return whole[0], whole[1]
+
+
 def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, cfg: ArchConfig, *,
                      pos: Union[int, torch.Tensor],
                      window: Optional[int] = None,
-                     lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lengths: Optional[torch.Tensor] = None,
+                     block_size: Optional[int] = None) -> torch.Tensor:
     """Single-token decode against one layer's dense cache.
 
     ``x [B,1,D]``; ``cache_k/v [B,Smax,K,hd]``; ``pos`` is one position
@@ -258,6 +276,14 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     keeps, in another order, which attention does not see. With
     ``lengths`` too, its valid slots are a prefix only until the ring
     wraps: past that the call is refused.
+
+    Over a KV sequence sharded on the model axis the cache holds the
+    rank's rows of each ``block_size`` block of the sequence (a paged
+    pool's dense copy, :meth:`~repro_torch.kvcache.paged.PagedKVCache.
+    gather_tables`), or without ``block_size`` its contiguous share of
+    the slots (the reference's cache spec); the new row is written on the
+    rank that holds it, and attention combines every rank's partials
+    (:func:`seq_sharded_decode`).
     """
     B = x.shape[0]
     lay = layout()
@@ -271,10 +297,13 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     q, k_new, v_new = qkv_project(p, x, cfg,
                                   pos[:, None] if ragged else pos.reshape(1),
                                   all_heads=seq)
+    # the slots of the blocks the sequence is sharded in (one block of
+    # every slot without block_size)
+    block = block_size or smax
     with scope("kv_update"):
         if seq:
             _write_own_rows(cache_k, cache_v, k_new, v_new, pos, ragged,
-                            window, lay)
+                            window, lay, block)
         elif ragged:
             rows = torch.arange(B, device=x.device)
             cache_k.index_put_((rows, pos.long()),
@@ -297,17 +326,8 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
             eff = torch.minimum(eff, lengths)
     q = q.reshape(B, -1, cfg.hd).contiguous()
     if seq:
-        # the cache's rows as a pool of blocks, one table row a request
-        rows = cache_k.shape[1]
-        bs = math.gcd(rows, 16)
-        nb = rows // bs
-        table = torch.arange(B * nb, dtype=torch.int32,
-                             device=x.device).reshape(B, nb)
-        first = lay.rank * rows
-        local = (eff.long() - first).clamp(0, rows).to(torch.int32)
-        o = seq_sharded_attention(
-            q, cache_k.reshape(B * nb, bs, *cache_k.shape[2:]),
-            cache_v.reshape(B * nb, bs, *cache_v.shape[2:]), table, local)
+        local = local_lengths(eff, block, block // lay.size, lay.rank)
+        o = seq_sharded_decode(q, cache_k, cache_v, local)
         return out_project(p, o.reshape(B, 1, -1).to(x.dtype), cfg,
                            heads=(0, cfg.n_heads))
     with scope("attn_core"):
@@ -319,18 +339,18 @@ def self_attn_decode(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
 def _write_own_rows(cache_k: torch.Tensor, cache_v: torch.Tensor,
                     k_new: torch.Tensor, v_new: torch.Tensor,
                     pos: torch.Tensor, ragged: bool, window: Optional[int],
-                    lay):
+                    lay, block: int):
     """The new rows into a dense cache whose slots are sharded on the
-    model axis (rank ``r`` holds the ``r``-th contiguous share): a row
-    lands on the rank that holds its slot; elsewhere its slot's own value
-    is written back (no host decision, so a graph can replay it)."""
-    B, rows = cache_k.shape[0], cache_k.shape[1]
+    model axis (rank ``r`` holds slots ``[r rows, (r + 1) rows)`` of each
+    ``block``-slot block, ``rows = block / M``, in order): a row lands on
+    the rank that holds its slot; elsewhere its slot's own value is
+    written back (no host decision, so a graph can replay it)."""
+    B = cache_k.shape[0]
     slot = pos.long() if ragged else pos.long().reshape(1).expand(B)
     if window is not None:
-        slot = slot % (rows * lay.size)
-    first = lay.rank * rows
-    own = ((slot >= first) & (slot < first + rows))[:, None, None]
-    loc = (slot - first).clamp(0, rows - 1)
+        slot = slot % (cache_k.shape[1] * lay.size)
+    own, _, loc = own_rows(slot, block, block // lay.size, lay.rank)
+    own = own[:, None, None]
     b = torch.arange(B, device=cache_k.device)
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         cache[b, loc] = torch.where(own, new[:, 0].to(cache.dtype),
@@ -346,6 +366,19 @@ def local_lengths(lengths: torch.Tensor, block_size: int, rows: int,
     n = lengths.long()
     tail = (n % block_size - rank * rows).clamp(0, rows)
     return (n // block_size * rows + tail).to(torch.int32)
+
+
+def own_rows(pos: torch.Tensor, block_size: int, rows: int, rank: int
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Where positions ``pos`` lie when every ``block_size`` block's rows
+    are sharded ``rows`` a rank (as :func:`local_lengths`): whether rank
+    ``rank`` holds each, its row among the rank's rows of its block, and
+    its row in a dense copy of the rank's rows of each block, ``block *
+    rows + row`` (both clamped into the rank's rows where another rank
+    holds the position)."""
+    sib = pos % block_size - rank * rows
+    row = sib.clamp(0, rows - 1)
+    return (sib >= 0) & (sib < rows), row, pos // block_size * rows + row
 
 
 def seq_sharded_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -364,9 +397,27 @@ def seq_sharded_attention(q: torch.Tensor, k_pool: torch.Tensor,
     with scope("attn_core"):
         part = ops.paged_decode_partials(q, k_pool, v_pool, tables,
                                          lengths)
+    return _combine_pieces(part, q.dtype)
+
+
+def seq_sharded_decode(q: torch.Tensor, cache_k: torch.Tensor,
+                       cache_v: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    """:func:`seq_sharded_attention` over a dense cache: ``q [B,H,hd]``
+    against the rank's rows ``cache_k/v [B,n,K,hd]`` (its valid rows a
+    prefix of them, ``lengths``), the contiguous kernel's partials entry,
+    all-gathered from every rank and combined in the same order on each.
+    Returns ``[B,H,hd]`` in ``q``'s dtype."""
+    with scope("attn_core"):
+        part = ops.decode_partials(q, cache_k, cache_v, lengths)
+    return _combine_pieces(part, q.dtype)
+
+
+def _combine_pieces(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Every rank's partials ``[B,H,hd+2]`` all-gathered and combined."""
     parts = gather_parts(part)
     with scope("attn_core"):
-        return ops.paged_decode_combine(parts, q.dtype)
+        return ops.paged_decode_combine(parts, dtype)
 
 
 def _check_ring(smax: int, window: int, ragged: bool, pos: torch.Tensor,

@@ -179,11 +179,13 @@ class Block(nn.Module):
         return self._ffn(x + h, cf, aux), {"k": k, "v": v}
 
     def decode(self, x: torch.Tensor, entry: Cache, pos: torch.Tensor,
-               lengths: Optional[torch.Tensor]) -> torch.Tensor:
+               lengths: Optional[torch.Tensor],
+               block_size: Optional[int] = None) -> torch.Tensor:
         h = attention.self_attn_decode(
             self.attn.tree(), norm_apply(self.ln1.tree(), x, self.cfg),
             entry["k"], entry["v"], self.cfg, pos=pos,
-            window=self.cfg.sliding_window, lengths=lengths)
+            window=self.cfg.sliding_window, lengths=lengths,
+            block_size=block_size)
         return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
     def decode_paged(self, x: torch.Tensor, entry: Cache,
@@ -227,7 +229,7 @@ class CrossBlock(Block):
         return self._ffn(x + h, self.cfg.serve_capacity_factor)
 
     def decode(self, x: torch.Tensor, entry: Cache, pos=None,
-               lengths=None) -> torch.Tensor:
+               lengths=None, block_size=None) -> torch.Tensor:
         return self._attend(x, entry["xk"], entry["xv"])
 
     def decode_paged(self, x: torch.Tensor, entry: Cache,
@@ -260,7 +262,7 @@ class SSMBlock(nn.Module):
         return x + h, state
 
     def decode(self, x: torch.Tensor, entry: Cache, pos=None,
-               lengths=None) -> torch.Tensor:
+               lengths=None, block_size=None) -> torch.Tensor:
         """One token against the dense state ``entry`` ``{"h", "conv"}``
         (``[B, ...]`` views), rewritten in place."""
         h, new = ssm_decode(self.ssm.tree(),
@@ -437,10 +439,17 @@ class Model(nn.Module):
     def _stack_seq(self, x: torch.Tensor, positions: torch.Tensor,
                    lengths: Optional[torch.Tensor], prefix: Optional[Cache],
                    prefix_len: Union[int, torch.Tensor],
-                   img_embeds: Optional[torch.Tensor]
+                   img_embeds: Optional[torch.Tensor],
+                   block_size: Optional[int] = None
                    ) -> Tuple[torch.Tensor, Cache]:
         """Every layer over a whole sequence: the last hidden rows (before
-        the final norm) and each layer's cache entry, stacked by key."""
+        the final norm) and each layer's cache entry, stacked by key. Over
+        a sharded KV sequence each layer's prefix (the rank's rows of each
+        ``block_size`` block) is made whole just before the layer runs."""
+        seq = prefix is not None and self.seq_shard is not None
+        if seq and block_size is None:
+            raise ValueError("a prefix over a sharded KV sequence needs "
+                             "its block_size")
         if img_embeds is not None:
             img_embeds = on_device(img_embeds, self.device)
         parts: Dict[str, List[torch.Tensor]] = {}
@@ -450,6 +459,8 @@ class Model(nn.Module):
             keys, i = self._entries[l]
             pkv = None if prefix is None else tuple(
                 prefix[n][i] for n in keys if n in prefix)
+            if seq and pkv:
+                pkv = attention.whole_prefix(*pkv, block_size)
             x, entry = blk.seq(x, positions, lengths, pkv, prefix_len,
                                img_embeds=img_embeds)
             for name, t in entry.items():
@@ -556,7 +567,9 @@ class Model(nn.Module):
                 prefix_len: Union[int, torch.Tensor] = 0, *,
                 embeds: Optional[torch.Tensor] = None,
                 img_embeds: Optional[torch.Tensor] = None,
-                own_rows: bool = True) -> Tuple[torch.Tensor, Cache]:
+                own_rows: bool = True,
+                block_size: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
         """Process a prompt batch ``tokens [B,S]`` (right-padded, valid
         lengths ``lengths [B]``; ``embeds [B,S,D]`` instead for a config
         with ``embedding_inputs``; a VLM also takes ``img_embeds [B,
@@ -584,7 +597,11 @@ class Model(nn.Module):
         Over a KV sequence sharded on the model axis the dense cache holds
         the rank's contiguous share of its slots (the reference's cache
         spec); ``own_rows=False`` returns every row instead (a paged pool
-        then writes each to the rank that holds it)."""
+        then writes each to the rank that holds it). There ``prefix``
+        holds the rank's rows of each ``block_size`` block (a pool's dense
+        copy, :meth:`~repro_torch.kvcache.paged.PagedKVCache.
+        gather_tables`): each layer all-gathers every rank's rows of it
+        (:func:`~repro_torch.models.attention.whole_prefix`)."""
         dev = self.device
         x, positions = self._embed_seq(tokens, embeds, prefix_len)
         B, S = x.shape[:2]
@@ -595,7 +612,7 @@ class Model(nn.Module):
         elif prefix is not None:
             raise ValueError("suffix prefill requires lengths")
         x, cache = self._stack_seq(x, positions, attn_lengths, prefix,
-                                   prefix_len, img_embeds)
+                                   prefix_len, img_embeds, block_size)
         if lengths is not None:
             last = lengths.long() - 1
             x = x[torch.arange(B, device=dev), last][:, None]
@@ -660,7 +677,8 @@ class Model(nn.Module):
                     cache: Union[PagedCacheView, Cache],
                     pos: Optional[Union[int, torch.Tensor]] = None,
                     lengths: Optional[torch.Tensor] = None, *,
-                    embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    embeds: Optional[torch.Tensor] = None,
+                    block_size: Optional[int] = None) -> torch.Tensor:
         """One token for every row (``tokens [B]``, or ``embeds [B,1,D]``
         taken as they are); returns float32 logits ``[B, vocab]``.
 
@@ -670,9 +688,10 @@ class Model(nn.Module):
         :meth:`prefill` or :meth:`init_cache`) ``pos`` is one position
         for the batch or a ``[B]`` tensor, ``lengths`` the optional
         ``[B]`` valid lengths (see
-        :func:`~repro_torch.models.attention.self_attn_decode`), and the
-        cache is **updated in place**, where the reference returns a new
-        one.
+        :func:`~repro_torch.models.attention.self_attn_decode`, which also
+        says what ``block_size`` means over a sharded KV sequence), and
+        the cache is **updated in place**, where the reference returns a
+        new one.
         """
         if isinstance(cache, PagedCacheView):
             lay = self.layout
@@ -693,5 +712,6 @@ class Model(nn.Module):
         emb_pos = pos.long()[:, None] if pos.dim() else pos.long().reshape(1)
         x = decode_embed(self.embed.tree(), self.cfg, tokens, emb_pos, embeds)
         for l, blk in enumerate(self.layers):
-            x = blk.decode(x, self._entry(cache, l), pos, lengths)
+            x = blk.decode(x, self._entry(cache, l), pos, lengths,
+                           block_size)
         return self._logits(x)

@@ -89,10 +89,12 @@ executor, chunked prefill, the prefix cache, speculation and the gather
 mode decide on rank 0's host (its scheduler, prefix index, drafter,
 chain map and verify keys), and what they decide reaches the other
 ranks only as staged words and pool copies. Preemption, rollback and
-aborts stay on rank 0's host. Over a KV sequence sharded on the model
-axis (``shard_kv_seq``: each rank's pool holds its share of every
-block's rows) the sync loop runs; the other modes refuse at
-construction (:func:`refuse_seq_sharded_modes`).
+aborts stay on rank 0's host. Every mode also runs over a KV sequence
+sharded on the model axis (``shard_kv_seq``: each rank's pool holds its
+share of every block's rows): a dense copy or a prefix holds the rank's
+rows, a prefill over a prefix all-gathers them, and every decode
+combines every rank's partials, so the ranks' outputs stay bit-identical
+and a chained row may read its own rank's previous output.
 
 An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
 receives every lifecycle event, every prefill and decode step's bucket
@@ -120,7 +122,6 @@ from repro_torch.distributed import StepChannel
 from repro_torch.kvcache.paged import PagedKVCache
 from repro_torch.kvcache.prefix import (PrefixIndex, PrefixStats,
                                         prefix_cache_supported)
-from repro_torch.launch.mesh import multi_card_item
 from repro_torch.models.model import Model
 from repro_torch.models.sampler import (positions_array, sample_tokens,
                                         stack_sampling)
@@ -158,26 +159,6 @@ def refuse_undecodable(cfg: ArchConfig):
             f"decode does not support windows and the paged pool holds no "
             f"ring (the reference engine falls back to gather mode and "
             f"fails at its first decode); use the static-batch loop")
-
-
-def refuse_seq_sharded_modes(model: Model, ecfg: "EngineConfig"):
-    """Refuse, at construction, what an engine does not run over a KV
-    sequence sharded on the model axis: chunked prefill and the prefix
-    cache (a prefill over a prefix gathers it from the pool), speculation,
-    the gather mode (a dense copy of the blocks) and the overlapped
-    executor. The sync loop's serial prefill and paged decode run."""
-    if model.seq_shard is None:
-        return
-    modes = [name for name, on in (
-        ("chunked prefill", ecfg.prefill_chunk_tokens is not None),
-        ("the prefix cache", ecfg.prefix_cache),
-        ("speculation", ecfg.speculate),
-        ("the gather mode", ecfg.decode_mode == "gather"),
-        ("the overlapped executor", ecfg.overlap)) if on]
-    if modes:
-        raise NotImplementedError(
-            f"{', '.join(modes)} over a KV sequence sharded on the model "
-            f"axis ({multi_card_item('kv_seq')})")
 
 
 class RequestTooLarge(RuntimeError):
@@ -324,7 +305,6 @@ class ContinuousBatchingEngine:
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg
         self.decode_mode = ecfg.decode_mode
-        refuse_seq_sharded_modes(model, ecfg)
         # chunked prefill, the prefix cache and speculation need
         # per-token-addressable KV; an unsupported config falls back, the
         # reason recorded

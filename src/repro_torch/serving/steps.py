@@ -560,7 +560,8 @@ class StepFunctions:
         cache = self.pool.gather_tables(dev["tables"], dev["slots"])
         logits = self.model.decode_step(dev["tokens"], cache,
                                         dev["positions"],
-                                        lengths=dev["lengths"])
+                                        lengths=dev["lengths"],
+                                        block_size=self.pool.block_size)
         self.pool.scatter_rows(dev["tables"], dev["positions"], cache,
                                dev["slots"])
         return self._sample(logits, dev, sampled), logits
@@ -603,7 +604,8 @@ class StepFunctions:
                                            prefix=prefix,
                                            prefix_len=prefix_len,
                                            img_embeds=self._img_stub,
-                                           own_rows=False)
+                                           own_rows=False,
+                                           block_size=self.pool.block_size)
         self.pool.write_rows(cache, dev["blocks"], dev["slots"],
                              dev["state_slot"])
         self.finite.logical_and_(torch.isfinite(logits).all())

@@ -323,7 +323,7 @@ def _item(excinfo):
 def test_other_families_refused_across_devices(arch):
     cfg = reduced(get_config(arch))
     mesh = make_model_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 3") as e:
+    with pytest.raises(NotImplementedError, match="left 2") as e:
         Model(cfg, mesh=mesh)
     _item(e)
 
@@ -336,15 +336,15 @@ def test_refusals_name_their_roadmap_item():
     and reach the group check."""
     cfg = reduced(get_config("opt-1.3b"))
     two_data = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         D.spawn(TP.run_jobs, two_data, [])
     _item(e)
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         Model(cfg, mesh=two_data, rules=rules_for(two_data,
                                                   act_replicated=True))
     _item(e)
     mesh = make_model_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         Model(cfg, mesh=mesh, rules=rules_for(mesh, fsdp=True))
     _item(e)
     with pytest.raises(RuntimeError, match="has not joined the mesh"):
@@ -364,7 +364,7 @@ def test_refusals_name_their_roadmap_item():
         TI.materialize(case, mesh, torch.Generator())
     train = TI.case_for(cfg, TI.ShapeSpec("t", "train", 16, 4), mesh,
                         act_replicated=True)
-    with pytest.raises(NotImplementedError, match="left 4") as e:
+    with pytest.raises(NotImplementedError, match="left 3") as e:
         TI.materialize(train, mesh, torch.Generator(), rank=0)
     _item(e)
 

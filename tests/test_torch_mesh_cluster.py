@@ -208,13 +208,13 @@ def test_data_slice_and_colocated_mesh_model_refused():
     any process starts; co-located replicas of a model over a mesh raise
     naming theirs."""
     tcfg, _ = _weights()
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         ReplicatedCluster.sliced(tcfg, None, EngineConfig(**ENGINE),
                                  _mesh(), 1)
     assert MULTI_CARD_ITEM in str(e.value)
     rank = types.SimpleNamespace(group=types.SimpleNamespace(size=2),
                                  device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="left 5") as e:
+    with pytest.raises(NotImplementedError, match="left 4") as e:
         ReplicatedCluster.colocated(rank, EngineConfig(**ENGINE), 2)
     assert MULTI_CARD_ITEM in str(e.value)
     assert "co-located" in str(e.value)

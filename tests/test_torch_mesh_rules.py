@@ -58,8 +58,6 @@ from repro_torch.models.params import (draw_block, draw_leaf,  # noqa: E402
                                        tree_leaves)
 from repro_torch.serving import (EngineConfig, SamplingParams,  # noqa: E402
                                  sharegpt_like, shared_prefix_workload)
-from repro_torch.serving.engine import \
-    refuse_seq_sharded_modes  # noqa: E402
 from repro_torch.sharding import (BATCH, HEAD_DIM, KV_HEADS,  # noqa: E402
                                   KV_SEQ, check_executable, rules_for)
 
@@ -493,50 +491,54 @@ def _item(excinfo):
     assert MULTI_CARD_ITEM in str(excinfo.value), str(excinfo.value)
 
 
-@pytest.mark.parametrize("mode", [dict(prefill_chunk_tokens=16),
-                                  dict(prefix_cache=True),
-                                  dict(speculate=True),
-                                  dict(decode_mode="gather"),
-                                  dict(overlap=True)])
-def test_seq_sharded_modes_refused(mode):
-    """Over a sharded KV sequence the engine refuses, at construction,
-    chunked prefill, the prefix cache, speculation, the gather mode and
-    the overlapped executor, naming the ROADMAP entry; the sync loop
-    passes; the pool refuses a dense copy of its blocks."""
-    model = types.SimpleNamespace(seq_shard=(0, 4))
-    with pytest.raises(NotImplementedError, match="left 1") as e:
-        refuse_seq_sharded_modes(model, EngineConfig(**ENGINE, **mode))
-    _item(e)
-    refuse_seq_sharded_modes(model, EngineConfig(**ENGINE))
-    _, tcfg = _configs("qwen")
-    pool = PagedKVCache(tcfg, num_blocks=4, block_size=8, device="cpu",
-                        seq_shard=(1, 4))
-    assert pool.pool["k"].shape[2] == 2
-    with pytest.raises(NotImplementedError, match="left 1") as e:
-        pool.gather_tables(torch.zeros((1, 2), dtype=torch.int32))
-    _item(e)
-
-
 def test_remaining_refusals_name_their_roadmap_item():
     """What still does not run across cards: a data axis of 2, FSDP, the
     other families, training; every rule set of rules_for without FSDP
     passes."""
     _, tcfg = _configs("qwen")
     two_data = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         Model(tcfg, mesh=two_data, rules=rules_for(two_data))
     _item(e)
     four = make_model_mesh(["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="left 2") as e:
+    with pytest.raises(NotImplementedError, match="left 1") as e:
         Model(tcfg, mesh=four, rules=rules_for(four, fsdp=True))
     _item(e)
-    with pytest.raises(NotImplementedError, match="left 3") as e:
+    with pytest.raises(NotImplementedError, match="left 2") as e:
         Model(reduced(get_config("mamba2-1.3b")), mesh=four,
               rules=rules_for(four, shard_kv_seq=True))
     _item(e)
     case = TI.case_for(tcfg, TI.ShapeSpec("t", "train", 16, 4), four)
-    with pytest.raises(NotImplementedError, match="left 4") as e:
+    with pytest.raises(NotImplementedError, match="left 3") as e:
         TI.materialize(case, four, torch.Generator(), rank=0)
     _item(e)
     for _, flags in RULES.values():
         check_executable(tcfg, rules_for(four, **flags))
+
+
+# ------------------------------------------------------- default rules --
+def test_model_defaults_to_the_act_replicated_rules():
+    """The recorded departure from the reference (ROADMAP.md queue 3):
+    ``Model(mesh=)`` without rules runs ``rules_for(mesh,
+    act_replicated=True)``, the Megatron layout, where the reference's
+    ``rules_for`` defaults to ``act_replicated=False``
+    (``src/repro/sharding.py`` ``rules_for``)."""
+    _, tcfg = _configs("opt")
+    mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
+    group = types.SimpleNamespace(mesh=mesh, rank=0,
+                                  device=torch.device("cpu"))
+    model = Model(tcfg, mesh=mesh, group=group)
+    assert model.rules == rules_for(mesh, act_replicated=True)
+    assert model.rules != rules_for(mesh)
+    assert not j_rules_for(j_make_mesh((1, 1),
+                                       ("data", "model"))).act_replicated
+
+
+def test_ranks_default_to_the_act_replicated_rules():
+    """The same departure where a rank builds its model:
+    ``tensor_parallel.DEFAULT_RULES`` is ``{"act_replicated": True}``,
+    and ``mesh_rules`` without flags gives those rules."""
+    assert TP.DEFAULT_RULES == {"act_replicated": True}
+    mesh = make_model_mesh(["cpu"] * 2)
+    assert TP.mesh_rules(mesh) == rules_for(mesh, act_replicated=True)
+    assert TP.mesh_rules(mesh, {}) == rules_for(mesh)

@@ -440,7 +440,7 @@ def test_prefill_replay_launch_accounting(model, counters, monkeypatch,
     assert delta == {"paged_decode_attention": 0, "decode_attention": 0,
                      "flash_attention": 0, "flash_prefix_attention": 0,
                      "paged_decode_partials": 0, "paged_decode_combine": 0,
-                     kernel: model.cfg.n_layers}
+                     "decode_partials": 0, kernel: model.cfg.n_layers}
     replays = []
     static = torch.zeros(1, model.cfg.vocab_size)
     steps.graphs[steps.prefill_key(len(toks), start, 2)] = CapturedStep(

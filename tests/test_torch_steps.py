@@ -209,7 +209,8 @@ def test_replay_launch_accounting(counters):
     assert launch_counts() == before
     assert delta == {"paged_decode_attention": 24, "flash_attention": 0,
                      "flash_prefix_attention": 0, "decode_attention": 1,
-                     "paged_decode_partials": 0, "paged_decode_combine": 0}
+                     "paged_decode_partials": 0, "paged_decode_combine": 0,
+                     "decode_partials": 0}
     replays = []
     step = CapturedStep(types.SimpleNamespace(
         replay=lambda: replays.append(1)), torch.zeros(2), torch.zeros(2),

@@ -10,14 +10,22 @@ then R=2 replicas of 1 x 2 against the paged engine over 1 x 4 measured
 in the same run. With ``--rules``, ``phase_mesh_rules`` alone: the
 reference's own sharding rules over 1 x 4 (deepseek-coder-33b under the
 default rules beside act_replicated, qwen2.5-3b under the default rules
-and under shard_kv_seq, the dry-run's qwen2.5-3b decode_32k case). From
-the repository root::
+and under shard_kv_seq, the dry-run's qwen2.5-3b decode_32k case). With
+``--seq``, ``phase_mesh_seq`` alone: every engine mode over a KV sequence
+sharded on the model axis (qwen2.5-3b under shard_kv_seq over 1 x 4:
+overlapped and chunked, the prefix cache, speculation, the gather mode
+and a long-context serve of 16 prompts of 32,000 tokens chunked by
+2048), its check prompts' logits on the paged, chunked and gather paths
+against one card's. From the repository root::
 
     python3 tools/mesh_smoke.py            # everything
     python3 tools/mesh_smoke.py --modes    # phase_mesh_modes alone
     python3 tools/mesh_smoke.py --modes --layers 4 --requests 32
                                            # a short first call
     python3 tools/mesh_smoke.py --rules    # phase_mesh_rules alone
+    python3 tools/mesh_smoke.py --seq      # phase_mesh_seq alone
+    python3 tools/mesh_smoke.py --seq --layers 4 --requests 32
+                                           # a short first call
 
 Exits non-zero if a check fails."""
 import argparse
@@ -41,6 +49,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rules", action="store_true",
                     help="only the reference's own sharding rules across "
                          "four cards (phase_mesh_rules)")
+    ap.add_argument("--seq", action="store_true",
+                    help="only every engine mode over a KV sequence "
+                         "sharded on the model axis across four cards "
+                         "(phase_mesh_seq)")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the served models to this many layers")
     ap.add_argument("--requests", type=int, default=cs.MESH_DEEP_REQUESTS,
@@ -64,6 +76,14 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.seq:
+        out = cs.phase("4, mesh seq modes", cs.phase_mesh_seq, card,
+                       args.layers, args.requests)
+        if out is None:
+            return 1
+        print(f"[done] the mesh seq modes phase passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        return 0
     if args.rules:
         out = cs.phase("4, mesh rules", cs.phase_mesh_rules, card,
                        args.layers, args.requests)
