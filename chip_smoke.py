@@ -256,7 +256,14 @@ It imports nothing of JAX or of the JAX package. Phases:
    cache, speculation, gather) under the act_replicated rules and under
    ``shard_kv_seq`` (its prefix all-gathered, its gather mode's decode
    through the contiguous kernel's partials entry), bit for bit against
-   the plain engine. With one card it then says that nothing ran
+   the plain engine. Then, with two cards or more, one engine over a
+   data axis of two (``2 x 1``: each request's rows and blocks on one
+   card, each step's tokens gathered over the data axis), sync and
+   overlapped under FSDP: the float32 2-layer OPT-1.3B at full width on
+   16 requests, token for token against one card's engine, the paged
+   and flash launches exact on each rank; with one card it says the
+   phase needs two. With one card
+   it then says that nothing ran
    across cards. With several (``tools/mesh_smoke.py`` runs this phase
    alone), one process a card over ``cuda:0..M-1``
    (``repro_torch.distributed.spawn``), one spawn a mesh size: OPT-1.3B
@@ -280,7 +287,9 @@ It imports nothing of JAX or of the JAX package. Phases:
    its bytes, step and NCCL beside the dry-run's; ``tools/mesh_smoke.py
    --seq`` runs ``phase_mesh_seq`` alone on four cards: qwen2.5-3b under
    ``shard_kv_seq`` over 1 x 4 in every engine mode and a long-context
-   serve of 16 prompts of 32,000 tokens;
+   serve of 16 prompts of 32,000 tokens; ``tools/mesh_smoke.py --data``
+   runs data parallelism inside one engine on four cards
+   (``tools/mesh_data.py``);
 5. time each kernel, its plain version and one PyTorch library call at
    the serving shapes (device time of back-to-back calls, and one call
    end to end, both on CUDA events; a plain version's one call), beside
@@ -6740,6 +6749,7 @@ def mesh_serve_rank(group, cfg, ecfg, reqs, slice_bytes=None,
             tokens=[list(r.output_tokens) for r in reqs],
             finish=[r.finish_reason for r in reqs],
             decode_steps=engine.decode_steps, prefills=engine.prefills,
+            prefill_steps=engine.prefill_steps,
             output_tokens=metrics.output_tokens,
             tok_s=metrics.output_throughput, itl=(metrics.itl.p50,
                                                   metrics.itl.p95),
@@ -8112,6 +8122,9 @@ def phase_mesh(model, card, paged):
     paths = {"mesh_serve": launches["mesh"],
              **{tag: launches[tag] for tag in MESH_ONE_RULES},
              **{f"mesh {name}": got for name, got in modes.items()}}
+    data = mesh_data(card)
+    if data is not None:
+        paths["mesh data"] = data
     n = torch.cuda.device_count()
     if n < 2:
         print(f"[mesh] nothing ran across cards: this machine has {n} "
@@ -8119,6 +8132,63 @@ def phase_mesh(model, card, paged):
         return paths
     mesh_across(card, n, paged)
     return paths
+
+
+MESH_DATA_CARDS = 2          # the data phase's mesh: 2 x 1
+
+
+def mesh_data(card):
+    """One engine over a data axis of two cards (``2 x 1``: each request's
+    rows on one card, its blocks in that card's half of the pool, each
+    step's tokens gathered over the data axis), sync, and overlapped under
+    FSDP (each layer's weights gathered whole over the two cards): the
+    float32 2-layer model at full width serves the float32 serves' 16
+    requests token for token as one card's engine does, and each rank
+    launched the paged kernel once a layer a decode step and the flash
+    kernel once a layer a prefill step (a step prefills up to one
+    admission a card). Needs two cards; with one it says so. Returns
+    rank 0's launches of the sync serve, or None."""
+    import torch
+    from repro_torch.distributed import devices_mesh, spawn
+    n = torch.cuda.device_count()
+    if n < MESH_DATA_CARDS:
+        print(f"[mesh data] needs {MESH_DATA_CARDS} cards, this machine "
+              f"has {n}: nothing ran over a data axis")
+        return None
+    cfg = mesh_f32_config(MODEL)
+    make = lambda: mesh_workload(cfg.vocab_size, 16,  # noqa: E731
+                                 MESH_F32_CAP, seed=2)
+    one = mesh_one_card_serve(cfg, make())
+    ways = (("sync", serve_config(), None),
+            ("overlap, fsdp", serve_config(overlap=True),
+             {"act_replicated": True, "fsdp": True}))
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank_jobs, devices_mesh(MESH_DATA_CARDS,
+                                               data=MESH_DATA_CARDS),
+                  [(mesh_serve_rank, (cfg, ecfg, make(), None, None, False,
+                                      rules)) for _, ecfg, rules in ways])
+    for j, (tag, _, _) in enumerate(ways):
+        r0 = ranks[0][j]
+        if r0["tokens"] != one:
+            raise AssertionError(f"[mesh data {tag}] tokens differ from one "
+                                 f"card's")
+        want = dict.fromkeys(r0["launches"], 0)
+        want["paged_decode_attention"] = r0["decode_steps"] * cfg.n_layers
+        want["flash_attention"] = r0["prefill_steps"] * cfg.n_layers
+        for r in ranks:
+            if r[j]["launches"] != want:
+                raise AssertionError(f"[mesh data {tag}] rank {r[j]['rank']}"
+                                     f" launched {r[j]['launches']}, not "
+                                     f"{want}")
+        print(f"[mesh data {tag}] {MODEL} float32, 2 layers, full width, "
+              f"over 2 x 1 (cuda:0-1, {card}): 16 requests "
+              f"({r0['output_tokens']} output tokens) token for token equal "
+              f"to one card's; {r0['prefills']} admissions in "
+              f"{r0['prefill_steps']} prefill steps, {r0['decode_steps']} "
+              f"decode steps; launches {r0['launches']} on each rank; "
+              f"weights {gb(r0['weights'])}, pool {gb(r0['pool'])} a rank")
+    print(f"[mesh data] both serves in {time.perf_counter() - t0:.1f} s")
+    return ranks[0][0]["launches"]
 
 
 def phase(name, fn, *args):

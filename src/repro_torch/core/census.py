@@ -74,7 +74,10 @@ it appends, at most ``K_pad·(K_pad+1)/2`` a request, are not counted).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Tuple
+
+import torch
 
 from repro_torch.configs.base import ATTN, CROSS, SHARED_ATTN, SSM, ArchConfig
 from repro_torch.core.analysis import ClassCost, OpCensus
@@ -82,8 +85,9 @@ from repro_torch.kernels.decode_attention import split_plan
 # the module, not its names: the models import this package (for
 # ``analysis.scope``) while they load
 from repro_torch.models import moe as moe_layer
-from repro_torch.models.params import (abstract_cache, param_specs,
-                                       plan_structure, ssm_dims, tree_leaves)
+from repro_torch.models.params import (abstract_cache, block_specs,
+                                       param_specs, plan_structure,
+                                       spec_dtype, ssm_dims, tree_leaves)
 from repro_torch.sharding import BATCH, LAYERS, axes_of
 
 
@@ -490,7 +494,8 @@ def step_census(cfg: ArchConfig, variant: str, bucket: Tuple,
 
 
 def mesh_collectives(cfg: ArchConfig, layout, variant: str, rows: int,
-                     out_rows: int) -> Dict[str, float]:
+                     out_rows: int, rules=None,
+                     outputs: bool = False) -> Dict[str, float]:
     """The collective bytes one step of a dense decoder issues on a rank
     of a mesh under its plan ``layout``
     (:class:`~repro_torch.sharding.Layout`), by kind, in the census's
@@ -507,7 +512,14 @@ def mesh_collectives(cfg: ArchConfig, layout, variant: str, rows: int,
     a decode over a sharded KV sequence); that decode's ``[B, H, hd +
     2]`` float32 partials; ``wo``'s and ``w2``'s partial sums
     (reduce-scattered over a sharded residual, else all-reduced); the
-    logits."""
+    logits. Over a data axis of D ranks ``rows``/``out_rows`` are the
+    rank's own, and the data group adds, under FSDP (the plan's
+    ``w_in``; ``rules`` gives each weight's block), each gathered
+    weight's whole bytes a layer (the unembedding's once a step); with
+    ``outputs``, an engine step's gather of its outputs over the data
+    axis (:meth:`~repro_torch.serving.steps.StepFunctions._sample`: a
+    decode step's ``out_rows`` int32 tokens and one finiteness word a
+    rank; a prefill's float32 logits)."""
     isz, d, hd, m = itemsize(cfg), cfg.d_model, cfg.hd, layout.size
     h, k = cfg.n_heads, cfg.n_kv_heads
     stats = 8 if cfg.norm == "layernorm" else 4
@@ -556,6 +568,21 @@ def mesh_collectives(cfg: ArchConfig, layout, variant: str, rows: int,
         add(step, "all-gather", out_rows * cfg.padded_vocab * LOGIT_BYTES)
     elif layout.logits == "d_model":
         add(step, "all-reduce", out_rows * cfg.padded_vocab * LOGIT_BYTES)
+    if layout.w_in:
+        leaves = dict(block_specs(cfg, ATTN)["attn"],
+                      **block_specs(cfg, ATTN)["ffn"],
+                      unemb=param_specs(cfg)["embed"].get("unemb"))
+        for name, _ in layout.w_in:
+            leaf = leaves[name]
+            block = math.prod(b - a for a, b in layout.cut(
+                leaf.logical, leaf.shape, rules))
+            nbytes = layout.data * block * torch.empty(
+                (), dtype=spec_dtype(cfg, leaf)).element_size()
+            add(step, "all-gather", nbytes if name == "unemb" else n * nbytes)
+    if outputs and layout.data > 1:
+        add(step, "all-gather", layout.data * (
+            (out_rows + 1) * 4 if variant in DECODE_VARIANTS
+            else out_rows * cfg.vocab_size * LOGIT_BYTES))
     return step
 
 

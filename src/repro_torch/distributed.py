@@ -1,20 +1,31 @@
-"""Tensor parallelism across devices: the counterpart of what ``jit`` over
-a mesh does in the reference.
+"""Tensor and data parallelism across devices: the counterpart of what
+``jit`` over a mesh does in the reference.
 
-A :class:`MeshGroup` is a process's place on a ``1 x M`` mesh
-(:func:`~repro_torch.launch.mesh.make_model_mesh`): rank ``r`` runs on
-``mesh.devices.flat[r]`` (``cuda:r``, or the CPU when the caller asks)
-and holds that device's block of every weight under the rules its model
-was given (:func:`~repro_torch.sharding.layout_for`).
+A :class:`MeshGroup` is a process's place on a ``D x M`` mesh
+(:func:`~repro_torch.launch.mesh.make_data_mesh`; ``1 x M``,
+:func:`~repro_torch.launch.mesh.make_model_mesh`, for tensor
+parallelism alone): rank ``r = d * M + m`` runs on
+``mesh.devices.flat[r]`` (``cuda:r``, or the CPU when the caller asks),
+is data rank ``d``'s model rank ``m``, and holds that device's block of
+every weight under the rules its model was given
+(:func:`~repro_torch.sharding.layout_for`).
 Its process groups are its own, built on a rendezvous store that rank 0
 hosts (never the process's default group), so one process may lead
 several meshes, as a cluster's process leads its replicas:
 
-* the ``model`` axis: NCCL for CUDA devices, gloo for CPU ones, chosen
-  by the device and never as a fallback (a CUDA mesh whose NCCL group
-  cannot be made raises). The layers' collectives run on it;
-* a gloo group on the host, for control messages (the engine's step
-  commands, :class:`StepChannel`).
+* the ``model`` axis of its data row (M ranks): NCCL for CUDA devices,
+  gloo for CPU ones, chosen by the device and never as a fallback (a
+  CUDA mesh whose NCCL group cannot be made raises). The layers'
+  collectives run on it;
+* the ``data`` axis of its model column (D ranks, where D > 1), chosen
+  the same way: each step's outputs gathered over the batch rows
+  (:meth:`MeshGroup.gather_rows`) and, under FSDP, each weight's
+  ``W_IN`` block gathered a layer (:meth:`MeshGroup.gather_weight`);
+* a gloo group of every rank on the host, for control messages (the
+  engine's step commands, :class:`StepChannel`).
+
+Every communicator connects when the group is made, never inside a
+graph capture.
 
 The layers call :func:`reduce_partial` (an all-reduce of a row-parallel
 product's partial sums: ``wo``, ``w2``, the vocab-parallel embedding),
@@ -22,10 +33,11 @@ product's partial sums: ``wo``, ``w2``, the vocab-parallel embedding),
 dim, where the residual is d_model-sharded), :func:`gather_last` (an
 all-gather of a last dim: the vocab-sharded logits, a sharded residual,
 a head-dim-sharded ``q/k/v``), :func:`reduce_stats` (an all-reduce of a
-norm's float32 row sums over the d_model shards) and :func:`gather_parts`
+norm's float32 row sums over the d_model shards), :func:`gather_parts`
 (an all-gather of each rank's attention partials over a sharded KV
-sequence); each is a no-op unless a model's entry point has made its
-group :func:`active` on the calling thread, with its
+sequence) and :func:`gather_weight` (FSDP's all-gather of a weight's
+block over the data axis); each is a no-op unless a model's entry point
+has made its group :func:`active` on the calling thread, with its
 :class:`~repro_torch.sharding.Layout` (:func:`layout`), and each runs
 under ``scope("collective")``, counted by an active dispatch census as
 collective bytes (an all-reduce twice its bytes, an all-gather its
@@ -36,8 +48,7 @@ convention).
 start method) over a free port found at run time, and returns each
 rank's result; :class:`RankProcesses` starts some ranks of a mesh (a
 cluster replica's followers, whose rank 0 is the calling process), and
-:func:`run_child` runs a function in a process of its own. A mesh with
-``data`` > 1 raises.
+:func:`run_child` runs a function in a process of its own.
 """
 from __future__ import annotations
 
@@ -58,7 +69,7 @@ from torch._C._distributed_c10d import (AllgatherOptions, AllreduceOptions,
                                         ReduceScatterOptions)
 
 from repro_torch.kernels.launches import active_census
-from repro_torch.launch.mesh import Mesh, multi_card_item
+from repro_torch.launch.mesh import Mesh
 
 _local = threading.local()
 
@@ -69,16 +80,25 @@ TIMEOUT = datetime.timedelta(minutes=10)
 class MeshGroup:
     """A process's rank on ``mesh`` and its process groups; see the
     module docstring. :meth:`init` makes one, which the caller hands to
-    its model (``Model(..., group=)``). With ``record`` set to a list,
-    every collective appends ``(op, shape, dtype)`` to it (the lock-step
-    check)."""
+    its model (``Model(..., group=)``). ``rank`` is the device's place
+    in the mesh, ``size`` the model axis's devices and ``model_rank`` its
+    place there, ``data_size`` the data axes' devices and ``data_rank``
+    its place there. With ``record`` set to a list, every collective
+    appends ``(op, shape, dtype)`` to it (the lock-step check)."""
 
-    def __init__(self, mesh: Mesh, rank: int, group, host, store=None):
+    def __init__(self, mesh: Mesh, rank: int, group, host, store=None,
+                 data=None):
         self.mesh = mesh
         self.rank = rank
         self.size = mesh.shape["model"]
+        self.model_rank = rank % self.size
+        self.data_size = mesh.size // self.size
+        self.data_rank = rank // self.size
         self.device = torch.device(mesh.devices.flat[rank])
         self.group = group
+        # the data axis's group of the rank's model column (None: one
+        # data rank)
+        self.data = data
         self.host = host
         # the rendezvous (rank 0 serves it while the group lives)
         self.store = store
@@ -86,19 +106,15 @@ class MeshGroup:
 
     @staticmethod
     def check_mesh(mesh: Mesh):
-        """Refuse a mesh this module does not run: no devices, no
-        ``model`` axis, or more than one device on another axis."""
+        """Refuse a mesh this module does not run: no devices, or no
+        ``model`` axis as its last (the data axes lead, so device ``d * M
+        + m`` is data rank ``d``'s model rank ``m``)."""
         if mesh.devices is None:
             raise ValueError("a process group needs a mesh over real "
                              "devices")
-        if "model" not in mesh.shape:
-            raise ValueError(f"mesh must have a 'model' axis, got "
+        if mesh.axis_names[-1:] != ("model",):
+            raise ValueError(f"mesh must have a 'model' axis last, got "
                              f"{mesh.axis_names}")
-        data = mesh.size // mesh.shape["model"]
-        if data > 1:
-            raise NotImplementedError(
-                f"a mesh of {data} devices along its data axes "
-                f"({multi_card_item('data')})")
 
     @classmethod
     def init(cls, mesh: Mesh, rank: int, address: str, *,
@@ -126,21 +142,14 @@ class MeshGroup:
             raise ValueError(f"no process group for device {device}")
         if store is None:
             store = rendezvous(address, rank, size)
-        if device.type == "cuda":
-            opts = dist.ProcessGroupNCCL.Options()
-            opts._timeout = TIMEOUT
-            with torch.cuda.device(device):
-                model = dist.ProcessGroupNCCL(
-                    dist.PrefixStore("model", store), rank, size, opts)
-                # the communicator now, on every rank at once: never
-                # inside a graph capture
-                model.eager_connect_single_device(device)
-        else:
-            model = dist.ProcessGroupGloo(dist.PrefixStore("model", store),
-                                          rank, size, TIMEOUT)
+        m = mesh.shape["model"]
+        d, mr = divmod(rank, m)
+        model = _device_group(device, store, f"model/{d}", mr, m)
+        data = _device_group(device, store, f"data/{mr}", d, size // m) \
+            if size > m else None
         host = dist.ProcessGroupGloo(dist.PrefixStore("host", store), rank,
                                      size, TIMEOUT)
-        return cls(mesh, rank, model, host, store)
+        return cls(mesh, rank, model, host, store, data)
 
     def close(self):
         """Leave the process groups (the process may join another mesh
@@ -148,11 +157,12 @@ class MeshGroup:
         if self.device.type == "cuda":
             # abort, not shutdown: NCCL's shutdown waits for every rank's,
             # and a cluster's rank 0 closes before it collects its followers
-            stop = getattr(self.group, "abort", None) or \
-                getattr(self.group, "shutdown", None)
-            if stop is not None:
-                stop()
-        self.group = self.host = self.store = None
+            for g in (self.group, self.data):
+                stop = getattr(g, "abort", None) or \
+                    getattr(g, "shutdown", None)
+                if stop is not None:
+                    stop()
+        self.group = self.data = self.host = self.store = None
 
     @contextlib.contextmanager
     def active(self, layout=None):
@@ -208,12 +218,59 @@ class MeshGroup:
                                                                   opts)))
         return out
 
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's block of rows ``x [n, ...]`` stacked in data
+        rank order, ``[D * n, ...]``, over the data group (``x`` itself
+        with one data rank): a step's outputs made whole on every rank."""
+        if self.data is None:
+            return x
+        self._note("gather_rows", x)
+        return self._gather_data(x.contiguous())
+
+    def gather_weight(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """FSDP: a weight's block ``w`` of dim ``dim`` (its ``W_IN``
+        block, :attr:`~repro_torch.sharding.Layout.w_in`) gathered whole
+        over the data group, in data rank order. A gathered dim other than
+        the first comes back as a strided view (the matmuls take it as
+        it is)."""
+        self._note("gather_weight", w)
+        return self._gather_data(w.movedim(dim, 0).contiguous()).movedim(
+            0, dim)
+
+    def _gather_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The data group's all-gather of a contiguous ``x [n, ...]``:
+        ``[D * n, ...]``, in data rank order."""
+        out = torch.empty((self.data_size * x.shape[0], *x.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        opts = AllgatherOptions()
+        opts.asyncOp = False
+        _collective("all-gather", _nbytes(out),
+                    lambda: _wait(self.data._allgather_base(out, x, opts)))
+        return out
+
     def broadcast_host(self, t: torch.Tensor):
         """Rank 0's CPU tensor ``t`` into every rank's ``t``, over the
         host group."""
         opts = BroadcastOptions()
         opts.rootRank = 0
         _wait(self.host.broadcast([t], opts))
+
+
+def _device_group(device: torch.device, store, prefix: str, rank: int,
+                  size: int):
+    """A process group of ``size`` ranks on ``store`` under ``prefix``:
+    NCCL on a CUDA device (its communicator connected now, on every rank
+    at once: never inside a graph capture), gloo on the CPU."""
+    if device.type == "cuda":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = TIMEOUT
+        with torch.cuda.device(device):
+            group = dist.ProcessGroupNCCL(dist.PrefixStore(prefix, store),
+                                          rank, size, opts)
+            group.eager_connect_single_device(device)
+        return group
+    return dist.ProcessGroupGloo(dist.PrefixStore(prefix, store), rank,
+                                 size, TIMEOUT)
 
 
 def _wait(work):
@@ -311,11 +368,19 @@ def gather_last(x: torch.Tensor) -> torch.Tensor:
     return parts.permute(1, 0, 2).reshape(*x.shape[:-1], -1)
 
 
+def gather_weight(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """FSDP: the active group's rank's block ``w`` of dim ``dim``
+    gathered whole over its data axis (:meth:`MeshGroup.gather_weight`;
+    ``w`` itself without a group or with one data rank)."""
+    g = active()
+    return w if g is None or g.data is None else g.gather_weight(w, dim)
+
+
 def vocab_block(rows: int) -> Optional[Tuple[int, int]]:
     """``(first, count)`` of the vocab rows the active group's rank holds,
     ``rows`` of them; None without a group."""
     g = active()
-    return None if g is None else (g.rank * rows, rows)
+    return None if g is None else (g.model_rank * rows, rows)
 
 
 # ------------------------------------------------------------ control --
@@ -534,8 +599,9 @@ def run_child(fn: Callable[..., Any], *args, timeout_s: float = 1800.0,
         child.stop()
 
 
-def devices_mesh(n: int, device: str = "cuda") -> Mesh:
-    """A ``1 x n`` mesh over ``cuda:0..n-1``, or ``n`` CPU ranks."""
-    from repro_torch.launch.mesh import make_model_mesh
+def devices_mesh(n: int, device: str = "cuda", data: int = 1) -> Mesh:
+    """A ``data x n/data`` mesh over ``cuda:0..n-1``, or ``n`` CPU ranks
+    (``1 x n`` by default)."""
+    from repro_torch.launch.mesh import make_data_mesh
     devs = [f"cuda:{i}" if device == "cuda" else "cpu" for i in range(n)]
-    return make_model_mesh(devs)
+    return make_data_mesh(devs, data)

@@ -84,6 +84,8 @@ class BlockManager:
         self.tables: Dict[int, List[int]] = {}
         self.refs: Dict[int, int] = {}           # live block -> ref count
         self.watermark_blocks = max(1, int(num_blocks * watermark))
+        # data ranks the blocks are split over (DataBlockManager's)
+        self.ranks = 1
         # bumped on every table mutation; lets the pool cache device-side
         # block tables and only re-upload when something actually changed
         self.version = 0
@@ -95,25 +97,54 @@ class BlockManager:
         """Blocks on the free list (including the watermark reserve)."""
         return len(self.free)
 
+    def assign(self, req_id: int, rank: int):
+        """Give ``req_id`` the blocks of data rank ``rank`` (one rank
+        here: a no-op)."""
+
+    def rank_of(self, req_id: int) -> int:
+        """The data rank whose blocks ``req_id`` takes."""
+        return 0
+
+    def kept_rank(self, req_id: int) -> Optional[int]:
+        """The data rank ``req_id`` kept through a preemption, if any."""
+        return None
+
+    def free_on(self, rank: int) -> int:
+        """Free blocks of data rank ``rank`` (its watermark reserve
+        included)."""
+        return len(self.free)
+
+    def _free_of(self, req_id: int) -> List[int]:
+        """The free list ``req_id`` allocates from."""
+        return self.free
+
+    def _home(self, block: int) -> List[int]:
+        """The free list ``block`` returns to."""
+        return self.free
+
+    def disown(self, req_id: int):
+        """``req_id`` finished: forget its data rank (a no-op here)."""
+
     def blocks_needed(self, n_tokens: int) -> int:
         return -(-n_tokens // self.block_size)
 
-    def can_allocate(self, n_tokens: int) -> bool:
-        return (len(self.free) - self.blocks_needed(n_tokens)
+    def can_allocate(self, n_tokens: int, rank: int = 0) -> bool:
+        return (self.free_on(rank) - self.blocks_needed(n_tokens)
                 >= self.watermark_blocks)
 
     def allocate(self, req_id: int, n_tokens: int, *,
                  allow_reserve: bool = False) -> List[int]:
         need = self.blocks_needed(n_tokens)
-        if need > len(self.free):
+        free = self._free_of(req_id)
+        if need > len(free):
             raise RuntimeError("KV pool exhausted")
-        if not allow_reserve and len(self.free) - need < self.watermark_blocks:
+        if not allow_reserve and len(free) - need < self.watermark_blocks:
             raise RuntimeError(
                 f"allocation of {need} blocks would drain the watermark "
-                f"reserve ({len(self.free)} free, {self.watermark_blocks} "
+                f"reserve ({len(free)} free, {self.watermark_blocks} "
                 f"reserved); check can_allocate first or pass "
                 f"allow_reserve=True for the in-flight decode path")
-        got = [self.free.pop() for _ in range(need)]
+        got = [free.pop() for _ in range(need)]
         for b in got:
             self.refs[b] = 1
         self.total_allocations += need
@@ -129,7 +160,7 @@ class BlockManager:
         """Could the table grow to cover ``target_tokens`` without
         draining the watermark reserve? (True when it already does.)"""
         short = target_tokens - self.covered_tokens(req_id)
-        return short <= 0 or self.can_allocate(short)
+        return short <= 0 or self.can_allocate(short, self.rank_of(req_id))
 
     def extend(self, req_id: int, target_tokens: int, *,
                allow_reserve: bool = False) -> List[int]:
@@ -171,7 +202,7 @@ class BlockManager:
             self.refs[block] = n
             return False
         del self.refs[block]
-        self.free.append(block)
+        self._home(block).append(block)
         return True
 
     def ref_count(self, block: int) -> int:
@@ -213,9 +244,10 @@ class BlockManager:
         old = table[block_idx]
         if self.refs[old] <= 1:
             return None
-        if not self.free:
+        free = self._free_of(req_id)
+        if not free:
             raise RuntimeError("KV pool exhausted (copy-on-write)")
-        new = self.free.pop()
+        new = free.pop()
         self.refs[new] = 1
         self.refs[old] -= 1
         self.total_allocations += 1
@@ -256,7 +288,60 @@ class BlockManager:
 
     @property
     def used_fraction(self) -> float:
-        return 1.0 - len(self.free) / self.num_blocks
+        return 1.0 - self.free_blocks / self.num_blocks
+
+
+class DataBlockManager(BlockManager):
+    """A :class:`BlockManager` over a pool partitioned by data rank: rank
+    ``d`` holds blocks ``[d * NB/D, (d + 1) * NB/D)`` (global ids; its
+    pool tensors hold them as ``id - d * NB/D``, plus a trash block of
+    its own). A request takes blocks only from the range of the data
+    rank it is assigned (:meth:`assign`, at admission) and keeps that
+    rank through preemption until it finishes (:meth:`disown`). Each
+    rank has its own free list and its own watermark reserve of
+    ``max(1, NB/D * watermark)`` blocks. A departure from the
+    reference's unsharded pool: it divides the pool's memory by D, and a
+    request can wait or be preempted while its rank's share is full and
+    another's is not."""
+
+    def __init__(self, num_blocks: int, block_size: int, ranks: int,
+                 watermark: float = 0.01):
+        if num_blocks % ranks:
+            raise ValueError(f"{num_blocks} blocks do not split over {ranks} "
+                             f"data ranks")
+        super().__init__(num_blocks, block_size, watermark)
+        self.ranks = ranks
+        self.share = num_blocks // ranks
+        self.frees = [list(range(d * self.share, (d + 1) * self.share))
+                      for d in range(ranks)]
+        self.free = None
+        self.watermark_blocks = max(1, int(self.share * watermark))
+        self.owner: Dict[int, int] = {}
+
+    @property
+    def free_blocks(self) -> int:
+        return sum(map(len, self.frees))
+
+    def assign(self, req_id: int, rank: int):
+        self.owner[req_id] = rank
+
+    def rank_of(self, req_id: int) -> int:
+        return self.owner[req_id]
+
+    def kept_rank(self, req_id: int) -> Optional[int]:
+        return self.owner.get(req_id)
+
+    def free_on(self, rank: int) -> int:
+        return len(self.frees[rank])
+
+    def _free_of(self, req_id: int) -> List[int]:
+        return self.frees[self.owner[req_id]]
+
+    def _home(self, block: int) -> List[int]:
+        return self.frees[block // self.share]
+
+    def disown(self, req_id: int):
+        self.owner.pop(req_id, None)
 
 
 class PagedKVCache:
@@ -282,13 +367,23 @@ class PagedKVCache:
     holds the rank's rows of each block, ``nb * BS/M`` a request, and a
     write back takes only the rows the rank holds; a copy-on-write fork
     and a rollback act on each rank's own rows, as on every rank's
-    tables."""
+    tables.
+
+    With ``data=D`` > 1 (a data axis of D ranks) the pool's blocks are
+    partitioned by data rank (:class:`DataBlockManager`): the tables and
+    the allocator hold global ids ``[0, NB)``, and this rank's tensors
+    hold one rank's share, ``[n_kv, NB/D + 1, ...]``, with block ``NB/D``
+    its trash block. A staged or eager address is the block's id within
+    its rank's share (:meth:`local`); ``block_bytes`` and ``pool_bytes``
+    are one rank's."""
 
     def __init__(self, cfg: ArchConfig, *, num_blocks: int, block_size: int,
                  device: torch.device, max_batch: Optional[int] = None,
                  kv_heads: Optional[int] = None,
-                 seq_shard: Optional[Tuple[int, int]] = None):
+                 seq_shard: Optional[Tuple[int, int]] = None,
+                 data: int = 1):
         self.block_size = block_size
+        self.data = data
         self.seq_shard = seq_shard
         rows = block_size
         if seq_shard is not None:
@@ -299,15 +394,17 @@ class PagedKVCache:
         # the rows of each block this pool holds
         self.rows = rows
         self.num_blocks = num_blocks
+        # the blocks this rank's tensors hold (one data rank's share)
+        self.held = num_blocks // data
         self.device = torch.device(device)
-        self.manager = BlockManager(num_blocks, block_size)
-        self.trash_block = num_blocks          # physical block for padding
+        self.manager = self._new_manager()
+        self.trash_block = self.held           # physical block for padding
         layers = cache_layers(cfg)
         self.pool: Dict[str, torch.Tensor] = {}
         if layers["kv"]:
             # a rank of a tensor-parallel model holds its KV heads
             # (``kv_heads``); the tables, a token count, are every rank's
-            shape = (len(layers["kv"]), num_blocks + 1, rows,
+            shape = (len(layers["kv"]), self.held + 1, rows,
                      kv_heads or cfg.n_kv_heads, cfg.hd)
             self.pool = {name: torch.zeros(shape, dtype=cfg.activation_dtype,
                                            device=self.device)
@@ -334,10 +431,22 @@ class PagedKVCache:
         # integer-equal to it)
         self.block_bytes: int = sum(
             self.pool[n].numel() * self.pool[n].element_size()
-            // (num_blocks + 1) for n in self.kv_names)
+            // (self.held + 1) for n in self.kv_names)
         self.dense_state_bytes: int = sum(
             self.pool[n].numel() * self.pool[n].element_size()
             for n in self.state_names)
+
+    def _new_manager(self) -> BlockManager:
+        if self.data > 1:
+            return DataBlockManager(self.num_blocks, self.block_size,
+                                    self.data)
+        return BlockManager(self.num_blocks, self.block_size)
+
+    def local(self, blocks) -> np.ndarray:
+        """Global block ids (a table's) as this pool's tensors hold them:
+        the id within its data rank's share."""
+        a = np.asarray(blocks, np.int64)
+        return a % self.held if self.data > 1 else a
 
     def _reset_slots(self):
         self._slots: Dict[int, int] = {}
@@ -349,7 +458,7 @@ class PagedKVCache:
         tensors, every slot free): the pool of a respawned engine, whose
         stream has been drained. The blocks' and slots' contents stay;
         nothing reads one before it is written again."""
-        self.manager = BlockManager(self.num_blocks, self.block_size)
+        self.manager = self._new_manager()
         self._reset_slots()
 
     @property
@@ -372,9 +481,10 @@ class PagedKVCache:
 
     @property
     def pool_bytes(self) -> int:
-        """Accountable pool bytes: every real physical block (the trash
-        block never holds request state and is excluded)."""
-        return self.block_bytes * self.num_blocks
+        """Accountable pool bytes: every real physical block this rank
+        holds (the trash block never holds request state and is
+        excluded)."""
+        return self.block_bytes * self.held
 
     @property
     def token_bytes(self) -> float:
@@ -429,7 +539,8 @@ class PagedKVCache:
         blocks = self.manager.tables[req_id][start_pos // self.block_size:]
         nb = len(blocks)
         S_cap = nb * self.block_size
-        phys = torch.as_tensor(blocks, dtype=torch.long, device=self.device)
+        phys = torch.as_tensor(self.local(blocks), dtype=torch.long,
+                               device=self.device)
         slot = self._slot(req_id)
         for name in self.state_names:
             self.pool[name][:, slot] = cache_one[name][:, 0].to(
@@ -470,7 +581,7 @@ class PagedKVCache:
         pos = start_pos + np.arange(S)
         addr = np.empty((2, S), np.int64)                    # block, slot
         addr[0] = self.trash_block
-        addr[0, :n_tokens] = np.asarray(table, np.int64)[
+        addr[0, :n_tokens] = self.local(table)[
             pos[:n_tokens] // self.block_size]
         addr[1] = pos % self.block_size
         phys, sib = self._own(*torch.from_numpy(addr).to(self.device))
@@ -497,7 +608,7 @@ class PagedKVCache:
         self._no_state("prefix gather")
         table = np.full((1, nb_pad), self.trash_block, np.int64)
         blocks = list(blocks)[:nb_pad]
-        table[0, :len(blocks)] = blocks
+        table[0, :len(blocks)] = self.local(blocks)
         return self.gather_tables(torch.from_numpy(table).to(self.device))
 
     def fill_prefill(self, fields: Fields, req_id: int,
@@ -535,14 +646,27 @@ class PagedKVCache:
         fields["prefix_len"][()] = start
         prefix = table[:min(prefix_blocks, nb_pad)]
         fields["table"][:] = self.trash_block
-        fields["table"][:len(prefix)] = prefix
+        fields["table"][:len(prefix)] = self.local(prefix)
         pos = start + np.arange(S)
         fields["blocks"][:] = self.trash_block
-        fields["blocks"][:n] = np.asarray(table)[pos[:n] // self.block_size]
+        fields["blocks"][:n] = self.local(table)[pos[:n] // self.block_size]
         fields["slots"][:] = pos % self.block_size
         if start:
             self._no_state("a prefill over a prefix")
         fields["state_slot"][0] = self._slot(req_id)
+
+    def fill_padding(self, fields: Fields):
+        """Stage a prefill that writes nothing but the trash block: a data
+        rank's part of a prefill step in which it has no request (one row
+        of token 0, no prefix, the trash slot)."""
+        S = fields["tokens"].shape[1]
+        fields["tokens"][:] = 0
+        fields["n"][0] = 1
+        fields["prefix_len"][()] = 0
+        fields["table"][:] = self.trash_block
+        fields["blocks"][:] = self.trash_block
+        fields["slots"][:] = np.arange(S) % self.block_size
+        fields["state_slot"][0] = self.trash_slot
 
     def gather_tables(self, tables: torch.Tensor,
                       slots: Optional[torch.Tensor] = None
@@ -622,7 +746,8 @@ class PagedKVCache:
 
     def copy_block(self, old: int, new: int):
         """Physical block ``old``'s K/V copied into block ``new`` (the
-        rows this pool holds of each)."""
+        rows this pool holds of each; global ids)."""
+        old, new = (int(b) for b in self.local([old, new]))
         for name in self.kv_names:
             self.pool[name][:, new] = self.pool[name][:, old]
 
@@ -649,7 +774,7 @@ class PagedKVCache:
         table[:] = self.trash_block
         for i, rid in enumerate(req_ids):
             blocks = self.manager.tables.get(rid, [])[:nb_pad]
-            table[i, :len(blocks)] = blocks
+            table[i, :len(blocks)] = self.local(blocks)
         pos, lens = fields["positions"], fields["lengths"]
         pos[:] = 0
         pos[:B] = positions
@@ -686,7 +811,7 @@ class PagedKVCache:
                         np.int64)
         for i, rid in enumerate(req_ids):
             blocks = self.manager.tables.get(rid, [])[:pad_blocks]
-            table[i, :len(blocks)] = blocks
+            table[i, :len(blocks)] = self.local(blocks)
         slots = torch.tensor([self._slot(r) for r in req_ids],
                              device=self.device)
         return self.gather_tables(torch.from_numpy(table).to(self.device),
@@ -701,8 +826,8 @@ class PagedKVCache:
         sharded KV sequence only the rows this rank holds."""
         addr = np.zeros((3, len(req_ids)), np.int64)   # block, slot, pos
         for i, (rid, pos) in enumerate(zip(req_ids, positions)):
-            addr[:, i] = (self.manager.tables[rid][pos // self.block_size],
-                          pos % self.block_size, pos)
+            addr[:, i] = (self.local(self.manager.tables[rid][
+                pos // self.block_size]), pos % self.block_size, pos)
         phys, sib, pos = torch.from_numpy(addr).to(self.device)
         phys, sib = self._own(phys, sib)
         rows = torch.arange(len(req_ids), device=self.device)

@@ -28,7 +28,8 @@ from repro_torch.device import resolve_device
 MULTI_CARD_ITEM = ("ROADMAP.md queue 1 item 2, running a model across "
                    "more than one card")
 MULTI_CARD_LEFT = {
-    "data": "data > 1 inside one engine, and FSDP",
+    "data": "the prefix cache, speculation, the gather mode and the "
+            "non-dense families over a data axis of more than one device",
     "families": "MoE expert parallelism with its all-to-all; SSM, hybrid "
                 "and VLM across cards",
     "train": "training across cards",
@@ -85,6 +86,19 @@ def make_model_mesh(devices: Sequence[Union[str, torch.device]]) -> Mesh:
     """A ``1 x M`` mesh (``data`` 1, ``model`` M) over ``devices`` in
     order: tensor parallelism over M devices, e.g. ``cuda:0..M-1``."""
     return make_mesh((1, len(devices)), ("data", "model"), devices)
+
+
+def make_data_mesh(devices: Sequence[Union[str, torch.device]],
+                   data: int) -> Mesh:
+    """A ``D x M`` mesh (``data`` D, ``model`` M = ``len(devices) / D``)
+    over ``devices`` in order: device ``d * M + m`` is data rank ``d``'s
+    model rank ``m``. Each data rank serves its block of the batch rows,
+    each over a tensor-parallel group of M devices."""
+    if data < 1 or len(devices) % data:
+        raise ValueError(f"{len(devices)} devices do not split into a data "
+                         f"axis of {data}")
+    return make_mesh((data, len(devices) // data), ("data", "model"),
+                     devices)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -1,19 +1,24 @@
-"""One tensor-parallel model, one process a device: what each rank runs
-under :func:`repro_torch.distributed.spawn`.
+"""One model over a ``D x M`` mesh, one process a device: what each rank
+runs under :func:`repro_torch.distributed.spawn`.
 
 Each function takes the rank's :class:`~repro_torch.distributed.MeshGroup`
 first and is called on every rank with the same arguments; what it
 returns from rank 0 is the model's output (the logits and the collectives
-are replicated, so every rank computes the same), the others return
+are replicated over the model axis, and each step's outputs gathered
+over the data axis, so every rank computes the same), the others return
 their own accounting. E.g., on two cards::
 
     from repro_torch.distributed import devices_mesh, spawn
     out = spawn(serve_rank, devices_mesh(2), cfg, ecfg, requests)
 
 serves ``requests`` over ``cuda:0`` and ``cuda:1`` (``devices_mesh(2,
-"cpu")``: two gloo ranks on the CPU), in any engine mode ``ecfg`` asks
-for, under the ``act_replicated`` rules unless ``rules`` (the
-reference's flags, :func:`mesh_rules`) asks for others. A :class:`ParallelReplica` is a tensor-parallel replica this
+"cpu")``: two gloo ranks on the CPU) tensor-parallel, in any engine mode
+``ecfg`` asks for, under the ``act_replicated`` rules unless ``rules``
+(the reference's flags, :func:`mesh_rules`; ``fsdp`` among them) asks
+for others; ``devices_mesh(4, data=2)`` serves one engine's batch rows
+over two data ranks of two cards each, in the modes a data axis runs
+(:func:`~repro_torch.serving.engine.refuse_data`). A
+:class:`ParallelReplica` is a replica of several devices this
 process leads as its rank 0 while its other ranks run
 :func:`follow_rank` in processes it starts (what
 :meth:`~repro_torch.serving.cluster.ReplicatedCluster.sliced` builds of
@@ -93,12 +98,24 @@ def logits_rank(group, cfg, params, tokens: np.ndarray,
     Returns the float32 logits of each call as numpy (``prefill`` ``[B,
     vocab]``, ``decode`` ``[steps, B, vocab]``) and the rank's heads,
     under the flags ``rules`` (:func:`mesh_rules`); with ``record``, its
-    collectives in order (``(op, shape, dtype)``)."""
+    collectives in order (``(op, shape, dtype)``). Over a data axis each
+    data rank runs its block of the ``B`` rows (its own pool) and the
+    logits are gathered over the data axis."""
     model = rank_model(group, cfg, params, rules=rules)
     group.record = [] if record else None
+    if model.data > 1:
+        a, b = model.layout.rows(tokens.shape[0])
+        tokens, feed = tokens[a:b], feed[:, a:b]
+        lengths = None if lengths is None else lengths[a:b]
     logits = (paged_logits(model, tokens, lengths, feed, block_size, nb_pad)
               if dense_len is None
               else dense_logits(model, tokens, feed, dense_len))
+    if model.data > 1:
+        whole = lambda x: group.gather_rows(  # noqa: E731
+            torch.from_numpy(x).to(model.device)).cpu().numpy()
+        logits = {"prefill": whole(logits["prefill"]),
+                  "decode": whole(logits["decode"].transpose(1, 0, 2)
+                                  .copy()).transpose(1, 0, 2)}
     out = dict(logits, kv_heads=model.n_kv_heads, heads=model.n_heads,
                record=group.record)
     group.record = None
@@ -198,7 +215,8 @@ def serve_rank(group, cfg, ecfg, requests: Sequence, params=None, *,
 def engine_counters(engine) -> Dict[str, int]:
     """An engine's step, prefill, speculation and prefix-cache counters."""
     out = {name: getattr(engine, name) for name in (
-        "decode_steps", "prefills", "chunks", "suffix_prefills",
+        "decode_steps", "prefills", "prefill_steps", "chunks",
+        "suffix_prefills",
         "spec_steps", "spec_drafted", "spec_accepted", "verify_iterations",
         "preemptions")}
     if engine.prefix is not None:
@@ -222,7 +240,7 @@ def follow_rank(group, cfg, ecfg, params=None, seed: int = 0,
 
 
 class ParallelReplica:
-    """A tensor-parallel replica of ``cfg`` over the ``1 x M`` ``mesh``
+    """A replica of ``cfg`` over the ``D x M`` ``mesh``
     (weights ``params``, a whole numpy tree, or drawn from ``seed`` in
     slices of ``slice_bytes``) that this process leads as rank 0, on
     process groups of the replica's own (so one process may lead several

@@ -15,7 +15,10 @@ plain versions on the CPU. Under tensor parallelism
 rank's query heads and the KV heads it holds (a head-dim-sharded
 ``q/k/v`` all-gathered first, a row-parallel one all-reduced), attention
 runs over the rank's heads, or over all of them where they fall back,
-and ``wo``'s output goes back into the residual's layout. Over a KV
+and ``wo``'s output goes back into the residual's layout; under FSDP
+``wq/wk/wv`` and ``wo`` are gathered whole over the data axis just
+before their matmuls (:func:`~repro_torch.models.layers.full_weights`).
+Over a KV
 sequence sharded on the model axis a decode step runs the paged
 kernel's partials entry over the rows the rank holds, all-gathers every
 rank's ``[B, H, hd + 2]`` float32 partials and combines them
@@ -39,7 +42,8 @@ from repro_torch.device import on_device
 from repro_torch.distributed import (gather_last, gather_parts, layout,
                                      reduce_partial)
 from repro_torch.kernels import ops
-from repro_torch.models.layers import residual_in, residual_out, rope
+from repro_torch.models.layers import (full_weights, residual_in,
+                                       residual_out, rope)
 
 Params = Dict[str, torch.Tensor]
 
@@ -102,6 +106,7 @@ def qkv_project(p: Params, x: torch.Tensor, cfg: ArchConfig,
         return q.reshape(B, S, k, h // k, hd), kk, vv
     if lay.wq != "rows":
         x = residual_in(x)
+    p = full_weights(p, ("wq", "wk", "wv"))
     every = (0, cfg.n_heads)
     everykv = (0, cfg.n_kv_heads)
     with scope("qkv_proj"):
@@ -166,7 +171,7 @@ def out_project(p: Params, o: torch.Tensor, cfg: ArchConfig, *,
         if lay.wo == "head_dim":
             a, b = lay.block(cfg.hd)
             o = o[..., a:b]
-    w = p["wo"]
+    w = full_weights(p, ("wo",))["wo"]
     with scope("attn_out"):
         out = o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
     return residual_out(out, {"heads": "partial", "head_dim": "partial",

@@ -14,7 +14,12 @@ partial sums are reduce-scattered where they would be all-reduced);
 over the model axis (else the MLP is replicated); ``tok``/``unemb`` hold
 its block of the vocab (a lookup masks the rows outside it and sums over
 the ranks; the logits are all-gathered), or of d_model, or all of it.
-The MLP, the embedding of a sequence's tokens and the unembedding run
+Under FSDP (the plan's ``w_in``) a rank holds its data block of each
+weight's ``W_IN`` dim, and each function gathers the weights it reads
+whole over the data axis just before its matmul (:func:`full_weights`);
+the gathered copy is a temporary, freed once the matmul has read it, so
+a rank holds its shard plus the weights of the matmuls in flight. The
+MLP, the embedding of a sequence's tokens and the unembedding run
 under the reference's scopes (``mlp``, ``embed``, ``logits``); a decode
 row's embedding runs under none, as the reference's ``_decode_embed``
 does.
@@ -28,9 +33,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.analysis import scope
-from repro_torch.distributed import (gather_last, layout, reduce_partial,
-                                     reduce_stats, scatter_last,
-                                     vocab_block)
+from repro_torch.distributed import (gather_last, gather_weight, layout,
+                                     reduce_partial, reduce_stats,
+                                     scatter_last, vocab_block)
 
 Params = Dict[str, torch.Tensor]
 
@@ -61,6 +66,21 @@ def residual_out(y: torch.Tensor, kind: str) -> torch.Tensor:
         return scatter_last(y)
     a, b = layout().block(y.shape[-1])
     return y[..., a:b]
+
+
+def full_weights(p: Params, names) -> Params:
+    """``p`` with each weight of ``names`` whose ``W_IN`` block the rank
+    holds (FSDP, the plan's ``w_in``) gathered whole over the data axis;
+    ``p`` itself otherwise."""
+    lay = layout()
+    if lay is None or not lay.w_in:
+        return p
+    p = dict(p)
+    for name in names:
+        dim = lay.gathered(name)
+        if dim is not None and name in p:
+            p[name] = gather_weight(p[name], dim)
+    return p
 
 
 def norm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -120,6 +140,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The MLP of ``x`` (in the residual's layout), returned in it."""
     lay = layout()
     x = residual_in(x)
+    p = full_weights(p, ("w1", "w3", "w2"))
     with scope("mlp"):
         h = x @ p["w1"]
         if cfg.act == "swiglu":
@@ -205,6 +226,7 @@ def unembed_apply(p: Params, x: torch.Tensor,
     kind = "vocab" if lay is None else lay.logits
     if kind != "d_model":
         x = residual_in(x)
+    p = full_weights(p, ("unemb",))
     with scope("logits"):
         w = p["tok"].T if cfg.tie_embeddings else p["unemb"]
         logits = (x @ w.to(x.dtype)).float()

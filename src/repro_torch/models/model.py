@@ -59,7 +59,11 @@ with the mesh's group and the rank's plan
 collectives keep the residual stream in its layout (replicated, or the
 rank's block of d_model) and the logits replicated on every rank; each
 rank holds the cache of its KV heads, or, over a sharded KV sequence,
-its share of every block's rows.
+its share of every block's rows. Over a data axis of D devices
+(``D x M``, any rules ``rules_for`` gives) each entry point takes the
+data rank's own rows (the engine's steps hand each rank its block of the
+batch); under ``fsdp`` each rank holds its data block of every weight's
+``W_IN`` dim and each layer gathers them whole just before its matmuls.
 """
 from __future__ import annotations
 
@@ -301,7 +305,7 @@ class Model(nn.Module):
     :meth:`repro_torch.distributed.MeshGroup.init`) the model is the
     group's rank of it, on the rank's device, under ``rules``
     (``rules_for(mesh, act_replicated=True)`` by default; any rules
-    ``rules_for`` gives without FSDP run): ``params``, whole or already
+    ``rules_for`` gives run, FSDP included): ``params``, whole or already
     the rank's blocks, are cut to its blocks (``layout.cut``); drawn, each
     leaf is drawn whole as the one-device model draws it and cut
     (:func:`~repro_torch.models.params.init_shard`), so the weights are
@@ -398,6 +402,12 @@ class Model(nn.Module):
             keys = at[l]
             self._entries.append((keys, seen[keys[0]]))
             seen[keys[0]] += 1
+
+    @property
+    def data(self) -> int:
+        """The data ranks the batch rows are split over (1 on one
+        device)."""
+        return 1 if self.layout is None else self.layout.data
 
     @property
     def seq_shard(self) -> Optional[Tuple[int, int]]:
@@ -515,10 +525,10 @@ class Model(nn.Module):
         recomputed in the backward. MoE blocks route at
         ``moe.capacity_factor``, the training capacity. A model over a
         mesh of more than one device raises."""
-        if self.group is not None and self.group.size > 1:
+        if self.group is not None and self.group.mesh.size > 1:
             from repro_torch.launch.mesh import multi_card_item
             raise NotImplementedError(
-                f"training over {self.group.size} devices "
+                f"training over {self.group.mesh.size} devices "
                 f"({multi_card_item('train')})")
         dev = self.device
         x, positions = self._embed_seq(batch.get("tokens"),

@@ -19,18 +19,19 @@ Two replica placements:
   two replicas stepped on two host threads run on the card at once.
 * :meth:`ReplicatedCluster.sliced` — the counterpart of the reference's
   sliced mesh: a :class:`~repro_torch.launch.mesh.Mesh` split along its
-  data axis (``slice_mesh``: an ``(R, M)`` mesh gives R ``(1, M)``
-  sub-meshes) or a list of devices split R ways (each slice a ``1 x M``
-  model mesh), one replica a slice with its own copy of the weights. A
-  slice of one device is a plain replica on it. A slice of several is one
-  tensor-parallel model over the slice's ``model`` axis, built by the
-  launch layer (:class:`~repro_torch.launch.tensor_parallel.
-  ParallelReplica`): this process is its rank 0, whose engine the
-  cluster steps as any replica's, and its other ranks follow rank 0's
-  steps in processes of their own until :meth:`ReplicatedCluster.close`
-  stops them; :meth:`ReplicatedCluster.run` closes the cluster at its
-  end, so such a cluster serves one run. A slice with a data axis of
-  more than one device raises.
+  data axis (``slice_mesh``: an ``(R * D, M)`` mesh gives R ``(D, M)``
+  sub-meshes, e.g. ``(4, 1)`` into two ``(2, 1)``) or a list of devices
+  split R ways (each slice a ``1 x M`` model mesh), one replica a slice
+  with its own copy of the weights. A slice of one device is a plain
+  replica on it. A slice of several is one model over the slice's mesh,
+  its batch rows over the ``data`` axis and its layers over the
+  ``model`` axis, built by the launch layer
+  (:class:`~repro_torch.launch.tensor_parallel.ParallelReplica`): this
+  process is its rank 0, whose engine the cluster steps as any
+  replica's, and its other ranks follow rank 0's steps in processes of
+  their own until :meth:`ReplicatedCluster.close` stops them;
+  :meth:`ReplicatedCluster.run` closes the cluster at its end, so such a
+  cluster serves one run.
 
 Two stepping modes:
 
@@ -109,7 +110,8 @@ from repro_torch.serving.cluster.metrics import (ClusterMetrics, ReplicaStats,
                                                  aggregate)
 from repro_torch.serving.cluster.router import Router, RouterPolicy
 from repro_torch.serving.engine import (ContinuousBatchingEngine,
-                                        EngineConfig, RequestTooLarge)
+                                        EngineConfig, RequestTooLarge,
+                                        refuse_data)
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.metrics import collect_from_engine
 from repro_torch.serving.workload import FINISH_FAILED, FINISH_SHED, Request
@@ -269,9 +271,11 @@ class ReplicatedCluster:
         in order, each with its own copy of the weights ``params`` (a tree
         in the reference's layout; None draws each copy from ``seed`` on
         its devices, in slices of ``slice_bytes`` if given). A slice of
-        several devices is a tensor-parallel replica (module docstring;
-        ``record`` keeps its ranks' collectives, the lock-step check). A
-        slice with data > 1 raises before anything starts."""
+        several devices is a replica over its mesh (module docstring;
+        ``record`` keeps its ranks' collectives, the lock-step check).
+        What its engine does not run over the slice's data axis
+        (:func:`~repro_torch.serving.engine.refuse_data`) raises before
+        anything starts."""
         if isinstance(devices, Mesh):
             subs = slice_mesh(devices, n_replicas)
         else:
@@ -279,6 +283,7 @@ class ReplicatedCluster:
                     for sub in slice_devices(devices, n_replicas)]
         for sub in subs:
             MeshGroup.check_mesh(sub)
+            refuse_data(ecfg, sub.size // sub.shape["model"])
         # every replica's followers start first (they load at once), then
         # this process leads each replica as its rank 0
         leads: List[Optional[ParallelReplica]] = []

@@ -96,6 +96,18 @@ rows, a prefill over a prefix all-gathers them, and every decode
 combines every rank's partials, so the ranks' outputs stay bit-identical
 and a chained row may read its own rank's previous output.
 
+Over a data axis (a ``D x M`` mesh) one engine serves ``max_batch`` rows
+split over D data ranks: rank 0's scheduler gives each request a seat
+on one data rank (:mod:`repro_torch.serving.scheduler`), whose share of
+the pool holds its blocks, and each step runs every rank's block of the
+rows at one common bucket, its outputs gathered over the data axis
+(:mod:`repro_torch.serving.steps`). Serial admissions prefill one
+request a data rank a step (:meth:`ContinuousBatchingEngine.
+_prefill_waves`); a chunk runs alone. The synchronous and the overlapped
+loops and chunked prefill run there; the prefix cache, speculation, the
+gather mode and ``max_batch`` not divisible by D are refused at
+construction (:func:`refuse_data`).
+
 An attached observer (``engine.obs``, :mod:`repro_torch.serving.obs`)
 receives every lifecycle event, every prefill and decode step's bucket
 census, live attention work and device time (CUDA events around the
@@ -159,6 +171,35 @@ def refuse_undecodable(cfg: ArchConfig):
             f"decode does not support windows and the paged pool holds no "
             f"ring (the reference engine falls back to gather mode and "
             f"fails at its first decode); use the static-batch loop")
+
+
+def refuse_data(ecfg: "EngineConfig", data: int):
+    """Refuse, at construction, what one engine does not run over a data
+    axis of ``data`` ranks: the prefix cache, speculation and the gather
+    mode (naming the ROADMAP entry), and a batch or pool that does not
+    split into equal shares, or a share a max-length request cannot
+    fit."""
+    if data == 1:
+        return
+    from repro_torch.launch.mesh import multi_card_item
+    for on, what in ((ecfg.prefix_cache, "the prefix cache"),
+                     (ecfg.speculate, "speculation"),
+                     (ecfg.decode_mode == "gather", "the gather mode")):
+        if on:
+            raise NotImplementedError(
+                f"{what} over a data axis of {data} "
+                f"({multi_card_item('data')})")
+    if ecfg.max_batch % data:
+        raise ValueError(
+            f"max_batch ({ecfg.max_batch}) does not divide over {data} "
+            f"data ranks: each rank holds max_batch / {data} seats")
+    blocks = ecfg.kv_pool_tokens // ecfg.block_size
+    if blocks % data or blocks // data * ecfg.block_size \
+            < ecfg.max_model_len:
+        raise ValueError(
+            f"a pool of {blocks} blocks of {ecfg.block_size} does not "
+            f"split over {data} data ranks into shares that each hold a "
+            f"max_model_len ({ecfg.max_model_len}) request")
 
 
 class RequestTooLarge(RuntimeError):
@@ -301,6 +342,7 @@ class ContinuousBatchingEngine:
             raise ValueError(f"model is on {model.device}, engine asked "
                              f"for {self.device}")
         refuse_undecodable(model.cfg)
+        refuse_data(ecfg, model.data)
         self.model = model
         self.cfg: ArchConfig = model.cfg
         self.ecfg = ecfg
@@ -338,7 +380,7 @@ class ContinuousBatchingEngine:
                     num_blocks=ecfg.kv_pool_tokens // ecfg.block_size,
                     block_size=ecfg.block_size, device=self.device,
                     max_batch=ecfg.max_batch, kv_heads=model.n_kv_heads,
-                    seq_shard=model.seq_shard)
+                    seq_shard=model.seq_shard, data=model.data)
                 steps = StepFunctions(
                     model, self.pool, max_batch=ecfg.max_batch,
                     max_model_len=ecfg.max_model_len,
@@ -417,6 +459,9 @@ class ContinuousBatchingEngine:
         index keeps its contents, only its counters reset."""
         self.decode_steps = 0        # plain decode steps run
         self.prefills = 0            # whole or suffix prefills run
+        # prefill steps run (a serial prefill or a chunk each; over a
+        # data axis a step prefills up to one request a data rank)
+        self.prefill_steps = 0
         self.chunks = 0              # chunk prefills run
         # prefills and chunks that attend over a prefix in the pool (a
         # prefix-cache hit, or a chunk after the prompt's first)
@@ -556,6 +601,7 @@ class ContinuousBatchingEngine:
         req.state.finish_reason = reason
         req.state.t_done = t_done
         self.pool.release(req.req_id)
+        self.pool.manager.disown(req.req_id)
         self._tokens.pop(req.req_id, None)
         self._pos.pop(req.req_id, None)
         self.sched._dispatched.pop(req.req_id, None)
@@ -669,6 +715,7 @@ class ContinuousBatchingEngine:
         ``variant`` (the reference's name for it)."""
         if start:
             self.suffix_prefills += 1
+        self.prefill_steps += 1
         self.prefill_tokens_computed += n
         nb_pad = _pow2_bucket(prefix_blocks)
         call = lambda: self.steps.prefill(  # noqa: E731
@@ -704,6 +751,42 @@ class ContinuousBatchingEngine:
                                     n_cached // self.ecfg.block_size,
                                     "prefix_prefill" if n_cached
                                     else "prefill")
+
+    def _prefill_waves(self, reqs: List[Request], now: float):
+        """Prefill serial admissions over a data axis (their blocks
+        allocated, prompts uncached): each step carries the first pending
+        request of every data rank, in admission order, and completes
+        them (:meth:`_complete_prefill`) before the next."""
+        mgr = self.pool.manager
+        pending = list(reqs)
+        while pending:
+            wave: Dict[int, Request] = {}
+            for r in pending:
+                wave.setdefault(mgr.rank_of(r.req_id), r)
+            pending = [r for r in pending if r not in wave.values()]
+            jobs = [(r.req_id, r.prompt, 0, 0) for r in wave.values()]
+            n = max(r.prompt_len for r in wave.values())
+            self.prefills += len(jobs)
+            self.prefill_steps += 1
+            self.prefill_tokens_computed += sum(r.prompt_len
+                                                for r in wave.values())
+            obs = self.obs
+            if obs is not None:
+                sc = obs.census.get("prefill", (self.steps.prefill_key(
+                    n, 0, 1)[1],), cfg=self.cfg,
+                    block_size=self.ecfg.block_size)
+                self.steps.census_for = sc
+                t0 = time.perf_counter()
+            logits = self.steps.prefill_wave(jobs, 1)
+            if obs is not None:
+                first = next(iter(wave.values()))
+                obs.on_prefill(first, "prefill", sc, t0,
+                               time.perf_counter(), self.steps.last,
+                               tokens=n, live=LiveWork(rows=n, context=0,
+                                                       entries=0),
+                               step=self.step_count)
+            for d, r in wave.items():
+                self._complete_prefill(r, logits[d:d + 1], now)
 
     def _run_chunk(self, req: Request, done: int, chunk: int
                    ) -> torch.Tensor:

@@ -42,6 +42,19 @@ flight is not planned again until it commits, and a request whose plain
 step is in flight rides draft-free; every ``spec_probe_every``-th
 iteration with such chained rows plans nothing, so that the pipeline
 drains and the drafter sees committed context.
+
+Over a data axis of D ranks (an engine whose model is a rank of a ``D x
+M`` mesh) the one scheduler, on rank 0, owns every seat: seat ``s``
+belongs to data rank ``s // (max_batch / D)``, and a rank's requests
+take blocks only from its share of the pool
+(:class:`~repro_torch.kvcache.paged.DataBlockManager`). A request is
+admitted to a free seat on the rank with the most free blocks (ties to
+the lower rank, :func:`place`) and keeps that rank until it finishes,
+through preemption and re-admission; capacity, preemption and a
+chunk's reservation are each rank's own. Serial admissions prefill
+together, one request a data rank a step
+(:meth:`~repro_torch.serving.engine.ContinuousBatchingEngine.
+_prefill_waves`).
 """
 from __future__ import annotations
 
@@ -82,6 +95,20 @@ class StepPlan:
     @property
     def has_decode(self) -> bool:
         return bool(self.rids)
+
+
+def place(free_blocks: List[int], seats: List[int], cap: int,
+          bound: Optional[int] = None) -> Optional[int]:
+    """The data rank a request is admitted to: ``bound``, the rank it
+    kept through a preemption, if that rank has a free seat; else the
+    rank with a free seat (``seats[d] < cap``) and the most free blocks
+    (``free_blocks[d]``), ties to the lower rank. None: no seat for it."""
+    if bound is not None:
+        return bound if seats[bound] < cap else None
+    open_ = [d for d in range(len(seats)) if seats[d] < cap]
+    if not open_:
+        return None
+    return max(open_, key=lambda d: (free_blocks[d], -d))
 
 
 def _too_large(msg: str, req_id: int):
@@ -192,7 +219,9 @@ class Scheduler:
         prefix-cache hit is pinned before any eviction, and only the
         uncached suffix needs free blocks; cache-only blocks are evicted
         (LRU) when that closes the gap. Serial mode prefills each
-        admission at once; chunked mode reserves its first chunk. A
+        admission at once (over a data axis, together at the end:
+        :meth:`~repro_torch.serving.engine.ContinuousBatchingEngine.
+        _prefill_waves`); chunked mode reserves its first chunk. A
         config with per-request state (SSM state, a VLM's image K/V)
         also needs a free dense-state slot: under
         overlap a request at its length budget gives its seat up before
@@ -207,10 +236,15 @@ class Scheduler:
         mgr = eng.pool.manager
         bs = eng.ecfg.block_size
         pool = eng.pool
-        while (self.waiting and self._seats() < eng.ecfg.max_batch
+        # serial admissions over a data axis, prefilled after the loop
+        admitted: List[Request] = []
+        while (self.waiting
                and (not pool.state_names or pool.free_slots)
                and self.waiting[0].arrival_s <= now):
             req = self.waiting[0]
+            d = self._place(req, admitted)
+            if d is None:
+                break
             hit: List[int] = []
             if eng.prefix is not None:
                 hit = eng.prefix.match(req.prompt)
@@ -223,33 +257,35 @@ class Scheduler:
                 need_new = mgr.blocks_needed(n_cached + first) - len(hit)
             else:
                 need_new = mgr.blocks_needed(req.prompt_len + 1) - len(hit)
-            short = need_new + mgr.watermark_blocks - mgr.free_blocks
+            short = need_new + mgr.watermark_blocks - mgr.free_on(d)
             # flush warm entries only when that can close the whole gap
             if eng.prefix is not None \
                     and 0 < short <= eng.prefix.cached_blocks:
                 eng.prefix.evict(short)
-            if mgr.free_blocks - need_new < mgr.watermark_blocks:
+            if mgr.free_on(d) - need_new < mgr.watermark_blocks:
                 for b in hit:               # unpin (the cache ref remains)
                     mgr.decref(b)
-                if not self.running and not self.prefilling:
+                if not self._in_flight(d, admitted):
                     # nothing in flight will ever free a block
                     evictable = (eng.prefix.cached_blocks
                                  if eng.prefix is not None else 0)
-                    if (mgr.free_blocks + evictable - need_new
+                    if (mgr.free_on(d) + evictable - need_new
                             < mgr.watermark_blocks):
                         raise _too_large(
                             f"KV pool exhausted: request {req.req_id} "
                             f"(prompt_len={req.prompt_len}) needs "
                             f"{need_new} blocks but the idle pool has "
-                            f"{mgr.free_blocks} free ({mgr.num_blocks} "
-                            f"total, {mgr.watermark_blocks} reserved) — "
+                            f"{mgr.free_on(d)} free "
+                            f"({mgr.num_blocks // mgr.ranks} total, "
+                            f"{mgr.watermark_blocks} reserved) — "
                             f"raise kv_pool_tokens or lower max_model_len",
                             req.req_id)
                     eng.prefix.evict(need_new + mgr.watermark_blocks
-                                     - mgr.free_blocks)
+                                     - mgr.free_on(d))
                     continue                # retry the same head request
                 break
             self.waiting.popleft()
+            mgr.assign(req.req_id, d)
             if eng.obs is not None:
                 eng.obs.on_admit(req)
             if hit:
@@ -264,7 +300,32 @@ class Scheduler:
                 self.prefilling.append(req)
                 continue
             mgr.allocate(req.req_id, req.prompt_len + 1 - n_cached)
+            if mgr.ranks > 1:
+                admitted.append(req)
+                continue
             eng._complete_prefill(req, eng._prefill(req, n_cached), now)
+        if admitted:
+            eng._prefill_waves(admitted, now)
+
+    def _rank(self, req: Request) -> int:
+        return self.eng.pool.manager.rank_of(req.req_id)
+
+    def _place(self, req: Request, admitted: List[Request]
+               ) -> Optional[int]:
+        """The data rank ``req`` is admitted to now (:func:`place`; 0 with
+        one), or None when it has no seat; ``admitted``: requests admitted
+        this step whose prefill is still to run (they hold seats)."""
+        mgr = self.eng.pool.manager
+        return place([mgr.free_on(d) for d in range(mgr.ranks)],
+                     self._rank_seats(admitted),
+                     self.eng.ecfg.max_batch // mgr.ranks,
+                     mgr.kept_rank(req.req_id))
+
+    def _in_flight(self, d: int, admitted: List[Request] = ()) -> bool:
+        """Is a request of data rank ``d`` prefilling or decoding (its
+        blocks will come free)?"""
+        return any(self._rank(r) == d for r in
+                   (*self.running, *self.prefilling, *admitted))
 
     def prefill_step(self, now: float) -> int:
         """Run up to ``prefill_chunk_tokens`` prompt tokens of chunked
@@ -305,21 +366,23 @@ class Scheduler:
         fit raises."""
         eng = self.eng
         mgr = eng.pool.manager
+        d = mgr.rank_of(rid)
         while True:
             short = target_tokens - mgr.covered_tokens(rid)
             if short <= 0:
                 return True
             gap = mgr.blocks_needed(short) + mgr.watermark_blocks \
-                - mgr.free_blocks
+                - mgr.free_on(d)
             if eng.prefix is not None \
                     and 0 < gap <= eng.prefix.cached_blocks:
                 eng.prefix.evict(gap)
-            if mgr.can_allocate(short):
+            if mgr.can_allocate(short, d):
                 mgr.extend(rid, target_tokens)
                 return True
-            if self.running:
+            if any(self._rank(r) == d for r in self.running):
                 return False             # decode completions free blocks
-            victims = [r for r in self.prefilling if r.req_id != rid]
+            victims = [r for r in self.prefilling
+                       if r.req_id != rid and self._rank(r) == d]
             if not victims:
                 raise _too_large(
                     "KV pool exhausted: a single request's prompt exceeds "
@@ -352,8 +415,13 @@ class Scheduler:
             eng.obs.on_preempt(req)
 
     def _seats(self) -> int:
-        """Batch seats taken: the prefilling requests, the running ones
-        still to be planned and those with a verify step in flight. Under
+        """Batch seats taken (:meth:`_rank_seats`, summed)."""
+        return sum(self._rank_seats())
+
+    def _rank_seats(self, admitted: List[Request] = ()) -> List[int]:
+        """Batch seats taken on each data rank: the prefilling requests
+        (and ``admitted``, whose prefill is still to run), the running
+        ones still to be planned and those with a verify step in flight. Under
         overlap a request whose last token is dispatched gives its seat up
         at once, where the reference's keeps it until that token commits:
         admissions, and with them every step's batch, are then the sync
@@ -361,8 +429,12 @@ class Scheduler:
         whose verify step is in flight keeps its seat: how many tokens it
         commits is not known yet."""
         pending = self.eng._executor._spec_pending
-        return len(self.prefilling) + sum(
-            r.req_id in pending or self._needs_step(r) for r in self.running)
+        seats = [0] * self.eng.pool.manager.ranks
+        for r in (*self.prefilling, *admitted, *(
+                r for r in self.running
+                if r.req_id in pending or self._needs_step(r))):
+            seats[self._rank(r)] += 1
+        return seats
 
     def _needs_step(self, req: Request) -> bool:
         """Does ``req`` take a decode token this step? In sync mode every
@@ -386,28 +458,33 @@ class Scheduler:
         eng = self.eng
         mgr = eng.pool.manager
         while True:
-            need = 0
+            need = [0] * mgr.ranks
             for r in self.running:
                 if not self._needs_step(r):
                     continue
                 pos = self._pos[r.req_id]
                 if mgr.needs_block(r.req_id, pos + 1) \
                         or mgr.needs_cow(r.req_id, pos):
-                    need += 1
-            if need <= mgr.free_blocks:
+                    need[self._rank(r)] += 1
+            short = [d for d in range(mgr.ranks) if need[d] > mgr.free_on(d)]
+            if not short:
                 return
+            d = short[0]
             if eng.prefix is not None \
-                    and eng.prefix.evict(need - mgr.free_blocks):
+                    and eng.prefix.evict(need[d] - mgr.free_on(d)):
                 continue
-            if self.prefilling:
-                self.preempt(self.prefilling[-1])
+            prefilling = [r for r in self.prefilling if self._rank(r) == d]
+            if prefilling:
+                self.preempt(prefilling[-1])
                 continue
-            if len(self.running) <= 1:
+            running = [r for r in self.running if self._rank(r) == d]
+            if len(running) <= 1:
                 raise _too_large(
                     "KV pool exhausted: a single request exceeds pool "
                     "capacity (raise kv_pool_tokens or lower max_model_len)",
-                    self.running[0].req_id)
-            self.preempt(self.running.pop())
+                    running[0].req_id)
+            self.running.remove(running[-1])
+            self.preempt(running[-1])
 
     def plan(self, now: float) -> StepPlan:
         """Deadlines, admission, prefill work (serial admissions or this

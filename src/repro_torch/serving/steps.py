@@ -96,6 +96,26 @@ rows gather their input from the rank's own previous output) and
 running the same key, so every rank warms up, captures and replays the
 same buckets in the same order.
 
+Over a data axis of D ranks (an engine of a ``D x M`` mesh) a step's
+rows are split by data rank, and every rank runs the same bucket over
+its own block of ``rows / D`` (the largest rank's count padded to a
+power of two; a rank's unused rows are padding that writes to its trash
+block). A decode step's words hold the engine's row order (``order``,
+each row's place in the data ranks' blocks), then each data rank's part
+in :func:`~repro_torch.kvcache.view.step_fields`' layout, its tables in
+the ids of its share of the pool; each rank stages and runs its own
+part. The body samples the rank's rows, gathers every rank's tokens
+(and the finiteness of its logits) over the data axis
+(:meth:`~repro_torch.distributed.MeshGroup.gather_rows`) and puts them
+back in the engine's order, so rank 0 reads the whole batch from one
+buffer and a chained row may read any row of it. A prefill step's words
+hold one :func:`~repro_torch.kvcache.view.prefill_fields` part a data
+rank (a rank without a request prefills one padding row into its trash
+block, :meth:`~repro_torch.kvcache.paged.PagedKVCache.fill_padding`),
+and its logits come back gathered, ``[D, vocab]``
+(:meth:`StepFunctions.prefill_wave`). Every rank issues the same
+collectives in the same order.
+
 The graphs capture the pool's addresses, so the pool is written in
 place (as it always is in the port) and every write to it goes on the
 stream of the replays: a discarded overlapped step's KV writes are then
@@ -320,15 +340,21 @@ class StepFunctions:
                        cuda_graphs, spec_k)
         self.prefill_bucket = prefill_bucket
         self.graphs_on = cuda_graphs and self.device.type == "cuda"
+        # the data ranks a step's rows are split over, and this rank's
+        self.data = 1 if model is None else model.data
+        self.data_rank = model.layout.data_rank if self.data > 1 else 0
         nb_max = pow2_bucket(pool.manager.blocks_needed(max_model_len), lo=4)
-        words = step_size(pow2_bucket(max_batch), nb_max)
+        rows = pow2_bucket(max_batch // self.data)
+        # each data rank's part, after the rows' order over more than one
+        words = self.data * step_size(rows, nb_max) + \
+            (self.data * rows if self.data > 1 else 0)
         if spec_k is not None:      # the largest verify layout too
             words = verify_size(pow2_bucket(max_batch), nb_max,
                                 pow2_bucket(spec_k))
         self._staging = _Staging(words, self.device)
         self._prefill_staging = _Staging(
-            prefill_size(bucket(max_model_len, prefill_bucket), nb_max),
-            self.device)
+            self.data * prefill_size(bucket(max_model_len, prefill_bucket),
+                                     nb_max), self.device)
         # every step's logits finite so far
         self.finite = torch.ones((), dtype=torch.bool, device=self.device)
         # a VLM prefill's image embeddings: the reference engine's stub of
@@ -388,16 +414,51 @@ class StepFunctions:
                K_pad: int = 0) -> Tuple[Dict[str, torch.Tensor], bool]:
         """Pack one decode step's inputs (with ``drafts``, a verify step's,
         ``K_pad`` wide) on the host, copy them up, and gather chained
-        tokens on the device. Returns the device fields and whether any
-        row samples. Padding rows are greedy with seed 0."""
+        tokens on the device. Returns this rank's device fields and
+        whether any row samples. Padding rows are greedy with seed 0.
+        Over a data axis each data rank's part holds its requests' rows,
+        in the engine's order, and ``order`` each row's place."""
+        key = (batch_pad, nb_pad, False) if drafts is None else \
+            ("verify", batch_pad, nb_pad, K_pad, False)
+        staging, n = self._staged(key)
+        host = staging.host()[:n]
+        sampled = any(r.sampling.temperature > 0 for r in reqs)
+        rows = dict(chain[1]) if chain is not None else {}
+        parts = [list(range(len(reqs)))]
+        if self.data > 1:
+            mgr = self.pool.manager
+            parts = [[] for _ in range(self.data)]
+            for i, rid in enumerate(rids):
+                parts[mgr.rank_of(rid)].append(i)
+            order = self._fields(key, host, 0)["order"]
+            order[:] = 0
+            b = batch_pad // self.data
+            for d, idx in enumerate(parts):
+                order[idx] = d * b + np.arange(len(idx))
+        for d, idx in enumerate(parts):
+            self._fill_rows(self._fields(key, host, d),
+                            [reqs[i] for i in idx], [rids[i] for i in idx],
+                            [positions[i] for i in idx],
+                            [tokens[i] for i in idx],
+                            {k: rows[i] for k, i in enumerate(idx)
+                             if i in rows},
+                            None if drafts is None else
+                            [drafts[i] for i in idx], K_pad, sampled)
+        dev = self._fields(key, staging.upload(n))
+        if chain is not None:
+            self._chain(dev, chain[0])
+        return dev, sampled
+
+    def _fill_rows(self, f: Dict[str, np.ndarray], reqs: Sequence,
+                   rids: Sequence[int], positions: Sequence[int],
+                   tokens: Sequence[int], chained: Dict[int, int],
+                   drafts: Optional[Sequence[np.ndarray]], K_pad: int,
+                   sampled: bool):
+        """One part's host fields: its rows' tables, positions, input
+        tokens, chain rows and (``sampled``) sampling vectors and keys;
+        the rows past ``len(reqs)`` padding."""
         B = len(reqs)
-        if drafts is None:
-            layout, shape = step_fields, (batch_pad, nb_pad)
-            n = step_size(*shape)
-        else:
-            layout, shape = verify_fields, (batch_pad, nb_pad, K_pad)
-            n = verify_size(*shape)
-        f = layout(self._staging.host()[:n], *shape)
+        batch_pad = f["tokens"].shape[0]
         self.pool.fill_view(f, rids, positions)
         if drafts is not None:
             f["drafts"][:], f["draft_len"][:] = stack_drafts(
@@ -406,13 +467,11 @@ class StepFunctions:
         f["tokens"][:B] = tokens
         f["use_prev"][:] = 0
         f["prev_rows"][:] = 0
-        if chain is not None:
-            for i, row in chain[1].items():
-                f["use_prev"][i] = 1
-                f["prev_rows"][i] = row
-        sp = [r.sampling for r in reqs]
-        sampled = any(s.temperature > 0 for s in sp)
+        for i, row in chained.items():
+            f["use_prev"][i] = 1
+            f["prev_rows"][i] = row
         if sampled:
+            sp = [r.sampling for r in reqs]
             for name in ("temperature", "top_k", "top_p"):
                 f[name][:] = 1 if name == "top_p" else 0
                 f[name][:B] = [getattr(s, name) for s in sp]
@@ -425,10 +484,6 @@ class StepFunctions:
             else:
                 f["key_block"].view(np.uint32)[:] = verify_keys(seed, pos,
                                                                 K_pad)
-        dev = layout(self._staging.upload(n), *shape)
-        if chain is not None:
-            self._chain(dev, chain[0])
-        return dev, sampled
 
     @staticmethod
     def _chain(dev: Dict[str, torch.Tensor], prev: torch.Tensor):
@@ -487,16 +542,35 @@ class StepFunctions:
 
     def _sample(self, logits: torch.Tensor, dev: Dict[str, torch.Tensor],
                 sampled: bool) -> torch.Tensor:
-        """Fold the logits' finiteness, then pick each row's token."""
-        self.finite.logical_and_(torch.isfinite(logits).all())
-        return sample_tokens_device(logits, dev["temperature"], dev["top_k"],
-                                    dev["top_p"], dev["keys"], sampled)
+        """Fold the logits' finiteness, then pick each row's token. Over a
+        data axis every rank's tokens and finiteness are gathered, and the
+        tokens put in the engine's row order (``order``)."""
+        finite = torch.isfinite(logits).all()
+        tokens = sample_tokens_device(logits, dev["temperature"],
+                                      dev["top_k"], dev["top_p"],
+                                      dev["keys"], sampled)
+        if self.data == 1:
+            self.finite.logical_and_(finite)
+            return tokens
+        both = self.model.group.gather_rows(
+            torch.cat([tokens, finite.to(tokens.dtype)[None]]))
+        both = both.reshape(self.data, -1)
+        self.finite.logical_and_(both[:, -1].bool().all())
+        return both[:, :-1].reshape(-1).index_select(0, dev["order"])
 
     def paged_bucket(self, rids: Sequence[int]) -> Tuple[int, int]:
         """``(batch_pad, nb_pad)``: the batch and the widest table padded
-        to powers of two (at least 4 blocks), as in the reference."""
-        max_blocks = max(len(self.pool.manager.tables[r]) for r in rids)
-        return pow2_bucket(len(rids)), pow2_bucket(max_blocks, lo=4)
+        to powers of two (at least 4 blocks), as in the reference; over a
+        data axis ``batch_pad`` is D times the largest data rank's rows
+        padded so."""
+        mgr = self.pool.manager
+        max_blocks = max(len(mgr.tables[r]) for r in rids)
+        rows = len(rids)
+        if self.data > 1:
+            counts = np.bincount([mgr.rank_of(r) for r in rids],
+                                 minlength=self.data)
+            rows = int(counts.max())
+        return self.data * pow2_bucket(rows), pow2_bucket(max_blocks, lo=4)
 
     def paged(self, reqs: Sequence, rids: Sequence[int],
               positions: Sequence[int], tokens: Sequence[int],
@@ -608,6 +682,8 @@ class StepFunctions:
                                            block_size=self.pool.block_size)
         self.pool.write_rows(cache, dev["blocks"], dev["slots"],
                              dev["state_slot"])
+        if self.data > 1:
+            logits = self.model.group.gather_rows(logits)
         self.finite.logical_and_(torch.isfinite(logits).all())
         return None, logits
 
@@ -625,40 +701,79 @@ class StepFunctions:
         ``prefix_blocks`` blocks (gathered ``nb_pad`` blocks wide; none
         when ``start`` is 0), writing the rows' K/V into its blocks.
         Returns the ``[1, vocab]`` float32 logits of the last prompt
-        token, which a later replay of the same bucket rewrites."""
-        key = self.prefill_key(len(tokens), start, nb_pad)
-        S, nb = key[1], nb_pad if start else 0
-        n = prefill_size(S, nb)
-        f = prefill_fields(self._prefill_staging.host()[:n], S, nb)
-        self.pool.fill_prefill(f, rid, tokens, start, prefix_blocks)
-        dev = prefill_fields(self._prefill_staging.upload(n), S, nb)
+        token, which a later replay of the same bucket rewrites. Over a
+        data axis the other data ranks prefill padding beside it."""
+        out = self.prefill_wave([(rid, tokens, start, prefix_blocks)],
+                                nb_pad)
+        if self.data == 1:
+            return out
+        d = self.pool.manager.rank_of(rid)
+        return out[d:d + 1]
+
+    def prefill_wave(self, jobs: Sequence[Tuple], nb_pad: int
+                     ) -> torch.Tensor:
+        """One prefill step of ``jobs``, each ``(rid, tokens, start,
+        prefix_blocks)`` as :meth:`prefill` takes them, at most one a data
+        rank and all with a prefix or none (one bucket: the longest
+        prompt's rows); each data rank without one prefills padding.
+        Returns the logits ``[D, vocab]`` float32, data rank ``d``'s
+        request's in row ``d``."""
+        mgr = self.pool.manager
+        by_rank = {mgr.rank_of(job[0]): job for job in jobs}
+        if len(by_rank) != len(jobs) or \
+                len({bool(job[2]) for job in jobs}) != 1:
+            raise ValueError("a prefill step takes one request a data rank, "
+                             "all over a prefix or none")
+        start = jobs[0][2]
+        key = self.prefill_key(max(len(job[1]) for job in jobs), start,
+                               nb_pad)
+        staging, n = self._staged(key)
+        host = staging.host()[:n]
+        for d in range(self.data):
+            f = self._fields(key, host, d)
+            if d in by_rank:
+                self.pool.fill_prefill(f, *by_rank[d])
+            else:
+                self.pool.fill_padding(f)
+        dev = self._fields(key, staging.upload(n))
         return self._run(key, lambda: self._prefill_body(dev, bool(start)),
                          "prefill")[1]
 
     # ------------------------------------------------------------ mesh --
+    def _part(self, key: Tuple) -> Tuple[_Staging, int, int, Callable]:
+        """Bucket ``key``'s staging ring, the words before the data ranks'
+        parts (a decode step's ``order`` over a data axis), the words of
+        one part and the fields of a part's words."""
+        if key[0] in ("prefill", "suffix"):
+            S, nb = key[1], key[2] if key[0] == "suffix" else 0
+            return self._prefill_staging, 0, prefill_size(S, nb), \
+                lambda buf: prefill_fields(buf, S, nb)
+        if key[0] == "gather":
+            return self._staging, 0, step_size(key[1], key[2]), \
+                lambda buf: step_fields(buf, key[1], key[2])
+        if key[0] == "verify":
+            return self._staging, 0, verify_size(*key[1:4]), \
+                lambda buf: verify_fields(buf, *key[1:4])
+        rows = key[0] // self.data
+        head = key[0] if self.data > 1 else 0
+        return self._staging, head, step_size(rows, key[1]), \
+            lambda buf: step_fields(buf, rows, key[1])
+
     def _staged(self, key: Tuple) -> Tuple[_Staging, int]:
         """The staging ring a bucket reads and its words."""
-        if key[0] in ("prefill", "suffix"):
-            nb = key[2] if key[0] == "suffix" else 0
-            return self._prefill_staging, prefill_size(key[1], nb)
-        if key[0] == "gather":
-            return self._staging, step_size(key[1], key[2])
-        if key[0] == "verify":
-            return self._staging, verify_size(*key[1:4])
-        return self._staging, step_size(key[0], key[1])
+        staging, head, part, _ = self._part(key)
+        return staging, head + self.data * part
 
-    @staticmethod
-    def _fields(key: Tuple, buf) -> Dict:
-        """Bucket ``key``'s fields in its packed words ``buf`` (on the
-        host or the device)."""
-        if key[0] in ("prefill", "suffix"):
-            return prefill_fields(buf, key[1],
-                                  key[2] if key[0] == "suffix" else 0)
-        if key[0] == "gather":
-            return step_fields(buf, key[1], key[2])
-        if key[0] == "verify":
-            return verify_fields(buf, *key[1:4])
-        return step_fields(buf, key[0], key[1])
+    def _fields(self, key: Tuple, buf, rank: Optional[int] = None) -> Dict:
+        """Data rank ``rank``'s (this rank's by default) fields of bucket
+        ``key`` in its packed words ``buf`` (on the host or the device),
+        with the step's ``order`` where it has one."""
+        _, head, part, fields = self._part(key)
+        at = head + (self.data_rank if rank is None else rank) * part
+        f = fields(buf[at:at + part])
+        if head:
+            f["order"] = buf[:head]
+        return f
 
     def follow(self):
         """A rank other than 0: run the steps rank 0 sends over

@@ -19,12 +19,15 @@ tensor under a spec, :func:`spec_ranges` a rank's block of a leaf,
 ``i``).
 
 What runs across cards (:mod:`repro_torch.distributed`) is a dense
-decoder under any rules :func:`rules_for` gives with ``fsdp`` off: the
-``act_replicated`` (Megatron) layout, the default rules' d_model-sharded
-residual, ``attn_row_parallel``'s row-sharded ``wq/wk/wv``, the head-dim
-and replication fallbacks, and ``shard_kv_seq``; :func:`check_executable`
-refuses the rest. :func:`layout_for` reads off the rules' specs what a
-config runs under (:class:`Layout`), and every layer reads that plan.
+decoder on any ``D x M`` mesh under any rules :func:`rules_for` gives:
+the ``act_replicated`` (Megatron) layout, the default rules' d_model-
+sharded residual, ``attn_row_parallel``'s row-sharded ``wq/wk/wv``, the
+head-dim and replication fallbacks and ``shard_kv_seq`` on the model
+axis; on the data axis each rank's block of the batch rows (``BATCH ->
+data``) and, under ``fsdp``, each weight's block of its ``W_IN`` dim,
+gathered whole a layer. :func:`check_executable` refuses the rest.
+:func:`layout_for` reads off the rules' specs what a config runs under
+(:class:`Layout`), and every layer reads that plan.
 The reference's ``constrain`` has no counterpart: the collectives that
 keep each activation in its layout are written into the layers.
 """
@@ -237,28 +240,32 @@ def spec_ranges(logical: Sequence[Optional[str]], shape: Sequence[int],
     return out
 
 
+def data_size(rules: ShardingRules) -> int:
+    """The devices along the rules' batch axes: the data ranks a batch's
+    rows are split over."""
+    return math.prod(rules.mesh.shape[a] for a in rules.batch_axes
+                     if a in rules.mesh.shape)
+
+
 def check_executable(cfg, rules: ShardingRules):
     """Refuse what is not executed across cards (each refusal names its
-    ROADMAP item): a data axis of more than one device, and on a model
-    axis of more than one a family other than the dense decoder (with or
-    without a sliding window) and FSDP. Any other rules run, every count
-    through the reference's fallbacks (:func:`layout_for`)."""
-    data = math.prod(rules.mesh.shape[a] for a in rules.batch_axes
-                     if a in rules.mesh.shape)
+    ROADMAP item): a family other than the dense decoder (with or
+    without a sliding window) over more than one device, on the data
+    axis or the model axis. Any rules run for it, every count through
+    the reference's fallbacks (:func:`layout_for`), FSDP included."""
+    data = data_size(rules)
+    m = rules.mesh.shape[rules.model_axis]
+    if cfg.arch_type == "dense" and cfg.moe is None:
+        return
+    what = f"{cfg.name} ({cfg.arch_type}{', MoE' if cfg.moe else ''})"
     if data > 1:
         raise NotImplementedError(
-            f"a mesh of {data} devices along its batch axes inside one "
-            f"model ({multi_card_item('data')})")
-    m = rules.mesh.shape[rules.model_axis]
-    if m == 1:
-        return
-    if cfg.arch_type not in ("dense",) or cfg.moe is not None:
+            f"{what} over a data axis of {data} "
+            f"({multi_card_item('data')})")
+    if m > 1:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}{', MoE' if cfg.moe else ''}) "
-            f"over a model axis of {m} ({multi_card_item('families')})")
-    if rules.fsdp:
-        raise NotImplementedError(
-            f"FSDP over a model axis of {m} ({multi_card_item('data')})")
+            f"{what} over a model axis of {m} "
+            f"({multi_card_item('families')})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -290,7 +297,19 @@ class Layout:
     each block's rows, and a decode combines the ranks' softmax
     partials. ``ffn``: d_ff sharded (else the MLP is replicated).
     ``tok``/``logits``: the embedding's and the unembedding weight's
-    sharded dim (``"vocab"``, ``"d_model"`` or ``"full"``)."""
+    sharded dim (``"vocab"``, ``"d_model"`` or ``"full"``).
+
+    ``size``/``rank``: the model axis's devices and the rank's place on
+    it; ``data``/``data_rank``: the batch axes' (a ``BATCH`` leaf's spec:
+    data rank ``d`` serves rows ``[d * B/D, (d + 1) * B/D)``,
+    :meth:`rows`); ``device``: the rank's place in the whole mesh, whose
+    coordinates cut every leaf. ``w_in``: under ``fsdp`` over more than
+    one data rank, each weight whose ``W_IN`` dim the data axes shard,
+    with that dim in one layer's leaf (``wq``, ``wk``, ``wv`` 0, ``wo``
+    2, ``w1``, ``w3`` 0, ``w2`` 1, ``unemb`` 0): the rank holds its block
+    and the layers gather it whole over the data axis just before the
+    matmul that reads it (:func:`~repro_torch.distributed.
+    gather_weight`); empty otherwise."""
     size: int
     rank: int
     residual: bool
@@ -305,11 +324,26 @@ class Layout:
     ffn: bool
     tok: str
     logits: str
+    data: int = 1
+    data_rank: int = 0
+    device: int = 0
+    w_in: Tuple[Tuple[str, int], ...] = ()
 
     def block(self, n: int) -> Range:
         """``[first, end)`` of the rank's block of ``n``."""
         c = n // self.size
         return self.rank * c, (self.rank + 1) * c
+
+    def rows(self, n: int) -> Range:
+        """``[first, end)`` of the rank's block of ``n`` batch rows (all of
+        them with one data rank)."""
+        c = n // self.data
+        return self.data_rank * c, (self.data_rank + 1) * c
+
+    def gathered(self, name: str) -> Optional[int]:
+        """The dim of weight ``name`` (a layer's leaf) the layers gather
+        over the data axis (FSDP), or None."""
+        return dict(self.w_in).get(name)
 
     def cut(self, logical: Sequence[Optional[str]], shape: Sequence[int],
             rules: ShardingRules) -> List[Range]:
@@ -318,15 +352,20 @@ class Layout:
         the rank's KV heads whole (and its share of the sequence under
         ``kv_seq``), and a KV-head leaf under ``"held"`` (``wk``, ``wv``,
         ``bk``, ``bv``) the KV heads the rank holds, whole. Where the
-        spec would shard the head dim instead, these are departures."""
+        spec would shard the head dim instead, these are departures. A
+        cache leaf's batch rows are the rank's data block."""
         if KV_SEQ in logical or (self.wkv == "held" and KV_HEADS in logical):
             out = [(0, n) for n in shape]
             out[list(logical).index(KV_HEADS)] = self.kv_heads
             if KV_SEQ in logical and self.kv_seq:
                 d = list(logical).index(KV_SEQ)
                 out[d] = self.block(shape[d])
+            if BATCH in logical:
+                d = list(logical).index(BATCH)
+                out[d] = spec_ranges((BATCH,), (shape[d],), rules,
+                                     self.device)[0]
             return out
-        return spec_ranges(logical, shape, rules, self.rank)
+        return spec_ranges(logical, shape, rules, self.device)
 
 
 def _sharded_dim(rules: ShardingRules, leaf) -> Optional[int]:
@@ -337,10 +376,17 @@ def _sharded_dim(rules: ShardingRules, leaf) -> Optional[int]:
                  if rules.model_axis in axes_of(a)), None)
 
 
-def layout_for(cfg, rules: ShardingRules, rank: int) -> Layout:
-    """The plan of what ``cfg`` runs under ``rules`` on device ``rank`` of
-    the model axis (:class:`Layout`), read off the specs of its
-    parameters. A dim over an axis of one device is kept as the
+def _data_dim(rules: ShardingRules, leaf) -> Optional[int]:
+    """The dim of a leaf its spec puts on the batch axes, if any."""
+    spec = rules.spec(leaf.logical, leaf.shape)
+    return next((i for i, a in enumerate(spec)
+                 if set(axes_of(a)) & set(rules.batch_axes)), None)
+
+
+def layout_for(cfg, rules: ShardingRules, device: int) -> Layout:
+    """The plan of what ``cfg`` runs under ``rules`` on device ``device``
+    of the mesh (:class:`Layout`), read off the specs of its parameters
+    and of a batch. A dim over an axis of one device is kept as the
     ``act_replicated`` layout keeps it, and the residual is sharded only
     over more than one (so a world of one computes as the plain model,
     bit for bit); ``shard_kv_seq`` holds at any size."""
@@ -348,6 +394,10 @@ def layout_for(cfg, rules: ShardingRules, rank: int) -> Layout:
     from repro_torch.models.params import (attn_specs, block_specs,
                                            param_specs)
     m = rules.mesh.shape[rules.model_axis]
+    rank = mesh_coords(rules.mesh, device)[rules.model_axis] \
+        if rules.model_axis in rules.mesh.shape else 0
+    data = data_size(rules)
+    data_rank = spec_ranges((BATCH,), (data,), rules, device)[0][0]
     specs = param_specs(cfg)
     attn = attn_specs(cfg)
     dim = functools.partial(_sharded_dim, rules)
@@ -378,10 +428,19 @@ def layout_for(cfg, rules: ShardingRules, rank: int) -> Layout:
         logits = tok
     else:
         logits = "vocab" if dim(specs["embed"]["unemb"]) == 1 else "full"
+    w_in = []
+    if data > 1:
+        ffn = block_specs(cfg, ATTN)["ffn"]
+        leaves = {**attn, **ffn}
+        if not cfg.tie_embeddings:
+            leaves["unemb"] = specs["embed"]["unemb"]
+        w_in = [(name, d) for name, leaf in leaves.items()
+                if (d := _data_dim(rules, leaf)) is not None]
     return Layout(
         size=m, rank=rank,
         residual=m > 1 and dim(specs["final_norm"]["scale"]) == 0,
         wq=wq, wkv=wkv, wo=wo, heads=heads, attn_heads=attn_heads,
         attn_kv=attn_kv, kv_heads=kv_heads, kv_seq=kv_seq,
         ffn=dim(block_specs(cfg, ATTN)["ffn"]["w1"]) == 1,
-        tok=tok, logits=logits)
+        tok=tok, logits=logits, data=data, data_rank=data_rank,
+        device=device, w_in=tuple(w_in))

@@ -45,6 +45,7 @@ from repro_torch.models.params import (init_params, init_shard,  # noqa: E402
                                        rank_layout, tree_leaves)
 from repro_torch.serving import (EngineConfig, SamplingParams,  # noqa: E402
                                  sharegpt_like)
+from repro_torch.serving.engine import refuse_data  # noqa: E402
 from repro_torch.sharding import rules_for  # noqa: E402
 
 # the tolerance of tests/test_torch_model.py: float32, of the largest logit
@@ -329,24 +330,27 @@ def test_other_families_refused_across_devices(arch):
 
 
 def test_refusals_name_their_roadmap_item():
-    """A data axis of 2, FSDP, a CUDA mesh without cards, and materialize
-    without a rank each raise, naming what is left in ROADMAP.md; the
-    default rules and KV heads the model axis does not divide, refused
-    before, now pass the check (they run: tests/test_torch_mesh_rules.py)
-    and reach the group check."""
+    """What a data axis of 2 still refuses (a family other than the dense
+    decoder, and the prefix cache in one engine), a CUDA mesh without
+    cards, and materialize without a rank each raise, naming what is
+    left in ROADMAP.md; a data axis of 2 and FSDP, refused before, now
+    pass the check for the dense decoder (they run:
+    tests/test_torch_mesh_data.py) and reach the group check, as do the
+    default rules and KV heads the model axis does not divide."""
     cfg = reduced(get_config("opt-1.3b"))
     two_data = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="left 1") as e:
-        D.spawn(TP.run_jobs, two_data, [])
+        Model(reduced(get_config("olmoe-1b-7b")), mesh=two_data)
     _item(e)
     with pytest.raises(NotImplementedError, match="left 1") as e:
+        refuse_data(EngineConfig(**ENGINE, prefix_cache=True), 2)
+    _item(e)
+    with pytest.raises(RuntimeError, match="has not joined the mesh"):
         Model(cfg, mesh=two_data, rules=rules_for(two_data,
                                                   act_replicated=True))
-    _item(e)
     mesh = make_model_mesh(["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="left 1") as e:
+    with pytest.raises(RuntimeError, match="has not joined the mesh"):
         Model(cfg, mesh=mesh, rules=rules_for(mesh, fsdp=True))
-    _item(e)
     with pytest.raises(RuntimeError, match="has not joined the mesh"):
         Model(cfg, mesh=mesh, rules=rules_for(mesh))
     gqa = reduced(get_config("qwen2.5-3b"), n_heads=8, n_kv_heads=2)

@@ -204,12 +204,15 @@ def test_slices_are_model_meshes():
 
 
 def test_data_slice_and_colocated_mesh_model_refused():
-    """A slice with a data axis of 2 raises naming the data entry before
-    any process starts; co-located replicas of a model over a mesh raise
-    naming theirs."""
+    """A slice with a data axis of 2 whose engine asks for what a data
+    axis does not run (speculation) raises naming the data entry before
+    any process starts (a slice with data > 1 runs:
+    tests/test_torch_mesh_data.py); co-located replicas of a model over
+    a mesh raise naming theirs."""
     tcfg, _ = _weights()
     with pytest.raises(NotImplementedError, match="left 1") as e:
-        ReplicatedCluster.sliced(tcfg, None, EngineConfig(**ENGINE),
+        ReplicatedCluster.sliced(tcfg, None,
+                                 EngineConfig(**ENGINE, speculate=True),
                                  _mesh(), 1)
     assert MULTI_CARD_ITEM in str(e.value)
     rank = types.SimpleNamespace(group=types.SimpleNamespace(size=2),

@@ -492,18 +492,20 @@ def _item(excinfo):
 
 
 def test_remaining_refusals_name_their_roadmap_item():
-    """What still does not run across cards: a data axis of 2, FSDP, the
-    other families, training; every rule set of rules_for without FSDP
-    passes."""
+    """What still does not run across cards: the other families over a
+    data axis of 2 or a model axis of 4, training; every rule set of
+    rules_for passes, FSDP included, over 1 x 4 and 2 x 2 (a data axis
+    and FSDP, refused before, run: tests/test_torch_mesh_data.py)."""
     _, tcfg = _configs("qwen")
     two_data = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="left 1") as e:
-        Model(tcfg, mesh=two_data, rules=rules_for(two_data))
+        Model(reduced(get_config("zamba2-7b")), mesh=two_data,
+              rules=rules_for(two_data))
     _item(e)
     four = make_model_mesh(["cpu"] * 4)
-    with pytest.raises(NotImplementedError, match="left 1") as e:
-        Model(tcfg, mesh=four, rules=rules_for(four, fsdp=True))
-    _item(e)
+    square = make_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+    for mesh in (four, square):
+        check_executable(tcfg, rules_for(mesh, fsdp=True))
     with pytest.raises(NotImplementedError, match="left 2") as e:
         Model(reduced(get_config("mamba2-1.3b")), mesh=four,
               rules=rules_for(four, shard_kv_seq=True))
@@ -514,6 +516,7 @@ def test_remaining_refusals_name_their_roadmap_item():
     _item(e)
     for _, flags in RULES.values():
         check_executable(tcfg, rules_for(four, **flags))
+        check_executable(tcfg, rules_for(square, **flags))
 
 
 # ------------------------------------------------------- default rules --

@@ -233,9 +233,10 @@ def test_slice_devices_divides_like_slice_mesh():
 def test_sliced_cluster_one_device_a_replica():
     """``sliced``: one replica a device, each with its own copy of the
     weights; a count that does not divide raises, and a slice with a
-    data axis of more than one device is refused (a slice of several
-    devices along the model axis is a tensor-parallel replica:
-    tests/test_torch_mesh_cluster.py)."""
+    data axis of more than one device whose engine asks for what a data
+    axis does not run (speculation) is refused (a slice of several
+    devices is one engine over its mesh: tests/test_torch_mesh_cluster.py
+    and tests/test_torch_mesh_data.py)."""
     cfg = reduced(get_config("opt-1.3b"))
     ecfg = EngineConfig(max_batch=2, block_size=8, kv_pool_tokens=512,
                         max_model_len=64, prefill_bucket=16)
@@ -251,5 +252,6 @@ def test_sliced_cluster_one_device_a_replica():
         ReplicatedCluster.sliced(cfg, None, ecfg, ["cpu"] * 3, 2)
     from repro_torch.launch.mesh import make_mesh
     with pytest.raises(NotImplementedError, match="more than one card"):
-        ReplicatedCluster.sliced(cfg, None, ecfg, make_mesh(
-            (2, 1), ("data", "model"), ["cpu", "cpu"]), 1)
+        ReplicatedCluster.sliced(cfg, None, dataclasses.replace(
+            ecfg, speculate=True), make_mesh((2, 1), ("data", "model"),
+                                             ["cpu", "cpu"]), 1)

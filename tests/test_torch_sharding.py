@@ -265,8 +265,9 @@ def test_slice_mesh_splits_the_leading_axis():
 
 def test_sliced_cluster_takes_a_mesh():
     """``ReplicatedCluster.sliced`` takes a mesh, one replica a device
-    slice; a slice of two devices along its data axis names the
-    multi-card item."""
+    slice; a slice of two devices along its data axis whose engine asks
+    for what a data axis does not run (the prefix cache) names the
+    multi-card item (a data slice runs: tests/test_torch_mesh_data.py)."""
     from repro_torch.configs import reduced
     cfg = reduced(get_config("opt-1.3b"))
     ecfg = EngineConfig(max_batch=2, kv_pool_tokens=256, max_model_len=64)
@@ -276,4 +277,5 @@ def test_sliced_cluster_takes_a_mesh():
     two = make_mesh((2, 1), ("data", "model"), ["cpu", "cpu"])
     assert ReplicatedCluster.sliced(cfg, None, ecfg, two, 2).n_replicas == 2
     with pytest.raises(NotImplementedError, match="more than one card"):
-        ReplicatedCluster.sliced(cfg, None, ecfg, two, 1)
+        ReplicatedCluster.sliced(cfg, None, dataclasses.replace(
+            ecfg, prefix_cache=True), two, 1)

@@ -16,7 +16,11 @@ sharded on the model axis (qwen2.5-3b under shard_kv_seq over 1 x 4:
 overlapped and chunked, the prefix cache, speculation, the gather mode
 and a long-context serve of 16 prompts of 32,000 tokens chunked by
 2048), its check prompts' logits on the paged, chunked and gather paths
-against one card's. From the repository root::
+against one card's. With ``--data``, data parallelism inside one engine
+alone (``tools/mesh_data.py``): the float32 2-layer model over 2 x 1
+against one card (``chip_smoke.mesh_data``), OPT-1.3B over 4 x 1 at
+batch 512 beside R=4 replicas of 1 x 1, deepseek-coder-33b over 4 x 1
+under FSDP and over 2 x 2 beside 1 x 4. From the repository root::
 
     python3 tools/mesh_smoke.py            # everything
     python3 tools/mesh_smoke.py --modes    # phase_mesh_modes alone
@@ -25,6 +29,10 @@ against one card's. From the repository root::
     python3 tools/mesh_smoke.py --rules    # phase_mesh_rules alone
     python3 tools/mesh_smoke.py --seq      # phase_mesh_seq alone
     python3 tools/mesh_smoke.py --seq --layers 4 --requests 32
+                                           # a short first call
+    python3 tools/mesh_smoke.py --data     # data parallelism alone
+    python3 tools/mesh_smoke.py --data opt # OPT-1.3B's MAX against R=4
+    python3 tools/mesh_smoke.py --data --layers 4 --requests 32
                                            # a short first call
 
 Exits non-zero if a check fails."""
@@ -53,11 +61,20 @@ def main(argv=None) -> int:
                     help="only every engine mode over a KV sequence "
                          "sharded on the model axis across four cards "
                          "(phase_mesh_seq)")
+    ap.add_argument("--data", nargs="?", const="all",
+                    choices=("all", "opt", "deep"),
+                    help="only data parallelism inside one engine across "
+                         "four cards (tools/mesh_data.py): all of it, or "
+                         "OPT-1.3B's MAX against R=4 alone, or "
+                         "deepseek-coder-33b's meshes alone")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the served models to this many layers")
-    ap.add_argument("--requests", type=int, default=cs.MESH_DEEP_REQUESTS,
-                    help="ShareGPT-length requests a serve")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="requests a serve (default: 128 ShareGPT-length "
+                         "requests; with --data, 512 for OPT-1.3B and 128 "
+                         "for deepseek-coder-33b)")
     args = ap.parse_args(argv)
+    n_requests = args.requests or cs.MESH_DEEP_REQUESTS
     # each line as it is printed: a run cut at its limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
     if not torch.cuda.is_available():
@@ -76,9 +93,19 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.data:
+        import mesh_data
+        cs.phase("4, mesh data 2 x 1", cs.mesh_data, card)
+        out = cs.phase("4, mesh data", mesh_data.phase_mesh_data, card,
+                       args.layers, args.requests, args.data)
+        if out is None:
+            return 1
+        print(f"[done] the mesh data phase passed in "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        return 0
     if args.seq:
         out = cs.phase("4, mesh seq modes", cs.phase_mesh_seq, card,
-                       args.layers, args.requests)
+                       args.layers, n_requests)
         if out is None:
             return 1
         print(f"[done] the mesh seq modes phase passed in "
@@ -86,7 +113,7 @@ def main(argv=None) -> int:
         return 0
     if args.rules:
         out = cs.phase("4, mesh rules", cs.phase_mesh_rules, card,
-                       args.layers, args.requests)
+                       args.layers, n_requests)
         if out is None:
             return 1
         print(f"[done] the mesh rules phase passed in "
@@ -102,7 +129,7 @@ def main(argv=None) -> int:
         del model
         cs.release()
     out = cs.phase("4, mesh modes", cs.phase_mesh_modes, card, args.layers,
-                   args.requests)
+                   n_requests)
     if out is None and torch.cuda.device_count() >= cs.MESH_DEEP_CARDS:
         return 1
     print(f"[done] the mesh phases passed in "
